@@ -1,0 +1,21 @@
+"""pylamp_tpu_torch — the PyTorch/CUDA port of pylamp_tpu.
+
+The JAX package ``pylamp_tpu`` is the reference; this package mirrors its
+layout and names module for module (``core``, ``physics``, ``ops``,
+``solvers``, ``markers``, ``models``) and is tested against it.  It imports
+``torch`` and numpy, never ``jax``.
+
+Every Pallas TPU kernel on the ported path is a hand-written CUDA C++
+kernel for Hopper (``sm_90a``) under ``csrc/``, built at first use with
+``nvcc`` into one shared library with a plain C interface
+(``cuda_build.py``) and bound with ``ctypes``.  Each kernel wrapper runs
+its plain PyTorch version on CPU tensors and launches the kernel (or
+raises) on CUDA tensors.
+
+Ported so far: the single-device, uniform-grid, non-periodic bucket-engine
+timestep of the Frank-Kamenetskii benchmark (``models.benchmarks.
+fk_bench_config``).  Branches outside that slice raise
+``NotImplementedError``.
+"""
+
+__version__ = "0.1.0"

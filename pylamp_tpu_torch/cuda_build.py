@@ -1,0 +1,134 @@
+"""Build and bind the hand-written CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+cold build takes seconds).  The build happens at first use, into
+``_build/<hash>/`` beside this file (listed in ``.gitignore``), keyed by a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is loaded as is.
+
+Every launcher in the library returns the ``cudaGetLastError()`` code of
+its launch; ``check`` raises on a non-zero code.
+
+No ``--use_fast_math``: it turns ``/`` into approximate division, which
+would break the rebucket kernel's bit-identity with its plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+LIB_NAME = "libpylamp_torch_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the launchers (csrc/*.cu); every one returns the launch's
+# cudaError_t as an int
+SIGNATURES = {
+    # vx, vy, p, eta_s, eta_n, kk, rx, ry, rc, ny, nx, dx, dy,
+    # s_top, s_bottom, s_left, s_right, stream
+    "launch_saddle": [_P] * 9 + [_I, _I] + [_F] * 6 + [_P],
+    # x, y, T, mat, valid, material table (host), out pointers (host
+    # array of 13), ny, nx, K, dx, dy, flags, stream
+    "launch_m2g": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
+    # x, y, valid, vx_p, vy_p, dt, out_x, out_y, ny, nx, K, dx, dy,
+    # x_lo, x_hi, y_lo, y_hi, reach, stream
+    "launch_advect": [_P] * 8 + [_I, _I, _I] + [_F] * 6 + [_I, _P],
+    # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx, K,
+    # dx, dy, stream
+    "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels build only on "
+            "a machine with the CUDA toolkit")
+    return found
+
+
+@functools.cache
+def build() -> tuple[pathlib.Path, float]:
+    """Compile the library if its hash is new; returns (path, build
+    seconds; 0.0 when an up-to-date build was found)."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    t0 = time.perf_counter()
+    # compile to a temporary name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every launcher's argtypes set."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pylamp_error_string.argtypes = [ctypes.c_int]
+    lib.pylamp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, kernel: str):
+    """Raise if a launcher reported a CUDA error."""
+    if code != 0:
+        msg = library().pylamp_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: "
+                           f"cudaError {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,351 @@
+"""Dense bucketed marker engine.
+
+Port of ``pylamp_tpu/markers/bucket.py`` (uniform grid, non-periodic):
+markers live in a dense (ny, nx, K) layout bucketed by their owning grid
+cell, empty slots masked by ``valid``.  The functions here are the plain
+PyTorch versions; the step runs the CUDA kernels in ``markers/kernels/``
+where their static gates hold, and these are what those kernels are
+checked against.
+
+- marker -> grid (``bucket_markers_to_grid``) keeps the reference's
+  dense-shift structure (9 cell offsets x 4 bilinear corners, masked
+  K-reductions), so its summation order matches the reference's;
+- grid -> marker sampling and RK4 advection gather the 4 bilinear nodes
+  directly, masked to the reference's (2 reach + 2)^2 shift window;
+- ``rebucket`` repacks every bucket from its 3x3 neighbourhood in the
+  reference's insertion order ((a, b) slab-major, slot-minor) by a prefix
+  sum over the candidates; the result is identical slot for slot.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+
+ARITHMETIC = "arithmetic"
+GEOMETRIC = "geometric"
+HARMONIC = "harmonic"
+
+OFFSETS = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
+
+
+@dataclasses.dataclass
+class BucketedMarkers:
+    """Markers bucketed by owning grid cell: all tensors (ny, nx, K)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mat: torch.Tensor  # int32
+    T: torch.Tensor
+    valid: torch.Tensor  # bool
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[-1]
+
+    def count(self):
+        return torch.sum(self.valid, dim=-1)
+
+    def total(self):
+        return torch.sum(self.valid)
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def _no_periodic(periodic_x):
+    if periodic_x:
+        raise NotImplementedError(
+            "periodic side walls wait for a later port PR")
+
+
+def _cell_iota(shape, device):
+    """(cj, ci) bucket-cell indices broadcastable against (ny, nx, K)."""
+    ny, nx = shape[0], shape[1]
+    cj = torch.arange(ny, device=device, dtype=torch.int64).view(ny, 1, 1)
+    ci = torch.arange(nx, device=device, dtype=torch.int64).view(1, nx, 1)
+    return cj, ci
+
+
+# -- construction ------------------------------------------------------------------
+
+def bucket_from_flat(x, y, mat, T, grid: StaggeredGrid, capacity: int):
+    """One-time setup conversion of flat (N,) markers: stable sort by cell,
+    rank within cell, scatter into the first ``capacity`` slots."""
+    ny, nx = grid.ny, grid.nx
+    dev = x.device
+    j, i = target_cells(x, y, grid)
+    cid = j.to(torch.int64) * nx + i.to(torch.int64)
+    order = torch.argsort(cid, stable=True)
+    cid_s = cid[order]
+    seg_start = torch.searchsorted(
+        cid_s, torch.arange(nx * ny, device=dev, dtype=torch.int64))
+    rank = torch.arange(x.shape[0], device=dev) - seg_start[cid_s]
+    keep = rank < capacity
+    flat_idx = (cid_s * capacity + rank)[keep]
+
+    def fill(vals, dtype):
+        out = torch.zeros(ny * nx * capacity, dtype=dtype, device=dev)
+        out[flat_idx] = vals[order][keep].to(dtype)
+        return out.reshape(ny, nx, capacity)
+
+    valid = torch.zeros(ny * nx * capacity, dtype=torch.bool, device=dev)
+    valid[flat_idx] = True
+    return BucketedMarkers(
+        x=fill(x, x.dtype), y=fill(y, y.dtype), mat=fill(mat, torch.int32),
+        T=fill(T, T.dtype), valid=valid.reshape(ny, nx, capacity))
+
+
+# -- local coordinates on a target sub-lattice ----------------------------------------
+
+def _lattice_local(bm_x, bm_y, grid: StaggeredGrid, loc: str):
+    """Per-marker (o_j, o_i, ty, tx): the ``loc``-lattice cell containing
+    the marker starts at bucket-cell offset (o_j, o_i); (ty, tx) in [0, 1]
+    are its local coordinates (clamped to the lattice)."""
+    oy, ox = grid.origin(loc)
+    ny_n, nx_n = grid.shape(loc)
+    fx = (bm_x - ox) / grid.dx
+    fy = (bm_y - oy) / grid.dy
+    i0 = torch.clamp(torch.floor(fx), 0, nx_n - 2).to(torch.int64)
+    j0 = torch.clamp(torch.floor(fy), 0, ny_n - 2).to(torch.int64)
+    tx = torch.clamp(fx - i0, 0.0, 1.0)
+    ty = torch.clamp(fy - j0, 0.0, 1.0)
+    cj, ci = _cell_iota(bm_x.shape, bm_x.device)
+    return j0 - cj, i0 - ci, ty, tx
+
+
+def _corners(ty, tx):
+    """The 4 bilinear corners (dj, di, weight) in the reference's order."""
+    return (
+        (0, 0, (1.0 - ty) * (1.0 - tx)),
+        (0, 1, (1.0 - ty) * tx),
+        (1, 0, ty * (1.0 - tx)),
+        (1, 1, ty * tx),
+    )
+
+
+# -- marker -> grid -------------------------------------------------------------------
+
+def m2g_sums(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str):
+    """Raw weighted sums on the ``loc`` lattice: returns (sum w,
+    [sum w * v for v in values]).  ``values`` are (ny, nx, K) tensors
+    already sanitized on empty slots.  Cell (j, i) contributes to node
+    (j + a, i + b) for the 9 offsets (a, b) in {-1, 0, 1}^2."""
+    ny, nx = grid.ny, grid.nx
+    ny_n, nx_n = grid.shape(loc)
+    o_j, o_i, ty, tx = _lattice_local(bm.x, bm.y, grid, loc)
+    corners = _corners(ty, tx)
+    vmask = bm.valid
+    dtype = bm.x.dtype
+    field_w = torch.zeros((ny_n, nx_n), dtype=dtype, device=bm.x.device)
+    fields_wv = [torch.zeros_like(field_w) for _ in values]
+    zero = torch.zeros((ny, nx), dtype=dtype, device=bm.x.device)
+    for a, b in OFFSETS:
+        s_w = zero
+        s_wv = [zero for _ in values]
+        for dj, di, w in corners:
+            sel = (o_j + dj == a) & (o_i + di == b) & vmask
+            wm = torch.where(sel, w, 0.0)
+            s_wv = [s + torch.sum(wm * v, dim=-1) for s, v in zip(s_wv, values)]
+            s_w = s_w + torch.sum(wm, dim=-1)
+        # node (j + a, i + b) <- cell (j, i), within the lattice
+        j_lo, j_hi = max(0, -a), min(ny, ny_n - a)
+        i_lo, i_hi = max(0, -b), min(nx, nx_n - b)
+        dst = (slice(j_lo + a, j_hi + a), slice(i_lo + b, i_hi + b))
+        src = (slice(j_lo, j_hi), slice(i_lo, i_hi))
+        field_w[dst] += s_w[src]
+        for f, s in zip(fields_wv, s_wv):
+            f[dst] += s[src]
+    return field_w, fields_wv
+
+
+def transform_values(values, valid, mode: str):
+    """The averaging transform of the marker values (empty slots
+    sanitized before it: log(0) or 1/0 would turn masked zero weights into
+    NaN)."""
+    if mode == ARITHMETIC:
+        return torch.where(valid, values, 0.0)
+    safe = torch.where(valid, values, 1.0)
+    if mode == GEOMETRIC:
+        return torch.log(safe)
+    if mode == HARMONIC:
+        return 1.0 / safe
+    raise ValueError(f"unknown averaging mode {mode!r}")
+
+
+def mean_of(wv, w, mode: str = ARITHMETIC):
+    """Weighted mean from raw sums, inverting the averaging transform."""
+    mean = wv / torch.where(w == 0, 1.0, w)
+    if mode == GEOMETRIC:
+        mean = torch.exp(mean)
+    elif mode == HARMONIC:
+        mean = 1.0 / torch.where(mean == 0, 1.0, mean)
+    return mean
+
+
+def bucket_markers_to_grid(bm: BucketedMarkers, values, grid: StaggeredGrid,
+                           loc: str, mode: str = ARITHMETIC,
+                           periodic_x: bool = False):
+    """Weighted mean of marker values on the ``loc`` sub-lattice.
+    Returns (field, wsum)."""
+    _no_periodic(periodic_x)
+    v = transform_values(values, bm.valid, mode)
+    field_w, (field_wv,) = m2g_sums(bm, [v], grid, loc)
+    return mean_of(field_wv, field_w, mode), field_w
+
+
+# -- grid -> marker -------------------------------------------------------------------
+
+def _sample(f, fx, fy, valid, reach: int):
+    """Bilinear sample of lattice ``f`` at array coordinates (fx, fy) (node
+    (r, c) at (fy, fx) = (r, c)), clamped to the lattice; a corner node
+    contributes only if its offset from the marker's bucket cell lies in
+    the reference's shift window [-reach, reach + 1], and empty slots
+    sample 0."""
+    nr, nc = f.shape
+    i0 = torch.clamp(torch.floor(fx), 0, nc - 2).to(torch.int64)
+    j0 = torch.clamp(torch.floor(fy), 0, nr - 2).to(torch.int64)
+    tx = torch.clamp(fx - i0, 0.0, 1.0)
+    ty = torch.clamp(fy - j0, 0.0, 1.0)
+    cj, ci = _cell_iota(fx.shape, fx.device)
+    flat = f.reshape(-1)
+    out = torch.zeros_like(fx)
+    for dj, di, w in _corners(ty, tx):
+        rj, ri = j0 + dj, i0 + di
+        oj, oi = rj - cj, ri - ci
+        ok = (valid & (oj >= -reach) & (oj <= reach + 1)
+              & (oi >= -reach) & (oi <= reach + 1))
+        out = out + torch.where(ok, w, 0.0) * flat[rj * nc + ri]
+    return out
+
+
+def bucket_grid_to_markers(field, px, py, valid, grid: StaggeredGrid,
+                           loc: str, reach: int = 1, periodic_x: bool = False):
+    """Bilinear interpolation of a ``loc``-lattice field to marker
+    positions (``reach`` bounds the node offset from the bucket cell)."""
+    _no_periodic(periodic_x)
+    oy, ox = grid.origin(loc)
+    return _sample(field, (px - ox) / grid.dx, (py - oy) / grid.dy, valid,
+                   reach)
+
+
+# -- velocity sampling + RK4 advection --------------------------------------------------
+
+def padded_velocities(vx, vy, bcs: VelocityBCs):
+    """Ghost-padded velocity lattices: vx_p (ny+2, nx+1) with origin
+    (-dy/2, 0), vy_p (ny+1, nx+2) with origin (0, -dx/2); moving no-slip
+    walls enter through the ghosts."""
+    if bcs.periodic_x:
+        raise NotImplementedError(
+            "periodic side walls wait for a later port PR")
+    top = bcs.s_top * vx[:1] + (1.0 - bcs.s_top) * bcs.vt_top
+    bot = bcs.s_bottom * vx[-1:] + (1.0 - bcs.s_bottom) * bcs.vt_bottom
+    vx_p = torch.cat([top, vx, bot], dim=0)
+    left = bcs.s_left * vy[:, :1] + (1.0 - bcs.s_left) * bcs.vt_left
+    right = bcs.s_right * vy[:, -1:] + (1.0 - bcs.s_right) * bcs.vt_right
+    vy_p = torch.cat([left, vy, right], dim=1)
+    return vx_p, vy_p
+
+
+def bucket_advect_rk4(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
+                      bcs: VelocityBCs, stage_reach: int = 2):
+    """RK4 advection in bucket layout (positions only; rebucket after).
+    ``stage_reach``: the shift window of the displaced stage positions
+    (1 when dt keeps every stage within half a cell).  Final positions
+    are clipped to the closed domain."""
+    vx_p, vy_p = padded_velocities(vx, vy, bcs)
+    dx, dy = grid.dx, grid.dy
+
+    def vel(px, py, reach):
+        ux = _sample(vx_p, px / dx, py / dy + 0.5, bm.valid, reach)
+        uy = _sample(vy_p, px / dx + 0.5, py / dy, bm.valid, reach)
+        return ux, uy
+
+    x, y = bm.x, bm.y
+    k1x, k1y = vel(x, y, 1)
+    k2x, k2y = vel(x + 0.5 * dt * k1x, y + 0.5 * dt * k1y, stage_reach)
+    k3x, k3y = vel(x + 0.5 * dt * k2x, y + 0.5 * dt * k2y, stage_reach)
+    k4x, k4y = vel(x + dt * k3x, y + dt * k3y, stage_reach)
+
+    nx_new = x + dt / 6.0 * (k1x + 2 * k2x + 2 * k3x + k4x)
+    ny_new = y + dt / 6.0 * (k1y + 2 * k2y + 2 * k3y + k4y)
+    eps_x = 1e-6 * grid.dx_min
+    eps_y = 1e-6 * grid.dy_min
+    return bm.replace(
+        x=torch.clamp(nx_new, eps_x, grid.lx - eps_x),
+        y=torch.clamp(ny_new, eps_y, grid.ly - eps_y),
+    )
+
+
+# -- re-bucketing -------------------------------------------------------------------------
+
+def _shift3(arr, a, b):
+    """arr[j + a, i + b, :] with zero fill outside the cell range."""
+    ny, nx = arr.shape[0], arr.shape[1]
+    out = torch.zeros_like(arr)
+    out[max(0, -a): min(ny, ny - a), max(0, -b): min(nx, nx - b)] = \
+        arr[max(0, a): min(ny, ny + a), max(0, b): min(nx, nx + b)]
+    return out
+
+
+def _true_div(a, d: float):
+    """a / d with IEEE division on every device (PyTorch's CUDA path turns a
+    division by a host scalar into a multiply by its reciprocal)."""
+    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
+
+
+def target_cells(x, y, grid: StaggeredGrid):
+    """Owning cell (tj, ti) of each position: clip(int(x / dx)) with IEEE
+    division by the working-precision cell size, exactly as the reference
+    traces it."""
+    ti = torch.clamp(_true_div(x, grid.dx).to(torch.int32), 0, grid.nx - 1)
+    tj = torch.clamp(_true_div(y, grid.dy).to(torch.int32), 0, grid.ny - 1)
+    return tj, ti
+
+
+def rebucket(bm: BucketedMarkers, grid: StaggeredGrid,
+             periodic_x: bool = False):
+    """Re-pack every bucket from its 3x3 neighbourhood (markers move at
+    most one cell per step).  Candidates are taken in the reference's
+    order — (a, b) slab-major, slot-minor — and a bucket keeps the first K
+    that target it; later arrivals are dropped and counted.
+
+    Returns (new_bm, dropped) with ``dropped`` a 0-d int64 tensor."""
+    _no_periodic(periodic_x)
+    ny, nx, K = bm.x.shape
+    tj, ti = target_cells(bm.x, bm.y, grid)
+    cj, ci = _cell_iota(bm.x.shape, bm.x.device)
+    stays_dj = tj.to(torch.int64) - cj
+    stays_di = ti.to(torch.int64) - ci
+
+    takes, cands = [], {"x": [], "y": [], "T": [], "mat": []}
+    for a, b in OFFSETS:
+        # a marker in cell (j+a, i+b) belongs to cell (j, i) iff its
+        # target offset from its own cell is (-a, -b)
+        takes.append(_shift3(bm.valid, a, b)
+                     & (_shift3(stays_dj, a, b) == -a)
+                     & (_shift3(stays_di, a, b) == -b))
+        for name in cands:
+            cands[name].append(_shift3(getattr(bm, name), a, b))
+    take = torch.cat(takes, dim=-1)  # (ny, nx, 9K) in insertion order
+    rank = torch.cumsum(take.to(torch.int32), dim=-1, dtype=torch.int32) - 1
+    arrivals = torch.sum(take, dim=-1, dtype=torch.int64)
+    keep = take & (rank < K)
+    slot = torch.where(keep, rank, K).to(torch.int64)  # K = discard slot
+
+    def pack(name):
+        vals = torch.cat(cands[name], dim=-1)
+        out = torch.zeros((ny, nx, K + 1), dtype=vals.dtype,
+                          device=vals.device)
+        return out.scatter_(-1, slot, vals)[..., :K]
+
+    count = torch.clamp(arrivals, max=K)
+    valid = (torch.arange(K, device=bm.x.device).view(1, 1, K)
+             < count[..., None])
+    new = BucketedMarkers(x=pack("x"), y=pack("y"), mat=pack("mat"),
+                          T=pack("T"), valid=valid)
+    dropped = torch.sum(torch.clamp(arrivals - K, min=0))
+    return new, dropped

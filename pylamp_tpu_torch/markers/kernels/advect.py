@@ -1,0 +1,64 @@
+"""Fused RK4 marker advection: wrapper of the CUDA kernel
+``csrc/advect.cu`` (replaces the TPU kernel
+``pylamp_tpu/markers/pallas/advect_kernel.py:advect_rk4_pallas``).
+
+``advect_rk4_fused`` runs the plain PyTorch version (``advect_rk4_plain``,
+the port of ``bucket.bucket_advect_rk4``) on CPU tensors and launches the
+kernel on CUDA tensors.  The ghost-padded velocity lattices are built here
+exactly as in the reference (``bucket.padded_velocities``) and shared by
+both versions.  ``stage_reach`` (1 or 2) is the precondition that stage
+displacements stay within that many cells; like the reference, a node
+outside the window does not contribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from pylamp_tpu_torch import cuda_build
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.markers.bucket import BucketedMarkers, padded_velocities
+from pylamp_tpu_torch.markers.bucket import bucket_advect_rk4 as advect_rk4_plain
+from pylamp_tpu_torch.markers.kernels import check_markers
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+launches = 0
+
+
+def advect_rk4_cuda(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
+                    bcs: VelocityBCs, stage_reach: int = 1):
+    global launches
+    if stage_reach not in (1, 2):
+        raise ValueError(f"stage_reach must be 1 or 2, got {stage_reach}")
+    check_markers(bm, "advect", positions_only=True)
+    ny, nx, K = bm.x.shape
+    dev = bm.x.device
+    f32 = torch.float32
+    vx_p, vy_p = padded_velocities(vx.to(f32), vy.to(f32), bcs)
+    vx_p, vy_p = vx_p.contiguous(), vy_p.contiguous()
+    if tuple(vx_p.shape) != (ny + 2, nx + 1) or tuple(vy_p.shape) != (ny + 1, nx + 2):
+        raise ValueError("advect kernel: velocity shapes do not match the "
+                         f"markers' ({ny}, {nx}) cells")
+    dt_t = torch.as_tensor(dt, dtype=f32, device=dev).reshape(1).contiguous()
+    out_x = torch.empty_like(bm.x)
+    out_y = torch.empty_like(bm.y)
+    eps_x = 1e-6 * grid.dx_min
+    eps_y = 1e-6 * grid.dy_min
+    code = cuda_build.library().launch_advect(
+        bm.x.data_ptr(), bm.y.data_ptr(), bm.valid.data_ptr(),
+        vx_p.data_ptr(), vy_p.data_ptr(), dt_t.data_ptr(), out_x.data_ptr(),
+        out_y.data_ptr(), ny, nx, K, grid.dx, grid.dy, eps_x,
+        grid.lx - eps_x, eps_y, grid.ly - eps_y, stage_reach,
+        cuda_build.stream_ptr(dev))
+    cuda_build.check(code, "advect")
+    launches += 1
+    return bm.replace(x=out_x, y=out_y)
+
+
+def advect_rk4_fused(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
+                     bcs: VelocityBCs, stage_reach: int = 1):
+    """RK4-advected markers (positions only): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if bm.x.is_cuda:
+        return advect_rk4_cuda(bm, vx, vy, dt, grid, bcs, stage_reach)
+    return advect_rk4_plain(bm, vx, vy, dt, grid, bcs, stage_reach)

@@ -1,0 +1,152 @@
+"""Fused marker->grid transfer of every per-step stream: wrapper of the CUDA
+kernel ``csrc/m2g.cu`` (replaces the TPU kernel
+``pylamp_tpu/markers/pallas/m2g_kernel.py:m2g_fused_pallas``).
+
+Both versions return the TPU kernel's RAW dict of weighted sums and
+weights per lattice: ``c_w``, ``c_eta`` (corner), ``n_w``, ``n_eta``
+(center), ``vy_w``, ``vy_rho``, [``vx_w``, ``vx_rho``] and, with
+``with_energy``, ``c_T``, ``c_k``, ``c_rhocp`` and [``c_H``].  The eta sums are of the eta-averaging transform (log eta for geometric).  The
+step divides by the weights (``models.step._interp_fused``).
+
+``m2g_fused`` runs the plain version (``m2g_fused_plain``: marker
+properties from the material table, then ``bucket.m2g_sums`` per lattice)
+on CPU tensors and launches the kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pylamp_tpu_torch import cuda_build
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.markers.bucket import (
+    ARITHMETIC,
+    BucketedMarkers,
+    m2g_sums,
+    transform_values,
+)
+from pylamp_tpu_torch.markers.kernels import check_markers
+from pylamp_tpu_torch.physics.materials import MaterialTable
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+launches = 0
+
+MAX_MATERIALS = 8
+ETA_MODES = {"arithmetic": 0, "geometric": 1, "harmonic": 2}
+# output order of the kernel's pointer array (csrc/m2g.cu enum Out)
+OUT_ORDER = ("c_w", "c_eta", "n_w", "n_eta", "vy_w", "vy_rho", "vx_w",
+             "vx_rho", "c_T", "c_k", "c_rhocp", "c_H")
+_TABLE_COLUMNS = ("eta0", "T_ref", "fk_gamma", "E_act", "rho0", "alpha", "k",
+                  "cp", "H")
+
+
+class _Table(ctypes.Structure):
+    """Must match csrc/m2g.cu struct M2GTable."""
+
+    _fields_ = ([("n", ctypes.c_int), ("eta_mode", ctypes.c_int),
+                 ("eta_min", ctypes.c_float), ("eta_max", ctypes.c_float),
+                 ("law", ctypes.c_int * MAX_MATERIALS)]
+                + [(c, ctypes.c_float * MAX_MATERIALS) for c in _TABLE_COLUMNS])
+
+
+def _streams(table: MaterialTable, phys, with_energy: bool):
+    """(with_vx, with_h) and the stream names the dict carries."""
+    with_vx = phys.gx != 0.0
+    with_h = bool(np.any(np.asarray(table.H) != 0.0)) and with_energy
+    names = ["c_w", "c_eta", "n_w", "n_eta", "vy_w", "vy_rho"]
+    if with_vx:
+        names += ["vx_w", "vx_rho"]
+    if with_energy:
+        names += ["c_T", "c_k", "c_rhocp"]
+        if with_h:
+            names += ["c_H"]
+    return with_vx, with_h, names
+
+
+def m2g_fused_plain(bm: BucketedMarkers, grid: StaggeredGrid,
+                    table: MaterialTable, phys, with_energy: bool = False):
+    """Plain PyTorch version: marker properties, then the dense-shift
+    weighted sums of ``bucket.m2g_sums`` on each lattice."""
+    with_vx, with_h, _ = _streams(table, phys, with_energy)
+    dtype = bm.x.dtype
+    valid = bm.valid
+    eta = torch.clamp(table.viscosity_of(bm.mat, bm.T), phys.eta_min,
+                      phys.eta_max)
+    eta_v = transform_values(eta, valid, phys.eta_avg)
+    rho_v = transform_values(table.density(bm.mat, bm.T), valid, ARITHMETIC)
+
+    corner = {"c_eta": eta_v}
+    if with_energy:
+        corner["c_T"] = transform_values(bm.T, valid, ARITHMETIC)
+        corner["c_k"] = transform_values(table.conductivity(bm.mat, dtype),
+                                         valid, ARITHMETIC)
+        corner["c_rhocp"] = transform_values(table.rho_cp(bm.mat, bm.T),
+                                             valid, ARITHMETIC)
+        if with_h:
+            corner["c_H"] = transform_values(table.heating(bm.mat, dtype),
+                                             valid, ARITHMETIC)
+
+    out = {}
+    lattices = [("corner", "c_w", corner), ("center", "n_w", {"n_eta": eta_v}),
+                ("vy", "vy_w", {"vy_rho": rho_v})]
+    if with_vx:
+        lattices.append(("vx", "vx_w", {"vx_rho": rho_v}))
+    for loc, wname, streams in lattices:
+        w, wvs = m2g_sums(bm, list(streams.values()), grid, loc)
+        out[wname] = w
+        out.update(zip(streams.keys(), wvs))
+    return out
+
+
+def _table_struct(table: MaterialTable, phys) -> _Table:
+    n = len(table)
+    if n > MAX_MATERIALS:
+        raise ValueError(f"m2g kernel: at most {MAX_MATERIALS} materials, "
+                         f"got {n}")
+    if phys.eta_avg not in ETA_MODES:
+        raise ValueError(f"unknown averaging mode {phys.eta_avg!r}")
+    t = _Table()
+    t.n = n
+    t.eta_mode = ETA_MODES[phys.eta_avg]
+    t.eta_min = float(phys.eta_min)
+    t.eta_max = float(phys.eta_max)
+    for m in range(n):
+        t.law[m] = int(table.law[m])
+        for c in _TABLE_COLUMNS:
+            getattr(t, c)[m] = float(getattr(table, c)[m])
+    return t
+
+
+def m2g_fused_cuda(bm: BucketedMarkers, grid: StaggeredGrid,
+                   table: MaterialTable, phys, with_energy: bool = False):
+    global launches
+    check_markers(bm, "m2g")
+    with_vx, with_h, names = _streams(table, phys, with_energy)
+    ny, nx, K = bm.x.shape
+    dev = bm.x.device
+    shapes = {"c": grid.shape_corner, "n": grid.shape_center,
+              "vy": grid.shape_vy, "vx": grid.shape_vx}
+    out = {name: torch.empty(shapes[name.split("_")[0]], dtype=torch.float32,
+                             device=dev) for name in names}
+    ptrs = (ctypes.c_void_p * len(OUT_ORDER))(
+        *[out[name].data_ptr() if name in out else None for name in OUT_ORDER])
+    tbl = _table_struct(table, phys)
+    flags = (1 * with_vx) | (2 * with_energy) | (4 * with_h)
+    code = cuda_build.library().launch_m2g(
+        bm.x.data_ptr(), bm.y.data_ptr(), bm.T.data_ptr(), bm.mat.data_ptr(),
+        bm.valid.data_ptr(), ctypes.addressof(tbl), ctypes.addressof(ptrs),
+        ny, nx, K, grid.dx, grid.dy, flags, cuda_build.stream_ptr(dev))
+    cuda_build.check(code, "m2g")
+    launches += 1
+    return out
+
+
+def m2g_fused(bm: BucketedMarkers, grid: StaggeredGrid, table: MaterialTable,
+              phys, with_energy: bool = False):
+    """Raw weighted-sum dict of every marker->grid stream: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if bm.x.is_cuda:
+        return m2g_fused_cuda(bm, grid, table, phys, with_energy)
+    return m2g_fused_plain(bm, grid, table, phys, with_energy)

@@ -1,0 +1,144 @@
+"""Where the time goes in the port's FK step, on one GPU.
+
+    python -m pylamp_tpu_torch.models.profile [--nx 1024] [--steps 2]
+
+Builds ``fk_bench_config(nx)`` on the card in f32 and takes 2 warm-up
+steps, then
+
+1. runs ``--steps`` steps through ``models.step.run_step`` with a device
+   synchronize around each phase (interp, stokes, timestep, energy,
+   advect), for the mean seconds of each phase;
+2. times one whole step without synchronizes inside it;
+3. traces the next step with ``torch.profiler`` (device activity only):
+   device busy time is the union of the kernel, memcpy and memset
+   intervals of the trace (operator and runtime events are host-side
+   records, not device work), with the number of those device operations
+   and the kernels that take the most device time.  The idle share sets
+   that busy time against the untraced step's wall time: tracing slows the
+   host's launches, so the traced step's own wall time overstates it.
+
+Prints one JSON object; needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+import torch
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+WARMUP_STEPS = 2
+
+
+def device_activity(events):
+    """Device work in a Chrome trace's ``traceEvents``: (busy seconds,
+    number of device operations, {name: [count, seconds]}).  Only kernel,
+    memcpy and memset events count, and busy time is the union of their
+    intervals, so work on overlapping streams is not counted twice."""
+    spans = []
+    by_name = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
+            continue
+        start, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((start, start + dur))
+        entry = by_name.setdefault(e.get("name", "?"), [0, 0.0])
+        entry[0] += 1
+        entry[1] += dur * 1e-6
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us * 1e-6, len(spans), by_name
+
+
+def synced_timer(seconds):
+    """A ``run_step`` phase hook that adds each phase's wall time, with the
+    device synchronized before and after it, to ``seconds[name]``."""
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] += time.perf_counter() - t0
+        return out
+    return timed
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--nx", type=int, default=1024)
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("profile: no CUDA device")
+
+    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step_phases, run_step
+
+    cfg = fk_bench_config(args.nx)
+    grid, table, st = build(cfg, dtype=torch.float32, device="cuda")
+    ph = make_step_phases(grid, cfg, table)
+    for _ in range(WARMUP_STEPS):
+        st, _ = run_step(ph, st)
+
+    phases = defaultdict(float)
+    iters = 0
+    for _ in range(args.steps):
+        st, diag = run_step(ph, st, timed=synced_timer(phases))
+        iters += diag["stokes_iterations"]
+
+    (st, _), wall = _wall(lambda: run_step(ph, st))
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.profiler.profile(activities=acts) as prof:
+            (st, diag), traced_wall = _wall(lambda: run_step(ph, st))
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    busy, n_ops, by_name = device_activity(events)
+    if n_ops == 0:
+        sys.exit("profile: the trace holds no device activity")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({
+        "device": smi,
+        "nx": args.nx,
+        "phase_seconds": {k: v / args.steps for k, v in phases.items()},
+        "krylov_iterations_per_step": iters / args.steps,
+        "step": {
+            "wall_s": wall,
+            "traced_wall_s": traced_wall,
+            "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "device_idle_share_traced": 1.0 - busy / traced_wall,
+            "device_ops": n_ops,
+            "krylov_iterations": diag["stokes_iterations"],
+            "top_kernels": [{"name": k[:90], "count": c, "ms": s * 1e3}
+                            for k, (c, s) in top],
+        },
+    }, indent=1))
+
+
+if __name__ == "__main__":
+    main()

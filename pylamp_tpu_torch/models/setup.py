@@ -1,0 +1,86 @@
+"""Model setup: grid + marker seeding + initial state (port of
+``pylamp_tpu/models/setup.py``).
+
+Markers are seeded on the host with numpy exactly like the reference
+(same generator, same draws), so the port's initial state matches the JAX
+package's bit for bit in f64 and to rounding in f32."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.markers.bucket import (
+    bucket_from_flat,
+    bucket_markers_to_grid,
+)
+from pylamp_tpu_torch.models.config import ModelConfig
+from pylamp_tpu_torch.models.state import zero_state
+from pylamp_tpu_torch.physics.materials import MaterialTable
+from pylamp_tpu_torch.solvers.mg import coarsening_plan
+
+
+def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
+    """Host-side jittered m x m markers per cell: (x, y, mat, T) numpy."""
+    m = cfg.markers_per_cell_dim
+    nxm, nym = grid.nx * m, grid.ny * m
+    rng = np.random.default_rng(cfg.seed)
+    ddx, ddy = grid.lx / nxm, grid.ly / nym
+    xs = (np.arange(nxm) + 0.5) * ddx
+    ys = (np.arange(nym) + 0.5) * ddy
+    Yh, Xh = np.meshgrid(ys, xs, indexing="ij")
+    xh = Xh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddx
+    yh = Yh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddy
+    xh = np.clip(xh, 1e-6 * grid.dx_min, grid.lx - 1e-6 * grid.dx_min)
+    yh = np.clip(yh, 1e-6 * grid.dy_min, grid.ly - 1e-6 * grid.dy_min)
+    n_mat = len(cfg.physics.materials)
+    mat = (np.asarray(cfg.material_of(xh, yh), dtype=np.int32)
+           if cfg.material_of else np.zeros(xh.shape, np.int32))
+    if mat.min() < 0 or mat.max() >= n_mat:
+        raise ValueError(
+            f"material_of produced ids in [{mat.min()}, {mat.max()}] but the "
+            f"config defines {n_mat} materials")
+    T = (np.asarray(cfg.T_of(xh, yh), dtype=np.float64)
+         if cfg.T_of else np.zeros(xh.shape))
+    return xh, yh, mat, T
+
+
+def build(cfg: ModelConfig, dtype=torch.float64, device="cpu"):
+    """Returns (grid, table, initial ModelState) on ``device``."""
+    if cfg.marker_engine != "bucket":
+        raise NotImplementedError(
+            f"the {cfg.marker_engine!r} marker engine waits for a later port "
+            "PR")
+    if cfg.physics.velocity_bcs.periodic_x:
+        raise NotImplementedError(
+            "periodic side walls wait for a later port PR")
+    device = torch.device(device)
+    grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly,
+                         x_edges=cfg.x_edges, y_edges=cfg.y_edges)
+    table = MaterialTable(cfg.physics.materials)
+    xh, yh, mat, T = seed_markers(cfg, grid)
+    capacity = cfg.marker_capacity or 2 * cfg.markers_per_cell_dim ** 2
+
+    n_mg_levels = 0
+    if cfg.solver.preconditioner == "mg" and cfg.solver.mg_smoother == "chebyshev":
+        n_mg_levels = len(coarsening_plan(
+            grid, cfg.solver.mg_levels,
+            semi_threshold=cfg.solver.mg_semicoarsen)) + 1
+
+    def dev(a, dt=None):
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    markers = bucket_from_flat(dev(xh, dtype), dev(yh, dtype), dev(mat),
+                               dev(T, dtype), grid, capacity)
+    state = zero_state(grid, markers, dtype, n_mg_levels=n_mg_levels,
+                       device=device)
+    # grid mirrors: fallback values for marker-starved nodes at step 1
+    eta_m = torch.clamp(table.viscosity_of(markers.mat, markers.T),
+                        cfg.physics.eta_min, cfg.physics.eta_max)
+    eta_s, _ = bucket_markers_to_grid(markers, eta_m, grid, "corner",
+                                      cfg.physics.eta_avg)
+    eta_n, _ = bucket_markers_to_grid(markers, eta_m, grid, "center",
+                                      cfg.physics.eta_avg)
+    T_g, _ = bucket_markers_to_grid(markers, markers.T, grid, "corner",
+                                    "arithmetic")
+    return grid, table, state.replace(eta_s=eta_s, eta_n=eta_n, T=T_g)

@@ -1,0 +1,344 @@
+"""One model timestep (port of ``pylamp_tpu/models/step.py``, the
+single-device bucket-engine branch on a uniform, non-periodic grid):
+
+    marker props -> marker->grid -> Stokes solve -> dt (Courant)
+    -> implicit energy solve + marker T update -> RK4 advection -> rebucket
+
+The step keeps the reference's static kernel gates: with an f32 state the
+marker->grid transfer, the advection and the rebucket run through the
+kernel wrappers of ``markers/kernels`` (CUDA kernels on a CUDA state,
+their plain versions on a CPU state), and the mixed-precision Stokes solve
+applies its f32 outer operator through ``ops/kernels/saddle.py``.  An f64
+state takes the plain functions, as the reference's f64 state skips its
+Pallas kernels.  Configuration branches outside the ported slice raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.markers.bucket import (
+    BucketedMarkers,
+    bucket_advect_rk4,
+    bucket_grid_to_markers,
+    rebucket,
+)
+from pylamp_tpu_torch.markers.kernels.advect import advect_rk4_fused
+from pylamp_tpu_torch.markers.kernels.m2g import m2g_fused, m2g_fused_plain
+from pylamp_tpu_torch.markers.kernels.rebucket import rebucket_fused
+from pylamp_tpu_torch.models.config import ModelConfig
+from pylamp_tpu_torch.models.state import ModelState
+from pylamp_tpu_torch.physics.materials import MaterialTable
+from pylamp_tpu_torch.solvers.energy_solver import (
+    solve_energy,
+    solve_energy_mixed,
+)
+from pylamp_tpu_torch.solvers.mg import (
+    estimate_mg_lambdas,
+    make_mg_preconditioner,
+)
+from pylamp_tpu_torch.solvers.scaling import (
+    characteristic_viscosity,
+    stokes_scales,
+)
+from pylamp_tpu_torch.solvers.stokes_solver import (
+    solve_stokes,
+    solve_stokes_mixed,
+)
+
+
+class InterpOut(NamedTuple):
+    """Marker->grid phase products consumed by the later phases."""
+
+    eta_s: Any
+    eta_n: Any
+    rho_vx: Any
+    rho_vy: Any
+    k_m: Any  # marker conductivity (dt cap)
+    rhocp_m: Any  # marker rho*Cp
+    T_old_g: Any = None
+    k_g: Any = None
+    rhocp_g: Any = None
+    H_g: Any = None
+
+
+class StepPhases(NamedTuple):
+    interp: Callable  # (state) -> InterpOut
+    stokes: Callable  # (state, InterpOut) -> (vx, vy, p, diag)
+    energy: Callable  # (state, InterpOut, vx, vy, dt) -> (markers, T_new, diag)
+    advect: Callable  # (markers, vx, vy, dt, T_new) -> (markers, diag)
+    timestep: Callable  # (vx, vy, k_m, rhocp_m) -> dt
+
+
+def _later(what):
+    return NotImplementedError(f"{what} waits for a later port PR")
+
+
+def _check_slice(cfg: ModelConfig):
+    """Raise on every configuration branch the port does not have yet."""
+    phys, solver = cfg.physics, cfg.solver
+    if phys.velocity_bcs.periodic_x or phys.thermal_bcs.periodic_x:
+        raise _later("periodic side walls")
+    if cfg.marker_engine != "bucket":
+        raise _later(f"the {cfg.marker_engine!r} marker engine")
+    for flag, what in ((phys.shear_heating, "shear heating"),
+                       (phys.adiabatic_heating, "adiabatic heating"),
+                       (phys.subgrid_diffusion_d > 0.0, "subgrid diffusion"),
+                       (phys.reseed_min_per_cell > 0, "marker reseeding"),
+                       (solver.preconditioner != "mg",
+                        f"the {solver.preconditioner!r} Stokes preconditioner"),
+                       (solver.mg_smoother != "chebyshev",
+                        f"the {solver.mg_smoother!r} MG smoother"),
+                       (solver.mg_lam_mode != "gershgorin",
+                        "power-iteration lambda estimation"),
+                       (solver.schur != "mass",
+                        f"the {solver.schur!r} Schur surrogate"),
+                       (solver.stokes_al_gamma > 0.0, "the augmented Lagrangian"),
+                       (solver.mg_velocity_inner_iters > 0,
+                        "the velocity inner Krylov"),
+                       (solver.mg_eta_cap > 0.0, "the MG eta cap"),
+                       (solver.mg_scaled_transfers or solver.mg_ls_damp,
+                        "scaled MG transfers / line-search damping"),
+                       (solver.use_pallas, "the MG momentum-apply kernel"),
+                       (solver.use_pallas_smoother,
+                        "the fused Chebyshev smoother kernel "
+                        "(set use_pallas_smoother=False)"),
+                       (solver.energy_preconditioner != "jacobi",
+                        f"the {solver.energy_preconditioner!r} energy "
+                        "preconditioner")):
+        if flag:
+            raise _later(what)
+
+
+def _marker_mean(markers: BucketedMarkers, vals):
+    w = markers.valid
+    return (torch.sum(torch.where(w, vals, 0.0))
+            / torch.clamp(torch.sum(w.to(vals.dtype)), min=1.0))
+
+
+def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
+                     table: MaterialTable) -> StepPhases:
+    phys, solver, tc = cfg.physics, cfg.solver, cfg.time
+    vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
+    if tc.courant > 1.0:
+        # the 3x3 rebucketing and the RK4 shift windows assume markers
+        # move at most one cell per step
+        raise ValueError("TimeConfig.courant must be <= 1")
+    _check_slice(cfg)
+
+    make_precond = partial(
+        make_mg_preconditioner,
+        levels=solver.mg_levels,
+        cycles=solver.mg_cycles,
+        pre_smooth=solver.mg_pre_smooth,
+        post_smooth=solver.mg_post_smooth,
+        smoother=solver.mg_smoother,
+        semicoarsen=solver.mg_semicoarsen,
+        schur=solver.schur,
+    )
+
+    def _mixed(dtype):
+        return solver.precision == "mixed" or (
+            solver.precision == "auto" and dtype == torch.float32)
+
+    def _kernels(dtype):
+        """The reference's static kernel gate (uniform grid, no mesh and
+        non-periodic hold throughout the port)."""
+        return dtype == torch.float32
+
+    # ---- phase 1: marker rheology + marker -> grid ------------------------
+    def interp(state: ModelState) -> InterpOut:
+        m = state.markers
+        dtype = m.x.dtype
+        rho_m = table.density(m.mat, m.T)
+        k_m = table.conductivity(m.mat, dtype)
+        rhocp_m = table.rho_cp(m.mat, m.T)
+        m2g = (m2g_fused if solver.use_pallas_m2g and _kernels(dtype)
+               else m2g_fused_plain)
+        out = m2g(m, grid, table, phys, with_energy=phys.solve_energy)
+        return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
+
+    def _interp_fused(m, rho_m, k_m, rhocp_m, state, out) -> InterpOut:
+        """Grid fields from the raw weighted sums (shared by the kernel and
+        its plain version); starved nodes keep their fallback."""
+        dtype = m.x.dtype
+
+        def mean_of(wv, w, fallback):
+            return torch.where(w > 0, wv / torch.where(w == 0, 1.0, w),
+                               fallback)
+
+        def eta_of(wv, w, fallback):
+            mean = wv / torch.where(w == 0, 1.0, w)
+            if phys.eta_avg == "geometric":
+                mean = torch.exp(mean)
+            elif phys.eta_avg == "harmonic":
+                mean = 1.0 / torch.where(mean == 0, 1.0, mean)
+            return torch.where(w > 0, mean, fallback)
+
+        eta_s = eta_of(out["c_eta"], out["c_w"], state.eta_s)
+        eta_n = eta_of(out["n_eta"], out["n_w"], state.eta_n)
+        rho_vy = mean_of(out["vy_rho"], out["vy_w"], _marker_mean(m, rho_m))
+        if phys.gx != 0.0:
+            rho_vx = mean_of(out["vx_rho"], out["vx_w"],
+                             _marker_mean(m, rho_m))
+        else:
+            rho_vx = torch.zeros(grid.shape_vx, dtype=dtype,
+                                 device=m.x.device)
+
+        T_old_g = k_g = rhocp_g = H_g = None
+        if phys.solve_energy:
+            cw = out["c_w"]
+            T_old_g = mean_of(out["c_T"], cw, state.T)
+            k_g = mean_of(out["c_k"], cw, _marker_mean(m, k_m))
+            rhocp_g = mean_of(out["c_rhocp"], cw, _marker_mean(m, rhocp_m))
+            if "c_H" in out:
+                H_g = mean_of(out["c_H"], cw,
+                              torch.zeros((), dtype=dtype, device=m.x.device))
+            else:
+                H_g = torch.zeros(grid.shape_corner, dtype=dtype,
+                                  device=m.x.device)
+        return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m,
+                         T_old_g, k_g, rhocp_g, H_g)
+
+    # ---- phase 2: Stokes solve (warm-started) ------------------------------
+    def stokes(state: ModelState, io: InterpOut):
+        dtype = state.markers.x.dtype
+        mixed = _mixed(dtype)
+        # analytic per-level Chebyshev bounds, recomputed every step
+        wdtype = torch.float32 if mixed else dtype
+        es_w, en_w = io.eta_s.to(wdtype), io.eta_n.to(wdtype)
+        _, kbnd_w = stokes_scales(characteristic_viscosity(en_w), grid)
+        lam_new = estimate_mg_lambdas(
+            es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
+            semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
+        mk = partial(make_precond, lam_max=lam_new)
+        x0 = (state.vx, state.vy, state.p)
+        if mixed:
+            sol = solve_stokes_mixed(
+                io.eta_s, io.eta_n, io.rho_vx, io.rho_vy, phys.gx, phys.gy,
+                grid, vbc, tol=solver.stokes_tol, inner_tol=solver.inner_tol,
+                restart=solver.stokes_restart, maxiter=solver.stokes_maxiter,
+                max_refinements=solver.max_refinements, x0=x0,
+                make_preconditioner=mk,
+                use_pallas_apply=solver.use_pallas_apply)
+        else:
+            sol = solve_stokes(
+                io.eta_s, io.eta_n, io.rho_vx, io.rho_vy, phys.gx, phys.gy,
+                grid, vbc, tol=solver.stokes_tol,
+                restart=solver.stokes_restart, maxiter=solver.stokes_maxiter,
+                x0=x0, make_preconditioner=mk)
+        vx, vy, p = sol.vx.to(dtype), sol.vy.to(dtype), sol.p.to(dtype)
+        tiny = torch.finfo(torch.float64 if mixed else dtype).tiny
+        diag = {
+            "stokes_iterations": sol.info.iterations,
+            "stokes_residual": sol.info.residual,
+            "stokes_residual_rel": sol.info.residual
+            / max(sol.info.bnorm, tiny),
+            "stokes_converged": sol.info.converged,
+            "vmax": torch.maximum(torch.max(torch.abs(vx)),
+                                  torch.max(torch.abs(vy))),
+            "vrms": torch.sqrt(torch.mean(
+                (0.5 * (vx[:, 1:] + vx[:, :-1])) ** 2
+                + (0.5 * (vy[1:, :] + vy[:-1, :])) ** 2)),
+        }
+        if state.mg_lam is not None:
+            # carried into the next ModelState by make_step
+            diag["_mg_lam"] = lam_new.to(state.mg_lam.dtype)
+        return vx, vy, p, diag
+
+    # ---- dt selection (Courant + optional diffusion cap) --------------------
+    def timestep(vx, vy, k_m, rhocp_m):
+        dtype = vx.dtype
+        vxmax = torch.max(torch.abs(vx))
+        vymax = torch.max(torch.abs(vy))
+        big = torch.tensor(torch.finfo(dtype).max / 4, dtype=dtype,
+                           device=vx.device)
+        dt_adv = tc.courant * torch.minimum(
+            torch.where(vxmax > 0, grid.dx_min / vxmax, big),
+            torch.where(vymax > 0, grid.dy_min / vymax, big),
+        )
+        dt = torch.clamp(dt_adv, max=tc.dt_max)
+        if tc.dt_diff_factor != float("inf") and phys.solve_energy:
+            kappa_max = torch.max(k_m / rhocp_m)
+            dt_diff = (tc.dt_diff_factor * min(grid.dx_min, grid.dy_min) ** 2
+                       / kappa_max)
+            dt = torch.minimum(dt, dt_diff)
+        return torch.clamp(dt, min=tc.dt_min)
+
+    # ---- phase 3: energy solve + marker temperature update ------------------
+    def energy(state: ModelState, io: InterpOut, vx, vy, dt):
+        m = state.markers
+        dtype = m.x.dtype
+        diag: Dict[str, Any] = {}
+        if not phys.solve_energy:
+            return m, state.T, diag
+        solve = solve_energy_mixed if _mixed(dtype) else solve_energy
+        esol = solve(io.T_old_g, io.k_g, io.rhocp_g / dt, io.H_g, grid, tbc,
+                     tol=solver.energy_tol, maxiter=solver.energy_maxiter,
+                     k_avg=phys.k_face_avg,
+                     preconditioner=solver.energy_preconditioner)
+        T_new = esol.T.to(dtype)
+        dT = T_new - io.T_old_g
+        T_m = m.T + bucket_grid_to_markers(dT, m.x, m.y, m.valid, grid,
+                                           "corner")
+        diag["energy_iterations"] = esol.info.iterations
+        diag["T_mean"] = torch.mean(T_new)
+        return m.replace(T=T_m), T_new, diag
+
+    # ---- phase 4: advect markers + re-bucket --------------------------------
+    def advect(markers, vx, vy, dt, T_new):
+        dtype = markers.x.dtype
+        moving_walls = any(
+            getattr(vbc, f) != 0.0
+            for f in ("vt_top", "vt_bottom", "vt_left", "vt_right"))
+        # Courant <= 0.5 (and static walls) bounds every RK stage
+        # displacement to half a cell
+        reach = 1 if (tc.courant <= 0.5 and tc.dt_min == 0.0
+                      and not moving_walls) else 2
+        if solver.use_pallas_advect and _kernels(dtype):
+            markers = advect_rk4_fused(markers, vx, vy, dt, grid, vbc,
+                                       stage_reach=reach)
+        else:
+            markers = bucket_advect_rk4(markers, vx, vy, dt, grid, vbc,
+                                        stage_reach=reach)
+        if _kernels(dtype):
+            markers, dropped = rebucket_fused(markers, grid)
+        else:
+            markers, dropped = rebucket(markers, grid)
+        diag = {"markers_dropped": dropped, "marker_count": markers.total()}
+        return markers, diag
+
+    return StepPhases(interp, stokes, energy, advect, timestep)
+
+
+def _call(name: str, fn: Callable, *args):
+    return fn(*args)
+
+
+def run_step(ph: StepPhases, state: ModelState, timed: Callable = _call
+             ) -> Tuple[ModelState, Dict[str, Any]]:
+    """One step composed from its phases.  ``timed(name, fn, *args)`` makes
+    each phase call (``models/profile.py`` passes one that times them)."""
+    io = timed("interp", ph.interp, state)
+    vx, vy, p, diag = timed("stokes", ph.stokes, state, io)
+    mg_lam = diag.pop("_mg_lam", state.mg_lam)
+    dt = timed("timestep", ph.timestep, vx, vy, io.k_m, io.rhocp_m)
+    diag["dt"] = dt
+    markers, T_new, ediag = timed("energy", ph.energy, state, io, vx, vy, dt)
+    diag.update(ediag)
+    markers, adiag = timed("advect", ph.advect, markers, vx, vy, dt, T_new)
+    diag.update(adiag)
+    new_state = state.replace(
+        markers=markers, vx=vx, vy=vy, p=p, T=T_new,
+        eta_s=io.eta_s, eta_n=io.eta_n,
+        time=state.time + dt, step=state.step + 1, dt=dt, mg_lam=mg_lam)
+    return new_state, diag
+
+
+def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable):
+    """The production step: ``step(state) -> (new_state, diag)``."""
+    return partial(run_step, make_step_phases(grid, cfg, table))

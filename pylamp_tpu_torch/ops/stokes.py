@@ -1,0 +1,116 @@
+"""Matrix-free variable-viscosity Stokes saddle-point operator.
+
+Port of ``pylamp_tpu/ops/stokes.py`` (uniform grid, non-periodic walls):
+
+  x-momentum at interior vx nodes: -(d(sxx)/dx + d(sxy)/dy) + dp/dx
+  y-momentum at interior vy nodes: -(d(sxy)/dx + d(syy)/dy) + dp/dy
+  continuity at cell centers:      kcont * (dvx/dx + dvy/dy)
+
+with sxx = 2 eta_n dvx/dx, syy = 2 eta_n dvy/dy (centers) and
+sxy = eta_s (dvx/dy + dvy/dx) (corners).  Wall-normal velocities are
+Dirichlet rows (kbnd * v); tangential BCs enter through ghost nodes
+(free slip: ghost = +v_interior, no slip: ghost = -v_interior).
+
+``kcont``/``kbnd`` may be Python floats or 0-d tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+
+
+def _no_periodic(bcs: VelocityBCs):
+    if bcs.periodic_x:
+        raise NotImplementedError(
+            "periodic side walls wait for a later port PR")
+
+
+def _ghost_vx(vx, bcs: VelocityBCs):
+    """Pad vx with ghost rows above/below the top/bottom walls."""
+    return torch.cat([bcs.s_top * vx[:1, :], vx, bcs.s_bottom * vx[-1:, :]],
+                     dim=0)
+
+
+def _ghost_vy(vy, bcs: VelocityBCs):
+    """Pad vy with ghost columns left/right of the side walls."""
+    return torch.cat([bcs.s_left * vy[:, :1], vy, bcs.s_right * vy[:, -1:]],
+                     dim=1)
+
+
+def shear_stress_xy(vx, vy, eta_s, grid: StaggeredGrid, bcs: VelocityBCs):
+    """sxy = eta_s (dvx/dy + dvy/dx) at all corner nodes, (ny+1, nx+1)."""
+    vx_g = _ghost_vx(vx, bcs)
+    vy_g = _ghost_vy(vy, bcs)
+    dvxdy = (vx_g[1:, :] - vx_g[:-1, :]) / grid.dy
+    dvydx = (vy_g[:, 1:] - vy_g[:, :-1]) / grid.dx
+    return eta_s * (dvxdy + dvydx)
+
+
+def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
+                    bcs: VelocityBCs, kcont=1.0, kbnd=1.0):
+    """Apply the Stokes operator.  Returns (rx, ry, rc) with the shapes of
+    (vx, vy, p)."""
+    _no_periodic(bcs)
+    dx, dy = grid.dx, grid.dy
+
+    sxy = shear_stress_xy(vx, vy, eta_s, grid, bcs)
+
+    dvxdx = (vx[:, 1:] - vx[:, :-1]) / dx
+    dvydy = (vy[1:, :] - vy[:-1, :]) / dy
+    sxx = 2.0 * eta_n * dvxdx
+    syy = 2.0 * eta_n * dvydy
+
+    rx_int = (
+        -(sxx[:, 1:] - sxx[:, :-1]) / dx
+        - (sxy[1:, 1:-1] - sxy[:-1, 1:-1]) / dy
+        + (p[:, 1:] - p[:, :-1]) / dx
+    )
+    rx = torch.cat([kbnd * vx[:, :1], rx_int, kbnd * vx[:, -1:]], dim=1)
+
+    ry_int = (
+        -(syy[1:, :] - syy[:-1, :]) / dy
+        - (sxy[1:-1, 1:] - sxy[1:-1, :-1]) / dx
+        + (p[1:, :] - p[:-1, :]) / dy
+    )
+    ry = torch.cat([kbnd * vy[:1, :], ry_int, kbnd * vy[-1:, :]], dim=0)
+
+    rc = kcont * (dvxdx + dvydy)
+    return rx, ry, rc
+
+
+def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
+               kbnd=1.0, dtype=torch.float32, eta_s=None):
+    """Right-hand side (bx, by, bc) matching ``stokes_operator``: buoyancy
+    on the velocity lattices, moving no-slip walls folded into the
+    wall-adjacent rows, prescribed normal velocities on the Dirichlet
+    rows."""
+    _no_periodic(bcs)
+    moving = (
+        (bcs.top == "no_slip" and bcs.vt_top != 0.0)
+        or (bcs.bottom == "no_slip" and bcs.vt_bottom != 0.0)
+        or (bcs.left == "no_slip" and bcs.vt_left != 0.0)
+        or (bcs.right == "no_slip" and bcs.vt_right != 0.0)
+    )
+    if moving and eta_s is None:
+        raise ValueError("stokes_rhs needs eta_s for moving-wall BCs")
+    bx = (rho_vx * gx).to(dtype)
+    by = (rho_vy * gy).to(dtype)
+
+    dy2, dx2 = grid.dy ** 2, grid.dx ** 2
+    if bcs.top == "no_slip" and bcs.vt_top != 0.0:
+        bx[0, 1:-1] += 2.0 * eta_s[0, 1:-1] * bcs.vt_top / dy2
+    if bcs.bottom == "no_slip" and bcs.vt_bottom != 0.0:
+        bx[-1, 1:-1] += 2.0 * eta_s[-1, 1:-1] * bcs.vt_bottom / dy2
+    if bcs.left == "no_slip" and bcs.vt_left != 0.0:
+        by[1:-1, 0] += 2.0 * eta_s[1:-1, 0] * bcs.vt_left / dx2
+    if bcs.right == "no_slip" and bcs.vt_right != 0.0:
+        by[1:-1, -1] += 2.0 * eta_s[1:-1, -1] * bcs.vt_right / dx2
+
+    bx[:, 0] = kbnd * bcs.vn_left
+    bx[:, -1] = kbnd * bcs.vn_right
+    by[0, :] = kbnd * bcs.vn_top
+    by[-1, :] = kbnd * bcs.vn_bottom
+    bc = torch.zeros(grid.shape_center, dtype=dtype, device=bx.device)
+    return bx, by, bc

@@ -1,0 +1,111 @@
+"""Implicit energy (heat diffusion) solve: Jacobi-preconditioned CG.
+
+Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform, non-periodic,
+Jacobi preconditioner): ``solve_energy`` in the state dtype and
+``solve_energy_mixed`` with f32 CG inner solves under f64 refinement.
+The energy multigrid preconditioner waits for a later port PR.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pylamp_tpu_torch.core.bc import ThermalBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.energy import (
+    _dirichlet_masks,
+    _face_k,
+    _pad_mirror,
+    energy_operator,
+    energy_rhs,
+)
+from pylamp_tpu_torch.solvers.krylov import SolveInfo, cg
+
+
+class EnergySolution(NamedTuple):
+    T: torch.Tensor
+    info: SolveInfo
+
+
+def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
+                    kbnd, k_avg):
+    dx, dy = grid.dx, grid.dy
+    kp = _pad_mirror(k)
+    kx = _face_k(kp, 1, k_avg)
+    ky = _face_k(kp, 0, k_avg)
+    diag = (
+        rhocp_over_dt
+        + (kx[1:-1, 1:] + kx[1:-1, :-1]) / dx**2
+        + (ky[1:, 1:-1] + ky[:-1, 1:-1]) / dy**2
+    )
+    mask, _ = _dirichlet_masks(grid, bcs, k.dtype, k.device)
+    return torch.where(mask, kbnd, diag)
+
+
+def _jacobi(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner):
+    if preconditioner != "jacobi":
+        raise NotImplementedError(
+            f"the {preconditioner!r} energy preconditioner waits for a later "
+            "port PR")
+    diag = energy_diagonal(k, rhocp_over_dt, grid, bcs, kbnd, k_avg)
+    return lambda r: r / diag
+
+
+def _kbnd(k, rhocp_over_dt, grid):
+    return (torch.mean(rhocp_over_dt)
+            + 4.0 * torch.mean(k) / min(grid.dx_min, grid.dy_min) ** 2)
+
+
+def solve_energy(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
+                 bcs: ThermalBCs, tol: float = 1e-10, maxiter: int = 2000,
+                 k_avg: str = "arithmetic",
+                 preconditioner: str = "jacobi") -> EnergySolution:
+    kbnd = _kbnd(k, rhocp_over_dt, grid)
+
+    def op(T):
+        return energy_operator(T, k, rhocp_over_dt, grid, bcs, kbnd=kbnd,
+                               k_avg=k_avg)
+
+    b = energy_rhs(T_old, k, rhocp_over_dt, H, grid, bcs, kbnd=kbnd,
+                   k_avg=k_avg)
+    M = _jacobi(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner)
+    T, info = cg(op, b, T_old, M=M, tol=tol, maxiter=maxiter)
+    return EnergySolution(T, info)
+
+
+def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
+                       bcs: ThermalBCs, tol: float = 1e-10,
+                       inner_tol: float = 1e-5, maxiter: int = 500,
+                       max_refinements: int = 5, k_avg: str = "arithmetic",
+                       preconditioner: str = "jacobi") -> EnergySolution:
+    """f32 CG inner solves inside f64 iterative refinement."""
+    from pylamp_tpu_torch.solvers.refine import refine
+
+    f64, f32 = torch.float64, torch.float32
+    k64 = k.to(f64)
+    rc64 = rhocp_over_dt.to(f64)
+    kbnd = _kbnd(k64, rc64, grid)
+
+    def op64(T):
+        return energy_operator(T, k64, rc64, grid, bcs, kbnd=kbnd,
+                               k_avg=k_avg)
+
+    b64 = energy_rhs(T_old.to(f64), k64, rc64, H.to(f64), grid, bcs,
+                     kbnd=kbnd, k_avg=k_avg)
+
+    k32, rc32, kbnd32 = k64.to(f32), rc64.to(f32), kbnd.to(f32)
+
+    def op32(T):
+        return energy_operator(T, k32, rc32, grid, bcs, kbnd=kbnd32,
+                               k_avg=k_avg)
+
+    M32 = _jacobi(k32, rc32, grid, bcs, kbnd32, k_avg, preconditioner)
+
+    def inner_solve(r32, tol32):
+        return cg(op32, r32, torch.zeros_like(r32), M=M32, tol=tol32,
+                  maxiter=maxiter)
+
+    T, info = refine(op64, inner_solve, b64, T_old.to(f64), tol=tol,
+                     max_refinements=max_refinements, inner_tol=inner_tol)
+    return EnergySolution(T, info)

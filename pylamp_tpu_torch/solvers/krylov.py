@@ -1,0 +1,214 @@
+"""Matrix-free Krylov solvers on tensors and tuples of tensors.
+
+Port of ``pylamp_tpu/solvers/krylov.py``: ``cg`` (preconditioned CG for
+the energy solve) and ``fgmres`` (flexible right-preconditioned GMRES(m)
+with one- or two-pass classical Gram-Schmidt, for the Stokes saddle
+point).  Vectors are a tensor or a tuple of tensors (the reference's
+pytrees).
+
+Host-sync policy.  The reference runs these loops as ``lax.while_loop``s
+with no host round trip.  Eager PyTorch cannot branch on a device value
+without reading it, so each loop reads ONE small device tensor per
+iteration: CG its residual norm and breakdown flag, FGMRES the new
+Hessenberg column (plus one residual norm per restart cycle).  FGMRES keeps
+its small Hessenberg / Givens least-squares problem on the host in f64;
+the Krylov basis, the operator and the preconditioner stay on the device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+
+class SolveInfo(NamedTuple):
+    iterations: int  # total operator applications
+    residual: float  # final residual norm
+    converged: bool
+    bnorm: float = float("nan")  # ||b||: residual / bnorm is the relative residual
+
+
+# -- vector helpers (tensor or tuple of tensors) ------------------------------
+
+def tmap(f, *trees):
+    if isinstance(trees[0], tuple):
+        return tuple(f(*leaves) for leaves in zip(*trees))
+    return f(*trees)
+
+
+def leaves(tree):
+    return tree if isinstance(tree, tuple) else (tree,)
+
+
+def tdot(a, b):
+    """Global dot product (0-d tensor)."""
+    return sum(torch.vdot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def tnorm(a):
+    return torch.sqrt(tdot(a, a))
+
+
+def taxpy(alpha, x, y):
+    """alpha * x + y"""
+    return tmap(lambda xl, yl: alpha * xl + yl, x, y)
+
+
+def tsub(x, y):
+    return tmap(lambda a, b: a - b, x, y)
+
+
+def _identity(x):
+    return x
+
+
+# -- CG ------------------------------------------------------------------------
+
+def cg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
+       tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000):
+    """Preconditioned conjugate gradients with the reference's breakdown
+    guard (a direction with p'Ap <= 0 or rz == 0 ends the loop).  Returns
+    (x, SolveInfo)."""
+    M = M or _identity
+    bnorm = float(tnorm(b))
+    target = max(tol * bnorm, atol)
+
+    x = x0
+    r = tsub(b, op(x0))
+    z = M(r)
+    rz = tdot(r, z)
+    p = z
+    k = 0
+    res = float(tnorm(r))
+    while res > target and k < maxiter:
+        Ap = op(p)
+        pAp = tdot(p, Ap)
+        ok = torch.logical_and(pAp > 0, torch.abs(rz) > 0)
+        safe = torch.where(pAp == 0, torch.ones_like(pAp), pAp)
+        alpha = torch.where(ok, rz / safe, torch.zeros_like(rz))
+        x = taxpy(alpha, p, x)
+        r = taxpy(-alpha, Ap, r)
+        z = M(r)
+        rz_new = tdot(r, z)
+        beta = torch.where(
+            ok, rz_new / torch.where(rz == 0, torch.ones_like(rz), rz),
+            torch.zeros_like(rz))
+        p = taxpy(beta, p, z)
+        rz = rz_new
+        # the one host read of the iteration: residual norm + breakdown flag
+        res, ok_h = torch.stack([tnorm(r), ok.to(rz.dtype)]).tolist()
+        k = k + 1 if ok_h else maxiter
+    return x, SolveInfo(k, res, res <= target, bnorm)
+
+
+# -- FGMRES(m) -----------------------------------------------------------------
+
+def _back_substitute(H, g):
+    """Solve the upper-triangular H y = g (host, f64)."""
+    n = g.shape[0]
+    y = np.zeros(n)
+    for i in range(n - 1, -1, -1):
+        y[i] = (g[i] - H[i, i + 1:n] @ y[i + 1:n]) / H[i, i]
+    return y
+
+
+def fgmres(op: Callable, b: Any, x0: Any, M: Callable | None = None,
+           tol: float = 1e-8, atol: float = 0.0, restart: int = 30,
+           maxiter: int = 1000, stagnation: float = 0.95,
+           cgs_passes: int = 2):
+    """Flexible right-preconditioned GMRES(m).  Returns (x, SolveInfo);
+    iterations counts operator applications inside the cycles.
+
+    ``stagnation``: stop when a whole restart cycle reduces the true
+    residual by less than this factor (the working precision's floor)."""
+    M = M or _identity
+    m = restart
+    bnorm = float(tnorm(b))
+    target = max(tol * bnorm, atol)
+    dtype = leaves(b)[0].dtype
+
+    def basis():
+        # rows are written before they are read (V[:k+1], Z[:k])
+        return tuple(torch.empty((m + 1,) + l.shape, dtype=l.dtype,
+                                 device=l.device) for l in leaves(b))
+
+    def row(V, j):
+        return tuple(Vl[j] for Vl in V)
+
+    def pack(tree_leaves):
+        return tree_leaves if isinstance(b, tuple) else tree_leaves[0]
+
+    def inner_cycle(x, r, beta):
+        V = basis()
+        Z = basis()
+        inv = 1.0 / beta if beta > 0 else 0.0
+        for Vl, rl in zip(V, leaves(r)):
+            Vl[0] = rl * inv
+        H = np.zeros((m + 1, m))
+        cs = np.zeros(m)
+        sn = np.zeros(m)
+        g = np.zeros(m + 1)
+        g[0] = beta
+        k = 0
+        res = beta
+        while k < m and res > target:
+            z = M(pack(row(V, k)))
+            for Zl, zl in zip(Z, leaves(z)):
+                Zl[k] = zl
+            w = leaves(op(z))
+            # CGS(1|2) against V[0..k]: batched dots + one combination
+            h = None
+            for _ in range(max(1, cgs_passes)):
+                hp = sum(Vl[: k + 1].reshape(k + 1, -1) @ wl.reshape(-1)
+                         for Vl, wl in zip(V, w))
+                w = tuple(wl - (hp @ Vl[: k + 1].reshape(k + 1, -1)
+                                ).reshape(wl.shape)
+                          for Vl, wl in zip(V, w))
+                h = hp if h is None else h + hp
+            hk1 = torch.sqrt(sum(torch.vdot(wl.reshape(-1), wl.reshape(-1))
+                                 for wl in w))
+            inv_h = torch.where(hk1 > 0, 1.0 / hk1, torch.zeros_like(hk1))
+            for Vl, wl in zip(V, w):
+                Vl[k + 1] = inv_h * wl
+            # the one host read of the iteration: the new Hessenberg column
+            col = np.zeros(m + 1)
+            col[: k + 2] = torch.cat([h, hk1.reshape(1)]).double().cpu().numpy()
+            for j in range(k):  # previous Givens rotations
+                a0, a1 = col[j], col[j + 1]
+                col[j] = cs[j] * a0 + sn[j] * a1
+                col[j + 1] = -sn[j] * a0 + cs[j] * a1
+            a0, a1 = col[k], col[k + 1]
+            denom = math.sqrt(a0 * a0 + a1 * a1)
+            ck = a0 / denom if denom > 0 else 1.0
+            sk = a1 / denom if denom > 0 else 0.0
+            col[k] = denom
+            col[k + 1] = 0.0
+            cs[k], sn[k] = ck, sk
+            gk = g[k]
+            g[k] = ck * gk
+            g[k + 1] = -sk * gk
+            H[:, k] = col
+            res = abs(g[k + 1])
+            k += 1
+        if k > 0:
+            y = _back_substitute(H[:k, :k], g[:k])
+            yd = torch.as_tensor(y, dtype=dtype).to(leaves(b)[0].device)
+            upd = tuple((yd @ Zl[:k].reshape(k, -1)).reshape(Zl.shape[1:])
+                        for Zl in Z)
+            x = pack(tuple(xl + ul for xl, ul in zip(leaves(x), upd)))
+        return x, k
+
+    x = x0
+    r = tsub(b, op(x))
+    res = float(tnorm(r))
+    prev = math.inf
+    it = 0
+    while res > target and it < maxiter and res < stagnation * prev:
+        x, k = inner_cycle(x, r, res)
+        r = tsub(b, op(x))  # true residual at the restart boundary
+        it += k
+        prev, res = res, float(tnorm(r))
+    return x, SolveInfo(it, res, res <= target, bnorm)

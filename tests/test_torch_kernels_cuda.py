@@ -1,0 +1,142 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at small odd shapes and several configurations (chip_smoke.py covers the
+FK 1024^2 x K18 shapes).
+
+These tests need an NVIDIA GPU with nvcc: they carry the ``cuda`` marker
+and skip without a card.  On the card:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.markers.bucket import BucketedMarkers
+from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+from pylamp_tpu_torch.models.setup import build
+from pylamp_tpu_torch.ops.kernels import saddle
+from pylamp_tpu_torch.physics.materials import Material, MaterialTable
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(2)
+
+BCS = [VelocityBCs(), VelocityBCs(top="no_slip", left="no_slip"),
+       VelocityBCs(top="no_slip", bottom="no_slip", left="no_slip",
+                   right="no_slip", vt_top=0.3)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card with "
+                    "-m cuda)")
+    return torch.device("cuda")
+
+
+def _rel(got, ref):
+    return float(torch.max(torch.abs(got.double() - ref.double()))
+                 / torch.max(torch.abs(ref.double())))
+
+
+def _markers(nx, ny, dev, mats=1):
+    cfg = fk_stagnant_lid(nx=nx, ny=ny)
+    if mats > 1:
+        cfg = dataclasses.replace(
+            cfg,
+            physics=dataclasses.replace(
+                cfg.physics, materials=cfg.physics.materials * mats),
+            material_of=lambda x, y: (x > 0.37).astype(np.int32) + (y > 0.6))
+    _, _, st = build(cfg, dtype=torch.float32, device=dev)
+    return st.markers
+
+
+@pytest.mark.parametrize("bcs", BCS)
+def test_saddle_kernel(dev, bcs):
+    ny, nx = 23, 37
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=1.6, ly=1.0)
+    rng = np.random.default_rng(1)
+
+    def r(shape, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
+                            device=dev)
+
+    vx, vy, p = r(grid.shape_vx), r(grid.shape_vy), r(grid.shape_center)
+    eta_s = torch.exp(r(grid.shape_corner, -4, 4))
+    eta_n = torch.exp(r(grid.shape_center, -4, 4))
+    prep = saddle.prep_saddle(eta_s, eta_n, torch.tensor(3.5, device=dev),
+                              torch.tensor(70.0, device=dev))
+    n0 = saddle.launches
+    got = saddle.saddle_apply(vx, vy, p, prep, grid, bcs)
+    assert saddle.launches == n0 + 1
+    ref = saddle.saddle_apply_plain(vx, vy, p, prep, grid, bcs)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5
+
+
+@pytest.mark.parametrize("mats,eta_avg", [(1, "geometric"), (3, "harmonic"),
+                                          (3, "arithmetic")])
+def test_m2g_kernel(dev, mats, eta_avg):
+    bm = _markers(20, 14, dev, mats=mats)
+    table = MaterialTable([
+        Material(rho0=100.0, alpha=1.0, eta0=1.0,
+                 viscosity="frank_kamenetskii", fk_gamma=9.2, k=1.0, cp=0.01),
+        Material(rho0=90.0, alpha=0.5, eta0=10.0, k=2.0, cp=0.02, H=1.5),
+        Material(rho0=80.0, alpha=0.2, T_ref=0.5, eta0=3.0,
+                 viscosity="arrhenius", E_act=3.0, k=0.5, cp=0.03),
+    ][:max(mats, 1)])
+    cfg = fk_stagnant_lid(nx=20, ny=14)
+    phys = dataclasses.replace(cfg.physics, gx=0.4, eta_avg=eta_avg)
+    grid = StaggeredGrid(nx=20, ny=14, lx=1.0, ly=1.0)
+    got = m2g.m2g_fused(bm, grid, table, phys, with_energy=True)
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, with_energy=True)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("bcs", BCS)
+def test_advect_kernel(dev, reach, bcs):
+    bm = _markers(24, 18, dev)
+    grid = StaggeredGrid(nx=24, ny=18, lx=1.0, ly=1.0)
+    rng = np.random.default_rng(2)
+    vx = torch.tensor(rng.uniform(-1, 1, grid.shape_vx), dtype=torch.float32,
+                      device=dev)
+    vy = torch.tensor(rng.uniform(-1, 1, grid.shape_vy), dtype=torch.float32,
+                      device=dev)
+    dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+    got = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, bcs, reach)
+    # displacements (what the kernel computes), not positions: a marker
+    # moves ~0.02 here, so a whole-position bar would hide a stage error
+    assert _rel(got.x - bm.x, ref.x - bm.x) <= 1e-4
+    assert _rel(got.y - bm.y, ref.y - bm.y) <= 1e-4
+
+
+@pytest.mark.parametrize("capacity", [18, 9])
+def test_rebucket_kernel(dev, capacity):
+    bm = _markers(17, 13, dev)
+    grid = StaggeredGrid(nx=17, ny=13, lx=1.0, ly=1.0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # displace by up to one cell and pack into `capacity` slots (9 per
+    # cell on average: capacity 9 forces overflow drops)
+    dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
+    dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
+    moved = BucketedMarkers(
+        x=torch.clamp(bm.x + dx, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
+        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
+        mat=bm.mat[..., :capacity].contiguous(),
+        T=bm.T[..., :capacity].contiguous(),
+        valid=bm.valid[..., :capacity].contiguous())
+    got, gd = rebucket.rebucket_fused(moved, grid)
+    ref, rd = rebucket.rebucket_plain(moved, grid)
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert int(gd) == int(rd)
+    if capacity == 9:
+        assert int(gd) > 0

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-cold build takes seconds).  The build happens at first use, into
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one process per source,
+all started together) and link into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a cold build
+takes seconds).  The build happens at first use, into
 ``_build/<hash>/`` beside this file (listed in ``.gitignore``), keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as is.
@@ -29,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libpylamp_torch_kernels.so"
 
@@ -52,6 +53,14 @@ SIGNATURES = {
     # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx, K,
     # dx, dy, stream
     "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
+    # ex, ey, rx, ry, eta_s, eta_n, coeffs, kb, ox, oy, fx, fy, ny, nx, dx,
+    # dy, s_top, s_bottom, s_left, s_right, iters, h, zero_init, emit,
+    # stream
+    "launch_cheb": [_P] * 12 + [_I, _I] + [_F] * 6 + [_I] * 4 + [_P],
+    # levels (host array of CoarseLevel), nlev, rx, ry, ex, ey, coeffs,
+    # kbnds, maxit, pre, post, coarse_iters, s_top, s_bottom, s_left,
+    # s_right, stream
+    "launch_coarse_vcycle": [_P, _I] + [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P],
 }
 
 
@@ -89,20 +98,36 @@ def build() -> tuple[pathlib.Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    # compile to a temporary name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        # one nvcc per source, all at once; then one link
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                   str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        # link to a temporary name, then rename: concurrent builds never
+        # load a half-written library
+        tmp = os.path.join(work, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 
 

@@ -3,8 +3,7 @@
 Port of the Frank-Kamenetskii stagnant-lid preset of
 ``pylamp_tpu/models/benchmarks.py`` (unit box, kappa = 1, eta_ref = 1,
 DT = 1; rho0*alpha = Ra with g = 1), plus ``fk_bench_config``: the
-configuration the benchmark harness runs by default, with the fused
-smoother kernels switched off until their port lands.
+configuration ``python bench.py`` runs by default, switch for switch.
 """
 from __future__ import annotations
 
@@ -74,11 +73,14 @@ BENCH_SOLVER = dict(
 )
 
 
-def fk_bench_config(nx: int = 1024) -> ModelConfig:
-    """The FK stagnant-lid benchmark at nx^2 with the bench solver preset
-    and ``use_pallas_smoother=False`` (the fused smoother and coarse
-    sub-V-cycle kernels are not ported yet; the MG smoother runs as plain
-    tensor code)."""
+def fk_bench_config(nx: int = 1024, fused_smoother: bool = True
+                    ) -> ModelConfig:
+    """The FK stagnant-lid benchmark at nx^2 with the bench solver preset:
+    the JAX bench configuration exactly (fused Chebyshev smoother and coarse
+    sub-V-cycle on).  ``fused_smoother=False`` sets
+    ``use_pallas_smoother=False``, the configuration whose MG smoother runs
+    as plain tensor code (the reference's mesh and vmap path)."""
     cfg = fk_stagnant_lid(nx=nx, ny=nx, max_steps=10**9)
+    extra = {} if fused_smoother else dict(use_pallas_smoother=False)
     return dataclasses.replace(
-        cfg, solver=SolverConfig(**BENCH_SOLVER, use_pallas_smoother=False))
+        cfg, solver=SolverConfig(**BENCH_SOLVER, **extra))

@@ -11,14 +11,16 @@ kernels of the same role:
 - ``use_pallas_apply``: FGMRES outer saddle apply (ops/kernels/saddle.py)
 - ``use_pallas_m2g``: fused marker->grid transfer (markers/kernels/m2g.py)
 - ``use_pallas_advect``: fused RK4 advection (markers/kernels/advect.py)
+- ``use_pallas_smoother``: fused Chebyshev sweep on the MG levels with
+  nx >= 256 (ops/kernels/cheb.py)
+- ``use_pallas_coarse`` (with ``use_pallas_smoother``): the MG levels below
+  256 cells as one fused sub-V-cycle (ops/kernels/coarse_vcycle.py)
 
 Rebucketing always takes its kernel (markers/kernels/rebucket.py) where the
-static gates hold, as in the reference.  ``use_pallas_smoother`` and
-``use_pallas_coarse`` (the fused Chebyshev smoother and coarse sub-V-cycle)
-are not ported yet: a config that sets them raises in the step, so the
-ported preset sets ``use_pallas_smoother=False`` (the jnp-smoother path
-the reference's mesh and vmap runs take).  ``use_pallas`` (MG momentum
-apply) and ``pallas_interpret`` have no port either.
+static gates hold, as in the reference.  The step passes every switch on
+only for an f32 state, as the reference gates its kernels on f32.
+``use_pallas`` (MG momentum apply) and ``pallas_interpret`` have no port
+yet: a config that sets ``use_pallas`` raises in the step.
 """
 from __future__ import annotations
 

@@ -8,7 +8,9 @@ The step keeps the reference's static kernel gates: with an f32 state the
 marker->grid transfer, the advection and the rebucket run through the
 kernel wrappers of ``markers/kernels`` (CUDA kernels on a CUDA state,
 their plain versions on a CPU state), and the mixed-precision Stokes solve
-applies its f32 outer operator through ``ops/kernels/saddle.py``.  An f64
+applies its f32 outer operator through ``ops/kernels/saddle.py`` and its MG
+preconditioner through the fused smoother and coarse sub-V-cycle
+(``ops/kernels/cheb.py``, ``ops/kernels/coarse_vcycle.py``).  An f64
 state takes the plain functions, as the reference's f64 state skips its
 Pallas kernels.  Configuration branches outside the ported slice raise
 ``NotImplementedError``.
@@ -104,9 +106,6 @@ def _check_slice(cfg: ModelConfig):
                        (solver.mg_scaled_transfers or solver.mg_ls_damp,
                         "scaled MG transfers / line-search damping"),
                        (solver.use_pallas, "the MG momentum-apply kernel"),
-                       (solver.use_pallas_smoother,
-                        "the fused Chebyshev smoother kernel "
-                        "(set use_pallas_smoother=False)"),
                        (solver.energy_preconditioner != "jacobi",
                         f"the {solver.energy_preconditioner!r} energy "
                         "preconditioner")):
@@ -215,7 +214,10 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         lam_new = estimate_mg_lambdas(
             es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
             semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
-        mk = partial(make_precond, lam_max=lam_new)
+        kern = _kernels(dtype)
+        mk = partial(make_precond, lam_max=lam_new,
+                     use_pallas_smoother=solver.use_pallas_smoother and kern,
+                     use_pallas_coarse=solver.use_pallas_coarse and kern)
         x0 = (state.vx, state.vy, state.p)
         if mixed:
             sol = solve_stokes_mixed(

@@ -1,0 +1,199 @@
+"""Fused multi-iteration Chebyshev momentum smoother: wrapper of the CUDA
+kernel ``csrc/cheb.cu`` (replaces the TPU kernel
+``pylamp_tpu/ops/pallas/cheb_kernel.py:chebyshev_smooth_pallas``).
+
+One sweep runs ``iters`` coupled Chebyshev iterations of D^-1 A over
+[lam/4, lam] and, with ``emit_residual``, returns the residual
+(rx - A ex', ry - A ey') of the final iterate as well.
+
+``prep_smoother`` runs once per level per solve (the role of
+``prep_smoother_eta``): it freezes contiguous f32 viscosities, the
+coefficient table (built on the device from the lambda tensor, so no sweep
+syncs the host), kbnd as a device tensor and the halo depth.
+``chebyshev_smooth`` runs the plain PyTorch version
+(``chebyshev_smooth_plain``, the MG smoother's recurrence) on CPU tensors
+and launches the kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from pylamp_tpu_torch import cuda_build
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.stokes import stokes_operator
+from pylamp_tpu_torch.solvers.stokes_solver import velocity_diagonals
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+launches = 0
+
+# the reference's deepest fused sweep (cheb_kernel.py HS[-1]): deeper sweeps
+# take the plain path
+MAX_DEPTH = 7
+
+
+def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd):
+    """Momentum-block application (the saddle operator with p = 0)."""
+    rx, ry, _ = stokes_operator(
+        vx, vy, torch.zeros(grid.shape_center, dtype=vx.dtype, device=vx.device),
+        eta_s, eta_n, grid, bcs, kcont=1.0, kbnd=kbnd)
+    return rx, ry
+
+
+def cheb_interval(lam_max):
+    """(theta, delta, sigma1) of the smoothing interval [lam_max/4, lam_max]."""
+    lmin = lam_max / 4.0
+    theta = 0.5 * (lam_max + lmin)
+    delta = 0.5 * (lam_max - lmin)
+    return theta, delta, theta / delta
+
+
+def chebyshev_coeffs(lam_max, iters: int):
+    """f32 table of (c1_k, c2_k), the Chebyshev recurrence on
+    [lam_max/4, lam_max] as ``dxs = c1_k dxs + c2_k (r - A e) / D``: shape
+    (iters, 2) for a scalar lam_max, (n, iters, 2) for n of them.  Built
+    with tensor operations on lam_max's device."""
+    theta, delta, sigma1 = cheb_interval(
+        torch.as_tensor(lam_max).to(torch.float32))
+    rows = [torch.stack([torch.zeros_like(theta), 1.0 / theta], dim=-1)]
+    ro = 1.0 / sigma1
+    for _ in range(iters - 1):
+        rho = 1.0 / (2.0 * sigma1 - ro)
+        rows.append(torch.stack([rho * ro, 2.0 * rho / delta], dim=-1))
+        ro = rho
+    return torch.stack(rows, dim=-2).contiguous()
+
+
+def smoother_eligible(grid: StaggeredGrid, dtype, iters: int,
+                      emit_residual: bool = False) -> bool:
+    """The reference's gate (cheb_kernel.py smoother_eligible) without its
+    platform test and TPU VMEM model: uniform f32 levels with nx >= 256,
+    ny a multiple of 8, and a fused depth of at most MAX_DEPTH."""
+    depth = iters + (1 if emit_residual else 0)
+    return (grid.uniform and dtype == torch.float32 and iters >= 1
+            and depth <= MAX_DEPTH and grid.nx >= 256 and grid.ny % 8 == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class SmootherPrep:
+    eta_s: torch.Tensor  # (ny+1, nx+1) f32, contiguous
+    eta_n: torch.Tensor  # (ny, nx) f32, contiguous
+    kbnd: Any  # as given (the plain version's operand)
+    lam: Any  # as given (the plain version's operand)
+    diags: tuple  # (dvx, dvy) Jacobi diagonals (the plain version's)
+    coeffs: torch.Tensor  # (h, 2) f32 Chebyshev table (the kernel's)
+    kb: torch.Tensor  # (1,) f32 kbnd (the kernel's)
+    h: int  # halo depth: iters (+1 with emit) applications fuse
+
+
+def prep_smoother(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs, kbnd,
+                  lam_max, h: int, diags=None) -> SmootherPrep:
+    """Per-level, per-solve constants of the fused sweep; ``diags`` reuses
+    the caller's velocity_diagonals."""
+    f32 = torch.float32
+    if diags is None:
+        diags = velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs=bcs)
+    kb = torch.as_tensor(kbnd, device=eta_n.device).to(f32).reshape(1)
+    return SmootherPrep(eta_s.to(f32).contiguous(), eta_n.to(f32).contiguous(),
+                        kbnd, lam_max, diags,
+                        chebyshev_coeffs(lam_max, h).to(eta_n.device),
+                        kb, h)
+
+
+def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
+                           bcs: VelocityBCs, kbnd, lam_max, iters: int,
+                           zero_init: bool = False,
+                           emit_residual: bool = False, diags=None,
+                           interval=None):
+    """Chebyshev semi-iteration on D^-1 A; returns (ex, ey) or, with
+    ``emit_residual``, (ex, ey, rx - A ex, ry - A ey).  ``zero_init``:
+    (ex, ey) are zero, so the first operator application is skipped.
+    ``diags`` / ``interval``: the level's velocity_diagonals and
+    cheb_interval(lam_max), where the caller froze them."""
+    dvx, dvy = diags if diags is not None else velocity_diagonals(
+        eta_s, eta_n, grid, kbnd, bcs=bcs)
+    theta, delta, sigma1 = interval if interval is not None else \
+        cheb_interval(lam_max)
+    if zero_init:  # A(0) = 0 exactly: skip the apply
+        dx_ = rx / dvx / theta
+        dy_ = ry / dvy / theta
+    else:
+        ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+        dx_ = (rx - ax) / dvx / theta
+        dy_ = (ry - ay) / dvy / theta
+    ex = ex + dx_
+    ey = ey + dy_
+    ro = 1.0 / sigma1
+    for _ in range(iters - 1):
+        rho = 1.0 / (2.0 * sigma1 - ro)
+        ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+        dx_ = rho * ro * dx_ + (2.0 * rho / delta) * (rx - ax) / dvx
+        dy_ = rho * ro * dy_ + (2.0 * rho / delta) * (ry - ay) / dvy
+        ex = ex + dx_
+        ey = ey + dy_
+        ro = rho
+    if not emit_residual:
+        return ex, ey
+    ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+    return ex, ey, rx - ax, ry - ay
+
+
+def _check(name, t, shape):
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(
+            f"cheb kernel: {name} must be a contiguous CUDA float32 tensor "
+            f"of shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous: {t.is_contiguous()})")
+
+
+def chebyshev_smooth_cuda(ex, ey, rx, ry, prep: SmootherPrep,
+                          grid: StaggeredGrid, bcs: VelocityBCs, iters: int,
+                          zero_init: bool = False,
+                          emit_residual: bool = False):
+    global launches
+    if bcs.periodic_x:
+        raise NotImplementedError(
+            "the periodic fused smoother waits for a later port PR")
+    depth = iters + (1 if emit_residual else 0)
+    if not 1 <= iters or depth > prep.h:
+        raise ValueError(f"cheb kernel: iters {iters} (+emit) exceeds the "
+                         f"prepped halo depth {prep.h}")
+    ny, nx = grid.ny, grid.nx
+    for name, t, shape in (("ex", ex, grid.shape_vx), ("ey", ey, grid.shape_vy),
+                           ("rx", rx, grid.shape_vx), ("ry", ry, grid.shape_vy),
+                           ("eta_s", prep.eta_s, grid.shape_corner),
+                           ("eta_n", prep.eta_n, grid.shape_center),
+                           ("coeffs", prep.coeffs, (prep.h, 2)),
+                           ("kb", prep.kb, (1,))):
+        _check(name, t, shape)
+    ox = torch.empty_like(ex)
+    oy = torch.empty_like(ey)
+    fx = torch.empty_like(rx) if emit_residual else ox
+    fy = torch.empty_like(ry) if emit_residual else oy
+    code = cuda_build.library().launch_cheb(
+        ex.data_ptr(), ey.data_ptr(), rx.data_ptr(), ry.data_ptr(),
+        prep.eta_s.data_ptr(), prep.eta_n.data_ptr(), prep.coeffs.data_ptr(),
+        prep.kb.data_ptr(), ox.data_ptr(), oy.data_ptr(), fx.data_ptr(),
+        fy.data_ptr(), ny, nx, grid.dx, grid.dy, bcs.s_top, bcs.s_bottom,
+        bcs.s_left, bcs.s_right, iters, prep.h, int(zero_init),
+        int(emit_residual), cuda_build.stream_ptr(ex.device))
+    cuda_build.check(code, "cheb")
+    launches += 1
+    return (ox, oy, fx, fy) if emit_residual else (ox, oy)
+
+
+def chebyshev_smooth(ex, ey, rx, ry, prep: SmootherPrep, grid: StaggeredGrid,
+                     bcs: VelocityBCs, iters: int, zero_init: bool = False,
+                     emit_residual: bool = False):
+    """One fused sweep: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors."""
+    if rx.is_cuda:
+        return chebyshev_smooth_cuda(ex, ey, rx, ry, prep, grid, bcs, iters,
+                                     zero_init, emit_residual)
+    return chebyshev_smooth_plain(ex, ey, rx, ry, prep.eta_s, prep.eta_n, grid,
+                                  bcs, prep.kbnd, prep.lam, iters, zero_init,
+                                  emit_residual, diags=prep.diags)

@@ -12,11 +12,15 @@ per-level Gershgorin bounds, and staggered-lattice bilinear transfers
 (restriction = P^T / 4, Dirichlet entries zeroed on both) that match the
 reference element for element.
 
-The smoother here is plain tensor code: the reference's fused Chebyshev
-and coarse sub-V-cycle kernels (``use_pallas_smoother``,
-``use_pallas_coarse``) wait for a later port PR, as do the power-iteration
-lambda mode, scaled transfers, line search damping, the eta cap, the
-velocity inner Krylov, BFBT, AL and the mesh options.
+With ``use_pallas_smoother`` (the reference's name and default) the
+levels with nx >= 256 sweep through the fused Chebyshev smoother
+(ops/kernels/cheb.py), and with ``use_pallas_coarse`` as well every level
+below 256 cells runs as one fused sub-V-cycle (ops/kernels/coarse_vcycle.py).
+Their wrappers launch CUDA kernels on CUDA tensors and run the plain
+versions on CPU tensors, so the CPU result does not depend on the flags.
+Still to port: the power-iteration lambda mode, scaled transfers, line
+search damping, the eta cap, the velocity inner Krylov, BFBT, AL, the
+``use_pallas`` momentum-apply kernel and the mesh options.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import torch
 
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-from pylamp_tpu_torch.ops.stokes import stokes_operator
+from pylamp_tpu_torch.ops.kernels import cheb
+from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
+from pylamp_tpu_torch.ops.kernels.cheb import momentum_apply
 from pylamp_tpu_torch.solvers.stokes_solver import (
     project_vx_mean,
     velocity_diagonals,
@@ -189,14 +195,6 @@ def restrict_vy(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
 
 # -- level structure --------------------------------------------------------------
 
-def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd):
-    """Momentum-block application (the saddle operator with p = 0)."""
-    rx, ry, _ = stokes_operator(
-        vx, vy, torch.zeros(grid.shape_center, dtype=vx.dtype, device=vx.device),
-        eta_s, eta_n, grid, bcs, kcont=1.0, kbnd=kbnd)
-    return rx, ry
-
-
 def _pressure_gradient(zp, grid, dtype):
     """G z_p: the +grad p part of the momentum rows (zero on the Dirichlet
     rows)."""
@@ -282,30 +280,48 @@ def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
 def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                      kbnd, levels: int = 0, pre_smooth: int = 2,
                      post_smooth: int = 2, coarse_iters: int = 32,
-                     semicoarsen: float = 0.0, lam_max=None):
+                     semicoarsen: float = 0.0, lam_max=None,
+                     use_pallas_smoother: bool = True,
+                     use_pallas_coarse: bool = True):
     """Returns mg(rx, ry, emit=False) -> (zx, zy) [+ the cycle's residual
     (rx - A zx, ry - A zy) with ``emit``].
 
     ``lam_max``: (nlev,) Chebyshev bounds (``estimate_mg_lambdas``); the
-    reference's power-iteration default is not ported, so it is required."""
+    reference's power-iteration default is not ported, so it is required.
+    ``use_pallas_smoother``: eligible levels sweep through the fused
+    smoother (ops/kernels/cheb.py); with ``use_pallas_coarse`` as well, the
+    levels below 256 cells run as one fused sub-V-cycle
+    (ops/kernels/coarse_vcycle.py)."""
     if lam_max is None:
         raise _later("power-iteration lambda estimation")
     _no_periodic(bcs)
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                           semicoarsen)
     nlev = len(grids)
+    dtype = eta_n.dtype
     diags = [
         velocity_diagonals(es, en, g, kb, bcs=bcs)
         for (es, en), g, kb in zip(etas, grids, kbnds)
     ]
     # Chebyshev interval constants per level (frozen for the solve)
-    cheb = []
-    for l in range(nlev):
-        lmax = lam_max[l]
-        lmin = lmax / 4.0
-        theta = 0.5 * (lmax + lmin)
-        delta = 0.5 * (lmax - lmin)
-        cheb.append((theta, delta, theta / delta))
+    intervals = [cheb.cheb_interval(lam_max[l]) for l in range(nlev)]
+
+    # fused smoother: per-level eligibility + hoisted preps.  A level that
+    # can fuse deg + 1 applications also emits the post-sweep residual from
+    # the kernel, saving the V-cycle's separate momentum_apply per level.
+    smoother_preps = [None] * nlev
+    smoother_emit = [False] * nlev
+    if use_pallas_smoother:
+        deg = max(pre_smooth, post_smooth)
+        for l, ((es, en), g) in enumerate(zip(etas, grids)):
+            if cheb.smoother_eligible(g, dtype, deg, emit_residual=True):
+                h, smoother_emit[l] = deg + 1, True
+            elif cheb.smoother_eligible(g, dtype, deg):
+                h = deg
+            else:
+                continue
+            smoother_preps[l] = cheb.prep_smoother(
+                es, en, g, bcs, kbnds[l], lam_max[l], h, diags=diags[l])
 
     def apply_A(l, ex, ey):
         es, en = etas[l]
@@ -314,33 +330,39 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     def smooth(l, ex, ey, rx, ry, iters, zero_init=False,
                emit_residual=False):
         """Chebyshev semi-iteration on D^-1 A; returns (ex, ey) or, with
-        ``emit_residual``, (ex, ey, rx - A ex, ry - A ey)."""
-        dvx, dvy = diags[l]
-        theta, delta, sigma1 = cheb[l]
-        if zero_init:  # A(0) = 0 exactly: skip the apply
-            dx_ = rx / dvx / theta
-            dy_ = ry / dvy / theta
-        else:
+        ``emit_residual``, (ex, ey, rx - A ex, ry - A ey) (from the fused
+        sweep where the level supports it; one extra apply otherwise)."""
+        prep = smoother_preps[l]
+        fuse_emit = emit_residual and smoother_emit[l]
+        if prep is not None and 1 <= iters <= prep.h - (1 if fuse_emit else 0):
+            if fuse_emit:
+                return cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grids[l],
+                                             bcs, iters, zero_init, True)
+            ex, ey = cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grids[l],
+                                           bcs, iters, zero_init)
+            if not emit_residual:
+                return ex, ey
             ax, ay = apply_A(l, ex, ey)
-            dx_ = (rx - ax) / dvx / theta
-            dy_ = (ry - ay) / dvy / theta
-        ex = ex + dx_
-        ey = ey + dy_
-        ro = 1.0 / sigma1
-        for _ in range(iters - 1):
-            rho = 1.0 / (2.0 * sigma1 - ro)
-            ax, ay = apply_A(l, ex, ey)
-            dx_ = rho * ro * dx_ + (2.0 * rho / delta) * (rx - ax) / dvx
-            dy_ = rho * ro * dy_ + (2.0 * rho / delta) * (ry - ay) / dvy
-            ex = ex + dx_
-            ey = ey + dy_
-            ro = rho
-        if not emit_residual:
-            return ex, ey
-        ax, ay = apply_A(l, ex, ey)
-        return ex, ey, rx - ax, ry - ay
+            return ex, ey, rx - ax, ry - ay
+        es, en = etas[l]
+        return cheb.chebyshev_smooth_plain(
+            ex, ey, rx, ry, es, en, grids[l], bcs, kbnds[l], lam_max[l], iters,
+            zero_init=zero_init, emit_residual=emit_residual, diags=diags[l],
+            interval=intervals[l])
+
+    # fused coarse sub-V-cycle: every level below the cutoff in one launch
+    fused_coarse = None
+    if use_pallas_smoother and use_pallas_coarse and len(lam_max) == nlev:
+        fs = cvk.coarse_fuse_start(grids, plan, bcs, dtype, "chebyshev",
+                                   False, False)
+        if fs is not None:
+            fused_coarse = (fs, cvk.CoarseVcyclePrep(
+                grids[fs:], etas[fs:], kbnds[fs:], lam_max[fs:], bcs,
+                pre_smooth, post_smooth, coarse_iters, diags=diags[fs:]))
 
     def vcycle(l, rx, ry, emit=False):
+        if fused_coarse is not None and l == fused_coarse[0] and not emit:
+            return cvk.coarse_vcycle(rx, ry, fused_coarse[1])
         ex = torch.zeros_like(rx)
         ey = torch.zeros_like(ry)
         if l == nlev - 1:
@@ -367,10 +389,12 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            cycles: int = 1, pre_smooth: int = 2,
                            post_smooth: int = 2, smoother: str = "chebyshev",
                            semicoarsen: float = 0.0, lam_max=None,
-                           schur: str = "mass"):
+                           schur: str = "mass",
+                           use_pallas_smoother: bool = True,
+                           use_pallas_coarse: bool = True):
     """Block upper-triangular preconditioner M(r) for the full Stokes
     system (mass Schur surrogate, ``cycles`` V-cycles on the velocity
-    block)."""
+    block); the ``use_pallas_*`` flags go to ``make_velocity_mg``."""
     if bcs is None:
         bcs = VelocityBCs()
     if smoother != "chebyshev":
@@ -379,7 +403,9 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
         raise _later(f"the {schur!r} Schur surrogate")
     mg = make_velocity_mg(eta_s, eta_n, grid, bcs, kbnd, levels=levels,
                           pre_smooth=pre_smooth, post_smooth=post_smooth,
-                          semicoarsen=semicoarsen, lam_max=lam_max)
+                          semicoarsen=semicoarsen, lam_max=lam_max,
+                          use_pallas_smoother=use_pallas_smoother,
+                          use_pallas_coarse=use_pallas_coarse)
     dtype = eta_n.dtype
     project = vx_nullspace(bcs)
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small odd shapes and several configurations (chip_smoke.py covers the
-FK 1024^2 x K18 shapes).
+FK 1024^2 x K18 shapes; the fused smoother is also checked here at
+1024^2).
 
 These tests need an NVIDIA GPU with nvcc: they carry the ``cuda`` marker
 and skip without a card.  On the card:
@@ -19,7 +20,9 @@ from pylamp_tpu_torch.markers.bucket import BucketedMarkers
 from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
 from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
 from pylamp_tpu_torch.models.setup import build
-from pylamp_tpu_torch.ops.kernels import saddle
+from pylamp_tpu_torch.ops.kernels import cheb, saddle
+from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
+from pylamp_tpu_torch.solvers import mg, scaling
 from pylamp_tpu_torch.physics.materials import Material, MaterialTable
 
 pytestmark = pytest.mark.cuda
@@ -140,3 +143,100 @@ def test_rebucket_kernel(dev, capacity):
     assert int(gd) == int(rd)
     if capacity == 9:
         assert int(gd) > 0
+
+
+def _level_problem(ny, nx, dev, seed):
+    """Seeded f32 level data: viscosities spanning ~e^+-8, kbnd and lambda
+    as the solve computes them, residuals and a start iterate."""
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=nx / ny, ly=1.0)
+    rng = np.random.default_rng(seed)
+
+    def r(shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device=dev)
+
+    es, en = torch.exp(r(grid.shape_corner, 2.0)), torch.exp(r(grid.shape_center, 2.0))
+    _, kbnd = scaling.stokes_scales(scaling.characteristic_viscosity(en), grid)
+    return grid, es, en, kbnd, r
+
+
+@pytest.mark.parametrize("zero_init,emit", [(False, False), (False, True),
+                                            (True, False), (True, True)])
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("ny,nx", [(16, 256), (1024, 1024)])
+def test_cheb_kernel(dev, ny, nx, bc, iters, zero_init, emit):
+    """Degrees 1-5 with and without the emitted residual: a halo one ring
+    short passes at degree 1 and fails at degree 4."""
+    bcs = VelocityBCs(top=bc, bottom=bc, left=bc, right=bc)
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 21 + iters)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    if zero_init:
+        ex = torch.zeros(grid.shape_vx, device=dev)
+        ey = torch.zeros(grid.shape_vy, device=dev)
+    else:
+        ex, ey = r(grid.shape_vx), r(grid.shape_vy)
+    prep = cheb.prep_smoother(es, en, grid, bcs, kbnd, lam, iters + emit)
+    n0 = cheb.launches
+    got = cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grid, bcs, iters,
+                                zero_init, emit)
+    assert cheb.launches == n0 + 1
+    ref = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, es, en, grid, bcs, kbnd,
+                                      lam, iters, zero_init, emit)
+    assert len(got) == len(ref)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+
+
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_coarse_vcycle_kernel(dev, n, bc):
+    bcs = VelocityBCs(top=bc, bottom=bc, left=bc, right=bc)
+    grid, es, en, kbnd, r = _level_problem(n, n, dev, 31)
+    plan, grids, etas, kbnds = mg._hierarchy(es, en, grid, kbnd, 0, 2.0)
+    lam = mg.estimate_mg_lambdas(es, en, grid, bcs, kbnd, semicoarsen=2.0,
+                                 mode="gershgorin")
+    prep = cvk.CoarseVcyclePrep(grids, etas, kbnds, lam, bcs, 4, 4, 32)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    n0 = cvk.launches
+    got = cvk.coarse_vcycle(rx, ry, prep)
+    assert cvk.launches == n0 + 1
+    ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+    # the scratch is reused: a second call gives the same answer
+    again = cvk.coarse_vcycle(rx, ry, prep)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_cheb_and_coarse_wrappers_raise(dev):
+    """CPU, f64 and non-contiguous inputs raise; nothing falls back."""
+    bcs = VelocityBCs()
+    grid, es, en, kbnd, r = _level_problem(16, 256, dev, 41)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    prep = cheb.prep_smoother(es, en, grid, bcs, kbnd, lam, 5)
+    ex, ey, rx, ry = (r(grid.shape_vx), r(grid.shape_vy), r(grid.shape_vx),
+                      r(grid.shape_vy))
+    ny, nx = grid.ny, grid.nx
+    strided = torch.zeros((nx + 1, ny), device=dev).t()  # (ny, nx+1) view
+    bad = [(ex.cpu(), ey, rx, ry), (ex.double(), ey, rx, ry),
+           (ex, ey, strided, ry)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cheb.chebyshev_smooth_cuda(*args, prep, grid, bcs, 4)
+    with pytest.raises(ValueError):  # deeper than the prepped halo
+        cheb.chebyshev_smooth_cuda(ex, ey, rx, ry, prep, grid, bcs, 5,
+                                   emit_residual=True)
+
+    g64, es, en, kbnd, r = _level_problem(64, 64, dev, 42)
+    _, grids, etas, kbnds = mg._hierarchy(es, en, g64, kbnd, 0, 2.0)
+    lam = mg.estimate_mg_lambdas(es, en, g64, bcs, kbnd, semicoarsen=2.0,
+                                 mode="gershgorin")
+    prep = cvk.CoarseVcyclePrep(grids, etas, kbnds, lam, bcs, 4, 4, 32)
+    rx, ry = r(g64.shape_vx), r(g64.shape_vy)
+    strided = torch.zeros((65, 64), device=dev).t()
+    for args in ((rx.cpu(), ry), (rx.double(), ry), (strided, ry)):
+        with pytest.raises(ValueError):
+            cvk.coarse_vcycle_cuda(*args, prep)

@@ -4,22 +4,44 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from ``pylamp_tpu_torch/csrc``
-(nvcc, sm_90a, one process per source), checks each one against its plain
-PyTorch version on the card at the shapes of the Frank-Kamenetskii
-1024^2 x K18 benchmark step (the fused smoother on the solve's own levels
-1024, 512 and 256, the coarse sub-V-cycle from 128^2), times both with
-CUDA events, and then drives that step through the port's ``build`` +
-``make_step`` on ``fk_bench_config`` -- the JAX bench preset -- (2 warm-up
-+ 3 measured steps), failing unless every step converges to 1e-8, drops no
-marker, keeps every field finite and launches all six kernels.  The same
-call then takes the step with ``use_pallas_smoother=False`` (plain MG
-smoother) from the same built state, for an A/B of the two paths, and
-fails unless their Krylov counts agree within +-2 per step.  A 64^2 step
-on the card (coarse kernel from 32^2) is also held against the plain f64
-step on the CPU (the path the CPU tests hold against the JAX package).
-The last line is the JSON device record; any failure raises, so the exit
-code is non-zero.  It exits non-zero without a CUDA device.
+It builds the seven hand-written CUDA kernels from ``pylamp_tpu_torch/csrc``
+(nvcc, sm_90a, one process per source) and checks each one against its
+plain PyTorch version on the card:
+
+- kernels 1-6 at the shapes of the Frank-Kamenetskii 1024^2 x K18
+  benchmark step (the fused smoother on the solve's own levels 1024, 512
+  and 256, the coarse sub-V-cycle from 128^2), and kernels 5 and 6 again
+  on the sticky-air 1024x256 hierarchy (degree 6 + the emitted residual,
+  depth 7, on 1024x256, 512x128 and 256x64; the coarse cycle from 128x32
+  with capped viscosities and power-iteration bounds);
+- kernel 7 (the MG momentum apply) at 1024x256 and 512x128 with the
+  sticky-air viscosities, at 1024^2 with the FK viscosities and at one odd
+  shape.
+
+Kernel and plain version are timed with CUDA events, and each kernel's
+bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
+is larger) is computed from the inputs it was timed on.  Then two paths
+run through the port's ``build`` + ``make_step``, each with every launch
+counter set to 0 just before it:
+
+- FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
+  measured steps, kernels 1-6; then its A/B partner
+  ``use_pallas_smoother=False`` from the same built state (Krylov counts
+  within +-2 per step);
+- sticky-air 1024x256, ``sticky_air_bench_config`` (the preset of
+  ``bench.py --benchmark sticky_air`` with ``use_pallas=True``): 1 warm-up
+  + 3 measured steps, all seven kernels, interleaved step by step with its
+  A/B partner ``use_pallas=False`` from the same built state, which must
+  not launch kernel 7 (outer Krylov counts within +-max(2, 10 %) per
+  step).
+
+Every step must converge to 1e-8, drop no marker, keep every field finite
+and launch every kernel of its path.  A 64^2 FK step on the card (coarse
+kernel from 32^2) is also held against the plain f64 step on the CPU (the
+path the CPU tests hold against the JAX package).  The line before the
+last lists every kernel with its numbers; the last line is the JSON device
+record.  Any failure raises, so the exit code is non-zero; it exits
+non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -37,11 +59,28 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 FK_NX = 1024
+STICKY_NX = 1024  # sticky-air nx x nx // 4
 WARMUP_STEPS = 2
 MEASURED_STEPS = 3
 PLAIN_MG_MEASURED_STEPS = 2  # the use_pallas_smoother=False path
+STICKY_WARMUP_STEPS = 1
+STICKY_MEASURED_STEPS = 3
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
 SMALL_NX = 64
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# float32 operations per point of the staggered momentum stencil
+# (csrc/stencil.cuh stencil_ax / stencil_ay: two normal stresses of 4, two
+# shear stresses of 6, their differences and signs -> 26 per row), per
+# Chebyshev update (residual, recurrence, iterate: 6) and per Jacobi
+# diagonal (8); per marker of m2g (cell location, bilinear weights of four
+# lattices, ~13 accumulated streams: ~80), of RK4 advection (four stages
+# of two bilinear interpolations and the location: ~130) and of rebucket
+# (cell of the new position and the slot arithmetic: ~10)
+OPS = dict(stencil=26, pressure=2, continuity=5, cheb_update=6, diag=8,
+           restrict=12, prolong=4, m2g=80, advect=130, rebucket=10)
 # tolerances of the kernels against their plain versions on the card
 TOL = {
     "saddle": 1e-5,  # max |err| / max |ref| per output array
@@ -54,6 +93,9 @@ TOL = {
     # (tests/test_cheb_kernel.py, tests/test_coarse_vcycle.py)
     "cheb": 2e-5,
     "coarse_vcycle": 2e-5,
+    # max |err| / max |ref| per output, the bar of the TPU kernel's own
+    # test (tests/test_pallas_stokes.py)
+    "momentum": 1e-5,
 }
 
 
@@ -81,6 +123,22 @@ def cuda_time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def stencil_ops(grid) -> int:
+    """f32 operations of one momentum apply (both rows) on ``grid``."""
+    return OPS["stencil"] * (grid.ny * (grid.nx + 1) + (grid.ny + 1) * grid.nx)
 
 
 def errors(pairs):
@@ -146,10 +204,14 @@ def check_kernels(grid, table, cfg, state, ph):
     got = saddle.saddle_apply_cuda(*u, prep, grid, vbc)
     ref = saddle.saddle_apply_plain(*u, prep, grid, vbc)
     err = errors(zip(got, ref))
+    ops = (stencil_ops(grid) + OPS["pressure"] * (vx.numel() + vy.numel())
+           + OPS["continuity"] * p.numel())
     rows.append(("saddle", "pylamp_tpu_torch/csrc/saddle.cu",
                  "pylamp_tpu/ops/pallas/stokes_kernel.py:407", err,
                  lambda: saddle.saddle_apply_cuda(*u, prep, grid, vbc),
-                 lambda: saddle.saddle_apply_plain(*u, prep, grid, vbc), 50))
+                 lambda: saddle.saddle_apply_plain(*u, prep, grid, vbc), 50,
+                 bound_ms(nbytes(*u, prep.eta_s, prep.eta_n, prep.kk, *got),
+                          ops)))
 
     # marker -> grid on the built state's markers
     got = m2g.m2g_fused_cuda(m, grid, table, phys, with_energy=True)
@@ -157,11 +219,14 @@ def check_kernels(grid, table, cfg, state, ph):
     if sorted(got) != sorted(ref):
         raise AssertionError(f"m2g streams differ: {sorted(got)} vs {sorted(ref)}")
     err = errors((got[k], ref[k]) for k in ref)
+    n_valid = int(m.total())
+    marker_bytes = nbytes(m.x, m.y, m.T, m.mat, m.valid)
     rows.append(("m2g", "pylamp_tpu_torch/csrc/m2g.cu",
                  "pylamp_tpu/markers/pallas/m2g_kernel.py:407", err,
                  lambda: m2g.m2g_fused_cuda(m, grid, table, phys, with_energy=True),
                  lambda: m2g.m2g_fused_plain(m, grid, table, phys, with_energy=True),
-                 5))
+                 5, bound_ms(marker_bytes + nbytes(*got.values()),
+                             OPS["m2g"] * n_valid)))
 
     # RK4 advection with the solve's velocities and the step's dt
     reach = 1
@@ -174,7 +239,8 @@ def check_kernels(grid, table, cfg, state, ph):
                  "pylamp_tpu/markers/pallas/advect_kernel.py:282", err,
                  lambda: advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, reach),
                  lambda: advect.advect_rk4_plain(m, vx, vy, dt, grid, vbc, reach),
-                 5))
+                 5, bound_ms(nbytes(m.x, m.y, m.valid, vx, vy, got.x, got.y),
+                             OPS["advect"] * n_valid)))
 
     # rebucket of the advected markers: bit-identical
     moved = got
@@ -189,28 +255,41 @@ def check_kernels(grid, table, cfg, state, ph):
                  "pylamp_tpu/markers/pallas/rebucket_kernel.py:311",
                  (0.0, 0.0) if same else (math.inf, math.inf),
                  lambda: rebucket.rebucket_cuda(moved, grid),
-                 lambda: rebucket.rebucket_plain(moved, grid), 3))
+                 lambda: rebucket.rebucket_plain(moved, grid), 3,
+                 bound_ms(2 * marker_bytes, OPS["rebucket"] * n_valid)))
 
     rows += mg_kernel_rows(grid, cfg, io)
+    return rows, io
 
+
+def time_rows(rows, extra_errors):
+    """Each row's kernel against its plain version: the agreement (the
+    row's own check and ``extra_errors[name]``, checks at further shapes)
+    against TOL, then both timed in the order plain, kernel, kernel,
+    plain."""
     results = {}
-    for name, source, replaces, (abs_err, err), kfn, pfn, preps in rows:
-        ok = err <= TOL[name]
-        # plain, kernel, kernel, plain: the two versions alternate
+    for (name, source, replaces, err, kfn, pfn, preps,
+         (b_ms, b_by)) in rows:
+        abs_err, rel = err
+        for a, r in extra_errors.get(name, ()):
+            abs_err, rel = max(abs_err, a), max(rel, r)
+        ok = rel <= TOL[name]
         p1 = cuda_time_ms(pfn, preps)
         k1 = cuda_time_ms(kfn, 20)
         k2 = cuda_time_ms(kfn, 20)
         p2 = cuda_time_ms(pfn, preps)
         results[name] = dict(source=source, replaces=replaces,
                              max_abs_err=abs_err, ms=min(k1, k2),
-                             plain_ms=min(p1, p2))
-        log(f"kernel {name}: max abs err {abs_err:.3e}, rel err {err:.3e} "
+                             plain_ms=min(p1, p2), bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+        log(f"kernel {name}: max abs err {abs_err:.3e}, rel err {rel:.3e} "
             f"(tol {TOL[name]:g}) "
             f"{'OK' if ok else 'FAIL'}; kernel {k1:.4f}/{k2:.4f} ms, "
-            f"plain {p1:.4f}/{p2:.4f} ms")
+            f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{100 * b_ms / min(k1, k2):.2f} % of bound")
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain "
-                                 f"version: {err:.3e} > {TOL[name]:g}")
+                                 f"version: {rel:.3e} > {TOL[name]:g}")
     return results
 
 
@@ -274,9 +353,13 @@ def mg_kernel_rows(grid, cfg, io):
                         vbc, deg, True, True),
                 partial(cheb.chebyshev_smooth_plain, zx, zy, rx, ry, les,
                         len_, g, vbc, kbnds[l], lam[l], deg, True, True))
+            cheb_bound = bound_ms(
+                2 * nbytes(rx, ry) + nbytes(rx, ry, prep.eta_s, prep.eta_n,
+                                            prep.coeffs, prep.kb),
+                cheb_ops(g, deg, True, True))
     rows = [("cheb", "pylamp_tpu_torch/csrc/cheb.cu",
              "pylamp_tpu/ops/pallas/cheb_kernel.py:347",
-             (cheb_abs, cheb_rel), *timed, 20)]
+             (cheb_abs, cheb_rel), *timed, 20, cheb_bound)]
 
     # kernel 6 on the solve's coarse hierarchy from the fusion start
     fs = cvk.coarse_fuse_start(grids, plan, vbc, torch.float32, "chebyshev",
@@ -295,8 +378,163 @@ def mg_kernel_rows(grid, cfg, io):
                  "pylamp_tpu/ops/pallas/coarse_vcycle_kernel.py:136",
                  errors(zip(got, ref)),
                  partial(cvk.coarse_vcycle_cuda, rx, ry, prep),
-                 partial(cvk.coarse_vcycle_plain, rx, ry, prep), 10))
+                 partial(cvk.coarse_vcycle_plain, rx, ry, prep), 10,
+                 coarse_bound(rx, ry, got, prep)))
     return rows
+
+
+def cheb_ops(g, iters, zero_init, emit):
+    """f32 operations of one fused sweep on level ``g``."""
+    applies = iters - (1 if zero_init else 0) + (1 if emit else 0)
+    points = g.ny * (g.nx + 1) + (g.ny + 1) * g.nx
+    return (stencil_ops(g) * applies
+            + (OPS["cheb_update"] * iters + OPS["diag"]) * points)
+
+
+def coarse_bound(rx, ry, out, prep):
+    """Bound of one fused coarse V-cycle: its rhs, every level's
+    viscosities and tables read once, the correction written once; the
+    operations of every sweep and transfer of the cycle."""
+    ops = 0
+    for l, g in enumerate(prep.grids):
+        if l == prep.nlev - 1:
+            ops += cheb_ops(g, prep.coarse_iters, True, False)
+            continue
+        ops += (cheb_ops(g, prep.pre, True, True)
+                + cheb_ops(g, prep.post, False, False))
+        c = prep.grids[l + 1]
+        points = g.ny * (g.nx + 1) + (g.ny + 1) * g.nx
+        ops += (OPS["restrict"] * (c.ny * (c.nx + 1) + (c.ny + 1) * c.nx)
+                + OPS["prolong"] * points)
+    n = nbytes(rx, ry, *out, prep.coeffs, prep.kb,
+               *(t for pair in prep.eta32 for t in pair))
+    return bound_ms(n, ops)
+
+
+def sticky_mg_checks(grid, cfg, io):
+    """Kernels 5 and 6 on the sticky-air hierarchy as its solve builds it:
+    f32 viscosities capped below the fine level, power-iteration bounds,
+    seeded random residuals.  Kernel 5 at degree 6 with the emitted
+    residual (depth 7, the deepest) on every level it takes; kernel 6 from
+    the fusion start (128x32) with coarse_iters 32.  Returns
+    {kernel: [(max abs err, rel err)]} and the capped hierarchy."""
+    from pylamp_tpu_torch.ops.kernels import cheb
+    from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
+    from pylamp_tpu_torch.solvers import mg
+    from pylamp_tpu_torch.solvers.scaling import (
+        characteristic_viscosity,
+        stokes_scales,
+    )
+
+    solver, vbc = cfg.solver, cfg.physics.velocity_bcs
+    deg = max(solver.mg_pre_smooth, solver.mg_post_smooth)
+    es, en = io.eta_s.float(), io.eta_n.float()
+    _, kbnd = stokes_scales(characteristic_viscosity(en), grid)
+    plan, grids, etas, kbnds = mg._hierarchy(es, en, grid, kbnd,
+                                             solver.mg_levels,
+                                             solver.mg_semicoarsen)
+    etas = [etas[0]] + [(mg._cap_eta(a, solver.mg_eta_cap),
+                         mg._cap_eta(b, solver.mg_eta_cap))
+                        for a, b in etas[1:]]
+    lam = mg.estimate_mg_lambdas(es, en, grid, vbc, kbnd,
+                                 levels=solver.mg_levels,
+                                 semicoarsen=solver.mg_semicoarsen)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {"cheb": [], "coarse_vcycle": []}
+    levels = [l for l, g in enumerate(grids)
+              if cheb.smoother_eligible(g, torch.float32, deg, True)]
+    if [(grids[l].ny, grids[l].nx) for l in levels] != [
+            (256, 1024), (128, 512), (64, 256)]:
+        raise AssertionError(f"sticky-air fused smoother levels {levels}")
+    for l in levels:
+        g, (les, len_) = grids[l], etas[l]
+        prep = cheb.prep_smoother(les, len_, g, vbc, kbnds[l], lam[l], deg + 1)
+        rx, ry = rand(g.shape_vx), rand(g.shape_vy)
+        for zero_init in (True, False):
+            ex = torch.zeros_like(rx) if zero_init else rand(g.shape_vx)
+            ey = torch.zeros_like(ry) if zero_init else rand(g.shape_vy)
+            got = cheb.chebyshev_smooth_cuda(ex, ey, rx, ry, prep, g, vbc,
+                                             deg, zero_init, True)
+            ref = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, les, len_, g,
+                                              vbc, kbnds[l], lam[l], deg,
+                                              zero_init, True)
+            out["cheb"].append(errors(zip(got, ref)))
+            log(f"sticky-air cheb level {g.ny}x{g.nx}, degree {deg} + "
+                f"residual (depth {deg + 1}), zero_init={zero_init}: max abs "
+                f"err {out['cheb'][-1][0]:.3e}, rel {out['cheb'][-1][1]:.3e}")
+    fs = cvk.coarse_fuse_start(grids, plan, vbc, torch.float32, "chebyshev",
+                               False, False)
+    if fs is None or (grids[fs].ny, grids[fs].nx) != (32, 128):
+        raise AssertionError(f"sticky-air coarse fusion start {fs}")
+    prep = cvk.CoarseVcyclePrep(grids[fs:], etas[fs:], kbnds[fs:], lam[fs:],
+                                vbc, solver.mg_pre_smooth,
+                                solver.mg_post_smooth, 32)
+    rx, ry = rand(grids[fs].shape_vx), rand(grids[fs].shape_vy)
+    got = cvk.coarse_vcycle_cuda(rx, ry, prep)
+    ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    out["coarse_vcycle"].append(errors(zip(got, ref)))
+    k1 = cuda_time_ms(partial(cvk.coarse_vcycle_cuda, rx, ry, prep), 20)
+    log(f"sticky-air coarse V-cycle from {grids[fs].ny}x{grids[fs].nx} "
+        f"({prep.nlev} levels, degree {deg}, capped eta): max abs err "
+        f"{out['coarse_vcycle'][0][0]:.3e}, rel "
+        f"{out['coarse_vcycle'][0][1]:.3e}; kernel {k1:.4f} ms")
+    return out, (grids, etas, kbnds)
+
+
+def momentum_row(fk_grid, fk_io, st_grid, st_hier):
+    """Kernel 7 against its plain version at 1024x256 (the fine level of
+    the sticky-air solve, where the inner FGMRES applies it) and 512x128
+    (its capped first coarse level), at 1024^2 with the FK viscosities, and
+    at an odd shape that no block size divides.  The row is timed at
+    1024x256."""
+    from pylamp_tpu_torch.core.bc import VelocityBCs
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.ops.kernels import momentum
+    from pylamp_tpu_torch.solvers.scaling import (
+        characteristic_viscosity,
+        stokes_scales,
+    )
+
+    vbc = VelocityBCs()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    grids, etas, kbnds = st_hier
+    fk_es, fk_en = fk_io.eta_s.float(), fk_io.eta_n.float()
+    _, fk_kb = stokes_scales(characteristic_viscosity(fk_en), fk_grid)
+    odd = StaggeredGrid(nx=517, ny=333, lx=517 / 333, ly=1.0)
+    es_o = torch.exp(2.0 * rand(odd.shape_corner))
+    en_o = torch.exp(2.0 * rand(odd.shape_center))
+    _, kb_o = stokes_scales(characteristic_viscosity(en_o), odd)
+    cases = [(grids[0], etas[0], kbnds[0], "sticky-air fine"),
+             (grids[1], etas[1], kbnds[1], "sticky-air level 1 (capped)"),
+             (fk_grid, (fk_es, fk_en), fk_kb, "FK"),
+             (odd, (es_o, en_o), kb_o, "odd, random eta")]
+    errs, timed = [], None
+    for g, (es, en), kb, label in cases:
+        prep = momentum.prep_momentum(es, en, kb)
+        vx, vy = rand(g.shape_vx), rand(g.shape_vy)
+        got = momentum.momentum_apply_cuda(vx, vy, prep, g, vbc)
+        ref = momentum.momentum_apply_plain(vx, vy, es, en, g, vbc, kb)
+        errs.append(errors(zip(got, ref)))
+        log(f"momentum {g.ny}x{g.nx} ({label}): max abs err "
+            f"{errs[-1][0]:.3e}, rel {errs[-1][1]:.3e}")
+        if timed is None:
+            timed = (partial(momentum.momentum_apply_cuda, vx, vy, prep, g, vbc),
+                     partial(momentum.momentum_apply_plain, vx, vy, es, en, g,
+                             vbc, kb),
+                     bound_ms(nbytes(vx, vy, prep.eta_s, prep.eta_n, prep.kb,
+                                     *got), stencil_ops(g)))
+    err = (max(a for a, _ in errs), max(r for _, r in errs))
+    return ("momentum", "pylamp_tpu_torch/csrc/momentum.cu",
+            "pylamp_tpu/ops/pallas/stokes_kernel.py:183", err, timed[0],
+            timed[1], 50, timed[2])
 
 
 def check_state(state, n_markers, diag, label):
@@ -323,33 +561,42 @@ def mean(xs):
     return sum(xs) / len(xs)
 
 
+def take_step(step, state, n_markers, modules, tag):
+    """One step that must pass check_state and launch every kernel of
+    ``modules``.  Returns (state, wall seconds, Krylov iterations,
+    {kernel: launches})."""
+    before = {k: mod.launches for k, mod in modules.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, diag = step(state)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    check_state(state, n_markers, diag, tag)
+    launched = {k: mod.launches - before[k] for k, mod in modules.items()}
+    stalled = [k for k, n in launched.items() if n <= 0]
+    if stalled:
+        raise AssertionError(f"{tag}: kernels not launched: {stalled}")
+    energy = (f", energy CG {diag['energy_iterations']}"
+              if "energy_iterations" in diag else "")
+    log(f"{tag}: {dt_s:.3f} s, Krylov {diag['stokes_iterations']}{energy}, "
+        f"rel residual {diag['stokes_residual_rel']:.3e}, dt "
+        f"{float(diag['dt']):.4e}, launches "
+        + ", ".join(f"{k}+{n}" for k, n in launched.items()))
+    return state, dt_s, int(diag["stokes_iterations"]), launched
+
+
 def run_steps(step, state0, n_markers, modules, measured, label):
-    """WARMUP_STEPS + ``measured`` steps from state0; every step must pass
-    check_state and launch every kernel of ``modules``.  Returns the wall
-    seconds and Krylov iterations of every step (warm-up first)."""
+    """WARMUP_STEPS + ``measured`` steps from state0 (take_step).  Returns
+    the wall seconds and Krylov iterations of every step (warm-up
+    first)."""
     state = state0
     times, iters = [], []
     for i in range(WARMUP_STEPS + measured):
-        before = {k: mod.launches for k, mod in modules.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, diag = step(state)
-        torch.cuda.synchronize()
-        dt_s = time.perf_counter() - t0
-        tag = f"{label} step {i + 1}"
-        check_state(state, n_markers, diag, tag)
-        stalled = [k for k, mod in modules.items() if mod.launches <= before[k]]
-        if stalled:
-            raise AssertionError(f"{tag}: kernels not launched: {stalled}")
         kind = "warm-up" if i < WARMUP_STEPS else "measured"
-        log(f"{tag} ({kind}): {dt_s:.3f} s, Krylov "
-            f"{diag['stokes_iterations']}, energy CG "
-            f"{diag['energy_iterations']}, rel residual "
-            f"{diag['stokes_residual_rel']:.3e}, dt {float(diag['dt']):.4e}, "
-            f"launches " + ", ".join(
-                f"{k}+{mod.launches - before[k]}" for k, mod in modules.items()))
+        state, dt_s, it, _ = take_step(step, state, n_markers, modules,
+                                       f"{label} step {i + 1} ({kind})")
         times.append(dt_s)
-        iters.append(int(diag["stokes_iterations"]))
+        iters.append(it)
     return times, iters
 
 
@@ -386,16 +633,81 @@ def small_reference_check():
                              f"reference: {err / vmax:.3e} > 1e-4")
 
 
+def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
+    """The sticky-air 1024x256 path (this slice's main path, all seven
+    kernels) and its use_pallas=False partner, each from the same built
+    state, their steps interleaved (kernel path first on odd steps, second
+    on even ones) so that host noise falls on both alike.  Every launch
+    counter is set to 0 just before each step and read just after; the
+    partner must never launch kernel 7.  Returns the main path's launch
+    counts."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    cfg0 = replace(cfg, solver=replace(cfg.solver, use_pallas=False))
+    paths = {
+        "use_pallas": (make_step(grid, cfg, table), modules),
+        "plain_momentum": (make_step(grid, cfg0, table),
+                           {k: m for k, m in modules.items()
+                            if k != "momentum"}),
+    }
+    states = dict.fromkeys(paths, state0)
+    rec = {p: dict(step_s=[], krylov=[], launches={k: 0 for k in modules},
+                   momentum_launches=[]) for p in paths}
+    n_steps = STICKY_WARMUP_STEPS + STICKY_MEASURED_STEPS
+    for i in range(n_steps):
+        kind = "warm-up" if i < STICKY_WARMUP_STEPS else "measured"
+        order = list(paths) if i % 2 == 0 else list(paths)[::-1]
+        for p in order:
+            step, required = paths[p]
+            for mod in modules.values():
+                mod.launches = 0
+            states[p], dt_s, it, _ = take_step(
+                step, states[p], n_markers, required,
+                f"sticky-air {p} step {i + 1} ({kind})")
+            r = rec[p]
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            r["momentum_launches"].append(modules["momentum"].launches)
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+    if rec["plain_momentum"]["launches"]["momentum"]:
+        raise AssertionError("the use_pallas=False path launched the momentum "
+                             f"kernel: {rec['plain_momentum']['launches']}")
+    meas = slice(STICKY_WARMUP_STEPS, None)
+    for p, r in rec.items():
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"sticky-air {grid.nx}x{grid.ny} on {smi} ({p}): median "
+            f"{r['median_s_per_step']:.3f} s/step over "
+            f"{STICKY_MEASURED_STEPS} steps, {mean(r['krylov'][meas]):.1f} "
+            f"outer Krylov iterations/step, "
+            f"{mean(r['momentum_launches'][meas]):.1f} momentum-kernel "
+            f"launches/step; launches {r['launches']}")
+    log("sticky-air A/B " + json.dumps({"device": smi, **rec}))
+    for i, (a, b) in enumerate(zip(rec["use_pallas"]["krylov"],
+                                   rec["plain_momentum"]["krylov"])):
+        if abs(a - b) > max(2, 0.1 * a):
+            raise AssertionError(
+                f"sticky-air step {i + 1}: {a} outer Krylov iterations with "
+                f"the momentum kernel, {b} without (bar +-max(2, 10 %))")
+    return rec["use_pallas"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False)")
     from pylamp_tpu_torch import cuda_build
     from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
-    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        sticky_air_bench_config,
+    )
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step, make_step_phases
-    from pylamp_tpu_torch.ops.kernels import cheb, saddle
+    from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
     from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 
     name = torch.cuda.get_device_name(0)
@@ -416,17 +728,38 @@ def main():
     log(f"built FK {FK_NX}^2: {tuple(state0.markers.x.shape)} marker slots, "
         f"{n_markers} markers, {time.perf_counter() - t0:.1f} s")
 
-    results = check_kernels(grid, table, cfg, state0,
-                            make_step_phases(grid, cfg, table))
+    rows, fk_io = check_kernels(grid, table, cfg, state0,
+                                make_step_phases(grid, cfg, table))
+
+    cfg_s = sticky_air_bench_config(STICKY_NX)
+    t0 = time.perf_counter()
+    grid_s, table_s, state_s = build(cfg_s, dtype=torch.float32,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    n_markers_s = int(state_s.markers.total())
+    log(f"built sticky-air {grid_s.nx}x{grid_s.ny}: "
+        f"{tuple(state_s.markers.x.shape)} marker slots, {n_markers_s} "
+        f"markers, {time.perf_counter() - t0:.1f} s")
+    io_s = make_step_phases(grid_s, cfg_s, table_s).interp(state_s)
+    extra, hier = sticky_mg_checks(grid_s, cfg_s, io_s)
+    rows.append(momentum_row(grid, fk_io, grid_s, hier))
+    results = time_rows(rows, extra)
+    del fk_io, io_s, hier
 
     modules = {"saddle": saddle, "m2g": m2g, "advect": advect,
-               "rebucket": rebucket, "cheb": cheb, "coarse_vcycle": cvk}
-    # the main path: the JAX bench preset, all six kernels
+               "rebucket": rebucket, "cheb": cheb, "coarse_vcycle": cvk,
+               "momentum": momentum}
+    six = {k: m for k, m in modules.items() if k != "momentum"}
+    # the FK path: the JAX bench preset (use_pallas=False), kernels 1-6;
+    # kernel 7 is counted too and must stay idle
     for mod in modules.values():
         mod.launches = 0
     times, iters = run_steps(make_step(grid, cfg, table), state0, n_markers,
-                             modules, MEASURED_STEPS, "fused")
+                             six, MEASURED_STEPS, "fused")
     launches = {k: mod.launches for k, mod in modules.items()}
+    if launches["momentum"]:
+        raise AssertionError("the FK bench preset (use_pallas=False) "
+                             f"launched the momentum kernel: {launches}")
     log(f"FK {FK_NX}^2 on {smi}, fused MG smoother (bench preset): median "
         f"{statistics.median(times[WARMUP_STEPS:]):.3f} s/step over "
         f"{MEASURED_STEPS} steps, {mean(iters[WARMUP_STEPS:]):.1f} Krylov "
@@ -464,12 +797,20 @@ def main():
                 f"step {i + 1}: {a} Krylov iterations with the fused MG "
                 f"kernels, {b} without (bar +-{KRYLOV_AB_TOL})")
 
+    del state0
+    launches_s = sticky_air_paths(grid_s, cfg_s, table_s, state_s,
+                                  n_markers_s, modules)
+
     small_reference_check()
 
     kernels = [dict(name=k, route="cuda", source=r["source"],
-                    replaces=r["replaces"], launches=launches[k],
+                    replaces=r["replaces"], launches=launches_s[k],
+                    launches_by_path={"fk_1024": launches[k],
+                                      "sticky_air_1024x256": launches_s[k]},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for k, r in results.items()]
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for k, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
-"""pylamp_tpu_torch — the PyTorch/CUDA port of pylamp_tpu.
+"""pylamp_tpu_torch — the PyTorch/CUDA port of the JAX package
+``pylamp_tpu``.
 
 The JAX package ``pylamp_tpu`` is the reference; this package mirrors its
 layout and names module for module (``core``, ``physics``, ``ops``,
@@ -14,8 +15,10 @@ raises) on CUDA tensors.
 
 Ported so far: the single-device, uniform-grid, non-periodic bucket-engine
 timestep of the Frank-Kamenetskii benchmark (``models.benchmarks.
-fk_bench_config``).  Branches outside that slice raise
-``NotImplementedError``.
+fk_bench_config``) and of the sticky-air free surface
+(``models.benchmarks.sticky_air_bench_config``: augmented Lagrangian,
+inner velocity FGMRES, power-iteration bounds, MG eta cap).  Branches
+outside those slices raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -19,8 +19,9 @@ GRID_FIELDS = ("vx", "vy", "p", "T", "eta_s", "eta_n", "time", "step", "dt",
                "mg_lam")
 
 
-def state_from_numpy(d, device="cpu", dtype=None) -> ModelState:
-    """ModelState from path-keyed numpy arrays.  ``dtype`` (a floating
+def state_from_numpy(d, device="cuda", dtype=None) -> ModelState:
+    """ModelState from path-keyed numpy arrays on ``device`` (the card
+    unless the caller asks for the CPU).  ``dtype`` (a floating
     torch dtype) casts the floating leaves; None keeps the arrays'
     dtypes.  Integer and boolean leaves keep theirs."""
 

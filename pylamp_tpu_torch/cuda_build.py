@@ -44,6 +44,9 @@ SIGNATURES = {
     # vx, vy, p, eta_s, eta_n, kk, rx, ry, rc, ny, nx, dx, dy,
     # s_top, s_bottom, s_left, s_right, stream
     "launch_saddle": [_P] * 9 + [_I, _I] + [_F] * 6 + [_P],
+    # vx, vy, eta_s, eta_n, kb, rx, ry, ny, nx, dx, dy,
+    # s_top, s_bottom, s_left, s_right, stream
+    "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_P],
     # x, y, T, mat, valid, material table (host), out pointers (host
     # array of 13), ny, nx, K, dx, dy, flags, stream
     "launch_m2g": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],

@@ -1,9 +1,11 @@
 """Benchmark model configurations.
 
-Port of the Frank-Kamenetskii stagnant-lid preset of
-``pylamp_tpu/models/benchmarks.py`` (unit box, kappa = 1, eta_ref = 1,
-DT = 1; rho0*alpha = Ra with g = 1), plus ``fk_bench_config``: the
-configuration ``python bench.py`` runs by default, switch for switch.
+Port of two presets of ``pylamp_tpu/models/benchmarks.py``: the
+Frank-Kamenetskii stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1;
+rho0*alpha = Ra with g = 1) and the sticky-air free surface (BASELINE
+config 5, SI units), plus the configurations ``python bench.py`` builds
+for them, switch for switch: ``fk_bench_config`` (its default) and
+``sticky_air_bench_config`` (``--benchmark sticky_air``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from pylamp_tpu_torch.models.config import (
     TimeConfig,
 )
 from pylamp_tpu_torch.physics.materials import Material
+
+KYR = 3.15576e10  # seconds
 
 
 def fk_stagnant_lid(nx=64, ny=64, Ra_top=100.0, visc_contrast=1e4,
@@ -84,3 +88,67 @@ def fk_bench_config(nx: int = 1024, fused_smoother: bool = True
     extra = {} if fused_smoother else dict(use_pallas_smoother=False)
     return dataclasses.replace(
         cfg, solver=SolverConfig(**BENCH_SOLVER, **extra))
+
+
+def sticky_air(nx=1024, ny=256, max_steps=50):
+    """Crameri et al. (2012)-style free-surface relaxation: cosine topography
+    on a high-viscosity lithosphere over mantle, with a weak low-density
+    'sticky air' layer approximating the free surface.  SI units.  The
+    solver preset is the reference's tuned sharp-contrast one:
+    augmented-Lagrangian gamma = 10 with a 16-iteration inner velocity
+    FGMRES (tol 3e-3), degree-6 Chebyshev with power-iteration bounds, the
+    coarse-level eta cap 1e2 and FGMRES restart 60."""
+    lx, ly = 2.8e6, 8.0e5  # m
+    d_air, d_lith = 1.5e5, 1.0e5
+    topo_amp, topo_lam = 7.0e3, 2.8e6
+
+    air = Material(name="air", rho0=0.0, eta0=1e19, viscosity="constant",
+                   k=100.0, cp=1000.0)
+    lith = Material(name="lithosphere", rho0=3300.0, eta0=1e23,
+                    viscosity="constant", k=3.0, cp=1000.0)
+    mantle = Material(name="mantle", rho0=3300.0, eta0=1e21,
+                      viscosity="constant", k=3.0, cp=1000.0)
+
+    def material_of(x, y):
+        surface = d_air - topo_amp * np.cos(2.0 * np.pi * x / topo_lam)
+        m = np.full(x.shape, 2, np.int32)  # mantle
+        m = np.where(y < surface + d_lith, 1, m)  # lithosphere
+        m = np.where(y < surface, 0, m)  # air
+        return m
+
+    return ModelConfig(
+        nx=nx, ny=ny, lx=lx, ly=ly,
+        markers_per_cell_dim=3,
+        physics=PhysicsConfig(
+            gx=0.0, gy=9.81,
+            materials=(air, lith, mantle),
+            velocity_bcs=VelocityBCs(),
+            solve_energy=False,
+            eta_avg="geometric",
+            eta_min=1e18, eta_max=1e24,
+        ),
+        solver=SolverConfig(stokes_tol=1e-8, stokes_restart=60,
+                            stokes_maxiter=3000,
+                            mg_pre_smooth=6, mg_post_smooth=6,
+                            mg_lam_mode="power",
+                            mg_eta_cap=1e2,
+                            stokes_al_gamma=10.0,
+                            mg_velocity_inner_iters=16,
+                            mg_velocity_inner_tol=3e-3),
+        # dt <= ~1 kyr: free-surface stability
+        time=TimeConfig(courant=0.25, max_steps=max_steps, dt_max=KYR),
+        material_of=material_of,
+        name="sticky_air",
+    )
+
+
+def sticky_air_bench_config(nx: int = 1024, use_pallas: bool = True
+                            ) -> ModelConfig:
+    """The sticky-air benchmark of ``python bench.py --benchmark sticky_air
+    --solver use_pallas=true`` at nx x max(nx // 4, 64): the preset with
+    Stokes tolerance 1e-8 and the ``use_pallas`` override (the MG momentum
+    kernel).  ``use_pallas=False`` is the same configuration with the
+    momentum applies as plain tensor code."""
+    cfg = sticky_air(nx=nx, ny=max(nx // 4, 64), max_steps=10**9)
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, stokes_tol=1e-8, use_pallas=use_pallas))

@@ -15,12 +15,14 @@ kernels of the same role:
   nx >= 256 (ops/kernels/cheb.py)
 - ``use_pallas_coarse`` (with ``use_pallas_smoother``): the MG levels below
   256 cells as one fused sub-V-cycle (ops/kernels/coarse_vcycle.py)
+- ``use_pallas`` (default False, as in the reference): the MG momentum
+  applies on levels with ny % 128 == 0 and nx >= 256
+  (ops/kernels/momentum.py)
 
 Rebucketing always takes its kernel (markers/kernels/rebucket.py) where the
 static gates hold, as in the reference.  The step passes every switch on
 only for an f32 state, as the reference gates its kernels on f32.
-``use_pallas`` (MG momentum apply) and ``pallas_interpret`` have no port
-yet: a config that sets ``use_pallas`` raises in the step.
+``pallas_interpret`` has no port.
 """
 from __future__ import annotations
 

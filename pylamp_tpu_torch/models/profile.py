@@ -1,13 +1,16 @@
-"""Where the time goes in the port's FK step, on one GPU.
+"""Where the time goes in the port's step, on one GPU.
 
-    python -m pylamp_tpu_torch.models.profile [--nx 1024] [--steps 2]
+    python -m pylamp_tpu_torch.models.profile [--config fk|sticky_air]
+        [--nx 1024] [--steps 2]
 
-Builds ``fk_bench_config(nx)`` on the card in f32 and takes 2 warm-up
-steps, then
+Builds ``fk_bench_config(nx)`` (FK nx^2, the default) or
+``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) on the card in
+f32 and takes 2 warm-up steps, then
 
 1. runs ``--steps`` steps through ``models.step.run_step`` with a device
    synchronize around each phase (interp, stokes, timestep, energy,
-   advect), for the mean seconds of each phase;
+   advect), for the mean seconds of each phase and the launches per step
+   of every kernel (the wrappers' counters);
 2. times one whole step without synchronizes inside it;
 3. traces the next step with ``torch.profiler`` (device activity only):
    device busy time is the union of the kernel, memcpy and memset
@@ -83,17 +86,27 @@ def _wall(fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("fk", "sticky_air"), default="fk")
     ap.add_argument("--nx", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
 
-    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        sticky_air_bench_config,
+    )
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step_phases, run_step
+    from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
+    from pylamp_tpu_torch.ops.kernels import coarse_vcycle
 
-    cfg = fk_bench_config(args.nx)
+    kernels = dict(saddle=saddle, m2g=m2g, advect=advect, rebucket=rebucket,
+                   cheb=cheb, coarse_vcycle=coarse_vcycle, momentum=momentum)
+    cfg = (fk_bench_config if args.config == "fk"
+           else sticky_air_bench_config)(args.nx)
     grid, table, st = build(cfg, dtype=torch.float32, device="cuda")
     ph = make_step_phases(grid, cfg, table)
     for _ in range(WARMUP_STEPS):
@@ -101,9 +114,12 @@ def main(argv=None):
 
     phases = defaultdict(float)
     iters = 0
+    for mod in kernels.values():
+        mod.launches = 0
     for _ in range(args.steps):
         st, diag = run_step(ph, st, timed=synced_timer(phases))
         iters += diag["stokes_iterations"]
+    launches = {k: mod.launches / args.steps for k, mod in kernels.items()}
 
     (st, _), wall = _wall(lambda: run_step(ph, st))
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -123,9 +139,11 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(json.dumps({
         "device": smi,
-        "nx": args.nx,
+        "config": args.config,
+        "grid": [grid.ny, grid.nx],
         "phase_seconds": {k: v / args.steps for k, v in phases.items()},
         "krylov_iterations_per_step": iters / args.steps,
+        "kernel_launches_per_step": launches,
         "step": {
             "wall_s": wall,
             "traced_wall_s": traced_wall,

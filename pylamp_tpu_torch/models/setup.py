@@ -45,8 +45,9 @@ def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
     return xh, yh, mat, T
 
 
-def build(cfg: ModelConfig, dtype=torch.float64, device="cpu"):
-    """Returns (grid, table, initial ModelState) on ``device``."""
+def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
+    """Returns (grid, table, initial ModelState) on ``device`` (the card
+    unless the caller asks for the CPU)."""
     if cfg.marker_engine != "bucket":
         raise NotImplementedError(
             f"the {cfg.marker_engine!r} marker engine waits for a later port "

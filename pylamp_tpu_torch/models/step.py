@@ -10,7 +10,10 @@ kernel wrappers of ``markers/kernels`` (CUDA kernels on a CUDA state,
 their plain versions on a CPU state), and the mixed-precision Stokes solve
 applies its f32 outer operator through ``ops/kernels/saddle.py`` and its MG
 preconditioner through the fused smoother and coarse sub-V-cycle
-(``ops/kernels/cheb.py``, ``ops/kernels/coarse_vcycle.py``).  An f64
+(``ops/kernels/cheb.py``, ``ops/kernels/coarse_vcycle.py``) and, with
+``use_pallas``, the momentum kernel (``ops/kernels/momentum.py``).  The
+augmented Lagrangian, the inner velocity FGMRES, the MG eta cap and
+power-iteration Chebyshev bounds (the sticky-air preset) are ported.  An f64
 state takes the plain functions, as the reference's f64 state skips its
 Pallas kernels.  Configuration branches outside the ported slice raise
 ``NotImplementedError``.
@@ -95,17 +98,10 @@ def _check_slice(cfg: ModelConfig):
                         f"the {solver.preconditioner!r} Stokes preconditioner"),
                        (solver.mg_smoother != "chebyshev",
                         f"the {solver.mg_smoother!r} MG smoother"),
-                       (solver.mg_lam_mode != "gershgorin",
-                        "power-iteration lambda estimation"),
                        (solver.schur != "mass",
                         f"the {solver.schur!r} Schur surrogate"),
-                       (solver.stokes_al_gamma > 0.0, "the augmented Lagrangian"),
-                       (solver.mg_velocity_inner_iters > 0,
-                        "the velocity inner Krylov"),
-                       (solver.mg_eta_cap > 0.0, "the MG eta cap"),
                        (solver.mg_scaled_transfers or solver.mg_ls_damp,
                         "scaled MG transfers / line-search damping"),
-                       (solver.use_pallas, "the MG momentum-apply kernel"),
                        (solver.energy_preconditioner != "jacobi",
                         f"the {solver.energy_preconditioner!r} energy "
                         "preconditioner")):
@@ -138,6 +134,10 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         smoother=solver.mg_smoother,
         semicoarsen=solver.mg_semicoarsen,
         schur=solver.schur,
+        velocity_inner_iters=solver.mg_velocity_inner_iters,
+        velocity_inner_tol=solver.mg_velocity_inner_tol,
+        eta_cap=solver.mg_eta_cap,
+        al_gamma=solver.stokes_al_gamma,
     )
 
     def _mixed(dtype):
@@ -203,19 +203,39 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m,
                          T_old_g, k_g, rhocp_g, H_g)
 
+    def mg_lambdas(state: ModelState, io: InterpOut, wdtype):
+        """Per-level Chebyshev bounds for this step's solve, warm-started
+        across steps through ``state.mg_lam``: the Gershgorin bound every
+        step, or power iteration refreshed every ``mg_lam_refresh_every``
+        steps (and while the carried bound is unset), the carried bound
+        otherwise.  The power mode's decision reads the host once per
+        step.  None without a carried bound: make_velocity_mg then runs its
+        own power iteration."""
+        if state.mg_lam is None or state.mg_lam.shape[0] == 0:
+            return None
+        es_w, en_w = io.eta_s.to(wdtype), io.eta_n.to(wdtype)
+        _, kbnd_w = stokes_scales(characteristic_viscosity(en_w), grid)
+        if solver.mg_lam_mode == "gershgorin":
+            return estimate_mg_lambdas(
+                es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
+                semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
+        hint = state.mg_lam.to(wdtype)
+        step_h, hint0 = torch.stack(
+            [state.step.to(torch.float64), hint[0].to(torch.float64)]).tolist()
+        if step_h % solver.mg_lam_refresh_every == 0 or hint0 <= 0:
+            return estimate_mg_lambdas(
+                es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
+                semicoarsen=solver.mg_semicoarsen, hint=state.mg_lam)
+        return hint
+
     # ---- phase 2: Stokes solve (warm-started) ------------------------------
     def stokes(state: ModelState, io: InterpOut):
         dtype = state.markers.x.dtype
         mixed = _mixed(dtype)
-        # analytic per-level Chebyshev bounds, recomputed every step
-        wdtype = torch.float32 if mixed else dtype
-        es_w, en_w = io.eta_s.to(wdtype), io.eta_n.to(wdtype)
-        _, kbnd_w = stokes_scales(characteristic_viscosity(en_w), grid)
-        lam_new = estimate_mg_lambdas(
-            es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
-            semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
+        lam_new = mg_lambdas(state, io, torch.float32 if mixed else dtype)
         kern = _kernels(dtype)
         mk = partial(make_precond, lam_max=lam_new,
+                     use_pallas=solver.use_pallas and kern,
                      use_pallas_smoother=solver.use_pallas_smoother and kern,
                      use_pallas_coarse=solver.use_pallas_coarse and kern)
         x0 = (state.vx, state.vy, state.p)
@@ -226,8 +246,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 restart=solver.stokes_restart, maxiter=solver.stokes_maxiter,
                 max_refinements=solver.max_refinements, x0=x0,
                 make_preconditioner=mk,
-                use_pallas_apply=solver.use_pallas_apply)
+                use_pallas_apply=solver.use_pallas_apply,
+                al_gamma=solver.stokes_al_gamma)
         else:
+            # as in the reference: the plain-precision solve takes no
+            # al_gamma, so an AL-built preconditioner wraps the
+            # un-augmented operator here
             sol = solve_stokes(
                 io.eta_s, io.eta_n, io.rho_vx, io.rho_vy, phys.gx, phys.gy,
                 grid, vbc, tol=solver.stokes_tol,
@@ -247,7 +271,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 (0.5 * (vx[:, 1:] + vx[:, :-1])) ** 2
                 + (0.5 * (vy[1:, :] + vy[:-1, :])) ** 2)),
         }
-        if state.mg_lam is not None:
+        if lam_new is not None:
             # carried into the next ModelState by make_step
             diag["_mg_lam"] = lam_new.to(state.mg_lam.dtype)
         return vx, vy, p, diag

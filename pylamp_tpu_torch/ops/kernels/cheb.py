@@ -24,7 +24,7 @@ import torch
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-from pylamp_tpu_torch.ops.stokes import stokes_operator
+from pylamp_tpu_torch.ops.kernels.momentum import momentum_apply_plain
 from pylamp_tpu_torch.solvers.stokes_solver import velocity_diagonals
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
@@ -33,14 +33,6 @@ launches = 0
 # the reference's deepest fused sweep (cheb_kernel.py HS[-1]): deeper sweeps
 # take the plain path
 MAX_DEPTH = 7
-
-
-def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd):
-    """Momentum-block application (the saddle operator with p = 0)."""
-    rx, ry, _ = stokes_operator(
-        vx, vy, torch.zeros(grid.shape_center, dtype=vx.dtype, device=vx.device),
-        eta_s, eta_n, grid, bcs, kcont=1.0, kbnd=kbnd)
-    return rx, ry
 
 
 def cheb_interval(lam_max):
@@ -107,12 +99,17 @@ def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
                            bcs: VelocityBCs, kbnd, lam_max, iters: int,
                            zero_init: bool = False,
                            emit_residual: bool = False, diags=None,
-                           interval=None):
+                           interval=None, apply=None):
     """Chebyshev semi-iteration on D^-1 A; returns (ex, ey) or, with
     ``emit_residual``, (ex, ey, rx - A ex, ry - A ey).  ``zero_init``:
     (ex, ey) are zero, so the first operator application is skipped.
     ``diags`` / ``interval``: the level's velocity_diagonals and
-    cheb_interval(lam_max), where the caller froze them."""
+    cheb_interval(lam_max), where the caller froze them.  ``apply(ex, ey)
+    -> A (ex, ey)``: the caller's momentum apply (the MG dispatcher);
+    default the plain one on (eta_s, eta_n, kbnd)."""
+    if apply is None:
+        def apply(ex, ey):
+            return momentum_apply_plain(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
     dvx, dvy = diags if diags is not None else velocity_diagonals(
         eta_s, eta_n, grid, kbnd, bcs=bcs)
     theta, delta, sigma1 = interval if interval is not None else \
@@ -121,7 +118,7 @@ def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
         dx_ = rx / dvx / theta
         dy_ = ry / dvy / theta
     else:
-        ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+        ax, ay = apply(ex, ey)
         dx_ = (rx - ax) / dvx / theta
         dy_ = (ry - ay) / dvy / theta
     ex = ex + dx_
@@ -129,7 +126,7 @@ def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
     ro = 1.0 / sigma1
     for _ in range(iters - 1):
         rho = 1.0 / (2.0 * sigma1 - ro)
-        ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+        ax, ay = apply(ex, ey)
         dx_ = rho * ro * dx_ + (2.0 * rho / delta) * (rx - ax) / dvx
         dy_ = rho * ro * dy_ + (2.0 * rho / delta) * (ry - ay) / dvy
         ex = ex + dx_
@@ -137,7 +134,7 @@ def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
         ro = rho
     if not emit_residual:
         return ex, ey
-    ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+    ax, ay = apply(ex, ey)
     return ex, ey, rx - ax, ry - ay
 
 

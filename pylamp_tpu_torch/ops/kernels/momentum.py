@@ -1,0 +1,93 @@
+"""MG momentum-block apply: wrapper of the CUDA kernel ``csrc/momentum.cu``
+(replaces the TPU kernel
+``pylamp_tpu/ops/pallas/stokes_kernel.py:momentum_apply_pallas``).
+
+(rx, ry) = A (vx, vy) is the saddle operator with p = 0 and no continuity
+row.  ``momentum_apply_plain`` is the plain PyTorch version, and the one
+plain momentum apply of the port (the smoothers' plain versions call it).
+
+``prep_momentum`` runs once per level per solve (the role of
+``prep_eta_pallas``): it freezes contiguous f32 viscosities and kbnd as a
+1-element device tensor, so no apply syncs the host.
+``momentum_apply_kernel`` runs the plain version on CPU tensors and
+launches the kernel on CUDA tensors; the shape gate is the caller's
+(``solvers/mg.py _pallas_eligible``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from pylamp_tpu_torch import cuda_build
+from pylamp_tpu_torch.core.bc import VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.stokes import stokes_operator
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+launches = 0
+
+
+def momentum_apply_plain(vx, vy, eta_s, eta_n, grid, bcs, kbnd):
+    """Momentum-block application (the saddle operator with p = 0)."""
+    rx, ry, _ = stokes_operator(
+        vx, vy, torch.zeros(grid.shape_center, dtype=vx.dtype, device=vx.device),
+        eta_s, eta_n, grid, bcs, kcont=1.0, kbnd=kbnd)
+    return rx, ry
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentumPrep:
+    eta_s: torch.Tensor  # (ny+1, nx+1) f32, contiguous
+    eta_n: torch.Tensor  # (ny, nx) f32, contiguous
+    kbnd: Any  # as given (the plain version's operand)
+    kb: torch.Tensor  # (1,) f32 kbnd (the kernel's)
+
+
+def prep_momentum(eta_s, eta_n, kbnd) -> MomentumPrep:
+    kb = torch.as_tensor(kbnd, device=eta_n.device).to(torch.float32).reshape(1)
+    return MomentumPrep(eta_s.to(torch.float32).contiguous(),
+                        eta_n.to(torch.float32).contiguous(), kbnd, kb)
+
+
+def _check(name, t, shape):
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or not t.is_cuda:
+        raise ValueError(
+            f"momentum kernel: {name} must be a contiguous CUDA float32 "
+            f"tensor of shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous: {t.is_contiguous()})")
+
+
+def momentum_apply_cuda(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,
+                        bcs: VelocityBCs):
+    global launches
+    if bcs.periodic_x:
+        raise NotImplementedError(
+            "the periodic momentum kernel waits for a later port PR")
+    for name, t, shape in (("vx", vx, grid.shape_vx), ("vy", vy, grid.shape_vy),
+                           ("eta_s", prep.eta_s, grid.shape_corner),
+                           ("eta_n", prep.eta_n, grid.shape_center),
+                           ("kb", prep.kb, (1,))):
+        _check(name, t, shape)
+    rx = torch.empty_like(vx)
+    ry = torch.empty_like(vy)
+    code = cuda_build.library().launch_momentum(
+        vx.data_ptr(), vy.data_ptr(), prep.eta_s.data_ptr(),
+        prep.eta_n.data_ptr(), prep.kb.data_ptr(), rx.data_ptr(),
+        ry.data_ptr(), grid.ny, grid.nx, grid.dx, grid.dy, bcs.s_top,
+        bcs.s_bottom, bcs.s_left, bcs.s_right, cuda_build.stream_ptr(vx.device))
+    cuda_build.check(code, "momentum")
+    launches += 1
+    return rx, ry
+
+
+def momentum_apply_kernel(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,
+                          bcs: VelocityBCs):
+    """(rx, ry) = A (vx, vy): the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
+    if vx.is_cuda:
+        return momentum_apply_cuda(vx, vy, prep, grid, bcs)
+    return momentum_apply_plain(vx, vy, prep.eta_s, prep.eta_n, grid, bcs,
+                                prep.kbnd)

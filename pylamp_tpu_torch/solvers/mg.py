@@ -12,17 +12,26 @@ per-level Gershgorin bounds, and staggered-lattice bilinear transfers
 (restriction = P^T / 4, Dirichlet entries zeroed on both) that match the
 reference element for element.
 
+Chebyshev bounds come from Gershgorin row sums or from power iteration
+(``estimate_mg_lambdas``); ``eta_cap`` clips each coarse level's
+viscosity around its geometric mean; ``al_gamma`` and
+``velocity_inner_iters`` give the augmented-Lagrangian Schur surrogate and
+an inner velocity FGMRES on the augmented block (solvers/al.py).
+
 With ``use_pallas_smoother`` (the reference's name and default) the
 levels with nx >= 256 sweep through the fused Chebyshev smoother
 (ops/kernels/cheb.py), and with ``use_pallas_coarse`` as well every level
 below 256 cells runs as one fused sub-V-cycle (ops/kernels/coarse_vcycle.py).
+With ``use_pallas`` every other momentum apply on a level that passes
+``_pallas_eligible`` takes the momentum kernel (ops/kernels/momentum.py).
 Their wrappers launch CUDA kernels on CUDA tensors and run the plain
 versions on CPU tensors, so the CPU result does not depend on the flags.
-Still to port: the power-iteration lambda mode, scaled transfers, line
-search damping, the eta cap, the velocity inner Krylov, BFBT, AL, the
-``use_pallas`` momentum-apply kernel and the mesh options.
+Still to port: scaled transfers, line search damping, BFBT, the flexible-CG
+inner method and the mesh options.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -30,7 +39,9 @@ from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.kernels import cheb
 from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
-from pylamp_tpu_torch.ops.kernels.cheb import momentum_apply
+from pylamp_tpu_torch.ops.kernels import momentum
+from pylamp_tpu_torch.solvers.al import make_grad_div
+from pylamp_tpu_torch.solvers.krylov import fgmres, tdot
 from pylamp_tpu_torch.solvers.stokes_solver import (
     project_vx_mean,
     velocity_diagonals,
@@ -195,6 +206,29 @@ def restrict_vy(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
 
 # -- level structure --------------------------------------------------------------
 
+def _pallas_eligible(grid: StaggeredGrid, dtype) -> bool:
+    """The reference's gate for the momentum kernel (mg.py
+    _pallas_eligible) without its platform test: f32 uniform levels with ny
+    a multiple of 128 and nx >= 256."""
+    return (dtype == torch.float32 and grid.uniform and grid.ny % 128 == 0
+            and grid.nx >= 256)
+
+
+def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, use_pallas=False,
+                   prepped=None):
+    """Momentum-block application; with ``use_pallas`` an eligible level
+    takes the momentum kernel's wrapper.  ``prepped`` is then required: the
+    level's ``prep_momentum``, hoisted once per solve because the viscosity
+    is frozen while the operator is applied many times."""
+    if use_pallas and _pallas_eligible(grid, vx.dtype):
+        if prepped is None:
+            raise ValueError("momentum_apply: an eligible level with "
+                             "use_pallas needs its hoisted prep_momentum")
+        return momentum.momentum_apply_kernel(vx, vy, prepped, grid, bcs)
+    return momentum.momentum_apply_plain(vx, vy, eta_s, eta_n, grid, bcs,
+                                         kbnd)
+
+
 def _pressure_gradient(zp, grid, dtype):
     """G z_p: the +grad p part of the momentum rows (zero on the Dirichlet
     rows)."""
@@ -262,47 +296,136 @@ def _hierarchy(eta_s, eta_n, grid, kbnd, levels, semicoarsen):
     return plan, grids, etas, kbnds
 
 
+def _power_lambda_max(apply_Binv_A, shape_x, shape_y, dtype, device,
+                      iters: int = 12):
+    """lambda_max of D^-1 A on the coupled velocity space by power
+    iteration from the reference's deterministic start vector; runs on the
+    device without a host read."""
+    def seed(shape):
+        n = shape[0] * shape[1]
+        v = torch.remainder(
+            torch.arange(n, dtype=dtype, device=device) * 0.754877666 + 0.1,
+            1.0) - 0.5
+        return v.reshape(shape)
+
+    vx, vy = seed(shape_x), seed(shape_y)
+    lam = torch.ones((), dtype=dtype, device=device)
+    for _ in range(iters):
+        nrm = torch.sqrt(tdot((vx, vy), (vx, vy)))
+        vx, vy = vx / nrm, vy / nrm
+        wx, wy = apply_Binv_A(vx, vy)
+        lam = tdot((vx, vy), (wx, wy))
+        vx, vy = wx, wy
+    return lam
+
+
+def _level_lambda(apply, diags, grid: StaggeredGrid, device,
+                  iters: int = 12):
+    """1.1 x the power-iteration lambda_max of D^-1 A on one level, for
+    the level's momentum apply ``apply(vx, vy)`` and Jacobi ``diags``."""
+    dvx, dvy = diags
+
+    def binv_a(vx, vy):
+        ax, ay = apply(vx, vy)
+        return ax / dvx, ay / dvy
+
+    return 1.1 * _power_lambda_max(binv_a, grid.shape_vx, grid.shape_vy,
+                                   dvx.dtype, device, iters)
+
+
 def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                         kbnd, levels: int = 0, semicoarsen: float = 0.0,
-                        hint=None, mode: str = "power"):
-    """Per-level Chebyshev lambda_max bounds, (nlev,) tensor.  Only the
-    analytic ``mode="gershgorin"`` is ported."""
-    if mode != "gershgorin":
-        raise _later("power-iteration lambda estimation")
+                        hint=None, fresh_iters: int = 12,
+                        refresh_iters: int = 2, mode: str = "power"):
+    """Per-level Chebyshev lambda_max bounds, (nlev,) tensor.
+
+    ``mode="gershgorin"``: the analytic row-sum bound, no operator apply.
+    ``mode="power"``: per-level power iteration with the plain operator on
+    the (uncapped) coarsened viscosities, times a 1.1 margin.  ``hint``
+    (the previous bounds, e.g. ``ModelState.mg_lam``) switches levels with
+    a positive entry from ``fresh_iters`` to ``refresh_iters`` iterations
+    and floors the result at 0.995x the hint; choosing the counts reads
+    the hint on the host once."""
     _, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                        semicoarsen)
-    return torch.stack([
-        gershgorin_lambda(es, en, g, bcs, kb)
-        for (es, en), g, kb in zip(etas, grids, kbnds)
-    ])
+    if mode == "gershgorin":
+        return torch.stack([
+            gershgorin_lambda(es, en, g, bcs, kb)
+            for (es, en), g, kb in zip(etas, grids, kbnds)
+        ])
+    dtype = eta_n.dtype
+    positive = ([h > 0 for h in hint.to(dtype).tolist()]
+                if hint is not None else None)
+    lams = []
+    for l, ((es, en), g, kb) in enumerate(zip(etas, grids, kbnds)):
+        iters = refresh_iters if positive is not None and positive[l] \
+            else fresh_iters
+        lam = _level_lambda(
+            partial(momentum.momentum_apply_plain, eta_s=es, eta_n=en,
+                    grid=g, bcs=bcs, kbnd=kb),
+            velocity_diagonals(es, en, g, kb, bcs=bcs), g, eta_n.device, iters)
+        if hint is not None:
+            lam = torch.maximum(lam, 0.995 * hint[l].to(dtype))
+        lams.append(lam)
+    return torch.stack(lams)
+
+
+def _cap_eta(a, eta_cap):
+    """Clip to +-eta_cap around the array's geometric mean."""
+    gm = torch.exp(torch.mean(torch.log(a)))
+    return torch.clamp(a, min=gm / eta_cap, max=gm * eta_cap)
 
 
 def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                      kbnd, levels: int = 0, pre_smooth: int = 2,
                      post_smooth: int = 2, coarse_iters: int = 32,
                      semicoarsen: float = 0.0, lam_max=None,
+                     eta_cap: float = 0.0, use_pallas: bool = True,
                      use_pallas_smoother: bool = True,
                      use_pallas_coarse: bool = True):
     """Returns mg(rx, ry, emit=False) -> (zx, zy) [+ the cycle's residual
     (rx - A zx, ry - A zy) with ``emit``].
 
-    ``lam_max``: (nlev,) Chebyshev bounds (``estimate_mg_lambdas``); the
-    reference's power-iteration default is not ported, so it is required.
+    ``lam_max``: (nlev,) Chebyshev bounds (``estimate_mg_lambdas``); None
+    computes them here with 12 power iterations per level (through the
+    momentum dispatcher, on the capped hierarchy).
+    ``eta_cap`` > 0: each COARSE level's viscosity is clipped to +-eta_cap
+    around its own geometric mean (the fine level is never capped); the
+    capped levels feed every smoother and the fused coarse cycle.
+    ``use_pallas``: eligible levels apply the momentum block through the
+    momentum kernel (ops/kernels/momentum.py), its prep hoisted per level.
     ``use_pallas_smoother``: eligible levels sweep through the fused
     smoother (ops/kernels/cheb.py); with ``use_pallas_coarse`` as well, the
     levels below 256 cells run as one fused sub-V-cycle
     (ops/kernels/coarse_vcycle.py)."""
-    if lam_max is None:
-        raise _later("power-iteration lambda estimation")
     _no_periodic(bcs)
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                           semicoarsen)
+    if eta_cap > 0.0:
+        etas = [etas[0]] + [(_cap_eta(es, eta_cap), _cap_eta(en, eta_cap))
+                            for es, en in etas[1:]]
     nlev = len(grids)
     dtype = eta_n.dtype
     diags = [
         velocity_diagonals(es, en, g, kb, bcs=bcs)
         for (es, en), g, kb in zip(etas, grids, kbnds)
     ]
+    # the momentum kernel's operands, once per level per solve
+    preps = [
+        momentum.prep_momentum(es, en, kb)
+        if use_pallas and _pallas_eligible(g, dtype) else None
+        for (es, en), g, kb in zip(etas, grids, kbnds)
+    ]
+
+    def apply_A(l, ex, ey):
+        es, en = etas[l]
+        return momentum_apply(ex, ey, es, en, grids[l], bcs, kbnds[l],
+                              use_pallas=use_pallas, prepped=preps[l])
+
+    if lam_max is None:
+        lam_max = torch.stack([
+            _level_lambda(partial(apply_A, l), diags[l], grids[l],
+                          eta_n.device) for l in range(nlev)])
     # Chebyshev interval constants per level (frozen for the solve)
     intervals = [cheb.cheb_interval(lam_max[l]) for l in range(nlev)]
 
@@ -322,10 +445,6 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                 continue
             smoother_preps[l] = cheb.prep_smoother(
                 es, en, g, bcs, kbnds[l], lam_max[l], h, diags=diags[l])
-
-    def apply_A(l, ex, ey):
-        es, en = etas[l]
-        return momentum_apply(ex, ey, es, en, grids[l], bcs, kbnds[l])
 
     def smooth(l, ex, ey, rx, ry, iters, zero_init=False,
                emit_residual=False):
@@ -348,7 +467,7 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         return cheb.chebyshev_smooth_plain(
             ex, ey, rx, ry, es, en, grids[l], bcs, kbnds[l], lam_max[l], iters,
             zero_init=zero_init, emit_residual=emit_residual, diags=diags[l],
-            interval=intervals[l])
+            interval=intervals[l], apply=lambda vx, vy: apply_A(l, vx, vy))
 
     # fused coarse sub-V-cycle: every level below the cutoff in one launch
     fused_coarse = None
@@ -390,43 +509,85 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            post_smooth: int = 2, smoother: str = "chebyshev",
                            semicoarsen: float = 0.0, lam_max=None,
                            schur: str = "mass",
+                           velocity_inner_iters: int = 0,
+                           velocity_inner_tol: float = 3e-2,
+                           velocity_inner_method: str = "fgmres",
+                           eta_cap: float = 0.0, al_gamma: float = 0.0,
+                           use_pallas: bool = True,
                            use_pallas_smoother: bool = True,
                            use_pallas_coarse: bool = True):
     """Block upper-triangular preconditioner M(r) for the full Stokes
-    system (mass Schur surrogate, ``cycles`` V-cycles on the velocity
-    block); the ``use_pallas_*`` flags go to ``make_velocity_mg``."""
+    system: the mass Schur surrogate -(1 + al_gamma) eta_n / kcont, then the
+    velocity block by ``cycles`` V-cycles or, with ``velocity_inner_iters``
+    > 0, by an inner FGMRES (restart = maxiter = that count, relative
+    ``velocity_inner_tol``) on A + al_gamma D^T eta_n D preconditioned by one
+    V-cycle on the un-augmented A.  ``eta_cap`` and the ``use_pallas*``
+    flags go to ``make_velocity_mg``; the inner solve's own momentum applies
+    take the momentum kernel on an eligible fine level too."""
     if bcs is None:
         bcs = VelocityBCs()
     if smoother != "chebyshev":
         raise _later(f"the {smoother!r} MG smoother")
     if schur != "mass":
         raise _later(f"the {schur!r} Schur surrogate")
+    if velocity_inner_iters > 0 and velocity_inner_method != "fgmres":
+        raise _later(f"the {velocity_inner_method!r} inner velocity solve")
     mg = make_velocity_mg(eta_s, eta_n, grid, bcs, kbnd, levels=levels,
                           pre_smooth=pre_smooth, post_smooth=post_smooth,
                           semicoarsen=semicoarsen, lam_max=lam_max,
+                          eta_cap=eta_cap, use_pallas=use_pallas,
                           use_pallas_smoother=use_pallas_smoother,
                           use_pallas_coarse=use_pallas_coarse)
     dtype = eta_n.dtype
     project = vx_nullspace(bcs)
+    # with the augmented-Lagrangian row op (solvers/al.py) the Schur
+    # surrogate gains the grad-div contribution
+    sschur = 1.0 + al_gamma
+    gd = make_grad_div(eta_n, grid, bcs, al_gamma, dtype) \
+        if al_gamma > 0.0 else None
 
-    def vel_solve(rvx, rvy):
-        # the first cycle starts from zero; each non-final cycle emits the
-        # running residual for the next
-        if cycles == 1:
-            return mg(rvx, rvy)
-        zx, zy, rfx, rfy = mg(rvx, rvy, emit=True)
-        for c in range(cycles - 1):
-            if c == cycles - 2:
-                dx_, dy_ = mg(rfx, rfy)
-            else:
-                dx_, dy_, rfx, rfy = mg(rfx, rfy, emit=True)
-            zx = zx + dx_
-            zy = zy + dy_
-        return zx, zy
+    if velocity_inner_iters > 0:
+        prep = (momentum.prep_momentum(eta_s, eta_n, kbnd)
+                if use_pallas and _pallas_eligible(grid, dtype) else None)
+
+        def vop(u):
+            # the inner Krylov targets the AUGMENTED velocity block
+            # A + gamma D^T(eta_n D), preconditioned by the un-augmented
+            # V-cycle
+            ax, ay = momentum_apply(u[0], u[1], eta_s, eta_n, grid, bcs, kbnd,
+                                    use_pallas=use_pallas, prepped=prep)
+            if gd is not None:
+                tx, ty = gd(u[0], u[1])
+                ax = ax + tx
+                ay = ay + ty
+            return ax, ay
+
+        def vel_solve(rvx, rvy):
+            z, _ = fgmres(vop, (rvx, rvy),
+                          (torch.zeros_like(rvx), torch.zeros_like(rvy)),
+                          M=lambda r: mg(r[0], r[1]), tol=velocity_inner_tol,
+                          restart=velocity_inner_iters,
+                          maxiter=velocity_inner_iters, cgs_passes=1)
+            return z
+    else:
+        def vel_solve(rvx, rvy):
+            # the first cycle starts from zero; each non-final cycle emits
+            # the running residual for the next
+            if cycles == 1:
+                return mg(rvx, rvy)
+            zx, zy, rfx, rfy = mg(rvx, rvy, emit=True)
+            for c in range(cycles - 1):
+                if c == cycles - 2:
+                    dx_, dy_ = mg(rfx, rfy)
+                else:
+                    dx_, dy_, rfx, rfy = mg(rfx, rfy, emit=True)
+                zx = zx + dx_
+                zy = zy + dy_
+            return zx, zy
 
     def M(r):
         rx, ry, rc = r
-        zp = -1.0 * (eta_n / kcont) * rc
+        zp = -sschur * (eta_n / kcont) * rc
         zp = zp - torch.mean(zp)
         gx, gy = _pressure_gradient(zp, grid, dtype)
         zx, zy = vel_solve(rx - gx, ry - gy)

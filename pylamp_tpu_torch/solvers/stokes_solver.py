@@ -4,7 +4,9 @@ Port of ``pylamp_tpu/solvers/stokes_solver.py`` (uniform, non-periodic):
 ``solve_stokes`` in the state dtype, ``solve_stokes_mixed`` with f32
 FGMRES + MG inner solves under f64 iterative refinement.  In the mixed
 solve the f32 outer applies go through the saddle kernel wrapper
-(ops/kernels/saddle.py) when ``use_pallas_apply`` is set.
+(ops/kernels/saddle.py) when ``use_pallas_apply`` is set, and ``al_gamma``
+augments the system (solvers/al.py).  ``solve_stokes`` takes no
+``al_gamma``, as in the reference.
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ import torch
 from pylamp_tpu_torch.core.bc import FREE_SLIP, VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.stokes import stokes_operator, stokes_rhs
+from pylamp_tpu_torch.solvers.al import (
+    augment_rhs,
+    augment_saddle_op,
+    make_grad_div,
+)
 from pylamp_tpu_torch.solvers.krylov import SolveInfo, fgmres, tmap
 from pylamp_tpu_torch.solvers.scaling import (
     characteristic_viscosity,
@@ -113,11 +120,16 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
                        restart: int = 40, maxiter: int = 300,
                        max_refinements: int = 6, x0=None,
                        make_preconditioner: Callable | None = None,
-                       use_pallas_apply: bool = False) -> StokesSolution:
+                       use_pallas_apply: bool = False,
+                       al_gamma: float = 0.0) -> StokesSolution:
     """f32 FGMRES + MG inner solves inside f64 iterative refinement; the
     system is defined by the f64 casts and the reported residual is f64.
     ``use_pallas_apply``: the f32 outer applies take the saddle kernel
-    wrapper (kernel on CUDA tensors, its plain version on CPU)."""
+    wrapper (kernel on CUDA tensors, its plain version on CPU).
+    ``al_gamma`` > 0: the augmented-Lagrangian row operation
+    (solvers/al.py) on op64, b64 and op32 -- same solution, contrast-robust
+    Schur surrogate; pair it with a preconditioner built with the same
+    al_gamma.  The residual is then measured on the augmented system."""
     from pylamp_tpu_torch.solvers.refine import refine
 
     f64, f32 = torch.float64, torch.float32
@@ -135,6 +147,11 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
     eta_s32, eta_n32 = eta_s64.to(f32), eta_n64.to(f32)
     kcont32, kbnd32 = kcont.to(f32), kbnd.to(f32)
 
+    if al_gamma > 0.0:
+        op64 = augment_saddle_op(
+            op64, make_grad_div(eta_n64, grid, bcs, al_gamma, f64))
+        b64 = augment_rhs(b64, eta_n64, grid, bcs, al_gamma, kcont, f64)
+
     if use_pallas_apply:
         from pylamp_tpu_torch.ops.kernels.saddle import (
             prep_saddle,
@@ -151,6 +168,10 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
             vx, vy, p = u
             return stokes_operator(vx, vy, p, eta_s32, eta_n32, grid, bcs,
                                    kcont=kcont32, kbnd=kbnd32)
+
+    if al_gamma > 0.0:
+        op32 = augment_saddle_op(
+            op32, make_grad_div(eta_n32, grid, bcs, al_gamma, f32))
 
     if make_preconditioner is None:
         raise NotImplementedError(

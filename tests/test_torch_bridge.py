@@ -31,7 +31,7 @@ def test_checkpoint_roundtrip(jax_state, tmp_path):
     save_checkpoint(path, st, extra={"step_count": 3})
     with np.load(path) as z:
         d = {k: z[k] for k in z.files}
-    port = state_from_numpy(d, "cpu")
+    port = state_from_numpy(d, device="cpu")
     back = state_to_numpy(port)
     leaves = {k: v for k, v in d.items() if k.startswith("state.")}
     assert sorted(back) == sorted(leaves)
@@ -44,7 +44,8 @@ def test_port_state_loads_into_reference(jax_state, tmp_path):
     """The port's own initial state, written in the checkpoint format,
     fills the JAX template and equals the JAX package's initial state."""
     dtype, jst = jax_state
-    _, _, st = build(fk_bench_config(N), dtype=getattr(torch, dtype))
+    _, _, st = build(fk_bench_config(N), dtype=getattr(torch, dtype),
+                     device="cpu")
     path = str(tmp_path / "port.npz")
     np.savez(path, __format_version__=2, **state_to_numpy(st))
     loaded, _ = load_checkpoint(path, jst)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small odd shapes and several configurations (chip_smoke.py covers the
-FK 1024^2 x K18 shapes; the fused smoother is also checked here at
-1024^2).
+FK 1024^2 x K18 and sticky-air 1024x256 shapes; the fused smoother is also
+checked here at 1024^2 and at depth 7 on the sticky-air levels, the
+momentum kernel at the sticky-air levels, and the marker kernels on a 4:1
+grid in SI units).
 
 These tests need an NVIDIA GPU with nvcc: they carry the ``cuda`` marker
 and skip without a card.  On the card:
@@ -18,9 +20,9 @@ from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import BucketedMarkers
 from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
-from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid, sticky_air
 from pylamp_tpu_torch.models.setup import build
-from pylamp_tpu_torch.ops.kernels import cheb, saddle
+from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
 from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 from pylamp_tpu_torch.solvers import mg, scaling
 from pylamp_tpu_torch.physics.materials import Material, MaterialTable
@@ -42,8 +44,11 @@ def dev():
 
 
 def _rel(got, ref):
-    return float(torch.max(torch.abs(got.double() - ref.double()))
-                 / torch.max(torch.abs(ref.double())))
+    """max |got - ref| / max |ref| (the max |got - ref| itself where ref is
+    all zero)."""
+    err = float(torch.max(torch.abs(got.double() - ref.double())))
+    scale = float(torch.max(torch.abs(ref.double())))
+    return err / scale if scale > 0 else err
 
 
 def _markers(nx, ny, dev, mats=1):
@@ -240,3 +245,144 @@ def test_cheb_and_coarse_wrappers_raise(dev):
     for args in ((rx.cpu(), ry), (rx.double(), ry), (strided, ry)):
         with pytest.raises(ValueError):
             cvk.coarse_vcycle_cuda(*args, prep)
+
+
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("ny,nx", [(256, 1024), (128, 512), (1024, 1024),
+                                   (23, 37), (333, 517)])
+def test_momentum_kernel(dev, ny, nx, bc):
+    """Kernel 7 at the sticky-air levels it takes, at 1024^2 and at shapes
+    no block size divides; the bar of the TPU kernel's test."""
+    bcs = VelocityBCs(top=bc, bottom="free_slip", left="no_slip", right=bc)
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 51)
+    vx, vy = r(grid.shape_vx), r(grid.shape_vy)
+    prep = momentum.prep_momentum(es, en, kbnd)
+    n0 = momentum.launches
+    got = momentum.momentum_apply_kernel(vx, vy, prep, grid, bcs)
+    assert momentum.launches == n0 + 1
+    ref = momentum.momentum_apply_plain(vx, vy, es, en, grid, bcs, kbnd)
+    for g, rf in zip(got, ref):
+        assert g.shape == rf.shape
+        assert _rel(g, rf) <= 1e-5
+    # through the MG dispatcher on an eligible level
+    if mg._pallas_eligible(grid, torch.float32):
+        out = mg.momentum_apply(vx, vy, es, en, grid, bcs, kbnd,
+                                use_pallas=True, prepped=prep)
+        assert momentum.launches == n0 + 2
+        for o, g in zip(out, got):
+            assert torch.equal(o, g)
+
+
+def test_momentum_wrapper_raises(dev):
+    """CPU, f64 and non-contiguous inputs raise; nothing falls back."""
+    bcs = VelocityBCs()
+    grid, es, en, kbnd, r = _level_problem(128, 512, dev, 52)
+    vx, vy = r(grid.shape_vx), r(grid.shape_vy)
+    prep = momentum.prep_momentum(es, en, kbnd)
+    strided = torch.zeros((grid.nx + 1, grid.ny), device=dev).t()
+    for args in ((vx.cpu(), vy), (vx.double(), vy), (strided, vy),
+                 (vx, vy[:-1])):
+        with pytest.raises(ValueError):
+            momentum.momentum_apply_cuda(*args, prep, grid, bcs)
+
+
+@pytest.mark.parametrize("zero_init", [True, False])
+@pytest.mark.parametrize("ny,nx", [(256, 1024), (128, 512), (64, 256)])
+def test_cheb_kernel_depth7(dev, ny, nx, zero_init):
+    """The sticky-air sweep: degree 6 with the emitted residual, the
+    deepest halo (h = 7), on the three levels it takes, with a 1e4 contrast
+    of cell-sharp viscosity layers."""
+    bcs = VelocityBCs()
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 61)
+    es, en = _layered(grid, es, en)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    ex = torch.zeros_like(rx) if zero_init else r(grid.shape_vx)
+    ey = torch.zeros_like(ry) if zero_init else r(grid.shape_vy)
+    assert cheb.smoother_eligible(grid, torch.float32, 6, True)
+    prep = cheb.prep_smoother(es, en, grid, bcs, kbnd, lam, 7)
+    got = cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grid, bcs, 6,
+                                zero_init, True)
+    ref = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, es, en, grid, bcs, kbnd,
+                                      lam, 6, zero_init, True)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+
+
+def _layered(grid, es, en):
+    """Viscosities with three cell-sharp horizontal layers (1e-2, 1e2, 1 of
+    the random field), the sticky-air structure."""
+    def layers(a):
+        rows = torch.arange(a.shape[0], device=a.device)[:, None]
+        scale = torch.where(rows < a.shape[0] // 5, 1e-2,
+                            torch.where(rows < 2 * a.shape[0] // 5, 1e2, 1.0))
+        return (a * scale).contiguous()
+    return layers(es), layers(en)
+
+
+@pytest.mark.parametrize("ny,nx", [(32, 128), (16, 64)])
+def test_coarse_vcycle_sticky_air(dev, ny, nx):
+    """Kernel 6 on a 4:1 hierarchy from the sticky-air fusion start (and
+    one level below it) at the preset's degree 6 and coarse_iters 32, with
+    eta capped at 1e2 around each level's geometric mean and power-iteration
+    bounds."""
+    bcs = VelocityBCs()
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 71)
+    es, en = _layered(grid, es, en)
+    _, grids, etas, kbnds = mg._hierarchy(es, en, grid, kbnd, 0, 2.0)
+    assert all(g.nx == 4 * g.ny for g in grids)
+    etas = [etas[0]] + [(mg._cap_eta(a, 1e2), mg._cap_eta(b, 1e2))
+                        for a, b in etas[1:]]
+    lam = mg.estimate_mg_lambdas(es, en, grid, bcs, kbnd, semicoarsen=2.0)
+    prep = cvk.CoarseVcyclePrep(grids, etas, kbnds, lam, bcs, 6, 6, 32)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    got = cvk.coarse_vcycle(rx, ry, prep)
+    ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+
+
+def test_marker_kernels_sticky_air_si(dev):
+    """Kernels 1-4 on a 4:1 grid in SI units (sticky-air 256x64, K = 18,
+    positions up to 2.8e6 m, eta 1e19-1e23): m2g with and without the
+    energy streams, RK4 advection at half a cell per step, rebucket
+    bit-identical, the saddle apply at the SI viscosities."""
+    cfg = sticky_air(256, 64)
+    grid, table, st = build(cfg, dtype=torch.float32, device=dev)
+    bm, phys, vbc = st.markers, cfg.physics, cfg.physics.velocity_bcs
+    assert bm.x.shape == (64, 256, 18)
+    for with_energy in (False, True):
+        got = m2g.m2g_fused(bm, grid, table, phys, with_energy=with_energy)
+        ref = m2g.m2g_fused_plain(bm, grid, table, phys,
+                                  with_energy=with_energy)
+        assert sorted(got) == sorted(ref)
+        for k in ref:
+            assert _rel(got[k], ref[k]) <= 1e-5, k
+    rng = np.random.default_rng(81)
+    vscale = 1e-9  # m/s, about 3 cm/yr
+    vx = torch.tensor(rng.uniform(-1, 1, grid.shape_vx) * vscale,
+                      dtype=torch.float32, device=dev)
+    vy = torch.tensor(rng.uniform(-1, 1, grid.shape_vy) * vscale,
+                      dtype=torch.float32, device=dev)
+    dt = torch.tensor(0.45 * min(grid.dx, grid.dy) / vscale, device=dev)
+    moved = advect.advect_rk4_fused(bm, vx, vy, dt, grid, vbc, 1)
+    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, vbc, 1)
+    assert _rel(moved.x - bm.x, ref.x - bm.x) <= 1e-4
+    assert _rel(moved.y - bm.y, ref.y - bm.y) <= 1e-4
+    (gm, gd), (rm, rd) = (rebucket.rebucket_fused(moved, grid),
+                          rebucket.rebucket_plain(moved, grid))
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(gm, f), getattr(rm, f)), f
+    assert int(gd) == int(rd)
+    es, en = st.eta_s.float(), st.eta_n.float()
+    kcont, kbnd = scaling.stokes_scales(scaling.characteristic_viscosity(en),
+                                        grid)
+    prep = saddle.prep_saddle(es, en, kcont, kbnd)
+    u = [torch.tensor(rng.standard_normal(sh) * sc, dtype=torch.float32,
+                      device=dev)
+         for sh, sc in ((grid.shape_vx, vscale), (grid.shape_vy, vscale),
+                        (grid.shape_center, 1e7))]
+    got = saddle.saddle_apply(*u, prep, grid, vbc)
+    ref = saddle.saddle_apply_plain(*u, prep, grid, vbc)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5

@@ -45,7 +45,7 @@ def test_run_step_hook_sees_every_phase():
     """``run_step`` with a phase hook takes the same step as ``make_step``
     and calls the phases in the step's order."""
     cfg = fk_bench_config(16)
-    grid, table, st0 = build(cfg, dtype=torch.float64)
+    grid, table, st0 = build(cfg, dtype=torch.float64, device="cpu")
     calls = []
 
     def timed(name, fn, *args):

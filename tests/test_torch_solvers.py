@@ -39,7 +39,7 @@ JMG_KW = dict(MG_KW, use_pallas=False, use_pallas_smoother=False,
 @pytest.fixture(scope="module")
 def fk():
     """(grid, eta_s, eta_n, T, rho_vy) as numpy, from the port's f64 build."""
-    grid, _, st = build(CFG, dtype=torch.float64)
+    grid, _, st = build(CFG, dtype=torch.float64, device="cpu")
     T = st.T.numpy()
     rho_vy = 100.0 * (1.0 - 0.5 * (T[:, :-1] + T[:, 1:]))
     return grid, st.eta_s.numpy(), st.eta_n.numpy(), T, rho_vy

@@ -56,9 +56,9 @@ def reference():
 @pytest.fixture(scope="module")
 def port_run(reference):
     d0, _ = reference
-    grid, table, _ = build(CFG, dtype=torch.float64)
+    grid, table, _ = build(CFG, dtype=torch.float64, device="cpu")
     step = make_step(grid, CFG, table)
-    st = state_from_numpy(d0, "cpu")
+    st = state_from_numpy(d0, device="cpu")
     out = []
     for _ in range(STEPS):
         st, diag = step(st)
@@ -69,8 +69,8 @@ def port_run(reference):
 def test_build_matches_reference(reference):
     """The port's own numpy seeding gives the reference's initial state."""
     d0, _ = reference
-    _, _, st = build(CFG, dtype=torch.float64)
-    got = state_from_numpy(d0, "cpu")
+    _, _, st = build(CFG, dtype=torch.float64, device="cpu")
+    got = state_from_numpy(d0, device="cpu")
     for f in ("x", "y", "mat", "T", "valid"):
         assert torch.equal(getattr(st.markers, f), getattr(got.markers, f)), f
     for f in ("eta_s", "eta_n", "T"):
@@ -109,8 +109,8 @@ def test_mixed_step_f32(reference):
     plain versions and the mixed-precision solves."""
     d0, out = reference
     ref, _ = out[0]
-    grid, table, _ = build(CFG, dtype=torch.float32)
-    st = state_from_numpy(d0, "cpu", dtype=torch.float32)
+    grid, table, _ = build(CFG, dtype=torch.float32, device="cpu")
+    st = state_from_numpy(d0, device="cpu", dtype=torch.float32)
     st, diag = make_step(grid, CFG, table)(st)
     assert st.vx.dtype == torch.float32
     assert diag["stokes_converged"] and diag["stokes_residual_rel"] <= 1e-8

@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the seven hand-written CUDA kernels from ``pylamp_tpu_torch/csrc``
+It builds the twelve hand-written CUDA kernels from ``pylamp_tpu_torch/csrc``
 (nvcc, sm_90a, one process per source) and checks each one against its
 plain PyTorch version on the card:
 
@@ -16,7 +16,12 @@ plain PyTorch version on the card:
   with capped viscosities and power-iteration bounds);
 - kernel 7 (the MG momentum apply) at 1024x256 and 512x128 with the
   sticky-air viscosities, at 1024^2 with the FK viscosities and at one odd
-  shape.
+  shape;
+- the per-shard kernels 8-12 at the 4x2 per-shard shapes of FK 1024^2 x
+  K18 (256x512 blocks): kernel 8 on the frames of levels 1024, 512 and 256
+  (degree 4 + the residual, zero and non-zero start), kernel 9 in both
+  forms at 256x512 and 128x256, kernels 10-12 on the blocks of the FK
+  markers, each at one odd shape as well.
 
 Kernel and plain version are timed with CUDA events, and each kernel's
 bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
@@ -34,6 +39,14 @@ counter set to 0 just before it:
   A/B partner ``use_pallas=False`` from the same built state, which must
   not launch kernel 7 (outer Krylov counts within +-max(2, 10 %) per
   step).
+
+- FK 1024^2 with ``explicit_halo=True`` on the in-process 4x2 mesh
+  (``make_step(..., mesh=make_mesh(8))``): 1 warm-up + 3 measured steps,
+  interleaved step by step with the single-device step from the same built
+  state; kernels 8-12 must advance and kernels 1-7 stay idle on the mesh
+  path, Krylov counts within +-2 of the partner, and after the first step
+  velocities within 1e-5 max|vy|, marker y within 1e-5 max|y| and
+  materials equal.
 
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
@@ -63,6 +76,9 @@ STICKY_NX = 1024  # sticky-air nx x nx // 4
 WARMUP_STEPS = 2
 MEASURED_STEPS = 3
 PLAIN_MG_MEASURED_STEPS = 2  # the use_pallas_smoother=False path
+MESH_WARMUP_STEPS = 1
+MESH_MEASURED_STEPS = 3
+MESH_SHARDS = 8  # make_mesh(8): the reference's 4x2 mesh
 STICKY_WARMUP_STEPS = 1
 STICKY_MEASURED_STEPS = 3
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
@@ -96,6 +112,12 @@ TOL = {
     # max |err| / max |ref| per output, the bar of the TPU kernel's own
     # test (tests/test_pallas_stokes.py)
     "momentum": 1e-5,
+    # the per-shard kernels: the bars of their single-device siblings
+    "cheb_block": 2e-5,
+    "saddle_block": 1e-5,
+    "m2g_block": 1e-5,
+    "advect_block": 1e-4,  # as advect: one f32 spacing of the position
+    "rebucket_block": 0.0,  # bit-identical
 }
 
 
@@ -259,7 +281,7 @@ def check_kernels(grid, table, cfg, state, ph):
                  bound_ms(2 * marker_bytes, OPS["rebucket"] * n_valid)))
 
     rows += mg_kernel_rows(grid, cfg, io)
-    return rows, io
+    return rows, dict(io=io, vx=vx, vy=vy, dt=dt)
 
 
 def time_rows(rows, extra_errors):
@@ -633,14 +655,15 @@ def small_reference_check():
                              f"reference: {err / vmax:.3e} > 1e-4")
 
 
-def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
+def sticky_air_paths(grid, cfg, table, state0, n_markers, modules, counted):
     """The sticky-air 1024x256 path (this slice's main path, all seven
     kernels) and its use_pallas=False partner, each from the same built
     state, their steps interleaved (kernel path first on odd steps, second
     on even ones) so that host noise falls on both alike.  Every launch
-    counter is set to 0 just before each step and read just after; the
-    partner must never launch kernel 7.  Returns the main path's launch
-    counts."""
+    counter of ``counted`` (every kernel) is set to 0 just before each step
+    and read just after; the main path must launch every kernel of
+    ``modules`` (kernels 1-7), the partner all but kernel 7, and neither
+    any other.  Returns the main path's launch counts."""
     from dataclasses import replace
 
     from pylamp_tpu_torch.models.step import make_step
@@ -654,7 +677,7 @@ def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
                             if k != "momentum"}),
     }
     states = dict.fromkeys(paths, state0)
-    rec = {p: dict(step_s=[], krylov=[], launches={k: 0 for k in modules},
+    rec = {p: dict(step_s=[], krylov=[], launches={k: 0 for k in counted},
                    momentum_launches=[]) for p in paths}
     n_steps = STICKY_WARMUP_STEPS + STICKY_MEASURED_STEPS
     for i in range(n_steps):
@@ -662,7 +685,7 @@ def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
         order = list(paths) if i % 2 == 0 else list(paths)[::-1]
         for p in order:
             step, required = paths[p]
-            for mod in modules.values():
+            for mod in counted.values():
                 mod.launches = 0
             states[p], dt_s, it, _ = take_step(
                 step, states[p], n_markers, required,
@@ -671,8 +694,13 @@ def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
             r["step_s"].append(dt_s)
             r["krylov"].append(it)
             r["momentum_launches"].append(modules["momentum"].launches)
-            for k, mod in modules.items():
+            for k, mod in counted.items():
                 r["launches"][k] += mod.launches
+    others = {p: {k: n for k, n in r["launches"].items()
+                  if k not in modules and n} for p, r in rec.items()}
+    if any(others.values()):
+        raise AssertionError(f"the sticky-air paths launched other kernels: "
+                             f"{others}")
     if rec["plain_momentum"]["launches"]["momentum"]:
         raise AssertionError("the use_pallas=False path launched the momentum "
                              f"kernel: {rec['plain_momentum']['launches']}")
@@ -695,19 +723,364 @@ def sticky_air_paths(grid, cfg, table, state0, n_markers, modules):
     return rec["use_pallas"]["launches"]
 
 
+def block_ops(n_points, iters, zero_init, emit):
+    """f32 operations of one per-shard sweep over ``n_points`` velocity
+    points (both lattices) of all shards."""
+    applies = iters - (1 if zero_init else 0) + (1 if emit else 0)
+    return (OPS["stencil"] * applies + OPS["cheb_update"] * iters
+            + OPS["diag"]) * n_points
+
+
+def mesh_kernel_rows(grid, cfg, table, state, fk):
+    """The per-shard kernels 8-12 against their plain versions at the 4x2
+    per-shard shapes of the FK 1024^2 x K18 step, each at one odd shape as
+    well; inputs from the built state and its first solve (``fk``: the
+    solve's eta, velocities and dt), seeded random residuals."""
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.markers.kernels import (
+        advect_block,
+        m2g,
+        m2g_block,
+        rebucket,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.ops.kernels import cheb, cheb_block, saddle_block
+    from pylamp_tpu_torch.parallel import halo_smoother as hs
+    from pylamp_tpu_torch.parallel.halo_markers import (
+        BLK3,
+        m2g_fused_halo,
+        rebucket_halo,
+        velocity_windows,
+    )
+    from pylamp_tpu_torch.parallel.mesh import P, make_mesh
+    from pylamp_tpu_torch.solvers import mg
+    from pylamp_tpu_torch.solvers.scaling import (
+        characteristic_viscosity,
+        stokes_scales,
+    )
+
+    solver, phys, vbc = cfg.solver, cfg.physics, cfg.physics.velocity_bcs
+    io = fk["io"]
+    mesh = make_mesh(MESH_SHARDS)
+    f32 = torch.float32
+    deg = max(solver.mg_pre_smooth, solver.mg_post_smooth)
+    es, en = io.eta_s.float(), io.eta_n.float()
+    kcont, kbnd = stokes_scales(characteristic_viscosity(io.eta_n.double()),
+                                grid)
+    kcont, kbnd = kcont.float(), kbnd.float()
+    _, grids, etas, kbnds = mg._hierarchy(es, en, grid, kbnd,
+                                          solver.mg_levels,
+                                          solver.mg_semicoarsen)
+    lam = mg.estimate_mg_lambdas(es, en, grid, vbc, kbnd,
+                                 levels=solver.mg_levels,
+                                 semicoarsen=solver.mg_semicoarsen,
+                                 mode="gershgorin")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = []
+
+    # -- kernel 8 on the frames of levels 1024, 512, 256 (and an odd 2x2
+    # level): kernel vs plain, and the whole sweep vs the single-device one
+    def cheb_cases():
+        for l in range(3):
+            yield grids[l], etas[l], kbnds[l], lam[l], mesh, f"level {grids[l].nx}"
+        odd = StaggeredGrid(nx=68, ny=68, lx=1.0, ly=1.0)
+        eo, no = torch.exp(2.0 * rand(*odd.shape_corner)), \
+            torch.exp(2.0 * rand(*odd.shape_center))
+        _, kb_o = stokes_scales(characteristic_viscosity(no), odd)
+        yield (odd, (eo, no), kb_o, mg.gershgorin_lambda(eo, no, odd, vbc, kb_o),
+               make_mesh(4), "odd 68^2 on 2x2")
+
+    errs, whole, timed = [], [], None
+    for g, (les, len_), kb, lm, msh, label in cheb_cases():
+        if not hs.halo_smoother_eligible(g, msh, vbc, f32, deg, True):
+            raise AssertionError(f"cheb_block: {label} not eligible")
+        prep = hs.prep_halo_smoother(les, len_, g, msh, deg + 1, kb, lm)
+        rx, ry = rand(*g.shape_vx), rand(*g.shape_vy)
+        for zero_init in (True, False):
+            ex = torch.zeros_like(rx) if zero_init else rand(*g.shape_vx)
+            ey = torch.zeros_like(ry) if zero_init else rand(*g.shape_vy)
+            frames = hs.smoother_frames(ex, ey, rx, ry, vbc, msh, prep.h)
+            got = cheb_block.cheb_block_cuda(*frames, prep, g, vbc, deg,
+                                             zero_init, True)
+            ref = cheb_block.cheb_block_plain(*frames, prep, g, vbc, deg,
+                                              zero_init, True)
+            errs.append(errors(zip(got, ref)))
+            full = hs.chebyshev_smooth_halo(ex, ey, rx, ry, g, vbc, kb, lm,
+                                            deg, msh, prep, zero_init, True)
+            single = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, les, len_, g,
+                                                 vbc, kb, lm, deg, zero_init,
+                                                 True)
+            whole.append(errors(zip(full, single)))
+            log(f"cheb_block {label} zero_init={zero_init}: kernel vs plain "
+                f"rel {errs[-1][1]:.3e}; whole halo sweep vs single-device "
+                f"rel {whole[-1][1]:.3e}")
+            if timed is None:
+                S, by, bx = msh.size, prep.by, prep.bx
+                timed = (partial(cheb_block.cheb_block_cuda, *frames, prep, g,
+                                 vbc, deg, True, True),
+                         partial(cheb_block.cheb_block_plain, *frames, prep, g,
+                                 vbc, deg, True, True),
+                         # zero start: the ex/ey frames are never read
+                         bound_ms(nbytes(*frames[2:], prep.es_v, prep.en_v,
+                                         prep.flags, prep.coeffs, prep.kb,
+                                         *got),
+                                  block_ops(2 * S * by * bx, deg, True, True)))
+    err = tuple(max(e[i] for e in errs + whole) for i in (0, 1))
+    rows.append(("cheb_block", "pylamp_tpu_torch/csrc/cheb_block.cu",
+                 "pylamp_tpu/ops/pallas/cheb_block_kernel.py:277", err,
+                 timed[0], timed[1], 10, timed[2]))
+
+    # -- kernel 9, both forms, on extended blocks of the solve's viscosities
+    # (levels 1024 and 512) and at an odd shape
+    def ext_blocks(g, les, len_, msh, scale):
+        by, bx = g.ny // msh.my, g.nx // msh.mx
+        S = msh.size
+        en_e = msh.flat(msh.ext1(msh.split(len_, P("y", "x"))))
+        es_e = msh.flat(msh.ext1(msh.split(les[:-1, :-1], P("y", "x")))
+                        [..., 1:, 1:])
+        vx_e, vy_e, p_e = (rand(S, by + 2, bx + 2) * sc for sc in scale)
+        return vx_e, vy_e, p_e, es_e, en_e
+
+    scale = [float(torch.max(torch.abs(fk[k]))) for k in ("vx", "vy")] + [
+        1.0]
+    errs, timed = [], None
+    cases = [(grids[0], etas[0], mesh), (grids[1], etas[1], mesh)]
+    for g, (les, len_), msh in cases:
+        vx_e, vy_e, p_e, es_e, en_e = ext_blocks(g, les, len_, msh, scale)
+        for p_or_none in (p_e, None):
+            args = (vx_e, vy_e, p_or_none, es_e, en_e, g.dx, g.dy, kcont)
+            got = saddle_block.saddle_block_cuda(*args)
+            ref = saddle_block.saddle_block_plain(*args)
+            errs.append(errors(zip(got, ref)))
+            log(f"saddle_block {g.ny // msh.my}x{g.nx // msh.mx} blocks "
+                f"with_p={p_or_none is not None}: rel {errs[-1][1]:.3e}")
+            if timed is None:
+                n = vx_e.shape[0] * (vx_e.shape[1] - 2) * (vx_e.shape[2] - 2)
+                timed = (partial(saddle_block.saddle_block_cuda, *args),
+                         partial(saddle_block.saddle_block_plain, *args),
+                         bound_ms(nbytes(vx_e, vy_e, p_e, es_e, en_e, *got),
+                                  n * (2 * OPS["stencil"] + 2 * OPS["pressure"]
+                                       + OPS["continuity"])))
+    odd = (rand(3, 23, 40), rand(3, 23, 40), rand(3, 23, 40),
+           torch.exp(rand(3, 22, 39)), torch.exp(rand(3, 23, 40)))
+    for with_p in (True, False):
+        args = (odd[0], odd[1], odd[2] if with_p else None, odd[3], odd[4],
+                0.01, 0.02, 3.0)
+        errs.append(errors(zip(saddle_block.saddle_block_cuda(*args),
+                               saddle_block.saddle_block_plain(*args))))
+    log(f"saddle_block odd 21x38 blocks: rel {max(e[1] for e in errs[-2:]):.3e}")
+    err = tuple(max(e[i] for e in errs) for i in (0, 1))
+    rows.append(("saddle_block", "pylamp_tpu_torch/csrc/saddle_block.cu",
+                 "pylamp_tpu/ops/pallas/block_stencil_kernel.py:174", err,
+                 timed[0], timed[1], 20, timed[2]))
+
+    # -- kernels 10-12 on the FK markers' 256x512x18 blocks, and on a 40^2
+    # FK build on a 2x2 mesh (20x20 blocks)
+    _, _, small = build(fk_stagnant_lid(nx=40, ny=40), dtype=f32,
+                        device="cuda")
+    small_grid = StaggeredGrid(nx=40, ny=40, lx=1.0, ly=1.0)
+    marker_cases = [(grid, state.markers, mesh, fk["vx"], fk["vy"], fk["dt"],
+                     "FK 1024^2"),
+                    (small_grid, small.markers, make_mesh(4),
+                     0.05 * rand(*small_grid.shape_vx),
+                     0.05 * rand(*small_grid.shape_vy),
+                     torch.tensor(2.0 * small_grid.dx, device="cuda"),
+                     "odd 40^2 on 2x2")]
+    e10, e11, e12, rows_t = [], [], [], {}
+    for g, m, msh, vx, vy, dt, label in marker_cases:
+        by, bx = g.ny // msh.my, g.nx // msh.mx
+        bases = msh.bases(by, bx, device="cuda")
+        ext = [msh.flat(msh.ext1(msh.split(a, BLK3), nd=3))
+               for a in (m.x, m.y, m.T, m.mat, m.valid)]
+        got = m2g_block.m2g_fused_block_cuda(*ext, g, table, phys, bases,
+                                             with_energy=True)
+        ref = m2g_block.m2g_fused_block_plain(*ext, g, table, phys, bases,
+                                              with_energy=True)
+        e10.append(errors((got[k], ref[k]) for k in ref))
+        halo = m2g_fused_halo(m, g, table, phys, msh, with_energy=True)
+        glob = m2g.m2g_fused_cuda(m, g, table, phys, with_energy=True)
+        same = all(torch.equal(halo[k], glob[k]) for k in glob)
+        log(f"m2g_block {label}: kernel vs plain rel {e10[-1][1]:.3e}; halo "
+            f"transfer vs kernel 2 {'bit-identical' if same else 'max rel '}"
+            + ("" if same else
+               f"{errors((halo[k], glob[k]) for k in glob)[1]:.3e}"))
+        if "m2g_block" not in rows_t:
+            n_ext = int(ext[4].sum())
+            rows_t["m2g_block"] = (
+                partial(m2g_block.m2g_fused_block_cuda, *ext, g, table, phys,
+                        bases, with_energy=True),
+                partial(m2g_block.m2g_fused_block_plain, *ext, g, table, phys,
+                        bases, with_energy=True),
+                bound_ms(nbytes(*ext, bases, *got.values()),
+                         OPS["m2g"] * n_ext))
+
+        wins = velocity_windows(vx.float(), vy.float(), g, vbc, msh, 1)
+        own = [msh.flat(msh.split(a, BLK3)) for a in (m.x, m.y, m.valid)]
+        adv = (*own, *wins, dt, g, bases, 1)
+        got = advect_block.advect_block_cuda(*adv)
+        ref = advect_block.advect_block_plain(*adv)
+        e11.append(displacement_error(got, ref, own[:2]))
+        log(f"advect_block {label}: displacement rel err {e11[-1][1]:.3e}")
+        if "advect_block" not in rows_t:
+            rows_t["advect_block"] = (
+                partial(advect_block.advect_block_cuda, *adv),
+                partial(advect_block.advect_block_plain, *adv),
+                bound_ms(nbytes(*own, *wins, bases, *got),
+                         OPS["advect"] * int(own[2].sum())))
+
+        moved = m.replace(x=msh.gather(msh.unflat(got[0]), BLK3),
+                          y=msh.gather(msh.unflat(got[1]), BLK3))
+        ext = [msh.flat(msh.ext1(msh.split(a, BLK3), nd=3))
+               for a in (moved.x, moved.y, moved.T, moved.mat, moved.valid)]
+        (gm, ga), (rm, ra) = (rebucket_block.rebucket_block_cuda(*ext, g,
+                                                                  bases),
+                              rebucket_block.rebucket_block_plain(*ext, g,
+                                                                  bases))
+        same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+                   for f in ("x", "y", "mat", "T", "valid")) and torch.equal(
+            ga, ra)
+        (hm, hd), (km, kd) = (rebucket_halo(moved, g, msh),
+                              rebucket.rebucket_cuda(moved, g))
+        same4 = all(torch.equal(getattr(hm, f), getattr(km, f))
+                    for f in ("x", "y", "mat", "T", "valid")) and int(hd) == int(kd)
+        e12.append((0.0, 0.0) if same else (math.inf, math.inf))
+        log(f"rebucket_block {label}: {'bit-identical' if same else 'DIFFERS'}"
+            f" to its plain version; halo rebucket "
+            f"{'bit-identical' if same4 else 'DIFFERS'} to kernel 4 "
+            f"(dropped {int(hd)})")
+        if not same4:
+            e12.append((math.inf, math.inf))
+        if "rebucket_block" not in rows_t:
+            rows_t["rebucket_block"] = (
+                partial(rebucket_block.rebucket_block_cuda, *ext, g, bases),
+                partial(rebucket_block.rebucket_block_plain, *ext, g, bases),
+                bound_ms(nbytes(*ext, bases, gm.x, gm.y, gm.T, gm.mat,
+                                gm.valid, ga),
+                         OPS["rebucket"] * int(ext[4].sum())))
+    for name, es_, src, ref_line, reps in (
+            ("m2g_block", e10, "m2g_block.cu", "m2g_kernel.py:283", 3),
+            ("advect_block", e11, "advect_block.cu", "advect_kernel.py:208", 3),
+            ("rebucket_block", e12, "rebucket_block.cu",
+             "rebucket_kernel.py:187", 2)):
+        err = tuple(max(e[i] for e in es_) for i in (0, 1))
+        k, pfn, b = rows_t[name]
+        rows.append((name, f"pylamp_tpu_torch/csrc/{src}",
+                     f"pylamp_tpu/markers/pallas/{ref_line}", err, k, pfn,
+                     reps, b))
+    return rows
+
+
+def mesh_path(grid, cfg, table, state0, n_markers, modules):
+    """FK 1024^2 with explicit_halo=True on the in-process 4x2 mesh and its
+    single-device partner from the same built state, steps interleaved
+    (mesh first on odd steps, second on even ones).  Every counter is set
+    to 0 before each step and read after it; the mesh path must launch
+    kernels 8-12 and none of kernels 1-7.  After the first step the two
+    states are compared.  Returns each path's launch counts."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    smi = nvidia_smi_line()
+    mesh = make_mesh(MESH_SHARDS)
+    cfg_h = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+    block = ("cheb_block", "saddle_block", "m2g_block", "advect_block",
+             "rebucket_block")
+    single = ("saddle", "m2g", "advect", "rebucket", "cheb", "coarse_vcycle")
+    paths = {
+        "mesh_4x2": (make_step(grid, cfg_h, table, mesh=mesh),
+                     {k: modules[k] for k in block}),
+        "single": (make_step(grid, cfg, table),
+                   {k: modules[k] for k in single}),
+    }
+    states = dict.fromkeys(paths, state0)
+    rec = {p: dict(step_s=[], krylov=[], launches={k: 0 for k in modules})
+           for p in paths}
+    n_steps = MESH_WARMUP_STEPS + MESH_MEASURED_STEPS
+    for i in range(n_steps):
+        kind = "warm-up" if i < MESH_WARMUP_STEPS else "measured"
+        order = list(paths) if i % 2 == 0 else list(paths)[::-1]
+        for p in order:
+            step, required = paths[p]
+            for mod in modules.values():
+                mod.launches = 0
+            states[p], dt_s, it, _ = take_step(
+                step, states[p], n_markers, required,
+                f"FK mesh A/B {p} step {i + 1} ({kind})")
+            r = rec[p]
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+        if i == 0:
+            a, b = states["mesh_4x2"], states["single"]
+            vmax = float(torch.max(torch.abs(b.vy)))
+            ymax = float(torch.max(torch.abs(b.markers.y)))
+            dv = max(float(torch.max(torch.abs(a.vx - b.vx))),
+                     float(torch.max(torch.abs(a.vy - b.vy))))
+            dyy = float(torch.max(torch.abs(a.markers.y - b.markers.y)))
+            same_mat = torch.equal(a.markers.mat, b.markers.mat)
+            log(f"mesh vs single-device after step 1: max |dv| / max|vy| "
+                f"{dv / vmax:.3e}, max |dy| / max|y| {dyy / ymax:.3e}, "
+                f"materials {'equal' if same_mat else 'DIFFER'}")
+            if not (dv <= 1e-5 * vmax and dyy <= 1e-5 * ymax and same_mat):
+                raise AssertionError("the mesh step disagrees with the "
+                                     "single-device step")
+    idle = {k: n for k, n in rec["mesh_4x2"]["launches"].items()
+            if k not in block and n}
+    if idle:
+        raise AssertionError(f"the mesh path launched single-device kernels: "
+                             f"{idle}")
+    meas = slice(MESH_WARMUP_STEPS, None)
+    for p, r in rec.items():
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"FK {grid.nx}^2 {p} on {smi}: median "
+            f"{r['median_s_per_step']:.3f} s/step over {MESH_MEASURED_STEPS} "
+            f"steps, {mean(r['krylov'][meas]):.1f} Krylov iterations/step; "
+            f"launches {r['launches']}")
+    log("mesh A/B " + json.dumps({"device": smi, **rec}))
+    for i, (a, b) in enumerate(zip(rec["mesh_4x2"]["krylov"],
+                                   rec["single"]["krylov"])):
+        if abs(a - b) > KRYLOV_AB_TOL:
+            raise AssertionError(
+                f"mesh step {i + 1}: {a} Krylov iterations, single-device "
+                f"{b} (bar +-{KRYLOV_AB_TOL})")
+    return {p: r["launches"] for p, r in rec.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False)")
     from pylamp_tpu_torch import cuda_build
-    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+    from pylamp_tpu_torch.markers.kernels import (
+        advect,
+        advect_block,
+        m2g,
+        m2g_block,
+        rebucket,
+        rebucket_block,
+    )
     from pylamp_tpu_torch.models.benchmarks import (
         fk_bench_config,
         sticky_air_bench_config,
     )
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step, make_step_phases
-    from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
+    from pylamp_tpu_torch.ops.kernels import (
+        cheb,
+        cheb_block,
+        momentum,
+        saddle,
+        saddle_block,
+    )
     from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 
     name = torch.cuda.get_device_name(0)
@@ -728,8 +1101,11 @@ def main():
     log(f"built FK {FK_NX}^2: {tuple(state0.markers.x.shape)} marker slots, "
         f"{n_markers} markers, {time.perf_counter() - t0:.1f} s")
 
-    rows, fk_io = check_kernels(grid, table, cfg, state0,
-                                make_step_phases(grid, cfg, table))
+    rows, fk = check_kernels(grid, table, cfg, state0,
+                             make_step_phases(grid, cfg, table))
+    fk_io = fk["io"]
+    rows += mesh_kernel_rows(grid, cfg, table, state0, fk)
+    del fk
 
     cfg_s = sticky_air_bench_config(STICKY_NX)
     t0 = time.perf_counter()
@@ -748,8 +1124,11 @@ def main():
 
     modules = {"saddle": saddle, "m2g": m2g, "advect": advect,
                "rebucket": rebucket, "cheb": cheb, "coarse_vcycle": cvk,
-               "momentum": momentum}
-    six = {k: m for k, m in modules.items() if k != "momentum"}
+               "momentum": momentum, "cheb_block": cheb_block,
+               "saddle_block": saddle_block, "m2g_block": m2g_block,
+               "advect_block": advect_block, "rebucket_block": rebucket_block}
+    six = {k: modules[k] for k in ("saddle", "m2g", "advect", "rebucket",
+                                   "cheb", "coarse_vcycle")}
     # the FK path: the JAX bench preset (use_pallas=False), kernels 1-6;
     # kernel 7 is counted too and must stay idle
     for mod in modules.values():
@@ -757,9 +1136,9 @@ def main():
     times, iters = run_steps(make_step(grid, cfg, table), state0, n_markers,
                              six, MEASURED_STEPS, "fused")
     launches = {k: mod.launches for k, mod in modules.items()}
-    if launches["momentum"]:
-        raise AssertionError("the FK bench preset (use_pallas=False) "
-                             f"launched the momentum kernel: {launches}")
+    if any(launches[k] for k in modules if k not in six):
+        raise AssertionError("the FK bench preset (use_pallas=False, no "
+                             f"mesh) launched another kernel: {launches}")
     log(f"FK {FK_NX}^2 on {smi}, fused MG smoother (bench preset): median "
         f"{statistics.median(times[WARMUP_STEPS:]):.3f} s/step over "
         f"{MEASURED_STEPS} steps, {mean(iters[WARMUP_STEPS:]):.1f} Krylov "
@@ -797,16 +1176,25 @@ def main():
                 f"step {i + 1}: {a} Krylov iterations with the fused MG "
                 f"kernels, {b} without (bar +-{KRYLOV_AB_TOL})")
 
+    launches_m = mesh_path(grid, cfg, table, state0, n_markers, modules)
     del state0
     launches_s = sticky_air_paths(grid_s, cfg_s, table_s, state_s,
-                                  n_markers_s, modules)
+                                  n_markers_s,
+                                  {k: modules[k] for k in (*six, "momentum")},
+                                  modules)
 
     small_reference_check()
 
+    # launches: each kernel's count on the path of its slice (kernels 1-7:
+    # the sticky-air path, which runs all seven; kernels 8-12: the mesh path)
     kernels = [dict(name=k, route="cuda", source=r["source"],
-                    replaces=r["replaces"], launches=launches_s[k],
-                    launches_by_path={"fk_1024": launches[k],
-                                      "sticky_air_1024x256": launches_s[k]},
+                    replaces=r["replaces"],
+                    launches=(launches_m["mesh_4x2"][k] if k.endswith("_block")
+                              else launches_s[k]),
+                    launches_by_path={
+                        "fk_1024": launches[k],
+                        "sticky_air_1024x256": launches_s[k],
+                        "fk_1024_mesh_4x2": launches_m["mesh_4x2"][k]},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])

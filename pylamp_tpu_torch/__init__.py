@@ -17,8 +17,10 @@ Ported so far: the single-device, uniform-grid, non-periodic bucket-engine
 timestep of the Frank-Kamenetskii benchmark (``models.benchmarks.
 fk_bench_config``) and of the sticky-air free surface
 (``models.benchmarks.sticky_air_bench_config``: augmented Lagrangian,
-inner velocity FGMRES, power-iteration bounds, MG eta cap).  Branches
-outside those slices raise ``NotImplementedError``.
+inner velocity FGMRES, power-iteration bounds, MG eta cap), each also
+domain-decomposed on the reference's explicit-halo path over an in-process
+mesh (``parallel/``: every shard on one card, with the five per-shard
+kernels).  Branches outside those slices raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -8,51 +8,14 @@
 // (2 x 4.2 MB) stay resident in L2 for the 32 bilinear reads per marker
 // (4 stages x 2 lattices x 4 corners); ~200 flops per marker.
 //
-// Design: one thread per marker slot; all four RK stages in registers.
-// Each stage samples vx_p (ny+2, nx+1) and vy_p (ny+1, nx+2) — the same
-// ghost-padded lattices as the reference, built by the wrapper — with a
-// clamped bilinear gather.  A corner contributes only if its node lies in
-// the reference's shift window [-reach, reach+1] around the marker's
-// bucket cell; `reach` is that precondition (1 for the first stage, the
-// Courant-derived stage reach after), not a layout parameter.  Empty slots
-// sample zero velocity.  The result is clipped to the closed domain like
-// the reference.  dt is read from device memory (no host sync).
+// Design: one thread per marker slot, the RK4 of advect_rk4.cuh (shared
+// with the per-shard advect_block.cu) on the ghost-padded lattices the
+// wrapper builds exactly as the reference does.  dt is read from device
+// memory (no host sync).
 #include "common.cuh"
+#include "advect_rk4.cuh"
 
 namespace {
-
-struct Lattice {
-    const float* f;
-    int rows, cols;
-
-    // bilinear sample at array coordinates (fx, fy), masked to the shift
-    // window around bucket cell (cj, ci)
-    __device__ float sample(float fx, float fy, int cj, int ci,
-                            int reach) const {
-        const int i0 = static_cast<int>(
-            fminf(fmaxf(floorf(fx), 0.0f), static_cast<float>(cols - 2)));
-        const int j0 = static_cast<int>(
-            fminf(fmaxf(floorf(fy), 0.0f), static_cast<float>(rows - 2)));
-        const float tx = fminf(fmaxf(fx - static_cast<float>(i0), 0.0f), 1.0f);
-        const float ty = fminf(fmaxf(fy - static_cast<float>(j0), 0.0f), 1.0f);
-        float out = 0.0f;
-#pragma unroll
-        for (int dj = 0; dj < 2; ++dj) {
-#pragma unroll
-            for (int di = 0; di < 2; ++di) {
-                const int oj = j0 + dj - cj;
-                const int oi = i0 + di - ci;
-                if (oj < -reach || oj > reach + 1 || oi < -reach ||
-                    oi > reach + 1)
-                    continue;
-                const float wy = dj ? ty : 1.0f - ty;
-                const float wx = di ? tx : 1.0f - tx;
-                out = out + (wy * wx) * f[(j0 + dj) * cols + (i0 + di)];
-            }
-        }
-        return out;
-    }
-};
 
 __global__ void advect_kernel(const float* __restrict__ x,
                               const float* __restrict__ y,
@@ -69,33 +32,8 @@ __global__ void advect_kernel(const float* __restrict__ x,
     const long long cell = q / K;
     const int cj = static_cast<int>(cell / nx);
     const int ci = static_cast<int>(cell % nx);
-    const float px = x[q];
-    const float py = y[q];
-    const bool vl = valid[q] != 0;
-    const float dt = *dt_ptr;
-
-    auto vel = [&](float sx, float sy, int r, float& ux, float& uy) {
-        if (!vl) {
-            ux = 0.0f;
-            uy = 0.0f;
-            return;
-        }
-        ux = vxl.sample(sx / dx, sy / dy + 0.5f, cj, ci, r);
-        uy = vyl.sample(sx / dx + 0.5f, sy / dy, cj, ci, r);
-    };
-
-    const float hdt = 0.5f * dt;
-    float k1x, k1y, k2x, k2y, k3x, k3y, k4x, k4y;
-    vel(px, py, 1, k1x, k1y);
-    vel(px + hdt * k1x, py + hdt * k1y, reach, k2x, k2y);
-    vel(px + hdt * k2x, py + hdt * k2y, reach, k3x, k3y);
-    vel(px + dt * k3x, py + dt * k3y, reach, k4x, k4y);
-
-    const float six = dt / 6.0f;
-    const float xn = px + six * (k1x + 2.0f * k2x + 2.0f * k3x + k4x);
-    const float yn = py + six * (k1y + 2.0f * k2y + 2.0f * k3y + k4y);
-    out_x[q] = fminf(fmaxf(xn, x_lo), x_hi);
-    out_y[q] = fminf(fmaxf(yn, y_lo), y_hi);
+    rk4_marker(x[q], y[q], valid[q] != 0, cj, ci, *dt_ptr, vxl, vyl, dx, dy,
+               x_lo, x_hi, y_lo, y_hi, reach, out_x[q], out_y[q]);
 }
 
 }  // namespace
@@ -108,8 +46,8 @@ PYLAMP_EXPORT int launch_advect(const float* x, const float* y,
                                 float x_hi, float y_lo, float y_hi, int reach,
                                 cudaStream_t stream) {
     const long long n = static_cast<long long>(ny) * nx * K;
-    Lattice vxl{vx_p, ny + 2, nx + 1};
-    Lattice vyl{vy_p, ny + 1, nx + 2};
+    const Lattice vxl{vx_p, ny + 2, nx + 1, 0, 0, nx + 1};
+    const Lattice vyl{vy_p, ny + 1, nx + 2, 0, 0, nx + 2};
     const int threads = 256;
     const unsigned int blocks =
         static_cast<unsigned int>((n + threads - 1) / threads);

@@ -1,0 +1,81 @@
+// The RK4 integration of one marker slot, shared by the single-device
+// advection (advect.cu) and the per-shard advection on exchanged velocity
+// windows (advect_block.cu).  All four stages stay in registers; each
+// samples the ghost-padded vx_p (ny+2, nx+1) and vy_p (ny+1, nx+2)
+// lattices with a clamped bilinear gather.  A corner contributes only if
+// its node lies in the reference's shift window [-reach, reach+1] around
+// the marker's bucket cell; `reach` is that precondition (1 for the first
+// stage, the Courant-derived stage reach after), not a layout parameter.
+// Empty slots sample zero velocity.  The result is clipped to the closed
+// domain like the reference.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// A ghost-padded velocity lattice of rows x cols nodes (clamping uses the
+// GLOBAL extent), stored from node (r0, c0) on with row stride `stride`:
+// the whole lattice (r0 = c0 = 0, stride = cols) or a shard's window.
+struct Lattice {
+    const float* f;
+    int rows, cols;
+    int r0, c0, stride;
+
+    // bilinear sample at array coordinates (fx, fy), masked to the shift
+    // window around bucket cell (cj, ci)
+    __device__ float sample(float fx, float fy, int cj, int ci,
+                            int reach) const {
+        const int i0 = static_cast<int>(
+            fminf(fmaxf(floorf(fx), 0.0f), static_cast<float>(cols - 2)));
+        const int j0 = static_cast<int>(
+            fminf(fmaxf(floorf(fy), 0.0f), static_cast<float>(rows - 2)));
+        const float tx = fminf(fmaxf(fx - static_cast<float>(i0), 0.0f), 1.0f);
+        const float ty = fminf(fmaxf(fy - static_cast<float>(j0), 0.0f), 1.0f);
+        float out = 0.0f;
+#pragma unroll
+        for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+            for (int di = 0; di < 2; ++di) {
+                const int oj = j0 + dj - cj;
+                const int oi = i0 + di - ci;
+                if (oj < -reach || oj > reach + 1 || oi < -reach ||
+                    oi > reach + 1)
+                    continue;
+                const float wy = dj ? ty : 1.0f - ty;
+                const float wx = di ? tx : 1.0f - tx;
+                out = out + (wy * wx) *
+                                f[(j0 + dj - r0) * stride + (i0 + di - c0)];
+            }
+        }
+        return out;
+    }
+};
+
+// RK4 of the marker at (px, py) in bucket cell (cj, ci); writes the new
+// position clipped to [x_lo, x_hi] x [y_lo, y_hi].
+__device__ __forceinline__ void rk4_marker(
+    float px, float py, bool vl, int cj, int ci, float dt, const Lattice& vxl,
+    const Lattice& vyl, float dx, float dy, float x_lo, float x_hi,
+    float y_lo, float y_hi, int reach, float& out_x, float& out_y) {
+    auto vel = [&](float sx, float sy, int r, float& ux, float& uy) {
+        if (!vl) {
+            ux = 0.0f;
+            uy = 0.0f;
+            return;
+        }
+        ux = vxl.sample(sx / dx, sy / dy + 0.5f, cj, ci, r);
+        uy = vyl.sample(sx / dx + 0.5f, sy / dy, cj, ci, r);
+    };
+
+    const float hdt = 0.5f * dt;
+    float k1x, k1y, k2x, k2y, k3x, k3y, k4x, k4y;
+    vel(px, py, 1, k1x, k1y);
+    vel(px + hdt * k1x, py + hdt * k1y, reach, k2x, k2y);
+    vel(px + hdt * k2x, py + hdt * k2y, reach, k3x, k3y);
+    vel(px + dt * k3x, py + dt * k3y, reach, k4x, k4y);
+
+    const float six = dt / 6.0f;
+    const float xn = px + six * (k1x + 2.0f * k2x + 2.0f * k3x + k4x);
+    const float yn = py + six * (k1y + 2.0f * k2y + 2.0f * k3y + k4y);
+    out_x = fminf(fmaxf(xn, x_lo), x_hi);
+    out_y = fminf(fmaxf(yn, y_lo), y_hi);
+}

@@ -11,52 +11,27 @@
 //
 // Design: a gather, one thread per node (J, I) of the (ny+1, nx+1) corner
 // index space; the same thread also owns the center (J, I), vy (J, I) and
-// vx (J, I) nodes where those exist.  It walks the slots of the 3x3 cells
-// (J-1..J+1, I-1..I+1) that can reach its nodes, in a fixed order, and
-// accumulates w and w*v for every stream in registers.  Properties come
-// from (mat, T) in the kernel, with the material table passed by value.
+// vx (J, I) nodes where those exist.  Its walk over the slots of the 3x3
+// cells that can reach its nodes, in a fixed order, is m2g_node.cuh's
+// (shared with the per-shard m2g_block.cu).  Properties come from (mat, T)
+// in the kernel, with the material table passed by value.
 // No atomics: each node has exactly one writer and a fixed summation
 // order, so the result is deterministic (the reference is bitwise
 // deterministic by design).  expf/logf (not the __expf intrinsics) keep
 // full f32 accuracy.  The output is the same raw weighted-sum dict as the
 // TPU kernel, so the caller's division step is shared.
 #include "common.cuh"
+#include "m2g_node.cuh"
 
 namespace {
 
-constexpr int kMaxMat = 8;
-constexpr float kRGas = 8.314462618f;
-
-// must match markers/kernels/m2g.py:_Table
-struct M2GTable {
-    int n;
-    int eta_mode;  // 0 arithmetic, 1 geometric, 2 harmonic
-    float eta_min, eta_max;
-    int law[kMaxMat];  // 0 constant, 1 Frank-Kamenetskii, 2 Arrhenius
-    float eta0[kMaxMat], T_ref[kMaxMat], fk_gamma[kMaxMat], E_act[kMaxMat];
-    float rho0[kMaxMat], alpha[kMaxMat], k[kMaxMat], cp[kMaxMat], H[kMaxMat];
+// the (ny, nx, K) bucket layout
+struct GlobalCells {
+    int nx, K;
+    __device__ __forceinline__ long long base(int cj, int ci) const {
+        return (static_cast<long long>(cj) * nx + ci) * K;
+    }
 };
-
-// output planes, in this order; unused ones are null
-enum Out { C_W, C_ETA, N_W, N_ETA, VY_W, VY_RHO, VX_W, VX_RHO,
-           C_T, C_K, C_RHOCP, C_H, N_OUT };
-struct M2GOut {
-    float* p[N_OUT];
-};
-
-enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4 };
-
-// weight of node `node` from a marker at lattice coordinate f on an axis
-// whose nodes 0..n_nodes-1 sit at origin + index * h (f already in index
-// units): clamped bilinear hat, as markers/bucket.py:_lattice_local
-__device__ __forceinline__ float hat(float f, int n_nodes, int node) {
-    const int i0 = static_cast<int>(
-        fminf(fmaxf(floorf(f), 0.0f), static_cast<float>(n_nodes - 2)));
-    const float t = fminf(fmaxf(f - static_cast<float>(i0), 0.0f), 1.0f);
-    if (node == i0) return 1.0f - t;
-    if (node == i0 + 1) return t;
-    return 0.0f;
-}
 
 __global__ void m2g_kernel(const float* __restrict__ x,
                            const float* __restrict__ y,
@@ -68,106 +43,30 @@ __global__ void m2g_kernel(const float* __restrict__ x,
     const int I = blockIdx.x * blockDim.x + threadIdx.x;
     const int J = blockIdx.y * blockDim.y + threadIdx.y;
     if (I > nx || J > ny) return;
-    const bool has_n = (J < ny) && (I < nx);
-    const bool has_vy = I < nx;
-    const bool has_vx = (J < ny) && (flags & WITH_VX);
-    const bool energy = flags & WITH_ENERGY;
-    const float hx = 0.5f * dx;  // center-kind origin offsets
-    const float hy = 0.5f * dy;
-
-    float c_w = 0.f, c_eta = 0.f, n_w = 0.f, n_eta = 0.f;
-    float vy_w = 0.f, vy_rho = 0.f, vx_w = 0.f, vx_rho = 0.f;
-    float c_T = 0.f, c_k = 0.f, c_rhocp = 0.f, c_H = 0.f;
-
-    for (int cj = J - 1; cj <= J + 1; ++cj) {
-        if (cj < 0 || cj >= ny) continue;
-        for (int ci = I - 1; ci <= I + 1; ++ci) {
-            if (ci < 0 || ci >= nx) continue;
-            const long long base = (static_cast<long long>(cj) * nx + ci) * K;
-            for (int s = 0; s < K; ++s) {
-                const long long q = base + s;
-                if (!valid[q]) continue;
-                const float px = x[q];
-                const float py = y[q];
-                // corner-kind axes: nodes at cell edges; center-kind: at
-                // cell centers (fx = (x - dx/2) / dx)
-                const float fxc = (px - 0.0f) / dx;
-                const float fyc = (py - 0.0f) / dy;
-                const float fxn = (px - hx) / dx;
-                const float fyn = (py - hy) / dy;
-                const float wyc = hat(fyc, ny + 1, J);
-                const float wxc = hat(fxc, nx + 1, I);
-                const float wyn = has_n || has_vx ? hat(fyn, ny, J) : 0.0f;
-                const float wxn = has_vy ? hat(fxn, nx, I) : 0.0f;
-                const float w_c = wyc * wxc;
-                const float w_n = has_n ? wyn * wxn : 0.0f;
-                const float w_vy = has_vy ? wyc * wxn : 0.0f;
-                const float w_vx = has_vx ? wyn * wxc : 0.0f;
-                if (w_c == 0.0f && w_n == 0.0f && w_vy == 0.0f &&
-                    w_vx == 0.0f)
-                    continue;
-
-                // marker properties from (mat, T)
-                const int m0 = mat[q];
-                const int m = (m0 >= 0 && m0 < tbl.n) ? m0 : 0;
-                const float Tm = T[q];
-                float eta = tbl.eta0[m];
-                if (tbl.law[m] == 1) {
-                    eta = tbl.eta0[m] * expf(-tbl.fk_gamma[m] * (Tm - tbl.T_ref[m]));
-                } else if (tbl.law[m] == 2) {
-                    const float Ts = fmaxf(Tm, 1e-30f);
-                    const float Trs = fmaxf(tbl.T_ref[m], 1e-30f);
-                    eta = tbl.eta0[m] * expf(tbl.E_act[m] / (kRGas * Ts) -
-                                             tbl.E_act[m] / (kRGas * Trs));
-                }
-                eta = fminf(fmaxf(eta, tbl.eta_min), tbl.eta_max);
-                if (tbl.eta_mode == 1) {
-                    eta = logf(eta);
-                } else if (tbl.eta_mode == 2) {
-                    eta = 1.0f / eta;
-                }
-                const float rho =
-                    tbl.rho0[m] * (1.0f - tbl.alpha[m] * (Tm - tbl.T_ref[m]));
-
-                c_w += w_c;
-                c_eta += w_c * eta;
-                n_w += w_n;
-                n_eta += w_n * eta;
-                vy_w += w_vy;
-                vy_rho += w_vy * rho;
-                vx_w += w_vx;
-                vx_rho += w_vx * rho;
-                if (energy) {
-                    c_T += w_c * Tm;
-                    c_k += w_c * tbl.k[m];
-                    c_rhocp += w_c * (tbl.rho0[m] * tbl.cp[m]);
-                    c_H += w_c * tbl.H[m];
-                }
-            }
-        }
-    }
+    const NodeSums r = m2g_gather(GlobalCells{nx, K}, x, y, T, mat, valid,
+                                  tbl, J, I, ny, nx, K, dx, dy, flags);
 
     const long long qc = static_cast<long long>(J) * (nx + 1) + I;
     const long long qn = static_cast<long long>(J) * nx + I;
-    out.p[C_W][qc] = c_w;
-    out.p[C_ETA][qc] = c_eta;
-    if (has_n) {
-        out.p[N_W][qn] = n_w;
-        out.p[N_ETA][qn] = n_eta;
+    out.p[C_W][qc] = r.v[C_W];
+    out.p[C_ETA][qc] = r.v[C_ETA];
+    if (r.has_n) {
+        out.p[N_W][qn] = r.v[N_W];
+        out.p[N_ETA][qn] = r.v[N_ETA];
     }
-    if (has_vy) {  // vy lattice (ny+1, nx)
-        out.p[VY_W][qn] = vy_w;
-        out.p[VY_RHO][qn] = vy_rho;
+    if (r.has_vy) {  // vy lattice (ny+1, nx)
+        out.p[VY_W][qn] = r.v[VY_W];
+        out.p[VY_RHO][qn] = r.v[VY_RHO];
     }
-    if (has_vx) {  // vx lattice (ny, nx+1)
-        out.p[VX_W][qc] = vx_w;
-        out.p[VX_RHO][qc] = vx_rho;
+    if (r.has_vx) {  // vx lattice (ny, nx+1)
+        out.p[VX_W][qc] = r.v[VX_W];
+        out.p[VX_RHO][qc] = r.v[VX_RHO];
     }
-    if (energy) {
-        out.p[C_T][qc] = c_T;
-        out.p[C_K][qc] = c_k;
-        out.p[C_RHOCP][qc] = c_rhocp;
-        if (flags & WITH_H) out.p[C_H][qc] = c_H;
+    if (flags & WITH_ENERGY) {
+        out.p[C_T][qc] = r.v[C_T];
+        out.p[C_K][qc] = r.v[C_K];
+        out.p[C_RHOCP][qc] = r.v[C_RHOCP];
+        if (flags & WITH_H) out.p[C_H][qc] = r.v[C_H];
     }
 }
 

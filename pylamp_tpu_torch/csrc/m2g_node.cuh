@@ -1,0 +1,160 @@
+// The marker -> grid gather of one node thread, shared by the single-device
+// transfer (m2g.cu) and the per-shard transfer on extended marker blocks
+// (m2g_block.cu): the node (J, I) of the (ny+1, nx+1) corner index space
+// and the center (J, I), vy (J, I) and vx (J, I) nodes where those exist.
+// It walks the slots of the 3x3 cells (J-1..J+1, I-1..I+1) that can reach
+// its nodes in a fixed order -- cell rows, then cell columns ascending,
+// then slots ascending -- and accumulates w and w*v of every stream in
+// registers.  Marker properties come from (mat, T) and the material table.
+// The same order on the same markers gives the same sums, whichever
+// layout the cells come from.
+#pragma once
+
+#include <cuda_runtime.h>
+
+constexpr int kMaxMat = 8;
+constexpr float kRGas = 8.314462618f;
+
+// must match markers/kernels/m2g.py:_Table
+struct M2GTable {
+    int n;
+    int eta_mode;  // 0 arithmetic, 1 geometric, 2 harmonic
+    float eta_min, eta_max;
+    int law[kMaxMat];  // 0 constant, 1 Frank-Kamenetskii, 2 Arrhenius
+    float eta0[kMaxMat], T_ref[kMaxMat], fk_gamma[kMaxMat], E_act[kMaxMat];
+    float rho0[kMaxMat], alpha[kMaxMat], k[kMaxMat], cp[kMaxMat], H[kMaxMat];
+};
+
+// output planes, in this order; unused ones are null
+enum Out { C_W, C_ETA, N_W, N_ETA, VY_W, VY_RHO, VX_W, VX_RHO,
+           C_T, C_K, C_RHOCP, C_H, N_OUT };
+struct M2GOut {
+    float* p[N_OUT];
+};
+
+enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4 };
+
+// weight of node `node` from a marker at lattice coordinate f on an axis
+// whose nodes 0..n_nodes-1 sit at origin + index * h (f already in index
+// units): clamped bilinear hat, as markers/bucket.py:_lattice_local
+__device__ __forceinline__ float hat(float f, int n_nodes, int node) {
+    const int i0 = static_cast<int>(
+        fminf(fmaxf(floorf(f), 0.0f), static_cast<float>(n_nodes - 2)));
+    const float t = fminf(fmaxf(f - static_cast<float>(i0), 0.0f), 1.0f);
+    if (node == i0) return 1.0f - t;
+    if (node == i0 + 1) return t;
+    return 0.0f;
+}
+
+// The sums of one node thread, and which of its nodes exist.
+struct NodeSums {
+    float v[N_OUT];
+    bool has_n, has_vy, has_vx;
+};
+
+// The markers' streams; Cells::base(cj, ci) is the first slot of global
+// cell (cj, ci) in them, or -1 where the layout has no such cell.
+template <class Cells>
+__device__ __forceinline__ NodeSums m2g_gather(
+    const Cells& cells, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ T,
+    const int* __restrict__ mat, const unsigned char* __restrict__ valid,
+    const M2GTable& tbl, int J, int I, int ny, int nx, int K, float dx,
+    float dy, int flags) {
+    NodeSums out;
+    const bool has_n = (J < ny) && (I < nx);
+    const bool has_vy = I < nx;
+    const bool has_vx = (J < ny) && (flags & WITH_VX);
+    const bool energy = flags & WITH_ENERGY;
+    const float hx = 0.5f * dx;  // center-kind origin offsets
+    const float hy = 0.5f * dy;
+
+    float c_w = 0.f, c_eta = 0.f, n_w = 0.f, n_eta = 0.f;
+    float vy_w = 0.f, vy_rho = 0.f, vx_w = 0.f, vx_rho = 0.f;
+    float c_T = 0.f, c_k = 0.f, c_rhocp = 0.f, c_H = 0.f;
+
+    for (int cj = J - 1; cj <= J + 1; ++cj) {
+        if (cj < 0 || cj >= ny) continue;
+        for (int ci = I - 1; ci <= I + 1; ++ci) {
+            if (ci < 0 || ci >= nx) continue;
+            const long long base = cells.base(cj, ci);
+            if (base < 0) continue;
+            for (int s = 0; s < K; ++s) {
+                const long long q = base + s;
+                if (!valid[q]) continue;
+                const float px = x[q];
+                const float py = y[q];
+                // corner-kind axes: nodes at cell edges; center-kind: at
+                // cell centers (fx = (x - dx/2) / dx)
+                const float fxc = (px - 0.0f) / dx;
+                const float fyc = (py - 0.0f) / dy;
+                const float fxn = (px - hx) / dx;
+                const float fyn = (py - hy) / dy;
+                const float wyc = hat(fyc, ny + 1, J);
+                const float wxc = hat(fxc, nx + 1, I);
+                const float wyn = has_n || has_vx ? hat(fyn, ny, J) : 0.0f;
+                const float wxn = has_vy ? hat(fxn, nx, I) : 0.0f;
+                const float w_c = wyc * wxc;
+                const float w_n = has_n ? wyn * wxn : 0.0f;
+                const float w_vy = has_vy ? wyc * wxn : 0.0f;
+                const float w_vx = has_vx ? wyn * wxc : 0.0f;
+                if (w_c == 0.0f && w_n == 0.0f && w_vy == 0.0f &&
+                    w_vx == 0.0f)
+                    continue;
+
+                // marker properties from (mat, T)
+                const int m0 = mat[q];
+                const int m = (m0 >= 0 && m0 < tbl.n) ? m0 : 0;
+                const float Tm = T[q];
+                float eta = tbl.eta0[m];
+                if (tbl.law[m] == 1) {
+                    eta = tbl.eta0[m] * expf(-tbl.fk_gamma[m] * (Tm - tbl.T_ref[m]));
+                } else if (tbl.law[m] == 2) {
+                    const float Ts = fmaxf(Tm, 1e-30f);
+                    const float Trs = fmaxf(tbl.T_ref[m], 1e-30f);
+                    eta = tbl.eta0[m] * expf(tbl.E_act[m] / (kRGas * Ts) -
+                                             tbl.E_act[m] / (kRGas * Trs));
+                }
+                eta = fminf(fmaxf(eta, tbl.eta_min), tbl.eta_max);
+                if (tbl.eta_mode == 1) {
+                    eta = logf(eta);
+                } else if (tbl.eta_mode == 2) {
+                    eta = 1.0f / eta;
+                }
+                const float rho =
+                    tbl.rho0[m] * (1.0f - tbl.alpha[m] * (Tm - tbl.T_ref[m]));
+
+                c_w += w_c;
+                c_eta += w_c * eta;
+                n_w += w_n;
+                n_eta += w_n * eta;
+                vy_w += w_vy;
+                vy_rho += w_vy * rho;
+                vx_w += w_vx;
+                vx_rho += w_vx * rho;
+                if (energy) {
+                    c_T += w_c * Tm;
+                    c_k += w_c * tbl.k[m];
+                    c_rhocp += w_c * (tbl.rho0[m] * tbl.cp[m]);
+                    c_H += w_c * tbl.H[m];
+                }
+            }
+        }
+    }
+    out.v[C_W] = c_w;
+    out.v[C_ETA] = c_eta;
+    out.v[N_W] = n_w;
+    out.v[N_ETA] = n_eta;
+    out.v[VY_W] = vy_w;
+    out.v[VY_RHO] = vy_rho;
+    out.v[VX_W] = vx_w;
+    out.v[VX_RHO] = vx_rho;
+    out.v[C_T] = c_T;
+    out.v[C_K] = c_k;
+    out.v[C_RHOCP] = c_rhocp;
+    out.v[C_H] = c_H;
+    out.has_n = has_n;
+    out.has_vy = has_vy;
+    out.has_vx = has_vx;
+    return out;
+}

@@ -8,20 +8,24 @@
 // and writes them once more (321 MB): ~0.64 GB, ~0.2 ms at 3.35 TB/s.
 // There is no arithmetic to speak of.
 //
-// Design: one thread per TARGET cell.  It walks the 3x3 source cells in
-// exactly the reference's insertion order — a in (-1, 0, 1), then b in
-// (-1, 0, 1), then slot s ascending — takes every valid marker whose owning
-// cell clip((int)(x / dx)) is this cell, inserts it at `count` while
-// count < K, and counts every arrival for the overflow drop count.  Each
-// thread writes only its own bucket, so there are no atomics and the
-// result is deterministic and identical slot for slot to the plain
-// version.  The owning cell uses IEEE f32 division by the f32 cell size,
-// as the reference traces it (this file must not be built with
-// --use_fast_math).  The neighbourhood reads of a warp overlap and are
-// served from L1/L2, so device memory sees each source bucket about once.
+// Design: one thread per TARGET cell, the repack of rebucket_cell.cuh
+// (shared with the per-shard rebucket_block.cu): the reference's insertion
+// order, so the result is identical slot for slot to the plain version.
+// Each thread writes only its own bucket, so there are no atomics.  The
+// neighbourhood reads of a warp overlap and are served from L1/L2, so
+// device memory sees each source bucket about once.
 #include "common.cuh"
+#include "rebucket_cell.cuh"
 
 namespace {
+
+// the (ny, nx, K) bucket layout
+struct GlobalCells {
+    int nx, K;
+    __device__ __forceinline__ long long base(int sj, int si) const {
+        return (static_cast<long long>(sj) * nx + si) * K;
+    }
+};
 
 __global__ void rebucket_kernel(const float* __restrict__ x,
                                 const float* __restrict__ y,
@@ -37,45 +41,9 @@ __global__ void rebucket_kernel(const float* __restrict__ x,
     const int cj = blockIdx.y * blockDim.y + threadIdx.y;
     if (ci >= nx || cj >= ny) return;
     const long long out_base = (static_cast<long long>(cj) * nx + ci) * K;
-    int count = 0;
-    int arrivals = 0;
-    for (int a = -1; a <= 1; ++a) {
-        const int sj = cj + a;
-        if (sj < 0 || sj >= ny) continue;
-        for (int b = -1; b <= 1; ++b) {
-            const int si = ci + b;
-            if (si < 0 || si >= nx) continue;
-            const long long in_base = (static_cast<long long>(sj) * nx + si) * K;
-            for (int s = 0; s < K; ++s) {
-                const long long q = in_base + s;
-                if (!valid[q]) continue;
-                const float px = x[q];
-                const float py = y[q];
-                const int ti = min(max(static_cast<int>(px / dx), 0), nx - 1);
-                const int tj = min(max(static_cast<int>(py / dy), 0), ny - 1);
-                if (ti != ci || tj != cj) continue;
-                ++arrivals;
-                if (count < K) {
-                    const long long o = out_base + count;
-                    ox[o] = px;
-                    oy[o] = py;
-                    oT[o] = T[q];
-                    omat[o] = mat[q];
-                    ovalid[o] = 1;
-                    ++count;
-                }
-            }
-        }
-    }
-    for (int s = count; s < K; ++s) {
-        const long long o = out_base + s;
-        ox[o] = 0.0f;
-        oy[o] = 0.0f;
-        oT[o] = 0.0f;
-        omat[o] = 0;
-        ovalid[o] = 0;
-    }
-    arrivals_out[cj * nx + ci] = arrivals;
+    arrivals_out[cj * nx + ci] = rebucket_cell(
+        GlobalCells{nx, K}, x, y, T, mat, valid, ox, oy, oT, omat, ovalid,
+        out_base, cj, ci, ny, nx, K, dx, dy);
 }
 
 }  // namespace

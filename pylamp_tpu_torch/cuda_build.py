@@ -64,6 +64,23 @@ SIGNATURES = {
     # kbnds, maxit, pre, post, coarse_iters, s_top, s_bottom, s_left,
     # s_right, stream
     "launch_coarse_vcycle": [_P, _I] + [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P],
+    # per-shard kernels: S shards in one launch
+    # vx, vy, p (or null), es, en, kcont, rx, ry, rc (or null), S, by, bx,
+    # dx, dy, stream
+    "launch_saddle_block": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P],
+    # ex, ey, rx, ry, es, en, flags, coeffs, kb, ox, oy, fx, fy, S, by, bx,
+    # h, dx, dy, s_top, s_bottom, s_left, s_right, iters, zero_init, emit,
+    # stream
+    "launch_cheb_block": [_P] * 13 + [_I] * 4 + [_F] * 6 + [_I] * 3 + [_P],
+    # x, y, T, mat, valid, bases, material table (host), out pointers
+    # (host array of 12), S, ny, nx, by, bx, K, dx, dy, flags, stream
+    "launch_m2g_block": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, y, valid, vx_ext, vy_ext, bases, dt, out_x, out_y, S, ny, nx, by,
+    # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, stream
+    "launch_advect_block": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P],
+    # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
+    # ny, nx, by, bx, K, dx, dy, stream
+    "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
 }
 
 

@@ -330,7 +330,17 @@ def rebucket(bm: BucketedMarkers, grid: StaggeredGrid,
                      & (_shift3(stays_di, a, b) == -b))
         for name in cands:
             cands[name].append(_shift3(getattr(bm, name), a, b))
-    take = torch.cat(takes, dim=-1)  # (ny, nx, 9K) in insertion order
+    new, arrivals = pack_candidates(takes, cands, K)
+    dropped = torch.sum(torch.clamp(arrivals - K, min=0))
+    return new, dropped
+
+
+def pack_candidates(takes, cands, K: int):
+    """Repack buckets from their candidate slabs in insertion order:
+    ``takes`` (list of (..., K) bool) and ``cands`` ({"x", "y", "T", "mat"}:
+    lists of the matching slabs); a bucket keeps the first K candidates it
+    takes.  Returns (BucketedMarkers, arrivals per bucket, int64)."""
+    take = torch.cat(takes, dim=-1)  # (..., 9K) in insertion order
     rank = torch.cumsum(take.to(torch.int32), dim=-1, dtype=torch.int32) - 1
     arrivals = torch.sum(take, dim=-1, dtype=torch.int64)
     keep = take & (rank < K)
@@ -338,14 +348,12 @@ def rebucket(bm: BucketedMarkers, grid: StaggeredGrid,
 
     def pack(name):
         vals = torch.cat(cands[name], dim=-1)
-        out = torch.zeros((ny, nx, K + 1), dtype=vals.dtype,
+        out = torch.zeros((*vals.shape[:-1], K + 1), dtype=vals.dtype,
                           device=vals.device)
         return out.scatter_(-1, slot, vals)[..., :K]
 
     count = torch.clamp(arrivals, max=K)
-    valid = (torch.arange(K, device=bm.x.device).view(1, 1, K)
-             < count[..., None])
+    valid = torch.arange(K, device=take.device) < count[..., None]
     new = BucketedMarkers(x=pack("x"), y=pack("y"), mat=pack("mat"),
                           T=pack("T"), valid=valid)
-    dropped = torch.sum(torch.clamp(arrivals - K, min=0))
-    return new, dropped
+    return new, arrivals

@@ -65,35 +65,39 @@ def _streams(table: MaterialTable, phys, with_energy: bool):
     return with_vx, with_h, names
 
 
-def m2g_fused_plain(bm: BucketedMarkers, grid: StaggeredGrid,
-                    table: MaterialTable, phys, with_energy: bool = False):
-    """Plain PyTorch version: marker properties, then the dense-shift
-    weighted sums of ``bucket.m2g_sums`` on each lattice."""
+def _lattice_streams(T, mat, valid, table: MaterialTable, phys,
+                     with_energy: bool, dtype):
+    """[(lattice, weight name, {stream name: marker values})] of every
+    stream, the values sanitized and transformed as the sums take them."""
     with_vx, with_h, _ = _streams(table, phys, with_energy)
-    dtype = bm.x.dtype
-    valid = bm.valid
-    eta = torch.clamp(table.viscosity_of(bm.mat, bm.T), phys.eta_min,
-                      phys.eta_max)
+    eta = torch.clamp(table.viscosity_of(mat, T), phys.eta_min, phys.eta_max)
     eta_v = transform_values(eta, valid, phys.eta_avg)
-    rho_v = transform_values(table.density(bm.mat, bm.T), valid, ARITHMETIC)
+    rho_v = transform_values(table.density(mat, T), valid, ARITHMETIC)
 
     corner = {"c_eta": eta_v}
     if with_energy:
-        corner["c_T"] = transform_values(bm.T, valid, ARITHMETIC)
-        corner["c_k"] = transform_values(table.conductivity(bm.mat, dtype),
+        corner["c_T"] = transform_values(T, valid, ARITHMETIC)
+        corner["c_k"] = transform_values(table.conductivity(mat, dtype),
                                          valid, ARITHMETIC)
-        corner["c_rhocp"] = transform_values(table.rho_cp(bm.mat, bm.T),
-                                             valid, ARITHMETIC)
+        corner["c_rhocp"] = transform_values(table.rho_cp(mat, T), valid,
+                                             ARITHMETIC)
         if with_h:
-            corner["c_H"] = transform_values(table.heating(bm.mat, dtype),
+            corner["c_H"] = transform_values(table.heating(mat, dtype),
                                              valid, ARITHMETIC)
-
-    out = {}
     lattices = [("corner", "c_w", corner), ("center", "n_w", {"n_eta": eta_v}),
                 ("vy", "vy_w", {"vy_rho": rho_v})]
     if with_vx:
         lattices.append(("vx", "vx_w", {"vx_rho": rho_v}))
-    for loc, wname, streams in lattices:
+    return lattices
+
+
+def m2g_fused_plain(bm: BucketedMarkers, grid: StaggeredGrid,
+                    table: MaterialTable, phys, with_energy: bool = False):
+    """Plain PyTorch version: marker properties, then the dense-shift
+    weighted sums of ``bucket.m2g_sums`` on each lattice."""
+    out = {}
+    for loc, wname, streams in _lattice_streams(
+            bm.T, bm.mat, bm.valid, table, phys, with_energy, bm.x.dtype):
         w, wvs = m2g_sums(bm, list(streams.values()), grid, loc)
         out[wname] = w
         out.update(zip(streams.keys(), wvs))

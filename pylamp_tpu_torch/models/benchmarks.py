@@ -1,10 +1,12 @@
 """Benchmark model configurations.
 
-Port of two presets of ``pylamp_tpu/models/benchmarks.py``: the
-Frank-Kamenetskii stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1;
-rho0*alpha = Ra with g = 1) and the sticky-air free surface (BASELINE
-config 5, SI units), plus the configurations ``python bench.py`` builds
-for them, switch for switch: ``fk_bench_config`` (its default) and
+Port of four presets of ``pylamp_tpu/models/benchmarks.py``: the
+falling block and Blankenbach case 1a (BASELINE configs 1 and 2, the
+reference's multi-device dryrun configurations), the Frank-Kamenetskii
+stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1; rho0*alpha = Ra
+with g = 1) and the sticky-air free surface (BASELINE config 5, SI units),
+plus the configurations ``python bench.py`` builds for the last two, switch
+for switch: ``fk_bench_config`` (its default) and
 ``sticky_air_bench_config`` (``--benchmark sticky_air``).
 """
 from __future__ import annotations
@@ -23,6 +25,67 @@ from pylamp_tpu_torch.models.config import (
 from pylamp_tpu_torch.physics.materials import Material
 
 KYR = 3.15576e10  # seconds
+
+
+def falling_block(nx=64, ny=64, eta_block=1.0, rho_block=2.0, max_steps=20):
+    """Isoviscous dense block sinking in a unit box (BASELINE config 1)."""
+    ambient = Material(name="ambient", rho0=1.0, eta0=1.0,
+                       viscosity="constant")
+    block = Material(name="block", rho0=rho_block, eta0=eta_block,
+                     viscosity="constant")
+
+    def material_of(x, y):
+        return ((np.abs(x - 0.5) < 0.15)
+                & (np.abs(y - 0.25) < 0.15)).astype(np.int32)
+
+    return ModelConfig(
+        nx=nx, ny=ny, lx=1.0, ly=1.0,
+        physics=PhysicsConfig(
+            gx=0.0, gy=1.0,
+            materials=(ambient, block),
+            velocity_bcs=VelocityBCs(),
+            solve_energy=False,
+            eta_avg="geometric",
+        ),
+        solver=SolverConfig(),
+        time=TimeConfig(courant=0.5, max_steps=max_steps),
+        material_of=material_of,
+        name="falling_block",
+    )
+
+
+def blankenbach_case1a(nx=64, ny=64, Ra=1e4, max_steps=2000, max_time=0.25):
+    """Isoviscous convection at Ra = 1e4 (BASELINE config 2): rho =
+    Ra (1 - T), rho0 cp = 1 and k = 1 (kappa = 1), free slip everywhere,
+    Dirichlet top/bottom and insulating sides."""
+    mat = Material(name="fluid", rho0=Ra, alpha=1.0, T_ref=0.0, eta0=1.0,
+                   viscosity="constant", k=1.0, cp=1.0 / Ra)
+
+    def T_of(x, y):
+        # conductive profile + single-mode perturbation to seed the cell
+        return y + 0.05 * np.cos(np.pi * x) * np.sin(np.pi * y)
+
+    return ModelConfig(
+        nx=nx, ny=ny, lx=1.0, ly=1.0,
+        physics=PhysicsConfig(
+            gx=0.0, gy=1.0,
+            materials=(mat,),
+            velocity_bcs=VelocityBCs(),
+            thermal_bcs=ThermalBCs(
+                top=ThermalBC("dirichlet", 0.0),
+                bottom=ThermalBC("dirichlet", 1.0),
+                left=ThermalBC("neumann", 0.0),
+                right=ThermalBC("neumann", 0.0),
+            ),
+            solve_energy=True,
+            subgrid_diffusion_d=0.0,
+        ),
+        solver=SolverConfig(),
+        time=TimeConfig(courant=0.5, max_steps=max_steps, max_time=max_time,
+                        dt_diff_factor=5.0),
+        T_of=T_of,
+        name="blankenbach_1a",
+    )
 
 
 def fk_stagnant_lid(nx=64, ny=64, Ra_top=100.0, visc_contrast=1e4,

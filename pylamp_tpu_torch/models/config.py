@@ -20,7 +20,13 @@ kernels of the same role:
   (ops/kernels/momentum.py)
 
 Rebucketing always takes its kernel (markers/kernels/rebucket.py) where the
-static gates hold, as in the reference.  The step passes every switch on
+static gates hold, as in the reference.  With ``explicit_halo`` and a mesh
+(``models.step.make_step(..., mesh=...)``) the same switches select the
+per-shard kernels of the explicit-halo path: ``use_pallas_apply`` the
+per-shard saddle stencil, ``use_pallas_smoother`` the per-shard fused
+sweep, ``use_pallas_m2g`` / ``use_pallas_advect`` the per-shard marker
+transfer and advection; ``mg_coarse_replicate`` keeps the coarse levels on
+the global tensors.  The step passes every switch on
 only for an f32 state, as the reference gates its kernels on f32.
 ``pallas_interpret`` has no port.
 """

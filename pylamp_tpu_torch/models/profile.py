@@ -1,11 +1,12 @@
 """Where the time goes in the port's step, on one GPU.
 
     python -m pylamp_tpu_torch.models.profile [--config fk|sticky_air]
-        [--nx 1024] [--steps 2]
+        [--nx 1024] [--steps 2] [--mesh 4x2]
 
 Builds ``fk_bench_config(nx)`` (FK nx^2, the default) or
 ``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) on the card in
-f32 and takes 2 warm-up steps, then
+f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
+reference's CLI: the explicit-halo step on that in-process mesh)
 
 1. runs ``--steps`` steps through ``models.step.run_step`` with a device
    synchronize around each phase (interp, stokes, timestep, energy,
@@ -89,26 +90,52 @@ def main(argv=None):
     ap.add_argument("--config", choices=("fk", "sticky_air"), default="fk")
     ap.add_argument("--nx", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--mesh", default=None, metavar="YxX",
+                    help="run the explicit-halo step on a YxX in-process "
+                         "mesh (or a shard count)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
 
-    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.markers.kernels import (
+        advect,
+        advect_block,
+        m2g,
+        m2g_block,
+        rebucket,
+        rebucket_block,
+    )
     from pylamp_tpu_torch.models.benchmarks import (
         fk_bench_config,
         sticky_air_bench_config,
     )
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step_phases, run_step
-    from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
-    from pylamp_tpu_torch.ops.kernels import coarse_vcycle
+    from pylamp_tpu_torch.ops.kernels import (
+        cheb,
+        cheb_block,
+        coarse_vcycle,
+        momentum,
+        saddle,
+        saddle_block,
+    )
+    from pylamp_tpu_torch.parallel.mesh import parse_mesh
 
     kernels = dict(saddle=saddle, m2g=m2g, advect=advect, rebucket=rebucket,
-                   cheb=cheb, coarse_vcycle=coarse_vcycle, momentum=momentum)
+                   cheb=cheb, coarse_vcycle=coarse_vcycle, momentum=momentum,
+                   cheb_block=cheb_block, saddle_block=saddle_block,
+                   m2g_block=m2g_block, advect_block=advect_block,
+                   rebucket_block=rebucket_block)
     cfg = (fk_bench_config if args.config == "fk"
            else sticky_air_bench_config)(args.nx)
+    mesh = None
+    if args.mesh:
+        mesh = parse_mesh(args.mesh)
+        cfg = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
     grid, table, st = build(cfg, dtype=torch.float32, device="cuda")
-    ph = make_step_phases(grid, cfg, table)
+    ph = make_step_phases(grid, cfg, table, mesh=mesh)
     for _ in range(WARMUP_STEPS):
         st, _ = run_step(ph, st)
 
@@ -140,6 +167,7 @@ def main(argv=None):
     print(json.dumps({
         "device": smi,
         "config": args.config,
+        "mesh": [mesh.my, mesh.mx] if mesh else None,
         "grid": [grid.ny, grid.nx],
         "phase_seconds": {k: v / args.steps for k, v in phases.items()},
         "krylov_iterations_per_step": iters / args.steps,

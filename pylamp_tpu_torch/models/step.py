@@ -17,6 +17,18 @@ power-iteration Chebyshev bounds (the sticky-air preset) are ported.  An f64
 state takes the plain functions, as the reference's f64 state skips its
 Pallas kernels.  Configuration branches outside the ported slice raise
 ``NotImplementedError``.
+
+``mesh`` (an in-process mesh, parallel/mesh.py) with
+``SolverConfig.explicit_halo`` runs the step domain-decomposed on one card:
+every Stokes and energy operator apply through the explicit-halo operators
+(the f32 outer applies through the per-shard saddle kernel), the MG levels
+through the per-shard fused smoother, and the marker transfers, advection
+and rebucket through the explicit-halo marker engine with its per-shard
+kernels (parallel/halo_*.py); the single-device saddle, smoother and
+coarse-cycle kernels are off there, as in the reference.  With
+``explicit_halo=False`` a mesh changes nothing: the step runs on the global
+tensors, the single-device step, which is what the reference's GSPMD
+partitioning computes.
 """
 from __future__ import annotations
 
@@ -37,6 +49,14 @@ from pylamp_tpu_torch.markers.kernels.m2g import m2g_fused, m2g_fused_plain
 from pylamp_tpu_torch.markers.kernels.rebucket import rebucket_fused
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.state import ModelState
+from pylamp_tpu_torch.parallel.halo_markers import (
+    advect_rk4_halo,
+    block_kernel_eligible,
+    g2m_halo,
+    halo_markers_eligible,
+    m2g_fused_halo,
+    rebucket_halo,
+)
 from pylamp_tpu_torch.physics.materials import MaterialTable
 from pylamp_tpu_torch.solvers.energy_solver import (
     solve_energy,
@@ -116,7 +136,9 @@ def _marker_mean(markers: BucketedMarkers, vals):
 
 
 def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
-                     table: MaterialTable) -> StepPhases:
+                     table: MaterialTable, mesh=None) -> StepPhases:
+    """``mesh``: the in-process mesh of a domain-decomposed run (module
+    docstring)."""
     phys, solver, tc = cfg.physics, cfg.solver, cfg.time
     vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
     if tc.courant > 1.0:
@@ -124,6 +146,15 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         # move at most one cell per step
         raise ValueError("TimeConfig.courant must be <= 1")
     _check_slice(cfg)
+
+    # explicit halo exchanges for the operator applies, and the marker halo
+    # engine where the bucket blocks are eligible
+    halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
+    marker_halo_mesh = (halo_mesh if halo_mesh is not None
+                        and halo_markers_eligible(grid, halo_mesh) else None)
+    # the per-shard marker kernels' shape gate
+    marker_blocks = (marker_halo_mesh is not None and block_kernel_eligible(
+        grid.ny // marker_halo_mesh.my, grid.nx // marker_halo_mesh.mx))
 
     make_precond = partial(
         make_mg_preconditioner,
@@ -138,6 +169,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         velocity_inner_tol=solver.mg_velocity_inner_tol,
         eta_cap=solver.mg_eta_cap,
         al_gamma=solver.stokes_al_gamma,
+        halo_mesh=halo_mesh,
+        coarse_replicate=solver.mg_coarse_replicate,
     )
 
     def _mixed(dtype):
@@ -145,8 +178,9 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             solver.precision == "auto" and dtype == torch.float32)
 
     def _kernels(dtype):
-        """The reference's static kernel gate (uniform grid, no mesh and
-        non-periodic hold throughout the port)."""
+        """The reference's static kernel gate: f32 (a uniform, non-periodic
+        grid holds throughout the port).  Under the explicit-halo mesh the
+        same switches select the per-shard kernels."""
         return dtype == torch.float32
 
     # ---- phase 1: marker rheology + marker -> grid ------------------------
@@ -156,9 +190,14 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         rho_m = table.density(m.mat, m.T)
         k_m = table.conductivity(m.mat, dtype)
         rhocp_m = table.rho_cp(m.mat, m.T)
-        m2g = (m2g_fused if solver.use_pallas_m2g and _kernels(dtype)
-               else m2g_fused_plain)
-        out = m2g(m, grid, table, phys, with_energy=phys.solve_energy)
+        kern = solver.use_pallas_m2g and _kernels(dtype)
+        if marker_halo_mesh is not None:
+            out = m2g_fused_halo(m, grid, table, phys, marker_halo_mesh,
+                                 with_energy=phys.solve_energy,
+                                 kernel=kern and marker_blocks)
+        else:
+            m2g = m2g_fused if kern else m2g_fused_plain
+            out = m2g(m, grid, table, phys, with_energy=phys.solve_energy)
         return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
 
     def _interp_fused(m, rho_m, k_m, rhocp_m, state, out) -> InterpOut:
@@ -247,7 +286,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 max_refinements=solver.max_refinements, x0=x0,
                 make_preconditioner=mk,
                 use_pallas_apply=solver.use_pallas_apply,
-                al_gamma=solver.stokes_al_gamma)
+                al_gamma=solver.stokes_al_gamma, halo_mesh=halo_mesh)
         else:
             # as in the reference: the plain-precision solve takes no
             # al_gamma, so an AL-built preconditioner wraps the
@@ -256,7 +295,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 io.eta_s, io.eta_n, io.rho_vx, io.rho_vy, phys.gx, phys.gy,
                 grid, vbc, tol=solver.stokes_tol,
                 restart=solver.stokes_restart, maxiter=solver.stokes_maxiter,
-                x0=x0, make_preconditioner=mk)
+                x0=x0, make_preconditioner=mk, halo_mesh=halo_mesh)
         vx, vy, p = sol.vx.to(dtype), sol.vy.to(dtype), sol.p.to(dtype)
         tiny = torch.finfo(torch.float64 if mixed else dtype).tiny
         diag = {
@@ -306,11 +345,16 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         esol = solve(io.T_old_g, io.k_g, io.rhocp_g / dt, io.H_g, grid, tbc,
                      tol=solver.energy_tol, maxiter=solver.energy_maxiter,
                      k_avg=phys.k_face_avg,
-                     preconditioner=solver.energy_preconditioner)
+                     preconditioner=solver.energy_preconditioner,
+                     halo_mesh=halo_mesh)
         T_new = esol.T.to(dtype)
         dT = T_new - io.T_old_g
-        T_m = m.T + bucket_grid_to_markers(dT, m.x, m.y, m.valid, grid,
-                                           "corner")
+        if marker_halo_mesh is not None:
+            T_m = m.T + g2m_halo(dT, m.x, m.y, m.valid, grid, "corner",
+                                 marker_halo_mesh)
+        else:
+            T_m = m.T + bucket_grid_to_markers(dT, m.x, m.y, m.valid, grid,
+                                               "corner")
         diag["energy_iterations"] = esol.info.iterations
         diag["T_mean"] = torch.mean(T_new)
         return m.replace(T=T_m), T_new, diag
@@ -325,16 +369,25 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         # displacement to half a cell
         reach = 1 if (tc.courant <= 0.5 and tc.dt_min == 0.0
                       and not moving_walls) else 2
-        if solver.use_pallas_advect and _kernels(dtype):
-            markers = advect_rk4_fused(markers, vx, vy, dt, grid, vbc,
-                                       stage_reach=reach)
+        kern = _kernels(dtype)
+        if marker_halo_mesh is not None:
+            markers = advect_rk4_halo(
+                markers, vx, vy, dt, grid, vbc, marker_halo_mesh,
+                stage_reach=reach,
+                kernel=solver.use_pallas_advect and kern and marker_blocks)
+            markers, dropped = rebucket_halo(markers, grid, marker_halo_mesh,
+                                             kernel=kern and marker_blocks)
         else:
-            markers = bucket_advect_rk4(markers, vx, vy, dt, grid, vbc,
-                                        stage_reach=reach)
-        if _kernels(dtype):
-            markers, dropped = rebucket_fused(markers, grid)
-        else:
-            markers, dropped = rebucket(markers, grid)
+            if solver.use_pallas_advect and kern:
+                markers = advect_rk4_fused(markers, vx, vy, dt, grid, vbc,
+                                           stage_reach=reach)
+            else:
+                markers = bucket_advect_rk4(markers, vx, vy, dt, grid, vbc,
+                                            stage_reach=reach)
+            if kern:
+                markers, dropped = rebucket_fused(markers, grid)
+            else:
+                markers, dropped = rebucket(markers, grid)
         diag = {"markers_dropped": dropped, "marker_count": markers.total()}
         return markers, diag
 
@@ -365,6 +418,8 @@ def run_step(ph: StepPhases, state: ModelState, timed: Callable = _call
     return new_state, diag
 
 
-def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable):
-    """The production step: ``step(state) -> (new_state, diag)``."""
-    return partial(run_step, make_step_phases(grid, cfg, table))
+def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable,
+              mesh=None):
+    """The production step: ``step(state) -> (new_state, diag)``; ``mesh``
+    as in ``make_step_phases``."""
+    return partial(run_step, make_step_phases(grid, cfg, table, mesh=mesh))

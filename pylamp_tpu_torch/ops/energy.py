@@ -57,9 +57,20 @@ def _pad_mirror(a):
 
 
 def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
-                    kbnd=1.0, k_avg: str = "arithmetic"):
-    """Apply A_T T = rho*Cp/dt * T - div(k grad T), with BC rows."""
+                    kbnd=1.0, k_avg: str = "arithmetic", halo_mesh=None):
+    """Apply A_T T = rho*Cp/dt * T - div(k grad T), with BC rows.
+    ``halo_mesh``: route through the explicit-halo operator
+    (parallel/halo_ops.py) on grids that decompose over the mesh."""
     _no_periodic(bcs)
+    if halo_mesh is not None:
+        from pylamp_tpu_torch.parallel.halo_ops import (
+            energy_operator_halo,
+            halo_eligible,
+        )
+
+        if halo_eligible(grid, halo_mesh):
+            return energy_operator_halo(T, k, rhocp_over_dt, grid, bcs,
+                                        halo_mesh, kbnd=kbnd, k_avg=k_avg)
     dx, dy = grid.dx, grid.dy
     Tp, kp = _pad_mirror(T), _pad_mirror(k)
 

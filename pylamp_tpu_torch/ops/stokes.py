@@ -11,7 +11,9 @@ sxy = eta_s (dvx/dy + dvy/dx) (corners).  Wall-normal velocities are
 Dirichlet rows (kbnd * v); tangential BCs enter through ghost nodes
 (free slip: ghost = +v_interior, no slip: ghost = -v_interior).
 
-``kcont``/``kbnd`` may be Python floats or 0-d tensors.
+``kcont``/``kbnd`` may be Python floats or 0-d tensors.  ``halo_mesh``
+routes an application through the explicit-halo operator of
+parallel/halo_ops.py on grids that decompose over the mesh.
 """
 from __future__ import annotations
 
@@ -49,10 +51,27 @@ def shear_stress_xy(vx, vy, eta_s, grid: StaggeredGrid, bcs: VelocityBCs):
 
 
 def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
-                    bcs: VelocityBCs, kcont=1.0, kbnd=1.0):
+                    bcs: VelocityBCs, kcont=1.0, kbnd=1.0, halo_mesh=None,
+                    halo_pallas: bool = False):
     """Apply the Stokes operator.  Returns (rx, ry, rc) with the shapes of
-    (vx, vy, p)."""
+    (vx, vy, p).
+
+    ``halo_mesh``: an in-process mesh (parallel/mesh.py) -- route the
+    application through the explicit-halo operator (parallel/halo_ops.py);
+    grids that do not decompose evenly over it stay on the global tensors.
+    ``halo_pallas``: under ``halo_mesh``, each shard's stencil runs through
+    the per-shard saddle kernel where its gate holds."""
     _no_periodic(bcs)
+    if halo_mesh is not None:
+        from pylamp_tpu_torch.parallel.halo_ops import (
+            halo_eligible,
+            stokes_operator_halo,
+        )
+
+        if halo_eligible(grid, halo_mesh):
+            return stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid, bcs,
+                                        halo_mesh, kcont=kcont, kbnd=kbnd,
+                                        use_pallas=halo_pallas)
     dx, dy = grid.dx, grid.dy
 
     sxy = shear_stress_xy(vx, vy, eta_s, grid, bcs)

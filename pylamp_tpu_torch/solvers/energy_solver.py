@@ -3,7 +3,9 @@
 Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform, non-periodic,
 Jacobi preconditioner): ``solve_energy`` in the state dtype and
 ``solve_energy_mixed`` with f32 CG inner solves under f64 refinement.
-The energy multigrid preconditioner waits for a later port PR.
+``halo_mesh`` routes every operator application through the
+explicit-halo energy operator (parallel/halo_ops.py).  The energy
+multigrid preconditioner waits for a later port PR.
 """
 from __future__ import annotations
 
@@ -60,12 +62,13 @@ def _kbnd(k, rhocp_over_dt, grid):
 def solve_energy(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
                  bcs: ThermalBCs, tol: float = 1e-10, maxiter: int = 2000,
                  k_avg: str = "arithmetic",
-                 preconditioner: str = "jacobi") -> EnergySolution:
+                 preconditioner: str = "jacobi",
+                 halo_mesh=None) -> EnergySolution:
     kbnd = _kbnd(k, rhocp_over_dt, grid)
 
     def op(T):
         return energy_operator(T, k, rhocp_over_dt, grid, bcs, kbnd=kbnd,
-                               k_avg=k_avg)
+                               k_avg=k_avg, halo_mesh=halo_mesh)
 
     b = energy_rhs(T_old, k, rhocp_over_dt, H, grid, bcs, kbnd=kbnd,
                    k_avg=k_avg)
@@ -78,7 +81,8 @@ def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
                        bcs: ThermalBCs, tol: float = 1e-10,
                        inner_tol: float = 1e-5, maxiter: int = 500,
                        max_refinements: int = 5, k_avg: str = "arithmetic",
-                       preconditioner: str = "jacobi") -> EnergySolution:
+                       preconditioner: str = "jacobi",
+                       halo_mesh=None) -> EnergySolution:
     """f32 CG inner solves inside f64 iterative refinement."""
     from pylamp_tpu_torch.solvers.refine import refine
 
@@ -89,7 +93,7 @@ def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
 
     def op64(T):
         return energy_operator(T, k64, rc64, grid, bcs, kbnd=kbnd,
-                               k_avg=k_avg)
+                               k_avg=k_avg, halo_mesh=halo_mesh)
 
     b64 = energy_rhs(T_old.to(f64), k64, rc64, H.to(f64), grid, bcs,
                      kbnd=kbnd, k_avg=k_avg)
@@ -98,7 +102,7 @@ def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
 
     def op32(T):
         return energy_operator(T, k32, rc32, grid, bcs, kbnd=kbnd32,
-                               k_avg=k_avg)
+                               k_avg=k_avg, halo_mesh=halo_mesh)
 
     M32 = _jacobi(k32, rc32, grid, bcs, kbnd32, k_avg, preconditioner)
 

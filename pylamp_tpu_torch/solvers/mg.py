@@ -26,8 +26,17 @@ With ``use_pallas`` every other momentum apply on a level that passes
 ``_pallas_eligible`` takes the momentum kernel (ops/kernels/momentum.py).
 Their wrappers launch CUDA kernels on CUDA tensors and run the plain
 versions on CPU tensors, so the CPU result does not depend on the flags.
-Still to port: scaled transfers, line search damping, BFBT, the flexible-CG
-inner method and the mesh options.
+
+With ``halo_mesh`` (an in-process mesh, parallel/mesh.py) every momentum
+apply of a level that decomposes over it runs through the explicit-halo
+operator (parallel/halo_ops.py; with ``use_pallas`` each shard's stencil
+takes the per-shard saddle kernel), levels at most ``coarse_replicate``
+cells across stay on the global tensors (the reference's replicated
+sub-hierarchy), and ``use_pallas_smoother`` sweeps each eligible level
+through the per-shard fused smoother (parallel/halo_smoother.py); the
+single-device smoother and the fused coarse sub-V-cycle are off, as in the
+reference.  Still to port: scaled transfers, line search damping, BFBT and
+the flexible-CG inner method.
 """
 from __future__ import annotations
 
@@ -40,6 +49,15 @@ from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.kernels import cheb
 from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 from pylamp_tpu_torch.ops.kernels import momentum
+from pylamp_tpu_torch.parallel.halo_ops import (
+    halo_eligible,
+    stokes_operator_halo,
+)
+from pylamp_tpu_torch.parallel.halo_smoother import (
+    chebyshev_smooth_halo,
+    halo_smoother_eligible,
+    prep_halo_smoother,
+)
 from pylamp_tpu_torch.solvers.al import make_grad_div
 from pylamp_tpu_torch.solvers.krylov import fgmres, tdot
 from pylamp_tpu_torch.solvers.stokes_solver import (
@@ -215,11 +233,23 @@ def _pallas_eligible(grid: StaggeredGrid, dtype) -> bool:
 
 
 def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, use_pallas=False,
-                   prepped=None):
+                   prepped=None, halo_mesh=None):
     """Momentum-block application; with ``use_pallas`` an eligible level
     takes the momentum kernel's wrapper.  ``prepped`` is then required: the
     level's ``prep_momentum``, hoisted once per solve because the viscosity
-    is frozen while the operator is applied many times."""
+    is frozen while the operator is applied many times.  ``halo_mesh``
+    routes the apply through the explicit-halo operator (with
+    ``use_pallas``, the per-shard saddle kernel's momentum-only form) or,
+    on a level that does not decompose over the mesh, the plain apply on
+    the global tensors."""
+    if halo_mesh is not None:
+        if halo_eligible(grid, halo_mesh):
+            rx, ry, _ = stokes_operator_halo(
+                vx, vy, None, eta_s, eta_n, grid, bcs, halo_mesh, kbnd=kbnd,
+                use_pallas=use_pallas)
+            return rx, ry
+        return momentum.momentum_apply_plain(vx, vy, eta_s, eta_n, grid, bcs,
+                                             kbnd)
     if use_pallas and _pallas_eligible(grid, vx.dtype):
         if prepped is None:
             raise ValueError("momentum_apply: an eligible level with "
@@ -382,7 +412,8 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                      semicoarsen: float = 0.0, lam_max=None,
                      eta_cap: float = 0.0, use_pallas: bool = True,
                      use_pallas_smoother: bool = True,
-                     use_pallas_coarse: bool = True):
+                     use_pallas_coarse: bool = True, halo_mesh=None,
+                     coarse_replicate: int = 0):
     """Returns mg(rx, ry, emit=False) -> (zx, zy) [+ the cycle's residual
     (rx - A zx, ry - A zy) with ``emit``].
 
@@ -397,7 +428,8 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     ``use_pallas_smoother``: eligible levels sweep through the fused
     smoother (ops/kernels/cheb.py); with ``use_pallas_coarse`` as well, the
     levels below 256 cells run as one fused sub-V-cycle
-    (ops/kernels/coarse_vcycle.py)."""
+    (ops/kernels/coarse_vcycle.py).  ``halo_mesh`` / ``coarse_replicate``:
+    the explicit-halo levels (module docstring)."""
     _no_periodic(bcs)
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                           semicoarsen)
@@ -410,17 +442,27 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         velocity_diagonals(es, en, g, kb, bcs=bcs)
         for (es, en), g, kb in zip(etas, grids, kbnds)
     ]
+    # explicit-halo applies per level, except levels replicated across the
+    # mesh (coarse_replicate); momentum_apply keeps levels whose blocks are
+    # too small to halo on the global tensors by itself
+    hmesh = [
+        None if halo_mesh is None or (
+            coarse_replicate > 0 and min(g.nx, g.ny) <= coarse_replicate)
+        else halo_mesh
+        for g in grids
+    ]
     # the momentum kernel's operands, once per level per solve
     preps = [
         momentum.prep_momentum(es, en, kb)
-        if use_pallas and _pallas_eligible(g, dtype) else None
-        for (es, en), g, kb in zip(etas, grids, kbnds)
+        if use_pallas and _pallas_eligible(g, dtype) and hm is None else None
+        for (es, en), g, kb, hm in zip(etas, grids, kbnds, hmesh)
     ]
 
     def apply_A(l, ex, ey):
         es, en = etas[l]
         return momentum_apply(ex, ey, es, en, grids[l], bcs, kbnds[l],
-                              use_pallas=use_pallas, prepped=preps[l])
+                              use_pallas=use_pallas, prepped=preps[l],
+                              halo_mesh=hmesh[l])
 
     if lam_max is None:
         lam_max = torch.stack([
@@ -432,10 +474,26 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     # fused smoother: per-level eligibility + hoisted preps.  A level that
     # can fuse deg + 1 applications also emits the post-sweep residual from
     # the kernel, saving the V-cycle's separate momentum_apply per level.
+    # fused PER-SHARD smoother under the explicit-halo engine: one
+    # depth-h exchange per sweep, every iteration in one launch; frames
+    # built once per level per solve
+    deg = max(pre_smooth, post_smooth)
+    halo_preps = [None] * nlev  # (BlockSmootherPrep, can_emit)
+    if use_pallas_smoother and halo_mesh is not None:
+        for l, ((es, en), g) in enumerate(zip(etas, grids)):
+            if hmesh[l] is None:
+                continue
+            for emit in (True, False):
+                if halo_smoother_eligible(g, hmesh[l], bcs, dtype, deg,
+                                          emit_residual=emit):
+                    halo_preps[l] = (prep_halo_smoother(
+                        es, en, g, hmesh[l], deg + emit, kbnds[l],
+                        lam_max[l]), emit)
+                    break
+
     smoother_preps = [None] * nlev
     smoother_emit = [False] * nlev
-    if use_pallas_smoother:
-        deg = max(pre_smooth, post_smooth)
+    if use_pallas_smoother and halo_mesh is None:
         for l, ((es, en), g) in enumerate(zip(etas, grids)):
             if cheb.smoother_eligible(g, dtype, deg, emit_residual=True):
                 h, smoother_emit[l] = deg + 1, True
@@ -451,6 +509,18 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         """Chebyshev semi-iteration on D^-1 A; returns (ex, ey) or, with
         ``emit_residual``, (ex, ey, rx - A ex, ry - A ey) (from the fused
         sweep where the level supports it; one extra apply otherwise)."""
+        if halo_preps[l] is not None:
+            hp, can_emit = halo_preps[l]
+            fuse_emit = emit_residual and can_emit
+            if 1 <= iters <= hp.h - (1 if fuse_emit else 0):
+                out = chebyshev_smooth_halo(
+                    ex, ey, rx, ry, grids[l], bcs, kbnds[l], lam_max[l],
+                    iters, hmesh[l], hp, zero_init, fuse_emit)
+                if fuse_emit or not emit_residual:
+                    return out
+                ex, ey = out
+                ax, ay = apply_A(l, ex, ey)
+                return ex, ey, rx - ax, ry - ay
         prep = smoother_preps[l]
         fuse_emit = emit_residual and smoother_emit[l]
         if prep is not None and 1 <= iters <= prep.h - (1 if fuse_emit else 0):
@@ -471,7 +541,8 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
 
     # fused coarse sub-V-cycle: every level below the cutoff in one launch
     fused_coarse = None
-    if use_pallas_smoother and use_pallas_coarse and len(lam_max) == nlev:
+    if (use_pallas_smoother and use_pallas_coarse and halo_mesh is None
+            and len(lam_max) == nlev):
         fs = cvk.coarse_fuse_start(grids, plan, bcs, dtype, "chebyshev",
                                    False, False)
         if fs is not None:
@@ -515,15 +586,18 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            eta_cap: float = 0.0, al_gamma: float = 0.0,
                            use_pallas: bool = True,
                            use_pallas_smoother: bool = True,
-                           use_pallas_coarse: bool = True):
+                           use_pallas_coarse: bool = True, halo_mesh=None,
+                           coarse_replicate: int = 0):
     """Block upper-triangular preconditioner M(r) for the full Stokes
     system: the mass Schur surrogate -(1 + al_gamma) eta_n / kcont, then the
     velocity block by ``cycles`` V-cycles or, with ``velocity_inner_iters``
     > 0, by an inner FGMRES (restart = maxiter = that count, relative
     ``velocity_inner_tol``) on A + al_gamma D^T eta_n D preconditioned by one
     V-cycle on the un-augmented A.  ``eta_cap`` and the ``use_pallas*``
-    flags go to ``make_velocity_mg``; the inner solve's own momentum applies
-    take the momentum kernel on an eligible fine level too."""
+    flags, ``halo_mesh`` and ``coarse_replicate`` go to
+    ``make_velocity_mg``; the inner solve's own momentum applies take the
+    momentum kernel on an eligible fine level too (the explicit-halo apply
+    under ``halo_mesh``)."""
     if bcs is None:
         bcs = VelocityBCs()
     if smoother != "chebyshev":
@@ -537,7 +611,9 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                           semicoarsen=semicoarsen, lam_max=lam_max,
                           eta_cap=eta_cap, use_pallas=use_pallas,
                           use_pallas_smoother=use_pallas_smoother,
-                          use_pallas_coarse=use_pallas_coarse)
+                          use_pallas_coarse=use_pallas_coarse,
+                          halo_mesh=halo_mesh,
+                          coarse_replicate=coarse_replicate)
     dtype = eta_n.dtype
     project = vx_nullspace(bcs)
     # with the augmented-Lagrangian row op (solvers/al.py) the Schur
@@ -548,14 +624,16 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
 
     if velocity_inner_iters > 0:
         prep = (momentum.prep_momentum(eta_s, eta_n, kbnd)
-                if use_pallas and _pallas_eligible(grid, dtype) else None)
+                if use_pallas and _pallas_eligible(grid, dtype)
+                and halo_mesh is None else None)
 
         def vop(u):
             # the inner Krylov targets the AUGMENTED velocity block
             # A + gamma D^T(eta_n D), preconditioned by the un-augmented
             # V-cycle
             ax, ay = momentum_apply(u[0], u[1], eta_s, eta_n, grid, bcs, kbnd,
-                                    use_pallas=use_pallas, prepped=prep)
+                                    use_pallas=use_pallas, prepped=prep,
+                                    halo_mesh=halo_mesh)
             if gd is not None:
                 tx, ty = gd(u[0], u[1])
                 ax = ax + tx

@@ -6,7 +6,10 @@ FGMRES + MG inner solves under f64 iterative refinement.  In the mixed
 solve the f32 outer applies go through the saddle kernel wrapper
 (ops/kernels/saddle.py) when ``use_pallas_apply`` is set, and ``al_gamma``
 augments the system (solvers/al.py).  ``solve_stokes`` takes no
-``al_gamma``, as in the reference.
+``al_gamma``, as in the reference.  ``halo_mesh`` routes every operator
+application through the explicit-halo operator (parallel/halo_ops.py);
+there the f32 outer applies take the per-shard saddle kernel
+(ops/kernels/saddle_block.py) instead of the single-device one.
 """
 from __future__ import annotations
 
@@ -84,8 +87,8 @@ def _zeros_like_grid(grid, dtype, device):
 def solve_stokes(eta_s, eta_n, rho_vx, rho_vy, gx, gy, grid: StaggeredGrid,
                  bcs: VelocityBCs, tol: float = 1e-8, restart: int = 40,
                  maxiter: int = 2000, x0=None,
-                 make_preconditioner: Callable | None = None
-                 ) -> StokesSolution:
+                 make_preconditioner: Callable | None = None,
+                 halo_mesh=None) -> StokesSolution:
     """Solve the scaled Stokes system to ``tol`` relative residual in the
     viscosity's dtype.  ``make_preconditioner(eta_s, eta_n, grid, kcont,
     kbnd, bcs=...) -> M`` (the MG preconditioner is the ported one)."""
@@ -95,7 +98,7 @@ def solve_stokes(eta_s, eta_n, rho_vx, rho_vy, gx, gy, grid: StaggeredGrid,
     def op(u):
         vx, vy, p = u
         return stokes_operator(vx, vy, p, eta_s, eta_n, grid, bcs,
-                               kcont=kcont, kbnd=kbnd)
+                               kcont=kcont, kbnd=kbnd, halo_mesh=halo_mesh)
 
     b = stokes_rhs(rho_vx, rho_vy, gx, gy, grid, bcs, kbnd=kbnd, dtype=dtype,
                    eta_s=eta_s)
@@ -121,7 +124,8 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
                        max_refinements: int = 6, x0=None,
                        make_preconditioner: Callable | None = None,
                        use_pallas_apply: bool = False,
-                       al_gamma: float = 0.0) -> StokesSolution:
+                       al_gamma: float = 0.0,
+                       halo_mesh=None) -> StokesSolution:
     """f32 FGMRES + MG inner solves inside f64 iterative refinement; the
     system is defined by the f64 casts and the reported residual is f64.
     ``use_pallas_apply``: the f32 outer applies take the saddle kernel
@@ -139,7 +143,7 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
     def op64(u):
         vx, vy, p = u
         return stokes_operator(vx, vy, p, eta_s64, eta_n64, grid, bcs,
-                               kcont=kcont, kbnd=kbnd)
+                               kcont=kcont, kbnd=kbnd, halo_mesh=halo_mesh)
 
     b64 = stokes_rhs(rho_vx.to(f64), rho_vy.to(f64), gx, gy, grid, bcs,
                      kbnd=kbnd, dtype=f64, eta_s=eta_s64)
@@ -152,7 +156,16 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
             op64, make_grad_div(eta_n64, grid, bcs, al_gamma, f64))
         b64 = augment_rhs(b64, eta_n64, grid, bcs, al_gamma, kcont, f64)
 
-    if use_pallas_apply:
+    if halo_mesh is not None:
+        # each shard's stencil through the per-shard saddle kernel (gated
+        # per level by its own block shape)
+        def op32(u):
+            vx, vy, p = u
+            return stokes_operator(vx, vy, p, eta_s32, eta_n32, grid, bcs,
+                                   kcont=kcont32, kbnd=kbnd32,
+                                   halo_mesh=halo_mesh,
+                                   halo_pallas=use_pallas_apply)
+    elif use_pallas_apply:
         from pylamp_tpu_torch.ops.kernels.saddle import (
             prep_saddle,
             saddle_apply,

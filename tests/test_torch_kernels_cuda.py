@@ -386,3 +386,210 @@ def test_marker_kernels_sticky_air_si(dev):
     ref = saddle.saddle_apply_plain(*u, prep, grid, vbc)
     for g, rf in zip(got, ref):
         assert _rel(g, rf) <= 1e-5
+
+
+# -- the per-shard kernels (8-12) of the explicit-halo mesh path --------------
+
+@pytest.mark.parametrize("with_p", [True, False])
+@pytest.mark.parametrize("by,bx", [(256, 512), (128, 256), (21, 38)])
+def test_saddle_block_kernel(dev, by, bx, with_p):
+    """Kernel 9 in both forms on 8 shards' extended blocks, at the 4x2
+    blocks of FK 1024^2 and 512^2 and an odd shape."""
+    from pylamp_tpu_torch.ops.kernels import saddle_block
+
+    S = 8
+    gen = torch.Generator(device=dev).manual_seed(91)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ext = (S, by + 2, bx + 2)
+    vx, vy, en = r(*ext), r(*ext), torch.exp(2.0 * r(*ext))
+    es = torch.exp(2.0 * r(S, by + 1, bx + 1))
+    p = r(*ext) if with_p else None
+    n0 = saddle_block.launches
+    got = saddle_block.saddle_block(vx, vy, p, es, en, 1 / bx, 1 / by, 3.5)
+    assert saddle_block.launches == n0 + 1
+    ref = saddle_block.saddle_block_plain(vx, vy, p, es, en, 1 / bx, 1 / by,
+                                          3.5)
+    assert len(got) == len(ref) == (3 if with_p else 2)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5
+
+
+@pytest.mark.parametrize("zero_init", [True, False])
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (512, 8), (256, 8),
+                                      (68, 4)])
+def test_cheb_block_kernel(dev, n, mesh_n, bc, zero_init):
+    """Kernel 8 (degree 4 + the emitted residual, h = 5) on the frames of
+    the FK levels 1024-256 on the 4x2 mesh and of an odd 2x2 level
+    (34x34 blocks): against its plain version on the same frames, and the
+    whole explicit-halo sweep against the single-device plain sweep."""
+    from pylamp_tpu_torch.ops.kernels import cheb_block
+    from pylamp_tpu_torch.parallel import halo_smoother as hs
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    bcs = VelocityBCs(top=bc, bottom="free_slip", left=bc, right="no_slip")
+    grid, es, en, kbnd, r = _level_problem(n, n, dev, 93)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    deg = 4
+    assert hs.halo_smoother_eligible(grid, mesh, bcs, torch.float32, deg,
+                                     emit_residual=True)
+    prep = hs.prep_halo_smoother(es, en, grid, mesh, deg + 1, kbnd, lam)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    ex = torch.zeros_like(rx) if zero_init else r(grid.shape_vx)
+    ey = torch.zeros_like(ry) if zero_init else r(grid.shape_vy)
+    frames = hs.smoother_frames(ex, ey, rx, ry, bcs, mesh, prep.h)
+    n0 = cheb_block.launches
+    got = cheb_block.cheb_block(*frames, prep, grid, bcs, deg, zero_init, True)
+    assert cheb_block.launches == n0 + 1
+    ref = cheb_block.cheb_block_plain(*frames, prep, grid, bcs, deg,
+                                      zero_init, True)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+    whole = hs.chebyshev_smooth_halo(ex, ey, rx, ry, grid, bcs, kbnd, lam,
+                                     deg, mesh, prep, zero_init, True)
+    single = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, es, en, grid, bcs,
+                                         kbnd, lam, deg, zero_init, True)
+    for g, rf in zip(whole, single):
+        assert _rel(g, rf) <= 2e-5
+
+
+def _mesh_markers(nx, ny, dev, mesh):
+    """Built FK markers on the card, displaced by up to 0.45 cells, split
+    over ``mesh``: the global state and its per-shard blocks."""
+    from pylamp_tpu_torch.parallel.halo_markers import BLK3
+
+    bm = _markers(nx, ny, dev)
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
+    by, bx = ny // mesh.my, nx // mesh.mx
+    ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
+           for a in (bm.x, bm.y, bm.T, bm.mat, bm.valid)]
+    return bm, grid, ext, mesh.bases(by, bx, device=dev)
+
+
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4)])
+def test_m2g_block_kernel(dev, n, mesh_n):
+    """Kernel 10 on the extended blocks of the FK markers (K = 18) at the
+    4x2 blocks of 1024^2 and an odd 2x2 mesh (20x20 blocks), against its
+    plain version; and the halo transfer against kernel 2."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+    from pylamp_tpu_torch.parallel.halo_markers import m2g_fused_halo
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    cfg = fk_stagnant_lid(nx=n, ny=n)
+    bm, grid, ext, bases = _mesh_markers(n, n, dev, mesh)
+    table = MaterialTable(cfg.physics.materials)
+    n0 = m2g_block.launches
+    got = m2g_block.m2g_fused_block(*ext, grid, table, cfg.physics, bases,
+                                    with_energy=True)
+    assert m2g_block.launches == n0 + 1
+    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, cfg.physics,
+                                          bases, with_energy=True)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+    halo = m2g_fused_halo(bm, grid, table, cfg.physics, mesh, True)
+    glob = m2g.m2g_fused(bm, grid, table, cfg.physics, with_energy=True)
+    for k in glob:
+        assert _rel(halo[k], glob[k]) <= 1e-5, k
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4)])
+def test_advect_block_kernel(dev, n, mesh_n, reach):
+    """Kernel 11 on the FK markers with random velocities, the windows the
+    halo engine exchanges, against its plain version and the halo advection
+    against kernel 3."""
+    from pylamp_tpu_torch.markers.kernels import advect_block
+    from pylamp_tpu_torch.parallel.halo_markers import advect_rk4_halo
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    bm, grid, _, _ = _mesh_markers(n, n, dev, mesh)
+    bcs = VelocityBCs(top="no_slip", right="no_slip")
+    rng = np.random.default_rng(95)
+    vx = torch.tensor(rng.uniform(-1, 1, grid.shape_vx), dtype=torch.float32,
+                      device=dev)
+    vy = torch.tensor(rng.uniform(-1, 1, grid.shape_vy), dtype=torch.float32,
+                      device=dev)
+    dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+    n0 = advect_block.launches
+    got = advect_rk4_halo(bm, vx, vy, dt, grid, bcs, mesh, reach, True)
+    assert advect_block.launches == n0 + 1
+    plain = advect_rk4_halo(bm, vx, vy, dt, grid, bcs, mesh, reach, False)
+    glob = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+    for ref in (plain, glob):
+        for g, rf, s in ((got.x, ref.x, bm.x), (got.y, ref.y, bm.y)):
+            assert _disp_rel(g, rf, s) <= 1e-4
+
+
+def _disp_rel(got, ref, start):
+    """Displacement error beyond one f32 spacing of the position (both
+    sides round start + displacement last), over max |displacement|: at
+    1024^2 a marker moves ~6e-4, so one spacing of a position near 1 is
+    ~1e-4 of it."""
+    top = torch.maximum(torch.abs(got), torch.abs(ref))
+    spacing = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    excess = torch.clamp(torch.abs(got.double() - ref.double())
+                         - spacing.double(), min=0.0)
+    return float(torch.max(excess)) / float(
+        torch.max(torch.abs(ref.double() - start.double())))
+
+
+@pytest.mark.parametrize("capacity", [18, 9])
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4)])
+def test_rebucket_block_kernel(dev, n, mesh_n, capacity):
+    """Kernel 12 bit-identical to its plain version and the halo rebucket
+    to kernel 4, with markers displaced across the seams (capacity 9 forces
+    overflow drops)."""
+    from pylamp_tpu_torch.markers.kernels import rebucket_block
+    from pylamp_tpu_torch.parallel.halo_markers import BLK3, rebucket_halo
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    bm = _markers(n, n, dev)
+    grid = StaggeredGrid(nx=n, ny=n, lx=1.0, ly=1.0)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
+    dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
+    moved = BucketedMarkers(
+        x=torch.clamp(bm.x + dx, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
+        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
+        mat=bm.mat[..., :capacity].contiguous(),
+        T=bm.T[..., :capacity].contiguous(),
+        valid=bm.valid[..., :capacity].contiguous())
+    by, bx = n // mesh.my, n // mesh.mx
+    ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
+           for a in (moved.x, moved.y, moved.T, moved.mat, moved.valid)]
+    bases = mesh.bases(by, bx, device=dev)
+    n0 = rebucket_block.launches
+    got, ga = rebucket_block.rebucket_block(*ext, grid, bases)
+    assert rebucket_block.launches == n0 + 1
+    ref, ra = rebucket_block.rebucket_block_plain(*ext, grid, bases)
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert torch.equal(ga, ra)
+    (hm, hd), (gm, gd) = (rebucket_halo(moved, grid, mesh),
+                          rebucket.rebucket_fused(moved, grid))
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(hm, f), getattr(gm, f)), f
+    assert int(hd) == int(gd)
+    if capacity == 9:
+        assert int(gd) > 0
+
+
+def test_block_wrappers_raise(dev):
+    """CPU, f64 and non-contiguous inputs raise; nothing falls back."""
+    from pylamp_tpu_torch.ops.kernels import saddle_block
+
+    S, by, bx = 8, 16, 32
+    ext = torch.zeros((S, by + 2, bx + 2), device=dev)
+    es = torch.ones((S, by + 1, bx + 1), device=dev)
+    strided = torch.zeros((S, bx + 2, by + 2), device=dev).transpose(1, 2)
+    for vx in (ext.cpu(), ext.double(), strided):
+        with pytest.raises(ValueError):
+            saddle_block.saddle_block_cuda(vx, ext, ext, es, ext, 0.1, 0.1)

@@ -25,7 +25,13 @@ plain PyTorch version on the card:
 
 Kernel and plain version are timed with CUDA events, and each kernel's
 bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
-is larger) is computed from the inputs it was timed on.  Then two paths
+is larger) is computed from the inputs it was timed on.  Kernel 5's
+pre-smooth form is also timed on each of its six levels and kernel 6 on
+both hierarchies, per call and on the device alone (one call captured in
+a CUDA graph and replayed), both checked bit-identical on a rerun; an
+"occupancy" line gives their registers, shared memory and resident
+blocks (clusters for kernel 6) from the card, and every kernel's ptxas
+registers and spills (kernels 5 and 6 must not spill).  Then two paths
 run through the port's ``build`` + ``make_step``, each with every launch
 counter set to 0 just before it:
 
@@ -121,6 +127,13 @@ TOL = {
 }
 
 
+# what kernels 5 and 6 report besides their rows: their times on every
+# level or hierarchy they run, and the occupancy of each timed
+# instantiation (from the card's function attributes)
+LEVEL_TIMES = []
+OCCUPANCY = {}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -145,6 +158,30 @@ def cuda_time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20):
+    """Device time of one call of ``fn`` without its host work: the call
+    captured once in a CUDA graph, the graph replayed ``reps`` times
+    between two events.  A call that cannot be captured (a host sync in a
+    wrapper) fails the run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def nbytes(*tensors) -> int:
@@ -369,6 +406,7 @@ def mg_kernel_rows(grid, cfg, io):
             log(f"cheb level {g.ny}x{g.nx} zero_init={zero_init} "
                 f"emit={emit}: max abs err {a:.3e}, rel {r:.3e}")
             cheb_abs, cheb_rel = max(cheb_abs, a), max(cheb_rel, r)
+        level_time(cheb, "fk", g, prep, zx, zy, rx, ry, vbc, deg)
         if timed is None:  # time the finest level's pre-smooth form
             timed = (
                 partial(cheb.chebyshev_smooth_cuda, zx, zy, rx, ry, prep, g,
@@ -393,9 +431,23 @@ def mg_kernel_rows(grid, cfg, io):
                                 solver.mg_post_smooth, 32)
     rx, ry = rand(grids[fs].shape_vx), rand(grids[fs].shape_vy)
     got = cvk.coarse_vcycle_cuda(rx, ry, prep)
+    again = cvk.coarse_vcycle_cuda(rx, ry, prep)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("coarse_vcycle: a rerun is not bit-identical")
     ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    info = cvk.kernel_info(prep)
+    if info["static_smem"] != cvk.SMEM_STATIC:  # the planner's budget
+        raise AssertionError(f"coarse_vcycle: static shared memory "
+                             f"{info['static_smem']} B, the planner assumes "
+                             f"{cvk.SMEM_STATIC} B")
+    OCCUPANCY[f"coarse_vcycle fk from {grids[fs].ny}x{grids[fs].nx}"] = info
+    LEVEL_TIMES.append(dict(hierarchy="fk", coarse_from=f"{grids[fs].ny}x"
+                            f"{grids[fs].nx}", levels=prep.nlev,
+                            device_ms=graph_ms(partial(
+                                cvk.coarse_vcycle_cuda, rx, ry, prep))))
     log(f"coarse V-cycle from {grids[fs].ny}x{grids[fs].nx} "
-        f"({prep.nlev} levels)")
+        f"({prep.nlev} levels, cluster of {cvk.CLUSTER} CTAs, "
+        f"{prep.smem} shared bytes each)")
     rows.append(("coarse_vcycle", "pylamp_tpu_torch/csrc/coarse_vcycle.cu",
                  "pylamp_tpu/ops/pallas/coarse_vcycle_kernel.py:136",
                  errors(zip(got, ref)),
@@ -403,6 +455,35 @@ def mg_kernel_rows(grid, cfg, io):
                  partial(cvk.coarse_vcycle_plain, rx, ry, prep), 10,
                  coarse_bound(rx, ry, got, prep)))
     return rows
+
+
+def level_time(cheb, hier, g, prep, zx, zy, rx, ry, vbc, deg):
+    """Kernel 5's pre-smooth form (zero start, degree ``deg`` + the
+    residual) on level ``g``: checked bit-identical on a rerun, timed with
+    its bound, and its occupancy recorded."""
+    run = partial(cheb.chebyshev_smooth_cuda, zx, zy, rx, ry, prep, g, vbc,
+                  deg, True, True)
+    first, again = run(), run()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"cheb {g.ny}x{g.nx}: a rerun is not "
+                             "bit-identical")
+    plan = cheb.tile_plan(g.ny, g.nx, deg + 1, cheb.device_sms(0))
+    ms = cuda_time_ms(run, 20)
+    dev_ms = graph_ms(run)
+    b_ms, b_by = bound_ms(2 * nbytes(rx, ry) + nbytes(
+        rx, ry, prep.eta_s, prep.eta_n, prep.coeffs, prep.kb),
+        cheb_ops(g, deg, True, True))
+    LEVEL_TIMES.append(dict(hierarchy=hier, level=f"{g.ny}x{g.nx}",
+                            depth=deg + 1, ms=ms, device_ms=dev_ms,
+                            bound_ms=b_ms,
+                            bound_by=b_by, tile_rows=plan.ty,
+                            blocks=plan.nty * plan.ntx))
+    OCCUPANCY[f"cheb {g.ny}x{g.nx} depth {deg + 1}"] = cheb.kernel_info(
+        deg + 1, plan.ty)
+    log(f"cheb {hier} level {g.ny}x{g.nx}, pre-smooth form (depth "
+        f"{deg + 1}): kernel {ms:.4f} ms per call ({dev_ms} ms on the "
+        f"device, graph-timed), bound {b_ms:.5f} ms ({b_by}), "
+        f"{plan.nty * plan.ntx} tiles of {plan.ty}x32")
 
 
 def cheb_ops(g, iters, zero_init, emit):
@@ -488,6 +569,9 @@ def sticky_mg_checks(grid, cfg, io):
             log(f"sticky-air cheb level {g.ny}x{g.nx}, degree {deg} + "
                 f"residual (depth {deg + 1}), zero_init={zero_init}: max abs "
                 f"err {out['cheb'][-1][0]:.3e}, rel {out['cheb'][-1][1]:.3e}")
+            if zero_init:
+                level_time(cheb, "sticky_air", g, prep, ex, ey, rx, ry, vbc,
+                           deg)
     fs = cvk.coarse_fuse_start(grids, plan, vbc, torch.float32, "chebyshev",
                                False, False)
     if fs is None or (grids[fs].ny, grids[fs].nx) != (32, 128):
@@ -497,9 +581,19 @@ def sticky_mg_checks(grid, cfg, io):
                                 solver.mg_post_smooth, 32)
     rx, ry = rand(grids[fs].shape_vx), rand(grids[fs].shape_vy)
     got = cvk.coarse_vcycle_cuda(rx, ry, prep)
+    again = cvk.coarse_vcycle_cuda(rx, ry, prep)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("sticky-air coarse_vcycle: a rerun is not "
+                             "bit-identical")
     ref = cvk.coarse_vcycle_plain(rx, ry, prep)
     out["coarse_vcycle"].append(errors(zip(got, ref)))
+    OCCUPANCY[f"coarse_vcycle sticky_air from {grids[fs].ny}x"
+              f"{grids[fs].nx}"] = cvk.kernel_info(prep)
     k1 = cuda_time_ms(partial(cvk.coarse_vcycle_cuda, rx, ry, prep), 20)
+    LEVEL_TIMES.append(dict(hierarchy="sticky_air", coarse_from=f"{grids[fs].ny}"
+                            f"x{grids[fs].nx}", levels=prep.nlev, ms=k1,
+                            device_ms=graph_ms(partial(
+                                cvk.coarse_vcycle_cuda, rx, ry, prep))))
     log(f"sticky-air coarse V-cycle from {grids[fs].ny}x{grids[fs].nx} "
         f"({prep.nlev} levels, degree {deg}, capped eta): max abs err "
         f"{out['coarse_vcycle'][0][0]:.3e}, rel "
@@ -557,6 +651,25 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
     return ("momentum", "pylamp_tpu_torch/csrc/momentum.cu",
             "pylamp_tpu/ops/pallas/stokes_kernel.py:183", err, timed[0],
             timed[1], 50, timed[2])
+
+
+def report_occupancy(cuda_build, smi):
+    """The occupancy line: kernels 5 and 6 per timed instantiation from the
+    card's function attributes (registers, static and dynamic shared
+    memory, local bytes, resident blocks per SM or clusters), and every
+    kernel's registers, static shared memory and spills from the build's
+    ``ptxas -v`` report.  Kernels 5 and 6 must not spill."""
+    ptx = cuda_build.ptxas_summary()
+    log("kernels 5 and 6 per level " + json.dumps({"device": smi,
+                                                   "levels": LEVEL_TIMES}))
+    log("occupancy " + json.dumps({"device": smi, "kernels_5_6": OCCUPANCY,
+                                   "ptxas": ptx}))
+    spills = [r["function"] for r in ptx
+              if r["source"] in ("cheb.cu", "coarse_vcycle.cu")
+              and (r["spill_stores"] or r["spill_loads"])]
+    spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
+    if spills:
+        raise AssertionError(f"kernels 5 / 6 spill registers: {spills}")
 
 
 def check_state(state, n_markers, diag, label):
@@ -1120,6 +1233,7 @@ def main():
     extra, hier = sticky_mg_checks(grid_s, cfg_s, io_s)
     rows.append(momentum_row(grid, fk_io, grid_s, hier))
     results = time_rows(rows, extra)
+    report_occupancy(cuda_build, smi)
     del fk_io, io_s, hier
 
     modules = {"saddle": saddle, "m2g": m2g, "advect": advect,

@@ -6,75 +6,277 @@
 // (with prep_smoother_eta), including the vy wall row ny that the TPU
 // wrapper updated outside its kernel.
 //
-// Bound on the H100: memory and launches.  The plain sweep is ~12 full-
-// field passes per iteration plus one launch per tensor operation
-// (~150 launches for a degree-4 sweep with its residual).  This kernel
-// reads ex, ey, rx, ry, eta_s, eta_n once and writes ex', ey' (and the
-// residual) once: at 1024^2 ~6 x 4.2 MB read (x ~1.7 for the halo
-// overlap at h = 5) and 2-4 x 4.2 MB written.
+// Bound on the H100: bytes, at ~0.01 ms for 1024^2 (ex, ey, rx, ry,
+// eta_s, eta_n read once, ex', ey' and the residual written once).  What
+// holds a fused sweep back in practice is issue rate and latency: every
+// point is applied `iters` (+1) times from shared memory, on a loaded
+// region 1.3-2.6x the tile it writes.
 //
-// Design: the 2-D temporally blocked tile sweep of cheb_sweep.cuh (shared
-// with the per-shard sweep of cheb_block.cu) over the global arrays: a
-// block owns a TY x TX tile of the (ny+1, nx+1) point space and loads it
-// with a halo of h points.  The coefficient table and kbnd come from
-// device memory (no host sync).
+// Design: 2-D temporal blocking.  A block owns a TY x 32 tile of the
+// (ny+1, nx+1) point space (csrc/stencil.cuh) and loads it with a halo of
+// he = iters (+1 with the residual) points into shared memory.  Every
+// stencil reads only the 3x3 points around its own, so the k-th update is
+// exact on the rings within he - k of the tile; only those are computed
+// (the active region shrinks by one ring per update).
+//   - The tile plan comes from the wrapper (ops/kernels/cheb.py
+//     tile_plan): the tile height (32, 16 or 8 rows) is chosen per level
+//     so that the small levels (256^2; 512x128, 256x64) spread over more
+//     SMs, and the +1 point row and column fold into the last tile row
+//     and column.
+//   - The kernel is instantiated per depth he, so the shared-memory row
+//     stride SX = 33 + 2 he and the points per thread are constants:
+//     every neighbour of a point is an immediate offset from one address
+//     register, which keeps a thread's points within ~7 registers each.
+//   - Fixed ownership: thread t owns the loaded points t + q * NT
+//     (q < NQ); each point's ring and lattice classes are computed once,
+//     at the load, and kept packed in one register.  Neighbours come from
+//     shared memory (a row of the tile is contiguous there, so a warp
+//     reads conflict-free); the recurrence state, the right-hand side and
+//     the inverse Jacobi diagonals stay in registers.
+//   - The iterate is double-buffered in shared memory: an update reads
+//     one buffer and writes the other, so one barrier per update.
+//   - A tile whose loaded region touches no wall takes the branch-free
+//     path (no storage or wall tests); edge tiles resolve wall ghosts
+//     inline from current values and update the Dirichlet lines
+//     pointwise, as stencil.cuh does.
+//   - Per-level constants (1/dx, 1/dy, 2/dx^2, ...) are hoisted and the
+//     diagonals inverted once: the sweep multiplies where stencil.cuh
+//     divides.  This reassociates the arithmetic (a quotient a / dx
+//     becomes a * (1/dx), two roundings instead of one, and
+//     2 eta (dv / dx) / dx becomes (2 / dx^2) eta dv), which moves each
+//     result by a few f32 units in the last place against the plain
+//     version's division order: the sweep is held to the fp tolerance of
+//     the reference's reassociated kernel (2e-5 of max |ref|).
+// The coefficient table and kbnd come from device memory (no host sync).
+// No atomics: a launch is deterministic.
 #include "common.cuh"
-#include "cheb_sweep.cuh"
+#include "sweep_stencil.cuh"
 
 namespace {
 
-using cheb_tile::MAX_H;
-using cheb_tile::NT;
-using cheb_tile::TX;
-using cheb_tile::TY;
+constexpr int NT = 512;      // threads per block
+constexpr int TX = 32;       // tile width (points)
+constexpr int MAX_HE = 7;    // deepest fused sweep (cheb.py MAX_DEPTH)
+constexpr int PLANES = 6;    // ex, ey (two buffers each), eta_s, eta_n
 
-// the level's global row-major arrays
-struct GlobalSrc {
-    const float* ex_;
-    const float* ey_;
-    const float* rx_;
-    const float* ry_;
-    const float* es_;
-    const float* en_;
+// shared-memory row stride and loaded points per thread at depth HE (the
+// tallest tile: 32 rows)
+template <int HE>
+struct Depth {
+    static constexpr int SX = TX + 1 + 2 * HE;
+    static constexpr int NQ = (SX * SX + NT - 1) / NT;
+};
+
+struct SweepArgs {
+    const float* ex;
+    const float* ey;
+    const float* rx;
+    const float* ry;
+    const float* es;
+    const float* en;
+    const float* coeffs;
     float* ox;
     float* oy;
     float* fx;
     float* fy;
-    int nx, emit;
-    __device__ __forceinline__ float ex(int j, int i) const { return ex_[j * (nx + 1) + i]; }
-    __device__ __forceinline__ float ey(int j, int i) const { return ey_[j * nx + i]; }
-    __device__ __forceinline__ float rx(int j, int i) const { return rx_[j * (nx + 1) + i]; }
-    __device__ __forceinline__ float ry(int j, int i) const { return ry_[j * nx + i]; }
-    __device__ __forceinline__ float es(int j, int i) const { return es_[j * (nx + 1) + i]; }
-    __device__ __forceinline__ float en(int j, int i) const { return en_[j * nx + i]; }
-    __device__ __forceinline__ bool inside(int, int) const { return true; }
-    __device__ __forceinline__ bool owns(int, int) const { return true; }
-    __device__ __forceinline__ void put_x(int j, int i, float e, float f) const {
-        ox[j * (nx + 1) + i] = e;
-        if (emit) fx[j * (nx + 1) + i] = f;
-    }
-    __device__ __forceinline__ void put_y(int j, int i, float e, float f) const {
-        oy[j * nx + i] = e;
-        if (emit) fy[j * nx + i] = f;
-    }
+    int iters, zero_init, emit;
+    int ty, nty, ntx;  // tile plan: tile rows, tiles down and across
 };
 
-__global__ void __launch_bounds__(NT)
-cheb_kernel(const float* __restrict__ ex, const float* __restrict__ ey,
-            const float* __restrict__ rx, const float* __restrict__ ry,
-            const float* __restrict__ eta_s, const float* __restrict__ eta_n,
-            const float* __restrict__ coeffs, const float* __restrict__ kbp,
-            float* __restrict__ ox, float* __restrict__ oy,
-            float* __restrict__ fx, float* __restrict__ fy, StencilCtx c,
-            int iters, int h, int zero_init, int emit) {
+// packed per-point code: ring | updated vx | updated vy
+constexpr int RING_MASK = 15;
+constexpr int HAS_X = 1 << 4;
+constexpr int HAS_Y = 1 << 5;
+
+template <int HE, bool W>
+__device__ __forceinline__ void tile_sweep(const SweepArgs& a,
+                                           const SweepConsts& c, float kb,
+                                           float* smem, int j0, int i0,
+                                           int LY, int TYc, int TXc) {
+    constexpr int SX = Depth<HE>::SX, NQ = Depth<HE>::NQ;
+    const int npl = LY * SX, LX = TXc + 2 * HE;
+    // planes: [ex, ey] of buffer 0, [ex, ey] of buffer 1, eta_s, eta_n
+    float* s_es = smem + 4 * npl;
+    float* s_en = smem + 5 * npl;
+    const int iters = a.iters, m = iters + (a.emit ? 1 : 0);
+    const int W1 = c.nx + 1, tid = threadIdx.x;
+
+    int code[NQ];
+    float r_x[NQ], r_y[NQ], i_x[NQ], i_y[NQ], s_x[NQ], s_y[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+        const int p = tid + q * NT;
+        r_x[q] = r_y[q] = i_x[q] = i_y[q] = s_x[q] = s_y[q] = 0.0f;
+        code[q] = RING_MASK;  // never active
+        const int lj = p / SX, li = p - lj * SX;
+        if (lj >= LY || li >= LX) continue;
+        const int gj = j0 + lj, gi = i0 + li;
+        const int ring = max(max(max(HE - lj, lj - (HE + TYc - 1)),
+                                 max(HE - li, li - (HE + TXc - 1))), 0);
+        bool hx = true, hy = true, hs = true, hn = true;
+        if (W) {
+            const bool in_j = gj >= 0 && gj <= c.ny;
+            const bool in_i = gi >= 0 && gi <= c.nx;
+            hx = in_i && gj >= 0 && gj < c.ny;
+            hy = in_j && gi >= 0 && gi < c.nx;
+            hs = in_j && in_i;
+            hn = hx && hy;
+        }
+        smem[p] = (hx && !a.zero_init) ? a.ex[gj * W1 + gi] : 0.0f;
+        smem[npl + p] = (hy && !a.zero_init) ? a.ey[gj * c.nx + gi] : 0.0f;
+        s_es[p] = hs ? a.es[gj * W1 + gi] : 0.0f;
+        s_en[p] = hn ? a.en[gj * c.nx + gi] : 0.0f;
+        const bool upd = ring <= m - 1;  // updated at least once
+        if (upd && hx) r_x[q] = a.rx[gj * W1 + gi];
+        if (upd && hy) r_y[q] = a.ry[gj * c.nx + gi];
+        code[q] = ring | ((upd && hx) ? HAS_X : 0) | ((upd && hy) ? HAS_Y : 0);
+    }
+    __syncthreads();
+
+    // inverse Jacobi diagonals (stencil.cuh stencil_dvx / stencil_dvy)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+        const int cd = code[q], p = tid + q * NT;
+        const int lj = p / SX, li = p - lj * SX;
+        if (cd & HAS_X) {
+            const int gi = i0 + li;
+            const float d = (W && (gi == 0 || gi == c.nx))
+                                ? kb
+                                : c.cxx * (s_en[p] + s_en[p - 1])
+                                      + c.dyy * (s_es[p + SX] + s_es[p]);
+            i_x[q] = 1.0f / d;
+        }
+        if (cd & HAS_Y) {
+            const int gj = j0 + lj;
+            const float d = (W && (gj == 0 || gj == c.ny))
+                                ? kb
+                                : c.cyy * (s_en[p] + s_en[p - SX])
+                                      + c.dxx * (s_es[p + 1] + s_es[p]);
+            i_y[q] = 1.0f / d;
+        }
+    }
+
+    int cur = 0;
+    for (int k = 1; k <= m; ++k) {
+        const int lim = m - k;  // rings still needed after this update
+        const bool apply = !(a.zero_init && k == 1);  // A(0) = 0
+        const bool resid = k > iters;  // the emitted residual's application
+        const bool last = k == m;
+        float c1 = 0.0f, c2 = 0.0f;
+        if (!resid) {
+            c1 = __ldg(a.coeffs + 2 * (k - 1));
+            c2 = __ldg(a.coeffs + 2 * (k - 1) + 1);
+        }
+        const float* ex = smem + cur * 2 * npl;
+        const float* ey = ex + npl;
+        float* nx_ = smem + (cur ^ 1) * 2 * npl;
+        float* ny_ = nx_ + npl;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+            const int cd = code[q];
+            if ((cd & RING_MASK) > lim) continue;
+            const int p = tid + q * NT;
+            const int lj = p / SX, li = p - lj * SX;
+            const int gj = j0 + lj, gi = i0 + li;
+            if (cd & HAS_X) {
+                const float ax = apply ? apply_x<W>(ex, ey, s_es, s_en, p, gj,
+                                                    gi, SX, kb, c)
+                                       : 0.0f;
+                const float res = r_x[q] - ax;
+                if (resid) {
+                    a.ox[gj * W1 + gi] = ex[p];
+                    a.fx[gj * W1 + gi] = res;
+                } else {
+                    s_x[q] = c1 * s_x[q] + c2 * res * i_x[q];
+                    const float e = ex[p] + s_x[q];
+                    if (last) a.ox[gj * W1 + gi] = e;
+                    else nx_[p] = e;
+                }
+            }
+            if (cd & HAS_Y) {
+                const float ay = apply ? apply_y<W>(ex, ey, s_es, s_en, p, gj,
+                                                    gi, SX, kb, c)
+                                       : 0.0f;
+                const float res = r_y[q] - ay;
+                if (resid) {
+                    a.oy[gj * c.nx + gi] = ey[p];
+                    a.fy[gj * c.nx + gi] = res;
+                } else {
+                    s_y[q] = c1 * s_y[q] + c2 * res * i_y[q];
+                    const float e = ey[p] + s_y[q];
+                    if (last) a.oy[gj * c.nx + gi] = e;
+                    else ny_[p] = e;
+                }
+            }
+        }
+        if (!last) __syncthreads();  // every update precedes the next read
+        cur ^= 1;
+    }
+}
+
+template <int HE>
+__global__ void __launch_bounds__(NT, 1)
+cheb_kernel(SweepArgs a, SweepConsts c, const float* __restrict__ kbp) {
     extern __shared__ float smem[];
-    const GlobalSrc src{ex, ey, rx, ry, eta_s, eta_n, ox, oy, fx, fy, c.nx,
-                        emit};
-    // global point of local (0, 0)
-    const int j0 = blockIdx.y * TY - h;
-    const int i0 = blockIdx.x * TX - h;
-    cheb_tile::sweep(src, c, smem, j0, i0, h, coeffs, kbp[0], iters,
-                     zero_init, emit);
+    const int by = blockIdx.y, bx = blockIdx.x;
+    const int cj0 = by * a.ty, ci0 = bx * TX;
+    // the last tile row / column also takes the +1 point row / column
+    const int TYc = (by == a.nty - 1) ? c.ny + 1 - cj0 : a.ty;
+    const int TXc = (bx == a.ntx - 1) ? c.nx + 1 - ci0 : TX;
+    const int j0 = cj0 - HE, i0 = ci0 - HE;
+    const int LY = TYc + 2 * HE, LX = TXc + 2 * HE;
+    const float kb = __ldg(kbp);
+    // no wall, no missing storage anywhere in the loaded region
+    const bool interior = j0 >= 0 && i0 >= 0 && j0 + LY <= c.ny
+                          && i0 + LX <= c.nx;
+    if (interior)
+        tile_sweep<HE, false>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
+    else
+        tile_sweep<HE, true>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
+}
+
+template <int HE>
+size_t smem_bytes(int ty) {
+    return PLANES * sizeof(float) * (ty + 1 + 2 * HE) * Depth<HE>::SX;
+}
+
+// the instantiation for depth HE
+template <int HE>
+int launch_he(const SweepArgs& a, const SweepConsts& c, const float* kb,
+              cudaStream_t stream) {
+    if ((a.ty + 1 + 2 * HE) * Depth<HE>::SX > Depth<HE>::NQ * NT)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // the tallest tile's planes, set once
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        cheb_kernel<HE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<HE>(TX)));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    cheb_kernel<HE><<<dim3(a.ntx, a.nty), NT, smem_bytes<HE>(a.ty), stream>>>(
+        a, c, kb);
+    return launch_status();
+}
+
+template <int HE>
+int info_he(int ty, int* out) {
+    const void* fn = reinterpret_cast<const void*>(cheb_kernel<HE>);
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<HE>(TX)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    const size_t smem = smem_bytes<HE>(ty);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = fa.numRegs;
+    out[1] = static_cast<int>(fa.sharedSizeBytes);
+    out[2] = static_cast<int>(fa.localSizeBytes);
+    out[3] = blocks;
+    out[4] = NT;
+    out[5] = static_cast<int>(smem);
+    return 0;
 }
 
 }  // namespace
@@ -87,20 +289,39 @@ PYLAMP_EXPORT int launch_cheb(const float* ex, const float* ey,
                               int ny, int nx, float dx, float dy,
                               float s_top, float s_bottom, float s_left,
                               float s_right, int iters, int h, int zero_init,
-                              int emit, cudaStream_t stream) {
-    if (h < 1 || h > MAX_H || iters < 1 || iters + (emit ? 1 : 0) > h)
+                              int emit, int ty, cudaStream_t stream) {
+    const int he = iters + (emit ? 1 : 0);
+    if (iters < 1 || he > h || he > MAX_HE || ty < 1 || ty > TX || ny < 1
+        || nx < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = cheb_tile::smem_bytes(h);
-    // the deepest halo's planes, set once (under the 48 KB default at
-    // MAX_H = 7 with these tiles; kept so a larger tile needs no change)
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        cheb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cheb_tile::smem_bytes(MAX_H)));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    StencilCtx c{ny, nx, dx, dy, s_top, s_bottom, s_left, s_right};
-    dim3 grid((nx + 1 + TX - 1) / TX, (ny + 1 + TY - 1) / TY);
-    cheb_kernel<<<grid, NT, smem, stream>>>(ex, ey, rx, ry, eta_s, eta_n,
-                                            coeffs, kb, ox, oy, fx, fy, c,
-                                            iters, h, zero_init, emit);
-    return launch_status();
+    const SweepConsts c = sweep_consts(ny, nx, dx, dy, s_top, s_bottom,
+                                       s_left, s_right);
+    const SweepArgs a{ex, ey, rx, ry, eta_s, eta_n, coeffs, ox, oy, fx, fy,
+                      iters, zero_init, emit, ty, (ny + ty - 1) / ty,
+                      (nx + TX - 1) / TX};
+    switch (he) {
+        case 1: return launch_he<1>(a, c, kb, stream);
+        case 2: return launch_he<2>(a, c, kb, stream);
+        case 3: return launch_he<3>(a, c, kb, stream);
+        case 4: return launch_he<4>(a, c, kb, stream);
+        case 5: return launch_he<5>(a, c, kb, stream);
+        case 6: return launch_he<6>(a, c, kb, stream);
+        default: return launch_he<7>(a, c, kb, stream);
+    }
+}
+
+// Occupancy of the depth-he instantiation with tiles of ty rows: out =
+// {registers per thread, static shared bytes, local (spill) bytes per
+// thread, resident blocks per SM, threads per block, dynamic shared bytes}.
+PYLAMP_EXPORT int cheb_kernel_info(int he, int ty, int* out) {
+    switch (he) {
+        case 1: return info_he<1>(ty, out);
+        case 2: return info_he<2>(ty, out);
+        case 3: return info_he<3>(ty, out);
+        case 4: return info_he<4>(ty, out);
+        case 5: return info_he<5>(ty, out);
+        case 6: return info_he<6>(ty, out);
+        case 7: return info_he<7>(ty, out);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

@@ -1,7 +1,8 @@
-// The fused Chebyshev sweep of one tile, shared by the single-device sweep
-// (cheb.cu), the per-shard sweep on halo frames (cheb_block.cu) and the
-// fused coarse sub-V-cycle (coarse_vcycle.cu, which takes cheb_step).  The
-// role of pylamp_tpu/ops/pallas/cheb_block_kernel.py:frame_cheb_sweep.
+// The fused Chebyshev sweep of one tile of the per-shard sweep on halo
+// frames (cheb_block.cu), the role of
+// pylamp_tpu/ops/pallas/cheb_block_kernel.py:frame_cheb_sweep.  The
+// single-device sweep (cheb.cu) and the coarse sub-V-cycle
+// (coarse_vcycle.cu) have their own Hopper designs over sweep_stencil.cuh.
 //
 // The Dirichlet lines have diagonal kbnd and operator row kbnd * v
 // (stencil.cuh), so the recurrence updates them pointwise like every other

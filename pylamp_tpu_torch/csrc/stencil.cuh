@@ -1,13 +1,15 @@
 // The coupled momentum stencil of the staggered Stokes operator: the stress
-// arithmetic shared by every kernel that applies it -- the saddle apply
-// (saddle.cu), the MG momentum apply (momentum.cu), the fused Chebyshev
-// sweep (cheb.cu) and the fused coarse sub-V-cycle (coarse_vcycle.cu).
+// arithmetic of the saddle apply (saddle.cu, saddle_block.cu), the MG
+// momentum apply (momentum.cu) and the per-shard Chebyshev sweep
+// (cheb_block.cu via cheb_sweep.cuh).  The fused sweep (cheb.cu) and the
+// coarse sub-V-cycle (coarse_vcycle.cu) use sweep_stencil.cuh, the same
+// arithmetic with the reciprocals hoisted.
 //
 // Index space: "points" (j, i), j in 0..ny, i in 0..nx.  A point carries
 // vx(j, i) when j < ny, vy(j, i) when i < nx, the corner viscosity
 // es(j, i), and the cell viscosity en(j, i) when j < ny and i < nx.  Every
 // stencil reads only the 3x3 points around its own, which is what makes
-// the deep-halo argument of cheb.cu work.
+// the deep-halo argument of the fused sweeps work.
 //
 // Wall ghosts are resolved inline from the CURRENT boundary values (ghost
 // = s * first interior row / column), so no padded copy is needed; the

@@ -9,7 +9,9 @@ hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as is.
 
 Every launcher in the library returns the ``cudaGetLastError()`` code of
-its launch; ``check`` raises on a non-zero code.
+its launch; ``check`` raises on a non-zero code.  ``ptxas -v`` reports
+every kernel's registers, shared memory and spills; the build keeps that
+report as ``ptxas.log`` beside the library (``ptxas_summary``).
 
 No ``--use_fast_math``: it turns ``/`` into approximate division, which
 would break the rebucket kernel's bit-identity with its plain version.
@@ -30,9 +32,10 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LIB_NAME = "libpylamp_torch_kernels.so"
+PTXAS_LOG = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,12 +61,13 @@ SIGNATURES = {
     "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
     # ex, ey, rx, ry, eta_s, eta_n, coeffs, kb, ox, oy, fx, fy, ny, nx, dx,
     # dy, s_top, s_bottom, s_left, s_right, iters, h, zero_init, emit,
-    # stream
-    "launch_cheb": [_P] * 12 + [_I, _I] + [_F] * 6 + [_I] * 4 + [_P],
-    # levels (host array of CoarseLevel), nlev, rx, ry, ex, ey, coeffs,
-    # kbnds, maxit, pre, post, coarse_iters, s_top, s_bottom, s_left,
-    # s_right, stream
-    "launch_coarse_vcycle": [_P, _I] + [_P] * 6 + [_I] * 4 + [_F] * 4 + [_P],
+    # tile rows, stream
+    "launch_cheb": [_P] * 12 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P],
+    # levels (host array of CoarseLevel), the same on the device, nlev, rx,
+    # ry, ex, ey, coeffs, kbnds, maxit, pre, post, coarse_iters, s_top,
+    # s_bottom, s_left, s_right, dynamic shared bytes, stream
+    "launch_coarse_vcycle": ([_P, _P, _I] + [_P] * 6 + [_I] * 4 + [_F] * 4
+                             + [_I, _P]),
     # per-shard kernels: S shards in one launch
     # vx, vy, p (or null), es, en, kcont, rx, ry, rc (or null), S, by, bx,
     # dx, dy, stream
@@ -81,6 +85,10 @@ SIGNATURES = {
     # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
     # ny, nx, by, bx, K, dx, dy, stream
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
+    # occupancy queries, int[6] out: kernel 5 at (depth, tile rows),
+    # kernel 6 at its dynamic shared bytes
+    "cheb_kernel_info": [_I, _I, _P],
+    "coarse_vcycle_kernel_info": [_I, _P],
 }
 
 
@@ -130,11 +138,13 @@ def build() -> tuple[pathlib.Path, float]:
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
-        failed = []
+        failed, report = [], []
         for cmd, _, proc in jobs:
             out, err = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n{out}\n{err}")
+            report.append(f"== {cmd[-1]}\n{out}{err}")
+        (out_dir / PTXAS_LOG).write_text("\n".join(report))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         # link to a temporary name, then rename: concurrent builds never
@@ -149,6 +159,32 @@ def build() -> tuple[pathlib.Path, float]:
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
+
+
+def ptxas_summary() -> list[dict]:
+    """Every entry function of the current build's ``ptxas -v`` report: its
+    source, (mangled) name, registers, static shared bytes and spill
+    bytes."""
+    import re
+
+    path, _ = build()
+    rows, src, fn = [], None, None
+    for line in (path.parent / PTXAS_LOG).read_text().splitlines():
+        if line.startswith("== "):
+            src = pathlib.Path(line[3:].strip()).name
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn = dict(source=src, function=m.group(1), registers=None,
+                      smem=0, spill_stores=0, spill_loads=0)
+            rows.append(fn)
+        elif fn is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+        elif fn is not None and (m := re.search(r"Used (\d+) registers",
+                                                line)):
+            fn["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                fn["smem"] = int(sm.group(1))
+    return rows
 
 
 @functools.cache

@@ -16,8 +16,11 @@ and launches the kernel on CUDA tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Any
+import functools
+import math
+from typing import Any, NamedTuple
 
 import torch
 
@@ -33,6 +36,63 @@ launches = 0
 # the reference's deepest fused sweep (cheb_kernel.py HS[-1]): deeper sweeps
 # take the plain path
 MAX_DEPTH = 7
+
+# csrc/cheb.cu: threads per block, tile width, shared planes
+THREADS = 512
+TILE_X = 32
+PLANES = 6
+SMS = 132  # the H100 SXM's streaming multiprocessors (tile_plan's default)
+SMEM_PER_BLOCK = 232_448  # bytes a block may use on the H100
+TILE_ROWS = (32, 16, 8)  # the tile heights the plan chooses from
+
+
+class TilePlan(NamedTuple):
+    """How csrc/cheb.cu tiles one level's (ny+1, nx+1) point space: tiles
+    of ty x 32 points (the last tile row and column take the +1 point row
+    and column, or what is left), loaded with a halo of ``he`` into planes
+    of row stride 33 + 2 he."""
+    ty: int
+    nty: int
+    ntx: int
+    he: int
+    nq: int  # loaded points per thread (of THREADS)
+    smem: int  # dynamic shared bytes per block
+
+    def extents(self, ny: int, nx: int):
+        """Every tile's centre as (row0, rows, col0, cols)."""
+        for by in range(self.nty):
+            rows = ny + 1 - by * self.ty if by == self.nty - 1 else self.ty
+            for bx in range(self.ntx):
+                cols = (nx + 1 - bx * TILE_X if bx == self.ntx - 1
+                        else TILE_X)
+                yield by * self.ty, rows, bx * TILE_X, cols
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(ny: int, nx: int, he: int, sms: int = SMS) -> TilePlan:
+    """The tile height of a sweep of depth ``he`` on an ny x nx level: of
+    TILE_ROWS, the one with the least estimated time, ceil(blocks / sms)
+    waves times the loaded points of one tile (ties: the taller tile).  With
+    the H100 SXM's 132 SMs: on 1024^2 and 512^2 that is 32 rows; on 256^2
+    16 (128 blocks instead of 64); on the sticky-air levels 512x128 and
+    256x64 at depth 7 16 and 8 (128 and 64 blocks instead of 64 and 16)."""
+    best = None
+    sx = TILE_X + 1 + 2 * he
+    for ty in TILE_ROWS:
+        ly = ty + 1 + 2 * he
+        nty, ntx = math.ceil(ny / ty), math.ceil(nx / TILE_X)
+        cost = math.ceil(nty * ntx / sms) * ly * sx
+        if best is None or cost < best[0]:
+            best = (cost, TilePlan(ty, nty, ntx, he,
+                                   math.ceil(ly * sx / THREADS),
+                                   PLANES * 4 * ly * sx))
+    return best[1]
+
+
+@functools.cache
+def device_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def cheb_interval(lam_max):
@@ -89,10 +149,16 @@ def prep_smoother(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs, kbnd,
     if diags is None:
         diags = velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs=bcs)
     kb = torch.as_tensor(kbnd, device=eta_n.device).to(f32).reshape(1)
-    return SmootherPrep(eta_s.to(f32).contiguous(), eta_n.to(f32).contiguous(),
-                        kbnd, lam_max, diags,
-                        chebyshev_coeffs(lam_max, h).to(eta_n.device),
-                        kb, h)
+    prep = SmootherPrep(eta_s.to(f32).contiguous(),
+                        eta_n.to(f32).contiguous(), kbnd, lam_max, diags,
+                        chebyshev_coeffs(lam_max, h).to(eta_n.device), kb, h)
+    if eta_n.is_cuda:  # the kernel's operands, checked once per prep
+        for name, t, shape in (("eta_s", prep.eta_s, grid.shape_corner),
+                               ("eta_n", prep.eta_n, grid.shape_center),
+                               ("coeffs", prep.coeffs, (h, 2)),
+                               ("kb", prep.kb, (1,))):
+            _check(name, t, shape)
+    return prep
 
 
 def chebyshev_smooth_plain(ex, ey, rx, ry, eta_s, eta_n, grid: StaggeredGrid,
@@ -161,26 +227,38 @@ def chebyshev_smooth_cuda(ex, ey, rx, ry, prep: SmootherPrep,
                          f"prepped halo depth {prep.h}")
     ny, nx = grid.ny, grid.nx
     for name, t, shape in (("ex", ex, grid.shape_vx), ("ey", ey, grid.shape_vy),
-                           ("rx", rx, grid.shape_vx), ("ry", ry, grid.shape_vy),
-                           ("eta_s", prep.eta_s, grid.shape_corner),
-                           ("eta_n", prep.eta_n, grid.shape_center),
-                           ("coeffs", prep.coeffs, (prep.h, 2)),
-                           ("kb", prep.kb, (1,))):
+                           ("rx", rx, grid.shape_vx), ("ry", ry, grid.shape_vy)):
         _check(name, t, shape)
+    if prep.eta_n.shape != grid.shape_center or not prep.eta_n.is_cuda:
+        raise ValueError("cheb kernel: the prep was built for another level "
+                         "or for the CPU")
     ox = torch.empty_like(ex)
     oy = torch.empty_like(ey)
     fx = torch.empty_like(rx) if emit_residual else ox
     fy = torch.empty_like(ry) if emit_residual else oy
+    plan = tile_plan(ny, nx, depth, device_sms(ex.device.index))
     code = cuda_build.library().launch_cheb(
         ex.data_ptr(), ey.data_ptr(), rx.data_ptr(), ry.data_ptr(),
         prep.eta_s.data_ptr(), prep.eta_n.data_ptr(), prep.coeffs.data_ptr(),
         prep.kb.data_ptr(), ox.data_ptr(), oy.data_ptr(), fx.data_ptr(),
         fy.data_ptr(), ny, nx, grid.dx, grid.dy, bcs.s_top, bcs.s_bottom,
         bcs.s_left, bcs.s_right, iters, prep.h, int(zero_init),
-        int(emit_residual), cuda_build.stream_ptr(ex.device))
+        int(emit_residual), plan.ty, cuda_build.stream_ptr(ex.device))
     cuda_build.check(code, "cheb")
     launches += 1
     return (ox, oy, fx, fy) if emit_residual else (ox, oy)
+
+
+def kernel_info(he: int, ty: int) -> dict:
+    """Occupancy of the depth-``he`` kernel with tiles of ``ty`` rows, from
+    the card's own function attributes: registers per thread, static and
+    dynamic shared bytes, local (spill) bytes per thread, threads and
+    resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().cheb_kernel_info(he, ty, out),
+                     "cheb (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def chebyshev_smooth(ex, ey, rx, ry, prep: SmootherPrep, grid: StaggeredGrid,

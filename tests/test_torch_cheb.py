@@ -154,3 +154,66 @@ def test_preconditioner_bit_identical_with_fused_flags(monkeypatch, n,
         assert torch.equal(a, b)
     assert calls["coarse"] == cycles
     assert calls["smooth"] == (2 * cycles if n == 256 else 0)
+
+
+def _bench_levels(cfg, grid):
+    """The MG level grids of a bench preset's solve (shapes only)."""
+    s = cfg.solver
+    grids = [grid]
+    for step in mg.coarsening_plan(grid, s.mg_levels,
+                                   semi_threshold=s.mg_semicoarsen):
+        grids.append(grids[-1].coarsen(*step))
+    return grids, max(s.mg_pre_smooth, s.mg_post_smooth)
+
+
+@pytest.mark.parametrize("preset", ["fk", "sticky_air"])
+def test_tile_plan_covers_each_point_once(preset):
+    """csrc/cheb.cu's per-level tile plan on the levels the fused sweep
+    takes in the FK 1024^2 and sticky-air 1024x256 solves, at the depths
+    they run (degree + residual, degree): every point of the (ny+1, nx+1)
+    point space in exactly one tile, the loaded region within the
+    kernel's threads and the shared memory within a block's budget."""
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        sticky_air_bench_config,
+    )
+    if preset == "fk":
+        cfg, grid = fk_bench_config(1024), StaggeredGrid(nx=1024, ny=1024,
+                                                         lx=1.0, ly=1.0)
+        want = [(1024, 1024), (512, 512), (256, 256)]
+    else:
+        cfg = sticky_air_bench_config(1024)
+        grid = StaggeredGrid(nx=1024, ny=256, lx=4.0, ly=1.0)
+        want = [(256, 1024), (128, 512), (64, 256)]
+    grids, deg = _bench_levels(cfg, grid)
+    levels = [g for g in grids if cheb.smoother_eligible(g, F32, deg, True)]
+    assert [(g.ny, g.nx) for g in levels] == want
+    blocks = []
+    for g in levels:
+        for he in (deg + 1, deg):
+            plan = cheb.tile_plan(g.ny, g.nx, he)
+            seen = np.zeros((g.ny + 1, g.nx + 1), np.int32)
+            for r0, rows, c0, cols in plan.extents(g.ny, g.nx):
+                assert 1 <= rows <= plan.ty + 1 and 1 <= cols <= cheb.TILE_X + 1
+                seen[r0:r0 + rows, c0:c0 + cols] += 1
+            assert (seen == 1).all()
+            loaded = (plan.ty + 1 + 2 * he) * (cheb.TILE_X + 1 + 2 * he)
+            assert loaded <= plan.nq * cheb.THREADS
+            assert plan.smem <= cheb.SMEM_PER_BLOCK
+            if he == deg + 1:
+                blocks.append(plan.nty * plan.ntx)
+    # the smallest level spreads over more blocks than 32x32 tiles give
+    g = levels[-1]
+    assert blocks[-1] > -(-g.ny // 32) * -(-g.nx // 32)
+
+
+@pytest.mark.parametrize("ny,nx,he", [(8, 256, 7), (40, 300, 3),
+                                      (333, 517, 5), (16, 256, 1)])
+def test_tile_plan_ragged_levels(ny, nx, he):
+    """Ragged and the smallest eligible levels: one tile per point."""
+    plan = cheb.tile_plan(ny, nx, he)
+    seen = np.zeros((ny + 1, nx + 1), np.int32)
+    for r0, rows, c0, cols in plan.extents(ny, nx):
+        seen[r0:r0 + rows, c0:c0 + cols] += 1
+    assert (seen == 1).all()
+    assert plan.smem <= cheb.SMEM_PER_BLOCK

@@ -93,3 +93,103 @@ def test_fuse_start_matches_reference(n):
     fs = cvk.coarse_fuse_start(grids, plan, bcs, F32, "chebyshev", False,
                                False)
     assert grids[fs].nx == 128 if n >= 256 else grids[fs].nx == 32
+
+
+def _bench_hierarchy(preset, nx=1024):
+    """(grids, plan, fusion start, the reference's fusion start) of the
+    FK nx^2 or sticky-air nx x max(nx // 4, 64) solve (shapes only)."""
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        sticky_air_bench_config,
+    )
+    cfg = (fk_bench_config if preset == "fk" else sticky_air_bench_config)(nx)
+    grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly)
+    jgrid = JGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly)
+    s = cfg.solver
+    plan = mg.coarsening_plan(grid, s.mg_levels,
+                              semi_threshold=s.mg_semicoarsen)
+    grids, jgrids = [grid], [jgrid]
+    for step in plan:
+        grids.append(grids[-1].coarsen(*step))
+        jgrids.append(jgrids[-1].coarsen(*step))
+    bcs = cfg.physics.velocity_bcs
+    fs = cvk.coarse_fuse_start(grids, plan, bcs, F32, "chebyshev", False,
+                               False)
+    jfs = jcvk.coarse_fuse_start(jgrids, plan, jax_vbcs(bcs), jnp.float32,
+                                 "chebyshev", False, False)
+    return grids, plan, fs, jfs
+
+
+def _fused_levels(preset):
+    """The levels the fused coarse V-cycle owns in the FK 1024^2 and the
+    sticky-air 1024x256 solves (shapes only)."""
+    grids, _, fs, _ = _bench_hierarchy(preset)
+    return grids[fs:]
+
+
+@pytest.mark.parametrize("nx", [256, 384, 512, 640, 768, 1024, 2048])
+@pytest.mark.parametrize("preset", ["fk", "sticky_air"])
+def test_fuse_start_fits_a_cluster(preset, nx):
+    """The fusion gate on every size the bench presets take: the port fuses
+    from the reference's start where one cluster holds the levels from
+    there (every sticky-air size, FK at 256, 512, 1024, 2048), and otherwise
+    from the first level below it that fits (FK 384 and 768 from 96^2, 640
+    from 80^2); cluster_plan holds the levels it fuses."""
+    grids, plan, fs, jfs = _bench_hierarchy(preset, nx)
+    assert jfs is not None and fs is not None and fs >= jfs
+    assert cvk.cluster_plan(grids[fs:]) is not None
+    for l in range(jfs, fs):  # the levels skipped do not fit
+        assert cvk.cluster_plan(grids[l:]) is None
+    expect = {384: 96, 640: 80, 768: 96}.get(nx) if preset == "fk" else None
+    if expect is None:
+        assert fs == jfs
+    else:
+        assert (grids[fs].ny, grids[fs].nx) == (expect, expect)
+
+
+@pytest.mark.parametrize("preset,start,cluster", [("fk", (128, 128), 8),
+                                                  ("sticky_air", (32, 128), 8)])
+def test_cluster_plan(preset, start, cluster):
+    """csrc/coarse_vcycle.cu's cluster plan on both hierarchies: every
+    point row of a split level owned by exactly one CTA, each strip's ghost
+    rows owned by its neighbours, the small levels in CTA 0 with whole
+    warps, and the levels' planes disjoint within a CTA's 227 KB."""
+    grids = _fused_levels(preset)
+    assert (grids[0].ny, grids[0].nx) == start
+    plans, smem = cvk.cluster_plan(grids)
+    cl = cvk.CLUSTER
+    assert cl == cluster and smem <= cvk.SMEM_PER_BLOCK
+    end = 0
+    for g, p in zip(grids, plans):
+        R, W = g.ny + 1, g.nx + 1
+        assert p.split == (R >= cl and (
+            max(g.ny, g.nx) >= cvk.SPLIT_MIN
+            or R * W > cvk.MAX_POINTS_PER_THREAD * cvk.THREADS))
+        assert p.lo[0] == 0 and p.lo[-1] == R and len(p.lo) == cl + 1
+        owners = np.zeros(R, np.int32)
+        for s in range(cl):
+            a, b = p.lo[s], p.lo[s + 1]
+            owners[a:b] += 1
+            if p.split:
+                assert 1 <= b - a <= p.rows - 2
+                # the ghost rows a - 1 and b: a neighbour's edge rows
+                if a > 0:
+                    assert p.lo[s - 1] <= a - 1 < a
+                if b < R:
+                    assert b < p.lo[s + 2]
+            else:
+                assert (a, b) == ((0, R) if s == 0 else (R, R))
+        assert (owners == 1).all()
+        if p.split:  # the kernel's closed form of a row's owner
+            for j in range(R):
+                s = ((j + 1) * cl - 1) // R
+                assert p.lo[s] <= j < p.lo[s + 1]
+        own = max(b - a for a, b in zip(p.lo, p.lo[1:]))
+        assert p.rows == own + 2
+        assert p.nthr % 32 == 0 and 32 <= p.nthr <= cvk.THREADS
+        assert -(-own * W // p.nthr) <= cvk.MAX_POINTS_PER_THREAD
+        assert p.off >= end and p.off % 4 == 0
+        end = p.off + cvk.LEVEL_PLANES * p.rows * W
+    assert 4 * end <= smem
+    # the coarsest level (32 iterations) runs on at most three warps
+    assert plans[-1].nthr <= 96

@@ -28,7 +28,7 @@ from pylamp_tpu_torch.solvers import mg, scaling
 from pylamp_tpu_torch.physics.materials import Material, MaterialTable
 
 pytestmark = pytest.mark.cuda
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # as tests/torch_helpers.py: one CPU thread
 
 BCS = [VelocityBCs(), VelocityBCs(top="no_slip", left="no_slip"),
        VelocityBCs(top="no_slip", bottom="no_slip", left="no_slip",
@@ -593,3 +593,137 @@ def test_block_wrappers_raise(dev):
     for vx in (ext.cpu(), ext.double(), strided):
         with pytest.raises(ValueError):
             saddle_block.saddle_block_cuda(vx, ext, ext, es, ext, 0.1, 0.1)
+
+
+# kernel 5 where its tilings break: the smallest eligible level, ragged ny
+# and nx, the FK (512^2, 256^2) and sticky-air (1024x256, 512x128, 256x64)
+# level shapes; 256x1024 and 512^2 have interior tiles, the rest edge
+# tiles only
+TILING_SHAPES = [(8, 256), (40, 300), (72, 520), (256, 256), (512, 512),
+                 (256, 1024), (128, 512), (64, 256)]
+
+
+@pytest.mark.parametrize("depth", range(1, 8))
+@pytest.mark.parametrize("ny,nx", TILING_SHAPES)
+def test_cheb_kernel_tilings(dev, ny, nx, depth):
+    """Every depth 1-7 in each form (zero and non-zero start, with and
+    without the emitted residual) against the plain version, and a rerun
+    bit-identical.  Depth 7 on the layered viscosities of the sticky-air
+    sweep (as test_cheb_kernel_depth7), shallower sweeps on the random
+    e^+-8 field (as test_cheb_kernel)."""
+    bcs = BCS[1]
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 81 + depth)
+    if depth == 7:
+        es, en = _layered(grid, es, en)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    prep = cheb.prep_smoother(es, en, grid, bcs, kbnd, lam, depth)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    start = {True: (torch.zeros_like(rx), torch.zeros_like(ry)),
+             False: (r(grid.shape_vx), r(grid.shape_vy))}
+    for emit in (False, True):
+        iters = depth - emit
+        if iters < 1:
+            continue
+        for zero_init in (True, False):
+            ex, ey = start[zero_init]
+            got = cheb.chebyshev_smooth_cuda(ex, ey, rx, ry, prep, grid, bcs,
+                                             iters, zero_init, emit)
+            ref = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, es, en, grid,
+                                              bcs, kbnd, lam, iters,
+                                              zero_init, emit)
+            for g, rf in zip(got, ref):
+                assert _rel(g, rf) <= 2e-5, (emit, zero_init)
+            again = cheb.chebyshev_smooth_cuda(ex, ey, rx, ry, prep, grid,
+                                               bcs, iters, zero_init, emit)
+            for g, a in zip(got, again):
+                assert torch.equal(g, a)
+
+
+def _coarse_prep(ny, nx, dev, seed, bcs, deg, layered=False, nlev=None):
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, seed)
+    if layered:
+        es, en = _layered(grid, es, en)
+    _, grids, etas, kbnds = mg._hierarchy(es, en, grid, kbnd, 0, 2.0)
+    if layered:
+        etas = [etas[0]] + [(mg._cap_eta(a, 1e2), mg._cap_eta(b, 1e2))
+                            for a, b in etas[1:]]
+    lam = mg.estimate_mg_lambdas(es, en, grid, bcs, kbnd, semicoarsen=2.0,
+                                 mode="gershgorin")
+    n = nlev or len(grids)
+    prep = cvk.CoarseVcyclePrep(grids[:n], etas[:n], kbnds[:n], lam[:n], bcs,
+                                deg, deg, 32)
+    return grid, prep, r
+
+
+@pytest.mark.parametrize("nlev", [2, 3, 4, 5, 6])
+def test_coarse_vcycle_levels(dev, nlev):
+    """Kernel 6 from 128^2 with 2-6 levels (the split 128^2 and 64^2
+    levels, then CTA 0's), and a rerun bit-identical."""
+    grid, prep, r = _coarse_prep(128, 128, dev, 91, BCS[1], 4, nlev=nlev)
+    assert prep.nlev == nlev and prep.plans[0].split
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    got = cvk.coarse_vcycle(rx, ry, prep)
+    ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+    again = cvk.coarse_vcycle(rx, ry, prep)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("n", [80, 96, 112])
+def test_coarse_vcycle_gated_starts(dev, n):
+    """Kernel 6 from the starts the fusion gate moves to where a cluster
+    cannot hold the first level below the cutoff (FK at nx = 640, 384 and
+    448 fuse from 80^2, 96^2 and 112^2; 112^2's 56^2 level is split for its
+    point count): within the bar of the plain version, rerun bit-identical."""
+    grid, prep, r = _coarse_prep(n, n, dev, 95, BCS[1], 4)
+    assert prep.plans[0].split and prep.smem <= cvk.SMEM_PER_BLOCK
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    got = cvk.coarse_vcycle(rx, ry, prep)
+    ref = cvk.coarse_vcycle_plain(rx, ry, prep)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 2e-5
+    again = cvk.coarse_vcycle(rx, ry, prep)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_coarse_vcycle_preps_interleaved(dev):
+    """Back-to-back calls on one prep, and two preps (FK 128^2, sticky-air
+    128x32 with capped 1e4 jumps) interleaved on one stream: each call
+    gives its own answer, bit for bit on a repeat."""
+    g_a, a, r_a = _coarse_prep(128, 128, dev, 92, BCS[0], 4)
+    g_b, b, r_b = _coarse_prep(32, 128, dev, 93, BCS[0], 6, layered=True)
+    rhs_a = [(r_a(g_a.shape_vx), r_a(g_a.shape_vy)) for _ in range(2)]
+    rhs_b = (r_b(g_b.shape_vx), r_b(g_b.shape_vy))
+    first = [cvk.coarse_vcycle(*rhs_a[0], a), cvk.coarse_vcycle(*rhs_b, b),
+             cvk.coarse_vcycle(*rhs_a[1], a), cvk.coarse_vcycle(*rhs_a[1], a)]
+    second = [cvk.coarse_vcycle(*rhs_a[0], a), cvk.coarse_vcycle(*rhs_b, b)]
+    refs = [cvk.coarse_vcycle_plain(*rhs_a[0], a),
+            cvk.coarse_vcycle_plain(*rhs_b, b),
+            cvk.coarse_vcycle_plain(*rhs_a[1], a)]
+    for got, ref in zip(first, refs + refs[2:]):
+        for g, rf in zip(got, ref):
+            assert _rel(g, rf) <= 2e-5
+    for x, y in zip(first[:2] + first[2:3], second + first[3:]):
+        for g, h in zip(x, y):
+            assert torch.equal(g, h)
+
+
+def test_redesigned_kernels_fit_without_spills(dev):
+    """Kernel 5 at every depth and tile height, and kernel 6 at the FK
+    128^2 and sticky-air 128x32 plans: no local memory (spills), kernel 5
+    with 16 warps resident per SM, one cluster of kernel 6 resident, and
+    kernel 6's static shared memory the planner's SMEM_STATIC."""
+    for he in range(1, 8):
+        for ty in cheb.TILE_ROWS:
+            info = cheb.kernel_info(he, ty)
+            assert info["local_bytes"] == 0, (he, ty, info)
+            assert info["blocks_per_sm"] * info["threads"] >= 512, info
+    for ny, nx in ((128, 128), (32, 128)):
+        _, prep, _ = _coarse_prep(ny, nx, dev, 94, BCS[0], 4)
+        info = cvk.kernel_info(prep)
+        assert info["local_bytes"] == 0 and info["clusters"] >= 1, info
+        assert info["static_smem"] == cvk.SMEM_STATIC, info
+        assert info["cluster"] == cvk.CLUSTER, info

@@ -1,8 +1,12 @@
 """Shared helpers of the port's CPU tests: pylamp_tpu_torch (PyTorch)
 against pylamp_tpu (JAX, the reference) on the same numpy inputs.
 
-Importing this module caps torch at 2 intra-op threads: the tier-1 run
-uses 6 xdist workers, and all cores per worker would slow the whole run.
+Importing this module runs torch on one intra-op thread.  All cores per
+worker would slow the 6-worker tier-1 run, and a second thread made the
+1e-12 parity tests flaky: in about one full tier-1 run in ten, the first
+vectorized exp that torch's second OpenMP thread ran in a worker returned
+values up to ~1e-9 off (the half of a (20, 24, 18) marker array that
+thread computed; an immediate rerun in the same process was exact).
 """
 import dataclasses
 
@@ -15,7 +19,7 @@ from pylamp_tpu.io.checkpoint import _path_str
 from pylamp_tpu.models import config as jconfig
 from pylamp_tpu.physics.materials import Material as JMaterial
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def fields(dc) -> dict:

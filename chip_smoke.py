@@ -21,7 +21,12 @@ plain PyTorch version on the card:
   K18 (256x512 blocks): kernel 8 on the frames of levels 1024, 512 and 256
   (degree 4 + the residual, zero and non-zero start), kernel 9 in both
   forms at 256x512 and 128x256, kernels 10-12 on the blocks of the FK
-  markers, each at one odd shape as well.
+  markers, each at one odd shape as well;
+- the periodic forms of kernels 1-5 and 7 (rows ``*_periodic``) at the
+  shapes of the periodic falling block at 1024^2 x K18: kernel 1 on the
+  solve's viscosities, kernels 2-4 on its markers, kernel 5 on levels
+  1024, 512 and 256 in both forms, kernel 7 on those levels (timed at
+  1024^2); the seam columns of kernels 1, 5 and 7 bit-identical.
 
 Kernel and plain version are timed with CUDA events, and each kernel's
 bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
@@ -46,6 +51,15 @@ counter set to 0 just before it:
   not launch kernel 7 (outer Krylov counts within +-max(2, 10 %) per
   step).
 
+- the periodic falling block at 1024^2, ``falling_block_periodic_config``
+  (the preset's own solver, f32 state): 1 warm-up + 3 measured steps,
+  kernels 1-5 in their periodic forms, interleaved step by step with its
+  partner ``use_pallas=True, use_pallas_smoother=False`` (kernels 1-4 and
+  7 periodic); every launch of a path must be a periodic form of its
+  kernels and no other kernel may launch; every marker x in [0, lx), the
+  vx seam columns within 1e-6 max|vx|, the largest vy within 3 columns of
+  the seam, Krylov counts within +-2 of the partner.
+
 - FK 1024^2 with ``explicit_halo=True`` on the in-process 4x2 mesh
   (``make_step(..., mesh=make_mesh(8))``): 1 warm-up + 3 measured steps,
   interleaved step by step with the single-device step from the same built
@@ -56,8 +70,9 @@ counter set to 0 just before it:
 
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
-kernel from 32^2) is also held against the plain f64 step on the CPU (the
-path the CPU tests hold against the JAX package).  The line before the
+kernel from 32^2) and a 256^2 periodic falling-block step (kernels 1-5
+periodic) are also held against the plain f64 step on the CPU (the path
+the CPU tests hold against the JAX package).  The line before the
 last lists every kernel with its numbers; the last line is the JSON device
 record.  Any failure raises, so the exit code is non-zero; it exits
 non-zero without a CUDA device.
@@ -87,6 +102,11 @@ MESH_MEASURED_STEPS = 3
 MESH_SHARDS = 8  # make_mesh(8): the reference's 4x2 mesh
 STICKY_WARMUP_STEPS = 1
 STICKY_MEASURED_STEPS = 3
+PERIODIC_NX = 1024  # falling_block_periodic at nx^2
+PERIODIC_WARMUP_STEPS = 1
+PERIODIC_MEASURED_STEPS = 3
+PERIODIC_SMALL_NX = 256  # kernel 5 takes nx >= 256; square: not semicoarsened
+SEAM_TOL = 1e-6  # |vx[:, 0] - vx[:, -1]| / max|vx| after a periodic step
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
 SMALL_NX = 64
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -211,22 +231,29 @@ def errors(pairs):
     return abs_err, rel
 
 
-def displacement_error(got, ref, start):
+def displacement_error(got, ref, start, periods=(None, None)):
     """Advect: (max |got - ref| of the new positions, max over x and y of
     the displacement error over max |displacement|).  Both versions round
     start + displacement to f32 last, which alone may part them by one f32
     spacing of the position; the displacement error is what exceeds that.
     A whole-position bar would pass a kernel of the wrong order: at the
-    FK step a marker moves ~5e-4 of the unit domain."""
+    FK step a marker moves ~5e-4 of the unit domain.  ``periods``: the
+    period of each coordinate (periodic x wraps into [0, lx)), whose
+    differences are taken into [-period/2, period/2)."""
+    def gap(a, b, period):
+        d = a.double() - b.double()
+        return d if period is None else torch.remainder(
+            d + 0.5 * period, period) - 0.5 * period
+
     abs_err, excess, scale = 0.0, 0.0, 0.0
-    for g, r, s in zip(got, ref, start):
+    for g, r, s, period in zip(got, ref, start, periods):
         top = torch.maximum(torch.abs(g), torch.abs(r))
         spacing = torch.nextafter(top, torch.full_like(top, math.inf)) - top
-        diff = torch.abs(g.double() - r.double())
+        diff = torch.abs(gap(g, r, period))
         abs_err = max(abs_err, float(torch.max(diff)))
         excess = max(excess, float(torch.max(
             torch.clamp(diff - spacing.double(), min=0.0))))
-        scale = max(scale, float(torch.max(torch.abs(r.double() - s.double()))))
+        scale = max(scale, float(torch.max(torch.abs(gap(r, s, period)))))
     return abs_err, excess / scale
 
 
@@ -332,7 +359,8 @@ def time_rows(rows, extra_errors):
         abs_err, rel = err
         for a, r in extra_errors.get(name, ()):
             abs_err, rel = max(abs_err, a), max(rel, r)
-        ok = rel <= TOL[name]
+        tol = TOL[name.removesuffix("_periodic")]  # a periodic form: its bar
+        ok = rel <= tol
         p1 = cuda_time_ms(pfn, preps)
         k1 = cuda_time_ms(kfn, 20)
         k2 = cuda_time_ms(kfn, 20)
@@ -342,13 +370,13 @@ def time_rows(rows, extra_errors):
                              plain_ms=min(p1, p2), bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
         log(f"kernel {name}: max abs err {abs_err:.3e}, rel err {rel:.3e} "
-            f"(tol {TOL[name]:g}) "
+            f"(tol {tol:g}) "
             f"{'OK' if ok else 'FAIL'}; kernel {k1:.4f}/{k2:.4f} ms, "
             f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
             f"{100 * b_ms / min(k1, k2):.2f} % of bound")
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain "
-                                 f"version: {rel:.3e} > {TOL[name]:g}")
+                                 f"version: {rel:.3e} > {tol:g}")
     return results
 
 
@@ -478,8 +506,9 @@ def level_time(cheb, hier, g, prep, zx, zy, rx, ry, vbc, deg):
                             bound_ms=b_ms,
                             bound_by=b_by, tile_rows=plan.ty,
                             blocks=plan.nty * plan.ntx))
-    OCCUPANCY[f"cheb {g.ny}x{g.nx} depth {deg + 1}"] = cheb.kernel_info(
-        deg + 1, plan.ty)
+    form = " periodic" if vbc.periodic_x else ""
+    OCCUPANCY[f"cheb{form} {g.ny}x{g.nx} depth {deg + 1}"] = cheb.kernel_info(
+        deg + 1, plan.ty, vbc.periodic_x)
     log(f"cheb {hier} level {g.ny}x{g.nx}, pre-smooth form (depth "
         f"{deg + 1}): kernel {ms:.4f} ms per call ({dev_ms} ms on the "
         f"device, graph-timed), bound {b_ms:.5f} ms ({b_by}), "
@@ -1168,6 +1197,335 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules):
     return {p: r["launches"] for p, r in rec.items()}
 
 
+def seam_equal(name, a):
+    """The two seam columns of an nx+1-wide array: one node, bit-identical."""
+    if not torch.equal(a[:, 0], a[:, -1]):
+        d = float(torch.max(torch.abs(a[:, 0] - a[:, -1])))
+        raise AssertionError(f"{name}: the seam columns differ by {d:.3e}")
+
+
+def periodic_kernel_rows(grid, cfg, table, state):
+    """The periodic forms of kernels 1-5 and 7 against their plain versions
+    on the card at the falling_block_periodic 1024^2 x K18 shapes, inputs
+    from the built state after one interp and one Stokes solve of the
+    preset: kernel 1 on the solve's viscosities, kernels 2-4 on the markers
+    (advection with the solve's velocities and dt), kernels 5 and 7 on the
+    levels 1024, 512 and 256 of the solve's hierarchy (Gershgorin bounds),
+    with seeded random vectors whose vx seam columns are equal, as the
+    periodic multigrid keeps them.  Kernel 5 runs its pre-smooth form (zero
+    start + residual) and its post-smooth form; each level's pre-smooth
+    form is timed (``level_time``).  The seam columns of kernels 1, 5 and 7
+    must come out bit-identical."""
+    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+    from pylamp_tpu_torch.models.step import make_step_phases
+    from pylamp_tpu_torch.ops.kernels import cheb, momentum, saddle
+    from pylamp_tpu_torch.solvers import mg
+    from pylamp_tpu_torch.solvers.scaling import (
+        characteristic_viscosity,
+        stokes_scales,
+    )
+
+    phys, solver, vbc = cfg.physics, cfg.solver, cfg.physics.velocity_bcs
+    ph = make_step_phases(grid, cfg, table)
+    io = ph.interp(state)
+    vx, vy, p, sdiag = ph.stokes(state, io)
+    dt = ph.timestep(vx, vy, io.k_m, io.rhocp_m)
+    torch.cuda.synchronize()
+    log(f"periodic setup solve: {sdiag['stokes_iterations']} Krylov "
+        f"iterations, rel residual {sdiag['stokes_residual_rel']:.3e}")
+    m = state.markers
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(shape, scale=1.0, seam=False):
+        a = torch.randn(shape, generator=gen, device="cuda") * scale
+        if seam:
+            a[:, -1] = a[:, 0]
+        return a
+
+    rows = []
+    # 1p: the saddle apply
+    kcont, kbnd = stokes_scales(characteristic_viscosity(io.eta_n.double()),
+                                grid)
+    prep = saddle.prep_saddle(io.eta_s, io.eta_n, kcont.float(), kbnd.float())
+    u = [rand(t.shape, torch.max(torch.abs(t)), seam=(t is vx))
+         for t in (vx, vy, p)]
+    got = saddle.saddle_apply_cuda(*u, prep, grid, vbc)
+    ref = saddle.saddle_apply_plain(*u, prep, grid, vbc)
+    seam_equal("saddle_periodic rx", got[0])
+    ops = (stencil_ops(grid) + OPS["pressure"] * (vx.numel() + vy.numel())
+           + OPS["continuity"] * p.numel())
+    rows.append(("saddle_periodic", "pylamp_tpu_torch/csrc/saddle.cu",
+                 "pylamp_tpu/ops/pallas/stokes_kernel.py:407",
+                 errors(zip(got, ref)),
+                 partial(saddle.saddle_apply_cuda, *u, prep, grid, vbc),
+                 partial(saddle.saddle_apply_plain, *u, prep, grid, vbc), 50,
+                 bound_ms(nbytes(*u, prep.eta_s, prep.eta_n, prep.kk, *got),
+                          ops)))
+
+    # 2p: marker -> grid, the streams of the step (no energy) timed, the
+    # energy streams checked as well
+    errs = []
+    for with_energy in (True, phys.solve_energy):
+        got = m2g.m2g_fused_cuda(m, grid, table, phys, with_energy, True)
+        ref = m2g.m2g_fused_plain(m, grid, table, phys, with_energy, True)
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"periodic m2g streams differ: {sorted(got)}"
+                                 f" vs {sorted(ref)}")
+        errs.append(errors((got[k], ref[k]) for k in ref))
+        for k, a in got.items():
+            if a.shape[1] == grid.nx + 1:
+                seam_equal(f"m2g_periodic {k}", a)
+    n_valid = int(m.total())
+    rows.append(("m2g_periodic", "pylamp_tpu_torch/csrc/m2g.cu",
+                 "pylamp_tpu/markers/pallas/m2g_kernel.py:407",
+                 tuple(max(e[i] for e in errs) for i in (0, 1)),
+                 partial(m2g.m2g_fused_cuda, m, grid, table, phys,
+                         phys.solve_energy, True),
+                 partial(m2g.m2g_fused_plain, m, grid, table, phys,
+                         phys.solve_energy, True), 5,
+                 bound_ms(nbytes(m.x, m.y, m.T, m.mat, m.valid)
+                          + nbytes(*got.values()), OPS["m2g"] * n_valid)))
+
+    # 3p: RK4 advection with the solve's velocities, x wrapped into [0, lx)
+    got = advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, 1)
+    ref = advect.advect_rk4_plain(m, vx, vy, dt, grid, vbc, 1)
+    x = got.x[m.valid]
+    if not (float(x.min()) >= 0.0 and float(x.max()) <= grid.lx):
+        raise AssertionError("periodic advect: x outside [0, lx]")
+    rows.append(("advect_periodic", "pylamp_tpu_torch/csrc/advect.cu",
+                 "pylamp_tpu/markers/pallas/advect_kernel.py:282",
+                 displacement_error((got.x, got.y), (ref.x, ref.y),
+                                    (m.x, m.y), (grid.lx, None)),
+                 partial(advect.advect_rk4_cuda, m, vx, vy, dt, grid, vbc, 1),
+                 partial(advect.advect_rk4_plain, m, vx, vy, dt, grid, vbc, 1),
+                 5, bound_ms(nbytes(m.x, m.y, m.valid, vx, vy, got.x, got.y),
+                             OPS["advect"] * n_valid)))
+
+    # 4p: rebucket of the advected markers, bit-identical
+    moved = got
+    (gm, gd), (rm, rd) = (rebucket.rebucket_cuda(moved, grid, True),
+                          rebucket.rebucket_plain(moved, grid, True))
+    same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+               for f in ("x", "y", "mat", "T", "valid")) and int(gd) == int(rd)
+    crossed = int(torch.sum(moved.valid & (torch.abs(moved.x - m.x)
+                                           > 0.5 * grid.lx)))
+    log(f"periodic rebucket: dropped {int(gd)} (plain {int(rd)}), {crossed} "
+        "markers crossed the seam")
+    rows.append(("rebucket_periodic", "pylamp_tpu_torch/csrc/rebucket.cu",
+                 "pylamp_tpu/markers/pallas/rebucket_kernel.py:311",
+                 (0.0, 0.0) if same else (math.inf, math.inf),
+                 partial(rebucket.rebucket_cuda, moved, grid, True),
+                 partial(rebucket.rebucket_plain, moved, grid, True), 3,
+                 bound_ms(2 * nbytes(m.x, m.y, m.T, m.mat, m.valid),
+                          OPS["rebucket"] * n_valid)))
+
+    # 5p and 7p on the solve's levels 1024, 512, 256
+    deg = max(solver.mg_pre_smooth, solver.mg_post_smooth)
+    es, en = io.eta_s.float(), io.eta_n.float()
+    _, kb = stokes_scales(characteristic_viscosity(io.eta_n.double()), grid)
+    _, grids, etas, kbnds = mg._hierarchy(es, en, grid, kb.float(),
+                                          solver.mg_levels,
+                                          solver.mg_semicoarsen)
+    lam = mg.estimate_mg_lambdas(es, en, grid, vbc, kb.float(),
+                                 levels=solver.mg_levels,
+                                 semicoarsen=solver.mg_semicoarsen,
+                                 mode="gershgorin")
+    levels = [l for l, g in enumerate(grids)
+              if cheb.smoother_eligible(g, torch.float32, deg, True)]
+    if [grids[l].nx for l in levels] != [1024, 512, 256] or any(
+            not mg._pallas_eligible(grids[l], torch.float32) for l in levels):
+        raise AssertionError(f"periodic fused smoother levels {levels}")
+    cheb_errs, mom_errs, timed = [], [], {}
+    for l in levels:
+        g, (les, len_), kbl = grids[l], etas[l], kbnds[l]
+        seam_equal(f"eta_s of level {g.nx}", les)
+        prep = cheb.prep_smoother(les, len_, g, vbc, kbl, lam[l], deg + 1)
+        rx, ry = rand(g.shape_vx, seam=True), rand(g.shape_vy)
+        zx, zy = torch.zeros_like(rx), torch.zeros_like(ry)
+        ex, ey = rand(g.shape_vx, seam=True), rand(g.shape_vy)
+        for (sx, sy), zero_init, emit in (((zx, zy), True, True),
+                                          ((ex, ey), False, False)):
+            got = cheb.chebyshev_smooth_cuda(sx, sy, rx, ry, prep, g, vbc,
+                                             deg, zero_init, emit)
+            ref = cheb.chebyshev_smooth_plain(sx, sy, rx, ry, les, len_, g,
+                                              vbc, kbl, lam[l], deg,
+                                              zero_init, emit)
+            for a in got[::2]:
+                seam_equal(f"cheb_periodic {g.nx}", a)
+            cheb_errs.append(errors(zip(got, ref)))
+            log(f"periodic cheb level {g.ny}x{g.nx} zero_init={zero_init} "
+                f"emit={emit}: max abs err {cheb_errs[-1][0]:.3e}, rel "
+                f"{cheb_errs[-1][1]:.3e}")
+        level_time(cheb, "periodic", g, prep, zx, zy, rx, ry, vbc, deg)
+        mprep = momentum.prep_momentum(les, len_, kbl)
+        got = momentum.momentum_apply_cuda(ex, ey, mprep, g, vbc)
+        ref = momentum.momentum_apply_plain(ex, ey, les, len_, g, vbc, kbl)
+        seam_equal(f"momentum_periodic {g.nx}", got[0])
+        mom_errs.append(errors(zip(got, ref)))
+        log(f"periodic momentum {g.ny}x{g.nx}: max abs err "
+            f"{mom_errs[-1][0]:.3e}, rel {mom_errs[-1][1]:.3e}")
+        if not timed:  # the finest level
+            timed["cheb_periodic"] = (
+                partial(cheb.chebyshev_smooth_cuda, zx, zy, rx, ry, prep, g,
+                        vbc, deg, True, True),
+                partial(cheb.chebyshev_smooth_plain, zx, zy, rx, ry, les,
+                        len_, g, vbc, kbl, lam[l], deg, True, True), 20,
+                bound_ms(2 * nbytes(rx, ry) + nbytes(
+                    rx, ry, prep.eta_s, prep.eta_n, prep.coeffs, prep.kb),
+                    cheb_ops(g, deg, True, True)))
+            timed["momentum_periodic"] = (
+                partial(momentum.momentum_apply_cuda, ex, ey, mprep, g, vbc),
+                partial(momentum.momentum_apply_plain, ex, ey, les, len_, g,
+                        vbc, kbl), 50,
+                bound_ms(nbytes(ex, ey, mprep.eta_s, mprep.eta_n, mprep.kb,
+                                *got), stencil_ops(g)))
+    for name, errs, src, line in (
+            ("cheb_periodic", cheb_errs, "cheb.cu",
+             "ops/pallas/cheb_kernel.py:347"),
+            ("momentum_periodic", mom_errs, "momentum.cu",
+             "ops/pallas/stokes_kernel.py:183")):
+        kfn, pfn, reps, b = timed[name]
+        rows.append((name, f"pylamp_tpu_torch/csrc/{src}",
+                     f"pylamp_tpu/{line}",
+                     tuple(max(e[i] for e in errs) for i in (0, 1)), kfn, pfn,
+                     reps, b))
+    return rows
+
+
+PERIODIC_PATHS = {
+    # the preset: kernels 1-5 in their periodic forms
+    "preset": ("saddle", "m2g", "advect", "rebucket", "cheb"),
+    # use_pallas=True, use_pallas_smoother=False: kernels 1-4 and 7
+    "partner": ("saddle", "m2g", "advect", "rebucket", "momentum"),
+}
+
+
+def periodic_paths(grid, cfg, table, state0, n_markers, modules):
+    """The periodic falling block at 1024^2 and its partner
+    ``use_pallas=True, use_pallas_smoother=False`` from the same built
+    state, steps interleaved (preset first on odd steps, second on even
+    ones).  Every launch counter (all and periodic) is set to 0 just before
+    each step and read just after: each kernel of the path
+    (``PERIODIC_PATHS``) must launch, every launch of it in its periodic
+    form, and no other kernel may launch.  Every step must also keep every
+    marker x in [0, lx), the vx seam columns within SEAM_TOL max|vx| and
+    the largest vy within 3 columns of the seam; Krylov counts within
+    KRYLOV_AB_TOL of the partner's.  Returns each path's record."""
+    from pylamp_tpu_torch.models.benchmarks import (
+        falling_block_periodic_config,
+    )
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    cfg_b = falling_block_periodic_config(grid.nx, fused_smoother=False)
+    steps = {"preset": make_step(grid, cfg, table),
+             "partner": make_step(grid, cfg_b, table)}
+    periodic = {k: mod for k, mod in modules.items()
+                if hasattr(mod, "launches_periodic")}
+    states = dict.fromkeys(steps, state0)
+    rec = {p: dict(step_s=[], krylov=[], seam_rel=[], peak_vy_col=[],
+                   launches={k: 0 for k in modules},
+                   launches_periodic={k: 0 for k in periodic})
+           for p in steps}
+    n_steps = PERIODIC_WARMUP_STEPS + PERIODIC_MEASURED_STEPS
+    for i in range(n_steps):
+        kind = "warm-up" if i < PERIODIC_WARMUP_STEPS else "measured"
+        order = list(steps) if i % 2 == 0 else list(steps)[::-1]
+        for p in order:
+            expected = PERIODIC_PATHS[p]
+            for mod in modules.values():
+                mod.launches = 0
+            for mod in periodic.values():
+                mod.launches_periodic = 0
+            tag = f"periodic {p} step {i + 1} ({kind})"
+            st, dt_s, it, _ = take_step(steps[p], states[p], n_markers,
+                                        {k: modules[k] for k in expected},
+                                        tag)
+            states[p] = st
+            wall = {k: mod.launches - getattr(mod, "launches_periodic", 0)
+                    for k, mod in modules.items()}
+            wrong = {k: n for k, n in wall.items() if n} | {
+                k: mod.launches for k, mod in modules.items()
+                if k not in expected and mod.launches}
+            if wrong:
+                raise AssertionError(f"{tag}: launches outside the path's "
+                                     f"periodic forms: {wrong}")
+            x = st.markers.x[st.markers.valid]
+            if not (float(x.min()) >= 0.0 and float(x.max()) < grid.lx):
+                raise AssertionError(f"{tag}: marker x outside [0, lx): "
+                                     f"{float(x.min())}, {float(x.max())}")
+            vmax = float(torch.max(torch.abs(st.vx)))
+            seam = float(torch.max(torch.abs(st.vx[:, 0] - st.vx[:, -1])))
+            col = int(torch.argmax(st.vy)) % grid.nx
+            if not seam <= SEAM_TOL * vmax:
+                raise AssertionError(f"{tag}: vx seam columns differ by "
+                                     f"{seam / vmax:.3e} of max|vx|")
+            if not (col <= 3 or col >= grid.nx - 4):
+                raise AssertionError(f"{tag}: the largest vy sits in column "
+                                     f"{col}, not at the seam")
+            r = rec[p]
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            r["seam_rel"].append(seam / vmax)
+            r["peak_vy_col"].append(col)
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+            for k, mod in periodic.items():
+                r["launches_periodic"][k] += mod.launches_periodic
+    meas = slice(PERIODIC_WARMUP_STEPS, None)
+    for p, r in rec.items():
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"periodic falling block {grid.nx}^2 on {smi} ({p}): median "
+            f"{r['median_s_per_step']:.3f} s/step over "
+            f"{PERIODIC_MEASURED_STEPS} steps, {mean(r['krylov'][meas]):.1f} "
+            f"Krylov iterations/step; periodic-form launches "
+            f"{r['launches_periodic']}")
+    log("periodic A/B " + json.dumps({"device": smi, **rec}))
+    for i, (a, b) in enumerate(zip(rec["preset"]["krylov"],
+                                   rec["partner"]["krylov"])):
+        if abs(a - b) > KRYLOV_AB_TOL:
+            raise AssertionError(
+                f"periodic step {i + 1}: {a} Krylov iterations (preset), "
+                f"{b} (partner) (bar +-{KRYLOV_AB_TOL})")
+    return rec
+
+
+def periodic_reference_check(modules):
+    """One falling_block_periodic 256^2 step on the card (f32, kernels 1-5
+    in their periodic forms) against the plain f64 step on the CPU from the
+    same seeded build: velocities within 1e-4 max|v|, as
+    small_reference_check."""
+    from pylamp_tpu_torch.models.benchmarks import falling_block_periodic
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+
+    cfg = falling_block_periodic(nx=PERIODIC_SMALL_NX, ny=PERIODIC_SMALL_NX)
+    kernels = {k: modules[k] for k in PERIODIC_PATHS["preset"]}
+    for mod in kernels.values():
+        mod.launches_periodic = 0
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        grid, table, st = build(cfg, dtype=dtype, device=dev)
+        st, d = make_step(grid, cfg, table)(st)
+        out[dev] = (st, d)
+    idle = [k for k, mod in kernels.items() if mod.launches_periodic <= 0]
+    if idle:
+        raise AssertionError(f"periodic {PERIODIC_SMALL_NX}^2 step: periodic "
+                             f"forms not launched: {idle}")
+    g, r = out["cuda"][0], out["cpu"][0]
+    vmax = max(float(torch.max(torch.abs(r.vx))),
+               float(torch.max(torch.abs(r.vy))))
+    err = max(float(torch.max(torch.abs(g.vx.cpu().double() - r.vx))),
+              float(torch.max(torch.abs(g.vy.cpu().double() - r.vy))))
+    log(f"periodic {PERIODIC_SMALL_NX}^2 step, card f32 vs CPU f64: max |dv| "
+        f"/ max|v| = {err / vmax:.3e}; Krylov "
+        f"{out['cuda'][1]['stokes_iterations']} vs "
+        f"{out['cpu'][1]['stokes_iterations']}")
+    if not err <= 1e-4 * vmax:
+        raise AssertionError(f"periodic {PERIODIC_SMALL_NX}^2 step disagrees "
+                             f"with the CPU reference: {err / vmax:.3e} > 1e-4")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1182,6 +1540,7 @@ def main():
         rebucket_block,
     )
     from pylamp_tpu_torch.models.benchmarks import (
+        falling_block_periodic_config,
         fk_bench_config,
         sticky_air_bench_config,
     )
@@ -1232,6 +1591,17 @@ def main():
     io_s = make_step_phases(grid_s, cfg_s, table_s).interp(state_s)
     extra, hier = sticky_mg_checks(grid_s, cfg_s, io_s)
     rows.append(momentum_row(grid, fk_io, grid_s, hier))
+
+    cfg_p = falling_block_periodic_config(PERIODIC_NX)
+    t0 = time.perf_counter()
+    grid_p, table_p, state_p = build(cfg_p, dtype=torch.float32,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    n_markers_p = int(state_p.markers.total())
+    log(f"built periodic falling block {grid_p.nx}^2: "
+        f"{tuple(state_p.markers.x.shape)} marker slots, {n_markers_p} "
+        f"markers, {time.perf_counter() - t0:.1f} s")
+    rows += periodic_kernel_rows(grid_p, cfg_p, table_p, state_p)
     results = time_rows(rows, extra)
     report_occupancy(cuda_build, smi)
     del fk_io, io_s, hier
@@ -1296,23 +1666,51 @@ def main():
                                   n_markers_s,
                                   {k: modules[k] for k in (*six, "momentum")},
                                   modules)
+    del state_s
+    rec_p = periodic_paths(grid_p, cfg_p, table_p, state_p, n_markers_p,
+                           modules)
+    del state_p
 
     small_reference_check()
+    periodic_reference_check(modules)
 
-    # launches: each kernel's count on the path of its slice (kernels 1-7:
-    # the sticky-air path, which runs all seven; kernels 8-12: the mesh path)
-    kernels = [dict(name=k, route="cuda", source=r["source"],
-                    replaces=r["replaces"],
-                    launches=(launches_m["mesh_4x2"][k] if k.endswith("_block")
-                              else launches_s[k]),
-                    launches_by_path={
-                        "fk_1024": launches[k],
-                        "sticky_air_1024x256": launches_s[k],
-                        "fk_1024_mesh_4x2": launches_m["mesh_4x2"][k]},
-                    max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
-               for k, r in results.items()]
+    def periodic_count(k, path):
+        """Launches of row ``k``'s form on a periodic path: a periodic
+        row's periodic-form launches, a wall-form row's wall-form ones."""
+        base = k.removesuffix("_periodic")
+        r = rec_p[path]
+        n_periodic = r["launches_periodic"].get(base, 0)
+        return n_periodic if k != base else r["launches"][base] - n_periodic
+
+    def main_count(k):
+        """Launches on the path of the row's slice: kernels 1-7 the
+        sticky-air path (all seven), 8-12 the mesh path, the periodic forms
+        the periodic preset (1-5) or its partner (7)."""
+        if k.endswith("_block"):
+            return launches_m["mesh_4x2"][k]
+        if k.endswith("_periodic"):
+            return periodic_count(k, "partner" if k.startswith("momentum")
+                                  else "preset")
+        return launches_s[k]
+
+    kernels = []
+    for k, r in results.items():
+        base = k.removesuffix("_periodic")
+        wall_form = k == base
+        kernels.append(dict(
+            name=k, route="cuda", source=r["source"], replaces=r["replaces"],
+            launches=main_count(k),
+            launches_by_path={
+                "fk_1024": launches[base] if wall_form else 0,
+                "sticky_air_1024x256": launches_s[base] if wall_form else 0,
+                "fk_1024_mesh_4x2": (launches_m["mesh_4x2"][base]
+                                     if wall_form else 0),
+                "falling_block_periodic_1024": periodic_count(k, "preset"),
+                "falling_block_periodic_1024_partner": periodic_count(
+                    k, "partner")},
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

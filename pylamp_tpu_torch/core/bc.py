@@ -1,9 +1,10 @@
 """Boundary-condition descriptors (static configuration).
 
 Port of ``pylamp_tpu/core/bc.py`` with the same fields, so one set of
-values drives both packages.  Periodic side walls are accepted as
-configuration but every operator of the port raises on them: the
-periodic branches wait for a later port PR.
+values drives both packages.  Periodic side walls wrap: vx columns 0 and
+nx are one physical node (its momentum row is emitted half into each
+column, which keeps the operator symmetric), and a periodic wall has no
+ghost sign.
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ class VelocityBCs:
         if self.top == PERIODIC or self.bottom == PERIODIC:
             raise ValueError(
                 "periodic BCs are supported on the side walls only")
+        if self.periodic_x and (self.vn_left != 0.0 or self.vn_right != 0.0
+                                or self.vt_left != 0.0
+                                or self.vt_right != 0.0):
+            raise ValueError(
+                "periodic side walls take no prescribed velocities")
 
     @property
     def periodic_x(self) -> bool:
@@ -55,8 +61,9 @@ class VelocityBCs:
         if kind == NO_SLIP:
             return -1.0
         if kind == PERIODIC:
-            raise NotImplementedError(
-                "periodic side walls wait for a later port PR")
+            raise ValueError(
+                f"wall {wall!r} is periodic: it has no ghost sign "
+                "(use the wrap-around stencil path)")
         raise ValueError(f"unknown velocity BC {kind!r} on wall {wall!r}")
 
     @property

@@ -8,6 +8,13 @@
 // stage, the Courant-derived stage reach after), not a layout parameter.
 // Empty slots sample zero velocity.  The result is clipped to the closed
 // domain like the reference.
+//
+// P (periodic side walls, a template switch; P = false is the form above,
+// unchanged): the lattices are the wrapped planes the wrapper builds
+// (column c of the plane holds the period's column c mod nx), x is not
+// clamped, and the new x wraps into [0, lx) with the TPU kernel's formula
+// xn - lx * floor(xn * (1 / lx)), two roundings as there (the tensor path
+// divides instead; see markers/bucket.py wrap_x).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,11 +28,13 @@ struct Lattice {
     int r0, c0, stride;
 
     // bilinear sample at array coordinates (fx, fy), masked to the shift
-    // window around bucket cell (cj, ci)
+    // window around bucket cell (cj, ci) (P: no x clamp)
+    template <bool P = false>
     __device__ float sample(float fx, float fy, int cj, int ci,
                             int reach) const {
-        const int i0 = static_cast<int>(
-            fminf(fmaxf(floorf(fx), 0.0f), static_cast<float>(cols - 2)));
+        const int i0 = P ? static_cast<int>(floorf(fx))
+                         : static_cast<int>(fminf(fmaxf(floorf(fx), 0.0f),
+                                                  static_cast<float>(cols - 2)));
         const int j0 = static_cast<int>(
             fminf(fmaxf(floorf(fy), 0.0f), static_cast<float>(rows - 2)));
         const float tx = fminf(fmaxf(fx - static_cast<float>(i0), 0.0f), 1.0f);
@@ -51,19 +60,22 @@ struct Lattice {
 };
 
 // RK4 of the marker at (px, py) in bucket cell (cj, ci); writes the new
-// position clipped to [x_lo, x_hi] x [y_lo, y_hi].
+// position clipped to [x_lo, x_hi] x [y_lo, y_hi] (P: x wrapped into
+// [0, lx) instead, with inv_lx = 1 / lx rounded to f32).
+template <bool P = false>
 __device__ __forceinline__ void rk4_marker(
     float px, float py, bool vl, int cj, int ci, float dt, const Lattice& vxl,
     const Lattice& vyl, float dx, float dy, float x_lo, float x_hi,
-    float y_lo, float y_hi, int reach, float& out_x, float& out_y) {
+    float y_lo, float y_hi, int reach, float& out_x, float& out_y,
+    float lx = 0.0f, float inv_lx = 0.0f) {
     auto vel = [&](float sx, float sy, int r, float& ux, float& uy) {
         if (!vl) {
             ux = 0.0f;
             uy = 0.0f;
             return;
         }
-        ux = vxl.sample(sx / dx, sy / dy + 0.5f, cj, ci, r);
-        uy = vyl.sample(sx / dx + 0.5f, sy / dy, cj, ci, r);
+        ux = vxl.sample<P>(sx / dx, sy / dy + 0.5f, cj, ci, r);
+        uy = vyl.sample<P>(sx / dx + 0.5f, sy / dy, cj, ci, r);
     };
 
     const float hdt = 0.5f * dt;
@@ -76,6 +88,9 @@ __device__ __forceinline__ void rk4_marker(
     const float six = dt / 6.0f;
     const float xn = px + six * (k1x + 2.0f * k2x + 2.0f * k3x + k4x);
     const float yn = py + six * (k1y + 2.0f * k2y + 2.0f * k3y + k4y);
-    out_x = fminf(fmaxf(xn, x_lo), x_hi);
+    if constexpr (P)
+        out_x = xn - __fmul_rn(lx, floorf(__fmul_rn(xn, inv_lx)));
+    else
+        out_x = fminf(fmaxf(xn, x_lo), x_hi);
     out_y = fminf(fmaxf(yn, y_lo), y_hi);
 }

@@ -47,6 +47,17 @@
 //     result by a few f32 units in the last place against the plain
 //     version's division order: the sweep is held to the fp tolerance of
 //     the reference's reassociated kernel (2e-5 of max |ref|).
+//   - Periodic side walls (kernel template switch P): interior tiles run
+//     the same branch-free path; edge tiles load the x-periodic lattice
+//     (vy, eta_n, ry at column gi mod nx, and vx, eta_s, rx with column nx
+//     read as column 0) and keep only the top and bottom walls
+//     (sweep_stencil.cuh P).  The seam columns 0 and nx take half the
+//     wrapped row and half the wrapped Jacobi diagonal, so the residual
+//     form emits rx as equal halves there.  Both seam columns are computed
+//     from the same loaded values in the same order, so they stay
+//     bit-identical.  This reads vx, rx and eta_s as seam-consistent
+//     (column nx equal to column 0), which every vector of the periodic
+//     multigrid is.  The P = false kernels are the wall form, unchanged.
 // The coefficient table and kbnd come from device memory (no host sync).
 // No atomics: a launch is deterministic.
 #include "common.cuh"
@@ -88,7 +99,7 @@ constexpr int RING_MASK = 15;
 constexpr int HAS_X = 1 << 4;
 constexpr int HAS_Y = 1 << 5;
 
-template <int HE, bool W>
+template <int HE, bool W, bool P>
 __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
                                            const SweepConsts& c, float kb,
                                            float* smem, int j0, int i0,
@@ -114,7 +125,13 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
         const int ring = max(max(max(HE - lj, lj - (HE + TYc - 1)),
                                  max(HE - li, li - (HE + TXc - 1))), 0);
         bool hx = true, hy = true, hs = true, hn = true;
-        if (W) {
+        int mi = gi;  // the column the point's values are read from
+        if constexpr (P) {  // every column exists: gi mod nx
+            mi = gi < 0 ? gi + c.nx : (gi >= c.nx ? gi - c.nx : gi);
+            hx = gj >= 0 && gj < c.ny;
+            hy = hs = gj >= 0 && gj <= c.ny;
+            hn = hx;
+        } else if (W) {
             const bool in_j = gj >= 0 && gj <= c.ny;
             const bool in_i = gi >= 0 && gi <= c.nx;
             hx = in_i && gj >= 0 && gj < c.ny;
@@ -122,13 +139,13 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
             hs = in_j && in_i;
             hn = hx && hy;
         }
-        smem[p] = (hx && !a.zero_init) ? a.ex[gj * W1 + gi] : 0.0f;
-        smem[npl + p] = (hy && !a.zero_init) ? a.ey[gj * c.nx + gi] : 0.0f;
-        s_es[p] = hs ? a.es[gj * W1 + gi] : 0.0f;
-        s_en[p] = hn ? a.en[gj * c.nx + gi] : 0.0f;
+        smem[p] = (hx && !a.zero_init) ? a.ex[gj * W1 + mi] : 0.0f;
+        smem[npl + p] = (hy && !a.zero_init) ? a.ey[gj * c.nx + mi] : 0.0f;
+        s_es[p] = hs ? a.es[gj * W1 + mi] : 0.0f;
+        s_en[p] = hn ? a.en[gj * c.nx + mi] : 0.0f;
         const bool upd = ring <= m - 1;  // updated at least once
-        if (upd && hx) r_x[q] = a.rx[gj * W1 + gi];
-        if (upd && hy) r_y[q] = a.ry[gj * c.nx + gi];
+        if (upd && hx) r_x[q] = a.rx[gj * W1 + mi];
+        if (upd && hy) r_y[q] = a.ry[gj * c.nx + mi];
         code[q] = ring | ((upd && hx) ? HAS_X : 0) | ((upd && hy) ? HAS_Y : 0);
     }
     __syncthreads();
@@ -140,10 +157,17 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
         const int lj = p / SX, li = p - lj * SX;
         if (cd & HAS_X) {
             const int gi = i0 + li;
-            const float d = (W && (gi == 0 || gi == c.nx))
-                                ? kb
-                                : c.cxx * (s_en[p] + s_en[p - 1])
-                                      + c.dyy * (s_es[p + SX] + s_es[p]);
+            float d;
+            if constexpr (P) {  // the seam: half the wrapped diagonal
+                d = c.cxx * (s_en[p] + s_en[p - 1])
+                    + c.dyy * (s_es[p + SX] + s_es[p]);
+                if (gi == 0 || gi == c.nx) d = 0.5f * d;
+            } else {
+                d = (W && (gi == 0 || gi == c.nx))
+                        ? kb
+                        : c.cxx * (s_en[p] + s_en[p - 1])
+                              + c.dyy * (s_es[p + SX] + s_es[p]);
+            }
             i_x[q] = 1.0f / d;
         }
         if (cd & HAS_Y) {
@@ -179,8 +203,8 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
             const int lj = p / SX, li = p - lj * SX;
             const int gj = j0 + lj, gi = i0 + li;
             if (cd & HAS_X) {
-                const float ax = apply ? apply_x<W>(ex, ey, s_es, s_en, p, gj,
-                                                    gi, SX, kb, c)
+                const float ax = apply ? apply_x<W, P>(ex, ey, s_es, s_en, p,
+                                                       gj, gi, SX, kb, c)
                                        : 0.0f;
                 const float res = r_x[q] - ax;
                 if (resid) {
@@ -194,18 +218,22 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
                 }
             }
             if (cd & HAS_Y) {
-                const float ay = apply ? apply_y<W>(ex, ey, s_es, s_en, p, gj,
-                                                    gi, SX, kb, c)
+                const float ay = apply ? apply_y<W, P>(ex, ey, s_es, s_en, p,
+                                                       gj, gi, SX, kb, c)
                                        : 0.0f;
                 const float res = r_y[q] - ay;
+                // (P: column nx carries vy's column-0 alias, not written)
+                const bool own_y = !P || gi < c.nx;
                 if (resid) {
-                    a.oy[gj * c.nx + gi] = ey[p];
-                    a.fy[gj * c.nx + gi] = res;
+                    if (own_y) {
+                        a.oy[gj * c.nx + gi] = ey[p];
+                        a.fy[gj * c.nx + gi] = res;
+                    }
                 } else {
                     s_y[q] = c1 * s_y[q] + c2 * res * i_y[q];
                     const float e = ey[p] + s_y[q];
-                    if (last) a.oy[gj * c.nx + gi] = e;
-                    else ny_[p] = e;
+                    if (!last) ny_[p] = e;
+                    else if (own_y) a.oy[gj * c.nx + gi] = e;
                 }
             }
         }
@@ -214,7 +242,7 @@ __device__ __forceinline__ void tile_sweep(const SweepArgs& a,
     }
 }
 
-template <int HE>
+template <int HE, bool P>
 __global__ void __launch_bounds__(NT, 1)
 cheb_kernel(SweepArgs a, SweepConsts c, const float* __restrict__ kbp) {
     extern __shared__ float smem[];
@@ -230,9 +258,9 @@ cheb_kernel(SweepArgs a, SweepConsts c, const float* __restrict__ kbp) {
     const bool interior = j0 >= 0 && i0 >= 0 && j0 + LY <= c.ny
                           && i0 + LX <= c.nx;
     if (interior)
-        tile_sweep<HE, false>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
+        tile_sweep<HE, false, false>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
     else
-        tile_sweep<HE, true>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
+        tile_sweep<HE, true, P>(a, c, kb, smem, j0, i0, LY, TYc, TXc);
 }
 
 template <int HE>
@@ -240,25 +268,39 @@ size_t smem_bytes(int ty) {
     return PLANES * sizeof(float) * (ty + 1 + 2 * HE) * Depth<HE>::SX;
 }
 
-// the instantiation for depth HE
-template <int HE>
+// the instantiation for depth HE (P: periodic side walls)
+template <int HE, bool P>
 int launch_he(const SweepArgs& a, const SweepConsts& c, const float* kb,
               cudaStream_t stream) {
     if ((a.ty + 1 + 2 * HE) * Depth<HE>::SX > Depth<HE>::NQ * NT)
         return static_cast<int>(cudaErrorInvalidValue);
     // the tallest tile's planes, set once
     static const cudaError_t attr = cudaFuncSetAttribute(
-        cheb_kernel<HE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cheb_kernel<HE, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes<HE>(TX)));
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    cheb_kernel<HE><<<dim3(a.ntx, a.nty), NT, smem_bytes<HE>(a.ty), stream>>>(
-        a, c, kb);
+    cheb_kernel<HE, P><<<dim3(a.ntx, a.nty), NT, smem_bytes<HE>(a.ty),
+                         stream>>>(a, c, kb);
     return launch_status();
 }
 
-template <int HE>
+template <bool P>
+int launch_depth(int he, const SweepArgs& a, const SweepConsts& c,
+                 const float* kb, cudaStream_t stream) {
+    switch (he) {
+        case 1: return launch_he<1, P>(a, c, kb, stream);
+        case 2: return launch_he<2, P>(a, c, kb, stream);
+        case 3: return launch_he<3, P>(a, c, kb, stream);
+        case 4: return launch_he<4, P>(a, c, kb, stream);
+        case 5: return launch_he<5, P>(a, c, kb, stream);
+        case 6: return launch_he<6, P>(a, c, kb, stream);
+        default: return launch_he<7, P>(a, c, kb, stream);
+    }
+}
+
+template <int HE, bool P>
 int info_he(int ty, int* out) {
-    const void* fn = reinterpret_cast<const void*>(cheb_kernel<HE>);
+    const void* fn = reinterpret_cast<const void*>(cheb_kernel<HE, P>);
     cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes<HE>(TX)));
@@ -289,7 +331,8 @@ PYLAMP_EXPORT int launch_cheb(const float* ex, const float* ey,
                               int ny, int nx, float dx, float dy,
                               float s_top, float s_bottom, float s_left,
                               float s_right, int iters, int h, int zero_init,
-                              int emit, int ty, cudaStream_t stream) {
+                              int emit, int ty, int periodic,
+                              cudaStream_t stream) {
     const int he = iters + (emit ? 1 : 0);
     if (iters < 1 || he > h || he > MAX_HE || ty < 1 || ty > TX || ny < 1
         || nx < 1)
@@ -299,29 +342,29 @@ PYLAMP_EXPORT int launch_cheb(const float* ex, const float* ey,
     const SweepArgs a{ex, ey, rx, ry, eta_s, eta_n, coeffs, ox, oy, fx, fy,
                       iters, zero_init, emit, ty, (ny + ty - 1) / ty,
                       (nx + TX - 1) / TX};
+    return periodic ? launch_depth<true>(he, a, c, kb, stream)
+                    : launch_depth<false>(he, a, c, kb, stream);
+}
+
+// Occupancy of the depth-he instantiation (P: the periodic form) with
+// tiles of ty rows: out =
+// {registers per thread, static shared bytes, local (spill) bytes per
+// thread, resident blocks per SM, threads per block, dynamic shared bytes}.
+template <bool P>
+int info_depth(int he, int ty, int* out) {
     switch (he) {
-        case 1: return launch_he<1>(a, c, kb, stream);
-        case 2: return launch_he<2>(a, c, kb, stream);
-        case 3: return launch_he<3>(a, c, kb, stream);
-        case 4: return launch_he<4>(a, c, kb, stream);
-        case 5: return launch_he<5>(a, c, kb, stream);
-        case 6: return launch_he<6>(a, c, kb, stream);
-        default: return launch_he<7>(a, c, kb, stream);
+        case 1: return info_he<1, P>(ty, out);
+        case 2: return info_he<2, P>(ty, out);
+        case 3: return info_he<3, P>(ty, out);
+        case 4: return info_he<4, P>(ty, out);
+        case 5: return info_he<5, P>(ty, out);
+        case 6: return info_he<6, P>(ty, out);
+        case 7: return info_he<7, P>(ty, out);
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-// Occupancy of the depth-he instantiation with tiles of ty rows: out =
-// {registers per thread, static shared bytes, local (spill) bytes per
-// thread, resident blocks per SM, threads per block, dynamic shared bytes}.
-PYLAMP_EXPORT int cheb_kernel_info(int he, int ty, int* out) {
-    switch (he) {
-        case 1: return info_he<1>(ty, out);
-        case 2: return info_he<2>(ty, out);
-        case 3: return info_he<3>(ty, out);
-        case 4: return info_he<4>(ty, out);
-        case 5: return info_he<5>(ty, out);
-        case 6: return info_he<6>(ty, out);
-        case 7: return info_he<7>(ty, out);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+PYLAMP_EXPORT int cheb_kernel_info(int he, int ty, int periodic, int* out) {
+    return periodic ? info_depth<true>(he, ty, out)
+                    : info_depth<false>(he, ty, out);
 }

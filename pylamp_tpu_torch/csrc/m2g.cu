@@ -20,6 +20,12 @@
 // deterministic by design).  expf/logf (not the __expf intrinsics) keep
 // full f32 accuracy.  The output is the same raw weighted-sum dict as the
 // TPU kernel, so the caller's division step is shared.
+//
+// Periodic side walls (flag PERIODIC, the P instantiation; P = false is
+// the wall form, unchanged): the threads of node columns 0..nx-1 gather
+// with the x neighbourhood wrapped (m2g_node.cuh), and the column-0 thread
+// also writes the seam column nx of the corner and vx lattices, so both
+// seam columns carry the one seam sum, from one fixed gather order.
 #include "common.cuh"
 #include "m2g_node.cuh"
 
@@ -33,6 +39,7 @@ struct GlobalCells {
     }
 };
 
+template <bool P>
 __global__ void m2g_kernel(const float* __restrict__ x,
                            const float* __restrict__ y,
                            const float* __restrict__ T,
@@ -43,13 +50,21 @@ __global__ void m2g_kernel(const float* __restrict__ x,
     const int I = blockIdx.x * blockDim.x + threadIdx.x;
     const int J = blockIdx.y * blockDim.y + threadIdx.y;
     if (I > nx || J > ny) return;
-    const NodeSums r = m2g_gather(GlobalCells{nx, K}, x, y, T, mat, valid,
-                                  tbl, J, I, ny, nx, K, dx, dy, flags);
+    if (P && I == nx) return;  // the seam column: the column-0 thread's
+    const NodeSums r = m2g_gather<P>(GlobalCells{nx, K}, x, y, T, mat, valid,
+                                     tbl, J, I, ny, nx, K, dx, dy, flags);
 
     const long long qc = static_cast<long long>(J) * (nx + 1) + I;
     const long long qn = static_cast<long long>(J) * nx + I;
+    // P: the corner and vx sums of column 0 go to column nx as well
+    const bool seam = P && I == 0;
+    const long long qs = qc + nx;
     out.p[C_W][qc] = r.v[C_W];
     out.p[C_ETA][qc] = r.v[C_ETA];
+    if (seam) {
+        out.p[C_W][qs] = r.v[C_W];
+        out.p[C_ETA][qs] = r.v[C_ETA];
+    }
     if (r.has_n) {
         out.p[N_W][qn] = r.v[N_W];
         out.p[N_ETA][qn] = r.v[N_ETA];
@@ -61,12 +76,22 @@ __global__ void m2g_kernel(const float* __restrict__ x,
     if (r.has_vx) {  // vx lattice (ny, nx+1)
         out.p[VX_W][qc] = r.v[VX_W];
         out.p[VX_RHO][qc] = r.v[VX_RHO];
+        if (seam) {
+            out.p[VX_W][qs] = r.v[VX_W];
+            out.p[VX_RHO][qs] = r.v[VX_RHO];
+        }
     }
     if (flags & WITH_ENERGY) {
         out.p[C_T][qc] = r.v[C_T];
         out.p[C_K][qc] = r.v[C_K];
         out.p[C_RHOCP][qc] = r.v[C_RHOCP];
         if (flags & WITH_H) out.p[C_H][qc] = r.v[C_H];
+        if (seam) {
+            out.p[C_T][qs] = r.v[C_T];
+            out.p[C_K][qs] = r.v[C_K];
+            out.p[C_RHOCP][qs] = r.v[C_RHOCP];
+            if (flags & WITH_H) out.p[C_H][qs] = r.v[C_H];
+        }
     }
 }
 
@@ -82,7 +107,12 @@ PYLAMP_EXPORT int launch_m2g(const float* x, const float* y, const float* T,
     for (int n = 0; n < N_OUT; ++n)
         out.p[n] = static_cast<float* const*>(outs)[n];
     dim3 block(32, 4);
-    m2g_kernel<<<grid2d(ny + 1, nx + 1, block), block, 0, stream>>>(
-        x, y, T, mat, valid, tbl, out, ny, nx, K, dx, dy, flags);
+    if (flags & PERIODIC)
+        m2g_kernel<true><<<grid2d(ny + 1, nx + 1, block), block, 0, stream>>>(
+            x, y, T, mat, valid, tbl, out, ny, nx, K, dx, dy, flags);
+    else
+        m2g_kernel<false><<<grid2d(ny + 1, nx + 1, block), block, 0,
+                             stream>>>(x, y, T, mat, valid, tbl, out, ny, nx,
+                                       K, dx, dy, flags);
     return launch_status();
 }

@@ -8,6 +8,14 @@
 // registers.  Marker properties come from (mat, T) and the material table.
 // The same order on the same markers gives the same sums, whichever
 // layout the cells come from.
+//
+// P (periodic side walls, a template switch; P = false is the form above,
+// unchanged): the thread of node column I < nx gathers from the cell
+// columns (I - 1, I, I + 1) mod nx, and a marker's x weight has no clamp:
+// its lattice interval starts at floor(f), counted from its own cell and
+// shifted by the wrap of that cell (markers/bucket.py _lattice_local with
+// periodic_x).  The caller writes the seam column nx of the nx+1-wide
+// lattices from the column-0 thread.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,7 +40,7 @@ struct M2GOut {
     float* p[N_OUT];
 };
 
-enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4 };
+enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4, PERIODIC = 8 };
 
 // weight of node `node` from a marker at lattice coordinate f on an axis
 // whose nodes 0..n_nodes-1 sit at origin + index * h (f already in index
@@ -46,6 +54,18 @@ __device__ __forceinline__ float hat(float f, int n_nodes, int node) {
     return 0.0f;
 }
 
+// the same hat on a periodic axis: no clamp; the marker's interval starts
+// at floor(f) + shift (shift: the unwrapped minus the stored column of its
+// cell), and node is the unwrapped node column
+__device__ __forceinline__ float hat_px(float f, int shift, int node) {
+    const float fl = floorf(f);
+    const int i0 = static_cast<int>(fl) + shift;
+    const float t = fminf(fmaxf(f - fl, 0.0f), 1.0f);
+    if (node == i0) return 1.0f - t;
+    if (node == i0 + 1) return t;
+    return 0.0f;
+}
+
 // The sums of one node thread, and which of its nodes exist.
 struct NodeSums {
     float v[N_OUT];
@@ -54,7 +74,7 @@ struct NodeSums {
 
 // The markers' streams; Cells::base(cj, ci) is the first slot of global
 // cell (cj, ci) in them, or -1 where the layout has no such cell.
-template <class Cells>
+template <bool P = false, class Cells>
 __device__ __forceinline__ NodeSums m2g_gather(
     const Cells& cells, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ T,
@@ -75,8 +95,13 @@ __device__ __forceinline__ NodeSums m2g_gather(
 
     for (int cj = J - 1; cj <= J + 1; ++cj) {
         if (cj < 0 || cj >= ny) continue;
-        for (int ci = I - 1; ci <= I + 1; ++ci) {
-            if (ci < 0 || ci >= nx) continue;
+        for (int cu = I - 1; cu <= I + 1; ++cu) {
+            int ci = cu;  // the stored cell column (P: cu mod nx)
+            if constexpr (P) {
+                ci = cu < 0 ? cu + nx : (cu >= nx ? cu - nx : cu);
+            } else {
+                if (ci < 0 || ci >= nx) continue;
+            }
             const long long base = cells.base(cj, ci);
             if (base < 0) continue;
             for (int s = 0; s < K; ++s) {
@@ -91,9 +116,12 @@ __device__ __forceinline__ NodeSums m2g_gather(
                 const float fxn = (px - hx) / dx;
                 const float fyn = (py - hy) / dy;
                 const float wyc = hat(fyc, ny + 1, J);
-                const float wxc = hat(fxc, nx + 1, I);
+                const float wxc = P ? hat_px(fxc, cu - ci, I)
+                                    : hat(fxc, nx + 1, I);
                 const float wyn = has_n || has_vx ? hat(fyn, ny, J) : 0.0f;
-                const float wxn = has_vy ? hat(fxn, nx, I) : 0.0f;
+                const float wxn = !has_vy ? 0.0f
+                                  : P ? hat_px(fxn, cu - ci, I)
+                                      : hat(fxn, nx, I);
                 const float w_c = wyc * wxc;
                 const float w_n = has_n ? wyn * wxn : 0.0f;
                 const float w_vy = has_vy ? wyc * wxn : 0.0f;

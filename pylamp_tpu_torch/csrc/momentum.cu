@@ -16,12 +16,15 @@
 // saddle.cu, with the same stencil (stencil.cuh); the thread writes rx
 // where its point is a vx node and ry where it is a vy node.  Wall ghosts
 // come inline from the BC signs, and kbnd comes from a 1-element device
-// array, so an apply never syncs the host.
+// array, so an apply never syncs the host.  Periodic side walls: the P
+// instantiation of the same stencil (stencil.cuh), whose two seam columns
+// evaluate one half row and are bit-identical; P = false is unchanged.
 #include "common.cuh"
 #include "stencil.cuh"
 
 namespace {
 
+template <bool P>
 __global__ void momentum_kernel(GlobalAcc a, StencilCtx c,
                                 const float* __restrict__ kb,
                                 float* __restrict__ rx,
@@ -31,8 +34,8 @@ __global__ void momentum_kernel(GlobalAcc a, StencilCtx c,
     const int ny = c.ny, nx = c.nx;
     if (i > nx || j > ny) return;
     const float kbnd = kb[0];
-    if (j < ny) rx[j * (nx + 1) + i] = stencil_ax(a, c, j, i, kbnd);
-    if (i < nx) ry[j * nx + i] = stencil_ay(a, c, j, i, kbnd);
+    if (j < ny) rx[j * (nx + 1) + i] = stencil_ax<P>(a, c, j, i, kbnd);
+    if (i < nx) ry[j * nx + i] = stencil_ay<P>(a, c, j, i, kbnd);
 }
 
 }  // namespace
@@ -42,11 +45,16 @@ PYLAMP_EXPORT int launch_momentum(const float* vx, const float* vy,
                                   const float* kb, float* rx, float* ry,
                                   int ny, int nx, float dx, float dy,
                                   float s_top, float s_bottom, float s_left,
-                                  float s_right, cudaStream_t stream) {
+                                  float s_right, int periodic,
+                                  cudaStream_t stream) {
     const GlobalAcc a{vx, vy, eta_s, eta_n, nx};
     const StencilCtx c{ny, nx, dx, dy, s_top, s_bottom, s_left, s_right};
     dim3 block(32, 8);
-    momentum_kernel<<<grid2d(ny + 1, nx + 1, block), block, 0, stream>>>(
-        a, c, kb, rx, ry);
+    if (periodic)
+        momentum_kernel<true><<<grid2d(ny + 1, nx + 1, block), block, 0,
+                                stream>>>(a, c, kb, rx, ry);
+    else
+        momentum_kernel<false><<<grid2d(ny + 1, nx + 1, block), block, 0,
+                                 stream>>>(a, c, kb, rx, ry);
     return launch_status();
 }

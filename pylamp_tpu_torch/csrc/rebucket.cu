@@ -13,7 +13,9 @@
 // order, so the result is identical slot for slot to the plain version.
 // Each thread writes only its own bucket, so there are no atomics.  The
 // neighbourhood reads of a warp overlap and are served from L1/L2, so
-// device memory sees each source bucket about once.
+// device memory sees each source bucket about once.  Periodic side walls:
+// the P instantiation, whose source columns wrap (nx >= 3, checked by the
+// wrapper); it stays identical slot for slot to the plain version.
 #include "common.cuh"
 #include "rebucket_cell.cuh"
 
@@ -27,6 +29,7 @@ struct GlobalCells {
     }
 };
 
+template <bool P>
 __global__ void rebucket_kernel(const float* __restrict__ x,
                                 const float* __restrict__ y,
                                 const float* __restrict__ T,
@@ -41,7 +44,7 @@ __global__ void rebucket_kernel(const float* __restrict__ x,
     const int cj = blockIdx.y * blockDim.y + threadIdx.y;
     if (ci >= nx || cj >= ny) return;
     const long long out_base = (static_cast<long long>(cj) * nx + ci) * K;
-    arrivals_out[cj * nx + ci] = rebucket_cell(
+    arrivals_out[cj * nx + ci] = rebucket_cell<P>(
         GlobalCells{nx, K}, x, y, T, mat, valid, ox, oy, oT, omat, ovalid,
         out_base, cj, ci, ny, nx, K, dx, dy);
 }
@@ -54,10 +57,15 @@ PYLAMP_EXPORT int launch_rebucket(const float* x, const float* y,
                                   float* oy, float* oT, int* omat,
                                   unsigned char* ovalid, int* arrivals,
                                   int ny, int nx, int K, float dx, float dy,
-                                  cudaStream_t stream) {
+                                  int periodic, cudaStream_t stream) {
     dim3 block(32, 4);
-    rebucket_kernel<<<grid2d(ny, nx, block), block, 0, stream>>>(
-        x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx, K,
-        dx, dy);
+    if (periodic)
+        rebucket_kernel<true><<<grid2d(ny, nx, block), block, 0, stream>>>(
+            x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx,
+            K, dx, dy);
+    else
+        rebucket_kernel<false><<<grid2d(ny, nx, block), block, 0, stream>>>(
+            x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx,
+            K, dx, dy);
     return launch_status();
 }

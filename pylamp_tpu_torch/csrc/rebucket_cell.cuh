@@ -7,13 +7,19 @@
 // fills the rest of the bucket with empty slots, and returns every arrival
 // for the overflow drop count.  The owning cell uses IEEE f32 division by
 // the f32 cell size, as the reference traces it (no --use_fast_math).
+//
+// P (periodic side walls, a template switch; P = false is the form above,
+// unchanged): the source columns wrap, (ci + b) mod nx, with no edge
+// mask.  For nx >= 3 the reference's wrapped offset test
+// (ti - si + 1) mod nx - 1 == -b holds exactly when ti == ci, the test
+// below, so the order and the result stay those of the plain version.
 #pragma once
 
 #include <cuda_runtime.h>
 
 // Cells::base(sj, si): first slot of global source cell (sj, si), or -1
 // where the layout has no such cell.  The target bucket starts at out_base.
-template <class Cells>
+template <bool P = false, class Cells>
 __device__ __forceinline__ int rebucket_cell(
     const Cells& cells, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ T,
@@ -28,8 +34,12 @@ __device__ __forceinline__ int rebucket_cell(
         const int sj = cj + a;
         if (sj < 0 || sj >= ny) continue;
         for (int b = -1; b <= 1; ++b) {
-            const int si = ci + b;
-            if (si < 0 || si >= nx) continue;
+            int si = ci + b;
+            if constexpr (P) {
+                si = si < 0 ? si + nx : (si >= nx ? si - nx : si);
+            } else {
+                if (si < 0 || si >= nx) continue;
+            }
             const long long in_base = cells.base(sj, si);
             if (in_base < 0) continue;
             for (int s = 0; s < K; ++s) {

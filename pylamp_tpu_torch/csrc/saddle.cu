@@ -17,11 +17,19 @@
 // gradient; the tangential-BC ghosts are resolved inline from the wall
 // signs (no padded copies), and kbnd / kcont come from a 2-element device
 // array so a solve never syncs the host for them.
+//
+// Periodic side walls (template switch P, launched when `periodic` is
+// set; the P = false kernel is the wall form, unchanged): vy's ghost
+// columns wrap, and the threads of both seam columns (i = 0 and i = nx)
+// evaluate the same half row (stencil.cuh stencil_ax_seam) plus half the
+// wrapped pressure gradient, so the two columns are bit-identical.  The
+// seam adds O(ny) work to O(ny nx).
 #include "common.cuh"
 #include "stencil.cuh"
 
 namespace {
 
+template <bool P>
 __global__ void saddle_kernel(GlobalAcc a, StencilCtx c,
                               const float* __restrict__ p,
                               const float* __restrict__ kk,
@@ -35,12 +43,16 @@ __global__ void saddle_kernel(GlobalAcc a, StencilCtx c,
     const float kcont = kk[1];
 
     if (j < ny) {  // x-momentum row at vx node (j, i)
-        float r = stencil_ax(a, c, j, i, kbnd);
-        if (i != 0 && i != nx) r = r + (p[j * nx + i] - p[j * nx + i - 1]) / c.dx;
+        float r = stencil_ax<P>(a, c, j, i, kbnd);
+        if (i != 0 && i != nx) {
+            r = r + (p[j * nx + i] - p[j * nx + i - 1]) / c.dx;
+        } else if constexpr (P) {
+            r = r + 0.5f * ((p[j * nx] - p[j * nx + nx - 1]) / c.dx);
+        }
         rx[j * (nx + 1) + i] = r;
     }
     if (i < nx) {  // y-momentum row at vy node (j, i)
-        float r = stencil_ay(a, c, j, i, kbnd);
+        float r = stencil_ay<P>(a, c, j, i, kbnd);
         if (j != 0 && j != ny) r = r + (p[j * nx + i] - p[(j - 1) * nx + i]) / c.dy;
         ry[j * nx + i] = r;
     }
@@ -59,12 +71,16 @@ PYLAMP_EXPORT int launch_saddle(const float* vx, const float* vy,
                                 float* rx, float* ry, float* rc, int ny,
                                 int nx, float dx, float dy, float s_top,
                                 float s_bottom, float s_left, float s_right,
-                                cudaStream_t stream) {
+                                int periodic, cudaStream_t stream) {
     const GlobalAcc a{vx, vy, eta_s, eta_n, nx};
     const StencilCtx c{ny, nx, dx, dy, s_top, s_bottom, s_left, s_right};
     dim3 block(32, 8);
-    saddle_kernel<<<grid2d(ny + 1, nx + 1, block), block, 0, stream>>>(
-        a, c, p, kk, rx, ry, rc);
+    if (periodic)
+        saddle_kernel<true><<<grid2d(ny + 1, nx + 1, block), block, 0,
+                              stream>>>(a, c, p, kk, rx, ry, rc);
+    else
+        saddle_kernel<false><<<grid2d(ny + 1, nx + 1, block), block, 0,
+                               stream>>>(a, c, p, kk, rx, ry, rc);
     return launch_status();
 }
 

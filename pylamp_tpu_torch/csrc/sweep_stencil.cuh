@@ -13,6 +13,13 @@
 // are resolved inline from current values (ghost = s * first interior
 // row / column) and the Dirichlet lines return kbnd * v.  W = false is
 // the branch-free form for points whose 3x3 neighbourhood touches no wall.
+//
+// P (periodic side walls, with W; P = false is the form above,
+// unchanged): the planes hold the x-periodic lattice (column gi holds
+// physical column gi mod nx, so vx column nx is column 0 and the ghosts
+// are real neighbours), only the top and bottom walls remain, and the seam
+// columns 0 and nx return half the wrapped vx row (ops/stokes.py's seam
+// convention).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,7 +52,7 @@ __device__ __forceinline__ int opaque(int v) {
 }
 
 // sxy at the corner of local point q, global (J, I)
-template <bool W>
+template <bool W, bool P = false>
 __device__ __forceinline__ float sxy_at(const float* vx, const float* vy,
                                         const float* es, int q, int J, int I,
                                         int LX, const SweepConsts& c) {
@@ -53,8 +60,13 @@ __device__ __forceinline__ float sxy_at(const float* vx, const float* vy,
     if (W) {
         above = (J == 0) ? c.s_top * vx[q] : vx[q - LX];
         below = (J == c.ny) ? c.s_bottom * vx[q - LX] : vx[q];
-        left = (I == 0) ? c.s_left * vy[q] : vy[q - 1];
-        right = (I == c.nx) ? c.s_right * vy[q - 1] : vy[q];
+        if constexpr (P) {
+            left = vy[q - 1];
+            right = vy[q];
+        } else {
+            left = (I == 0) ? c.s_left * vy[q] : vy[q - 1];
+            right = (I == c.nx) ? c.s_right * vy[q - 1] : vy[q];
+        }
     } else {
         above = vx[q - LX];
         below = vx[q];
@@ -65,22 +77,29 @@ __device__ __forceinline__ float sxy_at(const float* vx, const float* vy,
 }
 
 // (A e)_x at the vx node of local point p, global (gj, gi)
-template <bool W>
+template <bool W, bool P = false>
 __device__ __forceinline__ float apply_x(const float* vx, const float* vy,
                                          const float* es, const float* en,
                                          int p, int gj, int gi, int LX,
                                          float kb, const SweepConsts& c) {
-    if (W && (gi == 0 || gi == c.nx)) return kb * vx[p];
+    if constexpr (!P) {
+        if (W && (gi == 0 || gi == c.nx)) return kb * vx[p];
+    }
     const float v = vx[p];
     const float n_r = en[p] * (vx[p + 1] - v);
     const float n_l = en[p - 1] * (v - vx[p - 1]);
-    return -c.cxx * (n_r - n_l)
-           - c.idy * (sxy_at<W>(vx, vy, es, p + LX, gj + 1, gi, LX, c)
-                      - sxy_at<W>(vx, vy, es, p, gj, gi, LX, c));
+    const float r = -c.cxx * (n_r - n_l)
+                    - c.idy * (sxy_at<W, P>(vx, vy, es, p + LX, gj + 1, gi,
+                                            LX, c)
+                               - sxy_at<W, P>(vx, vy, es, p, gj, gi, LX, c));
+    if constexpr (P) {
+        if (gi == 0 || gi == c.nx) return 0.5f * r;  // the seam half row
+    }
+    return r;
 }
 
 // (A e)_y at the vy node of local point p
-template <bool W>
+template <bool W, bool P = false>
 __device__ __forceinline__ float apply_y(const float* vx, const float* vy,
                                          const float* es, const float* en,
                                          int p, int gj, int gi, int LX,
@@ -90,6 +109,6 @@ __device__ __forceinline__ float apply_y(const float* vx, const float* vy,
     const float n_d = en[p] * (vy[p + LX] - v);
     const float n_u = en[p - LX] * (v - vy[p - LX]);
     return -c.cyy * (n_d - n_u)
-           - c.idx * (sxy_at<W>(vx, vy, es, p + 1, gj, gi + 1, LX, c)
-                      - sxy_at<W>(vx, vy, es, p, gj, gi, LX, c));
+           - c.idx * (sxy_at<W, P>(vx, vy, es, p + 1, gj, gi + 1, LX, c)
+                      - sxy_at<W, P>(vx, vy, es, p, gj, gi, LX, c));
 }

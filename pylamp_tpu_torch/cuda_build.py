@@ -45,24 +45,26 @@ _F = ctypes.c_float
 # cudaError_t as an int
 SIGNATURES = {
     # vx, vy, p, eta_s, eta_n, kk, rx, ry, rc, ny, nx, dx, dy,
-    # s_top, s_bottom, s_left, s_right, stream
-    "launch_saddle": [_P] * 9 + [_I, _I] + [_F] * 6 + [_P],
+    # s_top, s_bottom, s_left, s_right, periodic, stream
+    "launch_saddle": [_P] * 9 + [_I, _I] + [_F] * 6 + [_I, _P],
     # vx, vy, eta_s, eta_n, kb, rx, ry, ny, nx, dx, dy,
-    # s_top, s_bottom, s_left, s_right, stream
-    "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_P],
+    # s_top, s_bottom, s_left, s_right, periodic, stream
+    "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I, _P],
     # x, y, T, mat, valid, material table (host), out pointers (host
-    # array of 13), ny, nx, K, dx, dy, flags, stream
+    # array of 13), ny, nx, K, dx, dy, flags (with the periodic bit),
+    # stream
     "launch_m2g": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
     # x, y, valid, vx_p, vy_p, dt, out_x, out_y, ny, nx, K, dx, dy,
-    # x_lo, x_hi, y_lo, y_hi, reach, stream
-    "launch_advect": [_P] * 8 + [_I, _I, _I] + [_F] * 6 + [_I, _P],
+    # x_lo, x_hi, y_lo, y_hi, reach, periodic, lx, 1/lx, stream
+    "launch_advect": ([_P] * 8 + [_I, _I, _I] + [_F] * 6 + [_I, _I, _F, _F]
+                      + [_P]),
     # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx, K,
-    # dx, dy, stream
-    "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _P],
+    # dx, dy, periodic, stream
+    "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _P],
     # ex, ey, rx, ry, eta_s, eta_n, coeffs, kb, ox, oy, fx, fy, ny, nx, dx,
     # dy, s_top, s_bottom, s_left, s_right, iters, h, zero_init, emit,
-    # tile rows, stream
-    "launch_cheb": [_P] * 12 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P],
+    # tile rows, periodic, stream
+    "launch_cheb": [_P] * 12 + [_I, _I] + [_F] * 6 + [_I] * 6 + [_P],
     # levels (host array of CoarseLevel), the same on the device, nlev, rx,
     # ry, ex, ey, coeffs, kbnds, maxit, pre, post, coarse_iters, s_top,
     # s_bottom, s_left, s_right, dynamic shared bytes, stream
@@ -85,9 +87,9 @@ SIGNATURES = {
     # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
     # ny, nx, by, bx, K, dx, dy, stream
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
-    # occupancy queries, int[6] out: kernel 5 at (depth, tile rows),
-    # kernel 6 at its dynamic shared bytes
-    "cheb_kernel_info": [_I, _I, _P],
+    # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
+    # periodic), kernel 6 at its dynamic shared bytes
+    "cheb_kernel_info": [_I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],
 }
 

@@ -1,6 +1,6 @@
 """Dense bucketed marker engine.
 
-Port of ``pylamp_tpu/markers/bucket.py`` (uniform grid, non-periodic):
+Port of ``pylamp_tpu/markers/bucket.py`` (uniform grid):
 markers live in a dense (ny, nx, K) layout bucketed by their owning grid
 cell, empty slots masked by ``valid``.  The functions here are the plain
 PyTorch versions; the step runs the CUDA kernels in ``markers/kernels/``
@@ -15,6 +15,11 @@ checked against.
 - ``rebucket`` repacks every bucket from its 3x3 neighbourhood in the
   reference's insertion order ((a, b) slab-major, slot-minor) by a prefix
   sum over the candidates; the result is identical slot for slot.
+
+With ``periodic_x`` every x neighbourhood wraps with period nx: node
+columns of the marker->grid sums (lattices with a duplicated seam column
+re-emit the seam sum in both), the sampled lattice columns, the advected
+x (wrapped into [0, lx)) and the rebucket's 3x3 exchange.
 """
 from __future__ import annotations
 
@@ -56,12 +61,6 @@ class BucketedMarkers:
         return dataclasses.replace(self, **kw)
 
 
-def _no_periodic(periodic_x):
-    if periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
-
-
 def _cell_iota(shape, device):
     """(cj, ci) bucket-cell indices broadcastable against (ny, nx, K)."""
     ny, nx = shape[0], shape[1]
@@ -101,15 +100,20 @@ def bucket_from_flat(x, y, mat, T, grid: StaggeredGrid, capacity: int):
 
 # -- local coordinates on a target sub-lattice ----------------------------------------
 
-def _lattice_local(bm_x, bm_y, grid: StaggeredGrid, loc: str):
+def _lattice_local(bm_x, bm_y, grid: StaggeredGrid, loc: str,
+                   periodic_x: bool = False):
     """Per-marker (o_j, o_i, ty, tx): the ``loc``-lattice cell containing
     the marker starts at bucket-cell offset (o_j, o_i); (ty, tx) in [0, 1]
-    are its local coordinates (clamped to the lattice)."""
+    are its local coordinates (clamped to the lattice; ``periodic_x``: no
+    x clamp, the node columns wrap where the sums land)."""
     oy, ox = grid.origin(loc)
     ny_n, nx_n = grid.shape(loc)
     fx = (bm_x - ox) / grid.dx
     fy = (bm_y - oy) / grid.dy
-    i0 = torch.clamp(torch.floor(fx), 0, nx_n - 2).to(torch.int64)
+    i0 = torch.floor(fx)
+    if not periodic_x:
+        i0 = torch.clamp(i0, 0, nx_n - 2)
+    i0 = i0.to(torch.int64)
     j0 = torch.clamp(torch.floor(fy), 0, ny_n - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
@@ -129,18 +133,22 @@ def _corners(ty, tx):
 
 # -- marker -> grid -------------------------------------------------------------------
 
-def m2g_sums(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str):
+def m2g_sums(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str,
+             periodic_x: bool = False):
     """Raw weighted sums on the ``loc`` lattice: returns (sum w,
     [sum w * v for v in values]).  ``values`` are (ny, nx, K) tensors
     already sanitized on empty slots.  Cell (j, i) contributes to node
-    (j + a, i + b) for the 9 offsets (a, b) in {-1, 0, 1}^2."""
+    (j + a, i + b) for the 9 offsets (a, b) in {-1, 0, 1}^2 (``periodic_x``:
+    node column (i + b) mod nx, and an nx+1-wide lattice carries the seam
+    sum in both seam columns)."""
     ny, nx = grid.ny, grid.nx
     ny_n, nx_n = grid.shape(loc)
-    o_j, o_i, ty, tx = _lattice_local(bm.x, bm.y, grid, loc)
+    o_j, o_i, ty, tx = _lattice_local(bm.x, bm.y, grid, loc, periodic_x)
     corners = _corners(ty, tx)
     vmask = bm.valid
     dtype = bm.x.dtype
-    field_w = torch.zeros((ny_n, nx_n), dtype=dtype, device=bm.x.device)
+    field_w = torch.zeros((ny_n, nx if periodic_x else nx_n), dtype=dtype,
+                          device=bm.x.device)
     fields_wv = [torch.zeros_like(field_w) for _ in values]
     zero = torch.zeros((ny, nx), dtype=dtype, device=bm.x.device)
     for a, b in OFFSETS:
@@ -153,12 +161,21 @@ def m2g_sums(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str):
             s_w = s_w + torch.sum(wm, dim=-1)
         # node (j + a, i + b) <- cell (j, i), within the lattice
         j_lo, j_hi = max(0, -a), min(ny, ny_n - a)
-        i_lo, i_hi = max(0, -b), min(nx, nx_n - b)
-        dst = (slice(j_lo + a, j_hi + a), slice(i_lo + b, i_hi + b))
+        if periodic_x:
+            # node column m <- cell column (m - b) mod nx
+            s_w = torch.roll(s_w, b, dims=1)
+            s_wv = [torch.roll(s, b, dims=1) for s in s_wv]
+            i_lo, i_hi, b_dst = 0, nx, 0
+        else:
+            i_lo, i_hi, b_dst = max(0, -b), min(nx, nx_n - b), b
+        dst = (slice(j_lo + a, j_hi + a), slice(i_lo + b_dst, i_hi + b_dst))
         src = (slice(j_lo, j_hi), slice(i_lo, i_hi))
         field_w[dst] += s_w[src]
         for f, s in zip(fields_wv, s_wv):
             f[dst] += s[src]
+    if periodic_x and nx_n == nx + 1:  # the seam sum in both seam columns
+        field_w = torch.cat([field_w, field_w[:, :1]], dim=1)
+        fields_wv = [torch.cat([f, f[:, :1]], dim=1) for f in fields_wv]
     return field_w, fields_wv
 
 
@@ -191,22 +208,29 @@ def bucket_markers_to_grid(bm: BucketedMarkers, values, grid: StaggeredGrid,
                            periodic_x: bool = False):
     """Weighted mean of marker values on the ``loc`` sub-lattice.
     Returns (field, wsum)."""
-    _no_periodic(periodic_x)
     v = transform_values(values, bm.valid, mode)
-    field_w, (field_wv,) = m2g_sums(bm, [v], grid, loc)
+    field_w, (field_wv,) = m2g_sums(bm, [v], grid, loc, periodic_x)
     return mean_of(field_wv, field_w, mode), field_w
 
 
 # -- grid -> marker -------------------------------------------------------------------
 
-def _sample(f, fx, fy, valid, reach: int):
+def _sample(f, fx, fy, valid, reach: int, period: int = 0,
+            col_offset: int = 0, x_clamp: bool = True):
     """Bilinear sample of lattice ``f`` at array coordinates (fx, fy) (node
     (r, c) at (fy, fx) = (r, c)), clamped to the lattice; a corner node
     contributes only if its offset from the marker's bucket cell lies in
     the reference's shift window [-reach, reach + 1], and empty slots
-    sample 0."""
+    sample 0.  ``period`` > 0 (periodic side walls): array column c reads
+    column col_offset + (c - col_offset) mod period, and x is clamped to
+    [-reach, nc - 2 + reach] (``x_clamp``) or not at all."""
     nr, nc = f.shape
-    i0 = torch.clamp(torch.floor(fx), 0, nc - 2).to(torch.int64)
+    i0 = torch.floor(fx)
+    if not period:
+        i0 = torch.clamp(i0, 0, nc - 2)
+    elif x_clamp:
+        i0 = torch.clamp(i0, -reach, nc - 2 + reach)
+    i0 = i0.to(torch.int64)
     j0 = torch.clamp(torch.floor(fy), 0, nr - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
@@ -218,6 +242,8 @@ def _sample(f, fx, fy, valid, reach: int):
         oj, oi = rj - cj, ri - ci
         ok = (valid & (oj >= -reach) & (oj <= reach + 1)
               & (oi >= -reach) & (oi <= reach + 1))
+        if period:
+            ri = (ri - col_offset) % period + col_offset
         out = out + torch.where(ok, w, 0.0) * flat[rj * nc + ri]
     return out
 
@@ -225,11 +251,11 @@ def _sample(f, fx, fy, valid, reach: int):
 def bucket_grid_to_markers(field, px, py, valid, grid: StaggeredGrid,
                            loc: str, reach: int = 1, periodic_x: bool = False):
     """Bilinear interpolation of a ``loc``-lattice field to marker
-    positions (``reach`` bounds the node offset from the bucket cell)."""
-    _no_periodic(periodic_x)
+    positions (``reach`` bounds the node offset from the bucket cell;
+    ``periodic_x``: node columns wrap with period nx)."""
     oy, ox = grid.origin(loc)
     return _sample(field, (px - ox) / grid.dx, (py - oy) / grid.dy, valid,
-                   reach)
+                   reach, period=grid.nx if periodic_x else 0, x_clamp=False)
 
 
 # -- velocity sampling + RK4 advection --------------------------------------------------
@@ -237,15 +263,16 @@ def bucket_grid_to_markers(field, px, py, valid, grid: StaggeredGrid,
 def padded_velocities(vx, vy, bcs: VelocityBCs):
     """Ghost-padded velocity lattices: vx_p (ny+2, nx+1) with origin
     (-dy/2, 0), vy_p (ny+1, nx+2) with origin (0, -dx/2); moving no-slip
-    walls enter through the ghosts."""
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
+    walls enter through the ghosts, periodic side walls wrap vy's ghost
+    columns."""
     top = bcs.s_top * vx[:1] + (1.0 - bcs.s_top) * bcs.vt_top
     bot = bcs.s_bottom * vx[-1:] + (1.0 - bcs.s_bottom) * bcs.vt_bottom
     vx_p = torch.cat([top, vx, bot], dim=0)
-    left = bcs.s_left * vy[:, :1] + (1.0 - bcs.s_left) * bcs.vt_left
-    right = bcs.s_right * vy[:, -1:] + (1.0 - bcs.s_right) * bcs.vt_right
+    if bcs.periodic_x:
+        left, right = vy[:, -1:], vy[:, :1]
+    else:
+        left = bcs.s_left * vy[:, :1] + (1.0 - bcs.s_left) * bcs.vt_left
+        right = bcs.s_right * vy[:, -1:] + (1.0 - bcs.s_right) * bcs.vt_right
     vy_p = torch.cat([left, vy, right], dim=1)
     return vx_p, vy_p
 
@@ -255,13 +282,16 @@ def bucket_advect_rk4(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     """RK4 advection in bucket layout (positions only; rebucket after).
     ``stage_reach``: the shift window of the displaced stage positions
     (1 when dt keeps every stage within half a cell).  Final positions
-    are clipped to the closed domain."""
+    are clipped to the closed domain; periodic side walls sample the
+    lattices wrapped in x (the stage positions themselves are not wrapped)
+    and wrap the final x into [0, lx) with ``wrap_x``."""
     vx_p, vy_p = padded_velocities(vx, vy, bcs)
     dx, dy = grid.dx, grid.dy
+    period = grid.nx if bcs.periodic_x else 0
 
     def vel(px, py, reach):
-        ux = _sample(vx_p, px / dx, py / dy + 0.5, bm.valid, reach)
-        uy = _sample(vy_p, px / dx + 0.5, py / dy, bm.valid, reach)
+        ux = _sample(vx_p, px / dx, py / dy + 0.5, bm.valid, reach, period, 0)
+        uy = _sample(vy_p, px / dx + 0.5, py / dy, bm.valid, reach, period, 1)
         return ux, uy
 
     x, y = bm.x, bm.y
@@ -275,15 +305,27 @@ def bucket_advect_rk4(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     eps_x = 1e-6 * grid.dx_min
     eps_y = 1e-6 * grid.dy_min
     return bm.replace(
-        x=torch.clamp(nx_new, eps_x, grid.lx - eps_x),
+        x=(wrap_x(nx_new, grid.lx) if period
+           else torch.clamp(nx_new, eps_x, grid.lx - eps_x)),
         y=torch.clamp(ny_new, eps_y, grid.ly - eps_y),
     )
 
 
+def wrap_x(px, lx: float):
+    """x wrapped into [0, lx) as the reference's tensor path wraps it
+    (``bucket._wrap_x``: px - lx * floor(px / lx), IEEE division).  In f32
+    a tiny negative x can come out as exactly lx; the owning cell is then
+    clipped to column nx - 1."""
+    return px - lx * torch.floor(_true_div(px, lx))
+
+
 # -- re-bucketing -------------------------------------------------------------------------
 
-def _shift3(arr, a, b):
-    """arr[j + a, i + b, :] with zero fill outside the cell range."""
+def _shift3(arr, a, b, periodic_x: bool = False):
+    """arr[j + a, i + b, :] with zero fill outside the cell range
+    (``periodic_x``: column (i + b) mod nx)."""
+    if periodic_x:
+        return _shift3(torch.roll(arr, -b, dims=1), a, 0)
     ny, nx = arr.shape[0], arr.shape[1]
     out = torch.zeros_like(arr)
     out[max(0, -a): min(ny, ny - a), max(0, -b): min(nx, nx - b)] = \
@@ -313,23 +355,30 @@ def rebucket(bm: BucketedMarkers, grid: StaggeredGrid,
     order — (a, b) slab-major, slot-minor — and a bucket keeps the first K
     that target it; later arrivals are dropped and counted.
 
+    ``periodic_x``: the neighbourhood wraps in x, so a marker that crossed
+    the seam repacks into the opposite edge column (needs nx >= 3: the
+    wrapped offset (ti - ci + 1) mod nx - 1 of the reference).
+
     Returns (new_bm, dropped) with ``dropped`` a 0-d int64 tensor."""
-    _no_periodic(periodic_x)
     ny, nx, K = bm.x.shape
+    if periodic_x and nx < 3:
+        raise ValueError(f"periodic rebucketing needs nx >= 3, got {nx}")
     tj, ti = target_cells(bm.x, bm.y, grid)
     cj, ci = _cell_iota(bm.x.shape, bm.x.device)
     stays_dj = tj.to(torch.int64) - cj
     stays_di = ti.to(torch.int64) - ci
+    if periodic_x:
+        stays_di = (stays_di + 1) % nx - 1
 
     takes, cands = [], {"x": [], "y": [], "T": [], "mat": []}
     for a, b in OFFSETS:
         # a marker in cell (j+a, i+b) belongs to cell (j, i) iff its
         # target offset from its own cell is (-a, -b)
-        takes.append(_shift3(bm.valid, a, b)
-                     & (_shift3(stays_dj, a, b) == -a)
-                     & (_shift3(stays_di, a, b) == -b))
+        takes.append(_shift3(bm.valid, a, b, periodic_x)
+                     & (_shift3(stays_dj, a, b, periodic_x) == -a)
+                     & (_shift3(stays_di, a, b, periodic_x) == -b))
         for name in cands:
-            cands[name].append(_shift3(getattr(bm, name), a, b))
+            cands[name].append(_shift3(getattr(bm, name), a, b, periodic_x))
     new, arrivals = pack_candidates(takes, cands, K)
     dropped = torch.sum(torch.clamp(arrivals - K, min=0))
     return new, dropped

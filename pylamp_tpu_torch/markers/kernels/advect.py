@@ -9,6 +9,12 @@ exactly as in the reference (``bucket.padded_velocities``) and shared by
 both versions.  ``stage_reach`` (1 or 2) is the precondition that stage
 displacements stay within that many cells; like the reference, a node
 outside the window does not contribute.
+
+Periodic side walls launch the kernel's periodic form, counted in
+``launches_periodic`` as well: as the reference's wrapper does, this one
+builds wrapped column planes of the padded lattices (``wrapped_planes``),
+so the kernel samples x without a clamp, and the kernel wraps the new x
+into [0, lx) with the TPU kernel's formula.
 """
 from __future__ import annotations
 
@@ -21,13 +27,29 @@ from pylamp_tpu_torch.markers.bucket import BucketedMarkers, padded_velocities
 from pylamp_tpu_torch.markers.bucket import bucket_advect_rk4 as advect_rk4_plain
 from pylamp_tpu_torch.markers.kernels import check_markers
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
+
+# columns of wrap padding on each side of a periodic plane (csrc/advect.cu
+# PADW): stage positions reach at most 2 cells past their bucket cell
+PADW = 3
+
+
+def wrapped_planes(vx_p, vy_p, nx: int):
+    """The periodic kernel's velocity planes: column PADW + c of each holds
+    the padded lattice's column c wrapped into its period (vx_p: c mod nx;
+    vy_p, whose column 0 is a ghost: 1 + (c - 1) mod nx), for c in
+    [-PADW, nx + PADW)."""
+    c = torch.arange(-PADW, nx + PADW, device=vx_p.device)
+    return (vx_p[:, c % nx].contiguous(),
+            vy_p[:, 1 + (c - 1) % nx].contiguous())
 
 
 def advect_rk4_cuda(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
                     bcs: VelocityBCs, stage_reach: int = 1):
-    global launches
+    global launches, launches_periodic
     if stage_reach not in (1, 2):
         raise ValueError(f"stage_reach must be 1 or 2, got {stage_reach}")
     check_markers(bm, "advect", positions_only=True)
@@ -39,6 +61,8 @@ def advect_rk4_cuda(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     if tuple(vx_p.shape) != (ny + 2, nx + 1) or tuple(vy_p.shape) != (ny + 1, nx + 2):
         raise ValueError("advect kernel: velocity shapes do not match the "
                          f"markers' ({ny}, {nx}) cells")
+    if bcs.periodic_x:
+        vx_p, vy_p = wrapped_planes(vx_p, vy_p, nx)
     dt_t = torch.as_tensor(dt, dtype=f32, device=dev).reshape(1).contiguous()
     out_x = torch.empty_like(bm.x)
     out_y = torch.empty_like(bm.y)
@@ -49,9 +73,10 @@ def advect_rk4_cuda(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
         vx_p.data_ptr(), vy_p.data_ptr(), dt_t.data_ptr(), out_x.data_ptr(),
         out_y.data_ptr(), ny, nx, K, grid.dx, grid.dy, eps_x,
         grid.lx - eps_x, eps_y, grid.ly - eps_y, stage_reach,
-        cuda_build.stream_ptr(dev))
+        int(bcs.periodic_x), grid.lx, 1.0 / grid.lx, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "advect")
     launches += 1
+    launches_periodic += bcs.periodic_x
     return bm.replace(x=out_x, y=out_y)
 
 

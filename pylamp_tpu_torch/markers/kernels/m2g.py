@@ -10,7 +10,10 @@ step divides by the weights (``models.step._interp_fused``).
 
 ``m2g_fused`` runs the plain version (``m2g_fused_plain``: marker
 properties from the material table, then ``bucket.m2g_sums`` per lattice)
-on CPU tensors and launches the kernel on CUDA tensors.
+on CPU tensors and launches the kernel on CUDA tensors.  ``periodic_x``
+selects the periodic form (node columns wrap with period nx, and the
+nx+1-wide corner and vx lattices carry the seam sum in both seam columns);
+its launches also count in ``launches_periodic``.
 """
 from __future__ import annotations
 
@@ -30,8 +33,10 @@ from pylamp_tpu_torch.markers.bucket import (
 from pylamp_tpu_torch.markers.kernels import check_markers
 from pylamp_tpu_torch.physics.materials import MaterialTable
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 MAX_MATERIALS = 8
 ETA_MODES = {"arithmetic": 0, "geometric": 1, "harmonic": 2}
@@ -92,13 +97,14 @@ def _lattice_streams(T, mat, valid, table: MaterialTable, phys,
 
 
 def m2g_fused_plain(bm: BucketedMarkers, grid: StaggeredGrid,
-                    table: MaterialTable, phys, with_energy: bool = False):
+                    table: MaterialTable, phys, with_energy: bool = False,
+                    periodic_x: bool = False):
     """Plain PyTorch version: marker properties, then the dense-shift
     weighted sums of ``bucket.m2g_sums`` on each lattice."""
     out = {}
     for loc, wname, streams in _lattice_streams(
             bm.T, bm.mat, bm.valid, table, phys, with_energy, bm.x.dtype):
-        w, wvs = m2g_sums(bm, list(streams.values()), grid, loc)
+        w, wvs = m2g_sums(bm, list(streams.values()), grid, loc, periodic_x)
         out[wname] = w
         out.update(zip(streams.keys(), wvs))
     return out
@@ -124,8 +130,9 @@ def _table_struct(table: MaterialTable, phys) -> _Table:
 
 
 def m2g_fused_cuda(bm: BucketedMarkers, grid: StaggeredGrid,
-                   table: MaterialTable, phys, with_energy: bool = False):
-    global launches
+                   table: MaterialTable, phys, with_energy: bool = False,
+                   periodic_x: bool = False):
+    global launches, launches_periodic
     check_markers(bm, "m2g")
     with_vx, with_h, names = _streams(table, phys, with_energy)
     ny, nx, K = bm.x.shape
@@ -137,20 +144,22 @@ def m2g_fused_cuda(bm: BucketedMarkers, grid: StaggeredGrid,
     ptrs = (ctypes.c_void_p * len(OUT_ORDER))(
         *[out[name].data_ptr() if name in out else None for name in OUT_ORDER])
     tbl = _table_struct(table, phys)
-    flags = (1 * with_vx) | (2 * with_energy) | (4 * with_h)
+    flags = ((1 * with_vx) | (2 * with_energy) | (4 * with_h)
+             | (8 * periodic_x))
     code = cuda_build.library().launch_m2g(
         bm.x.data_ptr(), bm.y.data_ptr(), bm.T.data_ptr(), bm.mat.data_ptr(),
         bm.valid.data_ptr(), ctypes.addressof(tbl), ctypes.addressof(ptrs),
         ny, nx, K, grid.dx, grid.dy, flags, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "m2g")
     launches += 1
+    launches_periodic += bool(periodic_x)
     return out
 
 
 def m2g_fused(bm: BucketedMarkers, grid: StaggeredGrid, table: MaterialTable,
-              phys, with_energy: bool = False):
+              phys, with_energy: bool = False, periodic_x: bool = False):
     """Raw weighted-sum dict of every marker->grid stream: the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if bm.x.is_cuda:
-        return m2g_fused_cuda(bm, grid, table, phys, with_energy)
-    return m2g_fused_plain(bm, grid, table, phys, with_energy)
+        return m2g_fused_cuda(bm, grid, table, phys, with_energy, periodic_x)
+    return m2g_fused_plain(bm, grid, table, phys, with_energy, periodic_x)

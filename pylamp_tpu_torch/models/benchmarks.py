@@ -1,13 +1,16 @@
 """Benchmark model configurations.
 
-Port of four presets of ``pylamp_tpu/models/benchmarks.py``: the
+Port of five presets of ``pylamp_tpu/models/benchmarks.py``: the
 falling block and Blankenbach case 1a (BASELINE configs 1 and 2, the
-reference's multi-device dryrun configurations), the Frank-Kamenetskii
+reference's multi-device dryrun configurations), the falling block with
+periodic side walls (``falling_block_periodic``), the Frank-Kamenetskii
 stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1; rho0*alpha = Ra
 with g = 1) and the sticky-air free surface (BASELINE config 5, SI units),
 plus the configurations ``python bench.py`` builds for the last two, switch
 for switch: ``fk_bench_config`` (its default) and
-``sticky_air_bench_config`` (``--benchmark sticky_air``).
+``sticky_air_bench_config`` (``--benchmark sticky_air``), and
+``falling_block_periodic_config``, the periodic preset at nx^2 that the
+port's chip check and profiler run.
 """
 from __future__ import annotations
 
@@ -52,6 +55,56 @@ def falling_block(nx=64, ny=64, eta_block=1.0, rho_block=2.0, max_steps=20):
         material_of=material_of,
         name="falling_block",
     )
+
+
+def falling_block_periodic(nx=64, ny=64, eta_block=1.0, rho_block=2.0,
+                           max_steps=20):
+    """Falling block with PERIODIC side walls, centered ON the seam (x = 0
+    == x = lx): the block is split across the two array edges and must sink
+    as one coherent body through the wrap-around."""
+    ambient = Material(name="ambient", rho0=1.0, eta0=1.0,
+                       viscosity="constant")
+    block = Material(name="block", rho0=rho_block, eta0=eta_block,
+                     viscosity="constant")
+
+    def material_of(x, y):
+        dxp = np.abs(x - 0.0)
+        dxp = np.minimum(dxp, 1.0 - dxp)  # periodic x-distance to the seam
+        return ((dxp < 0.15) & (np.abs(y - 0.25) < 0.15)).astype(np.int32)
+
+    return ModelConfig(
+        nx=nx, ny=ny, lx=1.0, ly=1.0,
+        physics=PhysicsConfig(
+            gx=0.0, gy=1.0,
+            materials=(ambient, block),
+            velocity_bcs=VelocityBCs(left="periodic", right="periodic"),
+            thermal_bcs=ThermalBCs(
+                left=ThermalBC("periodic", 0.0),
+                right=ThermalBC("periodic", 0.0)),
+            solve_energy=False,
+            eta_avg="geometric",
+        ),
+        solver=SolverConfig(),
+        time=TimeConfig(courant=0.5, max_steps=max_steps),
+        material_of=material_of,
+        name="falling_block_periodic",
+    )
+
+
+def falling_block_periodic_config(nx: int = 1024,
+                                  fused_smoother: bool = True
+                                  ) -> ModelConfig:
+    """``falling_block_periodic`` at nx^2 with its own SolverConfig (Stokes
+    tolerance 1e-8, K = 18 slots for 9 markers a cell).
+    ``fused_smoother=False`` is its partner: ``use_pallas=True,
+    use_pallas_smoother=False``, whose MG smoother runs as tensor code with
+    the momentum applies of the eligible levels through the momentum
+    kernel."""
+    cfg = falling_block_periodic(nx=nx, ny=nx, max_steps=10**9)
+    if fused_smoother:
+        return cfg
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, use_pallas=True, use_pallas_smoother=False))
 
 
 def blankenbach_case1a(nx=64, ny=64, Ra=1e4, max_steps=2000, max_time=0.25):

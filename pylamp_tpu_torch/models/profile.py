@@ -1,17 +1,19 @@
 """Where the time goes in the port's step, on one GPU.
 
-    python -m pylamp_tpu_torch.models.profile [--config fk|sticky_air]
+    python -m pylamp_tpu_torch.models.profile
+        [--config fk|sticky_air|falling_block_periodic]
         [--nx 1024] [--steps 2] [--mesh 4x2]
 
-Builds ``fk_bench_config(nx)`` (FK nx^2, the default) or
-``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) on the card in
-f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
+Builds ``fk_bench_config(nx)`` (FK nx^2, the default),
+``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) or
+``falling_block_periodic_config(nx)`` (periodic side walls, nx^2) on the
+card in f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
 reference's CLI: the explicit-halo step on that in-process mesh)
 
 1. runs ``--steps`` steps through ``models.step.run_step`` with a device
    synchronize around each phase (interp, stokes, timestep, energy,
    advect), for the mean seconds of each phase and the launches per step
-   of every kernel (the wrappers' counters);
+   of every kernel (the wrappers' counters; of the periodic forms too);
 2. times one whole step without synchronizes inside it;
 3. traces the next step with ``torch.profiler`` (device activity only):
    device busy time is the union of the kernel, memcpy and memset
@@ -37,6 +39,14 @@ from collections import defaultdict
 
 import torch
 
+from pylamp_tpu_torch.models.benchmarks import (
+    falling_block_periodic_config,
+    fk_bench_config,
+    sticky_air_bench_config,
+)
+
+CONFIGS = {"fk": fk_bench_config, "sticky_air": sticky_air_bench_config,
+           "falling_block_periodic": falling_block_periodic_config}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WARMUP_STEPS = 2
 
@@ -87,7 +97,7 @@ def _wall(fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("fk", "sticky_air"), default="fk")
+    ap.add_argument("--config", choices=tuple(CONFIGS), default="fk")
     ap.add_argument("--nx", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--mesh", default=None, metavar="YxX",
@@ -107,10 +117,6 @@ def main(argv=None):
         rebucket,
         rebucket_block,
     )
-    from pylamp_tpu_torch.models.benchmarks import (
-        fk_bench_config,
-        sticky_air_bench_config,
-    )
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step_phases, run_step
     from pylamp_tpu_torch.ops.kernels import (
@@ -128,8 +134,7 @@ def main(argv=None):
                    cheb_block=cheb_block, saddle_block=saddle_block,
                    m2g_block=m2g_block, advect_block=advect_block,
                    rebucket_block=rebucket_block)
-    cfg = (fk_bench_config if args.config == "fk"
-           else sticky_air_bench_config)(args.nx)
+    cfg = CONFIGS[args.config](args.nx)
     mesh = None
     if args.mesh:
         mesh = parse_mesh(args.mesh)
@@ -141,12 +146,18 @@ def main(argv=None):
 
     phases = defaultdict(float)
     iters = 0
+    periodic = {k: mod for k, mod in kernels.items()
+                if hasattr(mod, "launches_periodic")}
     for mod in kernels.values():
         mod.launches = 0
+    for mod in periodic.values():
+        mod.launches_periodic = 0
     for _ in range(args.steps):
         st, diag = run_step(ph, st, timed=synced_timer(phases))
         iters += diag["stokes_iterations"]
     launches = {k: mod.launches / args.steps for k, mod in kernels.items()}
+    launches_periodic = {k: mod.launches_periodic / args.steps
+                         for k, mod in periodic.items()}
 
     (st, _), wall = _wall(lambda: run_step(ph, st))
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -172,6 +183,7 @@ def main(argv=None):
         "phase_seconds": {k: v / args.steps for k, v in phases.items()},
         "krylov_iterations_per_step": iters / args.steps,
         "kernel_launches_per_step": launches,
+        "periodic_form_launches_per_step": launches_periodic,
         "step": {
             "wall_s": wall,
             "traced_wall_s": traced_wall,

@@ -52,9 +52,6 @@ def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
         raise NotImplementedError(
             f"the {cfg.marker_engine!r} marker engine waits for a later port "
             "PR")
-    if cfg.physics.velocity_bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
     device = torch.device(device)
     grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly,
                          x_edges=cfg.x_edges, y_edges=cfg.y_edges)
@@ -78,10 +75,11 @@ def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
     # grid mirrors: fallback values for marker-starved nodes at step 1
     eta_m = torch.clamp(table.viscosity_of(markers.mat, markers.T),
                         cfg.physics.eta_min, cfg.physics.eta_max)
+    periodic = cfg.physics.velocity_bcs.periodic_x
     eta_s, _ = bucket_markers_to_grid(markers, eta_m, grid, "corner",
-                                      cfg.physics.eta_avg)
+                                      cfg.physics.eta_avg, periodic)
     eta_n, _ = bucket_markers_to_grid(markers, eta_m, grid, "center",
-                                      cfg.physics.eta_avg)
+                                      cfg.physics.eta_avg, periodic)
     T_g, _ = bucket_markers_to_grid(markers, markers.T, grid, "corner",
-                                    "arithmetic")
+                                    "arithmetic", periodic)
     return grid, table, state.replace(eta_s=eta_s, eta_n=eta_n, T=T_g)

@@ -1,5 +1,5 @@
 """One model timestep (port of ``pylamp_tpu/models/step.py``, the
-single-device bucket-engine branch on a uniform, non-periodic grid):
+bucket-engine branch on a uniform grid):
 
     marker props -> marker->grid -> Stokes solve -> dt (Courant)
     -> implicit energy solve + marker T update -> RK4 advection -> rebucket
@@ -13,7 +13,10 @@ preconditioner through the fused smoother and coarse sub-V-cycle
 (``ops/kernels/cheb.py``, ``ops/kernels/coarse_vcycle.py``) and, with
 ``use_pallas``, the momentum kernel (``ops/kernels/momentum.py``).  The
 augmented Lagrangian, the inner velocity FGMRES, the MG eta cap and
-power-iteration Chebyshev bounds (the sticky-air preset) are ported.  An f64
+power-iteration Chebyshev bounds (the sticky-air preset) are ported, and
+so are periodic side walls on one device: every phase and kernel takes
+its wrapped form (the fused coarse sub-V-cycle stays off there, as in the
+reference).  An f64
 state takes the plain functions, as the reference's f64 state skips its
 Pallas kernels.  Configuration branches outside the ported slice raise
 ``NotImplementedError``.
@@ -106,8 +109,6 @@ def _later(what):
 def _check_slice(cfg: ModelConfig):
     """Raise on every configuration branch the port does not have yet."""
     phys, solver = cfg.physics, cfg.solver
-    if phys.velocity_bcs.periodic_x or phys.thermal_bcs.periodic_x:
-        raise _later("periodic side walls")
     if cfg.marker_engine != "bucket":
         raise _later(f"the {cfg.marker_engine!r} marker engine")
     for flag, what in ((phys.shear_heating, "shear heating"),
@@ -146,10 +147,19 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         # move at most one cell per step
         raise ValueError("TimeConfig.courant must be <= 1")
     _check_slice(cfg)
+    periodic = vbc.periodic_x
+    if phys.solve_energy and periodic != tbc.periodic_x:
+        raise ValueError(
+            "periodic side walls must be set on BOTH the velocity and "
+            "thermal BCs (the domain either wraps in x or it doesn't)")
+    if not grid.uniform and periodic:
+        raise ValueError("periodic side walls need a uniform grid")
 
     # explicit halo exchanges for the operator applies, and the marker halo
     # engine where the bucket blocks are eligible
     halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
+    if periodic and halo_mesh is not None:
+        raise _later("the periodic explicit-halo mesh path")
     marker_halo_mesh = (halo_mesh if halo_mesh is not None
                         and halo_markers_eligible(grid, halo_mesh) else None)
     # the per-shard marker kernels' shape gate
@@ -178,8 +188,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             solver.precision == "auto" and dtype == torch.float32)
 
     def _kernels(dtype):
-        """The reference's static kernel gate: f32 (a uniform, non-periodic
-        grid holds throughout the port).  Under the explicit-halo mesh the
+        """The reference's static kernel gate: f32 (a uniform grid holds
+        throughout the port).  Under the explicit-halo mesh the
         same switches select the per-shard kernels."""
         return dtype == torch.float32
 
@@ -197,7 +207,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                                  kernel=kern and marker_blocks)
         else:
             m2g = m2g_fused if kern else m2g_fused_plain
-            out = m2g(m, grid, table, phys, with_energy=phys.solve_energy)
+            out = m2g(m, grid, table, phys, with_energy=phys.solve_energy,
+                      periodic_x=periodic)
         return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
 
     def _interp_fused(m, rho_m, k_m, rhocp_m, state, out) -> InterpOut:
@@ -354,7 +365,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                                  marker_halo_mesh)
         else:
             T_m = m.T + bucket_grid_to_markers(dT, m.x, m.y, m.valid, grid,
-                                               "corner")
+                                               "corner", periodic_x=periodic)
         diag["energy_iterations"] = esol.info.iterations
         diag["T_mean"] = torch.mean(T_new)
         return m.replace(T=T_m), T_new, diag
@@ -385,9 +396,9 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 markers = bucket_advect_rk4(markers, vx, vy, dt, grid, vbc,
                                             stage_reach=reach)
             if kern:
-                markers, dropped = rebucket_fused(markers, grid)
+                markers, dropped = rebucket_fused(markers, grid, periodic)
             else:
-                markers, dropped = rebucket(markers, grid)
+                markers, dropped = rebucket(markers, grid, periodic)
         diag = {"markers_dropped": dropped, "marker_count": markers.total()}
         return markers, diag
 

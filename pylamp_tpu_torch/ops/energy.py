@@ -1,13 +1,15 @@
 """Matrix-free energy (heat) equation operator.
 
-Port of ``pylamp_tpu/ops/energy.py`` (uniform grid, non-periodic walls):
+Port of ``pylamp_tpu/ops/energy.py`` (uniform grid):
 
     rho*Cp/dt * T_new - div(k grad T_new) = rho*Cp/dt * T_old + H
 
 on the corner nodes, with conductivity averaged onto the half-points.
 Dirichlet walls are identity rows (kbnd * T = kbnd * T_bc); Neumann walls
 use mirrored ghost nodes, their flux constants go into ``energy_rhs``.
-Corner nodes: horizontal walls win.
+Corner nodes: horizontal walls win.  Periodic side walls wrap the ghost
+columns (columns 0 and nx are one node), and the seam rows are halved in
+both columns, as the Stokes seam row is.
 """
 from __future__ import annotations
 
@@ -15,12 +17,6 @@ import torch
 
 from pylamp_tpu_torch.core.bc import DIRICHLET, NEUMANN, ThermalBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-
-
-def _no_periodic(bcs: ThermalBCs):
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
 
 
 def _face_k(k, axis: int, mode: str):
@@ -56,12 +52,31 @@ def _pad_mirror(a):
     return torch.cat([a[:, 1:2], a, a[:, -2:-1]], dim=1)
 
 
+def _halve_seam(a):
+    """The seam rows under the half-row convention: columns 0 and nx each
+    carry half of the one physical node's equation."""
+    a = a.clone()
+    a[:, 0] *= 0.5
+    a[:, -1] *= 0.5
+    return a
+
+
+def _pad_ghost(a, periodic_x: bool):
+    """One ghost node per side: mirrored (Neumann walls); periodic side
+    walls wrap in x (column nx duplicates column 0, so the node west of
+    column 0 is column nx - 1 and the node east of column nx is column
+    1)."""
+    if not periodic_x:
+        return _pad_mirror(a)
+    a = torch.cat([a[1:2, :], a, a[-2:-1, :]], dim=0)
+    return torch.cat([a[:, -2:-1], a, a[:, 1:2]], dim=1)
+
+
 def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
                     kbnd=1.0, k_avg: str = "arithmetic", halo_mesh=None):
     """Apply A_T T = rho*Cp/dt * T - div(k grad T), with BC rows.
     ``halo_mesh``: route through the explicit-halo operator
     (parallel/halo_ops.py) on grids that decompose over the mesh."""
-    _no_periodic(bcs)
     if halo_mesh is not None:
         from pylamp_tpu_torch.parallel.halo_ops import (
             energy_operator_halo,
@@ -72,7 +87,7 @@ def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
             return energy_operator_halo(T, k, rhocp_over_dt, grid, bcs,
                                         halo_mesh, kbnd=kbnd, k_avg=k_avg)
     dx, dy = grid.dx, grid.dy
-    Tp, kp = _pad_mirror(T), _pad_mirror(k)
+    Tp, kp = _pad_ghost(T, bcs.periodic_x), _pad_ghost(k, bcs.periodic_x)
 
     kx = _face_k(kp, 1, k_avg)
     ky = _face_k(kp, 0, k_avg)
@@ -84,6 +99,8 @@ def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
     ) / dy
 
     r = rhocp_over_dt * T - div
+    if bcs.periodic_x:
+        r = _halve_seam(r)
     mask, _ = _dirichlet_masks(grid, bcs, T.dtype, T.device)
     return torch.where(mask, kbnd * T, r)
 
@@ -92,10 +109,11 @@ def energy_rhs(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
                bcs: ThermalBCs, kbnd=1.0, k_avg: str = "arithmetic"):
     """RHS matching ``energy_operator``: rho*Cp/dt * T_old + H, plus the
     prescribed-flux constants (+2 k_face g / h) of Neumann walls, with
-    Dirichlet rows set to kbnd * T_bc."""
-    _no_periodic(bcs)
+    Dirichlet rows set to kbnd * T_bc (periodic: the seam rows halved)."""
     dx, dy = grid.dx, grid.dy
     b = rhocp_over_dt * T_old + H
+    if bcs.periodic_x:
+        b = _halve_seam(b)
 
     kp = _pad_mirror(k)
     kx = _face_k(kp, 1, k_avg)[1:-1, :]

@@ -12,7 +12,11 @@ coefficient table (built on the device from the lambda tensor, so no sweep
 syncs the host), kbnd as a device tensor and the halo depth.
 ``chebyshev_smooth`` runs the plain PyTorch version
 (``chebyshev_smooth_plain``, the MG smoother's recurrence) on CPU tensors
-and launches the kernel on CUDA tensors.
+and launches the kernel on CUDA tensors.  Periodic side walls launch the
+kernel's periodic form (its edge tiles load the x-periodic lattice; the
+seam columns take half the wrapped row and diagonal), counted in
+``launches_periodic`` as well; it reads ex, rx and eta_s as
+seam-consistent, as the periodic multigrid keeps them.
 """
 from __future__ import annotations
 
@@ -28,10 +32,13 @@ from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.kernels.momentum import momentum_apply_plain
+from pylamp_tpu_torch.ops.kernels.saddle import side_signs
 from pylamp_tpu_torch.solvers.stokes_solver import velocity_diagonals
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 # the reference's deepest fused sweep (cheb_kernel.py HS[-1]): deeper sweeps
 # take the plain path
@@ -217,10 +224,7 @@ def chebyshev_smooth_cuda(ex, ey, rx, ry, prep: SmootherPrep,
                           grid: StaggeredGrid, bcs: VelocityBCs, iters: int,
                           zero_init: bool = False,
                           emit_residual: bool = False):
-    global launches
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "the periodic fused smoother waits for a later port PR")
+    global launches, launches_periodic
     depth = iters + (1 if emit_residual else 0)
     if not 1 <= iters or depth > prep.h:
         raise ValueError(f"cheb kernel: iters {iters} (+emit) exceeds the "
@@ -242,21 +246,23 @@ def chebyshev_smooth_cuda(ex, ey, rx, ry, prep: SmootherPrep,
         prep.eta_s.data_ptr(), prep.eta_n.data_ptr(), prep.coeffs.data_ptr(),
         prep.kb.data_ptr(), ox.data_ptr(), oy.data_ptr(), fx.data_ptr(),
         fy.data_ptr(), ny, nx, grid.dx, grid.dy, bcs.s_top, bcs.s_bottom,
-        bcs.s_left, bcs.s_right, iters, prep.h, int(zero_init),
-        int(emit_residual), plan.ty, cuda_build.stream_ptr(ex.device))
+        *side_signs(bcs), iters, prep.h, int(zero_init),
+        int(emit_residual), plan.ty, int(bcs.periodic_x),
+        cuda_build.stream_ptr(ex.device))
     cuda_build.check(code, "cheb")
     launches += 1
+    launches_periodic += bcs.periodic_x
     return (ox, oy, fx, fy) if emit_residual else (ox, oy)
 
 
-def kernel_info(he: int, ty: int) -> dict:
-    """Occupancy of the depth-``he`` kernel with tiles of ``ty`` rows, from
-    the card's own function attributes: registers per thread, static and
-    dynamic shared bytes, local (spill) bytes per thread, threads and
-    resident blocks per SM."""
+def kernel_info(he: int, ty: int, periodic: bool = False) -> dict:
+    """Occupancy of the depth-``he`` kernel (``periodic``: its periodic
+    form) with tiles of ``ty`` rows, from the card's own function
+    attributes: registers per thread, static and dynamic shared bytes,
+    local (spill) bytes per thread, threads and resident blocks per SM."""
     out = (ctypes.c_int * 6)()
-    cuda_build.check(cuda_build.library().cheb_kernel_info(he, ty, out),
-                     "cheb (occupancy query)")
+    cuda_build.check(cuda_build.library().cheb_kernel_info(
+        he, ty, int(periodic), out), "cheb (occupancy query)")
     return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
                 local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 

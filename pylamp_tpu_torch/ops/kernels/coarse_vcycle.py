@@ -270,8 +270,10 @@ def _check(name, t, shape):
 def coarse_vcycle_cuda(rx, ry, prep: CoarseVcyclePrep):
     global launches
     if prep.bcs.periodic_x:
-        raise NotImplementedError(
-            "the periodic coarse V-cycle kernel waits for a later port PR")
+        raise ValueError(
+            "the coarse V-cycle kernel has no periodic form: its gate "
+            "(coarse_fuse_start) refuses periodic side walls, as the "
+            "reference's does")
     if not hasattr(prep, "levels"):
         raise ValueError("coarse V-cycle kernel: the prep was built for the "
                          "CPU (no kernel constants)")

@@ -11,7 +11,8 @@ plain momentum apply of the port (the smoothers' plain versions call it).
 1-element device tensor, so no apply syncs the host.
 ``momentum_apply_kernel`` runs the plain version on CPU tensors and
 launches the kernel on CUDA tensors; the shape gate is the caller's
-(``solvers/mg.py _pallas_eligible``).
+(``solvers/mg.py _pallas_eligible``).  Periodic side walls launch the
+kernel's periodic form, counted in ``launches_periodic`` as well.
 """
 from __future__ import annotations
 
@@ -23,10 +24,13 @@ import torch
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.kernels.saddle import side_signs
 from pylamp_tpu_torch.ops.stokes import stokes_operator
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 
 def momentum_apply_plain(vx, vy, eta_s, eta_n, grid, bcs, kbnd):
@@ -62,10 +66,7 @@ def _check(name, t, shape):
 
 def momentum_apply_cuda(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,
                         bcs: VelocityBCs):
-    global launches
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "the periodic momentum kernel waits for a later port PR")
+    global launches, launches_periodic
     for name, t, shape in (("vx", vx, grid.shape_vx), ("vy", vy, grid.shape_vy),
                            ("eta_s", prep.eta_s, grid.shape_corner),
                            ("eta_n", prep.eta_n, grid.shape_center),
@@ -77,9 +78,11 @@ def momentum_apply_cuda(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,
         vx.data_ptr(), vy.data_ptr(), prep.eta_s.data_ptr(),
         prep.eta_n.data_ptr(), prep.kb.data_ptr(), rx.data_ptr(),
         ry.data_ptr(), grid.ny, grid.nx, grid.dx, grid.dy, bcs.s_top,
-        bcs.s_bottom, bcs.s_left, bcs.s_right, cuda_build.stream_ptr(vx.device))
+        bcs.s_bottom, *side_signs(bcs), int(bcs.periodic_x),
+        cuda_build.stream_ptr(vx.device))
     cuda_build.check(code, "momentum")
     launches += 1
+    launches_periodic += bcs.periodic_x
     return rx, ry
 
 

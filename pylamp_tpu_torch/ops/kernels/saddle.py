@@ -8,6 +8,9 @@ CUDA kernel ``csrc/saddle.cu`` (replaces the TPU kernel
 for the scales.  ``saddle_apply`` runs the plain PyTorch version
 (``saddle_apply_plain``, i.e. ``ops.stokes.stokes_operator``) on CPU
 tensors and launches the kernel on CUDA tensors; it has no shape gate.
+Periodic side walls launch the kernel's periodic form (wrapped vy ghost
+columns, the seam half row in both seam columns), counted in
+``launches_periodic`` as well.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.stokes import stokes_operator
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +51,12 @@ def saddle_apply_plain(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
                            kcont=prep.kk[1], kbnd=prep.kk[0])
 
 
+def side_signs(bcs: VelocityBCs):
+    """(s_left, s_right) for a kernel's wall form; periodic side walls have
+    no ghost sign (the periodic form never reads these)."""
+    return (0.0, 0.0) if bcs.periodic_x else (bcs.s_left, bcs.s_right)
+
+
 def _check(name, t, shape):
     if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or not t.is_cuda:
@@ -57,10 +68,7 @@ def _check(name, t, shape):
 
 def saddle_apply_cuda(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
                       bcs: VelocityBCs):
-    global launches
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "the periodic saddle kernel waits for a later port PR")
+    global launches, launches_periodic
     ny, nx = grid.ny, grid.nx
     vx, vy, p = vx.contiguous(), vy.contiguous(), p.contiguous()
     for name, t, shape in (("vx", vx, grid.shape_vx), ("vy", vy, grid.shape_vy),
@@ -76,10 +84,11 @@ def saddle_apply_cuda(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
         vx.data_ptr(), vy.data_ptr(), p.data_ptr(), prep.eta_s.data_ptr(),
         prep.eta_n.data_ptr(), prep.kk.data_ptr(), rx.data_ptr(),
         ry.data_ptr(), rc.data_ptr(), ny, nx, grid.dx, grid.dy,
-        bcs.s_top, bcs.s_bottom, bcs.s_left, bcs.s_right,
+        bcs.s_top, bcs.s_bottom, *side_signs(bcs), int(bcs.periodic_x),
         cuda_build.stream_ptr(vx.device))
     cuda_build.check(code, "saddle")
     launches += 1
+    launches_periodic += bcs.periodic_x
     return rx, ry, rc
 
 

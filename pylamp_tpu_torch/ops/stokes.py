@@ -1,6 +1,6 @@
 """Matrix-free variable-viscosity Stokes saddle-point operator.
 
-Port of ``pylamp_tpu/ops/stokes.py`` (uniform grid, non-periodic walls):
+Port of ``pylamp_tpu/ops/stokes.py`` (uniform grid):
 
   x-momentum at interior vx nodes: -(d(sxx)/dx + d(sxy)/dy) + dp/dx
   y-momentum at interior vy nodes: -(d(sxy)/dx + d(syy)/dy) + dp/dy
@@ -9,7 +9,9 @@ Port of ``pylamp_tpu/ops/stokes.py`` (uniform grid, non-periodic walls):
 with sxx = 2 eta_n dvx/dx, syy = 2 eta_n dvy/dy (centers) and
 sxy = eta_s (dvx/dy + dvy/dx) (corners).  Wall-normal velocities are
 Dirichlet rows (kbnd * v); tangential BCs enter through ghost nodes
-(free slip: ghost = +v_interior, no slip: ghost = -v_interior).
+(free slip: ghost = +v_interior, no slip: ghost = -v_interior).  Periodic
+side walls wrap vy's ghost columns, and the seam vx row (columns 0 and nx
+are one node) is the wrapped equation, half of it in each column.
 
 ``kcont``/``kbnd`` may be Python floats or 0-d tensors.  ``halo_mesh``
 routes an application through the explicit-halo operator of
@@ -23,12 +25,6 @@ from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 
 
-def _no_periodic(bcs: VelocityBCs):
-    if bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
-
-
 def _ghost_vx(vx, bcs: VelocityBCs):
     """Pad vx with ghost rows above/below the top/bottom walls."""
     return torch.cat([bcs.s_top * vx[:1, :], vx, bcs.s_bottom * vx[-1:, :]],
@@ -36,7 +32,10 @@ def _ghost_vx(vx, bcs: VelocityBCs):
 
 
 def _ghost_vy(vy, bcs: VelocityBCs):
-    """Pad vy with ghost columns left/right of the side walls."""
+    """Pad vy with ghost columns left/right of the side walls (periodic:
+    the wrapped columns, period nx)."""
+    if bcs.periodic_x:
+        return torch.cat([vy[:, -1:], vy, vy[:, :1]], dim=1)
     return torch.cat([bcs.s_left * vy[:, :1], vy, bcs.s_right * vy[:, -1:]],
                      dim=1)
 
@@ -61,7 +60,6 @@ def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
     grids that do not decompose evenly over it stay on the global tensors.
     ``halo_pallas``: under ``halo_mesh``, each shard's stencil runs through
     the per-shard saddle kernel where its gate holds."""
-    _no_periodic(bcs)
     if halo_mesh is not None:
         from pylamp_tpu_torch.parallel.halo_ops import (
             halo_eligible,
@@ -86,7 +84,15 @@ def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
         - (sxy[1:, 1:-1] - sxy[:-1, 1:-1]) / dy
         + (p[:, 1:] - p[:, :-1]) / dx
     )
-    rx = torch.cat([kbnd * vx[:, :1], rx_int, kbnd * vx[:, -1:]], dim=1)
+    if bcs.periodic_x:
+        rx_seam = 0.5 * (
+            -(sxx[:, :1] - sxx[:, -1:]) / dx
+            - (sxy[1:, :1] - sxy[:-1, :1]) / dy
+            + (p[:, :1] - p[:, -1:]) / dx
+        )
+        rx = torch.cat([rx_seam, rx_int, rx_seam], dim=1)
+    else:
+        rx = torch.cat([kbnd * vx[:, :1], rx_int, kbnd * vx[:, -1:]], dim=1)
 
     ry_int = (
         -(syy[1:, :] - syy[:-1, :]) / dy
@@ -104,8 +110,7 @@ def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
     """Right-hand side (bx, by, bc) matching ``stokes_operator``: buoyancy
     on the velocity lattices, moving no-slip walls folded into the
     wall-adjacent rows, prescribed normal velocities on the Dirichlet
-    rows."""
-    _no_periodic(bcs)
+    rows (periodic: the seam buoyancy row halved in both columns)."""
     moving = (
         (bcs.top == "no_slip" and bcs.vt_top != 0.0)
         or (bcs.bottom == "no_slip" and bcs.vt_bottom != 0.0)
@@ -127,8 +132,12 @@ def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
     if bcs.right == "no_slip" and bcs.vt_right != 0.0:
         by[1:-1, -1] += 2.0 * eta_s[1:-1, -1] * bcs.vt_right / dx2
 
-    bx[:, 0] = kbnd * bcs.vn_left
-    bx[:, -1] = kbnd * bcs.vn_right
+    if bcs.periodic_x:
+        bx[:, 0] *= 0.5
+        bx[:, -1] *= 0.5
+    else:
+        bx[:, 0] = kbnd * bcs.vn_left
+        bx[:, -1] = kbnd * bcs.vn_right
     by[0, :] = kbnd * bcs.vn_top
     by[-1, :] = kbnd * bcs.vn_bottom
     bc = torch.zeros(grid.shape_center, dtype=dtype, device=bx.device)

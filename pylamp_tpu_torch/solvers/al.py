@@ -37,7 +37,7 @@ def make_grad_div(eta_n, grid: StaggeredGrid, bcs: VelocityBCs, gamma,
     def gd(vx, vy):
         du = (vx[:, 1:] - vx[:, :-1]) / grid.dx + (
             vy[1:, :] - vy[:-1, :]) / grid.dy
-        gx, gy = _pressure_gradient(w * du, grid, dtype)
+        gx, gy = _pressure_gradient(w * du, grid, dtype, bcs=bcs)
         return -gx, -gy
 
     return gd
@@ -63,5 +63,5 @@ def augment_rhs(b, eta_n, grid: StaggeredGrid, bcs: VelocityBCs, gamma,
 
     fx, fy, g_c = b
     q = (float(gamma) * eta_n / kcont) * g_c
-    gx, gy = _pressure_gradient(q, grid, dtype)
+    gx, gy = _pressure_gradient(q, grid, dtype, bcs=bcs)
     return fx - gx, fy - gy, g_c

@@ -1,7 +1,7 @@
 """Implicit energy (heat diffusion) solve: Jacobi-preconditioned CG.
 
-Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform, non-periodic,
-Jacobi preconditioner): ``solve_energy`` in the state dtype and
+Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform grid, Jacobi
+preconditioner): ``solve_energy`` in the state dtype and
 ``solve_energy_mixed`` with f32 CG inner solves under f64 refinement.
 ``halo_mesh`` routes every operator application through the
 explicit-halo energy operator (parallel/halo_ops.py).  The energy
@@ -18,7 +18,8 @@ from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.energy import (
     _dirichlet_masks,
     _face_k,
-    _pad_mirror,
+    _halve_seam,
+    _pad_ghost,
     energy_operator,
     energy_rhs,
 )
@@ -33,7 +34,7 @@ class EnergySolution(NamedTuple):
 def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
                     kbnd, k_avg):
     dx, dy = grid.dx, grid.dy
-    kp = _pad_mirror(k)
+    kp = _pad_ghost(k, bcs.periodic_x)
     kx = _face_k(kp, 1, k_avg)
     ky = _face_k(kp, 0, k_avg)
     diag = (
@@ -41,6 +42,8 @@ def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
         + (kx[1:-1, 1:] + kx[1:-1, :-1]) / dx**2
         + (ky[1:, 1:-1] + ky[:-1, 1:-1]) / dy**2
     )
+    if bcs.periodic_x:
+        diag = _halve_seam(diag)
     mask, _ = _dirichlet_masks(grid, bcs, k.dtype, k.device)
     return torch.where(mask, kbnd, diag)
 

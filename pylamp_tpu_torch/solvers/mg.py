@@ -127,18 +127,16 @@ def _zero_rows(a):
     return a
 
 
-def _no_periodic(bcs):
-    if bcs.periodic_x:
-        raise _later("periodic multigrid")
-
-
 # -- vx-lattice transfers (shape (ny, nx+1)) ----------------------------------------
 
 def prolong_vx(c, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
     """Bilinear prolongation on the vx lattice (coarse (NY, NX+1) -> fine
-    (2NY, 2NX+1)); ghost rows carry the wall behaviour."""
-    _no_periodic(bcs)
-    c = _zero_cols(c)
+    (2NY, 2NX+1)); ghost rows carry the wall behaviour.  Periodic sides:
+    the seam columns are real unknowns (equal in columns 0 and NX) and are
+    interpolated like interior columns."""
+    periodic = bcs.periodic_x
+    if not periodic:
+        c = _zero_cols(c)
     if cy:
         cg = torch.cat([bcs.s_top * c[:1], c, bcs.s_bottom * c[-1:]], dim=0)
         a0 = 0.25 * cg[:-2] + 0.75 * cg[1:-1]
@@ -151,13 +149,17 @@ def prolong_vx(c, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
         f = torch.cat([_interleave_cols(e[:, :-1], odd), e[:, -1:]], dim=1)
     else:
         f = e
-    return _zero_cols(f)
+    return f if periodic else _zero_cols(f)
 
 
 def restrict_vx(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
     """P^T / 4 on the vx lattice (fine (2NY, 2NX+1) -> coarse (NY, NX+1));
-    P^T / 2 along the single coarsened axis under semi-coarsening."""
-    _no_periodic(bcs)
+    P^T / 2 along the single coarsened axis under semi-coarsening.
+    Periodic sides: each fine seam column carries half the physical
+    residual; they fold into one unique column, restrict with x wrap-around,
+    and the coarse seam is emitted as equal halves."""
+    if bcs.periodic_x:
+        return _restrict_vx_periodic(f, bcs, cx, cy)
     f = _zero_cols(f)
     if cy:
         fg = torch.cat([bcs.s_top * f[:1], f, bcs.s_bottom * f[-1:]], dim=0)
@@ -178,14 +180,41 @@ def restrict_vx(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
     return _zero_cols(c)
 
 
+def _restrict_vx_periodic(f, bcs: VelocityBCs, cx: bool, cy: bool):
+    if cy:
+        fg = torch.cat([bcs.s_top * f[:1], f, bcs.s_bottom * f[-1:]], dim=0)
+        g = (
+            0.25 * fg[0:-3:2]
+            + 0.75 * fg[1:-2:2]
+            + 0.75 * fg[2:-1:2]
+            + 0.25 * fg[3::2]
+        ) / 2.0
+    else:
+        g = f
+    if not cx:
+        return g
+    gu = g[:, :-1].clone()
+    gu[:, 0] += g[:, -1]  # unique columns, the physical seam
+    gz = torch.cat([gu[:, -1:], gu], dim=1)  # left wrap ghost
+    cu = (0.5 * gz[:, 0:-2:2] + 1.0 * gz[:, 1:-1:2] + 0.5 * gz[:, 2::2]) / 2.0
+    seam = 0.5 * cu[:, :1]
+    return torch.cat([seam, cu[:, 1:], seam], dim=1)
+
+
+def _ghost_cols(c, bcs: VelocityBCs):
+    """vy-lattice ghost columns: wrapped (periodic) or the wall signs."""
+    if bcs.periodic_x:
+        return torch.cat([c[:, -1:], c, c[:, :1]], dim=1)
+    return torch.cat([bcs.s_left * c[:, :1], c, bcs.s_right * c[:, -1:]],
+                     dim=1)
+
+
 # -- vy-lattice transfers (shape (ny+1, nx)) ----------------------------------------
 
 def prolong_vy(c, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
-    _no_periodic(bcs)
     c = _zero_rows(c)
     if cx:
-        cg = torch.cat([bcs.s_left * c[:, :1], c, bcs.s_right * c[:, -1:]],
-                       dim=1)
+        cg = _ghost_cols(c, bcs)
         a0 = 0.25 * cg[:, :-2] + 0.75 * cg[:, 1:-1]
         a1 = 0.75 * cg[:, 1:-1] + 0.25 * cg[:, 2:]
         e = _interleave_cols(a0, a1)
@@ -200,11 +229,9 @@ def prolong_vy(c, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
 
 
 def restrict_vy(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
-    _no_periodic(bcs)
     f = _zero_rows(f)
     if cx:
-        fg = torch.cat([bcs.s_left * f[:, :1], f, bcs.s_right * f[:, -1:]],
-                       dim=1)
+        fg = _ghost_cols(f, bcs)
         g = (
             0.25 * fg[:, 0:-3:2]
             + 0.75 * fg[:, 1:-2:2]
@@ -259,12 +286,17 @@ def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, use_pallas=False,
                                          kbnd)
 
 
-def _pressure_gradient(zp, grid, dtype):
+def _pressure_gradient(zp, grid, dtype, bcs: VelocityBCs | None = None):
     """G z_p: the +grad p part of the momentum rows (zero on the Dirichlet
-    rows)."""
+    rows; periodic sides: the wrapped seam gradient, half in each seam
+    column)."""
     gx_int = (zp[:, 1:] - zp[:, :-1]) / grid.dx
-    zeros_x = torch.zeros((grid.ny, 1), dtype=dtype, device=zp.device)
-    gx = torch.cat([zeros_x, gx_int, zeros_x], dim=1)
+    if bcs is not None and bcs.periodic_x:
+        seam = 0.5 * (zp[:, :1] - zp[:, -1:]) / grid.dx
+        gx = torch.cat([seam, gx_int, seam], dim=1)
+    else:
+        zeros_x = torch.zeros((grid.ny, 1), dtype=dtype, device=zp.device)
+        gx = torch.cat([zeros_x, gx_int, zeros_x], dim=1)
     gy_int = (zp[1:, :] - zp[:-1, :]) / grid.dy
     zeros_y = torch.zeros((1, grid.nx), dtype=dtype, device=zp.device)
     gy = torch.cat([zeros_y, gy_int, zeros_y], dim=0)
@@ -430,7 +462,6 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     levels below 256 cells run as one fused sub-V-cycle
     (ops/kernels/coarse_vcycle.py).  ``halo_mesh`` / ``coarse_replicate``:
     the explicit-halo levels (module docstring)."""
-    _no_periodic(bcs)
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                           semicoarsen)
     if eta_cap > 0.0:
@@ -602,6 +633,10 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
         bcs = VelocityBCs()
     if smoother != "chebyshev":
         raise _later(f"the {smoother!r} MG smoother")
+    if schur == "wbfbt" and bcs.periodic_x:
+        raise ValueError(
+            "schur='wbfbt' has no periodic-wrap pressure-Poisson path yet; "
+            "use schur='mass' with periodic side walls")
     if schur != "mass":
         raise _later(f"the {schur!r} Schur surrogate")
     if velocity_inner_iters > 0 and velocity_inner_method != "fgmres":
@@ -667,7 +702,7 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
         rx, ry, rc = r
         zp = -sschur * (eta_n / kcont) * rc
         zp = zp - torch.mean(zp)
-        gx, gy = _pressure_gradient(zp, grid, dtype)
+        gx, gy = _pressure_gradient(zp, grid, dtype, bcs=bcs)
         zx, zy = vel_solve(rx - gx, ry - gy)
         if project:
             zx = project_vx_mean(zx)

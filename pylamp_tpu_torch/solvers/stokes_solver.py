@@ -1,6 +1,6 @@
 """Matrix-free Stokes solve: FGMRES + block preconditioner + pressure gauge.
 
-Port of ``pylamp_tpu/solvers/stokes_solver.py`` (uniform, non-periodic):
+Port of ``pylamp_tpu/solvers/stokes_solver.py`` (uniform grid):
 ``solve_stokes`` in the state dtype, ``solve_stokes_mixed`` with f32
 FGMRES + MG inner solves under f64 iterative refinement.  In the mixed
 solve the f32 outer applies go through the saddle kernel wrapper
@@ -42,18 +42,23 @@ class StokesSolution(NamedTuple):
 def velocity_diagonals(eta_s, eta_n, grid: StaggeredGrid, kbnd,
                        bcs: VelocityBCs | None = None):
     """Analytic diagonals of the momentum stencils (kbnd on the Dirichlet
-    rows)."""
-    if bcs is not None and bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic side walls wait for a later port PR")
+    rows; periodic side walls: the wrapped seam diagonal, half of it in each
+    seam column, as ops/stokes.py emits the seam row)."""
     dx, dy = grid.dx, grid.dy
     dvx_int = (
         2.0 * (eta_n[:, 1:] + eta_n[:, :-1]) / dx**2
         + (eta_s[1:, 1:-1] + eta_s[:-1, 1:-1]) / dy**2
     )
-    kb_col = torch.as_tensor(kbnd, dtype=eta_n.dtype,
-                             device=eta_n.device).expand(dvx_int.shape[0], 1)
-    dvx = torch.cat([kb_col, dvx_int, kb_col], dim=1)
+    if bcs is not None and bcs.periodic_x:
+        seam = 0.5 * (
+            2.0 * (eta_n[:, :1] + eta_n[:, -1:]) / dx**2
+            + (eta_s[1:, :1] + eta_s[:-1, :1]) / dy**2
+        )
+        dvx = torch.cat([seam, dvx_int, seam], dim=1)
+    else:
+        kb_col = torch.as_tensor(kbnd, dtype=eta_n.dtype, device=eta_n.device
+                                 ).expand(dvx_int.shape[0], 1)
+        dvx = torch.cat([kb_col, dvx_int, kb_col], dim=1)
     dvy_int = (
         2.0 * (eta_n[1:, :] + eta_n[:-1, :]) / dy**2
         + (eta_s[1:-1, 1:] + eta_s[1:-1, :-1]) / dx**2

@@ -718,12 +718,234 @@ def test_redesigned_kernels_fit_without_spills(dev):
     kernel 6's static shared memory the planner's SMEM_STATIC."""
     for he in range(1, 8):
         for ty in cheb.TILE_ROWS:
-            info = cheb.kernel_info(he, ty)
-            assert info["local_bytes"] == 0, (he, ty, info)
-            assert info["blocks_per_sm"] * info["threads"] >= 512, info
+            for periodic in (False, True):
+                info = cheb.kernel_info(he, ty, periodic)
+                assert info["local_bytes"] == 0, (he, ty, periodic, info)
+                assert info["blocks_per_sm"] * info["threads"] >= 512, info
     for ny, nx in ((128, 128), (32, 128)):
         _, prep, _ = _coarse_prep(ny, nx, dev, 94, BCS[0], 4)
         info = cvk.kernel_info(prep)
         assert info["local_bytes"] == 0 and info["clusters"] >= 1, info
         assert info["static_smem"] == cvk.SMEM_STATIC, info
         assert info["cluster"] == cvk.CLUSTER, info
+
+
+# -- the periodic forms of kernels 1-5 and 7 ----------------------------------
+
+def _periodic_bcs(bc):
+    return VelocityBCs(top=bc, bottom="free_slip", left="periodic",
+                       right="periodic")
+
+
+def _seam_consistent(*arrays):
+    """Column nx := column 0 of each (ny+1, nx+1) or (ny, nx+1) array, as
+    the periodic multigrid keeps vx, rx and eta_s."""
+    for a in arrays:
+        a[:, -1] = a[:, 0]
+    return arrays
+
+
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("ny,nx", [(5, 3), (23, 4), (16, 256), (21, 256)])
+def test_saddle_and_momentum_kernels_periodic(dev, ny, nx, bc):
+    """Kernels 1 and 7 in their periodic forms at the narrowest widths and
+    at ragged ny, against the plain versions (any input: the seam row reads
+    column 0's neighbourhood and vx column nx as ops/stokes.py does); the
+    two seam columns bit-identical, a rerun bit-identical."""
+    bcs = _periodic_bcs(bc)
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 101 + nx)
+    vx, vy, p = r(grid.shape_vx), r(grid.shape_vy), r(grid.shape_center)
+    prep = saddle.prep_saddle(es, en, torch.tensor(3.5, device=dev), kbnd)
+    n0, p0 = saddle.launches, saddle.launches_periodic
+    got = saddle.saddle_apply(vx, vy, p, prep, grid, bcs)
+    assert (saddle.launches, saddle.launches_periodic) == (n0 + 1, p0 + 1)
+    ref = saddle.saddle_apply_plain(vx, vy, p, prep, grid, bcs)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5
+    assert torch.equal(got[0][:, 0], got[0][:, -1])
+    for g, a in zip(got, saddle.saddle_apply(vx, vy, p, prep, grid, bcs)):
+        assert torch.equal(g, a)
+
+    mprep = momentum.prep_momentum(es, en, kbnd)
+    n0, p0 = momentum.launches, momentum.launches_periodic
+    got = momentum.momentum_apply_kernel(vx, vy, mprep, grid, bcs)
+    assert (momentum.launches, momentum.launches_periodic) == (n0 + 1, p0 + 1)
+    ref = momentum.momentum_apply_plain(vx, vy, es, en, grid, bcs, kbnd)
+    for g, rf in zip(got, ref):
+        assert _rel(g, rf) <= 1e-5
+    assert torch.equal(got[0][:, 0], got[0][:, -1])
+    for g, a in zip(got, momentum.momentum_apply_kernel(vx, vy, mprep, grid,
+                                                        bcs)):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("depth", range(1, 8))
+@pytest.mark.parametrize("ny,nx", [(64, 256), (128, 512), (256, 256)])
+def test_cheb_kernel_periodic(dev, ny, nx, depth):
+    """Kernel 5's periodic form at every depth 1-7, zero and non-zero
+    start, with and without the emitted residual, on levels whose seam
+    tiles include tiles interior in y: against the plain version (2e-5),
+    the seam columns of every output bit-identical, a rerun bit-identical.
+    The random e^+-8 field at every depth, as test_cheb_kernel.  At depth
+    7 with a non-zero start the emitted residual of the wall form and of
+    this one alike can differ from the plain version by ~2e-5 at an
+    interior point, where the f32 plain version is itself 4e-5 off an f64
+    evaluation: such an output is held to f32 rounding instead
+    (_f32_agrees)."""
+    bcs = _periodic_bcs("no_slip")
+    grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 111 + depth)
+    (es,) = _seam_consistent(es.clone())
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    prep = cheb.prep_smoother(es, en, grid, bcs, kbnd, lam, depth)
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    _seam_consistent(rx)
+    start = {True: (torch.zeros_like(rx), torch.zeros_like(ry)),
+             False: (_seam_consistent(r(grid.shape_vx))[0],
+                     r(grid.shape_vy))}
+    for emit in (False, True):
+        iters = depth - emit
+        if iters < 1:
+            continue
+        for zero_init in (True, False):
+            ex, ey = start[zero_init]
+            p0 = cheb.launches_periodic
+            got = cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grid, bcs,
+                                        iters, zero_init, emit)
+            assert cheb.launches_periodic == p0 + 1
+            ref = cheb.chebyshev_smooth_plain(ex, ey, rx, ry, es, en, grid,
+                                              bcs, kbnd, lam, iters,
+                                              zero_init, emit)
+            f64 = [a.double() for a in (ex, ey, rx, ry, es, en, kbnd, lam)]
+            ref64 = cheb.chebyshev_smooth_plain(*f64[:6], grid, bcs, *f64[6:],
+                                                iters, zero_init, emit)
+            for g, rf, r64 in zip(got, ref, ref64):
+                assert _f32_agrees(g, rf, r64, 2e-5), (emit, zero_init)
+            for g in got[::2]:  # ex' and, with emit, rx - A ex'
+                assert torch.equal(g[:, 0], g[:, -1])
+            again = cheb.chebyshev_smooth(ex, ey, rx, ry, prep, grid, bcs,
+                                          iters, zero_init, emit)
+            for g, a in zip(got, again):
+                assert torch.equal(g, a)
+
+
+def _f32_agrees(got, ref, ref64, bar):
+    """The kernel within ``bar`` of its f32 plain version or, where f32
+    rounding alone parts them, no farther from an f64 evaluation of the
+    plain version than twice the f32 plain version is."""
+    return _rel(got, ref) <= bar or _rel(got, ref64) <= 2 * _rel(ref, ref64)
+
+
+def _seam_markers(nx, ny, dev):
+    """falling_block_periodic's f32 markers with slots moved onto the seam:
+    x = 0, -eps and +eps in the cells of column 0, lx - eps and lx in those
+    of column nx - 1 (eps = 1e-7 of the unit box)."""
+    from pylamp_tpu_torch.models.benchmarks import falling_block_periodic
+
+    cfg = falling_block_periodic(nx=nx, ny=ny)
+    grid, table, st = build(cfg, dtype=torch.float32, device=dev)
+    bm = st.markers
+    x = bm.x.clone()
+    eps = 1e-7
+    for s, v in enumerate((0.0, -eps, eps)):
+        x[:, 0, s] = v
+    for s, v in enumerate((grid.lx - eps, grid.lx)):
+        x[:, -1, s] = v
+    return cfg, grid, table, bm.replace(x=x.contiguous())
+
+
+@pytest.mark.parametrize("with_energy", [False, True])
+@pytest.mark.parametrize("ny,nx", [(14, 24), (8, 3)])
+def test_m2g_kernel_periodic(dev, ny, nx, with_energy):
+    """Kernel 2's periodic form on markers on and around the seam, against
+    the plain version; the corner and vx seam columns bit-identical, a
+    rerun bit-identical."""
+    cfg, grid, table, bm = _seam_markers(nx, ny, dev)
+    phys = dataclasses.replace(cfg.physics, gx=0.4)  # with the vx streams
+    p0 = m2g.launches_periodic
+    got = m2g.m2g_fused(bm, grid, table, phys, with_energy, periodic_x=True)
+    assert m2g.launches_periodic == p0 + 1
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, with_energy,
+                              periodic_x=True)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+        if got[k].shape[1] == nx + 1:
+            assert torch.equal(got[k][:, 0], got[k][:, -1]), k
+    again = m2g.m2g_fused(bm, grid, table, phys, with_energy, periodic_x=True)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+def _wrapped_step(got, ref, x0, lx):
+    """Displacements of two wrapped positions from x0, each taken into
+    [-lx/2, lx/2)."""
+    def d(x):
+        return torch.remainder(x - x0 + 0.5 * lx, lx) - 0.5 * lx
+    return d(got), d(ref)
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+def test_advect_kernel_periodic(dev, reach, bc):
+    """Kernel 3's periodic form with a drift that carries the markers
+    near the seam across it, both ways: displacements against the plain
+    version (1e-4), every x in [0, lx], a rerun bit-identical."""
+    bcs = _periodic_bcs(bc)
+    _, grid, _, bm = _seam_markers(24, 18, dev)
+    rng = np.random.default_rng(121 + reach)
+    for drift in (0.7, -0.7):
+        vx = torch.tensor(drift + rng.uniform(-0.3, 0.3, grid.shape_vx),
+                          dtype=torch.float32, device=dev)
+        vx[:, -1] = vx[:, 0]
+        vy = torch.tensor(rng.uniform(-1, 1, grid.shape_vy),
+                          dtype=torch.float32, device=dev)
+        dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+        p0 = advect.launches_periodic
+        got = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+        assert advect.launches_periodic == p0 + 1
+        ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, bcs, reach)
+        crossed = (got.x - bm.x).abs() > 0.5 * grid.lx
+        assert int(torch.sum(crossed & bm.valid)) > 0
+        gdx, rdx = _wrapped_step(got.x, ref.x, bm.x, grid.lx)
+        assert _rel(gdx, rdx) <= 1e-4
+        assert _rel(got.y - bm.y, ref.y - bm.y) <= 1e-4
+        assert float(got.x.min()) >= 0.0 and float(got.x.max()) <= grid.lx
+        again = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+        assert torch.equal(got.x, again.x) and torch.equal(got.y, again.y)
+
+
+@pytest.mark.parametrize("capacity", [18, 9])
+@pytest.mark.parametrize("ny,nx", [(13, 17), (6, 3)])
+def test_rebucket_kernel_periodic(dev, ny, nx, capacity):
+    """Kernel 4's periodic form: markers displaced by up to a cell and
+    wrapped (as advection leaves them), plus the seam placements of
+    _seam_markers, repacked identically slot for slot to the plain
+    version with the same drop count; a rerun bit-identical."""
+    from pylamp_tpu_torch.markers.bucket import wrap_x
+
+    _, grid, _, bm = _seam_markers(nx, ny, dev)
+    gen = torch.Generator(device=dev).manual_seed(131)
+    dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
+    dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
+    x = wrap_x(bm.x + dx, grid.lx)
+    x[:, 0, :3] = bm.x[:, 0, :3]  # keep the seam placements
+    x[:, -1, :2] = bm.x[:, -1, :2]
+    moved = BucketedMarkers(
+        x=x[..., :capacity].contiguous(),
+        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
+        mat=bm.mat[..., :capacity].contiguous(),
+        T=bm.T[..., :capacity].contiguous(),
+        valid=bm.valid[..., :capacity].contiguous())
+    p0 = rebucket.launches_periodic
+    got, gd = rebucket.rebucket_fused(moved, grid, periodic_x=True)
+    assert rebucket.launches_periodic == p0 + 1
+    ref, rd = rebucket.rebucket_plain(moved, grid, periodic_x=True)
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert int(gd) == int(rd)
+    if capacity == 9:
+        assert int(gd) > 0
+    again, ad = rebucket.rebucket_fused(moved, grid, periodic_x=True)
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(got, f), getattr(again, f)), f
+    assert int(ad) == int(gd)

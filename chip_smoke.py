@@ -26,7 +26,11 @@ plain PyTorch version on the card:
   shapes of the periodic falling block at 1024^2 x K18: kernel 1 on the
   solve's viscosities, kernels 2-4 on its markers, kernel 5 on levels
   1024, 512 and 256 in both forms, kernel 7 on those levels (timed at
-  1024^2); the seam columns of kernels 1, 5 and 7 bit-identical.
+  1024^2); the seam columns of kernels 1, 5 and 7 bit-identical;
+- kernels 2 and 10 with the rho0 * alpha stream (rows ``m2g_ra`` and
+  ``m2g_block_ra``, adiabatic heating's corner field) on the FK markers
+  and their 4x2 blocks, each at one odd shape (37x23; 40^2 on 2x2): a
+  rerun and every other stream bit-identical.
 
 Kernel and plain version are timed with CUDA events, and each kernel's
 bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
@@ -68,6 +72,26 @@ counter set to 0 just before it:
   velocities within 1e-5 max|vy|, marker y within 1e-5 max|y| and
   materials equal.
 
+- the heated FK 1024^2 (``models.profile.fk_heated_config``: the FK
+  bench preset with shear and adiabatic heating, subgrid diffusion d = 1
+  and reseeding below 2 per cell), from the FK build's state: 1 warm-up +
+  3 measured steps interleaved with its partner
+  ``energy_preconditioner="mg"`` (energy multigrid + flexible CG);
+  kernels 1-6, kernel 2 always with the rho0 * alpha stream; each step's
+  marker count held to the count it started from (reseeding adds after
+  it), both energy solves converged (1e-10); Krylov counts within
+  +-max(2, 10 %) of the partner's (sticky air's bar: the trajectories part
+  by one f32 ulp of T after step 1, and the log gives the count a one-ulp
+  nudge alone makes) and, after step 1, T within 1e-7 max|T| of it.  Then
+  ``bucket_reseed`` at 9 per cell on the card against the CPU on the
+  heated state (at least one spawned; valid and mat equal, x and y within
+  one f32 spacing, T within 1e-6 max|T|), with the thermal tensor work
+  timed;
+- the heated FK on the 4x2 mesh: 1 warm-up + 2 measured steps interleaved
+  with the single-device heated step, under the mesh path's checks and
+  bars (Krylov: +-max(2, 10 %)), kernel 10 always with the rho0 * alpha
+  stream.
+
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
 kernel from 32^2) and a 256^2 periodic falling-block step (kernels 1-5
@@ -107,6 +131,17 @@ PERIODIC_WARMUP_STEPS = 1
 PERIODIC_MEASURED_STEPS = 3
 PERIODIC_SMALL_NX = 256  # kernel 5 takes nx >= 256; square: not semicoarsened
 SEAM_TOL = 1e-6  # |vx[:, 0] - vx[:, -1]| / max|vx| after a periodic step
+HEATED_WARMUP_STEPS = 1  # FK with the four thermal switches
+HEATED_MEASURED_STEPS = 3
+HEATED_MESH_MEASURED_STEPS = 2
+HEATED_T_TOL = 1e-7  # max |dT| / max|T| after step 1, Jacobi-CG vs MG-FCG
+# Krylov counts per step of the heated paths against their partners: within
+# +-max(2, 10 %), sticky air's bar.  After step 1 the two trajectories part
+# by one f32 ulp of T, and that alone moves step 2's count by 2-3 of ~54
+# (the one-ulp twin that heated_paths logs measures it in the same call)
+HEATED_KRYLOV_REL = 0.1
+NOISE_FRACTION = 1e-3  # marker T slots the one-ulp twin nudges
+RESEED_MIN = 9  # the preset's initial markers per cell
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
 SMALL_NX = 64
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -142,6 +177,9 @@ TOL = {
     "cheb_block": 2e-5,
     "saddle_block": 1e-5,
     "m2g_block": 1e-5,
+    # kernels 2 and 10 with the rho0 * alpha stream: the m2g bar
+    "m2g_ra": 1e-5,
+    "m2g_block_ra": 1e-5,
     "advect_block": 1e-4,  # as advect: one f32 spacing of the position
     "rebucket_block": 0.0,  # bit-identical
 }
@@ -727,8 +765,8 @@ def mean(xs):
 
 def take_step(step, state, n_markers, modules, tag):
     """One step that must pass check_state and launch every kernel of
-    ``modules``.  Returns (state, wall seconds, Krylov iterations,
-    {kernel: launches})."""
+    ``modules``.  Returns (state, wall seconds, Krylov iterations, the
+    step's diagnostics)."""
     before = {k: mod.launches for k, mod in modules.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -746,7 +784,7 @@ def take_step(step, state, n_markers, modules, tag):
         f"rel residual {diag['stokes_residual_rel']:.3e}, dt "
         f"{float(diag['dt']):.4e}, launches "
         + ", ".join(f"{k}+{n}" for k, n in launched.items()))
-    return state, dt_s, int(diag["stokes_iterations"]), launched
+    return state, dt_s, int(diag["stokes_iterations"]), diag
 
 
 def run_steps(step, state0, n_markers, modules, measured, label):
@@ -1118,13 +1156,19 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
     return rows
 
 
-def mesh_path(grid, cfg, table, state0, n_markers, modules):
+def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
+              measured=MESH_MEASURED_STEPS, ra=False, krylov_rel=0.0):
     """FK 1024^2 with explicit_halo=True on the in-process 4x2 mesh and its
     single-device partner from the same built state, steps interleaved
     (mesh first on odd steps, second on even ones).  Every counter is set
     to 0 before each step and read after it; the mesh path must launch
     kernels 8-12 and none of kernels 1-7.  After the first step the two
-    states are compared.  Returns each path's launch counts."""
+    states are compared.  ``n_markers`` None: each step's marker count is
+    held to the count it started from (reseeding adds markers after the
+    count).  ``ra``: kernels 2 and 10 must launch with the rho0 * alpha
+    stream on every step, and never without it.  Krylov counts within
+    +-max(KRYLOV_AB_TOL, ``krylov_rel`` of the mesh path's).  Returns each
+    path's launch counts."""
     from dataclasses import replace
 
     from pylamp_tpu_torch.models.step import make_step
@@ -1145,7 +1189,8 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules):
     states = dict.fromkeys(paths, state0)
     rec = {p: dict(step_s=[], krylov=[], launches={k: 0 for k in modules})
            for p in paths}
-    n_steps = MESH_WARMUP_STEPS + MESH_MEASURED_STEPS
+    ra_mods = {"mesh_4x2": modules["m2g_block"], "single": modules["m2g"]}
+    n_steps = MESH_WARMUP_STEPS + measured
     for i in range(n_steps):
         kind = "warm-up" if i < MESH_WARMUP_STEPS else "measured"
         order = list(paths) if i % 2 == 0 else list(paths)[::-1]
@@ -1153,9 +1198,18 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules):
             step, required = paths[p]
             for mod in modules.values():
                 mod.launches = 0
-            states[p], dt_s, it, _ = take_step(
-                step, states[p], n_markers, required,
-                f"FK mesh A/B {p} step {i + 1} ({kind})")
+            for mod in ra_mods.values():
+                mod.launches_ra = 0
+            tag = f"{label} A/B {p} step {i + 1} ({kind})"
+            n_start = (n_markers if n_markers is not None
+                       else int(states[p].markers.total()))
+            states[p], dt_s, it, _ = take_step(step, states[p], n_start,
+                                               required, tag)
+            mod = ra_mods[p]
+            if ra and not 0 < mod.launches_ra == mod.launches:
+                raise AssertionError(
+                    f"{tag}: {mod.launches_ra} of {mod.launches} m2g "
+                    "launches with the rho0 * alpha stream")
             r = rec[p]
             r["step_s"].append(dt_s)
             r["krylov"].append(it)
@@ -1169,7 +1223,7 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules):
                      float(torch.max(torch.abs(a.vy - b.vy))))
             dyy = float(torch.max(torch.abs(a.markers.y - b.markers.y)))
             same_mat = torch.equal(a.markers.mat, b.markers.mat)
-            log(f"mesh vs single-device after step 1: max |dv| / max|vy| "
+            log(f"{label} vs single-device after step 1: max |dv| / max|vy| "
                 f"{dv / vmax:.3e}, max |dy| / max|y| {dyy / ymax:.3e}, "
                 f"materials {'equal' if same_mat else 'DIFFER'}")
             if not (dv <= 1e-5 * vmax and dyy <= 1e-5 * ymax and same_mat):
@@ -1183,17 +1237,17 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules):
     meas = slice(MESH_WARMUP_STEPS, None)
     for p, r in rec.items():
         r["median_s_per_step"] = statistics.median(r["step_s"][meas])
-        log(f"FK {grid.nx}^2 {p} on {smi}: median "
-            f"{r['median_s_per_step']:.3f} s/step over {MESH_MEASURED_STEPS} "
+        log(f"{label} {grid.nx}^2 {p} on {smi}: median "
+            f"{r['median_s_per_step']:.3f} s/step over {measured} "
             f"steps, {mean(r['krylov'][meas]):.1f} Krylov iterations/step; "
             f"launches {r['launches']}")
-    log("mesh A/B " + json.dumps({"device": smi, **rec}))
+    log(f"{label} A/B " + json.dumps({"device": smi, **rec}))
     for i, (a, b) in enumerate(zip(rec["mesh_4x2"]["krylov"],
                                    rec["single"]["krylov"])):
-        if abs(a - b) > KRYLOV_AB_TOL:
+        if abs(a - b) > max(KRYLOV_AB_TOL, krylov_rel * a):
             raise AssertionError(
-                f"mesh step {i + 1}: {a} Krylov iterations, single-device "
-                f"{b} (bar +-{KRYLOV_AB_TOL})")
+                f"{label} step {i + 1}: {a} Krylov iterations, single-device "
+                f"{b} (bar +-max({KRYLOV_AB_TOL}, {krylov_rel:.0%}))")
     return {p: r["launches"] for p, r in rec.items()}
 
 
@@ -1526,6 +1580,257 @@ def periodic_reference_check(modules):
                              f"with the CPU reference: {err / vmax:.3e} > 1e-4")
 
 
+def ra_kernel_rows(grid, cfg, table, state):
+    """Kernels 2 and 10 with the rho0 * alpha stream (rows ``m2g_ra`` and
+    ``m2g_block_ra``) against their plain versions on the heated FK
+    markers (the FK build's: the thermal switches do not change it) and on
+    their 4x2 blocks, and each at one odd shape: a 37x23 FK build, and a
+    40^2 one on a 2x2 mesh.  A rerun must be bit-identical, and every other
+    stream bit-identical to the launch without the stream."""
+    from pylamp_tpu_torch.markers.kernels import m2g, m2g_block
+    from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.parallel.halo_markers import BLK3, m2g_fused_halo
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    phys = cfg.physics
+    f32 = torch.float32
+    rows, errs = [], {"m2g_ra": [], "m2g_block_ra": []}
+
+    def held(name, label, run, plain, base_run):
+        got, again, ref, base = run(), run(), plain(), base_run()
+        if sorted(got) != sorted(ref) or "c_ra" not in got:
+            raise AssertionError(f"{name} {label}: streams {sorted(got)} vs "
+                                 f"{sorted(ref)}")
+        bad = [k for k in got if not torch.equal(got[k], again[k])]
+        bad += [k for k in base if not torch.equal(got[k], base[k])]
+        if bad:
+            raise AssertionError(f"{name} {label}: a rerun or the launch "
+                                 f"without rho0 * alpha differs in {bad}")
+        errs[name].append(errors((got[k], ref[k]) for k in ref))
+        log(f"{name} {label}: kernel vs plain rel {errs[name][-1][1]:.3e} "
+            f"(c_ra {errors([(got['c_ra'], ref['c_ra'])])[1]:.3e}); rerun "
+            "and the other streams bit-identical")
+        return got
+
+    small_grid, _, small = build(fk_stagnant_lid(nx=37, ny=23), dtype=f32,
+                                 device="cuda")
+    for g, m, label in ((grid, state.markers, f"FK {grid.nx}^2"),
+                        (small_grid, small.markers, "odd 37x23")):
+        kw = dict(with_energy=True)
+        got = held("m2g_ra", label,
+                   partial(m2g.m2g_fused_cuda, m, g, table, phys, **kw,
+                           with_ra=True),
+                   partial(m2g.m2g_fused_plain, m, g, table, phys, **kw,
+                           with_ra=True),
+                   partial(m2g.m2g_fused_cuda, m, g, table, phys, **kw))
+        if not rows:
+            rows.append((
+                "m2g_ra", "pylamp_tpu_torch/csrc/m2g.cu",
+                "pylamp_tpu/markers/pallas/m2g_kernel.py:407", None,
+                partial(m2g.m2g_fused_cuda, m, g, table, phys, **kw,
+                        with_ra=True),
+                partial(m2g.m2g_fused_plain, m, g, table, phys, **kw,
+                        with_ra=True), 5,
+                bound_ms(nbytes(m.x, m.y, m.T, m.mat, m.valid,
+                                *got.values()),
+                         OPS["m2g"] * int(m.total()))))
+
+    small_grid, _, small = build(fk_stagnant_lid(nx=40, ny=40), dtype=f32,
+                                 device="cuda")
+    for g, m, msh, label in ((grid, state.markers, make_mesh(MESH_SHARDS),
+                              f"FK {grid.nx}^2 on 4x2"),
+                             (small_grid, small.markers, make_mesh(4),
+                              "odd 40^2 on 2x2")):
+        by, bx = g.ny // msh.my, g.nx // msh.mx
+        bases = msh.bases(by, bx, device="cuda")
+        ext = [msh.flat(msh.ext1(msh.split(a, BLK3), nd=3))
+               for a in (m.x, m.y, m.T, m.mat, m.valid)]
+        kw = dict(with_energy=True)
+        got = held("m2g_block_ra", label,
+                   partial(m2g_block.m2g_fused_block_cuda, *ext, g, table,
+                           phys, bases, **kw, with_ra=True),
+                   partial(m2g_block.m2g_fused_block_plain, *ext, g, table,
+                           phys, bases, **kw, with_ra=True),
+                   partial(m2g_block.m2g_fused_block_cuda, *ext, g, table,
+                           phys, bases, **kw))
+        halo = m2g_fused_halo(m, g, table, phys, msh, with_energy=True,
+                              with_ra=True)
+        glob = m2g.m2g_fused_cuda(m, g, table, phys, with_energy=True,
+                                  with_ra=True)
+        err = errors([(halo["c_ra"], glob["c_ra"])])
+        log(f"m2g_block_ra {label}: the halo transfer's c_ra vs kernel 2's "
+            f"rel {err[1]:.3e}")
+        errs["m2g_block_ra"].append(err)
+        if len(rows) == 1:
+            rows.append((
+                "m2g_block_ra", "pylamp_tpu_torch/csrc/m2g_block.cu",
+                "pylamp_tpu/markers/pallas/m2g_kernel.py:283", None,
+                partial(m2g_block.m2g_fused_block_cuda, *ext, g, table, phys,
+                        bases, **kw, with_ra=True),
+                partial(m2g_block.m2g_fused_block_plain, *ext, g, table,
+                        phys, bases, **kw, with_ra=True), 3,
+                bound_ms(nbytes(*ext, bases, *got.values()),
+                         OPS["m2g"] * int(ext[4].sum()))))
+    return [(name, src, rep, tuple(max(e[i] for e in errs[name])
+                                   for i in (0, 1)), *rest)
+            for name, src, rep, _, *rest in rows]
+
+
+def heated_paths(grid, table, state0, modules):
+    """FK 1024^2 with the reference's four thermal switches
+    (``models.profile.fk_heated_config``: shear and adiabatic heating,
+    subgrid diffusion d = 1, reseeding below 2 per cell) and its partner
+    with the energy multigrid and flexible CG, from the FK build's state,
+    steps interleaved.  Every counter is set to 0 just before each step and
+    read just after it: kernels 1-6 must launch, kernel 2 on every launch
+    with the rho0 * alpha stream, no other kernel; each step must converge
+    (Stokes to 1e-8, energy to its 1e-10), drop nothing, keep every field
+    finite, and keep the count it started from until reseeding.  Krylov
+    counts within +-max(KRYLOV_AB_TOL, HEATED_KRYLOV_REL) of the
+    partner's, and after step 1 T within HEATED_T_TOL max|T| of it.  The
+    noise floor of the Krylov comparison is logged: step 2 of a twin of the
+    Jacobi path whose marker T is nudged up by one f32 ulp in a
+    NOISE_FRACTION of the slots after step 1.  Returns (the heated path's
+    record, its last state)."""
+    from pylamp_tpu_torch.models.profile import fk_heated_config
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    six = ("saddle", "m2g", "advect", "rebucket", "cheb", "coarse_vcycle")
+    steps = {"jacobi_cg": make_step(grid, fk_heated_config(grid.nx), table),
+             "mg_fcg": make_step(grid, fk_heated_config(grid.nx, "mg"),
+                                 table)}
+    m2g = modules["m2g"]
+    states = dict.fromkeys(steps, state0)
+    rec = {p: dict(step_s=[], krylov=[], energy=[], markers=[],
+                   launches={k: 0 for k in modules}, launches_ra=0)
+           for p in steps}
+    for i in range(HEATED_WARMUP_STEPS + HEATED_MEASURED_STEPS):
+        kind = "warm-up" if i < HEATED_WARMUP_STEPS else "measured"
+        order = list(steps) if i % 2 == 0 else list(steps)[::-1]
+        for p in order:
+            for mod in modules.values():
+                mod.launches = 0
+            m2g.launches_ra = 0
+            tag = f"heated FK {p} step {i + 1} ({kind})"
+            st, dt_s, it, diag = take_step(
+                steps[p], states[p], int(states[p].markers.total()),
+                {k: modules[k] for k in six}, tag)
+            other = {k: mod.launches for k, mod in modules.items()
+                     if k not in six and mod.launches}
+            if other:
+                raise AssertionError(f"{tag}: other kernels launched: "
+                                     f"{other}")
+            if not 0 < m2g.launches_ra == m2g.launches:
+                raise AssertionError(
+                    f"{tag}: {m2g.launches_ra} of {m2g.launches} m2g "
+                    "launches with the rho0 * alpha stream")
+            if not diag["energy_converged"]:
+                raise AssertionError(f"{tag}: the energy solve did not "
+                                     "converge")
+            states[p] = st
+            r = rec[p]
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            r["energy"].append(int(diag["energy_iterations"]))
+            r["markers"].append(int(st.markers.total()))
+            r["launches_ra"] += m2g.launches_ra
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+        if i == 0:
+            a, b = states["jacobi_cg"].T, states["mg_fcg"].T
+            dT = float(torch.max(torch.abs(a - b)))
+            tmax = float(torch.max(torch.abs(b)))
+            log(f"heated FK after step 1: Jacobi-CG vs MG-FCG max |dT| / "
+                f"max|T| {dT / tmax:.3e} (bar {HEATED_T_TOL:g})")
+            if not dT <= HEATED_T_TOL * tmax:
+                raise AssertionError("the energy-MG partner's T disagrees")
+            twin = states["jacobi_cg"]
+            mT = twin.markers.T
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            nudge = torch.rand(mT.shape, generator=gen,
+                               device="cuda") < NOISE_FRACTION
+            up = torch.nextafter(mT, torch.full_like(mT, math.inf))
+            twin = twin.replace(markers=twin.markers.replace(
+                T=torch.where(nudge, up, mT)))
+            _, tdiag = steps["jacobi_cg"](twin)
+            noise = int(tdiag["stokes_iterations"])
+    meas = slice(HEATED_WARMUP_STEPS, None)
+    for p, r in rec.items():
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"heated FK {grid.nx}^2 on {smi} ({p}): median "
+            f"{r['median_s_per_step']:.3f} s/step over "
+            f"{HEATED_MEASURED_STEPS} steps, {mean(r['krylov'][meas]):.1f} "
+            f"Krylov iterations/step, energy iterations {r['energy']}, "
+            f"markers after each step {r['markers']}; launches "
+            f"{r['launches']}, with rho0 * alpha {r['launches_ra']}")
+    log(f"heated FK Krylov noise floor: step 2 of the Jacobi path with "
+        f"{NOISE_FRACTION:g} of its marker T one f32 ulp up after step 1: "
+        f"{noise} Krylov iterations, unperturbed "
+        f"{rec['jacobi_cg']['krylov'][1]}, MG-FCG partner "
+        f"{rec['mg_fcg']['krylov'][1]}")
+    log("heated A/B " + json.dumps({"device": smi, "noise_step2": noise,
+                                    **rec}))
+    for i, (a, b) in enumerate(zip(rec["jacobi_cg"]["krylov"],
+                                   rec["mg_fcg"]["krylov"])):
+        if abs(a - b) > max(KRYLOV_AB_TOL, HEATED_KRYLOV_REL * a):
+            raise AssertionError(
+                f"heated step {i + 1}: {a} Krylov iterations (Jacobi-CG), "
+                f"{b} (MG-FCG) (bar +-max({KRYLOV_AB_TOL}, "
+                f"{HEATED_KRYLOV_REL:.0%}))")
+    return rec["jacobi_cg"], states["jacobi_cg"]
+
+
+def reseed_check(grid, table, state):
+    """``bucket_reseed`` at RESEED_MIN per cell on the card against the same
+    call on the CPU, on a heated state: at least one marker spawned, valid
+    and mat equal, x and y within one f32 spacing, T within 1e-6 max|T|.
+    Also times the thermal path's extra tensor work on the card: the
+    reseed, and subgrid diffusion's one-stream g2m and m2g on every slot."""
+    from pylamp_tpu_torch.markers.bucket import (
+        BucketedMarkers,
+        bucket_grid_to_markers,
+        bucket_markers_to_grid,
+        bucket_reseed,
+    )
+
+    m, T = state.markers, state.T
+    nmat = len(table)
+    got = bucket_reseed(m, T, grid, RESEED_MIN, n_materials=nmat)
+    cpu = BucketedMarkers(**{f: getattr(m, f).cpu()
+                             for f in ("x", "y", "mat", "T", "valid")})
+    ref = bucket_reseed(cpu, T.cpu(), grid, RESEED_MIN, n_materials=nmat)
+    spawned = int(got.total()) - int(m.total())
+    same = (torch.equal(got.valid.cpu(), ref.valid)
+            and torch.equal(got.mat.cpu(), ref.mat))
+    gap = 0.0
+    for f in ("x", "y"):
+        g, r = getattr(got, f).cpu(), getattr(ref, f)
+        top = torch.maximum(torch.abs(g), torch.abs(r))
+        spacing = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        gap = max(gap, float(torch.max(torch.abs(g - r) / spacing)))
+    dT = float(torch.max(torch.abs(got.T.cpu() - ref.T)))
+    tmax = float(torch.max(torch.abs(ref.T)))
+    log(f"reseed at {RESEED_MIN}/cell, card vs CPU: {spawned} spawned, "
+        f"valid and mat {'equal' if same else 'DIFFER'}, x/y within "
+        f"{gap:.2f} f32 spacings, max |dT| / max|T| {dT / tmax:.3e}")
+    if not (spawned >= 1 and same and gap <= 1.0 and dT <= 1e-6 * tmax):
+        raise AssertionError("reseeding on the card disagrees with the CPU "
+                             "or spawned nothing")
+    ms = {
+        "reseed_min2": cuda_time_ms(
+            lambda: bucket_reseed(m, T, grid, 2, n_materials=nmat), 3),
+        "g2m_corner": cuda_time_ms(
+            lambda: bucket_grid_to_markers(T, m.x, m.y, m.valid, grid,
+                                           "corner"), 3),
+        "m2g_corner_one_stream": cuda_time_ms(
+            lambda: bucket_markers_to_grid(m, m.T, grid, "corner"), 3),
+    }
+    log("thermal tensor work on the card (ms, "
+        f"{tuple(m.x.shape)} slots): " + json.dumps(ms))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1544,6 +1849,7 @@ def main():
         fk_bench_config,
         sticky_air_bench_config,
     )
+    from pylamp_tpu_torch.models.profile import fk_heated_config
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step, make_step_phases
     from pylamp_tpu_torch.ops.kernels import (
@@ -1578,6 +1884,8 @@ def main():
     fk_io = fk["io"]
     rows += mesh_kernel_rows(grid, cfg, table, state0, fk)
     del fk
+    cfg_h = fk_heated_config(FK_NX)
+    rows += ra_kernel_rows(grid, cfg_h, table, state0)
 
     cfg_s = sticky_air_bench_config(STICKY_NX)
     t0 = time.perf_counter()
@@ -1661,6 +1969,13 @@ def main():
                 f"kernels, {b} without (bar +-{KRYLOV_AB_TOL})")
 
     launches_m = mesh_path(grid, cfg, table, state0, n_markers, modules)
+    rec_h, state_h = heated_paths(grid, table, state0, modules)
+    reseed_check(grid, table, state_h)
+    del state_h
+    launches_hm = mesh_path(grid, cfg_h, table, state0, None, modules,
+                            label="heated FK mesh",
+                            measured=HEATED_MESH_MEASURED_STEPS, ra=True,
+                            krylov_rel=HEATED_KRYLOV_REL)
     del state0
     launches_s = sticky_air_paths(grid_s, cfg_s, table_s, state_s,
                                   n_markers_s,
@@ -1676,16 +1991,34 @@ def main():
 
     def periodic_count(k, path):
         """Launches of row ``k``'s form on a periodic path: a periodic
-        row's periodic-form launches, a wall-form row's wall-form ones."""
+        row's periodic-form launches, a wall-form row's wall-form ones
+        (the rho0 * alpha rows: none, no periodic path runs them)."""
+        if k.endswith("_ra"):
+            return 0
         base = k.removesuffix("_periodic")
         r = rec_p[path]
         n_periodic = r["launches_periodic"].get(base, 0)
         return n_periodic if k != base else r["launches"][base] - n_periodic
 
+    def heated_count(k, launches_by_kernel, ra_kernel, n_ra):
+        """Launches of row ``k``'s form on a heated path whose kernel
+        ``ra_kernel`` launched ``n_ra`` times with the rho0 * alpha stream
+        (every time: the path checks it)."""
+        if k.endswith("_periodic"):
+            return 0
+        if k.endswith("_ra"):
+            return n_ra if k == f"{ra_kernel}_ra" else 0
+        return launches_by_kernel[k] - (n_ra if k == ra_kernel else 0)
+
     def main_count(k):
         """Launches on the path of the row's slice: kernels 1-7 the
         sticky-air path (all seven), 8-12 the mesh path, the periodic forms
-        the periodic preset (1-5) or its partner (7)."""
+        the periodic preset (1-5) or its partner (7), the rho0 * alpha
+        forms of 2 and 10 the heated FK path and its mesh form."""
+        if k == "m2g_ra":
+            return rec_h["launches_ra"]
+        if k == "m2g_block_ra":
+            return launches_hm["mesh_4x2"]["m2g_block"]
         if k.endswith("_block"):
             return launches_m["mesh_4x2"][k]
         if k.endswith("_periodic"):
@@ -1695,7 +2028,7 @@ def main():
 
     kernels = []
     for k, r in results.items():
-        base = k.removesuffix("_periodic")
+        base = k.removesuffix("_periodic").removesuffix("_ra")
         wall_form = k == base
         kernels.append(dict(
             name=k, route="cuda", source=r["source"], replaces=r["replaces"],
@@ -1707,7 +2040,12 @@ def main():
                                      if wall_form else 0),
                 "falling_block_periodic_1024": periodic_count(k, "preset"),
                 "falling_block_periodic_1024_partner": periodic_count(
-                    k, "partner")},
+                    k, "partner"),
+                "fk_1024_heated": heated_count(
+                    k, rec_h["launches"], "m2g", rec_h["launches_ra"]),
+                "fk_1024_heated_mesh_4x2": heated_count(
+                    k, launches_hm["mesh_4x2"], "m2g_block",
+                    launches_hm["mesh_4x2"]["m2g_block"])},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -26,6 +26,10 @@
 // with the x neighbourhood wrapped (m2g_node.cuh), and the column-0 thread
 // also writes the seam column nx of the corner and vx lattices, so both
 // seam columns carry the one seam sum, from one fixed gather order.
+//
+// The rho0 * alpha corner stream (flag WITH_RA, with the energy streams;
+// the RA instantiations) is one more register accumulator of the same
+// gather, written like c_H, the seam column included.
 #include "common.cuh"
 #include "m2g_node.cuh"
 
@@ -39,7 +43,7 @@ struct GlobalCells {
     }
 };
 
-template <bool P>
+template <bool P, bool RA>
 __global__ void m2g_kernel(const float* __restrict__ x,
                            const float* __restrict__ y,
                            const float* __restrict__ T,
@@ -51,8 +55,9 @@ __global__ void m2g_kernel(const float* __restrict__ x,
     const int J = blockIdx.y * blockDim.y + threadIdx.y;
     if (I > nx || J > ny) return;
     if (P && I == nx) return;  // the seam column: the column-0 thread's
-    const NodeSums r = m2g_gather<P>(GlobalCells{nx, K}, x, y, T, mat, valid,
-                                     tbl, J, I, ny, nx, K, dx, dy, flags);
+    const NodeSums r = m2g_gather<P, RA>(GlobalCells{nx, K}, x, y, T, mat,
+                                         valid, tbl, J, I, ny, nx, K, dx, dy,
+                                         flags);
 
     const long long qc = static_cast<long long>(J) * (nx + 1) + I;
     const long long qn = static_cast<long long>(J) * nx + I;
@@ -86,11 +91,13 @@ __global__ void m2g_kernel(const float* __restrict__ x,
         out.p[C_K][qc] = r.v[C_K];
         out.p[C_RHOCP][qc] = r.v[C_RHOCP];
         if (flags & WITH_H) out.p[C_H][qc] = r.v[C_H];
+        if (RA) out.p[C_RA][qc] = r.v[C_RA];
         if (seam) {
             out.p[C_T][qs] = r.v[C_T];
             out.p[C_K][qs] = r.v[C_K];
             out.p[C_RHOCP][qs] = r.v[C_RHOCP];
             if (flags & WITH_H) out.p[C_H][qs] = r.v[C_H];
+            if (RA) out.p[C_RA][qs] = r.v[C_RA];
         }
     }
 }
@@ -107,12 +114,14 @@ PYLAMP_EXPORT int launch_m2g(const float* x, const float* y, const float* T,
     for (int n = 0; n < N_OUT; ++n)
         out.p[n] = static_cast<float* const*>(outs)[n];
     dim3 block(32, 4);
-    if (flags & PERIODIC)
-        m2g_kernel<true><<<grid2d(ny + 1, nx + 1, block), block, 0, stream>>>(
-            x, y, T, mat, valid, tbl, out, ny, nx, K, dx, dy, flags);
-    else
-        m2g_kernel<false><<<grid2d(ny + 1, nx + 1, block), block, 0,
-                             stream>>>(x, y, T, mat, valid, tbl, out, ny, nx,
+    const dim3 grid = grid2d(ny + 1, nx + 1, block);
+    // RA only with the energy streams, as the wrapper sets it
+    const bool ra = (flags & WITH_RA) && (flags & WITH_ENERGY);
+    auto kernel = (flags & PERIODIC) ? (ra ? m2g_kernel<true, true>
+                                           : m2g_kernel<true, false>)
+                                     : (ra ? m2g_kernel<false, true>
+                                           : m2g_kernel<false, false>);
+    kernel<<<grid, block, 0, stream>>>(x, y, T, mat, valid, tbl, out, ny, nx,
                                        K, dx, dy, flags);
     return launch_status();
 }

@@ -17,7 +17,9 @@
 // shard's node frame; entries of nodes the global lattice lacks are 0, and
 // center/vx-kind entries on the frame's last row and vy/center-kind ones
 // on its last column are partial (their cells lie beyond the ring) and
-// unused.  No atomics: one writer per node, a fixed order.
+// unused.  No atomics: one writer per node, a fixed order.  The rho0 *
+// alpha corner stream (flag WITH_RA, with the energy streams) is the RA
+// instantiation of the shared gather.
 #include "common.cuh"
 #include "m2g_node.cuh"
 
@@ -35,6 +37,7 @@ struct BlockCells {
     }
 };
 
+template <bool RA>
 __global__ void m2g_block_kernel(const float* __restrict__ x,
                                  const float* __restrict__ y,
                                  const float* __restrict__ T,
@@ -59,11 +62,12 @@ __global__ void m2g_block_kernel(const float* __restrict__ x,
     const BlockCells cells{
         static_cast<long long>(s) * (by + 2) * (bx + 2) * K, row_base,
         col_base, by, bx, K};
-    const NodeSums sums = m2g_gather(cells, x, y, T, mat, valid, tbl, J, I,
-                                     ny, nx, K, dx, dy, flags);
+    const NodeSums sums = m2g_gather<false, RA>(cells, x, y, T, mat, valid,
+                                                tbl, J, I, ny, nx, K, dx, dy,
+                                                flags);
     const bool has[N_OUT] = {true, true, sums.has_n, sums.has_n, sums.has_vy,
                              sums.has_vy, sums.has_vx, sums.has_vx, true,
-                             true, true, true};
+                             true, true, true, true};
     for (int n = 0; n < N_OUT; ++n)
         if (out.p[n] != nullptr) out.p[n][o] = has[n] ? sums.v[n] : 0.0f;
 }
@@ -84,8 +88,9 @@ PYLAMP_EXPORT int launch_m2g_block(const float* x, const float* y,
     dim3 block(32, 4);
     dim3 grid((bx + 1 + block.x - 1) / block.x,
               (by + 1 + block.y - 1) / block.y, S);
-    m2g_block_kernel<<<grid, block, 0, stream>>>(x, y, T, mat, valid, bases,
-                                                 tbl, out, ny, nx, by, bx, K,
-                                                 dx, dy, flags);
+    const bool ra = (flags & WITH_RA) && (flags & WITH_ENERGY);
+    auto kernel = ra ? m2g_block_kernel<true> : m2g_block_kernel<false>;
+    kernel<<<grid, block, 0, stream>>>(x, y, T, mat, valid, bases, tbl, out,
+                                       ny, nx, by, bx, K, dx, dy, flags);
     return launch_status();
 }

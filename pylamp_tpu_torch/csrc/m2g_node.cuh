@@ -16,6 +16,11 @@
 // shifted by the wrap of that cell (markers/bucket.py _lattice_local with
 // periodic_x).  The caller writes the seam column nx of the nx+1-wide
 // lattices from the column-0 thread.
+//
+// RA (a template switch; RA = false is the form above, unchanged): with the
+// energy streams, one more corner accumulator, w * rho0 * alpha of the
+// marker's material (adiabatic heating's coefficient), in the same slot
+// order as every other corner stream.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,12 +40,13 @@ struct M2GTable {
 
 // output planes, in this order; unused ones are null
 enum Out { C_W, C_ETA, N_W, N_ETA, VY_W, VY_RHO, VX_W, VX_RHO,
-           C_T, C_K, C_RHOCP, C_H, N_OUT };
+           C_T, C_K, C_RHOCP, C_H, C_RA, N_OUT };
 struct M2GOut {
     float* p[N_OUT];
 };
 
-enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4, PERIODIC = 8 };
+enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4, PERIODIC = 8,
+             WITH_RA = 16 };
 
 // weight of node `node` from a marker at lattice coordinate f on an axis
 // whose nodes 0..n_nodes-1 sit at origin + index * h (f already in index
@@ -74,7 +80,7 @@ struct NodeSums {
 
 // The markers' streams; Cells::base(cj, ci) is the first slot of global
 // cell (cj, ci) in them, or -1 where the layout has no such cell.
-template <bool P = false, class Cells>
+template <bool P = false, bool RA = false, class Cells>
 __device__ __forceinline__ NodeSums m2g_gather(
     const Cells& cells, const float* __restrict__ x,
     const float* __restrict__ y, const float* __restrict__ T,
@@ -91,7 +97,7 @@ __device__ __forceinline__ NodeSums m2g_gather(
 
     float c_w = 0.f, c_eta = 0.f, n_w = 0.f, n_eta = 0.f;
     float vy_w = 0.f, vy_rho = 0.f, vx_w = 0.f, vx_rho = 0.f;
-    float c_T = 0.f, c_k = 0.f, c_rhocp = 0.f, c_H = 0.f;
+    float c_T = 0.f, c_k = 0.f, c_rhocp = 0.f, c_H = 0.f, c_ra = 0.f;
 
     for (int cj = J - 1; cj <= J + 1; ++cj) {
         if (cj < 0 || cj >= ny) continue;
@@ -165,6 +171,8 @@ __device__ __forceinline__ NodeSums m2g_gather(
                     c_k += w_c * tbl.k[m];
                     c_rhocp += w_c * (tbl.rho0[m] * tbl.cp[m]);
                     c_H += w_c * tbl.H[m];
+                    if constexpr (RA)
+                        c_ra += w_c * (tbl.rho0[m] * tbl.alpha[m]);
                 }
             }
         }
@@ -181,6 +189,7 @@ __device__ __forceinline__ NodeSums m2g_gather(
     out.v[C_K] = c_k;
     out.v[C_RHOCP] = c_rhocp;
     out.v[C_H] = c_H;
+    out.v[C_RA] = c_ra;
     out.has_n = has_n;
     out.has_vy = has_vy;
     out.has_vx = has_vx;

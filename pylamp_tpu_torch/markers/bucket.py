@@ -14,7 +14,9 @@ checked against.
   directly, masked to the reference's (2 reach + 2)^2 shift window;
 - ``rebucket`` repacks every bucket from its 3x3 neighbourhood in the
   reference's insertion order ((a, b) slab-major, slot-minor) by a prefix
-  sum over the candidates; the result is identical slot for slot.
+  sum over the candidates; the result is identical slot for slot;
+- ``bucket_reseed`` refills starved cells with the reference's spawn rule
+  (3x3 material majority, golden-ratio sub-cell offsets, T from the grid).
 
 With ``periodic_x`` every x neighbourhood wraps with period nx: node
 columns of the marker->grid sums (lattices with a duplicated seam column
@@ -406,3 +408,62 @@ def pack_candidates(takes, cands, K: int):
     new = BucketedMarkers(x=pack("x"), y=pack("y"), mat=pack("mat"),
                           T=pack("T"), valid=valid)
     return new, arrivals
+
+
+# -- reseeding ----------------------------------------------------------------------------
+
+def material_histogram(bm: BucketedMarkers, n_materials: int):
+    """(ny, nx, n_materials) int32 count of each cell's valid markers per
+    material id."""
+    return torch.stack(
+        [torch.sum(bm.valid & (bm.mat == m), dim=-1, dtype=torch.int32)
+         for m in range(n_materials)], dim=-1)
+
+
+def reseed_spawn(bm: BucketedMarkers, majority, grid: StaggeredGrid,
+                 min_per_cell: int):
+    """The cell-local half of ``bucket_reseed``: which empty slots spawn
+    (the first ``min_per_cell - count`` free slots of each cell, ranked by a
+    prefix sum over K) and the new markers' x, y and material.  The
+    golden-ratio sub-cell offsets are computed in f64 (the reference's x64
+    dtype) and cast to the marker dtype last.  Returns (spawn, x, y, mat)."""
+    ny, nx, K = bm.x.shape
+    dev = bm.x.device
+    deficit = torch.clamp(min_per_cell - bm.count(), min=0)
+    free_rank = torch.cumsum((~bm.valid).to(torch.int32), dim=-1,
+                             dtype=torch.int32) - 1
+    spawn = (~bm.valid) & (free_rank < deficit[:, :, None])
+
+    f64 = torch.float64
+    s = torch.arange(K, dtype=f64, device=dev)
+    off_x = (torch.remainder(s * 0.381966, 1.0) - 0.5) * 0.5
+    off_y = (torch.remainder(s * 0.618034, 1.0) - 0.5) * 0.5
+    ci = torch.arange(nx, dtype=f64, device=dev).view(1, nx, 1)
+    cj = torch.arange(ny, dtype=f64, device=dev).view(ny, 1, 1)
+    sx = (ci + 0.5 + off_x) * grid.dx
+    sy = (cj + 0.5 + off_y) * grid.dy
+    new_x = torch.where(spawn, sx.to(bm.x.dtype), bm.x)
+    new_y = torch.where(spawn, sy.to(bm.y.dtype), bm.y)
+    new_mat = torch.where(spawn, majority[:, :, None], bm.mat)
+    return spawn, new_x, new_y, new_mat
+
+
+def bucket_reseed(bm: BucketedMarkers, T_grid, grid: StaggeredGrid,
+                  min_per_cell: int, n_materials: int = 8,
+                  periodic_x: bool = False):
+    """Fill cells below ``min_per_cell`` up from empty slots: new markers at
+    deterministic sub-cell positions, T from the grid, material = the 3x3
+    neighbourhood majority (a one-hot histogram over ``n_materials``
+    material ids; ties go to the lowest id, as ``jnp.argmax``; the
+    neighbourhood wraps in x with ``periodic_x``)."""
+    hist = material_histogram(bm, n_materials)
+    acc = torch.zeros_like(hist)
+    for a, b in OFFSETS:
+        acc = acc + _shift3(hist, a, b, periodic_x)
+    majority = torch.argmax(acc, dim=-1).to(torch.int32)
+    spawn, new_x, new_y, new_mat = reseed_spawn(bm, majority, grid,
+                                                min_per_cell)
+    T_at = bucket_grid_to_markers(T_grid, new_x, new_y, spawn, grid, "corner",
+                                  periodic_x=periodic_x)
+    return bm.replace(x=new_x, y=new_y, T=torch.where(spawn, T_at.to(
+        bm.T.dtype), bm.T), mat=new_mat, valid=bm.valid | spawn)

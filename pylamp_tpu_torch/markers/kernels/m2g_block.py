@@ -33,8 +33,10 @@ from pylamp_tpu_torch.markers.kernels.m2g import (
 )
 from pylamp_tpu_torch.physics.materials import MaterialTable
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those with the rho0 * alpha stream
 launches = 0
+launches_ra = 0
 
 
 def _frame_iota(bases, bye: int, bxe: int):
@@ -100,12 +102,13 @@ def m2g_block_sums(xe, ye, ve, values, grid: StaggeredGrid, loc: str, bases):
 
 def m2g_fused_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid,
                           table: MaterialTable, phys, bases,
-                          with_energy: bool = False):
+                          with_energy: bool = False, with_ra: bool = False):
     """Plain PyTorch version: marker properties, then ``m2g_block_sums``
     on each lattice."""
     out = {}
     for loc, wname, streams in _lattice_streams(Te, me, ve, table, phys,
-                                                with_energy, xe.dtype):
+                                                with_energy, xe.dtype,
+                                                with_ra):
         w, wvs = m2g_block_sums(xe, ye, ve, list(streams.values()), grid,
                                 loc, bases)
         out[wname] = w
@@ -124,8 +127,8 @@ def _check(name, t, dtype, shape):
 
 def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
                          table: MaterialTable, phys, bases,
-                         with_energy: bool = False):
-    global launches
+                         with_energy: bool = False, with_ra: bool = False):
+    global launches, launches_ra
     S, bye, bxe, K = xe.shape
     by, bx = bye - 2, bxe - 2
     for name, t, dtype in (("x", xe, torch.float32), ("y", ye, torch.float32),
@@ -133,14 +136,15 @@ def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
                            ("valid", ve, torch.bool)):
         _check(name, t, dtype, (S, bye, bxe, K))
     _check("bases", bases, torch.int32, (S, 2))
-    with_vx, with_h, names = _streams(table, phys, with_energy)
+    with_vx, with_h, with_ra, names = _streams(table, phys, with_energy,
+                                               with_ra)
     dev = xe.device
     out = {name: torch.empty((S, by + 1, bx + 1), dtype=torch.float32,
                              device=dev) for name in names}
     ptrs = (ctypes.c_void_p * len(OUT_ORDER))(
         *[out[name].data_ptr() if name in out else None for name in OUT_ORDER])
     tbl = _table_struct(table, phys)
-    flags = (1 * with_vx) | (2 * with_energy) | (4 * with_h)
+    flags = (1 * with_vx) | (2 * with_energy) | (4 * with_h) | (16 * with_ra)
     code = cuda_build.library().launch_m2g_block(
         xe.data_ptr(), ye.data_ptr(), Te.data_ptr(), me.data_ptr(),
         ve.data_ptr(), bases.data_ptr(), ctypes.addressof(tbl),
@@ -148,16 +152,17 @@ def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
         grid.dy, flags, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "m2g_block")
     launches += 1
+    launches_ra += with_ra
     return out
 
 
 def m2g_fused_block(xe, ye, Te, me, ve, grid: StaggeredGrid,
                     table: MaterialTable, phys, bases,
-                    with_energy: bool = False):
+                    with_energy: bool = False, with_ra: bool = False):
     """Raw weighted-sum planes of every stream on the shards' node frames:
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if xe.is_cuda:
         return m2g_fused_block_cuda(xe, ye, Te, me, ve, grid, table, phys,
-                                    bases, with_energy)
+                                    bases, with_energy, with_ra)
     return m2g_fused_block_plain(xe, ye, Te, me, ve, grid, table, phys, bases,
-                                 with_energy)
+                                 with_energy, with_ra)

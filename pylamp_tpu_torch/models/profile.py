@@ -1,10 +1,12 @@
 """Where the time goes in the port's step, on one GPU.
 
     python -m pylamp_tpu_torch.models.profile
-        [--config fk|sticky_air|falling_block_periodic]
+        [--config fk|fk_heated|fk_heated_mg|sticky_air|falling_block_periodic]
         [--nx 1024] [--steps 2] [--mesh 4x2]
 
 Builds ``fk_bench_config(nx)`` (FK nx^2, the default),
+``fk_heated_config(nx)`` (the same with the reference's four thermal
+switches; ``fk_heated_mg``: with the energy multigrid and flexible CG),
 ``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) or
 ``falling_block_periodic_config(nx)`` (periodic side walls, nx^2) on the
 card in f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
@@ -12,8 +14,9 @@ reference's CLI: the explicit-halo step on that in-process mesh)
 
 1. runs ``--steps`` steps through ``models.step.run_step`` with a device
    synchronize around each phase (interp, stokes, timestep, energy,
-   advect), for the mean seconds of each phase and the launches per step
-   of every kernel (the wrappers' counters; of the periodic forms too);
+   advect), for the mean seconds of each phase, the Krylov and energy
+   iterations and the launches per step of every kernel (the wrappers'
+   counters; of the periodic forms and of the rho0 * alpha stream too);
 2. times one whole step without synchronizes inside it;
 3. traces the next step with ``torch.profiler`` (device activity only):
    device busy time is the union of the kernel, memcpy and memset
@@ -36,6 +39,7 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+from dataclasses import replace
 
 import torch
 
@@ -45,7 +49,28 @@ from pylamp_tpu_torch.models.benchmarks import (
     sticky_air_bench_config,
 )
 
-CONFIGS = {"fk": fk_bench_config, "sticky_air": sticky_air_bench_config,
+
+
+def fk_heated_config(nx: int = 1024, energy_preconditioner: str = "jacobi"):
+    """``fk_bench_config(nx)`` with the reference's thermal switches, set
+    as tests/test_heating.py sets the heating terms: shear and adiabatic
+    heating, subgrid diffusion with d = 1 (Gerya's standard value) and
+    reseeding below 2 markers per cell (scripts/validate_van_keken.py).
+    ``energy_preconditioner="mg"``: the energy multigrid with flexible CG.
+    Not a preset of either package: the switches on the bench preset."""
+    cfg = fk_bench_config(nx)
+    return replace(
+        cfg,
+        physics=replace(cfg.physics, shear_heating=True,
+                        adiabatic_heating=True, subgrid_diffusion_d=1.0,
+                        reseed_min_per_cell=2),
+        solver=replace(cfg.solver,
+                       energy_preconditioner=energy_preconditioner))
+
+
+CONFIGS = {"fk": fk_bench_config, "fk_heated": fk_heated_config,
+           "fk_heated_mg": lambda nx: fk_heated_config(nx, "mg"),
+           "sticky_air": sticky_air_bench_config,
            "falling_block_periodic": falling_block_periodic_config}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WARMUP_STEPS = 2
@@ -107,8 +132,6 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("profile: no CUDA device")
 
-    from dataclasses import replace
-
     from pylamp_tpu_torch.markers.kernels import (
         advect,
         advect_block,
@@ -145,19 +168,19 @@ def main(argv=None):
         st, _ = run_step(ph, st)
 
     phases = defaultdict(float)
-    iters = 0
-    periodic = {k: mod for k, mod in kernels.items()
-                if hasattr(mod, "launches_periodic")}
-    for mod in kernels.values():
-        mod.launches = 0
-    for mod in periodic.values():
-        mod.launches_periodic = 0
+    iters = energy_iters = 0
+    forms = {f: {k: mod for k, mod in kernels.items() if hasattr(mod, f)}
+             for f in ("launches", "launches_periodic", "launches_ra")}
+    for f, mods in forms.items():
+        for mod in mods.values():
+            setattr(mod, f, 0)
     for _ in range(args.steps):
         st, diag = run_step(ph, st, timed=synced_timer(phases))
         iters += diag["stokes_iterations"]
-    launches = {k: mod.launches / args.steps for k, mod in kernels.items()}
-    launches_periodic = {k: mod.launches_periodic / args.steps
-                         for k, mod in periodic.items()}
+        energy_iters += diag.get("energy_iterations", 0)
+    per_step = {f: {k: getattr(mod, f) / args.steps
+                    for k, mod in mods.items()}
+                for f, mods in forms.items()}
 
     (st, _), wall = _wall(lambda: run_step(ph, st))
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -182,8 +205,10 @@ def main(argv=None):
         "grid": [grid.ny, grid.nx],
         "phase_seconds": {k: v / args.steps for k, v in phases.items()},
         "krylov_iterations_per_step": iters / args.steps,
-        "kernel_launches_per_step": launches,
-        "periodic_form_launches_per_step": launches_periodic,
+        "energy_iterations_per_step": energy_iters / args.steps,
+        "kernel_launches_per_step": per_step["launches"],
+        "periodic_form_launches_per_step": per_step["launches_periodic"],
+        "ra_stream_launches_per_step": per_step["launches_ra"],
         "step": {
             "wall_s": wall,
             "traced_wall_s": traced_wall,

@@ -2,7 +2,9 @@
 bucket-engine branch on a uniform grid):
 
     marker props -> marker->grid -> Stokes solve -> dt (Courant)
-    -> implicit energy solve + marker T update -> RK4 advection -> rebucket
+    -> implicit energy solve (+ shear / adiabatic heating) + marker T
+    update (optional subgrid diffusion) -> RK4 advection -> rebucket
+    (-> optional reseeding of starved cells)
 
 The step keeps the reference's static kernel gates: with an f32 state the
 marker->grid transfer, the advection and the rebucket run through the
@@ -28,7 +30,13 @@ every Stokes and energy operator apply through the explicit-halo operators
 through the per-shard fused smoother, and the marker transfers, advection
 and rebucket through the explicit-halo marker engine with its per-shard
 kernels (parallel/halo_*.py); the single-device saddle, smoother and
-coarse-cycle kernels are off there, as in the reference.  With
+coarse-cycle kernels are off there, as in the reference.  The thermal
+branches (shear and adiabatic heating, subgrid diffusion, reseeding, the
+energy multigrid with flexible CG) run on every path; adiabatic heating's
+rho0 * alpha corner field comes from the fused transfer's ``c_ra`` stream
+(kernel 2, or kernel 10 on the mesh), and the one-stream transfers of
+subgrid diffusion and the reseeding majority vote take the explicit-halo
+engine on the mesh.  With
 ``explicit_halo=False`` a mesh changes nothing: the step runs on the global
 tensors, the single-device step, which is what the reference's GSPMD
 partitioning computes.
@@ -45,6 +53,8 @@ from pylamp_tpu_torch.markers.bucket import (
     BucketedMarkers,
     bucket_advect_rk4,
     bucket_grid_to_markers,
+    bucket_markers_to_grid,
+    bucket_reseed,
     rebucket,
 )
 from pylamp_tpu_torch.markers.kernels.advect import advect_rk4_fused
@@ -58,8 +68,11 @@ from pylamp_tpu_torch.parallel.halo_markers import (
     g2m_halo,
     halo_markers_eligible,
     m2g_fused_halo,
+    m2g_halo,
     rebucket_halo,
+    reseed_halo,
 )
+from pylamp_tpu_torch.physics.heating import adiabatic_heating, shear_heating
 from pylamp_tpu_torch.physics.materials import MaterialTable
 from pylamp_tpu_torch.solvers.energy_solver import (
     solve_energy,
@@ -92,6 +105,7 @@ class InterpOut(NamedTuple):
     k_g: Any = None
     rhocp_g: Any = None
     H_g: Any = None
+    ra_g: Any = None  # rho0 * alpha on the corner lattice (adiabatic heating)
 
 
 class StepPhases(NamedTuple):
@@ -111,11 +125,7 @@ def _check_slice(cfg: ModelConfig):
     phys, solver = cfg.physics, cfg.solver
     if cfg.marker_engine != "bucket":
         raise _later(f"the {cfg.marker_engine!r} marker engine")
-    for flag, what in ((phys.shear_heating, "shear heating"),
-                       (phys.adiabatic_heating, "adiabatic heating"),
-                       (phys.subgrid_diffusion_d > 0.0, "subgrid diffusion"),
-                       (phys.reseed_min_per_cell > 0, "marker reseeding"),
-                       (solver.preconditioner != "mg",
+    for flag, what in ((solver.preconditioner != "mg",
                         f"the {solver.preconditioner!r} Stokes preconditioner"),
                        (solver.mg_smoother != "chebyshev",
                         f"the {solver.mg_smoother!r} MG smoother"),
@@ -123,9 +133,10 @@ def _check_slice(cfg: ModelConfig):
                         f"the {solver.schur!r} Schur surrogate"),
                        (solver.mg_scaled_transfers or solver.mg_ls_damp,
                         "scaled MG transfers / line-search damping"),
-                       (solver.energy_preconditioner != "jacobi",
-                        f"the {solver.energy_preconditioner!r} energy "
-                        "preconditioner")):
+                       (solver.energy_preconditioner == "mg"
+                        and solver.energy_mg_smoother != "chebyshev",
+                        f"the {solver.energy_mg_smoother!r} energy MG "
+                        "smoother")):
         if flag:
             raise _later(what)
 
@@ -165,6 +176,23 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     # the per-shard marker kernels' shape gate
     marker_blocks = (marker_halo_mesh is not None and block_kernel_eligible(
         grid.ny // marker_halo_mesh.my, grid.nx // marker_halo_mesh.mx))
+    # the fused transfer's rho0 * alpha stream
+    with_ra = phys.adiabatic_heating and phys.solve_energy
+
+    # the one-stream marker transfers (subgrid diffusion, marker T update):
+    # the explicit-halo engine under the marker halo mesh
+    def _disp_m2g(m, vals, loc, mode):
+        if marker_halo_mesh is not None:
+            return m2g_halo(m, vals, grid, loc, mode, marker_halo_mesh)
+        return bucket_markers_to_grid(m, vals, grid, loc, mode,
+                                      periodic_x=periodic)
+
+    def _disp_g2m(m, field, loc):
+        if marker_halo_mesh is not None:
+            return g2m_halo(field, m.x, m.y, m.valid, grid, loc,
+                            marker_halo_mesh)
+        return bucket_grid_to_markers(field, m.x, m.y, m.valid, grid, loc,
+                                      periodic_x=periodic)
 
     make_precond = partial(
         make_mg_preconditioner,
@@ -204,11 +232,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         if marker_halo_mesh is not None:
             out = m2g_fused_halo(m, grid, table, phys, marker_halo_mesh,
                                  with_energy=phys.solve_energy,
+                                 with_ra=with_ra,
                                  kernel=kern and marker_blocks)
         else:
             m2g = m2g_fused if kern else m2g_fused_plain
             out = m2g(m, grid, table, phys, with_energy=phys.solve_energy,
-                      periodic_x=periodic)
+                      periodic_x=periodic, with_ra=with_ra)
         return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
 
     def _interp_fused(m, rho_m, k_m, rhocp_m, state, out) -> InterpOut:
@@ -238,7 +267,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             rho_vx = torch.zeros(grid.shape_vx, dtype=dtype,
                                  device=m.x.device)
 
-        T_old_g = k_g = rhocp_g = H_g = None
+        T_old_g = k_g = rhocp_g = H_g = ra_g = None
         if phys.solve_energy:
             cw = out["c_w"]
             T_old_g = mean_of(out["c_T"], cw, state.T)
@@ -250,8 +279,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             else:
                 H_g = torch.zeros(grid.shape_corner, dtype=dtype,
                                   device=m.x.device)
+            if with_ra:  # rho0 * alpha: adiabatic heating's coefficient
+                ra_m = (table._select(table.rho0, m.mat, dtype)
+                        * table._select(table.alpha, m.mat, dtype))
+                ra_g = mean_of(out["c_ra"], cw, _marker_mean(m, ra_m))
         return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m,
-                         T_old_g, k_g, rhocp_g, H_g)
+                         T_old_g, k_g, rhocp_g, H_g, ra_g)
 
     def mg_lambdas(state: ModelState, io: InterpOut, wdtype):
         """Per-level Chebyshev bounds for this step's solve, warm-started
@@ -352,21 +385,40 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         diag: Dict[str, Any] = {}
         if not phys.solve_energy:
             return m, state.T, diag
+        T_old, H_g = io.T_old_g, io.H_g
+        if phys.shear_heating:
+            H_g = H_g + shear_heating(vx, vy, io.eta_n, grid, vbc)
+        if phys.adiabatic_heating:
+            # rho0 * alpha from the fused transfer, which every interp runs
+            # (the kernel, or its plain version off the card)
+            H_g = H_g + adiabatic_heating(T_old, io.ra_g, vy, phys.gy, grid)
         solve = solve_energy_mixed if _mixed(dtype) else solve_energy
-        esol = solve(io.T_old_g, io.k_g, io.rhocp_g / dt, io.H_g, grid, tbc,
+        esol = solve(T_old, io.k_g, io.rhocp_g / dt, H_g, grid, tbc,
                      tol=solver.energy_tol, maxiter=solver.energy_maxiter,
                      k_avg=phys.k_face_avg,
                      preconditioner=solver.energy_preconditioner,
-                     halo_mesh=halo_mesh)
+                     halo_mesh=halo_mesh,
+                     mg_smoother=solver.energy_mg_smoother,
+                     mg_omega=solver.mg_omega,
+                     mg_semicoarsen=solver.mg_semicoarsen)
         T_new = esol.T.to(dtype)
-        dT = T_new - io.T_old_g
-        if marker_halo_mesh is not None:
-            T_m = m.T + g2m_halo(dT, m.x, m.y, m.valid, grid, "corner",
-                                 marker_halo_mesh)
+        if phys.subgrid_diffusion_d > 0.0:
+            # Gerya-style subgrid diffusion: relax marker T toward the old
+            # grid T on the cell-diffusion timescale, then remap only the
+            # remaining part of dT
+            T_node_at_m = _disp_g2m(m, T_old, "corner")
+            t_diff = io.rhocp_m / (
+                io.k_m * (2.0 / grid.dx_min ** 2 + 2.0 / grid.dy_min ** 2))
+            relax = 1.0 - torch.exp(-phys.subgrid_diffusion_d * dt / t_diff)
+            dT_sub_m = (T_node_at_m - m.T) * relax
+            dT_sub_g, wsub = _disp_m2g(m, dT_sub_m, "corner", "arithmetic")
+            dT_sub_g = torch.where(wsub > 0, dT_sub_g, 0.0)
+            dT_rem = (T_new - T_old) - dT_sub_g
+            T_m = m.T + dT_sub_m + _disp_g2m(m, dT_rem, "corner")
         else:
-            T_m = m.T + bucket_grid_to_markers(dT, m.x, m.y, m.valid, grid,
-                                               "corner", periodic_x=periodic)
+            T_m = m.T + _disp_g2m(m, T_new - T_old, "corner")
         diag["energy_iterations"] = esol.info.iterations
+        diag["energy_converged"] = esol.info.converged
         diag["T_mean"] = torch.mean(T_new)
         return m.replace(T=T_m), T_new, diag
 
@@ -399,7 +451,19 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 markers, dropped = rebucket_fused(markers, grid, periodic)
             else:
                 markers, dropped = rebucket(markers, grid, periodic)
+        # the count after rebucket, before reseeding (as the reference)
         diag = {"markers_dropped": dropped, "marker_count": markers.total()}
+        if phys.reseed_min_per_cell > 0:
+            if marker_halo_mesh is not None:
+                markers = reseed_halo(
+                    markers, T_new, grid,
+                    min_per_cell=phys.reseed_min_per_cell,
+                    n_materials=len(table), mesh=marker_halo_mesh)
+            else:
+                markers = bucket_reseed(
+                    markers, T_new, grid,
+                    min_per_cell=phys.reseed_min_per_cell,
+                    n_materials=len(table), periodic_x=periodic)
         return markers, diag
 
     return StepPhases(interp, stokes, energy, advect, timestep)

@@ -49,6 +49,21 @@ def shear_stress_xy(vx, vy, eta_s, grid: StaggeredGrid, bcs: VelocityBCs):
     return eta_s * (dvxdy + dvydx)
 
 
+def strain_rate_ii(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs):
+    """Second invariant of the strain rate at cell centers (shear heating
+    and diagnostics): the deviatoric exx and the corner exy averaged onto
+    the centers."""
+    dvxdx = (vx[:, 1:] - vx[:, :-1]) / grid.dx
+    dvydy = (vy[1:, :] - vy[:-1, :]) / grid.dy
+    ones = torch.ones(grid.shape_corner, dtype=vx.dtype, device=vx.device)
+    sxy = shear_stress_xy(vx, vy, ones, grid, bcs)
+    exx = 0.5 * (dvxdx - dvydy)  # incompressible: exx = -eyy
+    exy_corner = 0.5 * sxy
+    exy = 0.25 * (exy_corner[:-1, :-1] + exy_corner[:-1, 1:]
+                  + exy_corner[1:, :-1] + exy_corner[1:, 1:])
+    return torch.sqrt(exx ** 2 + exy ** 2)
+
+
 def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
                     bcs: VelocityBCs, kcont=1.0, kbnd=1.0, halo_mesh=None,
                     halo_pallas: bool = False):

@@ -1,8 +1,8 @@
 """Explicit-halo marker engine on the in-process mesh.
 
-Port of ``pylamp_tpu/parallel/halo_markers.py`` (non-periodic, without
-reseeding): the operations of the dense bucketed engine with hand-placed
-neighbour exchanges.  Marker state (ny, nx, K) is split P("y", "x", None):
+Port of ``pylamp_tpu/parallel/halo_markers.py`` (non-periodic): the
+operations of the dense bucketed engine with hand-placed neighbour
+exchanges.  Marker state (ny, nx, K) is split P("y", "x", None):
 each shard owns the markers of its cell block, so every operation is local
 up to a bounded halo:
 
@@ -10,6 +10,10 @@ up to a bounded halo:
   streams, then the per-shard fused transfer (markers/kernels/m2g_block),
   which computes each shard's nodes and the +1 seam row/column COMPLETELY;
   assembly is selection, with the seam strips psum-selected;
+- the one-stream marker->grid transfer (``m2g_halo``, subgrid diffusion's):
+  the same ring exchange of positions and values, then the dense-shift
+  sums of ``m2g_block.m2g_block_sums`` per shard (the reference folds a
+  scattered rim instead; the sums differ only in rounding);
 - grid->marker (``g2m_halo``): a depth-(reach+1) exchange of the field
   block, then a bilinear gather;
 - RK4 advection (``advect_rk4_halo``): one exchange of the two ghost-padded
@@ -17,10 +21,10 @@ up to a bounded halo:
   (markers/kernels/advect_block);
 - rebucket (``rebucket_halo``): a one-deep ring exchange of the five marker
   streams and the per-shard repack in the single-device candidate order
-  (markers/kernels/rebucket_block): bit-identical slot assignment.
-
-The step only reaches the fused transfer, so the reference's one-stream
-``m2g_halo`` has no port; ``reseed_halo`` waits with marker reseeding.
+  (markers/kernels/rebucket_block): bit-identical slot assignment;
+- reseeding (``reseed_halo``): a one-deep exchange of the per-cell
+  material histograms for the 3x3 majority, the cell-local spawn rule of
+  ``bucket.bucket_reseed`` and ``g2m_halo`` for the new markers' T.
 """
 from __future__ import annotations
 
@@ -28,13 +32,21 @@ import torch
 
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-from pylamp_tpu_torch.markers.bucket import BucketedMarkers
+from pylamp_tpu_torch.markers.bucket import (
+    OFFSETS,
+    BucketedMarkers,
+    material_histogram,
+    mean_of,
+    reseed_spawn,
+    transform_values,
+)
 from pylamp_tpu_torch.markers.kernels.advect_block import (
     _sample_window,
     advect_block,
     advect_block_plain,
 )
 from pylamp_tpu_torch.markers.kernels.m2g_block import (
+    m2g_block_sums,
     m2g_fused_block,
     m2g_fused_block_plain,
 )
@@ -71,55 +83,73 @@ def _blocks(mesh: Mesh, grid: StaggeredGrid):
 # -- marker -> grid -------------------------------------------------------------
 
 
+def _ext_blocks(mesh: Mesh, *streams):
+    """Every shard's one-ring-extended (S, by+2, bx+2, K) block of each
+    (ny, nx, K) stream (zeros, i.e. empty slots, beyond the domain)."""
+    return [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3)) for a in streams]
+
+
+def _assemble(mesh: Mesh, grid: StaggeredGrid, F, shape):
+    """Global (rows, cols) lattice from the shards' (S, by+1, bx+1) node
+    frames, each complete on its own nodes and the +1 seam strips: the
+    interior blocks, and the seam row / column / corner selected from the
+    last mesh row / column (psum-selected, as the reference)."""
+    my, mx = mesh.my, mesh.mx
+    ny, nx = grid.ny, grid.nx
+    by, bx = _blocks(mesh, grid)
+    rows, cols = shape
+    F = mesh.unflat(F)  # (my, mx, by+1, bx+1)
+    iy = mesh.axis_index("y", device=F.device)
+    ix = mesh.axis_index("x", device=F.device)
+    zero = torch.zeros((), dtype=F.dtype, device=F.device)
+    out = mesh.gather(F[..., :by, :bx], P("y", "x"))
+    if cols == nx + 1:
+        rcol = mesh.psum(torch.where(ix == mx - 1, F[..., :by, bx:], zero),
+                         "x")
+        out = torch.cat([out, mesh.gather(rcol, P("y", None))], dim=1)
+    if rows == ny + 1:
+        brow = mesh.psum(torch.where(iy == my - 1, F[..., by:, :bx], zero),
+                         "y")
+        bottom = mesh.gather(brow, P(None, "x"))
+        if cols == nx + 1:
+            corner = mesh.psum(torch.where((iy == my - 1) & (ix == mx - 1),
+                                           F[..., by:, bx:], zero), ("y", "x"))
+            bottom = torch.cat([bottom, mesh.gather(corner, P())], dim=1)
+        out = torch.cat([out, bottom], dim=0)
+    return out
+
+
 def m2g_fused_halo(bm: BucketedMarkers, grid: StaggeredGrid, table, phys,
                    mesh: Mesh, with_energy: bool = False,
-                   kernel: bool = True):
+                   with_ra: bool = False, kernel: bool = True):
     """Explicit-halo fused marker->grid transfer: the raw weighted-sum dict
     of ``markers.kernels.m2g.m2g_fused`` on the global lattices.
     ``kernel``: the per-shard wrapper (kernel 10 on CUDA tensors); else its
     plain version on any dtype."""
-    my, mx = mesh.my, mesh.mx
-    ny, nx = grid.ny, grid.nx
     by, bx = _blocks(mesh, grid)
-    dev = bm.x.device
-    bases = mesh.bases(by, bx, device=dev)
+    bases = mesh.bases(by, bx, device=bm.x.device)
     transfer = m2g_fused_block if kernel else m2g_fused_block_plain
+    fields = transfer(*_ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid),
+                      grid, table, phys, bases, with_energy=with_energy,
+                      with_ra=with_ra)
+    locs = {"c": "corner", "n": "center", "vy": "vy", "vx": "vx"}
+    return {name: _assemble(mesh, grid, F,
+                            grid.shape(locs[name.split("_")[0]]))
+            for name, F in fields.items()}
 
-    def local(xb, yb, Tb, mb, vb):
-        iy = mesh.axis_index("y", device=dev)
-        ix = mesh.axis_index("x", device=dev)
-        ext = [mesh.flat(mesh.ext1(a, nd=3)) for a in (xb, yb, Tb, mb, vb)]
-        fields = transfer(*ext, grid, table, phys, bases,
-                          with_energy=with_energy)
-        outs = {}
-        for name, F in fields.items():
-            F = mesh.unflat(F)  # (my, mx, by+1, bx+1) node frames
-            zero = torch.zeros((), dtype=F.dtype, device=dev)
-            brow = torch.where(iy == my - 1, F[..., by:, :bx], zero)
-            rcol = torch.where(ix == mx - 1, F[..., :by, bx:], zero)
-            corner = torch.where((iy == my - 1) & (ix == mx - 1),
-                                 F[..., by:, bx:], zero)
-            outs[name] = (F[..., :by, :bx], mesh.psum(brow, "y"),
-                          mesh.psum(rcol, "x"), mesh.psum(corner, ("y", "x")))
-        return outs
 
-    outs = local(*(mesh.split(a, BLK3)
-                   for a in (bm.x, bm.y, bm.T, bm.mat, bm.valid)))
-    shapes = {"c": (ny + 1, nx + 1), "n": (ny, nx), "vy": (ny + 1, nx),
-              "vx": (ny, nx + 1)}
-    result = {}
-    for name, (interior, brow, rcol, corner) in outs.items():
-        rows, cols = shapes[name.split("_")[0]]
-        out = mesh.gather(interior, P("y", "x"))
-        if cols == nx + 1:
-            out = torch.cat([out, mesh.gather(rcol, P("y", None))], dim=1)
-        if rows == ny + 1:
-            bottom = mesh.gather(brow, P(None, "x"))
-            if cols == nx + 1:
-                bottom = torch.cat([bottom, mesh.gather(corner, P())], dim=1)
-            out = torch.cat([out, bottom], dim=0)
-        result[name] = out
-    return result
+def m2g_halo(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str,
+             mode: str, mesh: Mesh):
+    """Explicit-halo ``bucket_markers_to_grid`` of one (ny, nx, K) value
+    stream: returns (mean, wsum) on the ``loc`` lattice."""
+    by, bx = _blocks(mesh, grid)
+    v = transform_values(values, bm.valid, mode)
+    xe, ye, ve, vale = _ext_blocks(mesh, bm.x, bm.y, v, bm.valid)
+    w, (wv,) = m2g_block_sums(xe, ye, vale, [ve], grid, loc,
+                              mesh.bases(by, bx, device=bm.x.device))
+    shape = grid.shape(loc)
+    field_w = _assemble(mesh, grid, w, shape)
+    return mean_of(_assemble(mesh, grid, wv, shape), field_w, mode), field_w
 
 
 # -- grid -> marker -------------------------------------------------------------
@@ -302,8 +332,7 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
     by, bx = _blocks(mesh, grid)
     K = bm.capacity
     dev = bm.x.device
-    ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
-           for a in (bm.x, bm.y, bm.T, bm.mat, bm.valid)]
+    ext = _ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid)
     repack = rebucket_block if kernel else rebucket_block_plain
     new, arrivals = repack(*ext, grid, mesh.bases(by, bx, device=dev))
     dropped = torch.sum(torch.clamp(arrivals - K, min=0))
@@ -313,3 +342,27 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
 
     return BucketedMarkers(x=glob(new.x), y=glob(new.y), mat=glob(new.mat),
                            T=glob(new.T), valid=glob(new.valid)), dropped
+
+
+# -- reseeding ------------------------------------------------------------------
+
+
+def reseed_halo(bm: BucketedMarkers, T_grid, grid: StaggeredGrid,
+                min_per_cell: int, n_materials: int, mesh: Mesh):
+    """Explicit-halo ``bucket.bucket_reseed``: the 3x3 material majority
+    from a one-deep exchange of the per-cell histograms (zeros beyond the
+    domain, the global engine's padding), the cell-local spawn rule, and
+    ``g2m_halo`` for the new markers' T."""
+    by, bx = _blocks(mesh, grid)
+    hist = mesh.ext1(mesh.split(material_histogram(bm, n_materials),
+                                BLK3), nd=3)  # (my, mx, by+2, bx+2, NMAT)
+    acc = torch.zeros_like(hist[..., 1:-1, 1:-1, :])
+    for a, b in OFFSETS:
+        acc = acc + hist[..., 1 + a:1 + a + by, 1 + b:1 + b + bx, :]
+    majority = mesh.gather(torch.argmax(acc, dim=-1).to(torch.int32),
+                           P("y", "x"))
+    spawn, new_x, new_y, new_mat = reseed_spawn(bm, majority, grid,
+                                                min_per_cell)
+    T_at = g2m_halo(T_grid, new_x, new_y, spawn, grid, "corner", mesh)
+    return bm.replace(x=new_x, y=new_y, T=torch.where(spawn, T_at.to(
+        bm.T.dtype), bm.T), mat=new_mat, valid=bm.valid | spawn)

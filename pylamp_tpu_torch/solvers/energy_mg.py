@@ -1,0 +1,167 @@
+"""Geometric multigrid preconditioner for the energy (heat) equation.
+
+Port of ``pylamp_tpu/solvers/energy_mg.py`` (the Chebyshev smoother):
+vertex-centered GMG on the corner lattice.  Coarse nodes coincide with even
+fine nodes; bilinear prolongation, full-weighting restriction (P^T/4),
+rediscretized coarse operators with node-sampled coefficients and
+Chebyshev-Jacobi smoothing with power-iteration bounds.  Periodic side
+walls fold and re-emit the seam columns in the restriction.  The line
+smoothers ("line", "line_y", "line_x") need the tridiagonal line solves of
+``solvers/lines.py``, which the port does not have yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from pylamp_tpu_torch.core.bc import ThermalBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.energy import _dirichlet_masks, energy_operator
+from pylamp_tpu_torch.solvers.krylov import tdot
+from pylamp_tpu_torch.solvers.mg import coarsening_plan
+
+
+def _interleave_rows(a, b):
+    """rows [a0, b0, a1, b1, ..., a_{n-1}]; a: (n, m), b: (n-1, m)."""
+    n, m = a.shape
+    out = torch.zeros((2 * n - 1, m), dtype=a.dtype, device=a.device)
+    out[0::2] = a
+    out[1::2] = b
+    return out
+
+
+def prolong_corner(c, cx: bool = True, cy: bool = True):
+    """Bilinear prolongation on the corner lattice: coarse (NY+1, NX+1) ->
+    fine (2NY+1, 2NX+1), coincident at even fine nodes.  ``cx``/``cy``
+    select the coarsened axes."""
+    e = _interleave_rows(c, 0.5 * (c[:-1, :] + c[1:, :])) if cy else c
+    if cx:
+        e = _interleave_rows(e.T, (0.5 * (e[:, :-1] + e[:, 1:])).T).T
+    return e
+
+
+def restrict_corner(f, periodic_x: bool = False, cx: bool = True,
+                    cy: bool = True):
+    """Full weighting (P^T/4; P^T/2 along a single semi-coarsened axis):
+    fine (2NY+1, 2NX+1) -> coarse (NY+1, NX+1), the truncated stencil on
+    the boundary rows.  ``periodic_x``: the fine seam columns (one physical
+    node) each carry half the residual; fold them, restrict with x
+    wrap-around, and re-emit equal coarse halves."""
+    if periodic_x and cx:
+        fu = f[:, :-1].clone()
+        fu[:, 0] += f[:, -1]  # unique columns, the physical seam
+        fz = torch.cat([fu[:, -1:], fu], dim=1)  # left wrap ghost
+        g = (0.5 * fz[:, 0:-2:2] + fz[:, 1:-1:2] + 0.5 * fz[:, 2::2]) / 2.0
+    elif cx:
+        fp = F.pad(f, (1, 1))
+        g = (0.5 * fp[:, 0:-2:2] + fp[:, 1:-1:2] + 0.5 * fp[:, 2::2]) / 2.0
+    else:
+        g = f
+    if cy:
+        gp = F.pad(g, (0, 0, 1, 1))
+        c = (0.5 * gp[0:-2:2, :] + gp[1:-1:2, :] + 0.5 * gp[2::2, :]) / 2.0
+    else:
+        c = g
+    if periodic_x and cx:
+        seam = 0.5 * c[:, :1]
+        c = torch.cat([seam, c[:, 1:], seam], dim=1)
+    return c
+
+
+def _power_lambda_max(apply_binv_a, shape, dtype, device, iters: int = 12):
+    """|lambda_max| of D^-1 A by power iteration from the reference's
+    deterministic start vector, on the device without a host read."""
+    n = shape[0] * shape[1]
+    v = (torch.remainder(torch.arange(n, dtype=dtype, device=device)
+                         * 0.754877666 + 0.1, 1.0) - 0.5).reshape(shape)
+    lam = torch.ones((), dtype=dtype, device=device)
+    for _ in range(iters):
+        v = v / torch.sqrt(tdot(v, v))
+        w = apply_binv_a(v)
+        lam = tdot(v, w)
+        v = w
+    return torch.abs(lam)
+
+
+def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
+                                  bcs: ThermalBCs, kbnd,
+                                  k_avg: str = "arithmetic", levels: int = 0,
+                                  pre_smooth: int = 2, post_smooth: int = 2,
+                                  coarse_iters: int = 16, halo_mesh=None,
+                                  smoother: str = "chebyshev",
+                                  omega: float = 0.7,
+                                  semicoarsen: float = 0.0):
+    """M(r) -> z: one V-cycle on the energy operator from a zero initial
+    guess (an approximately SPD preconditioner for flexible CG).
+    ``halo_mesh`` routes every level's operator apply through the
+    explicit-halo operator (``ops.energy.energy_operator`` checks each
+    level's eligibility).  ``omega`` is the line smoothers' damping."""
+    from pylamp_tpu_torch.solvers.energy_solver import energy_diagonal
+
+    if smoother in ("line", "line_y", "line_x"):
+        raise NotImplementedError(
+            f"the {smoother!r} energy MG smoother waits for a later port PR "
+            "(solvers/lines.py)")
+    if smoother != "chebyshev":
+        raise ValueError(f"unknown energy MG smoother {smoother!r}")
+    plan = coarsening_plan(grid, levels, semi_threshold=semicoarsen)
+    nlev = len(plan) + 1
+    dtype, device = k.dtype, k.device
+
+    grids = [grid]
+    coeffs = [(k, rhocp_over_dt)]
+    for cx, cy in plan:
+        grids.append(grids[-1].coarsen(cx, cy))
+        kl, rl = coeffs[-1]
+        # corner nodes coincide: sample coefficients at the surviving nodes
+        sy = slice(None, None, 2) if cy else slice(None)
+        sx = slice(None, None, 2) if cx else slice(None)
+        coeffs.append((kl[sy, sx], rl[sy, sx]))
+    # kbnd scales with 1/(dx*dy) like the stencil
+    kbnds = [kbnd * (grids[0].dx_min * grids[0].dy_min)
+             / (g.dx_min * g.dy_min) for g in grids]
+    diags = [energy_diagonal(kl, rl, g, bcs, kb, k_avg)
+             for (kl, rl), g, kb in zip(coeffs, grids, kbnds)]
+    masks = [_dirichlet_masks(g, bcs, dtype, device)[0] for g in grids]
+
+    def apply_l(l, T):
+        kl, rl = coeffs[l]
+        return energy_operator(T, kl, rl, grids[l], bcs, kbnd=kbnds[l],
+                               k_avg=k_avg, halo_mesh=halo_mesh)
+
+    lam = [1.1 * _power_lambda_max(lambda v, l=l: apply_l(l, v) / diags[l],
+                                   grids[l].shape_corner, dtype, device)
+           for l in range(nlev)]
+
+    def smooth(l, x, b, iters):
+        d = diags[l]
+        lmax = lam[l]
+        lmin = lmax / 4.0
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        s1 = theta / delta
+        dx_ = (b - apply_l(l, x)) / d / theta
+        x = x + dx_
+        ro = 1.0 / s1
+        for _ in range(iters - 1):
+            rho = 1.0 / (2.0 * s1 - ro)
+            dx_ = (rho * ro * dx_
+                   + (2.0 * rho / delta) * (b - apply_l(l, x)) / d)
+            x = x + dx_
+            ro = rho
+        return x
+
+    def vcycle(l, b):
+        if l == nlev - 1:
+            return smooth(l, torch.zeros_like(b), b, coarse_iters)
+        x = smooth(l, torch.zeros_like(b), b, pre_smooth)
+        r = b - apply_l(l, x)
+        pcx, pcy = plan[l]
+        # Dirichlet rows belong to the smoother on each level
+        rc = restrict_corner(torch.where(masks[l], 0.0, r), bcs.periodic_x,
+                             cx=pcx, cy=pcy)
+        ec = vcycle(l + 1, torch.where(masks[l + 1], 0.0, rc))
+        x = x + torch.where(masks[l], 0.0, prolong_corner(ec, cx=pcx, cy=pcy))
+        return smooth(l, x, b, post_smooth)
+
+    return lambda r: vcycle(0, r)

@@ -1,11 +1,12 @@
-"""Implicit energy (heat diffusion) solve: Jacobi-preconditioned CG.
+"""Implicit energy (heat diffusion) solve: preconditioned CG.
 
-Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform grid, Jacobi
-preconditioner): ``solve_energy`` in the state dtype and
-``solve_energy_mixed`` with f32 CG inner solves under f64 refinement.
-``halo_mesh`` routes every operator application through the
-explicit-halo energy operator (parallel/halo_ops.py).  The energy
-multigrid preconditioner waits for a later port PR.
+Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform grid):
+``solve_energy`` in the state dtype and ``solve_energy_mixed`` with f32
+inner solves under f64 refinement.  ``preconditioner="jacobi"`` takes CG;
+``"mg"`` one V-cycle of the energy multigrid (solvers/energy_mg.py), only
+approximately SPD, with flexible CG.  ``halo_mesh`` routes every operator
+application through the explicit-halo energy operator
+(parallel/halo_ops.py).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from pylamp_tpu_torch.ops.energy import (
     energy_operator,
     energy_rhs,
 )
-from pylamp_tpu_torch.solvers.krylov import SolveInfo, cg
+from pylamp_tpu_torch.solvers.energy_mg import make_energy_mg_preconditioner
+from pylamp_tpu_torch.solvers.krylov import SolveInfo, cg, fcg
 
 
 class EnergySolution(NamedTuple):
@@ -48,11 +50,16 @@ def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
     return torch.where(mask, kbnd, diag)
 
 
-def _jacobi(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner):
+def _make_M(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner: str,
+            halo_mesh=None, mg_smoother: str = "chebyshev",
+            mg_omega: float = 0.7, mg_semicoarsen: float = 0.0):
+    if preconditioner == "mg":
+        return make_energy_mg_preconditioner(
+            k, rhocp_over_dt, grid, bcs, kbnd, k_avg=k_avg,
+            halo_mesh=halo_mesh, smoother=mg_smoother, omega=mg_omega,
+            semicoarsen=mg_semicoarsen)
     if preconditioner != "jacobi":
-        raise NotImplementedError(
-            f"the {preconditioner!r} energy preconditioner waits for a later "
-            "port PR")
+        raise ValueError(f"unknown energy preconditioner {preconditioner!r}")
     diag = energy_diagonal(k, rhocp_over_dt, grid, bcs, kbnd, k_avg)
     return lambda r: r / diag
 
@@ -65,8 +72,9 @@ def _kbnd(k, rhocp_over_dt, grid):
 def solve_energy(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
                  bcs: ThermalBCs, tol: float = 1e-10, maxiter: int = 2000,
                  k_avg: str = "arithmetic",
-                 preconditioner: str = "jacobi",
-                 halo_mesh=None) -> EnergySolution:
+                 preconditioner: str = "jacobi", halo_mesh=None,
+                 mg_smoother: str = "chebyshev", mg_omega: float = 0.7,
+                 mg_semicoarsen: float = 0.0) -> EnergySolution:
     kbnd = _kbnd(k, rhocp_over_dt, grid)
 
     def op(T):
@@ -75,8 +83,12 @@ def solve_energy(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
 
     b = energy_rhs(T_old, k, rhocp_over_dt, H, grid, bcs, kbnd=kbnd,
                    k_avg=k_avg)
-    M = _jacobi(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner)
-    T, info = cg(op, b, T_old, M=M, tol=tol, maxiter=maxiter)
+    M = _make_M(k, rhocp_over_dt, grid, bcs, kbnd, k_avg, preconditioner,
+                halo_mesh=halo_mesh, mg_smoother=mg_smoother,
+                mg_omega=mg_omega, mg_semicoarsen=mg_semicoarsen)
+    # the MG V-cycle is only approximately SPD -> flexible CG
+    solve = cg if preconditioner == "jacobi" else fcg
+    T, info = solve(op, b, T_old, M=M, tol=tol, maxiter=maxiter)
     return EnergySolution(T, info)
 
 
@@ -84,9 +96,11 @@ def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
                        bcs: ThermalBCs, tol: float = 1e-10,
                        inner_tol: float = 1e-5, maxiter: int = 500,
                        max_refinements: int = 5, k_avg: str = "arithmetic",
-                       preconditioner: str = "jacobi",
-                       halo_mesh=None) -> EnergySolution:
-    """f32 CG inner solves inside f64 iterative refinement."""
+                       preconditioner: str = "jacobi", halo_mesh=None,
+                       mg_smoother: str = "chebyshev", mg_omega: float = 0.7,
+                       mg_semicoarsen: float = 0.0) -> EnergySolution:
+    """f32 CG (FCG with the MG preconditioner) inner solves inside f64
+    iterative refinement."""
     from pylamp_tpu_torch.solvers.refine import refine
 
     f64, f32 = torch.float64, torch.float32
@@ -107,11 +121,14 @@ def solve_energy_mixed(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
         return energy_operator(T, k32, rc32, grid, bcs, kbnd=kbnd32,
                                k_avg=k_avg, halo_mesh=halo_mesh)
 
-    M32 = _jacobi(k32, rc32, grid, bcs, kbnd32, k_avg, preconditioner)
+    M32 = _make_M(k32, rc32, grid, bcs, kbnd32, k_avg, preconditioner,
+                  halo_mesh=halo_mesh, mg_smoother=mg_smoother,
+                  mg_omega=mg_omega, mg_semicoarsen=mg_semicoarsen)
+    solve32 = cg if preconditioner == "jacobi" else fcg
 
     def inner_solve(r32, tol32):
-        return cg(op32, r32, torch.zeros_like(r32), M=M32, tol=tol32,
-                  maxiter=maxiter)
+        return solve32(op32, r32, torch.zeros_like(r32), M=M32, tol=tol32,
+                       maxiter=maxiter)
 
     T, info = refine(op64, inner_solve, b64, T_old.to(f64), tol=tol,
                      max_refinements=max_refinements, inner_tol=inner_tol)

@@ -1,7 +1,8 @@
 """Matrix-free Krylov solvers on tensors and tuples of tensors.
 
 Port of ``pylamp_tpu/solvers/krylov.py``: ``cg`` (preconditioned CG for
-the energy solve) and ``fgmres`` (flexible right-preconditioned GMRES(m)
+the energy solve), ``fcg`` (flexible CG, for the approximately SPD
+multigrid preconditioners) and ``fgmres (flexible right-preconditioned GMRES(m)
 with one- or two-pass classical Gram-Schmidt, for the Stokes saddle
 point).  Vectors are a tensor or a tuple of tensors (the reference's
 pytrees).
@@ -9,7 +10,7 @@ pytrees).
 Host-sync policy.  The reference runs these loops as ``lax.while_loop``s
 with no host round trip.  Eager PyTorch cannot branch on a device value
 without reading it, so each loop reads ONE small device tensor per
-iteration: CG its residual norm and breakdown flag, FGMRES the new
+iteration: CG and FCG their residual norm and breakdown flag, FGMRES the new
 Hessenberg column (plus one residual norm per restart cycle).  FGMRES keeps
 its small Hessenberg / Givens least-squares problem on the host in f64;
 the Krylov basis, the operator and the preconditioner stay on the device.
@@ -99,6 +100,44 @@ def cg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
         p = taxpy(beta, p, z)
         rz = rz_new
         # the one host read of the iteration: residual norm + breakdown flag
+        res, ok_h = torch.stack([tnorm(r), ok.to(rz.dtype)]).tolist()
+        k = k + 1 if ok_h else maxiter
+    return x, SolveInfo(k, res, res <= target, bnorm)
+
+
+def fcg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
+        tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000):
+    """Flexible preconditioned CG (Polak-Ribiere beta; Notay 2000), for a
+    preconditioner that is only approximately SPD (a multigrid V-cycle):
+    beta = <r_new, z_new - z> / <r, z> re-orthogonalizes against the
+    previous direction.  The breakdown guard and host reads are ``cg``'s.
+    Returns (x, SolveInfo)."""
+    M = M or _identity
+    bnorm = float(tnorm(b))
+    target = max(tol * bnorm, atol)
+
+    x = x0
+    r = tsub(b, op(x0))
+    z = M(r)
+    rz = tdot(r, z)
+    p = z
+    k = 0
+    res = float(tnorm(r))
+    while res > target and k < maxiter:
+        Ap = op(p)
+        pAp = tdot(p, Ap)
+        ok = torch.logical_and(pAp > 0, torch.abs(rz) > 0)
+        safe_pAp = torch.where(pAp == 0, torch.ones_like(pAp), pAp)
+        safe_rz = torch.where(rz == 0, torch.ones_like(rz), rz)
+        alpha = torch.where(ok, rz / safe_pAp, torch.zeros_like(rz))
+        x = taxpy(alpha, p, x)
+        r_new = taxpy(-alpha, Ap, r)
+        z_new = M(r_new)
+        beta = torch.where(ok, (tdot(r_new, z_new) - tdot(r_new, z)) / safe_rz,
+                           torch.zeros_like(rz))
+        rz = tdot(r_new, z_new)
+        p = taxpy(beta, p, z_new)
+        r, z = r_new, z_new
         res, ok_h = torch.stack([tnorm(r), ok.to(rz.dtype)]).tolist()
         k = k + 1 if ok_h else maxiter
     return x, SolveInfo(k, res, res <= target, bnorm)

@@ -16,7 +16,8 @@ Chebyshev bounds come from Gershgorin row sums or from power iteration
 (``estimate_mg_lambdas``); ``eta_cap`` clips each coarse level's
 viscosity around its geometric mean; ``al_gamma`` and
 ``velocity_inner_iters`` give the augmented-Lagrangian Schur surrogate and
-an inner velocity FGMRES on the augmented block (solvers/al.py).
+an inner velocity FGMRES (or flexible CG) on the augmented block
+(solvers/al.py).
 
 With ``use_pallas_smoother`` (the reference's name and default) the
 levels with nx >= 256 sweep through the fused Chebyshev smoother
@@ -35,8 +36,8 @@ cells across stay on the global tensors (the reference's replicated
 sub-hierarchy), and ``use_pallas_smoother`` sweeps each eligible level
 through the per-shard fused smoother (parallel/halo_smoother.py); the
 single-device smoother and the fused coarse sub-V-cycle are off, as in the
-reference.  Still to port: scaled transfers, line search damping, BFBT and
-the flexible-CG inner method.
+reference.  Still to port: scaled transfers, line search damping and
+BFBT.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ from pylamp_tpu_torch.parallel.halo_smoother import (
     prep_halo_smoother,
 )
 from pylamp_tpu_torch.solvers.al import make_grad_div
-from pylamp_tpu_torch.solvers.krylov import fgmres, tdot
+from pylamp_tpu_torch.solvers.krylov import fcg, fgmres, tdot
 from pylamp_tpu_torch.solvers.stokes_solver import (
     project_vx_mean,
     velocity_diagonals,
@@ -623,8 +624,9 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
     system: the mass Schur surrogate -(1 + al_gamma) eta_n / kcont, then the
     velocity block by ``cycles`` V-cycles or, with ``velocity_inner_iters``
     > 0, by an inner FGMRES (restart = maxiter = that count, relative
-    ``velocity_inner_tol``) on A + al_gamma D^T eta_n D preconditioned by one
-    V-cycle on the un-augmented A.  ``eta_cap`` and the ``use_pallas*``
+    ``velocity_inner_tol``; ``velocity_inner_method="fcg"``: flexible CG
+    with that many iterations) on A + al_gamma D^T eta_n D preconditioned
+    by one V-cycle on the un-augmented A.  ``eta_cap`` and the ``use_pallas*``
     flags, ``halo_mesh`` and ``coarse_replicate`` go to
     ``make_velocity_mg``; the inner solve's own momentum applies take the
     momentum kernel on an eligible fine level too (the explicit-halo apply
@@ -639,8 +641,6 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
             "use schur='mass' with periodic side walls")
     if schur != "mass":
         raise _later(f"the {schur!r} Schur surrogate")
-    if velocity_inner_iters > 0 and velocity_inner_method != "fgmres":
-        raise _later(f"the {velocity_inner_method!r} inner velocity solve")
     mg = make_velocity_mg(eta_s, eta_n, grid, bcs, kbnd, levels=levels,
                           pre_smooth=pre_smooth, post_smooth=post_smooth,
                           semicoarsen=semicoarsen, lam_max=lam_max,
@@ -676,8 +676,15 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
             return ax, ay
 
         def vel_solve(rvx, rvy):
-            z, _ = fgmres(vop, (rvx, rvy),
-                          (torch.zeros_like(rvx), torch.zeros_like(rvy)),
+            x0 = (torch.zeros_like(rvx), torch.zeros_like(rvy))
+            if velocity_inner_method == "fcg":
+                # the momentum block is SPD and the V-cycle approximately
+                # so: flexible CG, no stored basis
+                z, _ = fcg(vop, (rvx, rvy), x0, M=lambda r: mg(r[0], r[1]),
+                           tol=velocity_inner_tol,
+                           maxiter=velocity_inner_iters)
+                return z
+            z, _ = fgmres(vop, (rvx, rvy), x0,
                           M=lambda r: mg(r[0], r[1]), tol=velocity_inner_tol,
                           restart=velocity_inner_iters,
                           maxiter=velocity_inner_iters, cgs_passes=1)

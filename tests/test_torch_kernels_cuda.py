@@ -949,3 +949,104 @@ def test_rebucket_kernel_periodic(dev, ny, nx, capacity):
     for f in ("x", "y", "mat", "T", "valid"):
         assert torch.equal(getattr(got, f), getattr(again, f)), f
     assert int(ad) == int(gd)
+
+
+# -- the rho0 * alpha stream of kernels 2 and 10 ----------------------------------
+
+RA_TABLE = [
+    Material(rho0=100.0, alpha=1.0, eta0=1.0, viscosity="frank_kamenetskii",
+             fk_gamma=9.2, k=1.0, cp=0.01),
+    Material(rho0=90.0, alpha=0.5, eta0=10.0, k=2.0, cp=0.02, H=1.5),
+    Material(rho0=80.0, alpha=0.2, T_ref=0.5, eta0=3.0,
+             viscosity="arrhenius", E_act=3.0, k=0.5, cp=0.03),
+]
+
+
+def _ra_case(periodic, ny, nx, dev):
+    """(grid, table, physics, markers) of kernel 2's rho0 * alpha checks:
+    walls on three-material FK markers, or periodic walls on markers on
+    and around the seam (their ids mapped onto the three materials)."""
+    if periodic:
+        cfg, grid, _, bm = _seam_markers(nx, ny, dev)
+        cells = torch.arange(bm.mat.numel(), device=dev).view(bm.mat.shape)
+        bm = bm.replace(mat=(cells % 3).to(torch.int32))
+    else:
+        cfg = fk_stagnant_lid(nx=nx, ny=ny)
+        grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
+        bm = _markers(nx, ny, dev, mats=3)
+    phys = dataclasses.replace(cfg.physics, gx=0.4)  # with the vx streams
+    return grid, MaterialTable(RA_TABLE), phys, bm
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ny,nx", [(14, 24), (8, 3), (33, 65)])
+def test_m2g_kernel_ra(dev, periodic, ny, nx):
+    """Kernel 2 with the rho0 * alpha stream, wall and periodic forms (the
+    periodic one on seam placements), against the plain version; every
+    other stream bit-identical to the kernel without the stream, the seam
+    columns equal, a rerun bit-identical."""
+    grid, table, phys, bm = _ra_case(periodic, ny, nx, dev)
+    r0 = m2g.launches_ra
+    got = m2g.m2g_fused(bm, grid, table, phys, True, periodic, with_ra=True)
+    assert m2g.launches_ra == r0 + 1
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, True, periodic,
+                              with_ra=True)
+    base = m2g.m2g_fused(bm, grid, table, phys, True, periodic)
+    assert m2g.launches_ra == r0 + 1
+    assert sorted(got) == sorted(ref) == sorted([*base, "c_ra"])
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+    for k in base:
+        assert torch.equal(got[k], base[k]), k
+    if periodic:
+        assert torch.equal(got["c_ra"][:, 0], got["c_ra"][:, -1])
+    again = m2g.m2g_fused(bm, grid, table, phys, True, periodic, with_ra=True)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4)])
+def test_m2g_block_kernel_ra(dev, n, mesh_n):
+    """Kernel 10 with the rho0 * alpha stream on the extended blocks of the
+    FK markers, against its plain version, a rerun bit-identical; and the
+    halo transfer's c_ra against kernel 2's."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+    from pylamp_tpu_torch.parallel.halo_markers import m2g_fused_halo
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    cfg = fk_stagnant_lid(nx=n, ny=n)
+    bm, grid, ext, bases = _mesh_markers(n, n, dev, mesh)
+    table = MaterialTable(cfg.physics.materials)
+    r0 = m2g_block.launches_ra
+    got = m2g_block.m2g_fused_block(*ext, grid, table, cfg.physics, bases,
+                                    with_energy=True, with_ra=True)
+    assert m2g_block.launches_ra == r0 + 1
+    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, cfg.physics,
+                                          bases, with_energy=True,
+                                          with_ra=True)
+    assert "c_ra" in got and sorted(got) == sorted(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+    again = m2g_block.m2g_fused_block(*ext, grid, table, cfg.physics, bases,
+                                      with_energy=True, with_ra=True)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    halo = m2g_fused_halo(bm, grid, table, cfg.physics, mesh, True,
+                          with_ra=True)
+    glob = m2g.m2g_fused(bm, grid, table, cfg.physics, with_energy=True,
+                         with_ra=True)
+    assert _rel(halo["c_ra"], glob["c_ra"]) <= 1e-5
+
+
+def test_m2g_kernels_fit_without_spills(dev):
+    """Every instantiation of kernels 2 and 10 (wall and periodic, with and
+    without the rho0 * alpha accumulator) keeps its sums in registers: no
+    spill stores or loads in the ptxas report of the build."""
+    from pylamp_tpu_torch import cuda_build
+
+    rows = [r for r in cuda_build.ptxas_summary()
+            if r["source"] in ("m2g.cu", "m2g_block.cu")]
+    assert len(rows) == 6, rows  # 4 of kernel 2, 2 of kernel 10
+    for r in rows:
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r

@@ -10,7 +10,8 @@ which seeds it exactly like the reference, and seeded numpy vectors.
   <= 1e-10 relative; the eta-capped coarse hierarchy: <= 1e-12;
 - one V-cycle with its own power bounds on the capped hierarchy, and the
   preset's block preconditioner (AL gamma 10, 16-iteration inner FGMRES at
-  3e-3, eta cap 1e2): <= 1e-8 relative;
+  3e-3, eta cap 1e2), and the same with the flexible-CG inner solve:
+  <= 1e-8 relative;
 - the level gates at 1024x256: kernel 5 at depth 7 and kernel 6's fusion
   start pick the reference's levels (kernel 7's gate:
   tests/test_torch_momentum.py);
@@ -213,10 +214,17 @@ def test_preconditioner_al_inner_fgmres(field):
     got = M(tuple(t(a) for a in r))
     for g, rr in zip(got, ref):
         assert rel(g, rr) <= 1e-8
-    with pytest.raises(NotImplementedError):
-        mg.make_mg_preconditioner(t(es), t(en), grid, kcont, kbnd, bcs=VBC,
+    # the flexible-CG inner velocity solve, as the reference's
+    jM = jmg.make_mg_preconditioner(jnp.asarray(es), jnp.asarray(en), JGRID,
+                                    jkcont, jkbnd, bcs=JVBC, lam_max=jlam,
+                                    velocity_inner_method="fcg", **kw,
+                                    **JMG_KW)
+    ref = jax.jit(jM)(tuple(jnp.asarray(a) for a in r))
+    M = mg.make_mg_preconditioner(t(es), t(en), grid, kcont, kbnd, bcs=VBC,
                                   lam_max=lam, velocity_inner_method="fcg",
                                   **kw, **MG_KW)
+    for g, rr in zip(M(tuple(t(a) for a in r)), ref):
+        assert rel(g, rr) <= 1e-8
 
 
 def test_gates_at_1024x256():

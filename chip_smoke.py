@@ -32,17 +32,24 @@ plain PyTorch version on the card:
   and their 4x2 blocks, each at one odd shape (37x23; 40^2 on 2x2): a
   rerun and every other stream bit-identical.
 
-Kernel and plain version are timed with CUDA events, and each kernel's
-bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever
-is larger) is computed from the inputs it was timed on.  Kernel 5's
-pre-smooth form is also timed on each of its six levels and kernel 6 on
-both hierarchies, per call and on the device alone (one call captured in
-a CUDA graph and replayed), both checked bit-identical on a rerun; an
-"occupancy" line gives their registers, shared memory and resident
-blocks (clusters for kernel 6) from the card, and every kernel's ptxas
-registers and spills (kernels 5 and 6 must not spill).  Then two paths
-run through the port's ``build`` + ``make_step``, each with every launch
-counter set to 0 just before it:
+Kernels 1 and 4 are checked in both forms at odd shapes as well (kernel
+1 at 23x37 and 129x257, seam columns bit-identical; kernel 4 at 37x23 x
+K33, 65x33 x K9 and, periodic, 3x3 x K18 and 65x33 x K9, bit-identical
+with equal drop counts).  Kernel and plain version are timed with CUDA
+events, and each kernel's bound (bytes over 3.35 TB/s or f32 operations
+over 67 TFLOP/s, whichever is larger) is computed from the inputs it was
+timed on.  Kernels 1-4 and the periodic forms of 1 and 4 are also timed on
+the device alone (one call captured in a CUDA graph and replayed), and
+kernel 1's wrapper on the host (microseconds per call with the launch
+enqueued).  Kernel 5's pre-smooth form is also timed on each of its six
+levels and kernel 6 on both hierarchies, per call and on the device
+alone, both checked bit-identical on a rerun; an "occupancy" line gives
+the registers, shared memory and resident blocks of kernels 5 and 6
+(clusters for kernel 6) and of kernels 1 and 4 in both forms from the
+card, and every kernel's ptxas registers and spills (kernels 1, 4, 5 and
+6 must not spill; kernel 4 must keep its plan's shared memory and 2
+blocks per SM).  Then two paths run through the port's ``build`` +
+``make_step``, each with every launch counter set to 0 just before it:
 
 - FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
   measured steps, kernels 1-6; then its A/B partner
@@ -185,6 +192,13 @@ TOL = {
 }
 
 
+# rows timed on the device alone as well (one call captured in a CUDA
+# graph and replayed: graph_ms), and rows whose wrapper's host time per
+# call is measured (host_us)
+DEVICE_TIMED = ("saddle", "m2g", "advect", "rebucket", "saddle_periodic",
+                "rebucket_periodic")
+HOST_TIMED = ("saddle", "saddle_periodic")
+
 # what kernels 5 and 6 report besides their rows: their times on every
 # level or hierarchy they run, and the occupancy of each timed
 # instantiation (from the card's function attributes)
@@ -240,6 +254,20 @@ def graph_ms(fn, reps: int = 20):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host wall time of one call of ``fn`` with its launch enqueued: the
+    mean over ``reps`` calls made back to back without a synchronize (the
+    device runs behind the host and never makes it wait)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
 
 
 def nbytes(*tensors) -> int:
@@ -386,11 +414,92 @@ def check_kernels(grid, table, cfg, state, ph):
     return rows, dict(io=io, vx=vx, vy=vy, dt=dt)
 
 
+def odd_shape_checks():
+    """Kernels 1 and 4 in both forms at shapes that straddle their tiles,
+    strips and row chunks (tests/test_torch_kernels_cuda.py covers more):
+    kernel 1 at 23x37 and 129x257 on seeded vectors and viscosities
+    spanning ~e^+-4, under no-slip top and left walls and under periodic
+    side walls (seam columns bit-identical); kernel 4 at 37x23 x K33 and
+    65x33 x K9 (walls), 3x3 x K18 and 65x33 x K9 (periodic) on seeded
+    markers displaced by up to 0.95 of a cell, about half valid, a sixth of
+    the x on exact cell edges, and every marker of the middle cell's 3x3
+    neighbourhood moved into it (overflow drops): bit-identical with equal
+    drop counts.  Returns {row: [(max abs err, rel err)]}."""
+    from pylamp_tpu_torch.core.bc import VelocityBCs
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.markers.bucket import BucketedMarkers, wrap_x
+    from pylamp_tpu_torch.markers.kernels import rebucket
+    from pylamp_tpu_torch.ops.kernels import saddle
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def unit(shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    out = {"saddle": [], "saddle_periodic": [], "rebucket": [],
+           "rebucket_periodic": []}
+    forms = (("saddle", VelocityBCs(top="no_slip", left="no_slip")),
+             ("saddle_periodic", VelocityBCs(top="no_slip", left="periodic",
+                                             right="periodic")))
+    for ny, nx in ((23, 37), (129, 257)):
+        grid = StaggeredGrid(nx=nx, ny=ny, lx=nx / ny, ly=1.0)
+        u = [rand(s) for s in (grid.shape_vx, grid.shape_vy,
+                               grid.shape_center)]
+        prep = saddle.prep_saddle(torch.exp(2.0 * rand(grid.shape_corner)),
+                                  torch.exp(2.0 * rand(grid.shape_center)),
+                                  3.5, 70.0)
+        for name, bcs in forms:
+            got = saddle.saddle_apply_cuda(*u, prep, grid, bcs)
+            if bcs.periodic_x:
+                seam_equal(f"{name} {ny}x{nx} rx", got[0])
+            out[name].append(errors(zip(
+                got, saddle.saddle_apply_plain(*u, prep, grid, bcs))))
+            log(f"{name} {ny}x{nx}: rel err {out[name][-1][1]:.3e}")
+    for name, ny, nx, K in (("rebucket", 37, 23, 33), ("rebucket", 65, 33, 9),
+                            ("rebucket_periodic", 3, 3, 18),
+                            ("rebucket_periodic", 65, 33, 9)):
+        periodic = name.endswith("_periodic")
+        grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
+        shape = (ny, nx, K)
+        cj = torch.arange(ny, device="cuda").view(ny, 1, 1).float()
+        ci = torch.arange(nx, device="cuda").view(1, nx, 1).float()
+        x = (ci + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dx
+        y = (cj + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dy
+        edge = (ci + (unit(shape) < 0.5).float()) * grid.dx
+        x = torch.where(unit(shape) < 1 / 6, edge, x)
+        valid = unit(shape) < 0.55
+        mj, mi = ny // 2, nx // 2
+        hood = (slice(max(mj - 1, 0), mj + 2), slice(max(mi - 1, 0), mi + 2))
+        x[hood] = (mi + unit(x[hood].shape)) * grid.dx
+        y[hood] = (mj + unit(y[hood].shape)) * grid.dy
+        valid[hood] = True
+        x = wrap_x(x, grid.lx) if periodic else torch.clamp(x, 0.0, grid.lx)
+        bm = BucketedMarkers(
+            x=x.contiguous(), y=torch.clamp(y, 0.0, grid.ly).contiguous(),
+            mat=torch.randint(0, 3, shape, generator=gen, device="cuda",
+                              dtype=torch.int32),
+            T=rand(shape), valid=valid.contiguous())
+        (gm, gd), (rm, rd) = (rebucket.rebucket_cuda(bm, grid, periodic),
+                              rebucket.rebucket_plain(bm, grid, periodic))
+        same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+                   for f in ("x", "y", "mat", "T", "valid")) \
+            and int(gd) == int(rd)
+        out[name].append((0.0, 0.0) if same else (math.inf, math.inf))
+        log(f"{name} {ny}x{nx} x K{K}: "
+            f"{'bit-identical' if same else 'DIFFERS'}, dropped {int(gd)} "
+            f"(plain {int(rd)})")
+    return out
+
+
 def time_rows(rows, extra_errors):
     """Each row's kernel against its plain version: the agreement (the
     row's own check and ``extra_errors[name]``, checks at further shapes)
     against TOL, then both timed in the order plain, kernel, kernel,
-    plain."""
+    plain.  The rows of DEVICE_TIMED are also timed on the device alone
+    (``graph_ms``), those of HOST_TIMED on the host (``host_us``)."""
     results = {}
     for (name, source, replaces, err, kfn, pfn, preps,
          (b_ms, b_by)) in rows:
@@ -407,11 +516,19 @@ def time_rows(rows, extra_errors):
                              max_abs_err=abs_err, ms=min(k1, k2),
                              plain_ms=min(p1, p2), bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
+        extra = ""
+        if name in DEVICE_TIMED:
+            dev_ms = results[name]["device_ms"] = graph_ms(kfn)
+            extra += (f", device {dev_ms:.4f} ms ({100 * b_ms / dev_ms:.2f} "
+                      "% of bound)")
+        if name in HOST_TIMED:
+            us = results[name]["host_us"] = host_us(kfn)
+            extra += f", host {us:.2f} us per call"
         log(f"kernel {name}: max abs err {abs_err:.3e}, rel err {rel:.3e} "
             f"(tol {tol:g}) "
             f"{'OK' if ok else 'FAIL'}; kernel {k1:.4f}/{k2:.4f} ms, "
             f"plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-            f"{100 * b_ms / min(k1, k2):.2f} % of bound")
+            f"{100 * b_ms / min(k1, k2):.2f} % of bound{extra}")
         if not ok:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {rel:.3e} > {tol:g}")
@@ -721,22 +838,40 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 
 
 def report_occupancy(cuda_build, smi):
-    """The occupancy line: kernels 5 and 6 per timed instantiation from the
+    """The occupancy line: kernels 5 and 6 per timed instantiation, and
+    kernels 1 and 4 in both forms (4 at the FK plan, K = 18), from the
     card's function attributes (registers, static and dynamic shared
     memory, local bytes, resident blocks per SM or clusters), and every
     kernel's registers, static shared memory and spills from the build's
-    ``ptxas -v`` report.  Kernels 5 and 6 must not spill."""
+    ``ptxas -v`` report.  Kernels 1, 4, 5 and 6 must not spill; kernel 4's
+    dynamic shared memory must be its plan's, with at least 2 blocks
+    resident per SM."""
+    from pylamp_tpu_torch.markers.kernels import rebucket
+    from pylamp_tpu_torch.ops.kernels import saddle
+
+    plan = rebucket.rebucket_plan(FK_NX, FK_NX, 18)
+    for periodic in (False, True):
+        form = " periodic" if periodic else ""
+        OCCUPANCY[f"saddle{form}"] = saddle.kernel_info(periodic)
+        info = rebucket.kernel_info(18, plan.tx, periodic)
+        OCCUPANCY[f"rebucket{form} K18 strips of {plan.tx}"] = info
+        if info["dynamic_smem"] != plan.smem or info["blocks_per_sm"] < 2:
+            raise AssertionError(f"rebucket{form}: {info}, the plan "
+                                 f"assumes {plan.smem} B and 2 blocks per SM")
     ptx = cuda_build.ptxas_summary()
     log("kernels 5 and 6 per level " + json.dumps({"device": smi,
                                                    "levels": LEVEL_TIMES}))
-    log("occupancy " + json.dumps({"device": smi, "kernels_5_6": OCCUPANCY,
+    log("occupancy " + json.dumps({"device": smi,
+                                   "kernels_1_4_5_6": OCCUPANCY,
                                    "ptxas": ptx}))
     spills = [r["function"] for r in ptx
-              if r["source"] in ("cheb.cu", "coarse_vcycle.cu")
+              if r["source"] in ("cheb.cu", "coarse_vcycle.cu", "saddle.cu",
+                                 "rebucket.cu")
               and (r["spill_stores"] or r["spill_loads"])]
     spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
     if spills:
-        raise AssertionError(f"kernels 5 / 6 spill registers: {spills}")
+        raise AssertionError(f"kernels 1 / 4 / 5 / 6 spill registers: "
+                             f"{spills}")
 
 
 def check_state(state, n_markers, diag, label):
@@ -1910,6 +2045,7 @@ def main():
         f"{tuple(state_p.markers.x.shape)} marker slots, {n_markers_p} "
         f"markers, {time.perf_counter() - t0:.1f} s")
     rows += periodic_kernel_rows(grid_p, cfg_p, table_p, state_p)
+    extra.update(odd_shape_checks())
     results = time_rows(rows, extra)
     report_occupancy(cuda_build, smi)
     del fk_io, io_s, hier
@@ -2048,7 +2184,8 @@ def main():
                     launches_hm["mesh_4x2"]["m2g_block"])},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **{k: r[k] for k in ("device_ms", "host_us") if k in r}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

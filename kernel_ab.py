@@ -1,0 +1,199 @@
+"""Times of kernels 1-4 of the PyTorch/CUDA port (pylamp_tpu_torch) on one
+GPU, so that two trees of the repository can be compared in one call.
+
+    python3 kernel_ab.py [--tree DIR] [--out FILE]
+
+Imports ``pylamp_tpu_torch`` from ``--tree`` (default: this file's
+directory), builds its kernels, and times on the FK 1024^2 x K18 state
+(``fk_bench_config``) the saddle apply, m2g, advect and rebucket, and on
+the periodic falling block 1024^2 x K18 the periodic saddle apply and
+rebucket, on the inputs ``chip_smoke.py`` gives these rows (kernel 1 on
+the solve's viscosities with seeded random vectors, kernels 2-4 on the
+built markers advected with the solve's velocities).  Each row: its
+agreement with the plain version (kernel 4 bit-identical with the same
+drop count, kernel 1 within 1e-5 of max |ref|), the CUDA-event ms (the
+better of two medians of 20 calls), the device ms (one call captured in a
+CUDA graph and replayed), the bound and, for kernel 1, the wrapper's host
+microseconds per call, with two pieces of a launch path timed in two forms
+each (the stream handle, the output allocations).  Also the build's
+``ptxas -v`` rows of ``saddle.cu`` and ``rebucket.cu``.  Prints one JSON
+object (and writes it to ``--out``); exits non-zero without a CUDA device
+or on a disagreement.
+
+The timing helpers, bounds and tolerances are ``chip_smoke.py``'s (this
+file's directory), so a tree without them can be timed the same way.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from functools import partial
+
+import torch
+
+import chip_smoke as cs
+
+
+def _prepared(cfg):
+    """(grid, table, physics, u, prep, vbc, bm, moved, (vx, vy, dt)) of
+    one built state: the solve's saddle prep with seeded random vectors u
+    at the solution's scale, the built markers bm, the markers advected
+    with the solve's velocities and the step's dt."""
+    from pylamp_tpu_torch.markers.kernels import advect
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step_phases
+    from pylamp_tpu_torch.ops.kernels import saddle
+    from pylamp_tpu_torch.solvers.scaling import (
+        characteristic_viscosity,
+        stokes_scales,
+    )
+
+    grid, table, state = build(cfg, dtype=torch.float32, device="cuda")
+    ph = make_step_phases(grid, cfg, table)
+    io = ph.interp(state)
+    vx, vy, p, _ = ph.stokes(state, io)
+    dt = ph.timestep(vx, vy, io.k_m, io.rhocp_m)
+    vbc = cfg.physics.velocity_bcs
+    kcont, kbnd = stokes_scales(characteristic_viscosity(io.eta_n.double()),
+                                grid)
+    prep = saddle.prep_saddle(io.eta_s, io.eta_n, kcont.float(),
+                              kbnd.float())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = [torch.randn(t.shape, generator=gen, device="cuda")
+         * torch.max(torch.abs(t)) for t in (vx, vy, p)]
+    if vbc.periodic_x:
+        u[0][:, -1] = u[0][:, 0]
+    moved = advect.advect_rk4_cuda(state.markers, vx, vy, dt, grid, vbc, 1)
+    return (grid, table, cfg.physics, u, prep, vbc, state.markers, moved,
+            (vx, vy, dt))
+
+
+def _saddle_row(name, grid, u, prep, vbc):
+    from pylamp_tpu_torch.ops.kernels import saddle
+
+    got = saddle.saddle_apply_cuda(*u, prep, grid, vbc)
+    ref = saddle.saddle_apply_plain(*u, prep, grid, vbc)
+    ops = (cs.stencil_ops(grid) + cs.OPS["pressure"]
+           * (u[0].numel() + u[1].numel()) + cs.OPS["continuity"]
+           * u[2].numel())
+    return (name, cs.errors(zip(got, ref)), cs.TOL["saddle"],
+            partial(saddle.saddle_apply_cuda, *u, prep, grid, vbc),
+            cs.bound_ms(cs.nbytes(*u, prep.eta_s, prep.eta_n, prep.kk,
+                                  *got), ops))
+
+
+def _rebucket_row(name, grid, moved, periodic):
+    from pylamp_tpu_torch.markers.kernels import rebucket
+
+    (gm, gd), (rm, rd) = (rebucket.rebucket_cuda(moved, grid, periodic),
+                          rebucket.rebucket_plain(moved, grid, periodic))
+    same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+               for f in ("x", "y", "mat", "T", "valid")) and int(gd) == int(rd)
+    m = moved
+    return (name, (0.0, 0.0) if same else (float("inf"),) * 2, 0.0,
+            partial(rebucket.rebucket_cuda, moved, grid, periodic),
+            cs.bound_ms(2 * cs.nbytes(m.x, m.y, m.T, m.mat, m.valid),
+                        cs.OPS["rebucket"] * int(m.total())))
+
+
+def _host_parts(u):
+    """Host microseconds per call of two pieces of a wrapper's launch
+    path, each in two forms: the stream handle through a Stream object
+    (``torch.cuda.current_stream(device).cuda_stream``) and through
+    PyTorch's raw accessor; rx, ry and rc as three allocations and as one
+    allocation cut into three views."""
+    dev = u[0].device
+    shapes = [t.shape for t in u]
+    sizes = [t.numel() for t in u]
+
+    def views():
+        return [b.view(s) for b, s in zip(
+            torch.empty(sum(sizes), device=dev).split(sizes), shapes)]
+
+    return dict(
+        stream_object=cs.host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        raw_stream=cs.host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        three_allocations=cs.host_us(
+            lambda: [torch.empty(s, device=dev) for s in shapes]),
+        one_allocation_three_views=cs.host_us(views))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)), help="the tree whose pylamp_tpu_torch is timed")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("kernel_ab: no CUDA device")
+    sys.path.insert(0, os.path.abspath(args.tree))
+    from pylamp_tpu_torch import cuda_build
+    from pylamp_tpu_torch.markers.kernels import advect, m2g
+    from pylamp_tpu_torch.models.benchmarks import (
+        falling_block_periodic_config,
+        fk_bench_config,
+    )
+
+    lib, secs = cuda_build.build()
+    cuda_build.library()
+    smi = cs.nvidia_smi_line()
+    cs.log(f"kernel_ab: {lib} (built in {secs:.1f} s) on {smi}")
+
+    rows = []
+    grid, table, phys, u, prep, vbc, bm, moved, (vx, vy, dt) = _prepared(
+        fk_bench_config(cs.FK_NX))
+    rows.append(_saddle_row("saddle", grid, u, prep, vbc))
+    got = m2g.m2g_fused_cuda(bm, grid, table, phys, with_energy=True)
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, with_energy=True)
+    rows.append(("m2g", cs.errors((got[k], ref[k]) for k in ref),
+                 cs.TOL["m2g"],
+                 partial(m2g.m2g_fused_cuda, bm, grid, table, phys, True),
+                 cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.T, bm.mat, bm.valid)
+                             + cs.nbytes(*got.values()),
+                             cs.OPS["m2g"] * int(bm.total()))))
+    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, vbc, 1)
+    rows.append(("advect", cs.displacement_error(
+        (moved.x, moved.y), (ref.x, ref.y), (bm.x, bm.y)), cs.TOL["advect"],
+        partial(advect.advect_rk4_cuda, bm, vx, vy, dt, grid, vbc, 1),
+        cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.valid, vx, vy, moved.x,
+                              moved.y), cs.OPS["advect"] * int(bm.total()))))
+    rows.append(_rebucket_row("rebucket", grid, moved, False))
+    del bm, moved, ref, got
+    grid, _, _, u, prep, vbc, _, moved, _ = _prepared(
+        falling_block_periodic_config(cs.PERIODIC_NX))
+    rows.append(_saddle_row("saddle_periodic", grid, u, prep, vbc))
+    rows.append(_rebucket_row("rebucket_periodic", grid, moved, True))
+
+    out = {}
+    for name, (abs_err, rel), tol, fn, (b_ms, b_by) in rows:
+        if not rel <= tol:
+            raise AssertionError(f"kernel {name} disagrees with its plain "
+                                 f"version: {rel:.3e} > {tol:g}")
+        ms = min(cs.cuda_time_ms(fn, 20), cs.cuda_time_ms(fn, 20))
+        r = dict(ms=ms, device_ms=cs.graph_ms(fn), bound_ms=b_ms,
+                 bound_by=b_by, rel_err=rel)
+        r["share_of_bound"] = b_ms / ms
+        r["device_share_of_bound"] = b_ms / r["device_ms"]
+        if name.startswith("saddle"):
+            r["host_us"] = cs.host_us(fn)
+            r["host_parts_us"] = _host_parts(fn.args[:3])
+        out[name] = r
+        cs.log(f"{name}: {json.dumps(r)}")
+    ptx = [r for r in cuda_build.ptxas_summary()
+           if r["source"] in ("saddle.cu", "rebucket.cu")]
+    rec = {"tree": os.path.abspath(args.tree), "device": smi,
+           "kernels": out, "ptxas": ptx}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+    print(json.dumps(rec))
+
+
+if __name__ == "__main__":
+    main()

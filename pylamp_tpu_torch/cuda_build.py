@@ -44,9 +44,9 @@ _F = ctypes.c_float
 # C signatures of the launchers (csrc/*.cu); every one returns the launch's
 # cudaError_t as an int
 SIGNATURES = {
-    # vx, vy, p, eta_s, eta_n, kk, rx, ry, rc, ny, nx, dx, dy,
-    # s_top, s_bottom, s_left, s_right, periodic, stream
-    "launch_saddle": [_P] * 9 + [_I, _I] + [_F] * 6 + [_I, _P],
+    # vx, vy, p, rx, ry, rc, the solve's SaddleArgs (host struct: eta_s,
+    # eta_n, kk, ny, nx, dx, dy, the four wall signs, periodic), stream
+    "launch_saddle": [_P] * 8,
     # vx, vy, eta_s, eta_n, kb, rx, ry, ny, nx, dx, dy,
     # s_top, s_bottom, s_left, s_right, periodic, stream
     "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I, _P],
@@ -58,9 +58,9 @@ SIGNATURES = {
     # x_lo, x_hi, y_lo, y_hi, reach, periodic, lx, 1/lx, stream
     "launch_advect": ([_P] * 8 + [_I, _I, _I] + [_F] * 6 + [_I, _I, _F, _F]
                       + [_P]),
-    # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, arrivals, ny, nx, K,
-    # dx, dy, periodic, stream
-    "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _P],
+    # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, dropped (int64), ny,
+    # nx, K, dx, dy, strip width, chunk rows, periodic, stream
+    "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _I, _I, _P],
     # ex, ey, rx, ry, eta_s, eta_n, coeffs, kb, ox, oy, fx, fy, ny, nx, dx,
     # dy, s_top, s_bottom, s_left, s_right, iters, h, zero_init, emit,
     # tile rows, periodic, stream
@@ -88,8 +88,11 @@ SIGNATURES = {
     # ny, nx, by, bx, K, dx, dy, stream
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
     # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
-    # periodic), kernel 6 at its dynamic shared bytes
+    # periodic), kernel 6 at its dynamic shared bytes, kernel 1 at
+    # (periodic), kernel 4 at (K, strip width, periodic)
     "cheb_kernel_info": [_I, _I, _I, _P],
+    "saddle_kernel_info": [_I, _P],
+    "rebucket_kernel_info": [_I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],
 }
 
@@ -215,3 +218,13 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(index: int) -> int:
+    """The current stream's handle on CUDA device ``index`` (a CUDA
+    tensor's ``device.index``), as ``stream_ptr`` gives it but without
+    building a Stream object: PyTorch's own accessor, 0.1-0.3 us of host
+    time against 3-6 us (``kernel_ab.py`` on an H100 node)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -3,9 +3,14 @@ CUDA kernel ``csrc/saddle.cu`` (replaces the TPU kernel
 ``pylamp_tpu/ops/pallas/stokes_kernel.py:saddle_apply_pallas``).
 
 ``prep_saddle`` runs once per Stokes solve (the counterpart of
-``prep_eta_pallas``): it freezes contiguous f32 viscosities and packs
-(kbnd, kcont) into a 2-element device tensor, so no apply syncs the host
-for the scales.  ``saddle_apply`` runs the plain PyTorch version
+``prep_eta_pallas``): it checks the contiguous f32 viscosities once and
+packs (kbnd, kcont) into a 2-element device tensor, so no apply syncs the
+host for the scales.  The first apply of a solve builds the launch's
+constants (grid, wall signs, the frozen pointers) into one ctypes struct;
+every apply then checks only vx, vy and p, allocates rx, ry and rc (three
+allocations cost less host time than one buffer cut into views:
+``kernel_ab.py``) and takes the stream handle without building a Stream
+object.  ``saddle_apply`` runs the plain PyTorch version
 (``saddle_apply_plain``, i.e. ``ops.stokes.stokes_operator``) on CPU
 tensors and launches the kernel on CUDA tensors; it has no shape gate.
 Periodic side walls launch the kernel's periodic form (wrapped vy ghost
@@ -14,6 +19,7 @@ columns, the seam half row in both seam columns), counted in
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -29,20 +35,50 @@ launches = 0
 launches_periodic = 0
 
 
+class _SaddleArgs(ctypes.Structure):
+    """csrc/saddle.cu SaddleArgs: the launch's per-solve constants."""
+    _fields_ = [("eta_s", ctypes.c_void_p), ("eta_n", ctypes.c_void_p),
+                ("kk", ctypes.c_void_p), ("ny", ctypes.c_int),
+                ("nx", ctypes.c_int), ("dx", ctypes.c_float),
+                ("dy", ctypes.c_float), ("s_top", ctypes.c_float),
+                ("s_bottom", ctypes.c_float), ("s_left", ctypes.c_float),
+                ("s_right", ctypes.c_float), ("periodic", ctypes.c_int)]
+
+
 @dataclasses.dataclass(frozen=True)
 class SaddlePrep:
     eta_s: torch.Tensor  # (ny+1, nx+1) f32, contiguous
     eta_n: torch.Tensor  # (ny, nx) f32, contiguous
     kk: torch.Tensor  # (2,) f32: (kbnd, kcont)
+    # the launch arguments of the last (grid, bcs) this prep was applied
+    # with (saddle_apply_cuda fills it at the first call of a solve)
+    launch: list = dataclasses.field(default_factory=lambda: [None],
+                                     compare=False, repr=False)
 
 
 def prep_saddle(eta_s, eta_n, kcont, kbnd) -> SaddlePrep:
+    """Freeze a solve's viscosities and pack (kbnd, kcont) into a 2-element
+    tensor on their device.  The viscosities must be contiguous f32 on one
+    device, eta_s one point wider and taller than eta_n (the corner and
+    cell lattices of one grid): every apply of the solve relies on these
+    checks, made once here."""
     f32 = torch.float32
+    for name, t in (("eta_s", eta_s), ("eta_n", eta_n)):
+        if t.dtype != f32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"prep_saddle: {name} must be a contiguous 2-D float32 "
+                f"tensor, got {t.dtype} {tuple(t.shape)}"
+                f"{'' if t.is_contiguous() else ', not contiguous'}")
+    ny, nx = eta_n.shape
+    if tuple(eta_s.shape) != (ny + 1, nx + 1) or eta_s.device != eta_n.device:
+        raise ValueError(
+            f"prep_saddle: eta_s {tuple(eta_s.shape)} on {eta_s.device} is "
+            f"not the corner lattice of eta_n {tuple(eta_n.shape)} on "
+            f"{eta_n.device}")
     dev = eta_n.device
     kk = torch.stack([torch.as_tensor(kbnd, dtype=f32, device=dev).reshape(()),
                       torch.as_tensor(kcont, dtype=f32, device=dev).reshape(())])
-    return SaddlePrep(eta_s.to(f32).contiguous(), eta_n.to(f32).contiguous(),
-                      kk)
+    return SaddlePrep(eta_s, eta_n, kk)
 
 
 def saddle_apply_plain(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
@@ -57,39 +93,68 @@ def side_signs(bcs: VelocityBCs):
     return (0.0, 0.0) if bcs.periodic_x else (bcs.s_left, bcs.s_right)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or not t.is_cuda:
+def _launch_args(prep: SaddlePrep, grid: StaggeredGrid, bcs: VelocityBCs):
+    """(args, pointer to them, shapes of vx, vy and p) of
+    ``prep`` on ``grid`` with ``bcs``: built and checked at the first apply
+    of a solve, then reused while the solve passes the same grid and
+    BCs."""
+    last = prep.launch[0]
+    if last is not None and last[0] is grid and last[1] is bcs:
+        return last[2]
+    if tuple(prep.eta_n.shape) != grid.shape_center \
+            or not prep.eta_n.is_cuda:
         raise ValueError(
-            f"saddle kernel: {name} must be a contiguous CUDA float32 tensor "
-            f"of shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-            f"on {t.device}")
+            f"saddle kernel: the prep's eta_n {tuple(prep.eta_n.shape)} on "
+            f"{prep.eta_n.device} is not a CUDA tensor of the grid's "
+            f"{grid.shape_center}")
+    args = _SaddleArgs(prep.eta_s.data_ptr(), prep.eta_n.data_ptr(),
+                       prep.kk.data_ptr(), grid.ny, grid.nx, grid.dx,
+                       grid.dy, bcs.s_top, bcs.s_bottom, *side_signs(bcs),
+                       int(bcs.periodic_x))
+    shapes = tuple(torch.Size(s) for s in (grid.shape_vx, grid.shape_vy,
+                                           grid.shape_center))
+    built = (args, ctypes.addressof(args), shapes)
+    prep.launch[0] = (grid, bcs, built)
+    return built
 
 
 def saddle_apply_cuda(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
                       bcs: VelocityBCs):
+    """The kernel on CUDA tensors: vx, vy and p must be contiguous float32
+    of the grid's shapes (the prep was checked by prep_saddle and, against
+    the grid, at the solve's first apply)."""
     global launches, launches_periodic
-    ny, nx = grid.ny, grid.nx
-    vx, vy, p = vx.contiguous(), vy.contiguous(), p.contiguous()
-    for name, t, shape in (("vx", vx, grid.shape_vx), ("vy", vy, grid.shape_vy),
-                           ("p", p, grid.shape_center),
-                           ("eta_s", prep.eta_s, grid.shape_corner),
-                           ("eta_n", prep.eta_n, grid.shape_center),
-                           ("kk", prep.kk, (2,))):
-        _check(name, t, shape)
-    rx = torch.empty_like(vx)
-    ry = torch.empty_like(vy)
-    rc = torch.empty_like(p)
+    _, args_ptr, shapes = _launch_args(prep, grid, bcs)
+    for name, t, shape in zip(("vx", "vy", "p"), (vx, vy, p), shapes):
+        if t.dtype != torch.float32 or t.shape != shape \
+                or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(
+                f"saddle kernel: {name} must be a contiguous CUDA float32 "
+                f"tensor of shape {tuple(shape)}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    dev = vx.device
+    rx, ry, rc = (torch.empty(s, dtype=torch.float32, device=dev)
+                  for s in shapes)
     code = cuda_build.library().launch_saddle(
-        vx.data_ptr(), vy.data_ptr(), p.data_ptr(), prep.eta_s.data_ptr(),
-        prep.eta_n.data_ptr(), prep.kk.data_ptr(), rx.data_ptr(),
-        ry.data_ptr(), rc.data_ptr(), ny, nx, grid.dx, grid.dy,
-        bcs.s_top, bcs.s_bottom, *side_signs(bcs), int(bcs.periodic_x),
-        cuda_build.stream_ptr(vx.device))
+        vx.data_ptr(), vy.data_ptr(), p.data_ptr(), rx.data_ptr(),
+        ry.data_ptr(), rc.data_ptr(), args_ptr,
+        cuda_build.raw_stream(dev.index))
     cuda_build.check(code, "saddle")
     launches += 1
     launches_periodic += bcs.periodic_x
     return rx, ry, rc
+
+
+def kernel_info(periodic: bool = False) -> dict:
+    """Occupancy of the kernel (``periodic``: its periodic form), from the
+    card's function attributes: registers per thread, static and dynamic
+    shared bytes, local (spill) bytes per thread, threads and resident
+    blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().saddle_kernel_info(
+        int(periodic), out), "saddle (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def saddle_apply(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,

@@ -63,11 +63,17 @@ def _markers(nx, ny, dev, mats=1):
     return st.markers
 
 
+SADDLE_SHAPES = [(23, 37), (129, 257), (256, 1024), (1024, 256)]
+
+
+@pytest.mark.parametrize("ny,nx", SADDLE_SHAPES)
 @pytest.mark.parametrize("bcs", BCS)
-def test_saddle_kernel(dev, bcs):
-    ny, nx = 23, 37
+def test_saddle_kernel(dev, bcs, ny, nx):
+    """Kernel 1 at shapes that straddle its 16 x 32 tiles (ragged edge
+    tiles, a one-point last tile row or column), under every BC set:
+    within 1e-5 of max |ref| per output, a rerun bit-identical."""
     grid = StaggeredGrid(nx=nx, ny=ny, lx=1.6, ly=1.0)
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(1 + nx)
 
     def r(shape, lo=-1.0, hi=1.0):
         return torch.tensor(rng.uniform(lo, hi, shape), dtype=torch.float32,
@@ -84,6 +90,38 @@ def test_saddle_kernel(dev, bcs):
     ref = saddle.saddle_apply_plain(vx, vy, p, prep, grid, bcs)
     for g, rf in zip(got, ref):
         assert _rel(g, rf) <= 1e-5
+    for g, a in zip(got, saddle.saddle_apply(vx, vy, p, prep, grid, bcs)):
+        assert torch.equal(g, a)
+
+
+def test_saddle_wrapper_checks(dev):
+    """Kernel 1's thin launch path: one prep applied under another BC set
+    or grid rebuilds its launch arguments (each result that of its own
+    BCs); a wrong shape, dtype or non-contiguous vector raises, and so
+    does a prep whose viscosities are not the grid's."""
+    grid = StaggeredGrid(nx=37, ny=23, lx=1.6, ly=1.0)
+    rng = np.random.default_rng(5)
+
+    def r(shape):
+        return torch.tensor(rng.uniform(-1, 1, shape), dtype=torch.float32,
+                            device=dev)
+
+    u = [r(grid.shape_vx), r(grid.shape_vy), r(grid.shape_center)]
+    prep = saddle.prep_saddle(torch.exp(r(grid.shape_corner)),
+                              torch.exp(r(grid.shape_center)), 3.5, 70.0)
+    for bcs in (*BCS, BCS[0]):
+        got = saddle.saddle_apply(*u, prep, grid, bcs)
+        ref = saddle.saddle_apply_plain(*u, prep, grid, bcs)
+        for g, rf in zip(got, ref):
+            assert _rel(g, rf) <= 1e-5
+    bad = {"shape": r((23, 37)), "dtype": u[0].double(),
+           "noncontiguous": r((38, 23)).t()}
+    for vx in bad.values():
+        with pytest.raises(ValueError, match="vx"):
+            saddle.saddle_apply(vx, u[1], u[2], prep, grid, BCS[0])
+    other = StaggeredGrid(nx=36, ny=23, lx=1.6, ly=1.0)
+    with pytest.raises(ValueError, match="eta_n"):
+        saddle.saddle_apply(*u, prep, other, BCS[0])
 
 
 @pytest.mark.parametrize("mats,eta_avg", [(1, "geometric"), (3, "harmonic"),
@@ -126,28 +164,84 @@ def test_advect_kernel(dev, reach, bcs):
     assert _rel(got.y - bm.y, ref.y - bm.y) <= 1e-4
 
 
-@pytest.mark.parametrize("capacity", [18, 9])
-def test_rebucket_kernel(dev, capacity):
-    bm = _markers(17, 13, dev)
-    grid = StaggeredGrid(nx=17, ny=13, lx=1.0, ly=1.0)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    # displace by up to one cell and pack into `capacity` slots (9 per
-    # cell on average: capacity 9 forces overflow drops)
-    dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
-    dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
-    moved = BucketedMarkers(
-        x=torch.clamp(bm.x + dx, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
-        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
-        mat=bm.mat[..., :capacity].contiguous(),
-        T=bm.T[..., :capacity].contiguous(),
-        valid=bm.valid[..., :capacity].contiguous())
-    got, gd = rebucket.rebucket_fused(moved, grid)
-    ref, rd = rebucket.rebucket_plain(moved, grid)
+REBUCKET_CAPACITIES = [1, 9, 18, 32, 33]
+
+
+def _rebucket_markers(ny, nx, K, dev, seed, periodic=False):
+    """Seeded (ny, nx, K) markers as advection leaves them: each slot in
+    its own cell, displaced by up to 0.95 of a cell, about half of them
+    valid; a sixth of the coordinates exactly on a cell edge (k dx in f32);
+    every valid marker of the 3x3 neighbourhood of the middle cell moved
+    into that cell (more arrivals than slots, so drops for K < 9 * 0.55 K);
+    x clipped to [0, lx] (walls) or wrapped into [0, lx) with the seam
+    placements 0, -1e-7, 1e-7 (column 0) and lx - 1e-7, lx (column nx - 1)
+    kept unwrapped (periodic)."""
+    from pylamp_tpu_torch.markers.bucket import wrap_x
+
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
+    rng = np.random.default_rng(seed)
+    shape = (ny, nx, K)
+    dx, dy = np.float32(grid.dx), np.float32(grid.dy)
+    cj, ci = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cj, ci = cj[..., None], ci[..., None]
+    x = ((ci + rng.uniform(0, 1, shape) + rng.uniform(-0.95, 0.95, shape))
+         * dx).astype(np.float32)
+    y = ((cj + rng.uniform(0, 1, shape) + rng.uniform(-0.95, 0.95, shape))
+         * dy).astype(np.float32)
+    valid = rng.uniform(size=shape) < 0.55
+    for a, c, d in ((x, ci, dx), (y, cj, dy)):
+        edge = rng.uniform(size=shape) < 1 / 6
+        k = (c + rng.integers(0, 2, shape)).astype(np.float32)
+        a[edge] = (k * d)[edge]
+    mj, mi = ny // 2, nx // 2
+    hood = (slice(max(mj - 1, 0), mj + 2), slice(max(mi - 1, 0), mi + 2))
+    x[hood] = ((mi + rng.uniform(0, 1, x[hood].shape)) * dx).astype(np.float32)
+    y[hood] = ((mj + rng.uniform(0, 1, y[hood].shape)) * dy).astype(np.float32)
+    valid[hood] = True
+    y = np.clip(y, 0.0, np.float32(grid.ly))
+    mat = rng.integers(0, 3, shape).astype(np.int32)
+    T = rng.standard_normal(shape).astype(np.float32)
+    x = torch.tensor(x, device=dev)
+    if periodic:
+        x = wrap_x(x, grid.lx)
+        seam = [(0, 0.0), (0, -1e-7), (0, 1e-7), (nx - 1, grid.lx - 1e-7),
+                (nx - 1, grid.lx)]
+        for s, (col, v) in enumerate(seam):
+            if s % 3 < K:
+                x[:, col, s % 3] = v
+    else:
+        x = torch.clamp(x, 0.0, grid.lx)
+    bm = BucketedMarkers(
+        x=x.contiguous(), y=torch.tensor(y, device=dev),
+        mat=torch.tensor(mat, device=dev), T=torch.tensor(T, device=dev),
+        valid=torch.tensor(valid, device=dev))
+    return bm, grid
+
+
+def _same_rebucket(got, ref):
+    (gm, gd), (rm, rd) = got, ref
     for f in ("x", "y", "mat", "T", "valid"):
-        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        assert torch.equal(getattr(gm, f), getattr(rm, f)), f
+    assert gd.dtype == torch.int64 and gd.dim() == 0
     assert int(gd) == int(rd)
-    if capacity == 9:
-        assert int(gd) > 0
+
+
+@pytest.mark.parametrize("capacity", REBUCKET_CAPACITIES)
+@pytest.mark.parametrize("ny,nx", [(13, 17), (37, 23), (65, 33), (70, 100)])
+def test_rebucket_kernel(dev, ny, nx, capacity):
+    """Kernel 4 at shapes that are no multiple of its 32-column strips or
+    32-row chunks (one strip wide; a one-column last strip; a one-row last
+    chunk), K from 1 to 33 (one ballot and two per source cell), markers
+    on exact cell edges and a crowded neighbourhood: identical slot for
+    slot to the plain version with the same drop count, a rerun too."""
+    moved, grid = _rebucket_markers(ny, nx, capacity, dev, 3 + capacity)
+    n0 = rebucket.launches
+    got = rebucket.rebucket_fused(moved, grid)
+    assert rebucket.launches == n0 + 1
+    _same_rebucket(got, rebucket.rebucket_plain(moved, grid))
+    if capacity <= 9:
+        assert int(got[1]) > 0
+    _same_rebucket(got, rebucket.rebucket_fused(moved, grid))
 
 
 def _level_problem(ny, nx, dev, seed):
@@ -712,10 +806,11 @@ def test_coarse_vcycle_preps_interleaved(dev):
 
 
 def test_redesigned_kernels_fit_without_spills(dev):
-    """Kernel 5 at every depth and tile height, and kernel 6 at the FK
-    128^2 and sticky-air 128x32 plans: no local memory (spills), kernel 5
-    with 16 warps resident per SM, one cluster of kernel 6 resident, and
-    kernel 6's static shared memory the planner's SMEM_STATIC."""
+    """Kernel 5 at every depth and tile height, kernel 6 at the FK 128^2
+    and sticky-air 128x32 plans, kernels 1 and 4 in both forms: no local
+    memory (spills), kernel 5 with 16 warps resident per SM, one cluster of
+    kernel 6 resident, kernel 6's static shared memory the planner's
+    SMEM_STATIC, kernel 4's dynamic shared memory its plan's."""
     for he in range(1, 8):
         for ty in cheb.TILE_ROWS:
             for periodic in (False, True):
@@ -728,6 +823,19 @@ def test_redesigned_kernels_fit_without_spills(dev):
         assert info["local_bytes"] == 0 and info["clusters"] >= 1, info
         assert info["static_smem"] == cvk.SMEM_STATIC, info
         assert info["cluster"] == cvk.CLUSTER, info
+    # kernel 1 (tiled saddle stencil) and kernel 4 (row-streamed repack)
+    # in both forms, kernel 4 at the plans of K up to 100 (two blocks
+    # resident per SM, as rebucket_plan promises)
+    for periodic in (False, True):
+        info = saddle.kernel_info(periodic)
+        assert info["local_bytes"] == 0, info
+        assert info["blocks_per_sm"] * info["threads"] >= 1024, info
+        for K in (1, 9, 18, 32, 33, 64, 100):
+            plan = rebucket.rebucket_plan(1024, 1024, K)
+            info = rebucket.kernel_info(K, plan.tx, periodic)
+            assert info["local_bytes"] == 0, (K, info)
+            assert info["dynamic_smem"] == plan.smem, (K, info)
+            assert info["blocks_per_sm"] >= 2, (K, info)
 
 
 # -- the periodic forms of kernels 1-5 and 7 ----------------------------------
@@ -746,7 +854,9 @@ def _seam_consistent(*arrays):
 
 
 @pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
-@pytest.mark.parametrize("ny,nx", [(5, 3), (23, 4), (16, 256), (21, 256)])
+@pytest.mark.parametrize("ny,nx", [(5, 3), (23, 4), (16, 256), (21, 256),
+                                   (23, 37), (129, 257), (256, 1024),
+                                   (1024, 256)])
 def test_saddle_and_momentum_kernels_periodic(dev, ny, nx, bc):
     """Kernels 1 and 7 in their periodic forms at the narrowest widths and
     at ragged ny, against the plain versions (any input: the seam row reads
@@ -914,41 +1024,48 @@ def test_advect_kernel_periodic(dev, reach, bc):
         assert torch.equal(got.x, again.x) and torch.equal(got.y, again.y)
 
 
-@pytest.mark.parametrize("capacity", [18, 9])
-@pytest.mark.parametrize("ny,nx", [(13, 17), (6, 3)])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_rebucket_kernel_unaligned_streams(dev, periodic):
+    """Streams that start inside their allocation (views at an offset of
+    one slot: the valid words and the streams at another alignment than
+    a fresh tensor's) are repacked as fresh ones are: identical slot for
+    slot to the plain version, same drop count."""
+    moved, grid = _rebucket_markers(37, 23, 9, dev, 77, periodic)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    odd = moved.replace(x=shifted(moved.x), y=shifted(moved.y),
+                        T=shifted(moved.T), mat=shifted(moved.mat),
+                        valid=shifted(moved.valid))
+    assert odd.x.data_ptr() % 16 and odd.x.is_contiguous()
+    _same_rebucket(rebucket.rebucket_fused(odd, grid, periodic_x=periodic),
+                   rebucket.rebucket_plain(moved, grid, periodic_x=periodic))
+
+
+@pytest.mark.parametrize("capacity", REBUCKET_CAPACITIES)
+@pytest.mark.parametrize("ny,nx", [(13, 17), (6, 3), (3, 3), (37, 23),
+                                   (65, 33)])
 def test_rebucket_kernel_periodic(dev, ny, nx, capacity):
     """Kernel 4's periodic form: markers displaced by up to a cell and
-    wrapped (as advection leaves them), plus the seam placements of
-    _seam_markers, repacked identically slot for slot to the plain
-    version with the same drop count; a rerun bit-identical."""
-    from pylamp_tpu_torch.markers.bucket import wrap_x
-
-    _, grid, _, bm = _seam_markers(nx, ny, dev)
-    gen = torch.Generator(device=dev).manual_seed(131)
-    dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
-    dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
-    x = wrap_x(bm.x + dx, grid.lx)
-    x[:, 0, :3] = bm.x[:, 0, :3]  # keep the seam placements
-    x[:, -1, :2] = bm.x[:, -1, :2]
-    moved = BucketedMarkers(
-        x=x[..., :capacity].contiguous(),
-        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
-        mat=bm.mat[..., :capacity].contiguous(),
-        T=bm.T[..., :capacity].contiguous(),
-        valid=bm.valid[..., :capacity].contiguous())
+    wrapped (as advection leaves them), with the seam placements, exact
+    cell edges and a crowded neighbourhood of _rebucket_markers, at the
+    narrowest widths (3 columns: both halo columns wrap onto the strip)
+    and at shapes that straddle strips and chunks: repacked identically
+    slot for slot to the plain version with the same drop count; a rerun
+    bit-identical."""
+    moved, grid = _rebucket_markers(ny, nx, capacity, dev, 131 + capacity,
+                                    periodic=True)
     p0 = rebucket.launches_periodic
-    got, gd = rebucket.rebucket_fused(moved, grid, periodic_x=True)
+    got = rebucket.rebucket_fused(moved, grid, periodic_x=True)
     assert rebucket.launches_periodic == p0 + 1
-    ref, rd = rebucket.rebucket_plain(moved, grid, periodic_x=True)
-    for f in ("x", "y", "mat", "T", "valid"):
-        assert torch.equal(getattr(got, f), getattr(ref, f)), f
-    assert int(gd) == int(rd)
-    if capacity == 9:
-        assert int(gd) > 0
-    again, ad = rebucket.rebucket_fused(moved, grid, periodic_x=True)
-    for f in ("x", "y", "mat", "T", "valid"):
-        assert torch.equal(getattr(got, f), getattr(again, f)), f
-    assert int(ad) == int(gd)
+    _same_rebucket(got, rebucket.rebucket_plain(moved, grid, periodic_x=True))
+    if capacity <= 9:
+        assert int(got[1]) > 0
+    _same_rebucket(got, rebucket.rebucket_fused(moved, grid, periodic_x=True))
 
 
 # -- the rho0 * alpha stream of kernels 2 and 10 ----------------------------------

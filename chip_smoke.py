@@ -32,23 +32,26 @@ plain PyTorch version on the card:
   and their 4x2 blocks, each at one odd shape (37x23; 40^2 on 2x2): a
   rerun and every other stream bit-identical.
 
-Kernels 1 and 4 are checked in both forms at odd shapes as well (kernel
-1 at 23x37 and 129x257, seam columns bit-identical; kernel 4 at 37x23 x
+Kernels 1-4 are checked in both forms at odd shapes as well (kernel 1
+at 23x37 and 129x257, seam columns bit-identical; kernel 4 at 37x23 x
 K33, 65x33 x K9 and, periodic, 3x3 x K18 and 65x33 x K9, bit-identical
-with equal drop counts).  Kernel and plain version are timed with CUDA
+with equal drop counts; kernels 2 and 3 on seeded markers at 37x23 x K33,
+65x33 x K9 and, periodic, 3x3 x K18 and 6x3 x K9, under their bars, a
+rerun bit-identical), and kernels 2 and 3 at the FK and periodic shapes
+are rerun bit-identical too.  Kernel and plain version are timed with CUDA
 events, and each kernel's bound (bytes over 3.35 TB/s or f32 operations
 over 67 TFLOP/s, whichever is larger) is computed from the inputs it was
-timed on.  Kernels 1-4 and the periodic forms of 1 and 4 are also timed on
-the device alone (one call captured in a CUDA graph and replayed), and
-kernel 1's wrapper on the host (microseconds per call with the launch
-enqueued).  Kernel 5's pre-smooth form is also timed on each of its six
-levels and kernel 6 on both hierarchies, per call and on the device
-alone, both checked bit-identical on a rerun; an "occupancy" line gives
-the registers, shared memory and resident blocks of kernels 5 and 6
-(clusters for kernel 6) and of kernels 1 and 4 in both forms from the
-card, and every kernel's ptxas registers and spills (kernels 1, 4, 5 and
-6 must not spill; kernel 4 must keep its plan's shared memory and 2
-blocks per SM).  Then two paths run through the port's ``build`` +
+timed on.  Kernels 1-4, the periodic forms of 1-4 and kernel 2 with the
+rho0 * alpha stream are also timed on the device alone (one call captured
+in a CUDA graph and replayed), and kernel 1's wrapper on the host
+(microseconds per call with the launch enqueued).  Kernel 5's pre-smooth
+form is also timed on each of its six levels and kernel 6 on both
+hierarchies, per call and on the device alone, both checked bit-identical
+on a rerun; an "occupancy" line gives the registers, shared memory and
+resident blocks of kernels 5 and 6 (clusters for kernel 6) and of kernels
+1-4 in every form from the card, and every kernel's ptxas registers and
+spills (kernels 1-6 must not spill; kernels 2-4 must keep their plans'
+shared memory, kernels 3 and 4 2 blocks per SM, kernel 2 4 at FK).  Then two paths run through the port's ``build`` +
 ``make_step``, each with every launch counter set to 0 just before it:
 
 - FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
@@ -196,7 +199,8 @@ TOL = {
 # graph and replayed: graph_ms), and rows whose wrapper's host time per
 # call is measured (host_us)
 DEVICE_TIMED = ("saddle", "m2g", "advect", "rebucket", "saddle_periodic",
-                "rebucket_periodic")
+                "m2g_periodic", "advect_periodic", "rebucket_periodic",
+                "m2g_ra")
 HOST_TIMED = ("saddle", "saddle_periodic")
 
 # what kernels 5 and 6 report besides their rows: their times on every
@@ -323,6 +327,13 @@ def displacement_error(got, ref, start, periods=(None, None)):
     return abs_err, excess / scale
 
 
+def rerun_equal(name, got, again):
+    """A kernel's rerun on the same inputs must be bit-identical."""
+    bad = [k for k in got if not torch.equal(got[k], again[k])]
+    if bad:
+        raise AssertionError(f"{name}: a rerun differs in {bad}")
+
+
 def check_kernels(grid, table, cfg, state, ph):
     """Each kernel against its plain version on the card, on inputs taken
     from the built state after one interp and one Stokes solve."""
@@ -370,6 +381,8 @@ def check_kernels(grid, table, cfg, state, ph):
     ref = m2g.m2g_fused_plain(m, grid, table, phys, with_energy=True)
     if sorted(got) != sorted(ref):
         raise AssertionError(f"m2g streams differ: {sorted(got)} vs {sorted(ref)}")
+    rerun_equal("m2g", got, m2g.m2g_fused_cuda(m, grid, table, phys,
+                                               with_energy=True))
     err = errors((got[k], ref[k]) for k in ref)
     n_valid = int(m.total())
     marker_bytes = nbytes(m.x, m.y, m.T, m.mat, m.valid)
@@ -384,6 +397,9 @@ def check_kernels(grid, table, cfg, state, ph):
     reach = 1
     got = advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, reach)
     ref = advect.advect_rk4_plain(m, vx, vy, dt, grid, vbc, reach)
+    again = advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, reach)
+    rerun_equal("advect", {"x": got.x, "y": got.y},
+                {"x": again.x, "y": again.y})
     err = displacement_error((got.x, got.y), (ref.x, ref.y), (m.x, m.y))
     log(f"advect: new positions max |err| / max |ref| "
         f"{errors([(got.x, ref.x), (got.y, ref.y)])[1]:.3e}")
@@ -415,7 +431,7 @@ def check_kernels(grid, table, cfg, state, ph):
 
 
 def odd_shape_checks():
-    """Kernels 1 and 4 in both forms at shapes that straddle their tiles,
+    """Kernels 1-4 in both forms at shapes that straddle their tiles,
     strips and row chunks (tests/test_torch_kernels_cuda.py covers more):
     kernel 1 at 23x37 and 129x257 on seeded vectors and viscosities
     spanning ~e^+-4, under no-slip top and left walls and under periodic
@@ -424,12 +440,22 @@ def odd_shape_checks():
     markers displaced by up to 0.95 of a cell, about half valid, a sixth of
     the x on exact cell edges, and every marker of the middle cell's 3x3
     neighbourhood moved into it (overflow drops): bit-identical with equal
-    drop counts.  Returns {row: [(max abs err, rel err)]}."""
+    drop counts; kernels 2 and 3 at 37x23 x K33 and 65x33 x K9 (walls),
+    3x3 x K18 and 6x3 x K9 (periodic) on such markers with one cell full
+    and the first two cell rows empty: kernel 2 with every stream (vx,
+    energy, H, rho0 * alpha; three materials) within its bar per stream,
+    kernel 3 at stage reach 2 with seeded velocities (a drift across the
+    seam, periodic) within its displacement bar, both bit-identical on a
+    rerun.  Returns {row: [(max abs err, rel err)]}."""
+    import dataclasses
+
     from pylamp_tpu_torch.core.bc import VelocityBCs
     from pylamp_tpu_torch.core.grid import StaggeredGrid
     from pylamp_tpu_torch.markers.bucket import BucketedMarkers, wrap_x
-    from pylamp_tpu_torch.markers.kernels import rebucket
+    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
+    from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
     from pylamp_tpu_torch.ops.kernels import saddle
+    from pylamp_tpu_torch.physics.materials import Material, MaterialTable
 
     gen = torch.Generator(device="cuda").manual_seed(17)
 
@@ -439,8 +465,32 @@ def odd_shape_checks():
     def unit(shape):
         return torch.rand(shape, generator=gen, device="cuda")
 
+    def markers(ny, nx, K, periodic):
+        grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
+        shape = (ny, nx, K)
+        cj = torch.arange(ny, device="cuda").view(ny, 1, 1).float()
+        ci = torch.arange(nx, device="cuda").view(1, nx, 1).float()
+        x = (ci + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dx
+        y = (cj + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dy
+        edge = (ci + (unit(shape) < 0.5).float()) * grid.dx
+        x = torch.where(unit(shape) < 1 / 6, edge, x)
+        valid = unit(shape) < 0.55
+        mj, mi = ny // 2, nx // 2
+        hood = (slice(max(mj - 1, 0), mj + 2), slice(max(mi - 1, 0), mi + 2))
+        x[hood] = (mi + unit(x[hood].shape)) * grid.dx
+        y[hood] = (mj + unit(y[hood].shape)) * grid.dy
+        valid[hood] = True
+        x = wrap_x(x, grid.lx) if periodic else torch.clamp(x, 0.0, grid.lx)
+        bm = BucketedMarkers(
+            x=x.contiguous(), y=torch.clamp(y, 0.0, grid.ly).contiguous(),
+            mat=torch.randint(0, 3, shape, generator=gen, device="cuda",
+                              dtype=torch.int32),
+            T=rand(shape), valid=valid.contiguous())
+        return grid, bm
+
     out = {"saddle": [], "saddle_periodic": [], "rebucket": [],
-           "rebucket_periodic": []}
+           "rebucket_periodic": [], "m2g": [], "m2g_periodic": [],
+           "advect": [], "advect_periodic": []}
     forms = (("saddle", VelocityBCs(top="no_slip", left="no_slip")),
              ("saddle_periodic", VelocityBCs(top="no_slip", left="periodic",
                                              right="periodic")))
@@ -462,26 +512,7 @@ def odd_shape_checks():
                             ("rebucket_periodic", 3, 3, 18),
                             ("rebucket_periodic", 65, 33, 9)):
         periodic = name.endswith("_periodic")
-        grid = StaggeredGrid(nx=nx, ny=ny, lx=1.0, ly=1.0)
-        shape = (ny, nx, K)
-        cj = torch.arange(ny, device="cuda").view(ny, 1, 1).float()
-        ci = torch.arange(nx, device="cuda").view(1, nx, 1).float()
-        x = (ci + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dx
-        y = (cj + unit(shape) + 1.9 * (unit(shape) - 0.5)) * grid.dy
-        edge = (ci + (unit(shape) < 0.5).float()) * grid.dx
-        x = torch.where(unit(shape) < 1 / 6, edge, x)
-        valid = unit(shape) < 0.55
-        mj, mi = ny // 2, nx // 2
-        hood = (slice(max(mj - 1, 0), mj + 2), slice(max(mi - 1, 0), mi + 2))
-        x[hood] = (mi + unit(x[hood].shape)) * grid.dx
-        y[hood] = (mj + unit(y[hood].shape)) * grid.dy
-        valid[hood] = True
-        x = wrap_x(x, grid.lx) if periodic else torch.clamp(x, 0.0, grid.lx)
-        bm = BucketedMarkers(
-            x=x.contiguous(), y=torch.clamp(y, 0.0, grid.ly).contiguous(),
-            mat=torch.randint(0, 3, shape, generator=gen, device="cuda",
-                              dtype=torch.int32),
-            T=rand(shape), valid=valid.contiguous())
+        grid, bm = markers(ny, nx, K, periodic)
         (gm, gd), (rm, rd) = (rebucket.rebucket_cuda(bm, grid, periodic),
                               rebucket.rebucket_plain(bm, grid, periodic))
         same = all(torch.equal(getattr(gm, f), getattr(rm, f))
@@ -491,6 +522,49 @@ def odd_shape_checks():
         log(f"{name} {ny}x{nx} x K{K}: "
             f"{'bit-identical' if same else 'DIFFERS'}, dropped {int(gd)} "
             f"(plain {int(rd)})")
+    table = MaterialTable([
+        Material(rho0=100.0, alpha=1.0, eta0=1.0,
+                 viscosity="frank_kamenetskii", fk_gamma=9.2, k=1.0,
+                 cp=0.01),
+        Material(rho0=90.0, alpha=0.5, eta0=10.0, k=2.0, cp=0.02, H=1.5),
+        Material(rho0=80.0, alpha=0.2, T_ref=0.5, eta0=3.0,
+                 viscosity="arrhenius", E_act=3.0, k=0.5, cp=0.03)])
+    for periodic, ny, nx, K in ((False, 37, 23, 33), (False, 65, 33, 9),
+                                (True, 3, 3, 18), (True, 6, 3, 9)):
+        form = "_periodic" if periodic else ""
+        grid, bm = markers(ny, nx, K, periodic)
+        valid = bm.valid.clone()
+        valid[ny // 2, nx // 2, :] = True  # a full cell
+        valid[:2] = False  # an empty tile
+        bm = bm.replace(valid=valid.contiguous())
+        phys = dataclasses.replace(fk_stagnant_lid(nx=nx, ny=ny).physics,
+                                   gx=0.4)
+        kw = dict(with_energy=True, periodic_x=periodic, with_ra=True)
+        got = m2g.m2g_fused_cuda(bm, grid, table, phys, **kw)
+        ref = m2g.m2g_fused_plain(bm, grid, table, phys, **kw)
+        if sorted(got) != sorted(ref) or "vx_w" not in got:
+            raise AssertionError(f"m2g{form} {ny}x{nx}: streams {sorted(got)}")
+        rerun_equal(f"m2g{form} {ny}x{nx}", got,
+                    m2g.m2g_fused_cuda(bm, grid, table, phys, **kw))
+        out[f"m2g{form}"].append(errors((got[k], ref[k]) for k in ref))
+        bcs = (VelocityBCs(top="no_slip", left="periodic", right="periodic")
+               if periodic else VelocityBCs(top="no_slip", left="no_slip"))
+        vx = (0.7 if periodic else 0.0) + 0.3 * rand(grid.shape_vx)
+        if periodic:
+            vx[:, -1] = vx[:, 0]
+        vy = 0.5 * rand(grid.shape_vy)
+        dt = torch.tensor(0.9 * grid.dx, device="cuda")
+        moved = advect.advect_rk4_cuda(bm, vx, vy, dt, grid, bcs, 2)
+        again = advect.advect_rk4_cuda(bm, vx, vy, dt, grid, bcs, 2)
+        rerun_equal(f"advect{form} {ny}x{nx}", {"x": moved.x, "y": moved.y},
+                    {"x": again.x, "y": again.y})
+        ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, bcs, 2)
+        out[f"advect{form}"].append(displacement_error(
+            (moved.x, moved.y), (ref.x, ref.y), (bm.x, bm.y),
+            (grid.lx if periodic else None, None)))
+        log(f"m2g{form} / advect{form} {ny}x{nx} x K{K}: rel err "
+            f"{out[f'm2g{form}'][-1][1]:.3e} / displacement "
+            f"{out[f'advect{form}'][-1][1]:.3e}; reruns bit-identical")
     return out
 
 
@@ -839,39 +913,53 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 
 def report_occupancy(cuda_build, smi):
     """The occupancy line: kernels 5 and 6 per timed instantiation, and
-    kernels 1 and 4 in both forms (4 at the FK plan, K = 18), from the
+    kernels 1-4 in every form (2-4 at the FK plans, K = 18), from the
     card's function attributes (registers, static and dynamic shared
     memory, local bytes, resident blocks per SM or clusters), and every
     kernel's registers, static shared memory and spills from the build's
-    ``ptxas -v`` report.  Kernels 1, 4, 5 and 6 must not spill; kernel 4's
-    dynamic shared memory must be its plan's, with at least 2 blocks
-    resident per SM."""
-    from pylamp_tpu_torch.markers.kernels import rebucket
+    ``ptxas -v`` report.  Kernels 1-6 must not spill; kernels 2-4's
+    dynamic shared memory must be their plans', with at least 2 blocks
+    resident per SM (kernel 2: 4, which its 9-slot units are sized for)."""
+    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
     from pylamp_tpu_torch.ops.kernels import saddle
 
     plan = rebucket.rebucket_plan(FK_NX, FK_NX, 18)
+    m_plan = m2g.m2g_plan(FK_NX, FK_NX, 18)
+    a_plan = advect.advect_plan(FK_NX, FK_NX, 18)
+    held = []  # (name, info, dynamic shared bytes, blocks per SM)
     for periodic in (False, True):
         form = " periodic" if periodic else ""
         OCCUPANCY[f"saddle{form}"] = saddle.kernel_info(periodic)
         info = rebucket.kernel_info(18, plan.tx, periodic)
         OCCUPANCY[f"rebucket{form} K18 strips of {plan.tx}"] = info
-        if info["dynamic_smem"] != plan.smem or info["blocks_per_sm"] < 2:
-            raise AssertionError(f"rebucket{form}: {info}, the plan "
-                                 f"assumes {plan.smem} B and 2 blocks per SM")
+        held.append((f"rebucket{form}", info, plan.smem, 2))
+        for ra in (False, True):
+            flags = (m2g.FLAG_ENERGY | m2g.FLAG_RA * ra
+                     | m2g.FLAG_PERIODIC * periodic)
+            name = f"m2g{form}{' ra' if ra else ''}"
+            info = m2g.kernel_info(m_plan, flags)
+            OCCUPANCY[f"{name} K18 units of {m_plan.kc}"] = info
+            held.append((name, info, m_plan.smem, 4))
+        info = advect.kernel_info(a_plan, periodic)
+        OCCUPANCY[f"advect{form} K18 tiles of {a_plan.ty}x{a_plan.tx}"] = info
+        held.append((f"advect{form}", info, a_plan.smem, 2))
+    for name, info, smem, blocks in held:
+        if info["dynamic_smem"] != smem or info["blocks_per_sm"] < blocks:
+            raise AssertionError(f"{name}: {info}, the plan assumes {smem} "
+                                 f"B and {blocks} blocks per SM")
     ptx = cuda_build.ptxas_summary()
     log("kernels 5 and 6 per level " + json.dumps({"device": smi,
                                                    "levels": LEVEL_TIMES}))
     log("occupancy " + json.dumps({"device": smi,
-                                   "kernels_1_4_5_6": OCCUPANCY,
+                                   "kernels_1_to_6": OCCUPANCY,
                                    "ptxas": ptx}))
     spills = [r["function"] for r in ptx
               if r["source"] in ("cheb.cu", "coarse_vcycle.cu", "saddle.cu",
-                                 "rebucket.cu")
+                                 "rebucket.cu", "m2g.cu", "advect.cu")
               and (r["spill_stores"] or r["spill_loads"])]
     spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
     if spills:
-        raise AssertionError(f"kernels 1 / 4 / 5 / 6 spill registers: "
-                             f"{spills}")
+        raise AssertionError(f"kernels 1-6 spill registers: {spills}")
 
 
 def check_state(state, n_markers, diag, label):
@@ -1461,6 +1549,8 @@ def periodic_kernel_rows(grid, cfg, table, state):
             raise AssertionError(f"periodic m2g streams differ: {sorted(got)}"
                                  f" vs {sorted(ref)}")
         errs.append(errors((got[k], ref[k]) for k in ref))
+        rerun_equal("m2g_periodic", got, m2g.m2g_fused_cuda(
+            m, grid, table, phys, with_energy, True))
         for k, a in got.items():
             if a.shape[1] == grid.nx + 1:
                 seam_equal(f"m2g_periodic {k}", a)
@@ -1478,6 +1568,9 @@ def periodic_kernel_rows(grid, cfg, table, state):
     # 3p: RK4 advection with the solve's velocities, x wrapped into [0, lx)
     got = advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, 1)
     ref = advect.advect_rk4_plain(m, vx, vy, dt, grid, vbc, 1)
+    again = advect.advect_rk4_cuda(m, vx, vy, dt, grid, vbc, 1)
+    rerun_equal("advect_periodic", {"x": got.x, "y": got.y},
+                {"x": again.x, "y": again.y})
     x = got.x[m.valid]
     if not (float(x.min()) >= 0.0 and float(x.max()) <= grid.lx):
         raise AssertionError("periodic advect: x outside [0, lx]")

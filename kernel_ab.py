@@ -5,20 +5,23 @@ GPU, so that two trees of the repository can be compared in one call.
 
 Imports ``pylamp_tpu_torch`` from ``--tree`` (default: this file's
 directory), builds its kernels, and times on the FK 1024^2 x K18 state
-(``fk_bench_config``) the saddle apply, m2g, advect and rebucket, and on
-the periodic falling block 1024^2 x K18 the periodic saddle apply and
+(``fk_bench_config``) the saddle apply, m2g (with the energy streams, and
+as ``m2g_ra`` with the rho0 * alpha stream too, on the heated FK
+physics), advect and rebucket, and on the periodic falling block 1024^2 x
+K18 the periodic saddle apply, m2g (the step's streams), advect and
 rebucket, on the inputs ``chip_smoke.py`` gives these rows (kernel 1 on
 the solve's viscosities with seeded random vectors, kernels 2-4 on the
 built markers advected with the solve's velocities).  Each row: its
 agreement with the plain version (kernel 4 bit-identical with the same
-drop count, kernel 1 within 1e-5 of max |ref|), the CUDA-event ms (the
+drop count, kernel 1 within 1e-5 of max |ref|, kernel 2 within 1e-5 per
+stream, kernel 3 within 1e-4 of the displacement), the CUDA-event ms (the
 better of two medians of 20 calls), the device ms (one call captured in a
 CUDA graph and replayed), the bound and, for kernel 1, the wrapper's host
 microseconds per call, with two pieces of a launch path timed in two forms
 each (the stream handle, the output allocations).  Also the build's
-``ptxas -v`` rows of ``saddle.cu`` and ``rebucket.cu``.  Prints one JSON
-object (and writes it to ``--out``); exits non-zero without a CUDA device
-or on a disagreement.
+``ptxas -v`` rows of ``saddle.cu``, ``rebucket.cu``, ``m2g.cu`` and
+``advect.cu``.  Prints one JSON object (and writes it to ``--out``);
+exits non-zero without a CUDA device or on a disagreement.
 
 The timing helpers, bounds and tolerances are ``chip_smoke.py``'s (this
 file's directory), so a tree without them can be timed the same way.
@@ -98,6 +101,35 @@ def _rebucket_row(name, grid, moved, periodic):
                         cs.OPS["rebucket"] * int(m.total())))
 
 
+def _m2g_row(name, grid, table, phys, bm, **kw):
+    from pylamp_tpu_torch.markers.kernels import m2g
+
+    got = m2g.m2g_fused_cuda(bm, grid, table, phys, **kw)
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, **kw)
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{name}: streams {sorted(got)} vs {sorted(ref)}")
+    return (name, cs.errors((got[k], ref[k]) for k in ref), cs.TOL["m2g"],
+            partial(m2g.m2g_fused_cuda, bm, grid, table, phys, **kw),
+            cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.T, bm.mat, bm.valid)
+                        + cs.nbytes(*got.values()),
+                        cs.OPS["m2g"] * int(bm.total())))
+
+
+def _advect_row(name, grid, vbc, bm, moved, vel):
+    from pylamp_tpu_torch.markers.kernels import advect
+
+    vx, vy, dt = vel
+    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, vbc, 1)
+    periods = (grid.lx if vbc.periodic_x else None, None)
+    return (name, cs.displacement_error((moved.x, moved.y), (ref.x, ref.y),
+                                        (bm.x, bm.y), periods),
+            cs.TOL["advect"],
+            partial(advect.advect_rk4_cuda, bm, vx, vy, dt, grid, vbc, 1),
+            cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.valid, vx, vy, moved.x,
+                                  moved.y),
+                        cs.OPS["advect"] * int(bm.total())))
+
+
 def _host_parts(u):
     """Host microseconds per call of two pieces of a wrapper's launch
     path, each in two forms: the stream handle through a Stream object
@@ -132,11 +164,11 @@ def main(argv=None):
         sys.exit("kernel_ab: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.tree))
     from pylamp_tpu_torch import cuda_build
-    from pylamp_tpu_torch.markers.kernels import advect, m2g
     from pylamp_tpu_torch.models.benchmarks import (
         falling_block_periodic_config,
         fk_bench_config,
     )
+    from pylamp_tpu_torch.models.profile import fk_heated_config
 
     lib, secs = cuda_build.build()
     cuda_build.library()
@@ -144,28 +176,22 @@ def main(argv=None):
     cs.log(f"kernel_ab: {lib} (built in {secs:.1f} s) on {smi}")
 
     rows = []
-    grid, table, phys, u, prep, vbc, bm, moved, (vx, vy, dt) = _prepared(
+    grid, table, phys, u, prep, vbc, bm, moved, vel = _prepared(
         fk_bench_config(cs.FK_NX))
     rows.append(_saddle_row("saddle", grid, u, prep, vbc))
-    got = m2g.m2g_fused_cuda(bm, grid, table, phys, with_energy=True)
-    ref = m2g.m2g_fused_plain(bm, grid, table, phys, with_energy=True)
-    rows.append(("m2g", cs.errors((got[k], ref[k]) for k in ref),
-                 cs.TOL["m2g"],
-                 partial(m2g.m2g_fused_cuda, bm, grid, table, phys, True),
-                 cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.T, bm.mat, bm.valid)
-                             + cs.nbytes(*got.values()),
-                             cs.OPS["m2g"] * int(bm.total()))))
-    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, vbc, 1)
-    rows.append(("advect", cs.displacement_error(
-        (moved.x, moved.y), (ref.x, ref.y), (bm.x, bm.y)), cs.TOL["advect"],
-        partial(advect.advect_rk4_cuda, bm, vx, vy, dt, grid, vbc, 1),
-        cs.bound_ms(cs.nbytes(bm.x, bm.y, bm.valid, vx, vy, moved.x,
-                              moved.y), cs.OPS["advect"] * int(bm.total()))))
+    rows.append(_m2g_row("m2g", grid, table, phys, bm, with_energy=True))
+    rows.append(_m2g_row("m2g_ra", grid, table,
+                         fk_heated_config(cs.FK_NX).physics, bm,
+                         with_energy=True, with_ra=True))
+    rows.append(_advect_row("advect", grid, vbc, bm, moved, vel))
     rows.append(_rebucket_row("rebucket", grid, moved, False))
-    del bm, moved, ref, got
-    grid, _, _, u, prep, vbc, _, moved, _ = _prepared(
+    del bm, moved, vel
+    grid, table, phys, u, prep, vbc, bm, moved, vel = _prepared(
         falling_block_periodic_config(cs.PERIODIC_NX))
     rows.append(_saddle_row("saddle_periodic", grid, u, prep, vbc))
+    rows.append(_m2g_row("m2g_periodic", grid, table, phys, bm,
+                         with_energy=phys.solve_energy, periodic_x=True))
+    rows.append(_advect_row("advect_periodic", grid, vbc, bm, moved, vel))
     rows.append(_rebucket_row("rebucket_periodic", grid, moved, True))
 
     out = {}
@@ -184,7 +210,8 @@ def main(argv=None):
         out[name] = r
         cs.log(f"{name}: {json.dumps(r)}")
     ptx = [r for r in cuda_build.ptxas_summary()
-           if r["source"] in ("saddle.cu", "rebucket.cu")]
+           if r["source"] in ("saddle.cu", "rebucket.cu", "m2g.cu",
+                              "advect.cu")]
     rec = {"tree": os.path.abspath(args.tree), "device": smi,
            "kernels": out, "ptxas": ptx}
     if args.out:

@@ -49,7 +49,8 @@ __global__ void advect_block_kernel(const float* __restrict__ x,
     const Lattice vyl{vy_ext + w, ny + 1, nx + 2, row_base - reach,
                       col_base - reach, wc};
     rk4_marker(x[q], y[q], valid[q] != 0, cj, ci, *dt_ptr, vxl, vyl, dx, dy,
-               x_lo, x_hi, y_lo, y_hi, reach, out_x[q], out_y[q]);
+               1.0f / dx, 1.0f / dy, x_lo, x_hi, y_lo, y_hi, reach, out_x[q],
+               out_y[q]);
 }
 
 }  // namespace

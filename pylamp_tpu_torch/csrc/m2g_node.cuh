@@ -1,6 +1,8 @@
-// The marker -> grid gather of one node thread, shared by the single-device
-// transfer (m2g.cu) and the per-shard transfer on extended marker blocks
-// (m2g_block.cu): the node (J, I) of the (ny+1, nx+1) corner index space
+// The marker -> grid gather of one node thread of the per-shard transfer
+// on extended marker blocks (m2g_block.cu), and the material table, the
+// lattice intervals and the marker properties it shares with the
+// single-device transfer (m2g.cu): the node (J, I) of the (ny+1, nx+1)
+// corner index space
 // and the center (J, I), vy (J, I) and vx (J, I) nodes where those exist.
 // It walks the slots of the 3x3 cells (J-1..J+1, I-1..I+1) that can reach
 // its nodes in a fixed order -- cell rows, then cell columns ascending,
@@ -48,28 +50,83 @@ struct M2GOut {
 enum Flags { WITH_VX = 1, WITH_ENERGY = 2, WITH_H = 4, PERIODIC = 8,
              WITH_RA = 16 };
 
-// weight of node `node` from a marker at lattice coordinate f on an axis
+// The lattice interval of a marker at lattice coordinate f on an axis
 // whose nodes 0..n_nodes-1 sit at origin + index * h (f already in index
-// units): clamped bilinear hat, as markers/bucket.py:_lattice_local
-__device__ __forceinline__ float hat(float f, int n_nodes, int node) {
-    const int i0 = static_cast<int>(
-        fminf(fmaxf(floorf(f), 0.0f), static_cast<float>(n_nodes - 2)));
-    const float t = fminf(fmaxf(f - static_cast<float>(i0), 0.0f), 1.0f);
+// units): its first node i0, clamped to [0, n_nodes - 2], and its fraction
+// t in [0, 1], as markers/bucket.py:_lattice_local
+__device__ __forceinline__ void interval(float f, int n_nodes, int& i0,
+                                         float& t) {
+    // an integer in a float: f - fl is f - (float)i0 exactly
+    const float fl =
+        fminf(fmaxf(floorf(f), 0.0f), static_cast<float>(n_nodes - 2));
+    i0 = static_cast<int>(fl);
+    t = fminf(fmaxf(f - fl, 0.0f), 1.0f);
+}
+
+// the same on a periodic axis: no clamp, i0 = floor(f) (counted from the
+// marker's stored cell; the caller adds the wrap of that cell)
+__device__ __forceinline__ void interval_px(float f, int& i0, float& t) {
+    const float fl = floorf(f);
+    i0 = static_cast<int>(fl);
+    t = fminf(fmaxf(f - fl, 0.0f), 1.0f);
+}
+
+// the clamped bilinear hat: weight of node `node` from interval (i0, t)
+__device__ __forceinline__ float hat_weight(int node, int i0, float t) {
     if (node == i0) return 1.0f - t;
     if (node == i0 + 1) return t;
     return 0.0f;
+}
+
+// weight of node `node` from a marker at lattice coordinate f
+__device__ __forceinline__ float hat(float f, int n_nodes, int node) {
+    int i0;
+    float t;
+    interval(f, n_nodes, i0, t);
+    return hat_weight(node, i0, t);
 }
 
 // the same hat on a periodic axis: no clamp; the marker's interval starts
 // at floor(f) + shift (shift: the unwrapped minus the stored column of its
 // cell), and node is the unwrapped node column
 __device__ __forceinline__ float hat_px(float f, int shift, int node) {
-    const float fl = floorf(f);
-    const int i0 = static_cast<int>(fl) + shift;
-    const float t = fminf(fmaxf(f - fl, 0.0f), 1.0f);
-    if (node == i0) return 1.0f - t;
-    if (node == i0 + 1) return t;
-    return 0.0f;
+    int i0;
+    float t;
+    interval_px(f, i0, t);
+    return hat_weight(node, i0 + shift, t);
+}
+
+// A marker's material (an id outside the table reads material 0) and its
+// properties: eta after the clamp and the averaging transform (log eta
+// for geometric, 1 / eta for harmonic), and rho(T).
+__device__ __forceinline__ int material_of(const M2GTable& tbl, int m0) {
+    return (m0 >= 0 && m0 < tbl.n) ? m0 : 0;
+}
+
+struct MarkerProps {
+    float eta, rho;
+};
+
+__device__ __forceinline__ MarkerProps marker_props(const M2GTable& tbl,
+                                                    int m, float Tm) {
+    float eta = tbl.eta0[m];
+    if (tbl.law[m] == 1) {
+        eta = tbl.eta0[m] * expf(-tbl.fk_gamma[m] * (Tm - tbl.T_ref[m]));
+    } else if (tbl.law[m] == 2) {
+        const float Ts = fmaxf(Tm, 1e-30f);
+        const float Trs = fmaxf(tbl.T_ref[m], 1e-30f);
+        eta = tbl.eta0[m] * expf(tbl.E_act[m] / (kRGas * Ts) -
+                                 tbl.E_act[m] / (kRGas * Trs));
+    }
+    eta = fminf(fmaxf(eta, tbl.eta_min), tbl.eta_max);
+    if (tbl.eta_mode == 1) {
+        eta = logf(eta);
+    } else if (tbl.eta_mode == 2) {
+        eta = 1.0f / eta;
+    }
+    const float rho =
+        tbl.rho0[m] * (1.0f - tbl.alpha[m] * (Tm - tbl.T_ref[m]));
+    return {eta, rho};
 }
 
 // The sums of one node thread, and which of its nodes exist.
@@ -137,26 +194,10 @@ __device__ __forceinline__ NodeSums m2g_gather(
                     continue;
 
                 // marker properties from (mat, T)
-                const int m0 = mat[q];
-                const int m = (m0 >= 0 && m0 < tbl.n) ? m0 : 0;
+                const int m = material_of(tbl, mat[q]);
                 const float Tm = T[q];
-                float eta = tbl.eta0[m];
-                if (tbl.law[m] == 1) {
-                    eta = tbl.eta0[m] * expf(-tbl.fk_gamma[m] * (Tm - tbl.T_ref[m]));
-                } else if (tbl.law[m] == 2) {
-                    const float Ts = fmaxf(Tm, 1e-30f);
-                    const float Trs = fmaxf(tbl.T_ref[m], 1e-30f);
-                    eta = tbl.eta0[m] * expf(tbl.E_act[m] / (kRGas * Ts) -
-                                             tbl.E_act[m] / (kRGas * Trs));
-                }
-                eta = fminf(fmaxf(eta, tbl.eta_min), tbl.eta_max);
-                if (tbl.eta_mode == 1) {
-                    eta = logf(eta);
-                } else if (tbl.eta_mode == 2) {
-                    eta = 1.0f / eta;
-                }
-                const float rho =
-                    tbl.rho0[m] * (1.0f - tbl.alpha[m] * (Tm - tbl.T_ref[m]));
+                const MarkerProps pr = marker_props(tbl, m, Tm);
+                const float eta = pr.eta, rho = pr.rho;
 
                 c_w += w_c;
                 c_eta += w_c * eta;

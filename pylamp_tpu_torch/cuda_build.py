@@ -52,12 +52,14 @@ SIGNATURES = {
     "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I, _P],
     # x, y, T, mat, valid, material table (host), out pointers (host
     # array of 13), ny, nx, K, dx, dy, flags (with the periodic bit),
-    # stream
-    "launch_m2g": [_P] * 7 + [_I, _I, _I, _F, _F, _I, _P],
+    # strip width, chunk rows, unit slots, units a cell row, threads a
+    # node, stream
+    "launch_m2g": [_P] * 7 + [_I, _I, _I, _F, _F] + [_I] * 6 + [_P],
     # x, y, valid, vx_p, vy_p, dt, out_x, out_y, ny, nx, K, dx, dy,
-    # x_lo, x_hi, y_lo, y_hi, reach, periodic, lx, 1/lx, stream
+    # x_lo, x_hi, y_lo, y_hi, reach, periodic, lx, 1/lx, tile rows, tile
+    # columns, slots a round, stream
     "launch_advect": ([_P] * 8 + [_I, _I, _I] + [_F] * 6 + [_I, _I, _F, _F]
-                      + [_P]),
+                      + [_I] * 3 + [_P]),
     # x, y, T, mat, valid, ox, oy, oT, omat, ovalid, dropped (int64), ny,
     # nx, K, dx, dy, strip width, chunk rows, periodic, stream
     "launch_rebucket": [_P] * 11 + [_I, _I, _I, _F, _F, _I, _I, _I, _P],
@@ -89,10 +91,14 @@ SIGNATURES = {
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
     # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
     # periodic), kernel 6 at its dynamic shared bytes, kernel 1 at
-    # (periodic), kernel 4 at (K, strip width, periodic)
+    # (periodic), kernel 4 at (K, strip width, periodic), kernel 2 at
+    # (strip width, unit slots, threads a node, flags), kernel 3 at (tile
+    # rows, tile columns, slots a round, periodic)
     "cheb_kernel_info": [_I, _I, _I, _P],
     "saddle_kernel_info": [_I, _P],
     "rebucket_kernel_info": [_I, _I, _I, _P],
+    "m2g_kernel_info": [_I, _I, _I, _I, _P],
+    "advect_kernel_info": [_I, _I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],
 }
 

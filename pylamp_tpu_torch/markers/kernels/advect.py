@@ -14,9 +14,15 @@ Periodic side walls launch the kernel's periodic form, counted in
 ``launches_periodic`` as well: as the reference's wrapper does, this one
 builds wrapped column planes of the padded lattices (``wrapped_planes``),
 so the kernel samples x without a clamp, and the kernel wraps the new x
-into [0, lx) with the TPU kernel's formula.
+into [0, lx) with the TPU kernel's formula.  ``advect_plan`` gives the
+kernel's launch geometry (tile, slots a round, shared memory).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +32,12 @@ from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import BucketedMarkers, padded_velocities
 from pylamp_tpu_torch.markers.bucket import bucket_advect_rk4 as advect_rk4_plain
 from pylamp_tpu_torch.markers.kernels import check_markers
+from pylamp_tpu_torch.markers.kernels.rebucket import (
+    MAX_THREADS_SM,
+    SMEM_BLOCK_MAX,
+    SMEM_RESERVED,
+    SMEM_SM,
+)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): all of them, and those of the periodic form
@@ -35,6 +47,83 @@ launches_periodic = 0
 # columns of wrap padding on each side of a periodic plane (csrc/advect.cu
 # PADW): stage positions reach at most 2 cells past their bucket cell
 PADW = 3
+
+# csrc/advect.cu's constants
+THREADS = 256
+MARGIN = 3  # window nodes beyond the tile on each side
+TILE_COLS = 32  # cells of a tile row
+MAX_TILE_ROWS = 8
+CAP = 2048  # most slots a round (a multiple of THREADS)
+MAX_K = 2047  # slots a cell: the list's slot field
+SMEM_STATIC = 4  # the live count
+
+
+def smem_bytes(ty: int, tx: int, cap: int) -> int:
+    """Dynamic shared bytes of a block with tiles of ``ty`` x ``tx`` cells
+    and rounds of ``cap`` slots (the Layout of csrc/advect.cu): two
+    velocity windows of (ty + 2 MARGIN) x (tx + 2 MARGIN) floats and a list
+    of cap live slots at 12 bytes."""
+    return 8 * (ty + 2 * MARGIN) * (tx + 2 * MARGIN) + 12 * cap
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Resident blocks per SM that shared memory and threads allow."""
+    return min(SMEM_SM // (smem + SMEM_STATIC + SMEM_RESERVED),
+               MAX_THREADS_SM // THREADS)
+
+
+class AdvectPlan(NamedTuple):
+    """How csrc/advect.cu covers an (ny, nx) grid of cells: tiles of ``ty``
+    x ``tx`` cells (the last ones take what is left), ``ntx`` x ``nty`` of
+    them, each walking its slots in rounds of at most ``cap``, ``smem``
+    dynamic shared bytes each."""
+    ty: int
+    tx: int
+    cap: int
+    ntx: int
+    nty: int
+    smem: int
+
+    def extents(self, ny: int, nx: int):
+        """Every block's cells as (row0, rows, col0, cols)."""
+        for ty in range(self.nty):
+            j0 = ty * self.ty
+            for tx in range(self.ntx):
+                i0 = tx * self.tx
+                yield j0, min(self.ty, ny - j0), i0, min(self.tx, nx - i0)
+
+
+@functools.lru_cache(maxsize=64)
+def advect_plan(ny: int, nx: int, K: int) -> AdvectPlan:
+    """Tiles TILE_COLS cells wide (nx if narrower) and as many rows (up to
+    MAX_TILE_ROWS) as CAP slots hold; a round takes the tile's slots, up
+    to CAP.  At 1024^2 x K18: 342 x 32 tiles of 3 x 32 cells (1,728
+    slots, one round), 24 KB each."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"advect kernel: K = {K} slots per cell, the "
+                         f"kernel takes 1..{MAX_K}")
+    tx = min(TILE_COLS, nx)
+    ty = max(1, min(MAX_TILE_ROWS, ny, CAP // (tx * K)))
+    cap = min(CAP, math.ceil(ty * tx * K / THREADS) * THREADS)
+    smem = smem_bytes(ty, tx, cap)
+    if smem + SMEM_STATIC > SMEM_BLOCK_MAX:
+        raise ValueError("advect kernel: a tile does not fit one block's "
+                         "shared memory")
+    return AdvectPlan(ty, tx, cap, math.ceil(nx / tx), math.ceil(ny / ty),
+                      smem)
+
+
+def kernel_info(plan: AdvectPlan, periodic: bool = False) -> dict:
+    """Occupancy of the kernel (``periodic``: its periodic form) at
+    ``plan``'s tiles, from the card's function attributes: registers per
+    thread, static and dynamic shared bytes, local (spill) bytes per
+    thread, threads and resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().advect_kernel_info(
+        plan.ty, plan.tx, plan.cap, int(periodic), out),
+        "advect (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def wrapped_planes(vx_p, vy_p, nx: int):
@@ -68,12 +157,14 @@ def advect_rk4_cuda(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     out_y = torch.empty_like(bm.y)
     eps_x = 1e-6 * grid.dx_min
     eps_y = 1e-6 * grid.dy_min
+    plan = advect_plan(ny, nx, K)
     code = cuda_build.library().launch_advect(
         bm.x.data_ptr(), bm.y.data_ptr(), bm.valid.data_ptr(),
         vx_p.data_ptr(), vy_p.data_ptr(), dt_t.data_ptr(), out_x.data_ptr(),
         out_y.data_ptr(), ny, nx, K, grid.dx, grid.dy, eps_x,
         grid.lx - eps_x, eps_y, grid.ly - eps_y, stage_reach,
-        int(bcs.periodic_x), grid.lx, 1.0 / grid.lx, cuda_build.stream_ptr(dev))
+        int(bcs.periodic_x), grid.lx, 1.0 / grid.lx, plan.ty, plan.tx,
+        plan.cap, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "advect")
     launches += 1
     launches_periodic += bcs.periodic_x

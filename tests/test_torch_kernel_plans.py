@@ -1,6 +1,9 @@
-"""The launch plans and host-side checks of kernels 1 and 4 on the CPU:
+"""The launch plans and host-side checks of kernels 1-4 on the CPU:
 ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row chunks
-of csrc/rebucket.cu, its shared memory and resident blocks) and the checks
+of csrc/rebucket.cu, its shared memory and resident blocks),
+``markers/kernels/m2g.py m2g_plan`` (the node strips, node-row chunks and
+slot units of csrc/m2g.cu), ``markers/kernels/advect.py advect_plan`` (the
+cell tiles and rounds of csrc/advect.cu), and the checks
 ``ops/kernels/saddle.py prep_saddle`` makes once per solve, which the
 per-call path of the saddle kernel relies on."""
 import numpy as np
@@ -10,7 +13,7 @@ import torch
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import BucketedMarkers
-from pylamp_tpu_torch.markers.kernels import rebucket
+from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
 from pylamp_tpu_torch.ops.kernels import saddle
 
 torch.set_num_threads(1)
@@ -155,3 +158,146 @@ def test_saddle_cuda_refuses_a_cpu_prep():
                                   grid.shape_center)]
     with pytest.raises(ValueError, match="CUDA"):
         saddle.saddle_apply_cuda(*u, prep, grid, VelocityBCs())
+
+
+# -- kernel 2 (m2g) and kernel 3 (advect) -----------------------------------------
+
+PLAN_KS = [1, 9, 18, 32, 33, 64]
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("K", PLAN_KS)
+@pytest.mark.parametrize("ny,nx", SHAPES)
+def test_m2g_plan_covers_every_node_once(ny, nx, K, periodic):
+    """Every node of the (ny + 1) x (nx + 1) index space (nx columns with
+    periodic side walls: column 0's thread writes the seam column) lies in
+    exactly one block; blocks are at most the plan's tx x rows, none is
+    empty; the slot units cover the K slots of a cell once, each at most
+    32 slots (one mask word) and kc."""
+    plan = m2g.m2g_plan(ny, nx, K, m2g.FLAG_PERIODIC if periodic else 0)
+    nxn = nx if periodic else nx + 1
+    hits = np.zeros((ny + 1, nxn), np.int32)
+    blocks = 0
+    for j0, rows, i0, cols in plan.extents(ny, nx, periodic):
+        assert 0 < rows <= plan.rows and 0 < cols <= plan.tx
+        hits[j0:j0 + rows, i0:i0 + cols] += 1
+        blocks += 1
+    assert (hits == 1).all()
+    assert blocks == plan.nstrips * plan.nchunks
+    slots = np.zeros(K, np.int32)
+    for first, count in plan.slot_units(K):
+        assert 0 < count <= plan.kc <= 32
+        slots[first:first + count] += 1
+    assert (slots == 1).all()
+    assert plan.smem == m2g.smem_bytes(plan.tx, plan.kc)
+    assert plan.threads == 3 * plan.tx * plan.split
+    assert plan.threads % 32 == 0
+
+
+@pytest.mark.parametrize("K", PLAN_KS)
+@pytest.mark.parametrize("ny,nx", SHAPES)
+def test_advect_plan_covers_every_cell_once(ny, nx, K):
+    """Every cell lies in exactly one tile; tiles are at most ty x tx; a
+    round holds a whole number of thread passes and at most CAP slots."""
+    plan = advect.advect_plan(ny, nx, K)
+    hits = np.zeros((ny, nx), np.int32)
+    blocks = 0
+    for j0, rows, i0, cols in plan.extents(ny, nx):
+        assert 0 < rows <= plan.ty and 0 < cols <= plan.tx
+        hits[j0:j0 + rows, i0:i0 + cols] += 1
+        blocks += 1
+    assert (hits == 1).all()
+    assert blocks == plan.ntx * plan.nty
+    assert plan.cap % advect.THREADS == 0
+    assert advect.THREADS <= plan.cap <= advect.CAP
+    assert plan.smem == advect.smem_bytes(plan.ty, plan.tx, plan.cap)
+
+
+@pytest.mark.parametrize("K", [1, 9, 18, 32, 33, 64, 100, 200, 500, 800])
+def test_m2g_and_advect_plans_fit_shared_memory(K):
+    """Every plan's block fits the 227 KB a block may use, with at least
+    two blocks resident per SM as far as shared memory and threads go."""
+    plan = m2g.m2g_plan(64, 64, K)
+    assert plan.smem + m2g.SMEM_STATIC <= rebucket.SMEM_BLOCK_MAX
+    assert m2g.blocks_per_sm(plan.smem, plan.threads) >= 2
+    aplan = advect.advect_plan(64, 64, K)
+    assert aplan.smem + advect.SMEM_STATIC <= rebucket.SMEM_BLOCK_MAX
+    assert advect.blocks_per_sm(aplan.smem) >= 2
+
+
+def test_m2g_and_advect_plans_fk_1024_k18():
+    """FK 1024^2 x K18: kernel 2 in 33 x 33 blocks of 32 node columns, two
+    threads a node (192 threads), two 9-slot units a cell row, 47 KB each
+    (room for 4 per SM, as the kernel's registers); kernel 3 in 32 x
+    342 tiles of 3 x 32 cells, one round of 1,792 slots, 24 KB each."""
+    plan = m2g.m2g_plan(1024, 1024, 18)
+    assert (plan.tx, plan.rows, plan.kc, plan.units, plan.split) == (
+        32, 32, 9, 2, 2)
+    assert (plan.nstrips, plan.nchunks, plan.smem) == (33, 33, 47760)
+    assert m2g.blocks_per_sm(plan.smem, plan.threads) >= 2
+    assert m2g.m2g_plan(1024, 1024, 18, m2g.FLAG_PERIODIC).nstrips == 32
+    aplan = advect.advect_plan(1024, 1024, 18)
+    assert (aplan.ty, aplan.tx, aplan.cap, aplan.ntx, aplan.nty) == (
+        3, 32, 1792, 32, 342)
+    assert advect.blocks_per_sm(aplan.smem) >= 2
+
+
+@pytest.mark.parametrize("tx,kc", [(32, 9), (32, 16), (1, 1), (32, 32)])
+def test_m2g_smem_counts_every_buffer(tx, kc):
+    """The layout's bytes: three units of tx + 2 cells, each cell 12 words
+    a slot (4 landed streams, an 8-word record) at an odd stride, its
+    valid bytes with up to 3 bytes of lead, and 6 slot masks; each unit's
+    buffer a multiple of 16 bytes (the records' alignment)."""
+    cells = tx + 2
+    lower = 3 * cells * (48 * kc + (kc + 3) + 24)
+    smem = m2g.smem_bytes(tx, kc)
+    assert smem % 48 == 0
+    assert lower <= smem <= lower + 3 * cells * (48 + 8) + 3 * 15
+
+
+@pytest.mark.parametrize("ty,tx,cap", [(3, 32, 1792), (1, 32, 2048),
+                                       (8, 1, 256)])
+def test_advect_smem_counts_every_buffer(ty, tx, cap):
+    """Two velocity windows of the tile and MARGIN nodes around it, and a
+    list of cap live slots (x, y, code)."""
+    win = (ty + 2 * advect.MARGIN) * (tx + 2 * advect.MARGIN)
+    assert advect.smem_bytes(ty, tx, cap) == 8 * win + 12 * cap
+
+
+def test_m2g_and_advect_plans_refuse_what_they_cannot_index():
+    with pytest.raises(ValueError, match="31 bits"):
+        m2g.m2g_plan(4096, 4096, 200)
+    with pytest.raises(ValueError, match="K = 4000"):
+        advect.advect_plan(8, 8, 4000)
+
+
+def _cpu_markers(shape=(5, 6, 4)):
+    g = torch.Generator().manual_seed(0)
+    return BucketedMarkers(x=torch.rand(shape, generator=g),
+                           y=torch.rand(shape, generator=g),
+                           mat=torch.zeros(shape, dtype=torch.int32),
+                           T=torch.rand(shape, generator=g),
+                           valid=torch.ones(shape, dtype=torch.bool))
+
+
+def test_m2g_and_advect_cuda_refuse_cpu_tensors():
+    """The kernel paths raise on CPU markers (no fallback inside them); the
+    fused entry points take the plain versions for them."""
+    from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+    from pylamp_tpu_torch.physics.materials import MaterialTable
+
+    bm = _cpu_markers()
+    grid = StaggeredGrid(nx=6, ny=5, lx=1.0, ly=1.0)
+    cfg = fk_stagnant_lid(nx=6, ny=5)
+    table = MaterialTable(cfg.physics.materials)
+    with pytest.raises(ValueError, match="CUDA"):
+        m2g.m2g_fused_cuda(bm, grid, table, cfg.physics, with_energy=True)
+    vx = torch.zeros(grid.shape_vx)
+    vy = torch.zeros(grid.shape_vy)
+    with pytest.raises(ValueError, match="CUDA"):
+        advect.advect_rk4_cuda(bm, vx, vy, 0.1, grid, VelocityBCs())
+    n2, n3 = m2g.launches, advect.launches
+    out = m2g.m2g_fused(bm, grid, table, cfg.physics, with_energy=True)
+    moved = advect.advect_rk4_fused(bm, vx, vy, 0.1, grid, VelocityBCs())
+    assert (m2g.launches, advect.launches) == (n2, n3)
+    assert "c_T" in out and moved.x.shape == bm.x.shape

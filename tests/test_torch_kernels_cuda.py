@@ -1167,3 +1167,138 @@ def test_m2g_kernels_fit_without_spills(dev):
     assert len(rows) == 6, rows  # 4 of kernel 2, 2 of kernel 10
     for r in rows:
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+
+
+# -- kernels 2 and 3 on synthetic markers (the row-streamed m2g gather and the
+# tiled RK4 on live slots) ------------------------------------------------------
+
+SYNTH_FORMS = [(13, 17, False), (37, 23, False), (65, 33, False), (3, 3, True),
+               (6, 3, True)]
+SYNTH_KS = [1, 9, 18, 32, 33]
+
+
+def _synthetic_markers(ny, nx, K, dev, seed, periodic):
+    """_rebucket_markers' seeded markers (about half valid, not a prefix of
+    each cell; displaced up to 0.95 of a cell out of their cell; a sixth
+    of the coordinates on exact cell edges; x and y clipped onto the
+    domain edges, or x wrapped with the seam placements) plus a full cell
+    (every slot of cell (ny // 2, nx // 2) valid) and an empty tile (the
+    first two cell rows without a valid slot)."""
+    bm, grid = _rebucket_markers(ny, nx, K, dev, seed, periodic)
+    valid = bm.valid.clone()
+    valid[ny // 2, nx // 2, :] = True
+    if ny > 2:
+        valid[:2] = False
+    return bm.replace(valid=valid.contiguous()), grid
+
+
+# (table, gx, with_energy, with_ra): the FK table (one material, no H) and
+# RA_TABLE (three materials, H on one); without and with the vx streams
+M2G_STREAMS = [("fk", 0.0, False, False), ("fk", 0.4, True, False),
+               ("three", 0.4, True, False), ("three", 0.0, True, True),
+               ("three", 0.4, True, True)]
+
+
+@pytest.mark.parametrize("streams", M2G_STREAMS,
+                         ids=lambda s: f"{s[0]}-gx{s[1]}-E{s[2]:d}-ra{s[3]:d}")
+@pytest.mark.parametrize("K", SYNTH_KS)
+@pytest.mark.parametrize("ny,nx,periodic", SYNTH_FORMS)
+def test_m2g_kernel_synthetic(dev, ny, nx, periodic, K, streams):
+    """Kernel 2 (every instantiation: walls and periodic, with and without
+    rho0 * alpha) at shapes that straddle its 32-column strips and 32-row
+    chunks and at the narrowest periodic widths, K from 1 to 33 (one unit
+    a cell row, or two and three), on markers off their cells, on cell and
+    domain edges, a full cell and an empty tile, with every stream set:
+    within 1e-5 of the plain version per stream, the seam columns equal,
+    a rerun bit-identical."""
+    name, gx, with_energy, with_ra = streams
+    bm, grid = _synthetic_markers(ny, nx, K, dev, 211 + K, periodic)
+    cfg = fk_stagnant_lid(nx=nx, ny=ny)
+    table = (MaterialTable(RA_TABLE) if name == "three"
+             else MaterialTable(cfg.physics.materials))
+    if name == "fk":
+        bm = bm.replace(mat=torch.zeros_like(bm.mat))
+    phys = dataclasses.replace(cfg.physics, gx=gx)
+    kw = dict(with_energy=with_energy, periodic_x=periodic, with_ra=with_ra)
+    n0, r0 = m2g.launches, m2g.launches_ra
+    got = m2g.m2g_fused(bm, grid, table, phys, **kw)
+    assert m2g.launches == n0 + 1 and m2g.launches_ra == r0 + with_ra
+    ref = m2g.m2g_fused_plain(bm, grid, table, phys, **kw)
+    assert sorted(got) == sorted(ref)
+    assert ("vx_w" in got) == (gx != 0.0) and ("c_ra" in got) == with_ra
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+        if periodic and got[k].shape[1] == nx + 1:
+            assert torch.equal(got[k][:, 0], got[k][:, -1]), k
+    again = m2g.m2g_fused(bm, grid, table, phys, **kw)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("K", SYNTH_KS)
+@pytest.mark.parametrize("ny,nx,periodic", SYNTH_FORMS)
+def test_advect_kernel_synthetic(dev, ny, nx, periodic, K, reach):
+    """Kernel 3 in both forms on the same markers with seeded velocities
+    (periodic: a drift that carries markers across the seam), both stage
+    reaches: the displacement within 1e-4 of the plain version beyond one
+    f32 spacing of the position, empty slots exactly the plain version's
+    (clipped or wrapped), every x in [0, lx] (periodic), a rerun
+    bit-identical."""
+    bm, grid = _synthetic_markers(ny, nx, K, dev, 307 + K, periodic)
+    bcs = (_periodic_bcs("no_slip") if periodic
+           else VelocityBCs(top="no_slip", left="no_slip"))
+    rng = np.random.default_rng(401 + K + reach)
+    vx = torch.tensor((0.7 if periodic else 0.0)
+                      + rng.uniform(-0.3, 0.3, grid.shape_vx),
+                      dtype=torch.float32, device=dev)
+    if periodic:
+        vx[:, -1] = vx[:, 0]
+    vy = torch.tensor(rng.uniform(-0.5, 0.5, grid.shape_vy),
+                      dtype=torch.float32, device=dev)
+    dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+    n0 = advect.launches
+    got = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+    assert advect.launches == n0 + 1
+    ref = advect.advect_rk4_plain(bm, vx, vy, dt, grid, bcs, reach)
+    empty = ~bm.valid
+    assert torch.equal(got.x[empty], ref.x[empty])
+    assert torch.equal(got.y[empty], ref.y[empty])
+    if periodic:
+        gx_, rx_ = _wrapped_step(got.x, ref.x, bm.x, grid.lx)
+        assert _rel(gx_, rx_) <= 1e-4
+        assert float(got.x.min()) >= 0.0 and float(got.x.max()) <= grid.lx
+    else:
+        assert _disp_rel(got.x, ref.x, bm.x) <= 1e-4
+    assert _disp_rel(got.y, ref.y, bm.y) <= 1e-4
+    again = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+    assert torch.equal(got.x, again.x) and torch.equal(got.y, again.y)
+
+
+def test_m2g_and_advect_kernels_fit_without_spills(dev):
+    """Kernels 2 and 3, every instantiation, at the plans of K 1-64: no
+    local memory (spills), the plan's dynamic shared memory, at least two
+    blocks resident per SM (kernel 2 at FK 1024^2 x K18: four, the
+    registers' limit), and no spill in the ptxas report of advect.cu."""
+    from pylamp_tpu_torch import cuda_build
+
+    for K in (1, 9, 18, 32, 33, 64):
+        plan = m2g.m2g_plan(1024, 1024, K)
+        for flags in (m2g.FLAG_ENERGY, m2g.FLAG_ENERGY | m2g.FLAG_RA,
+                      m2g.FLAG_PERIODIC,
+                      m2g.FLAG_PERIODIC | m2g.FLAG_ENERGY | m2g.FLAG_RA):
+            info = m2g.kernel_info(plan, flags)
+            assert info["local_bytes"] == 0, (K, flags, info)
+            assert info["dynamic_smem"] == plan.smem, (K, flags, info)
+            assert info["blocks_per_sm"] >= (4 if K == 18 else 2), (K, info)
+        aplan = advect.advect_plan(1024, 1024, K)
+        for periodic in (False, True):
+            info = advect.kernel_info(aplan, periodic)
+            assert info["local_bytes"] == 0, (K, info)
+            assert info["dynamic_smem"] == aplan.smem, (K, info)
+            assert info["blocks_per_sm"] >= 2, (K, info)
+    rows = [r for r in cuda_build.ptxas_summary()
+            if r["source"] == "advect.cu"]
+    assert len(rows) == 2, rows
+    for r in rows:
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r

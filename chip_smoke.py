@@ -102,6 +102,19 @@ shared memory, kernels 3 and 4 2 blocks per SM, kernel 2 4 at FK).  Then two pat
   bars (Krylov: +-max(2, 10 %)), kernel 10 always with the rho0 * alpha
   stream.
 
+- the stretched grid (``stretched_paths``): FK 1024^2 y-stretched 8x
+  (``fk_stretched_bench_config``, ``bench.py --stretch-y 8``): 1 warm-up +
+  3 measured steps, every counter at 0 (no kernel: every gate fails on a
+  non-uniform grid, as in the reference), each energy solve converged, the
+  Krylov iterations per step beside the reference's 115
+  (``validation/bench_stretched.json``; a step above twice that fails);
+  its partner with the line smoothers (Stokes MG and energy MG + flexible
+  CG) from the same state, 1 warm-up + 2 steps; and FK 256^2 on explicit
+  uniform edges (the stretched code path) against the uniform path with
+  every kernel switch off, both with power-iteration bounds, 2 steps from
+  one state (Krylov within +-2, fields within 1e-5, sorted marker
+  positions within 1e-6).
+
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
 kernel from 32^2) and a 256^2 periodic falling-block step (kernels 1-5
@@ -152,6 +165,21 @@ HEATED_T_TOL = 1e-7  # max |dT| / max|T| after step 1, Jacobi-CG vs MG-FCG
 HEATED_KRYLOV_REL = 0.1
 NOISE_FRACTION = 1e-3  # marker T slots the one-ulp twin nudges
 RESEED_MIN = 9  # the preset's initial markers per cell
+# the stretched phase: FK nx^2 with y edges geometric 8x (bench.py
+# --stretch-y 8), its line-smoother partner, and the uniform-edges check
+STRETCHED_NX = 1024
+STRETCHED_WARMUP_STEPS = 1
+STRETCHED_MEASURED_STEPS = 3
+STRETCHED_LINE_MEASURED_STEPS = 2
+# the reference's Krylov iterations per step on this configuration (TPU
+# v5e, the same algorithm from the same seeded state); a step above twice
+# that means a broken hierarchy or bound
+STRETCHED_REFERENCE = "validation/bench_stretched.json"
+STRETCHED_KRYLOV_FACTOR = 2.0
+UNIFORM_EDGES_NX = 256
+UNIFORM_EDGES_STEPS = 2
+UNIFORM_EDGES_FIELD_TOL = 1e-5  # max |diff| / max|ref| of vx, vy, p, T
+UNIFORM_EDGES_MARKER_TOL = 1e-6  # sorted marker x, y, over the box size
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
 SMALL_NX = 64
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
@@ -1124,6 +1152,171 @@ def sticky_air_paths(grid, cfg, table, state0, n_markers, modules, counted):
                 f"sticky-air step {i + 1}: {a} outer Krylov iterations with "
                 f"the momentum kernel, {b} without (bar +-max(2, 10 %))")
     return rec["use_pallas"]["launches"]
+
+
+def zero_counters(modules):
+    """Every launch counter of every kernel module (the periodic-form and
+    rho0 * alpha counters too) set to 0."""
+    for mod in modules.values():
+        for f in ("launches", "launches_periodic", "launches_ra"):
+            if hasattr(mod, f):
+                setattr(mod, f, 0)
+
+
+def counted_launches(modules):
+    return {f"{k}.{f}": getattr(mod, f) for k, mod in modules.items()
+            for f in ("launches", "launches_periodic", "launches_ra")
+            if getattr(mod, f, 0)}
+
+
+def stretched_step(step, state, n_markers, modules, tag):
+    """One step of a stretched path with every counter set to 0 just
+    before it: check_state's bars, the energy solve converged, and no
+    kernel launched (every gate fails on a non-uniform grid).  Returns
+    (state, seconds, Krylov, energy iterations)."""
+    zero_counters(modules)
+    state, dt_s, it, diag = take_step(step, state, n_markers, {}, tag)
+    launched = counted_launches(modules)
+    if launched:
+        raise AssertionError(f"{tag}: kernels launched on a stretched grid: "
+                             f"{launched}")
+    if not diag["energy_converged"]:
+        raise AssertionError(f"{tag}: the energy solve did not converge")
+    return state, dt_s, it, int(diag["energy_iterations"])
+
+
+def stretched_paths(modules):
+    """The stretched grid (no kernel: the reference turns every one off on
+    a non-uniform grid, and so does the port):
+
+    (a) FK 1024^2 y-stretched 8x (``fk_stretched_bench_config``, bench.py
+        --stretch-y 8): 1 warm-up + 3 measured steps, each converged
+        (Stokes 1e-8, energy 1e-10), nothing dropped, every kernel counter
+        at 0; the Krylov iterations per step beside the reference's, and a
+        step above twice the reference's count fails;
+    (b) its line-smoother partner from the same built state
+        (``mg_smoother="line"``, the energy MG with ``"line"`` and flexible
+        CG): 1 warm-up + 2 steps under the same bars;
+    (c) FK 256^2 on explicit uniform edges (the stretched code path)
+        against the uniform path with every kernel switch off, from one
+        built state, 2 steps: Krylov counts within +-KRYLOV_AB_TOL, vx, vy,
+        p and T within UNIFORM_EDGES_FIELD_TOL, sorted marker positions
+        within UNIFORM_EDGES_MARKER_TOL of the box.  Both take
+        power-iteration Chebyshev bounds (``mg_lam_mode="power"``): the
+        stretched path's non-uniform levels always do, and the bound rule
+        alone moves the first step's count by more than the bar on the
+        card, which is not what this check compares.
+    Returns the record printed in the log."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        fk_stretched_bench_config,
+    )
+    from pylamp_tpu_torch.models.profile import fk_stretched_line_config
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           STRETCHED_REFERENCE)) as f:
+        ref_krylov = float(json.load(f)["detail"]["krylov_iters_per_step"])
+    cfg = fk_stretched_bench_config(STRETCHED_NX)
+    t0 = time.perf_counter()
+    grid, table, state0 = build(cfg, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_markers = int(state0.markers.total())
+    ratio = float(grid.dys[-1] / grid.dys[0])
+    log(f"built FK {grid.nx}^2 y-stretched {ratio:g}x: dy "
+        f"{grid.dy_min:.4e} .. {float(grid.dys.max()):.4e}, "
+        f"{n_markers} markers, {time.perf_counter() - t0:.1f} s")
+    cfg_line = fk_stretched_line_config(STRETCHED_NX)
+    rec = {}
+    for name, c, measured in (
+            ("chebyshev", cfg, STRETCHED_MEASURED_STEPS),
+            ("line", cfg_line, STRETCHED_LINE_MEASURED_STEPS)):
+        step = make_step(grid, c, table)
+        state = state0
+        r = rec[name] = dict(step_s=[], krylov=[], energy=[])
+        for i in range(STRETCHED_WARMUP_STEPS + measured):
+            kind = ("warm-up" if i < STRETCHED_WARMUP_STEPS else "measured")
+            state, dt_s, it, e_it = stretched_step(
+                step, state, n_markers, modules,
+                f"stretched FK {name} step {i + 1} ({kind})")
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            r["energy"].append(e_it)
+            if it > STRETCHED_KRYLOV_FACTOR * ref_krylov:
+                raise AssertionError(
+                    f"stretched FK {name} step {i + 1}: {it} Krylov "
+                    f"iterations > {STRETCHED_KRYLOV_FACTOR:g} x the "
+                    f"reference's {ref_krylov:g}")
+        meas = slice(STRETCHED_WARMUP_STEPS, None)
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"stretched FK {grid.nx}^2 ({ratio:g}x) on {smi}, "
+            f"{name} smoother: median {r['median_s_per_step']:.3f} s/step "
+            f"over {measured} steps, {mean(r['krylov'][meas]):.1f} Krylov "
+            f"iterations/step (the reference: {ref_krylov:g} with the "
+            f"Chebyshev smoother), energy iterations {r['energy']}; no "
+            "kernel launched")
+        del state
+    del state0
+
+    # (c) the stretched code path on uniform edges vs the uniform path
+    n = UNIFORM_EDGES_NX
+    base = fk_bench_config(n)
+    base = replace(base, solver=replace(
+        base.solver, use_pallas=False, use_pallas_apply=False,
+        use_pallas_m2g=False, use_pallas_advect=False,
+        use_pallas_smoother=False, use_pallas_coarse=False,
+        mg_lam_mode="power"))
+    xe = tuple(np.linspace(0.0, base.lx, n + 1))
+    ye = tuple(np.linspace(0.0, base.ly, n + 1))
+    cfg_e = replace(base, x_edges=xe, y_edges=ye)
+    grid_u, table_u, st0 = build(base, dtype=torch.float32, device="cuda")
+    grid_e = StaggeredGrid(nx=n, ny=n, lx=base.lx, ly=base.ly, x_edges=xe,
+                           y_edges=ye)
+    n_u = int(st0.markers.total())
+    out = {}
+    for name, g, c in (("uniform", grid_u, base), ("edges", grid_e, cfg_e)):
+        step = make_step(g, c, table_u)
+        st, its = st0, []
+        for i in range(UNIFORM_EDGES_STEPS):
+            tag = f"FK {n}^2 {name} step {i + 1}"
+            if name == "edges":
+                st, _, it, _ = stretched_step(step, st, n_u, modules, tag)
+            else:
+                st, _, it, _ = take_step(step, st, n_u, {}, tag)
+            its.append(it)
+        out[name] = (st, its)
+    (a, ia), (b, ib) = out["uniform"], out["edges"]
+    errs = {f: float(torch.max(torch.abs(getattr(b, f) - getattr(a, f)))
+                     / torch.max(torch.abs(getattr(a, f))))
+            for f in ("vx", "vy", "p", "T")}
+    for f in ("x", "y"):
+        pa = torch.sort(getattr(a.markers, f)[a.markers.valid])[0]
+        pb = torch.sort(getattr(b.markers, f)[b.markers.valid])[0]
+        box = base.lx if f == "x" else base.ly
+        errs[f"markers.{f}"] = float(torch.max(torch.abs(pb - pa))) / box
+    log(f"FK {n}^2 uniform edges vs uniform (kernels off): Krylov {ib} vs "
+        f"{ia}, relative differences {errs}")
+    rec["uniform_edges"] = dict(krylov_edges=ib, krylov_uniform=ia,
+                                errors=errs)
+    if any(abs(x - y) > KRYLOV_AB_TOL for x, y in zip(ia, ib)):
+        raise AssertionError(f"uniform edges: Krylov {ib} vs {ia} (bar "
+                             f"+-{KRYLOV_AB_TOL})")
+    bad = {k: v for k, v in errs.items() if not v <= (
+        UNIFORM_EDGES_MARKER_TOL if k.startswith("markers")
+        else UNIFORM_EDGES_FIELD_TOL)}
+    if bad:
+        raise AssertionError(f"uniform edges disagree with the uniform step: "
+                             f"{bad}")
+    log("stretched " + json.dumps({"device": smi,
+                                   "reference_krylov": ref_krylov, **rec}))
+    return rec
 
 
 def block_ops(n_points, iters, zero_init, emit):
@@ -2215,6 +2408,7 @@ def main():
                            modules)
     del state_p
 
+    stretched_paths(modules)
     small_reference_check()
     periodic_reference_check(modules)
 
@@ -2274,7 +2468,10 @@ def main():
                     k, rec_h["launches"], "m2g", rec_h["launches_ra"]),
                 "fk_1024_heated_mesh_4x2": heated_count(
                     k, launches_hm["mesh_4x2"], "m2g_block",
-                    launches_hm["mesh_4x2"]["m2g_block"])},
+                    launches_hm["mesh_4x2"]["m2g_block"]),
+                # stretched_paths fails on any launch there
+                "fk_1024_stretched_8x": 0,
+                "fk_1024_stretched_8x_line": 0},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

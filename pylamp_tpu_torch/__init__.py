@@ -13,17 +13,21 @@ kernel for Hopper (``sm_90a``) under ``csrc/``, built at first use with
 its plain PyTorch version on CPU tensors and launches the kernel (or
 raises) on CUDA tensors.
 
-Ported so far: the single-device, uniform-grid bucket-engine timestep of
-the Frank-Kamenetskii benchmark (``models.benchmarks.fk_bench_config``),
-of the sticky-air free surface (``models.benchmarks.
+Ported so far: the single-device bucket-engine timestep of the
+Frank-Kamenetskii benchmark (``models.benchmarks.fk_bench_config``), of
+the sticky-air free surface (``models.benchmarks.
 sticky_air_bench_config``: augmented Lagrangian, inner velocity FGMRES,
 power-iteration bounds, MG eta cap) and of the falling block with
 periodic side walls (``models.benchmarks.falling_block_periodic_config``:
 the periodic forms of six kernels), the first two also domain-decomposed
 on the reference's explicit-halo path over an in-process mesh
 (``parallel/``: every shard on one card, with the five per-shard kernels;
-non-periodic).  Branches outside those slices raise
-``NotImplementedError``.
+non-periodic); and stretched grids on one device
+(``models.benchmarks.fk_stretched_bench_config``: variable-spacing
+operators, semicoarsened MG with power-iteration bounds, the Jacobi and
+line smoothers, the windowed-locate marker engine; tensor code, as every
+kernel's gate fails there in the reference too).  Branches outside those
+slices raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

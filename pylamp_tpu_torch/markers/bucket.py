@@ -1,11 +1,10 @@
 """Dense bucketed marker engine.
 
-Port of ``pylamp_tpu/markers/bucket.py`` (uniform grid):
-markers live in a dense (ny, nx, K) layout bucketed by their owning grid
-cell, empty slots masked by ``valid``.  The functions here are the plain
-PyTorch versions; the step runs the CUDA kernels in ``markers/kernels/``
-where their static gates hold, and these are what those kernels are
-checked against.
+Port of ``pylamp_tpu/markers/bucket.py``: markers live in a dense
+(ny, nx, K) layout bucketed by their owning grid cell, empty slots masked
+by ``valid``.  The functions here are the plain PyTorch versions; the
+step runs the CUDA kernels in ``markers/kernels/`` where their static
+gates hold, and these are what those kernels are checked against.
 
 - marker -> grid (``bucket_markers_to_grid``) keeps the reference's
   dense-shift structure (9 cell offsets x 4 bilinear corners, masked
@@ -22,11 +21,19 @@ With ``periodic_x`` every x neighbourhood wraps with period nx: node
 columns of the marker->grid sums (lattices with a duplicated seam column
 re-emit the seam sum in both), the sampled lattice columns, the advected
 x (wrapped into [0, lx)) and the rebucket's 3x3 exchange.
+
+On a stretched grid a position's node interval is found by the
+reference's windowed locate (``_axis_locate``): the interval lies within a
+small static window of offsets from the marker's bucket cell, and is
+counted by comparisons against per-cell node rows (device tensors cached
+on the grid), so a marker exactly on an edge lands in the reference's
+cell; the slot positions of reseeding sit in each cell's own spacing.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from pylamp_tpu_torch.core.bc import VelocityBCs
@@ -78,7 +85,15 @@ def bucket_from_flat(x, y, mat, T, grid: StaggeredGrid, capacity: int):
     rank within cell, scatter into the first ``capacity`` slots."""
     ny, nx = grid.ny, grid.nx
     dev = x.device
-    j, i = target_cells(x, y, grid)
+    if grid.uniform:
+        j, i = target_cells(x, y, grid)
+    else:  # the reference's setup search over the edges (marker dtype)
+        def search(edges, pos, n):
+            e = torch.as_tensor(edges, dtype=pos.dtype, device=dev)
+            return torch.clamp(torch.searchsorted(e, pos, right=True) - 1,
+                               0, n - 1)
+
+        j, i = search(grid.y_corner, y, ny), search(grid.x_corner, x, nx)
     cid = j.to(torch.int64) * nx + i.to(torch.int64)
     order = torch.argsort(cid, stable=True)
     cid_s = cid[order]
@@ -102,12 +117,77 @@ def bucket_from_flat(x, y, mat, T, grid: StaggeredGrid, capacity: int):
 
 # -- local coordinates on a target sub-lattice ----------------------------------------
 
+def _locate_table(grid: StaggeredGrid, name: str, nodes, ncells: int,
+                  rlo: int, rhi: int, dtype, device):
+    """The windowed locate's operands for one axis's ``nodes`` (f64 numpy),
+    cached on the grid: the shifted node rows ``rows[r - rlo - 1][i] =
+    nodes[i + r]`` for r in (rlo, rhi] (-inf below the array, +inf above,
+    so out-of-range comparisons resolve the right way) and the nodes
+    themselves, in ``dtype`` on ``device``."""
+    key = ("locate", name, rlo, rhi, dtype, torch.device(device))
+    cache = grid.tensor_cache
+    if key not in cache:
+        nodes = np.asarray(nodes, np.float64)
+        m = nodes.shape[0]
+        idx = np.arange(rlo + 1, rhi + 1)[:, None] + np.arange(ncells)
+        rows = np.where(idx < 0, -np.inf, np.where(
+            idx > m - 1, np.inf, nodes[np.clip(idx, 0, m - 1)]))
+        cache[key] = (torch.from_numpy(rows).to(dtype=dtype, device=device),
+                      torch.from_numpy(nodes).to(dtype=dtype, device=device))
+    return cache[key]
+
+
+def _axis_locate(pos, grid: StaggeredGrid, name: str, nodes, rlo: int,
+                 rhi: int, axis: int):
+    """The reference's windowed locate on a stretched axis: positions
+    (ny, nx, K) whose node interval i0 (nodes[i0] <= pos < nodes[i0 + 1])
+    lies within [rlo, rhi] of their bucket index along ``axis``.  Returns
+    (i0 clipped to [0, len(nodes) - 2], local coordinate t in [0, 1]).
+    The interval is counted by comparisons; its end points are then read
+    at i0 (the reference selects them from the same rows, the same
+    values)."""
+    ncells = pos.shape[axis]
+    rows, nodes_t = _locate_table(grid, name, nodes, ncells, rlo, rhi,
+                                  pos.dtype, pos.device)
+    shape = [1, 1, 1]
+    shape[axis] = ncells
+    base = torch.arange(ncells, device=pos.device).view(shape)
+    i0 = torch.full(pos.shape, rlo, dtype=torch.int64, device=pos.device)
+    i0 = i0 + base
+    for row in rows:
+        i0 = i0 + (pos >= row.view(shape))
+    i0 = torch.clamp(i0, 0, nodes_t.shape[0] - 2)
+    lo, hi = nodes_t[i0], nodes_t[i0 + 1]
+    return i0, torch.clamp((pos - lo) / (hi - lo), 0.0, 1.0)
+
+
+def _stretched_locate(px, py, grid: StaggeredGrid, loc: str,
+                      window: int = 1):
+    """(j0, i0, ty, tx) of positions on the ``loc`` lattice of a stretched
+    grid: node intervals at edges are the bucket cell (offset 0), at
+    centers offset -1 or 0, each widened by ``window - 1`` cells for
+    displaced (RK4 stage) positions."""
+    ys, xs = grid.coords(loc)
+    w = window
+    xlo, xhi = (-(w - 1), w - 1) if loc in ("corner", "vx") else (-w, w - 1)
+    ylo, yhi = (-(w - 1), w - 1) if loc in ("corner", "vy") else (-w, w - 1)
+    i0, tx = _axis_locate(px, grid, f"x_{loc}", xs, xlo, xhi, axis=1)
+    j0, ty = _axis_locate(py, grid, f"y_{loc}", ys, ylo, yhi, axis=0)
+    return j0, i0, ty, tx
+
+
 def _lattice_local(bm_x, bm_y, grid: StaggeredGrid, loc: str,
                    periodic_x: bool = False):
     """Per-marker (o_j, o_i, ty, tx): the ``loc``-lattice cell containing
     the marker starts at bucket-cell offset (o_j, o_i); (ty, tx) in [0, 1]
     are its local coordinates (clamped to the lattice; ``periodic_x``: no
     x clamp, the node columns wrap where the sums land)."""
+    cj, ci = _cell_iota(bm_x.shape, bm_x.device)
+    if not grid.uniform:
+        if periodic_x:
+            raise ValueError("periodic side walls need a uniform grid")
+        j0, i0, ty, tx = _stretched_locate(bm_x, bm_y, grid, loc)
+        return j0 - cj, i0 - ci, ty, tx
     oy, ox = grid.origin(loc)
     ny_n, nx_n = grid.shape(loc)
     fx = (bm_x - ox) / grid.dx
@@ -119,7 +199,6 @@ def _lattice_local(bm_x, bm_y, grid: StaggeredGrid, loc: str,
     j0 = torch.clamp(torch.floor(fy), 0, ny_n - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
-    cj, ci = _cell_iota(bm_x.shape, bm_x.device)
     return j0 - cj, i0 - ci, ty, tx
 
 
@@ -236,9 +315,18 @@ def _sample(f, fx, fy, valid, reach: int, period: int = 0,
     j0 = torch.clamp(torch.floor(fy), 0, nr - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
-    cj, ci = _cell_iota(fx.shape, fx.device)
+    return _gather(f, j0, i0, ty, tx, valid, reach, period, col_offset)
+
+
+def _gather(f, j0, i0, ty, tx, valid, reach: int, period: int = 0,
+            col_offset: int = 0):
+    """Bilinear sample of lattice ``f`` from the located interval (j0, i0)
+    and local coordinates (ty, tx) of each slot, masked to the reference's
+    shift window and to the valid slots (``_sample``)."""
+    nc = f.shape[1]
+    cj, ci = _cell_iota(tx.shape, tx.device)
     flat = f.reshape(-1)
-    out = torch.zeros_like(fx)
+    out = torch.zeros_like(tx)
     for dj, di, w in _corners(ty, tx):
         rj, ri = j0 + dj, i0 + di
         oj, oi = rj - cj, ri - ci
@@ -250,11 +338,44 @@ def _sample(f, fx, fy, valid, reach: int, period: int = 0,
     return out
 
 
+def _sample_stretched(f, px, py, valid, grid: StaggeredGrid, reach: int,
+                      lattice: str):
+    """Bilinear sample of a ghost-padded velocity lattice of a stretched
+    grid (``padded_velocities``; ``lattice`` "vx" or "vy"): the windowed
+    locate against its node coordinates, the ghost rows or columns one
+    cell beyond the walls (the reference's ``_sample_coords``).  A
+    center-like axis (nodes at cell centers and one ghost each side) has
+    in-cell offsets {0, 1}, an edge-like axis {0}, each widened by
+    ``reach`` for displaced positions."""
+    if lattice == "vx":
+        yc = grid.y_center
+        ys = np.concatenate([[yc[0] - grid.dys[0]], yc,
+                             [yc[-1] + grid.dys[-1]]])
+        xs = grid.x_corner
+        (ylo, yhi), (xlo, xhi) = (-reach, reach + 1), (-reach, reach)
+    else:
+        xc = grid.x_center
+        xs = np.concatenate([[xc[0] - grid.dxs[0]], xc,
+                             [xc[-1] + grid.dxs[-1]]])
+        ys = grid.y_corner
+        (ylo, yhi), (xlo, xhi) = (-reach, reach), (-reach, reach + 1)
+    j0, ty = _axis_locate(py, grid, f"y_{lattice}_padded", ys, ylo, yhi,
+                          axis=0)
+    i0, tx = _axis_locate(px, grid, f"x_{lattice}_padded", xs, xlo, xhi,
+                          axis=1)
+    return _gather(f, j0, i0, ty, tx, valid, reach)
+
+
 def bucket_grid_to_markers(field, px, py, valid, grid: StaggeredGrid,
                            loc: str, reach: int = 1, periodic_x: bool = False):
     """Bilinear interpolation of a ``loc``-lattice field to marker
     positions (``reach`` bounds the node offset from the bucket cell;
     ``periodic_x``: node columns wrap with period nx)."""
+    if not grid.uniform:
+        if periodic_x:
+            raise ValueError("periodic side walls need a uniform grid")
+        j0, i0, ty, tx = _stretched_locate(px, py, grid, loc, window=reach)
+        return _gather(field, j0, i0, ty, tx, valid, reach)
     oy, ox = grid.origin(loc)
     return _sample(field, (px - ox) / grid.dx, (py - oy) / grid.dy, valid,
                    reach, period=grid.nx if periodic_x else 0, x_clamp=False)
@@ -288,13 +409,24 @@ def bucket_advect_rk4(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     lattices wrapped in x (the stage positions themselves are not wrapped)
     and wrap the final x into [0, lx) with ``wrap_x``."""
     vx_p, vy_p = padded_velocities(vx, vy, bcs)
-    dx, dy = grid.dx, grid.dy
     period = grid.nx if bcs.periodic_x else 0
+    if not grid.uniform:
+        if period:
+            raise ValueError("periodic side walls need a uniform grid")
 
-    def vel(px, py, reach):
-        ux = _sample(vx_p, px / dx, py / dy + 0.5, bm.valid, reach, period, 0)
-        uy = _sample(vy_p, px / dx + 0.5, py / dy, bm.valid, reach, period, 1)
-        return ux, uy
+        def vel(px, py, reach):
+            return (_sample_stretched(vx_p, px, py, bm.valid, grid, reach,
+                                      "vx"),
+                    _sample_stretched(vy_p, px, py, bm.valid, grid, reach,
+                                      "vy"))
+    else:
+        dx, dy = grid.dx, grid.dy
+
+        def vel(px, py, reach):
+            return (_sample(vx_p, px / dx, py / dy + 0.5, bm.valid, reach,
+                            period, 0),
+                    _sample(vy_p, px / dx + 0.5, py / dy, bm.valid, reach,
+                            period, 1))
 
     x, y = bm.x, bm.y
     k1x, k1y = vel(x, y, 1)
@@ -365,7 +497,15 @@ def rebucket(bm: BucketedMarkers, grid: StaggeredGrid,
     ny, nx, K = bm.x.shape
     if periodic_x and nx < 3:
         raise ValueError(f"periodic rebucketing needs nx >= 3, got {nx}")
-    tj, ti = target_cells(bm.x, bm.y, grid)
+    if grid.uniform:
+        tj, ti = target_cells(bm.x, bm.y, grid)
+    elif periodic_x:
+        raise ValueError("periodic side walls need a uniform grid")
+    else:  # markers move at most one cell: windowed locate on the edges
+        ti, _ = _axis_locate(bm.x, grid, "x_corner", grid.x_corner, -1, 1,
+                             axis=1)
+        tj, _ = _axis_locate(bm.y, grid, "y_corner", grid.y_corner, -1, 1,
+                             axis=0)
     cj, ci = _cell_iota(bm.x.shape, bm.x.device)
     stays_dj = tj.to(torch.int64) - cj
     stays_di = ti.to(torch.int64) - ci
@@ -420,6 +560,24 @@ def material_histogram(bm: BucketedMarkers, n_materials: int):
          for m in range(n_materials)], dim=-1)
 
 
+def _cell_origins(grid: StaggeredGrid, dtype, device):
+    """Each cell's first edge and width along x (1, nx, 1) and y (ny, 1, 1)
+    in the marker ``dtype``, then widened to f64 (the reference's
+    promotion of its spawn arithmetic); cached on the grid."""
+    key = ("cell_origins", dtype, torch.device(device))
+    cache = grid.tensor_cache
+    if key not in cache:
+        def cells(a, shape):
+            return torch.from_numpy(np.asarray(a, np.float64)).to(
+                dtype=dtype, device=device).to(torch.float64).view(shape)
+
+        nx, ny = grid.nx, grid.ny
+        cache[key] = (cells(grid.x_corner[:-1], (1, nx, 1)),
+                      cells(grid.y_corner[:-1], (ny, 1, 1)),
+                      cells(grid.dxs, (1, nx, 1)), cells(grid.dys, (ny, 1, 1)))
+    return cache[key]
+
+
 def reseed_spawn(bm: BucketedMarkers, majority, grid: StaggeredGrid,
                  min_per_cell: int):
     """The cell-local half of ``bucket_reseed``: which empty slots spawn
@@ -438,10 +596,15 @@ def reseed_spawn(bm: BucketedMarkers, majority, grid: StaggeredGrid,
     s = torch.arange(K, dtype=f64, device=dev)
     off_x = (torch.remainder(s * 0.381966, 1.0) - 0.5) * 0.5
     off_y = (torch.remainder(s * 0.618034, 1.0) - 0.5) * 0.5
-    ci = torch.arange(nx, dtype=f64, device=dev).view(1, nx, 1)
-    cj = torch.arange(ny, dtype=f64, device=dev).view(ny, 1, 1)
-    sx = (ci + 0.5 + off_x) * grid.dx
-    sy = (cj + 0.5 + off_y) * grid.dy
+    if grid.uniform:
+        ci = torch.arange(nx, dtype=f64, device=dev).view(1, nx, 1)
+        cj = torch.arange(ny, dtype=f64, device=dev).view(ny, 1, 1)
+        sx = (ci + 0.5 + off_x) * grid.dx
+        sy = (cj + 0.5 + off_y) * grid.dy
+    else:
+        xe0, ye0, dxc, dyc = _cell_origins(grid, bm.x.dtype, dev)
+        sx = xe0 + (0.5 + off_x) * dxc
+        sy = ye0 + (0.5 + off_y) * dyc
     new_x = torch.where(spawn, sx.to(bm.x.dtype), bm.x)
     new_y = torch.where(spawn, sy.to(bm.y.dtype), bm.y)
     new_mat = torch.where(spawn, majority[:, :, None], bm.mat)

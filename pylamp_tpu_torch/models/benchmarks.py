@@ -8,7 +8,8 @@ stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1; rho0*alpha = Ra
 with g = 1) and the sticky-air free surface (BASELINE config 5, SI units),
 plus the configurations ``python bench.py`` builds for the last two, switch
 for switch: ``fk_bench_config`` (its default) and
-``sticky_air_bench_config`` (``--benchmark sticky_air``), and
+``sticky_air_bench_config`` (``--benchmark sticky_air``) and
+``fk_stretched_bench_config`` (``--stretch-y 8``), and
 ``falling_block_periodic_config``, the periodic preset at nx^2 that the
 port's chip check and profiler run.
 """
@@ -19,6 +20,7 @@ import dataclasses
 import numpy as np
 
 from pylamp_tpu_torch.core.bc import ThermalBC, ThermalBCs, VelocityBCs
+from pylamp_tpu_torch.core.grid import geometric_edges
 from pylamp_tpu_torch.models.config import (
     ModelConfig,
     PhysicsConfig,
@@ -204,6 +206,19 @@ def fk_bench_config(nx: int = 1024, fused_smoother: bool = True
     extra = {} if fused_smoother else dict(use_pallas_smoother=False)
     return dataclasses.replace(
         cfg, solver=SolverConfig(**BENCH_SOLVER, **extra))
+
+
+def fk_stretched_bench_config(nx: int = 1024, ratio: float = 8.0
+                              ) -> ModelConfig:
+    """``python bench.py --stretch-y 8`` at nx^2: ``fk_bench_config(nx)``
+    with y edges in geometric progression, the last cell ``ratio`` times
+    the first (refined toward the top, the lid's boundary layer), built as
+    bench.py:163-169 builds it.  The solver is the bench preset's:
+    Chebyshev MG, semicoarsening at 2, power-iteration bounds on the
+    non-uniform levels."""
+    cfg = fk_bench_config(nx)
+    return dataclasses.replace(
+        cfg, y_edges=geometric_edges(cfg.ny, cfg.ly, ratio))
 
 
 def sticky_air(nx=1024, ny=256, max_steps=50):

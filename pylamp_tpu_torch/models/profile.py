@@ -1,12 +1,16 @@
 """Where the time goes in the port's step, on one GPU.
 
     python -m pylamp_tpu_torch.models.profile
-        [--config fk|fk_heated|fk_heated_mg|sticky_air|falling_block_periodic]
+        [--config fk|fk_heated|fk_heated_mg|fk_stretched|fk_stretched_line|
+                  sticky_air|falling_block_periodic]
         [--nx 1024] [--steps 2] [--mesh 4x2]
 
 Builds ``fk_bench_config(nx)`` (FK nx^2, the default),
 ``fk_heated_config(nx)`` (the same with the reference's four thermal
 switches; ``fk_heated_mg``: with the energy multigrid and flexible CG),
+``fk_stretched_bench_config(nx)`` (y-stretched 8x, ``bench.py --stretch-y
+8``; ``fk_stretched_line``: with the line smoothers in both multigrids,
+see ``fk_stretched_line_config``),
 ``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) or
 ``falling_block_periodic_config(nx)`` (periodic side walls, nx^2) on the
 card in f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
@@ -46,6 +50,7 @@ import torch
 from pylamp_tpu_torch.models.benchmarks import (
     falling_block_periodic_config,
     fk_bench_config,
+    fk_stretched_bench_config,
     sticky_air_bench_config,
 )
 
@@ -68,8 +73,21 @@ def fk_heated_config(nx: int = 1024, energy_preconditioner: str = "jacobi"):
                        energy_preconditioner=energy_preconditioner))
 
 
+def fk_stretched_line_config(nx: int = 1024):
+    """``fk_stretched_bench_config(nx)`` with the line smoothers: y and x
+    line relaxation in the Stokes MG (``mg_smoother="line"``) and the
+    energy MG with line smoothing under flexible CG (the line-smoother
+    partner of ``chip_smoke.py``'s stretched phase)."""
+    cfg = fk_stretched_bench_config(nx)
+    return replace(cfg, solver=replace(
+        cfg.solver, mg_smoother="line", energy_preconditioner="mg",
+        energy_mg_smoother="line"))
+
+
 CONFIGS = {"fk": fk_bench_config, "fk_heated": fk_heated_config,
            "fk_heated_mg": lambda nx: fk_heated_config(nx, "mg"),
+           "fk_stretched": fk_stretched_bench_config,
+           "fk_stretched_line": fk_stretched_line_config,
            "sticky_air": sticky_air_bench_config,
            "falling_block_periodic": falling_block_periodic_config}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")

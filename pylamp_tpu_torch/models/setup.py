@@ -21,16 +21,30 @@ from pylamp_tpu_torch.solvers.mg import coarsening_plan
 
 
 def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
-    """Host-side jittered m x m markers per cell: (x, y, mat, T) numpy."""
+    """Host-side jittered m x m markers per cell: (x, y, mat, T) numpy.  A
+    stretched grid seeds them in each cell's own coordinates (constant
+    markers per cell, not per area), drawing the reference's stream."""
     m = cfg.markers_per_cell_dim
     nxm, nym = grid.nx * m, grid.ny * m
     rng = np.random.default_rng(cfg.seed)
-    ddx, ddy = grid.lx / nxm, grid.ly / nym
-    xs = (np.arange(nxm) + 0.5) * ddx
-    ys = (np.arange(nym) + 0.5) * ddy
-    Yh, Xh = np.meshgrid(ys, xs, indexing="ij")
-    xh = Xh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddx
-    yh = Yh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddy
+    if grid.uniform:
+        ddx, ddy = grid.lx / nxm, grid.ly / nym
+        xs = (np.arange(nxm) + 0.5) * ddx
+        ys = (np.arange(nym) + 0.5) * ddy
+        Yh, Xh = np.meshgrid(ys, xs, indexing="ij")
+        xh = Xh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddx
+        yh = Yh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddy
+    else:
+        frac = (np.arange(m) + 0.5) / m
+        jx = rng.uniform(-0.25, 0.25, (grid.ny, grid.nx, m, m)) / m
+        jy = rng.uniform(-0.25, 0.25, (grid.ny, grid.nx, m, m)) / m
+        fx = frac[None, None, None, :] + jx
+        fy = frac[None, None, :, None] + jy
+        xe, ye = grid.x_corner, grid.y_corner
+        xh = (xe[:-1][None, :, None, None]
+              + fx * grid.dxs[None, :, None, None]).ravel()
+        yh = (ye[:-1][:, None, None, None]
+              + fy * grid.dys[:, None, None, None]).ravel()
     xh = np.clip(xh, 1e-6 * grid.dx_min, grid.lx - 1e-6 * grid.dx_min)
     yh = np.clip(yh, 1e-6 * grid.dy_min, grid.ly - 1e-6 * grid.dy_min)
     n_mat = len(cfg.physics.materials)

@@ -1,17 +1,17 @@
 """One model timestep (port of ``pylamp_tpu/models/step.py``, the
-bucket-engine branch on a uniform grid):
+bucket-engine branch):
 
     marker props -> marker->grid -> Stokes solve -> dt (Courant)
     -> implicit energy solve (+ shear / adiabatic heating) + marker T
     update (optional subgrid diffusion) -> RK4 advection -> rebucket
     (-> optional reseeding of starved cells)
 
-The step keeps the reference's static kernel gates: with an f32 state the
-marker->grid transfer, the advection and the rebucket run through the
-kernel wrappers of ``markers/kernels`` (CUDA kernels on a CUDA state,
-their plain versions on a CPU state), and the mixed-precision Stokes solve
-applies its f32 outer operator through ``ops/kernels/saddle.py`` and its MG
-preconditioner through the fused smoother and coarse sub-V-cycle
+The step keeps the reference's static kernel gates: with an f32 state on a
+uniform grid the marker->grid transfer, the advection and the rebucket run
+through the kernel wrappers of ``markers/kernels`` (CUDA kernels on a CUDA
+state, their plain versions on a CPU state), and the mixed-precision Stokes
+solve applies its f32 outer operator through ``ops/kernels/saddle.py`` and
+its MG preconditioner through the fused smoother and coarse sub-V-cycle
 (``ops/kernels/cheb.py``, ``ops/kernels/coarse_vcycle.py``) and, with
 ``use_pallas``, the momentum kernel (``ops/kernels/momentum.py``).  The
 augmented Lagrangian, the inner velocity FGMRES, the MG eta cap and
@@ -20,7 +20,15 @@ so are periodic side walls on one device: every phase and kernel takes
 its wrapped form (the fused coarse sub-V-cycle stays off there, as in the
 reference).  An f64
 state takes the plain functions, as the reference's f64 state skips its
-Pallas kernels.  Configuration branches outside the ported slice raise
+Pallas kernels.  A stretched grid fails every gate (the kernels divide by
+the scalar dx, dy), as in the reference: it interpolates stream by stream
+(``bucket_markers_to_grid``: eta on the corners and centers, rho on the
+velocity lattices, and in the energy phase T, k, rho*Cp, H and rho0 *
+alpha on the corners), and advects and rebuckets with the tensor
+functions; the MG takes power-iteration Chebyshev bounds on its
+non-uniform levels, refreshed every ``mg_lam_refresh_every`` steps, and
+the Jacobi and line smoothers (``mg_smoother``, ``energy_mg_smoother``)
+run on any grid.  Configuration branches outside the ported slice raise
 ``NotImplementedError``.
 
 ``mesh`` (an in-process mesh, parallel/mesh.py) with
@@ -101,6 +109,7 @@ class InterpOut(NamedTuple):
     rho_vy: Any
     k_m: Any  # marker conductivity (dt cap)
     rhocp_m: Any  # marker rho*Cp
+    H_m: Any = None  # marker heating (the per-stream energy fields)
     T_old_g: Any = None
     k_g: Any = None
     rhocp_g: Any = None
@@ -127,16 +136,10 @@ def _check_slice(cfg: ModelConfig):
         raise _later(f"the {cfg.marker_engine!r} marker engine")
     for flag, what in ((solver.preconditioner != "mg",
                         f"the {solver.preconditioner!r} Stokes preconditioner"),
-                       (solver.mg_smoother != "chebyshev",
-                        f"the {solver.mg_smoother!r} MG smoother"),
                        (solver.schur != "mass",
                         f"the {solver.schur!r} Schur surrogate"),
                        (solver.mg_scaled_transfers or solver.mg_ls_damp,
-                        "scaled MG transfers / line-search damping"),
-                       (solver.energy_preconditioner == "mg"
-                        and solver.energy_mg_smoother != "chebyshev",
-                        f"the {solver.energy_mg_smoother!r} energy MG "
-                        "smoother")):
+                        "scaled MG transfers / line-search damping")):
         if flag:
             raise _later(what)
 
@@ -171,6 +174,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
     if periodic and halo_mesh is not None:
         raise _later("the periodic explicit-halo mesh path")
+    if not grid.uniform and halo_mesh is not None:
+        raise _later("stretched grids on the explicit-halo mesh")
     marker_halo_mesh = (halo_mesh if halo_mesh is not None
                         and halo_markers_eligible(grid, halo_mesh) else None)
     # the per-shard marker kernels' shape gate
@@ -194,6 +199,10 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         return bucket_grid_to_markers(field, m.x, m.y, m.valid, grid, loc,
                                       periodic_x=periodic)
 
+    def _disp_interp_fb(m, vals, loc, mode, fallback):
+        field, wsum = _disp_m2g(m, vals, loc, mode)
+        return torch.where(wsum > 0, field, fallback)
+
     make_precond = partial(
         make_mg_preconditioner,
         levels=solver.mg_levels,
@@ -201,6 +210,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         pre_smooth=solver.mg_pre_smooth,
         post_smooth=solver.mg_post_smooth,
         smoother=solver.mg_smoother,
+        omega=solver.mg_omega,
         semicoarsen=solver.mg_semicoarsen,
         schur=solver.schur,
         velocity_inner_iters=solver.mg_velocity_inner_iters,
@@ -216,10 +226,10 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             solver.precision == "auto" and dtype == torch.float32)
 
     def _kernels(dtype):
-        """The reference's static kernel gate: f32 (a uniform grid holds
-        throughout the port).  Under the explicit-halo mesh the
-        same switches select the per-shard kernels."""
-        return dtype == torch.float32
+        """The reference's static kernel gate: f32 on a uniform grid (every
+        kernel divides by the scalar dx, dy).  Under the explicit-halo mesh
+        the same switches select the per-shard kernels."""
+        return dtype == torch.float32 and grid.uniform
 
     # ---- phase 1: marker rheology + marker -> grid ------------------------
     def interp(state: ModelState) -> InterpOut:
@@ -229,6 +239,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         k_m = table.conductivity(m.mat, dtype)
         rhocp_m = table.rho_cp(m.mat, m.T)
         kern = solver.use_pallas_m2g and _kernels(dtype)
+        if not grid.uniform:
+            return _interp_streams(m, rho_m, k_m, rhocp_m, state)
         if marker_halo_mesh is not None:
             out = m2g_fused_halo(m, grid, table, phys, marker_halo_mesh,
                                  with_energy=phys.solve_energy,
@@ -239,6 +251,25 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             out = m2g(m, grid, table, phys, with_energy=phys.solve_energy,
                       periodic_x=periodic, with_ra=with_ra)
         return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
+
+    def _interp_streams(m, rho_m, k_m, rhocp_m, state) -> InterpOut:
+        """The reference's per-stream transfers (its path wherever the fused
+        transfer's gate fails): eta on the corners and centers, rho on the
+        velocity lattices; the energy phase interpolates its corner fields
+        itself."""
+        eta_m = torch.clamp(table.viscosity_of(m.mat, m.T), phys.eta_min,
+                            phys.eta_max)
+        eta_s = _disp_interp_fb(m, eta_m, "corner", phys.eta_avg, state.eta_s)
+        eta_n = _disp_interp_fb(m, eta_m, "center", phys.eta_avg, state.eta_n)
+        rho_mean = _marker_mean(m, rho_m)
+        rho_vy = _disp_interp_fb(m, rho_m, "vy", "arithmetic", rho_mean)
+        if phys.gx != 0.0:
+            rho_vx = _disp_interp_fb(m, rho_m, "vx", "arithmetic", rho_mean)
+        else:
+            rho_vx = torch.zeros(grid.shape_vx, dtype=m.x.dtype,
+                                 device=m.x.device)
+        return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m,
+                         table.heating(m.mat, m.x.dtype))
 
     def _interp_fused(m, rho_m, k_m, rhocp_m, state, out) -> InterpOut:
         """Grid fields from the raw weighted sums (shared by the kernel and
@@ -283,22 +314,24 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 ra_m = (table._select(table.rho0, m.mat, dtype)
                         * table._select(table.alpha, m.mat, dtype))
                 ra_g = mean_of(out["c_ra"], cw, _marker_mean(m, ra_m))
-        return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m,
+        return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m, None,
                          T_old_g, k_g, rhocp_g, H_g, ra_g)
 
     def mg_lambdas(state: ModelState, io: InterpOut, wdtype):
         """Per-level Chebyshev bounds for this step's solve, warm-started
         across steps through ``state.mg_lam``: the Gershgorin bound every
-        step, or power iteration refreshed every ``mg_lam_refresh_every``
-        steps (and while the carried bound is unset), the carried bound
-        otherwise.  The power mode's decision reads the host once per
-        step.  None without a carried bound: make_velocity_mg then runs its
-        own power iteration."""
-        if state.mg_lam is None or state.mg_lam.shape[0] == 0:
+        step (uniform grids), or power iteration refreshed every
+        ``mg_lam_refresh_every`` steps (and while the carried bound is
+        unset), the carried bound otherwise.  The power mode's decision
+        reads the host once per step.  None without a carried bound or a
+        Chebyshev smoother: make_velocity_mg then runs its own power
+        iteration (Chebyshev) or needs none."""
+        if (solver.mg_smoother != "chebyshev" or state.mg_lam is None
+                or state.mg_lam.shape[0] == 0):
             return None
         es_w, en_w = io.eta_s.to(wdtype), io.eta_n.to(wdtype)
         _, kbnd_w = stokes_scales(characteristic_viscosity(en_w), grid)
-        if solver.mg_lam_mode == "gershgorin":
+        if solver.mg_lam_mode == "gershgorin" and grid.uniform:
             return estimate_mg_lambdas(
                 es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
                 semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
@@ -385,15 +418,29 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         diag: Dict[str, Any] = {}
         if not phys.solve_energy:
             return m, state.T, diag
-        T_old, H_g = io.T_old_g, io.H_g
+        ra_g = io.ra_g
+        if io.T_old_g is not None:  # from the fused transfer
+            T_old, k_g, rhocp_g, H_g = io.T_old_g, io.k_g, io.rhocp_g, io.H_g
+        else:  # stream by stream (a stretched grid)
+            def corner(vals, fallback):
+                return _disp_interp_fb(m, vals, "corner", "arithmetic",
+                                       fallback)
+
+            T_old = corner(m.T, state.T)
+            k_g = corner(io.k_m, _marker_mean(m, io.k_m))
+            rhocp_g = corner(io.rhocp_m, _marker_mean(m, io.rhocp_m))
+            H_g = corner(io.H_m, torch.zeros((), dtype=dtype,
+                                             device=m.x.device))
+            if phys.adiabatic_heating:
+                ra_m = (table._select(table.rho0, m.mat, dtype)
+                        * table._select(table.alpha, m.mat, dtype))
+                ra_g = corner(ra_m, _marker_mean(m, ra_m))
         if phys.shear_heating:
             H_g = H_g + shear_heating(vx, vy, io.eta_n, grid, vbc)
         if phys.adiabatic_heating:
-            # rho0 * alpha from the fused transfer, which every interp runs
-            # (the kernel, or its plain version off the card)
-            H_g = H_g + adiabatic_heating(T_old, io.ra_g, vy, phys.gy, grid)
+            H_g = H_g + adiabatic_heating(T_old, ra_g, vy, phys.gy, grid)
         solve = solve_energy_mixed if _mixed(dtype) else solve_energy
-        esol = solve(T_old, io.k_g, io.rhocp_g / dt, H_g, grid, tbc,
+        esol = solve(T_old, k_g, rhocp_g / dt, H_g, grid, tbc,
                      tol=solver.energy_tol, maxiter=solver.energy_maxiter,
                      k_avg=phys.k_face_avg,
                      preconditioner=solver.energy_preconditioner,

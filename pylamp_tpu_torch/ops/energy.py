@@ -1,6 +1,6 @@
 """Matrix-free energy (heat) equation operator.
 
-Port of ``pylamp_tpu/ops/energy.py`` (uniform grid):
+Port of ``pylamp_tpu/ops/energy.py``:
 
     rho*Cp/dt * T_new - div(k grad T_new) = rho*Cp/dt * T_old + H
 
@@ -9,7 +9,8 @@ Dirichlet walls are identity rows (kbnd * T = kbnd * T_bc); Neumann walls
 use mirrored ghost nodes, their flux constants go into ``energy_rhs``.
 Corner nodes: horizontal walls win.  Periodic side walls wrap the ghost
 columns (columns 0 and nx are one node), and the seam rows are halved in
-both columns, as the Stokes seam row is.
+both columns, as the Stokes seam row is.  A stretched grid takes the
+variable-spacing operator and rhs of ops/stretched.py.
 """
 from __future__ import annotations
 
@@ -77,6 +78,11 @@ def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
     """Apply A_T T = rho*Cp/dt * T - div(k grad T), with BC rows.
     ``halo_mesh``: route through the explicit-halo operator
     (parallel/halo_ops.py) on grids that decompose over the mesh."""
+    if not grid.uniform:
+        from pylamp_tpu_torch.ops.stretched import energy_operator_stretched
+
+        return energy_operator_stretched(T, k, rhocp_over_dt, grid, bcs,
+                                         kbnd=kbnd, k_avg=k_avg)
     if halo_mesh is not None:
         from pylamp_tpu_torch.parallel.halo_ops import (
             energy_operator_halo,
@@ -110,6 +116,11 @@ def energy_rhs(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
     """RHS matching ``energy_operator``: rho*Cp/dt * T_old + H, plus the
     prescribed-flux constants (+2 k_face g / h) of Neumann walls, with
     Dirichlet rows set to kbnd * T_bc (periodic: the seam rows halved)."""
+    if not grid.uniform:
+        from pylamp_tpu_torch.ops.stretched import energy_rhs_stretched
+
+        return energy_rhs_stretched(T_old, k, rhocp_over_dt, H, grid, bcs,
+                                    kbnd=kbnd, k_avg=k_avg)
     dx, dy = grid.dx, grid.dy
     b = rhocp_over_dt * T_old + H
     if bcs.periodic_x:

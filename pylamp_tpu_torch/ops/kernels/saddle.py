@@ -81,6 +81,15 @@ def prep_saddle(eta_s, eta_n, kcont, kbnd) -> SaddlePrep:
     return SaddlePrep(eta_s, eta_n, kk)
 
 
+def saddle_apply_eligible(grid: StaggeredGrid, dtype,
+                          bcs: VelocityBCs) -> bool:
+    """The reference's gate (stokes_kernel.py saddle_apply_eligible) without
+    its platform test and TPU block shape: f32 on a uniform grid (the
+    kernel divides by the scalar dx, dy; it has no shape gate of its own,
+    and both wall forms and the periodic form exist)."""
+    return dtype == torch.float32 and grid.uniform
+
+
 def saddle_apply_plain(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
                        bcs: VelocityBCs):
     return stokes_operator(vx, vy, p, prep.eta_s, prep.eta_n, grid, bcs,

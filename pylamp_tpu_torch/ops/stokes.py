@@ -1,6 +1,6 @@
 """Matrix-free variable-viscosity Stokes saddle-point operator.
 
-Port of ``pylamp_tpu/ops/stokes.py`` (uniform grid):
+Port of ``pylamp_tpu/ops/stokes.py``:
 
   x-momentum at interior vx nodes: -(d(sxx)/dx + d(sxy)/dy) + dp/dx
   y-momentum at interior vy nodes: -(d(sxy)/dx + d(syy)/dy) + dp/dy
@@ -13,6 +13,7 @@ Dirichlet rows (kbnd * v); tangential BCs enter through ghost nodes
 side walls wrap vy's ghost columns, and the seam vx row (columns 0 and nx
 are one node) is the wrapped equation, half of it in each column.
 
+A stretched grid takes the variable-spacing operator of ops/stretched.py.
 ``kcont``/``kbnd`` may be Python floats or 0-d tensors.  ``halo_mesh``
 routes an application through the explicit-halo operator of
 parallel/halo_ops.py on grids that decompose over the mesh.
@@ -53,10 +54,21 @@ def strain_rate_ii(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs):
     """Second invariant of the strain rate at cell centers (shear heating
     and diagnostics): the deviatoric exx and the corner exy averaged onto
     the centers."""
-    dvxdx = (vx[:, 1:] - vx[:, :-1]) / grid.dx
-    dvydy = (vy[1:, :] - vy[:-1, :]) / grid.dy
     ones = torch.ones(grid.shape_corner, dtype=vx.dtype, device=vx.device)
-    sxy = shear_stress_xy(vx, vy, ones, grid, bcs)
+    if grid.uniform:
+        dvxdx = (vx[:, 1:] - vx[:, :-1]) / grid.dx
+        dvydy = (vy[1:, :] - vy[:-1, :]) / grid.dy
+        sxy = shear_stress_xy(vx, vy, ones, grid, bcs)
+    else:
+        from pylamp_tpu_torch.ops.stretched import (
+            grid_tensors,
+            shear_stress_xy_stretched,
+        )
+
+        s = grid_tensors(grid, vx.dtype, vx.device)
+        dvxdx = (vx[:, 1:] - vx[:, :-1]) / s.dxc
+        dvydy = (vy[1:, :] - vy[:-1, :]) / s.dyc
+        sxy = shear_stress_xy_stretched(vx, vy, ones, grid, bcs)
     exx = 0.5 * (dvxdx - dvydy)  # incompressible: exx = -eyy
     exy_corner = 0.5 * sxy
     exy = 0.25 * (exy_corner[:-1, :-1] + exy_corner[:-1, 1:]
@@ -75,6 +87,11 @@ def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
     grids that do not decompose evenly over it stay on the global tensors.
     ``halo_pallas``: under ``halo_mesh``, each shard's stencil runs through
     the per-shard saddle kernel where its gate holds."""
+    if not grid.uniform:
+        from pylamp_tpu_torch.ops.stretched import stokes_operator_stretched
+
+        return stokes_operator_stretched(vx, vy, p, eta_s, eta_n, grid, bcs,
+                                         kcont=kcont, kbnd=kbnd)
     if halo_mesh is not None:
         from pylamp_tpu_torch.parallel.halo_ops import (
             halo_eligible,
@@ -137,15 +154,17 @@ def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
     bx = (rho_vx * gx).to(dtype)
     by = (rho_vy * gy).to(dtype)
 
-    dy2, dx2 = grid.dy ** 2, grid.dx ** 2
+    # the wall cell's height / width (stretched: the wall cell's own)
+    dy2_top, dy2_bot = grid.dys[0] ** 2, grid.dys[-1] ** 2
+    dx2_left, dx2_right = grid.dxs[0] ** 2, grid.dxs[-1] ** 2
     if bcs.top == "no_slip" and bcs.vt_top != 0.0:
-        bx[0, 1:-1] += 2.0 * eta_s[0, 1:-1] * bcs.vt_top / dy2
+        bx[0, 1:-1] += 2.0 * eta_s[0, 1:-1] * bcs.vt_top / dy2_top
     if bcs.bottom == "no_slip" and bcs.vt_bottom != 0.0:
-        bx[-1, 1:-1] += 2.0 * eta_s[-1, 1:-1] * bcs.vt_bottom / dy2
+        bx[-1, 1:-1] += 2.0 * eta_s[-1, 1:-1] * bcs.vt_bottom / dy2_bot
     if bcs.left == "no_slip" and bcs.vt_left != 0.0:
-        by[1:-1, 0] += 2.0 * eta_s[1:-1, 0] * bcs.vt_left / dx2
+        by[1:-1, 0] += 2.0 * eta_s[1:-1, 0] * bcs.vt_left / dx2_left
     if bcs.right == "no_slip" and bcs.vt_right != 0.0:
-        by[1:-1, -1] += 2.0 * eta_s[1:-1, -1] * bcs.vt_right / dx2
+        by[1:-1, -1] += 2.0 * eta_s[1:-1, -1] * bcs.vt_right / dx2_right
 
     if bcs.periodic_x:
         bx[:, 0] *= 0.5

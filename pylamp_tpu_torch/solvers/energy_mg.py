@@ -1,15 +1,19 @@
 """Geometric multigrid preconditioner for the energy (heat) equation.
 
-Port of ``pylamp_tpu/solvers/energy_mg.py`` (the Chebyshev smoother):
-vertex-centered GMG on the corner lattice.  Coarse nodes coincide with even
-fine nodes; bilinear prolongation, full-weighting restriction (P^T/4),
-rediscretized coarse operators with node-sampled coefficients and
-Chebyshev-Jacobi smoothing with power-iteration bounds.  Periodic side
-walls fold and re-emit the seam columns in the restriction.  The line
-smoothers ("line", "line_y", "line_x") need the tridiagonal line solves of
-``solvers/lines.py``, which the port does not have yet.
+Port of ``pylamp_tpu/solvers/energy_mg.py``: vertex-centered GMG on the
+corner lattice.  Coarse nodes coincide with even fine nodes; bilinear
+prolongation, full-weighting restriction (P^T/4), rediscretized coarse
+operators with node-sampled coefficients, and Chebyshev-Jacobi smoothing
+with power-iteration bounds or, for the anisotropic cells of stretched
+grids, omega-damped line relaxation ("line": alternating y and x lines,
+"line_y", "line_x"), whose tridiagonal coefficients are probed from the
+level operator itself (``lines.stencil_line_coeffs``) and reduced once per
+level (``lines.pcr_factor``).  Periodic side walls fold and re-emit the
+seam columns in the restriction, and allow y lines only.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +22,12 @@ from pylamp_tpu_torch.core.bc import ThermalBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.energy import _dirichlet_masks, energy_operator
 from pylamp_tpu_torch.solvers.krylov import tdot
+from pylamp_tpu_torch.solvers.lines import (
+    line_axes,
+    pcr_factor,
+    pcr_solve,
+    stencil_line_coeffs,
+)
 from pylamp_tpu_torch.solvers.mg import coarsening_plan
 
 
@@ -98,12 +108,12 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
     level's eligibility).  ``omega`` is the line smoothers' damping."""
     from pylamp_tpu_torch.solvers.energy_solver import energy_diagonal
 
-    if smoother in ("line", "line_y", "line_x"):
-        raise NotImplementedError(
-            f"the {smoother!r} energy MG smoother waits for a later port PR "
-            "(solvers/lines.py)")
-    if smoother != "chebyshev":
+    if smoother not in ("chebyshev", "line", "line_y", "line_x"):
         raise ValueError(f"unknown energy MG smoother {smoother!r}")
+    if smoother != "chebyshev" and bcs.periodic_x \
+            and 1 in line_axes(smoother):
+        raise ValueError("x-line smoothing requires non-periodic side walls "
+                         "(use smoother='line_y')")
     plan = coarsening_plan(grid, levels, semi_threshold=semicoarsen)
     nlev = len(plan) + 1
     dtype, device = k.dtype, k.device
@@ -129,11 +139,28 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
         return energy_operator(T, kl, rl, grids[l], bcs, kbnd=kbnds[l],
                                k_avg=k_avg, halo_mesh=halo_mesh)
 
-    lam = [1.1 * _power_lambda_max(lambda v, l=l: apply_l(l, v) / diags[l],
-                                   grids[l].shape_corner, dtype, device)
-           for l in range(nlev)]
+    if smoother == "chebyshev":
+        lam = [1.1 * _power_lambda_max(
+            lambda v, l=l: apply_l(l, v) / diags[l], grids[l].shape_corner,
+            dtype, device) for l in range(nlev)]
+    else:
+        # each level's line systems along each sweep axis, reduced once
+        lines = []
+        for l in range(nlev):
+            per_axis = {}
+            for ax in line_axes(smoother):
+                sub, sup = stencil_line_coeffs(
+                    partial(apply_l, l), grids[l].shape_corner, ax, dtype,
+                    device)
+                per_axis[ax] = pcr_factor(sub, diags[l], sup, ax)
+            lines.append(per_axis)
 
     def smooth(l, x, b, iters):
+        if smoother != "chebyshev":
+            for _ in range(iters):
+                for f in lines[l].values():
+                    x = x + omega * pcr_solve(f, b - apply_l(l, x))
+            return x
         d = diags[l]
         lmax = lam[l]
         lmin = lmax / 4.0

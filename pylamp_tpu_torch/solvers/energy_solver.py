@@ -1,12 +1,14 @@
 """Implicit energy (heat diffusion) solve: preconditioned CG.
 
-Port of ``pylamp_tpu/solvers/energy_solver.py`` (uniform grid):
+Port of ``pylamp_tpu/solvers/energy_solver.py``:
 ``solve_energy`` in the state dtype and ``solve_energy_mixed`` with f32
 inner solves under f64 refinement.  ``preconditioner="jacobi"`` takes CG;
 ``"mg"`` one V-cycle of the energy multigrid (solvers/energy_mg.py), only
 approximately SPD, with flexible CG.  ``halo_mesh`` routes every operator
 application through the explicit-halo energy operator
-(parallel/halo_ops.py).
+(parallel/halo_ops.py).  A stretched grid takes the variable-spacing
+operator, rhs and diagonal (ops/stretched.py); the Dirichlet row scale
+comes from the smallest cell.
 """
 from __future__ import annotations
 
@@ -35,6 +37,11 @@ class EnergySolution(NamedTuple):
 
 def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
                     kbnd, k_avg):
+    if not grid.uniform:
+        from pylamp_tpu_torch.ops.stretched import energy_diagonal_stretched
+
+        return energy_diagonal_stretched(k, rhocp_over_dt, grid, bcs, kbnd,
+                                         k_avg)
     dx, dy = grid.dx, grid.dy
     kp = _pad_ghost(k, bcs.periodic_x)
     kx = _face_k(kp, 1, k_avg)

@@ -1,20 +1,27 @@
 """Geometric multigrid preconditioner for the Stokes velocity block.
 
-Port of the uniform-grid Chebyshev path of ``pylamp_tpu/solvers/mg.py``:
-a block upper-triangular preconditioner
+Port of ``pylamp_tpu/solvers/mg.py``: a block upper-triangular
+preconditioner
 
     z_p = -(eta_n / kcont) * r_p          (mass Schur surrogate)
     z_v = MG(r_v - G z_p)                 (V-cycles on the momentum block)
 
 with rediscretized coarse operators (eta_n: 2x2 geometric mean, eta_s:
-injection), Chebyshev smoothing of D^-1 A over [lmax/4, lmax] with
-per-level Gershgorin bounds, and staggered-lattice bilinear transfers
-(restriction = P^T / 4, Dirichlet entries zeroed on both) that match the
-reference element for element.
+injection), staggered-lattice bilinear transfers (restriction = P^T / 4,
+Dirichlet entries zeroed on both) that match the reference element for
+element, and one of three smoothers: Chebyshev on D^-1 A over
+[lmax/4, lmax] (the default), omega-damped point Jacobi (``"jacobi"``),
+or omega-damped line Jacobi with tridiagonal line solves
+(``"line"``, ``"line_y"``, ``"line_x"``: solvers/lines.py).
 
-Chebyshev bounds come from Gershgorin row sums or from power iteration
-(``estimate_mg_lambdas``); ``eta_cap`` clips each coarse level's
-viscosity around its geometric mean; ``al_gamma`` and
+On a stretched grid every level applies the variable-spacing operator
+(ops/stretched.py), and ``semicoarsen`` > 0 coarsens only the finer axis
+while the cells are anisotropic (``coarsening_plan``); every kernel's gate
+fails there, so the whole hierarchy is tensor code.
+
+Chebyshev bounds come from Gershgorin row sums on uniform levels or from
+power iteration (``estimate_mg_lambdas``); ``eta_cap`` clips each coarse
+level's viscosity around its geometric mean; ``al_gamma`` and
 ``velocity_inner_iters`` give the augmented-Lagrangian Schur surrogate and
 an inner velocity FGMRES (or flexible CG) on the augmented block
 (solvers/al.py).
@@ -50,6 +57,7 @@ from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.kernels import cheb
 from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 from pylamp_tpu_torch.ops.kernels import momentum
+from pylamp_tpu_torch.ops.stretched import pressure_gradient_stretched
 from pylamp_tpu_torch.parallel.halo_ops import (
     halo_eligible,
     stokes_operator_halo,
@@ -61,6 +69,12 @@ from pylamp_tpu_torch.parallel.halo_smoother import (
 )
 from pylamp_tpu_torch.solvers.al import make_grad_div
 from pylamp_tpu_torch.solvers.krylov import fcg, fgmres, tdot
+from pylamp_tpu_torch.solvers.lines import (
+    line_axes,
+    momentum_line_coeffs,
+    pcr_factor,
+    pcr_solve,
+)
 from pylamp_tpu_torch.solvers.stokes_solver import (
     project_vx_mean,
     velocity_diagonals,
@@ -291,6 +305,8 @@ def _pressure_gradient(zp, grid, dtype, bcs: VelocityBCs | None = None):
     """G z_p: the +grad p part of the momentum rows (zero on the Dirichlet
     rows; periodic sides: the wrapped seam gradient, half in each seam
     column)."""
+    if not grid.uniform:
+        return pressure_gradient_stretched(zp, grid, dtype)
     gx_int = (zp[:, 1:] - zp[:, :-1]) / grid.dx
     if bcs is not None and bcs.periodic_x:
         seam = 0.5 * (zp[:, :1] - zp[:, -1:]) / grid.dx
@@ -402,7 +418,8 @@ def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                         refresh_iters: int = 2, mode: str = "power"):
     """Per-level Chebyshev lambda_max bounds, (nlev,) tensor.
 
-    ``mode="gershgorin"``: the analytic row-sum bound, no operator apply.
+    ``mode="gershgorin"``: the analytic row-sum bound, no operator apply,
+    on the uniform levels; the non-uniform levels take power iteration.
     ``mode="power"``: per-level power iteration with the plain operator on
     the (uncapped) coarsened viscosities, times a 1.1 margin.  ``hint``
     (the previous bounds, e.g. ``ModelState.mg_lam``) switches levels with
@@ -411,16 +428,14 @@ def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     the hint on the host once."""
     _, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                        semicoarsen)
-    if mode == "gershgorin":
-        return torch.stack([
-            gershgorin_lambda(es, en, g, bcs, kb)
-            for (es, en), g, kb in zip(etas, grids, kbnds)
-        ])
     dtype = eta_n.dtype
     positive = ([h > 0 for h in hint.to(dtype).tolist()]
                 if hint is not None else None)
     lams = []
     for l, ((es, en), g, kb) in enumerate(zip(etas, grids, kbnds)):
+        if mode == "gershgorin" and g.uniform:
+            lams.append(gershgorin_lambda(es, en, g, bcs, kb))
+            continue
         iters = refresh_iters if positive is not None and positive[l] \
             else fresh_iters
         lam = _level_lambda(
@@ -439,9 +454,13 @@ def _cap_eta(a, eta_cap):
     return torch.clamp(a, min=gm / eta_cap, max=gm * eta_cap)
 
 
+SMOOTHERS = ("chebyshev", "jacobi", "line", "line_y", "line_x")
+
+
 def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                      kbnd, levels: int = 0, pre_smooth: int = 2,
                      post_smooth: int = 2, coarse_iters: int = 32,
+                     smoother: str = "chebyshev", omega: float = 0.6,
                      semicoarsen: float = 0.0, lam_max=None,
                      eta_cap: float = 0.0, use_pallas: bool = True,
                      use_pallas_smoother: bool = True,
@@ -450,6 +469,10 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     """Returns mg(rx, ry, emit=False) -> (zx, zy) [+ the cycle's residual
     (rx - A zx, ry - A zy) with ``emit``].
 
+    ``smoother``: one of ``SMOOTHERS``; ``pre_smooth`` / ``post_smooth`` are
+    Chebyshev degrees or sweep counts, ``omega`` the damping of the Jacobi
+    and line sweeps.  A line smoother's tridiagonal systems are reduced once
+    per level here (``lines.pcr_factor``).
     ``lam_max``: (nlev,) Chebyshev bounds (``estimate_mg_lambdas``); None
     computes them here with 12 power iterations per level (through the
     momentum dispatcher, on the capped hierarchy).
@@ -463,6 +486,9 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     levels below 256 cells run as one fused sub-V-cycle
     (ops/kernels/coarse_vcycle.py).  ``halo_mesh`` / ``coarse_replicate``:
     the explicit-halo levels (module docstring)."""
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"unknown MG smoother {smoother!r}")
+    cheb_smoother = smoother == "chebyshev"
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
                                           semicoarsen)
     if eta_cap > 0.0:
@@ -496,12 +522,27 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                               use_pallas=use_pallas, prepped=preps[l],
                               halo_mesh=hmesh[l])
 
-    if lam_max is None:
+    if not cheb_smoother:
+        lam_max = ()
+    elif lam_max is None:
         lam_max = torch.stack([
             _level_lambda(partial(apply_A, l), diags[l], grids[l],
                           eta_n.device) for l in range(nlev)])
     # Chebyshev interval constants per level (frozen for the solve)
-    intervals = [cheb.cheb_interval(lam_max[l]) for l in range(nlev)]
+    intervals = [cheb.cheb_interval(lam) for lam in lam_max]
+    # line smoothers: each level's tridiagonal line systems (the exact
+    # sub/super-diagonals of its momentum stencil along each sweep axis,
+    # the full diagonal), reduced once for the solve
+    line_factors = None
+    if smoother.startswith("line"):
+        line_factors = []
+        for (es, en), g, (dvx, dvy) in zip(etas, grids, diags):
+            per_axis = {}
+            for ax in line_axes(smoother):
+                svx, pvx, svy, pvy = momentum_line_coeffs(es, en, g, bcs, ax)
+                per_axis[ax] = (pcr_factor(svx, dvx, pvx, ax),
+                                pcr_factor(svy, dvy, pvy, ax))
+            line_factors.append(per_axis)
 
     # fused smoother: per-level eligibility + hoisted preps.  A level that
     # can fuse deg + 1 applications also emits the post-sweep residual from
@@ -511,7 +552,7 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     # built once per level per solve
     deg = max(pre_smooth, post_smooth)
     halo_preps = [None] * nlev  # (BlockSmootherPrep, can_emit)
-    if use_pallas_smoother and halo_mesh is not None:
+    if use_pallas_smoother and halo_mesh is not None and cheb_smoother:
         for l, ((es, en), g) in enumerate(zip(etas, grids)):
             if hmesh[l] is None:
                 continue
@@ -525,7 +566,7 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
 
     smoother_preps = [None] * nlev
     smoother_emit = [False] * nlev
-    if use_pallas_smoother and halo_mesh is None:
+    if use_pallas_smoother and halo_mesh is None and cheb_smoother:
         for l, ((es, en), g) in enumerate(zip(etas, grids)):
             if cheb.smoother_eligible(g, dtype, deg, emit_residual=True):
                 h, smoother_emit[l] = deg + 1, True
@@ -536,11 +577,41 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
             smoother_preps[l] = cheb.prep_smoother(
                 es, en, g, bcs, kbnds[l], lam_max[l], h, diags=diags[l])
 
+    def smooth_damped(l, ex, ey, rx, ry, iters, zero_init, emit_residual):
+        """``iters`` omega-damped Jacobi or line-Jacobi sweeps (each line
+        sweep runs its axes in turn, one residual each); ``zero_init``
+        skips the first residual's apply (A 0 = 0)."""
+        dvx, dvy = diags[l]
+        sweeps = (None,) if line_factors is None else \
+            tuple(line_factors[l].values())
+        for _ in range(iters):
+            for factors in sweeps:
+                if zero_init:
+                    sx, sy = rx, ry
+                    zero_init = False
+                else:
+                    ax, ay = apply_A(l, ex, ey)
+                    sx, sy = rx - ax, ry - ay
+                if factors is None:
+                    ex = ex + omega * sx / dvx
+                    ey = ey + omega * sy / dvy
+                else:
+                    ex = ex + omega * pcr_solve(factors[0], sx)
+                    ey = ey + omega * pcr_solve(factors[1], sy)
+        if not emit_residual:
+            return ex, ey
+        ax, ay = apply_A(l, ex, ey)
+        return ex, ey, rx - ax, ry - ay
+
     def smooth(l, ex, ey, rx, ry, iters, zero_init=False,
                emit_residual=False):
-        """Chebyshev semi-iteration on D^-1 A; returns (ex, ey) or, with
+        """The level's smoother; returns (ex, ey) or, with
         ``emit_residual``, (ex, ey, rx - A ex, ry - A ey) (from the fused
-        sweep where the level supports it; one extra apply otherwise)."""
+        Chebyshev sweep where the level supports it; one extra apply
+        otherwise)."""
+        if not cheb_smoother:
+            return smooth_damped(l, ex, ey, rx, ry, iters, zero_init,
+                                 emit_residual)
         if halo_preps[l] is not None:
             hp, can_emit = halo_preps[l]
             fuse_emit = emit_residual and can_emit
@@ -575,7 +646,7 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     fused_coarse = None
     if (use_pallas_smoother and use_pallas_coarse and halo_mesh is None
             and len(lam_max) == nlev):
-        fs = cvk.coarse_fuse_start(grids, plan, bcs, dtype, "chebyshev",
+        fs = cvk.coarse_fuse_start(grids, plan, bcs, dtype, smoother,
                                    False, False)
         if fs is not None:
             fused_coarse = (fs, cvk.CoarseVcyclePrep(
@@ -610,6 +681,7 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            bcs: VelocityBCs = None, levels: int = 0,
                            cycles: int = 1, pre_smooth: int = 2,
                            post_smooth: int = 2, smoother: str = "chebyshev",
+                           omega: float = 0.6,
                            semicoarsen: float = 0.0, lam_max=None,
                            schur: str = "mass",
                            velocity_inner_iters: int = 0,
@@ -633,8 +705,6 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
     under ``halo_mesh``)."""
     if bcs is None:
         bcs = VelocityBCs()
-    if smoother != "chebyshev":
-        raise _later(f"the {smoother!r} MG smoother")
     if schur == "wbfbt" and bcs.periodic_x:
         raise ValueError(
             "schur='wbfbt' has no periodic-wrap pressure-Poisson path yet; "
@@ -643,6 +713,7 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
         raise _later(f"the {schur!r} Schur surrogate")
     mg = make_velocity_mg(eta_s, eta_n, grid, bcs, kbnd, levels=levels,
                           pre_smooth=pre_smooth, post_smooth=post_smooth,
+                          smoother=smoother, omega=omega,
                           semicoarsen=semicoarsen, lam_max=lam_max,
                           eta_cap=eta_cap, use_pallas=use_pallas,
                           use_pallas_smoother=use_pallas_smoother,

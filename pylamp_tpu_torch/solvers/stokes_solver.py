@@ -1,10 +1,12 @@
 """Matrix-free Stokes solve: FGMRES + block preconditioner + pressure gauge.
 
-Port of ``pylamp_tpu/solvers/stokes_solver.py`` (uniform grid):
+Port of ``pylamp_tpu/solvers/stokes_solver.py``:
 ``solve_stokes`` in the state dtype, ``solve_stokes_mixed`` with f32
 FGMRES + MG inner solves under f64 iterative refinement.  In the mixed
 solve the f32 outer applies go through the saddle kernel wrapper
-(ops/kernels/saddle.py) when ``use_pallas_apply`` is set, and ``al_gamma``
+(ops/kernels/saddle.py) when ``use_pallas_apply`` is set and the grid
+passes ``saddle_apply_eligible`` (uniform: a stretched grid applies the
+variable-spacing operator as tensor code), and ``al_gamma``
 augments the system (solvers/al.py).  ``solve_stokes`` takes no
 ``al_gamma``, as in the reference.  ``halo_mesh`` routes every operator
 application through the explicit-halo operator (parallel/halo_ops.py);
@@ -19,6 +21,7 @@ import torch
 
 from pylamp_tpu_torch.core.bc import FREE_SLIP, VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.kernels.saddle import saddle_apply_eligible
 from pylamp_tpu_torch.ops.stokes import stokes_operator, stokes_rhs
 from pylamp_tpu_torch.solvers.al import (
     augment_rhs,
@@ -43,7 +46,12 @@ def velocity_diagonals(eta_s, eta_n, grid: StaggeredGrid, kbnd,
                        bcs: VelocityBCs | None = None):
     """Analytic diagonals of the momentum stencils (kbnd on the Dirichlet
     rows; periodic side walls: the wrapped seam diagonal, half of it in each
-    seam column, as ops/stokes.py emits the seam row)."""
+    seam column, as ops/stokes.py emits the seam row; a stretched grid:
+    ops/stretched.py)."""
+    if not grid.uniform:
+        from pylamp_tpu_torch.ops.stretched import velocity_diagonals_stretched
+
+        return velocity_diagonals_stretched(eta_s, eta_n, grid, kbnd)
     dx, dy = grid.dx, grid.dy
     dvx_int = (
         2.0 * (eta_n[:, 1:] + eta_n[:, :-1]) / dx**2
@@ -134,7 +142,8 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
     """f32 FGMRES + MG inner solves inside f64 iterative refinement; the
     system is defined by the f64 casts and the reported residual is f64.
     ``use_pallas_apply``: the f32 outer applies take the saddle kernel
-    wrapper (kernel on CUDA tensors, its plain version on CPU).
+    wrapper (kernel on CUDA tensors, its plain version on CPU) where
+    ``saddle_apply_eligible`` holds.
     ``al_gamma`` > 0: the augmented-Lagrangian row operation
     (solvers/al.py) on op64, b64 and op32 -- same solution, contrast-robust
     Schur surrogate; pair it with a preconditioner built with the same
@@ -170,7 +179,7 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
                                    kcont=kcont32, kbnd=kbnd32,
                                    halo_mesh=halo_mesh,
                                    halo_pallas=use_pallas_apply)
-    elif use_pallas_apply:
+    elif use_pallas_apply and saddle_apply_eligible(grid, f32, bcs):
         from pylamp_tpu_torch.ops.kernels.saddle import (
             prep_saddle,
             saddle_apply,

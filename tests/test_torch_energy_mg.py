@@ -11,7 +11,8 @@
   walls: T within 1e-8, iterations +-1;
 - ``solve_energy_mixed`` with the multigrid (f32 inner FCG under f64
   refinement, the card's path) converges to the f64 solution within 1e-8;
-- the multigrid beats Jacobi on iterations at 64^2.
+- the multigrid beats Jacobi on iterations at 64^2;
+- the line smoothers: one V-cycle of each against the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -126,9 +127,22 @@ def test_mg_beats_jacobi():
 
 
 def test_line_smoothers_wait():
+    """The line smoothers (once refused until solvers/lines.py was
+    ported): one V-cycle of each against the reference's on the uniform
+    wall problem, within 1e-12; x lines refuse periodic side walls, as the
+    reference's do."""
     bcs = BCS["wall"]
     grid, k, T0, rc, H = _problem(16)
+    jgrid = JGrid(nx=16, ny=16, lx=1.0, ly=1.0)
+    r = np.sin(3.0 * T0) + 0.1
     for smoother in ("line", "line_y", "line_x"):
-        with pytest.raises(NotImplementedError):
+        got = energy_mg.make_energy_mg_preconditioner(
+            t(k), t(rc), grid, bcs, 1.0, smoother=smoother)(t(r))
+        ref = jax.jit(lambda k, rc, r: jemg.make_energy_mg_preconditioner(
+            k, rc, jgrid, jax_tbcs(bcs), 1.0, smoother=smoother)(r))(
+                jnp.asarray(k), jnp.asarray(rc), jnp.asarray(r))
+        assert rel(got, ref) <= 1e-12
+    for smoother in ("line", "line_x"):
+        with pytest.raises(ValueError, match="periodic"):
             energy_mg.make_energy_mg_preconditioner(
-                t(k), t(rc), grid, bcs, 1.0, smoother=smoother)
+                t(k), t(rc), grid, BCS["periodic"], 1.0, smoother=smoother)

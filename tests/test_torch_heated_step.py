@@ -19,8 +19,8 @@ walls (velocity and thermal) with the energy multigrid and flexible CG.
 - the heated step on the in-process 4x2 mesh (explicit halo: m2g_halo,
   reseed_halo, the per-shard transfer with rho0*alpha, the energy MG
   through the halo operators) against the single-device heated step;
-- ``_check_slice`` accepts the four switches and the energy multigrid, and
-  still refuses the line smoothers.
+- ``_check_slice`` accepts the four switches and the energy multigrid
+  with each smoother, and still refuses what the port lacks (BFBT).
 
 The reference compiles each f64 step once per module (a fixture).
 """
@@ -227,12 +227,13 @@ def test_check_slice_accepts_the_thermal_path():
     cfg = CFGS["wall"]
     _check_slice(cfg)
     _check_slice(CFGS["periodic"])
-    for smoother in ("line", "line_y", "line_x"):
-        bad = dataclasses.replace(cfg, solver=dataclasses.replace(
+    for smoother in ("line", "line_y", "line_x"):  # ported with lines.py
+        _check_slice(dataclasses.replace(cfg, solver=dataclasses.replace(
             cfg.solver, energy_preconditioner="mg",
-            energy_mg_smoother=smoother))
-        with pytest.raises(NotImplementedError):
-            _check_slice(bad)
+            energy_mg_smoother=smoother)))
+    with pytest.raises(NotImplementedError):  # still outside the slice
+        _check_slice(dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, schur="wbfbt")))
 
 
 def test_fk_heated_config():

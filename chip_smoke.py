@@ -19,7 +19,9 @@ plain PyTorch version on the card:
   shape;
 - the per-shard kernels 8-12 at the 4x2 per-shard shapes of FK 1024^2 x
   K18 (256x512 blocks): kernel 8 on the frames of levels 1024, 512 and 256
-  (degree 4 + the residual, zero and non-zero start), kernel 9 in both
+  (degree 4 + the residual, zero and non-zero start), on a 3x3 and a 4x4
+  mesh (interior shards), on frames deeper than the sweep, and timed on
+  each of its six mesh levels (blocks 256x512 to 8x16), kernel 9 in both
   forms at 256x512 and 128x256, kernels 10-12 on the blocks of the FK
   markers, each at one odd shape as well;
 - the periodic forms of kernels 1-5 and 7 (rows ``*_periodic``) at the
@@ -41,17 +43,18 @@ rerun bit-identical), and kernels 2 and 3 at the FK and periodic shapes
 are rerun bit-identical too.  Kernel and plain version are timed with CUDA
 events, and each kernel's bound (bytes over 3.35 TB/s or f32 operations
 over 67 TFLOP/s, whichever is larger) is computed from the inputs it was
-timed on.  Kernels 1-4, the periodic forms of 1-4 and kernel 2 with the
-rho0 * alpha stream are also timed on the device alone (one call captured
-in a CUDA graph and replayed), and kernel 1's wrapper on the host
-(microseconds per call with the launch enqueued).  Kernel 5's pre-smooth
+timed on.  Kernels 1-4, 7 and 8, the periodic forms of 1-4 and 7 and
+kernel 2 with the rho0 * alpha stream are also timed on the device alone
+(one call captured in a CUDA graph and replayed), and kernel 1's and 7's
+wrappers on the host (microseconds per call with the launch enqueued).  Kernel 5's pre-smooth
 form is also timed on each of its six levels and kernel 6 on both
 hierarchies, per call and on the device alone, both checked bit-identical
 on a rerun; an "occupancy" line gives the registers, shared memory and
-resident blocks of kernels 5 and 6 (clusters for kernel 6) and of kernels
-1-4 in every form from the card, and every kernel's ptxas registers and
-spills (kernels 1-6 must not spill; kernels 2-4 must keep their plans'
-shared memory, kernels 3 and 4 2 blocks per SM, kernel 2 4 at FK).  Then two paths run through the port's ``build`` +
+resident blocks of kernels 5, 6 and 8 (clusters for kernel 6) and of
+kernels 1-4 and 7 in every form from the card, and every kernel's ptxas
+registers and spills (kernels 1-8 must not spill; kernels 2-4 must keep
+their plans' shared memory, kernels 3 and 4 2 blocks per SM, kernel 2 4
+at FK).  Then two paths run through the port's ``build`` +
 ``make_step``, each with every launch counter set to 0 just before it:
 
 - FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
@@ -228,14 +231,17 @@ TOL = {
 # call is measured (host_us)
 DEVICE_TIMED = ("saddle", "m2g", "advect", "rebucket", "saddle_periodic",
                 "m2g_periodic", "advect_periodic", "rebucket_periodic",
-                "m2g_ra")
-HOST_TIMED = ("saddle", "saddle_periodic")
+                "m2g_ra", "cheb_block", "momentum", "momentum_periodic")
+HOST_TIMED = ("saddle", "saddle_periodic", "momentum")
 
-# what kernels 5 and 6 report besides their rows: their times on every
+# what kernels 5, 6 and 8 report besides their rows: their times on every
 # level or hierarchy they run, and the occupancy of each timed
 # instantiation (from the card's function attributes)
 LEVEL_TIMES = []
+BLOCK_LEVEL_TIMES = []
 OCCUPANCY = {}
+# frames deeper than the sweep (kernel 8's check): the deepest fused sweep
+MAX_FRAME_DEPTH = 7
 
 
 def log(*a):
@@ -940,16 +946,16 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 
 
 def report_occupancy(cuda_build, smi):
-    """The occupancy line: kernels 5 and 6 per timed instantiation, and
-    kernels 1-4 in every form (2-4 at the FK plans, K = 18), from the
+    """The occupancy line: kernels 5, 6 and 8 per timed instantiation, and
+    kernels 1-4 and 7 in every form (2-4 at the FK plans, K = 18), from the
     card's function attributes (registers, static and dynamic shared
     memory, local bytes, resident blocks per SM or clusters), and every
     kernel's registers, static shared memory and spills from the build's
-    ``ptxas -v`` report.  Kernels 1-6 must not spill; kernels 2-4's
+    ``ptxas -v`` report.  Kernels 1-8 must not spill; kernels 2-4's
     dynamic shared memory must be their plans', with at least 2 blocks
     resident per SM (kernel 2: 4, which its 9-slot units are sized for)."""
     from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
-    from pylamp_tpu_torch.ops.kernels import saddle
+    from pylamp_tpu_torch.ops.kernels import momentum, saddle
 
     plan = rebucket.rebucket_plan(FK_NX, FK_NX, 18)
     m_plan = m2g.m2g_plan(FK_NX, FK_NX, 18)
@@ -958,6 +964,7 @@ def report_occupancy(cuda_build, smi):
     for periodic in (False, True):
         form = " periodic" if periodic else ""
         OCCUPANCY[f"saddle{form}"] = saddle.kernel_info(periodic)
+        OCCUPANCY[f"momentum{form}"] = momentum.kernel_info(periodic)
         info = rebucket.kernel_info(18, plan.tx, periodic)
         OCCUPANCY[f"rebucket{form} K18 strips of {plan.tx}"] = info
         held.append((f"rebucket{form}", info, plan.smem, 2))
@@ -978,16 +985,19 @@ def report_occupancy(cuda_build, smi):
     ptx = cuda_build.ptxas_summary()
     log("kernels 5 and 6 per level " + json.dumps({"device": smi,
                                                    "levels": LEVEL_TIMES}))
+    log("kernel 8 per level " + json.dumps({"device": smi,
+                                            "levels": BLOCK_LEVEL_TIMES}))
     log("occupancy " + json.dumps({"device": smi,
-                                   "kernels_1_to_6": OCCUPANCY,
+                                   "kernels_1_to_8": OCCUPANCY,
                                    "ptxas": ptx}))
     spills = [r["function"] for r in ptx
               if r["source"] in ("cheb.cu", "coarse_vcycle.cu", "saddle.cu",
-                                 "rebucket.cu", "m2g.cu", "advect.cu")
+                                 "rebucket.cu", "m2g.cu", "advect.cu",
+                                 "momentum.cu", "cheb_block.cu")
               and (r["spill_stores"] or r["spill_loads"])]
     spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
     if spills:
-        raise AssertionError(f"kernels 1-6 spill registers: {spills}")
+        raise AssertionError(f"kernels 1-8 spill registers: {spills}")
 
 
 def check_state(state, n_markers, diag, label):
@@ -1327,6 +1337,54 @@ def block_ops(n_points, iters, zero_init, emit):
             + OPS["diag"]) * n_points
 
 
+def block_level_times(cheb, cheb_block, hs, grids, etas, kbnds, lam, mesh,
+                      vbc, deg, rand):
+    """Kernel 8's pre-smooth form (zero start, degree ``deg`` + the
+    residual) on every level of the FK 1024^2 hierarchy that the 4x2 mesh
+    smooths with it (blocks 256x512 down to 8x16): checked bit-identical
+    on a rerun, timed per call and on the device alone with its bound, and
+    its occupancy recorded."""
+    levels = [l for l, g in enumerate(grids) if hs.halo_smoother_eligible(
+        g, mesh, vbc, torch.float32, deg, True)]
+    blocks = [(grids[l].ny // mesh.my, grids[l].nx // mesh.mx)
+              for l in levels]
+    if blocks != [(256, 512), (128, 256), (64, 128), (32, 64), (16, 32),
+                  (8, 16)]:
+        raise AssertionError(f"kernel 8's mesh levels: blocks {blocks}")
+    for l in levels:
+        g, (les, len_) = grids[l], etas[l]
+        prep = hs.prep_halo_smoother(les, len_, g, mesh, deg + 1, kbnds[l],
+                                     lam[l])
+        rx, ry = rand(*g.shape_vx), rand(*g.shape_vy)
+        frames = hs.smoother_frames(torch.zeros_like(rx), torch.zeros_like(ry),
+                                    rx, ry, vbc, mesh, prep.h)
+        run = partial(cheb_block.cheb_block_cuda, *frames, prep, g, vbc, deg,
+                      True, True)
+        first, again = run(), run()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"cheb_block {g.ny}x{g.nx}: a rerun is not "
+                                 "bit-identical")
+        S, by, bx = mesh.size, prep.by, prep.bx
+        plan = cheb.block_tile_plan(by, bx, deg + 1, S, cheb.device_sms(0))
+        ms = cuda_time_ms(run, 20)
+        dev_ms = graph_ms(run)
+        b_ms, b_by = bound_ms(
+            nbytes(*frames[2:], prep.es_v, prep.en_v, prep.flags,
+                   prep.coeffs, prep.kb, *first),
+            block_ops(2 * S * by * bx, deg, True, True))
+        BLOCK_LEVEL_TIMES.append(dict(
+            level=f"{g.ny}x{g.nx}", block=f"{by}x{bx}", shards=S,
+            depth=deg + 1, ms=ms, device_ms=dev_ms, bound_ms=b_ms,
+            bound_by=b_by, tile_rows=plan.ty,
+            blocks=plan.nty * plan.ntx * S))
+        OCCUPANCY[f"cheb_block {by}x{bx} depth {deg + 1}"] = \
+            cheb_block.kernel_info(deg + 1, plan.ty)
+        log(f"cheb_block level {g.ny}x{g.nx} ({S} blocks of {by}x{bx}), "
+            f"pre-smooth form (depth {deg + 1}): kernel {ms:.4f} ms per call "
+            f"({dev_ms} ms on the device, graph-timed), bound {b_ms:.5f} ms "
+            f"({b_by}), {plan.nty * plan.ntx * S} tiles of {plan.ty}x32")
+
+
 def mesh_kernel_rows(grid, cfg, table, state, fk):
     """The per-shard kernels 8-12 against their plain versions at the 4x2
     per-shard shapes of the FK 1024^2 x K18 step, each at one odd shape as
@@ -1380,23 +1438,34 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
 
     rows = []
 
-    # -- kernel 8 on the frames of levels 1024, 512, 256 (and an odd 2x2
-    # level): kernel vs plain, and the whole sweep vs the single-device one
+    # -- kernel 8 on the frames of levels 1024, 512, 256 on the 4x2 mesh
+    # (corner and edge shards), on a 3x3 and a 4x4 mesh (interior shards,
+    # where whole shards take the branch-free path), on an odd 2x2 level,
+    # and on frames deeper than the sweep: kernel vs plain, and the whole
+    # sweep vs the single-device one
+    def visc_case(n, shards, label, h=deg + 1):
+        g = StaggeredGrid(nx=n, ny=n, lx=1.0, ly=1.0)
+        eo, no = torch.exp(2.0 * rand(*g.shape_corner)), \
+            torch.exp(2.0 * rand(*g.shape_center))
+        _, kb_o = stokes_scales(characteristic_viscosity(no), g)
+        return (g, (eo, no), kb_o, mg.gershgorin_lambda(eo, no, g, vbc, kb_o),
+                make_mesh(shards), h, label)
+
     def cheb_cases():
         for l in range(3):
-            yield grids[l], etas[l], kbnds[l], lam[l], mesh, f"level {grids[l].nx}"
-        odd = StaggeredGrid(nx=68, ny=68, lx=1.0, ly=1.0)
-        eo, no = torch.exp(2.0 * rand(*odd.shape_corner)), \
-            torch.exp(2.0 * rand(*odd.shape_center))
-        _, kb_o = stokes_scales(characteristic_viscosity(no), odd)
-        yield (odd, (eo, no), kb_o, mg.gershgorin_lambda(eo, no, odd, vbc, kb_o),
-               make_mesh(4), "odd 68^2 on 2x2")
+            yield (grids[l], etas[l], kbnds[l], lam[l], mesh, deg + 1,
+                   f"level {grids[l].nx}")
+        yield visc_case(384, 9, "384^2 on 3x3 (interior shard)")
+        yield visc_case(256, 16, "256^2 on 4x4 (interior shards)")
+        yield visc_case(68, 4, "odd 68^2 on 2x2")
+        yield (grids[1], etas[1], kbnds[1], lam[1], mesh, MAX_FRAME_DEPTH,
+               f"level {grids[1].nx}, frames of depth {MAX_FRAME_DEPTH}")
 
     errs, whole, timed = [], [], None
-    for g, (les, len_), kb, lm, msh, label in cheb_cases():
+    for g, (les, len_), kb, lm, msh, h, label in cheb_cases():
         if not hs.halo_smoother_eligible(g, msh, vbc, f32, deg, True):
             raise AssertionError(f"cheb_block: {label} not eligible")
-        prep = hs.prep_halo_smoother(les, len_, g, msh, deg + 1, kb, lm)
+        prep = hs.prep_halo_smoother(les, len_, g, msh, h, kb, lm)
         rx, ry = rand(*g.shape_vx), rand(*g.shape_vy)
         for zero_init in (True, False):
             ex = torch.zeros_like(rx) if zero_init else rand(*g.shape_vx)
@@ -1431,6 +1500,8 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
     rows.append(("cheb_block", "pylamp_tpu_torch/csrc/cheb_block.cu",
                  "pylamp_tpu/ops/pallas/cheb_block_kernel.py:277", err,
                  timed[0], timed[1], 10, timed[2]))
+    block_level_times(cheb, cheb_block, hs, grids, etas, kbnds, lam, mesh,
+                      vbc, deg, rand)
 
     # -- kernel 9, both forms, on extended blocks of the solve's viscosities
     # (levels 1024 and 512) and at an odd shape

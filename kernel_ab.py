@@ -1,5 +1,6 @@
-"""Times of kernels 1-4 of the PyTorch/CUDA port (pylamp_tpu_torch) on one
-GPU, so that two trees of the repository can be compared in one call.
+"""Times of kernels 1-5, 7 and 8 of the PyTorch/CUDA port
+(pylamp_tpu_torch) on one GPU, so that two trees of the repository can be
+compared in one call.
 
     python3 kernel_ab.py [--tree DIR] [--out FILE]
 
@@ -11,17 +12,28 @@ physics), advect and rebucket, and on the periodic falling block 1024^2 x
 K18 the periodic saddle apply, m2g (the step's streams), advect and
 rebucket, on the inputs ``chip_smoke.py`` gives these rows (kernel 1 on
 the solve's viscosities with seeded random vectors, kernels 2-4 on the
-built markers advected with the solve's velocities).  Each row: its
+built markers advected with the solve's velocities); then kernel 7 (the
+MG momentum apply) at 1024x256 (the sticky-air fine level's shape), as
+``momentum_1024`` on the FK solve's viscosities and, as
+``momentum_periodic``, on the periodic solve's viscosities at 1024^2,
+and on the FK solve's hierarchy kernel 5 (``cheb``, level 1024^2) and
+kernel 8 (``cheb_block``, the level's frames on the 4x2 mesh), both in
+the pre-smooth form (degree 4 + the residual from a zero start) on
+seeded random residuals.  Kernel 7's 1024x256 viscosities are seeded
+log-normal fields (its time does not depend on their values).  Each
+row: its
 agreement with the plain version (kernel 4 bit-identical with the same
-drop count, kernel 1 within 1e-5 of max |ref|, kernel 2 within 1e-5 per
-stream, kernel 3 within 1e-4 of the displacement), the CUDA-event ms (the
-better of two medians of 20 calls), the device ms (one call captured in a
-CUDA graph and replayed), the bound and, for kernel 1, the wrapper's host
-microseconds per call, with two pieces of a launch path timed in two forms
-each (the stream handle, the output allocations).  Also the build's
-``ptxas -v`` rows of ``saddle.cu``, ``rebucket.cu``, ``m2g.cu`` and
-``advect.cu``.  Prints one JSON object (and writes it to ``--out``);
-exits non-zero without a CUDA device or on a disagreement.
+drop count, kernels 1 and 7 within 1e-5 of max |ref|, kernel 2 within
+1e-5 per stream, kernel 3 within 1e-4 of the displacement, kernels 5 and
+8 within 2e-5), the CUDA-event ms (the better of two medians of 20
+calls), the device ms (one call captured in a CUDA graph and replayed),
+the bound and, for kernels 1 and 7, the wrapper's host microseconds per
+call, with (kernel 1) two pieces of a launch path timed in two forms each
+(the stream handle, the output allocations).  Also the build's ``ptxas
+-v`` rows of ``saddle.cu``, ``rebucket.cu``, ``m2g.cu``, ``advect.cu``,
+``cheb.cu``, ``cheb_block.cu`` and ``momentum.cu``.  Prints one JSON
+object (and writes it to ``--out``); exits non-zero without a CUDA device
+or on a disagreement.
 
 The timing helpers, bounds and tolerances are ``chip_smoke.py``'s (this
 file's directory), so a tree without them can be timed the same way.
@@ -130,6 +142,70 @@ def _advect_row(name, grid, vbc, bm, moved, vel):
                         cs.OPS["advect"] * int(bm.total())))
 
 
+def _momentum_row(name, grid, es, en, kbnd, vbc):
+    from pylamp_tpu_torch.ops.kernels import momentum
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vx, vy = (torch.randn(s, generator=gen, device="cuda")
+              for s in (grid.shape_vx, grid.shape_vy))
+    if vbc.periodic_x:
+        vx[:, -1] = vx[:, 0]
+    prep = momentum.prep_momentum(es, en, kbnd)
+    got = momentum.momentum_apply_cuda(vx, vy, prep, grid, vbc)
+    ref = momentum.momentum_apply_plain(vx, vy, es, en, grid, vbc, kbnd)
+    if vbc.periodic_x and not torch.equal(got[0][:, 0], got[0][:, -1]):
+        raise AssertionError(f"{name}: the seam columns differ")
+    return (name, cs.errors(zip(got, ref)), cs.TOL["momentum"],
+            partial(momentum.momentum_apply_cuda, vx, vy, prep, grid, vbc),
+            cs.bound_ms(cs.nbytes(vx, vy, prep.eta_s, prep.eta_n, prep.kb,
+                                  *got), cs.stencil_ops(grid)))
+
+
+def _sweep_rows(cfg, prep_s, grid):
+    """Kernels 5 and 8 on the finest level of the FK solve's hierarchy:
+    the pre-smooth form (zero start, degree + the residual)."""
+    from pylamp_tpu_torch.ops.kernels import cheb, cheb_block
+    from pylamp_tpu_torch.parallel import halo_smoother as hs
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+    from pylamp_tpu_torch.solvers import mg
+
+    solver, vbc = cfg.solver, cfg.physics.velocity_bcs
+    deg = max(solver.mg_pre_smooth, solver.mg_post_smooth)
+    es, en, kbnd = prep_s.eta_s, prep_s.eta_n, prep_s.kk[0]
+    lam = mg.gershgorin_lambda(es, en, grid, vbc, kbnd)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rx, ry = (torch.randn(s, generator=gen, device="cuda")
+              for s in (grid.shape_vx, grid.shape_vy))
+    zx, zy = torch.zeros_like(rx), torch.zeros_like(ry)
+    prep = cheb.prep_smoother(es, en, grid, vbc, kbnd, lam, deg + 1)
+    got = cheb.chebyshev_smooth_cuda(zx, zy, rx, ry, prep, grid, vbc, deg,
+                                     True, True)
+    ref = cheb.chebyshev_smooth_plain(zx, zy, rx, ry, es, en, grid, vbc,
+                                      kbnd, lam, deg, True, True)
+    rows = [("cheb", cs.errors(zip(got, ref)), cs.TOL["cheb"],
+             partial(cheb.chebyshev_smooth_cuda, zx, zy, rx, ry, prep, grid,
+                     vbc, deg, True, True),
+             cs.bound_ms(2 * cs.nbytes(rx, ry) + cs.nbytes(
+                 rx, ry, prep.eta_s, prep.eta_n, prep.coeffs, prep.kb),
+                 cs.cheb_ops(grid, deg, True, True)))]
+    mesh = make_mesh(cs.MESH_SHARDS)
+    bprep = hs.prep_halo_smoother(es, en, grid, mesh, deg + 1, kbnd, lam)
+    frames = hs.smoother_frames(zx, zy, rx, ry, vbc, mesh, bprep.h)
+    got = cheb_block.cheb_block_cuda(*frames, bprep, grid, vbc, deg, True,
+                                     True)
+    ref = cheb_block.cheb_block_plain(*frames, bprep, grid, vbc, deg, True,
+                                      True)
+    S, by, bx = mesh.size, bprep.by, bprep.bx
+    rows.append(("cheb_block", cs.errors(zip(got, ref)), cs.TOL["cheb_block"],
+                 partial(cheb_block.cheb_block_cuda, *frames, bprep, grid,
+                         vbc, deg, True, True),
+                 cs.bound_ms(cs.nbytes(*frames[2:], bprep.es_v, bprep.en_v,
+                                       bprep.flags, bprep.coeffs, bprep.kb,
+                                       *got),
+                             cs.block_ops(2 * S * by * bx, deg, True, True))))
+    return rows
+
+
 def _host_parts(u):
     """Host microseconds per call of two pieces of a wrapper's launch
     path, each in two forms: the stream handle through a Stream object
@@ -164,6 +240,7 @@ def main(argv=None):
         sys.exit("kernel_ab: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.tree))
     from pylamp_tpu_torch import cuda_build
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
     from pylamp_tpu_torch.models.benchmarks import (
         falling_block_periodic_config,
         fk_bench_config,
@@ -176,8 +253,8 @@ def main(argv=None):
     cs.log(f"kernel_ab: {lib} (built in {secs:.1f} s) on {smi}")
 
     rows = []
-    grid, table, phys, u, prep, vbc, bm, moved, vel = _prepared(
-        fk_bench_config(cs.FK_NX))
+    cfg = fk_bench_config(cs.FK_NX)
+    grid, table, phys, u, prep, vbc, bm, moved, vel = _prepared(cfg)
     rows.append(_saddle_row("saddle", grid, u, prep, vbc))
     rows.append(_m2g_row("m2g", grid, table, phys, bm, with_energy=True))
     rows.append(_m2g_row("m2g_ra", grid, table,
@@ -185,7 +262,17 @@ def main(argv=None):
                          with_energy=True, with_ra=True))
     rows.append(_advect_row("advect", grid, vbc, bm, moved, vel))
     rows.append(_rebucket_row("rebucket", grid, moved, False))
+    rows += _sweep_rows(cfg, prep, grid)
+    rows.append(_momentum_row("momentum_1024", grid, prep.eta_s, prep.eta_n,
+                              prep.kk[0], vbc))
     del bm, moved, vel
+    g_m = StaggeredGrid(nx=cs.STICKY_NX, ny=cs.STICKY_NX // 4, lx=4.0,
+                        ly=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    es_m, en_m = (torch.exp(2.0 * torch.randn(s, generator=gen,
+                                              device="cuda"))
+                  for s in (g_m.shape_corner, g_m.shape_center))
+    rows.append(_momentum_row("momentum", g_m, es_m, en_m, prep.kk[0], vbc))
     grid, table, phys, u, prep, vbc, bm, moved, vel = _prepared(
         falling_block_periodic_config(cs.PERIODIC_NX))
     rows.append(_saddle_row("saddle_periodic", grid, u, prep, vbc))
@@ -193,6 +280,8 @@ def main(argv=None):
                          with_energy=phys.solve_energy, periodic_x=True))
     rows.append(_advect_row("advect_periodic", grid, vbc, bm, moved, vel))
     rows.append(_rebucket_row("rebucket_periodic", grid, moved, True))
+    rows.append(_momentum_row("momentum_periodic", grid, prep.eta_s,
+                              prep.eta_n, prep.kk[0], vbc))
 
     out = {}
     for name, (abs_err, rel), tol, fn, (b_ms, b_by) in rows:
@@ -204,14 +293,16 @@ def main(argv=None):
                  bound_by=b_by, rel_err=rel)
         r["share_of_bound"] = b_ms / ms
         r["device_share_of_bound"] = b_ms / r["device_ms"]
-        if name.startswith("saddle"):
+        if name.startswith(("saddle", "momentum")):
             r["host_us"] = cs.host_us(fn)
+        if name.startswith("saddle"):
             r["host_parts_us"] = _host_parts(fn.args[:3])
         out[name] = r
         cs.log(f"{name}: {json.dumps(r)}")
     ptx = [r for r in cuda_build.ptxas_summary()
            if r["source"] in ("saddle.cu", "rebucket.cu", "m2g.cu",
-                              "advect.cu")]
+                              "advect.cu", "cheb.cu", "cheb_block.cu",
+                              "momentum.cu")]
     rec = {"tree": os.path.abspath(args.tree), "device": smi,
            "kernels": out, "ptxas": ptx}
     if args.out:

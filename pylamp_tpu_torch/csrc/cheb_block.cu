@@ -9,109 +9,103 @@
 // (256x512 blocks, h = 5) it reads six frames of ~266 x 522 floats
 // (3.3 MB) and writes 2-4 blocks of 256 x 512 (1-2 MB): ~5 MB a shard,
 // ~40 MB over the 8 shards, ~12 us at 3.35 TB/s; ~130 flops per point and
-// iteration, far below the f32 peak.
+// iteration, far below the f32 peak.  As for kernel 5, what holds a fused
+// sweep back in practice is issue rate and latency on shared memory.
 //
-// Design: the tile sweep of cheb_sweep.cuh (kernel 5's, shared), pointed
-// at a shard's frame instead of the global arrays.  blockIdx.z is the
-// shard; its tiles cover the central block.  The frame is addressed in a
-// per-shard logical index space in which the shard's PHYSICAL walls sit
-// where stencil.cuh expects them (row 0 / ny, column 0 / nx) and every
-// other edge lies out of reach: the wall flags (device data, one row per
-// shard) choose the offsets.  So the wall ghosts are re-derived from
-// current values on every application and the Dirichlet lines inside the
-// frame evolve pointwise through the kbnd recurrence, as the reference
-// kernel's runtime-flag selects do; the frame's outer h rings are
-// sacrificial.  Coefficients and kbnd come from device memory.
+// Design: kernel 5's tile sweep (cheb_tile.cuh), pointed at a shard's
+// frame instead of the global arrays: one body for both kernels.
+//   - blockIdx.z is the shard; its tiles cover the central by x bx block
+//     (ops/kernels/cheb.py block_tile_plan: the tile height per level,
+//     with the shards counted in the waves; the last tile row and column
+//     take what is left).
+//   - The frame is addressed in a per-shard index space in which the
+//     shard's PHYSICAL walls sit where the tile sweep expects them (row 0
+//     / ny, column 0 / nx) and every other edge lies out of reach: the
+//     wall flags (device data, one row per shard, read once per block)
+//     choose the origin (0 at a wall, K_OFF beyond the deepest halo
+//     elsewhere) and the far walls (by or bx past the origin, or K_FAR).
+//     The frame pointers are shifted so that the tile sweep's indices of
+//     that space reach the frame, and frames deeper than the sweep are
+//     entered at their depth h: the loaded region (the centre and he <= h
+//     rings) never leaves the frame, so no bounds test remains.
+//   - A tile whose loaded region reaches no physical wall of its shard
+//     takes the branch-free form: every tile of an interior shard, and
+//     the inner tiles of every shard.  Edge tiles resolve the wall ghosts
+//     inline from current values and evolve the Dirichlet lines inside
+//     the frame by the pointwise kbnd recurrence, as the reference
+//     kernel's runtime-flag selects do; the frame's outer rings are
+//     sacrificial.
+//   - The sweep is instantiated per depth he = iters (+1 with the
+//     residual), with SweepConsts' hoisted reciprocals (the 2e-5 bar of
+//     kernel 5's reassociation).  Coefficients and kbnd come from device
+//     memory.  No atomics: a launch is deterministic.
 #include "common.cuh"
-#include "cheb_sweep.cuh"
+#include "cheb_tile.cuh"
 
 namespace {
 
-using cheb_tile::MAX_H;
-using cheb_tile::NT;
-using cheb_tile::TX;
-using cheb_tile::TY;
+using namespace cheb_tile;
 
-constexpr int kOff = 1 << 20;  // logical origin of a shard without a wall
-constexpr int kFar = 1 << 29;  // a wall that is never reached
+// the origin of a shard without a wall on that side: beyond the deepest
+// halo, so no loaded point reaches row or column 0
+constexpr int K_OFF = MAX_HE + 1;
+constexpr int K_FAR = 1 << 29;  // a far wall that is never reached
 
-// One shard's frames: logical point (j, i) sits at frame (j - oy + h,
-// i - ox + h); ex/rx (R, C+1), ey/ry (R+1, C), es (R+1, C+1), en (R, C)
-// with R = by + 2h, C = bx + 2h; outputs (by, bx).
-struct FrameSrc {
-    const float* ex_;
-    const float* ey_;
-    const float* rx_;
-    const float* ry_;
-    const float* es_;
-    const float* en_;
-    float* ox;
-    float* oy;
-    float* fx;
-    float* fy;
-    int R, C, h, oy0, ox0, by, bx, emit;
-    __device__ __forceinline__ float load(const float* a, int rows, int cols,
-                                          int j, int i) const {
-        const int r = j - oy0 + h, q = i - ox0 + h;
-        return (r >= 0 && r < rows && q >= 0 && q < cols) ? a[r * cols + q]
-                                                          : 0.0f;
-    }
-    __device__ __forceinline__ float ex(int j, int i) const { return load(ex_, R, C + 1, j, i); }
-    __device__ __forceinline__ float ey(int j, int i) const { return load(ey_, R + 1, C, j, i); }
-    __device__ __forceinline__ float rx(int j, int i) const { return load(rx_, R, C + 1, j, i); }
-    __device__ __forceinline__ float ry(int j, int i) const { return load(ry_, R + 1, C, j, i); }
-    __device__ __forceinline__ float es(int j, int i) const { return load(es_, R + 1, C + 1, j, i); }
-    __device__ __forceinline__ float en(int j, int i) const { return load(en_, R, C, j, i); }
-    __device__ __forceinline__ bool inside(int j, int i) const {
-        const int r = j - oy0 + h, q = i - ox0 + h;
-        return r >= 0 && r < R && q >= 0 && q < C;
-    }
-    __device__ __forceinline__ bool owns(int j, int i) const {
-        return j - oy0 >= 0 && j - oy0 < by && i - ox0 >= 0 && i - ox0 < bx;
-    }
-    __device__ __forceinline__ void put_x(int j, int i, float e, float f) const {
-        const int o = (j - oy0) * bx + (i - ox0);
-        ox[o] = e;
-        if (emit) fx[o] = f;
-    }
-    __device__ __forceinline__ void put_y(int j, int i, float e, float f) const {
-        const int o = (j - oy0) * bx + (i - ox0);
-        oy[o] = e;
-        if (emit) fy[o] = f;
-    }
+// the frames of shard 0 (the others follow at the per-shard strides): ex,
+// rx (R, C+1), ey, ry (R+1, C), es (R+1, C+1), en (R, C) with R = by + 2h,
+// C = bx + 2h; outputs (by, bx)
+struct BlockArgs {
+    TileIO io;
+    SweepCtl ctl;
+    const float* flags;  // (S, 4): top, bottom, left, right
+    int by, bx, h;
+    int ty, nty, ntx;  // tile plan: tile rows, tiles down and across
 };
 
-__global__ void __launch_bounds__(NT)
-cheb_block_kernel(const float* __restrict__ ex, const float* __restrict__ ey,
-                  const float* __restrict__ rx, const float* __restrict__ ry,
-                  const float* __restrict__ es, const float* __restrict__ en,
-                  const float* __restrict__ flags,
-                  const float* __restrict__ coeffs,
-                  const float* __restrict__ kbp, float* __restrict__ ox,
-                  float* __restrict__ oy, float* __restrict__ fx,
-                  float* __restrict__ fy, int by, int bx, int h, float dx,
-                  float dy, float s_top, float s_bottom, float s_left,
-                  float s_right, int iters, int zero_init, int emit) {
+template <int HE>
+__global__ void __launch_bounds__(NT, 1)
+cheb_block_kernel(BlockArgs a, SweepConsts c, const float* __restrict__ kbp) {
     extern __shared__ float smem[];
     const int s = blockIdx.z;
-    const int R = by + 2 * h, C = bx + 2 * h;
-    const bool wt = flags[4 * s] > 0.5f, wb = flags[4 * s + 1] > 0.5f;
-    const bool wl = flags[4 * s + 2] > 0.5f, wr = flags[4 * s + 3] > 0.5f;
-    const int oy0 = wt ? 0 : kOff, ox0 = wl ? 0 : kOff;
-    const StencilCtx c{wb ? oy0 + by : kFar, wr ? ox0 + bx : kFar, dx, dy,
-                       s_top, s_bottom, s_left, s_right};
-    const long long fX = static_cast<long long>(s) * R * (C + 1);
-    const long long fY = static_cast<long long>(s) * (R + 1) * C;
-    const long long fS = static_cast<long long>(s) * (R + 1) * (C + 1);
-    const long long fN = static_cast<long long>(s) * R * C;
-    const long long fO = static_cast<long long>(s) * by * bx;
-    const FrameSrc src{ex + fX, ey + fY, rx + fX, ry + fY, es + fS, en + fN,
-                       ox + fO, oy + fO, fx + fO, fy + fO, R, C, h, oy0, ox0,
-                       by, bx, emit};
-    const int j0 = oy0 + blockIdx.y * TY - h;  // logical point of local (0, 0)
-    const int i0 = ox0 + blockIdx.x * TX - h;
-    cheb_tile::sweep(src, c, smem, j0, i0, h, coeffs, kbp[0], iters,
-                     zero_init, emit);
+    const float* fl = a.flags + 4 * s;
+    const bool wt = __ldg(fl) > 0.5f, wb = __ldg(fl + 1) > 0.5f;
+    const bool wl = __ldg(fl + 2) > 0.5f, wr = __ldg(fl + 3) > 0.5f;
+    const int by = a.by, bx = a.bx, h = a.h;
+    const int oy0 = wt ? 0 : K_OFF, ox0 = wl ? 0 : K_OFF;
+    c.ny = wb ? oy0 + by : K_FAR;
+    c.nx = wr ? ox0 + bx : K_FAR;
+    // point (gj, gi) of the shard's space is frame (gj - oy0 + h,
+    // gi - ox0 + h) and output (gj - oy0, gi - ox0)
+    const long long R = by + 2 * h, C = bx + 2 * h;
+    const long long sx = s * R * (C + 1) + (h - oy0) * (C + 1) + (h - ox0);
+    const long long sy = s * (R + 1) * C + (h - oy0) * C + (h - ox0);
+    const long long ss = s * (R + 1) * (C + 1) + (h - oy0) * (C + 1)
+                         + (h - ox0);
+    const long long sn = s * R * C + (h - oy0) * C + (h - ox0);
+    const long long so = static_cast<long long>(s) * by * bx - oy0 * bx - ox0;
+    const TileIO io{a.io.ex + sx, a.io.ey + sy, a.io.rx + sx, a.io.ry + sy,
+                    a.io.es + ss, a.io.en + sn, a.io.ox + so, a.io.oy + so,
+                    a.io.fx + so, a.io.fy + so, static_cast<int>(C + 1),
+                    static_cast<int>(C), bx, bx};
+    const int bj = blockIdx.y, bi = blockIdx.x;
+    const int TYc = tile_extent(bj, a.nty, a.ty, by);
+    const int TXc = tile_extent(bi, a.ntx, TX, bx);
+    sweep_tile<HE, false>(io, a.ctl, c, __ldg(kbp), smem, oy0 + bj * a.ty,
+                          ox0 + bi * TX, TYc, TXc);
+}
+
+template <int HE>
+int launch_he(const BlockArgs& a, int S, const SweepConsts& c,
+              const float* kb, cudaStream_t stream) {
+    if (!fits<HE>(a.ty)) return static_cast<int>(cudaErrorInvalidValue);
+    // the tallest tile's planes, set once
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        cheb_block_kernel<HE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes<HE>(TX)));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    cheb_block_kernel<HE><<<dim3(a.ntx, a.nty, S), NT, smem_bytes<HE>(a.ty),
+                            stream>>>(a, c, kb);
+    return launch_status();
 }
 
 }  // namespace
@@ -125,16 +119,33 @@ PYLAMP_EXPORT int launch_cheb_block(const float* ex, const float* ey,
                                     int bx, int h, float dx, float dy,
                                     float s_top, float s_bottom, float s_left,
                                     float s_right, int iters, int zero_init,
-                                    int emit, cudaStream_t stream) {
-    if (h < 1 || h > MAX_H || iters < 1 || iters + (emit ? 1 : 0) > h)
+                                    int emit, int ty, cudaStream_t stream) {
+    const int he = iters + (emit ? 1 : 0);
+    if (iters < 1 || he > h || he > MAX_HE || ty < 1 || ty > TX || S < 1
+        || by < 1 || bx < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        cheb_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cheb_tile::smem_bytes(MAX_H)));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    dim3 grid((bx + TX - 1) / TX, (by + TY - 1) / TY, S);
-    cheb_block_kernel<<<grid, NT, cheb_tile::smem_bytes(h), stream>>>(
-        ex, ey, rx, ry, es, en, flags, coeffs, kb, ox, oy, fx, fy, by, bx, h,
-        dx, dy, s_top, s_bottom, s_left, s_right, iters, zero_init, emit);
-    return launch_status();
+    // ny, nx: per shard, from its wall flags
+    const SweepConsts c = sweep_consts(0, 0, dx, dy, s_top, s_bottom, s_left,
+                                       s_right);
+    // the +1 point row / column of a level has no counterpart here: the
+    // tiles cover by x bx, the last tile row / column what is left
+    const BlockArgs a{{ex, ey, rx, ry, es, en, ox, oy, fx, fy, 0, 0, 0, 0},
+                      {coeffs, iters, zero_init, emit},
+                      flags, by, bx, h,
+                      ty, (by - 1 + ty - 1) / ty + (by == 1),
+                      (bx - 1 + TX - 1) / TX + (bx == 1)};
+    return with_depth(he, [&](auto d) {
+        return launch_he<decltype(d)::value>(a, S, c, kb, stream);
+    });
+}
+
+// Occupancy of the depth-he instantiation with tiles of ty rows: out as
+// cheb_kernel_info's.
+PYLAMP_EXPORT int cheb_block_kernel_info(int he, int ty, int* out) {
+    return with_depth(he, [&](auto d) {
+        constexpr int HE = decltype(d)::value;
+        return kernel_info(
+            reinterpret_cast<const void*>(cheb_block_kernel<HE>),
+            smem_bytes<HE>(TX), smem_bytes<HE>(ty), out);
+    });
 }

@@ -12,49 +12,54 @@
 // writes rx, ry (2.1 MB): ~6.3 MB, ~1.9 us at 3.35 TB/s, against ~25
 // flops per output point -- below the few microseconds a launch costs.
 //
-// Design: one thread per point of the (ny+1, nx+1) index space, as in
-// saddle.cu, with the same stencil (stencil.cuh); the thread writes rx
-// where its point is a vx node and ry where it is a vy node.  Wall ghosts
-// come inline from the BC signs, and kbnd comes from a 1-element device
-// array, so an apply never syncs the host.  Periodic side walls: the P
-// instantiation of the same stencil (stencil.cuh), whose two seam columns
-// evaluate one half row and are bit-identical; P = false is unchanged.
+// Design: kernel 1's tiled stencil (saddle_tile.cuh, PR = false) without
+// the pressure plane and the continuity row.  A block of 32 x 8 threads
+// stages a 16 x 32 tile of the (ny+1, nx+1) point space and a one-point
+// ring (vx, vy, eta_s, eta_n) in shared memory, the wall ghosts resolved
+// at the load; sxy is computed once per corner; the rows use SweepConsts'
+// hoisted reciprocals (the 1e-5 bar of kernel 1's reassociation); a tile
+// that touches no ghost, Dirichlet line or seam takes the branch-free
+// form.  kbnd comes from device memory, so an apply never syncs the host,
+// and the level's constants arrive as one struct built once per solve
+// (ops/kernels/momentum.py).  Periodic side walls (P, launched when
+// `periodic` is set): the thread of column 0 computes the seam's half row
+// once and writes it to both seam columns, so they are bit-identical.
 #include "common.cuh"
-#include "stencil.cuh"
+#include "saddle_tile.cuh"
 
 namespace {
 
+using namespace saddle_tile;
+
 template <bool P>
-__global__ void momentum_kernel(GlobalAcc a, StencilCtx c,
-                                const float* __restrict__ kb,
-                                float* __restrict__ rx,
-                                float* __restrict__ ry) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const int j = blockIdx.y * blockDim.y + threadIdx.y;
-    const int ny = c.ny, nx = c.nx;
-    if (i > nx || j > ny) return;
-    const float kbnd = kb[0];
-    if (j < ny) rx[j * (nx + 1) + i] = stencil_ax<P>(a, c, j, i, kbnd);
-    if (i < nx) ry[j * nx + i] = stencil_ay<P>(a, c, j, i, kbnd);
+__global__ void __launch_bounds__(NT)
+momentum_kernel(const Fields f, const SweepConsts c) {
+    __shared__ Planes<false> s;
+    apply_tile<P, false>(s, f, c);
 }
 
 }  // namespace
 
 PYLAMP_EXPORT int launch_momentum(const float* vx, const float* vy,
-                                  const float* eta_s, const float* eta_n,
-                                  const float* kb, float* rx, float* ry,
-                                  int ny, int nx, float dx, float dy,
-                                  float s_top, float s_bottom, float s_left,
-                                  float s_right, int periodic,
+                                  float* rx, float* ry, const SaddleArgs* args,
                                   cudaStream_t stream) {
-    const GlobalAcc a{vx, vy, eta_s, eta_n, nx};
-    const StencilCtx c{ny, nx, dx, dy, s_top, s_bottom, s_left, s_right};
-    dim3 block(32, 8);
-    if (periodic)
-        momentum_kernel<true><<<grid2d(ny + 1, nx + 1, block), block, 0,
-                                stream>>>(a, c, kb, rx, ry);
+    const SaddleArgs& a = *args;
+    const SweepConsts c = sweep_consts(a.ny, a.nx, a.dx, a.dy, a.s_top,
+                                       a.s_bottom, a.s_left, a.s_right);
+    const Fields f{vx, vy, a.eta_s, a.eta_n, nullptr, a.kk, rx, ry, nullptr};
+    const dim3 block(TX, BY), grid = tile_grid(a.ny, a.nx);
+    if (a.periodic)
+        momentum_kernel<true><<<grid, block, 0, stream>>>(f, c);
     else
-        momentum_kernel<false><<<grid2d(ny + 1, nx + 1, block), block, 0,
-                                 stream>>>(a, c, kb, rx, ry);
+        momentum_kernel<false><<<grid, block, 0, stream>>>(f, c);
     return launch_status();
+}
+
+// Occupancy of the kernel (periodic: its P form): out as
+// saddle_kernel_info's.
+PYLAMP_EXPORT int momentum_kernel_info(int periodic, int* out) {
+    return kernel_info(
+        periodic ? reinterpret_cast<const void*>(momentum_kernel<true>)
+                 : reinterpret_cast<const void*>(momentum_kernel<false>),
+        out);
 }

@@ -10,7 +10,7 @@
 // 8 shards, ~8 us at 3.35 TB/s, against ~30 flops per output point.
 //
 // Design: one thread per interior point of one shard (blockIdx.z = shard),
-// the arithmetic of stencil.cuh shared with saddle.cu and momentum.cu.  The
+// the arithmetic of stencil.cuh (kernel 1's first form).  The
 // shard body of parallel/halo_ops.py has already put the BC ghosts into the
 // halo ring and applies the Dirichlet patches afterwards, so the accessor
 // below shifts block-local indices by one: the stencil's wall tests (index

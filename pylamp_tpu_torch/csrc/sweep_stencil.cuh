@@ -1,9 +1,11 @@
-// The momentum stencil of the redesigned sweeps (the fused Chebyshev sweep
-// cheb.cu and the cluster coarse sub-V-cycle coarse_vcycle.cu) on planes
-// of the (ny+1, nx+1) point space held in shared memory, row stride LX:
-// local index p is point (gj, gi), p +- 1 its row neighbours and p +- LX
-// its column neighbours.  The arithmetic is stencil.cuh's (which kernels
-// 1, 7, 8 and 9 keep) with the per-level constants hoisted: 1/dx, 1/dy,
+// The momentum stencil of the redesigned sweeps (the fused Chebyshev
+// sweeps cheb.cu and cheb_block.cu through cheb_tile.cuh, and the cluster
+// coarse sub-V-cycle coarse_vcycle.cu) on planes of the (ny+1, nx+1) point
+// space held in shared memory, row stride LX: local index p is point
+// (gj, gi), p +- 1 its row neighbours and p +- LX its column neighbours;
+// the tiled applies (saddle.cu, momentum.cu through saddle_tile.cuh) take
+// its SweepConsts.  The arithmetic is stencil.cuh's (which kernel 9 keeps)
+// with the per-level constants hoisted: 1/dx, 1/dy,
 // 2/dx^2, 2/dy^2 multiply where stencil.cuh divides.  That reassociation
 // (a / dx -> a * (1/dx): two roundings instead of one;
 // 2 eta (dv / dx) / dx -> (2 / dx^2) eta dv) moves each result by a few

@@ -47,9 +47,9 @@ SIGNATURES = {
     # vx, vy, p, rx, ry, rc, the solve's SaddleArgs (host struct: eta_s,
     # eta_n, kk, ny, nx, dx, dy, the four wall signs, periodic), stream
     "launch_saddle": [_P] * 8,
-    # vx, vy, eta_s, eta_n, kb, rx, ry, ny, nx, dx, dy,
-    # s_top, s_bottom, s_left, s_right, periodic, stream
-    "launch_momentum": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I, _P],
+    # vx, vy, rx, ry, the level's SaddleArgs (host struct, kk = kbnd),
+    # stream
+    "launch_momentum": [_P] * 6,
     # x, y, T, mat, valid, material table (host), out pointers (host
     # array of 13), ny, nx, K, dx, dy, flags (with the periodic bit),
     # strip width, chunk rows, unit slots, units a cell row, threads a
@@ -78,8 +78,8 @@ SIGNATURES = {
     "launch_saddle_block": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P],
     # ex, ey, rx, ry, es, en, flags, coeffs, kb, ox, oy, fx, fy, S, by, bx,
     # h, dx, dy, s_top, s_bottom, s_left, s_right, iters, zero_init, emit,
-    # stream
-    "launch_cheb_block": [_P] * 13 + [_I] * 4 + [_F] * 6 + [_I] * 3 + [_P],
+    # tile rows, stream
+    "launch_cheb_block": [_P] * 13 + [_I] * 4 + [_F] * 6 + [_I] * 4 + [_P],
     # x, y, T, mat, valid, bases, material table (host), out pointers
     # (host array of 12), S, ny, nx, by, bx, K, dx, dy, flags, stream
     "launch_m2g_block": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
@@ -90,12 +90,15 @@ SIGNATURES = {
     # ny, nx, by, bx, K, dx, dy, stream
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
     # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
-    # periodic), kernel 6 at its dynamic shared bytes, kernel 1 at
-    # (periodic), kernel 4 at (K, strip width, periodic), kernel 2 at
-    # (strip width, unit slots, threads a node, flags), kernel 3 at (tile
-    # rows, tile columns, slots a round, periodic)
+    # periodic), kernel 8 at (depth, tile rows), kernel 6 at its dynamic
+    # shared bytes, kernels 1 and 7 at (periodic), kernel 4 at (K, strip
+    # width, periodic), kernel 2 at (strip width, unit slots, threads a
+    # node, flags), kernel 3 at (tile rows, tile columns, slots a round,
+    # periodic)
     "cheb_kernel_info": [_I, _I, _I, _P],
+    "cheb_block_kernel_info": [_I, _I, _P],
     "saddle_kernel_info": [_I, _P],
+    "momentum_kernel_info": [_I, _P],
     "rebucket_kernel_info": [_I, _I, _I, _P],
     "m2g_kernel_info": [_I, _I, _I, _I, _P],
     "advect_kernel_info": [_I, _I, _I, _I, _P],

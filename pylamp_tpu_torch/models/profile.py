@@ -26,7 +26,9 @@ reference's CLI: the explicit-halo step on that in-process mesh)
    device busy time is the union of the kernel, memcpy and memset
    intervals of the trace (operator and runtime events are host-side
    records, not device work), with the number of those device operations
-   and the kernels that take the most device time.  The idle share sets
+   and the kernels that take the most device time, and every launch of
+   the hand-written kernels (``csrc/*.cu``) by name: count and device
+   milliseconds in the traced step.  The idle share sets
    that busy time against the untraced step's wall time: tracing slows the
    host's launches, so the traced step's own wall time overstates it.
 
@@ -91,6 +93,10 @@ CONFIGS = {"fk": fk_bench_config, "fk_heated": fk_heated_config,
            "sticky_air": sticky_air_bench_config,
            "falling_block_periodic": falling_block_periodic_config}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the hand-written kernels' names: each csrc/*.cu defines its kernels in
+# an anonymous namespace (PyTorch's own carry at::native before theirs;
+# cuBLAS's have none)
+OWN_KERNEL = "(anonymous namespace)::"
 WARMUP_STEPS = 2
 
 
@@ -237,6 +243,11 @@ def main(argv=None):
             "krylov_iterations": diag["stokes_iterations"],
             "top_kernels": [{"name": k[:90], "count": c, "ms": s * 1e3}
                             for k, (c, s) in top],
+            "own_kernels": [
+                {"name": k[:120], "count": c, "ms": s * 1e3}
+                for k, (c, s) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][1])
+                if OWN_KERNEL in k and "at::native" not in k],
         },
     }, indent=1))
 

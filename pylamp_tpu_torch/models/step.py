@@ -38,7 +38,9 @@ every Stokes and energy operator apply through the explicit-halo operators
 through the per-shard fused smoother, and the marker transfers, advection
 and rebucket through the explicit-halo marker engine with its per-shard
 kernels (parallel/halo_*.py); the single-device saddle, smoother and
-coarse-cycle kernels are off there, as in the reference.  The thermal
+coarse-cycle kernels are off there, as in the reference.  A stretched grid
+on the mesh runs on the global tensors: every halo gate refuses a
+non-uniform grid, as the reference's do.  The thermal
 branches (shear and adiabatic heating, subgrid diffusion, reseeding, the
 energy multigrid with flexible CG) run on every path; adiabatic heating's
 rho0 * alpha corner field comes from the fused transfer's ``c_ra`` stream
@@ -144,6 +146,17 @@ def _check_slice(cfg: ModelConfig):
             raise _later(what)
 
 
+def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
+    """The mesh of the explicit-halo marker engine, or None where the
+    markers run on the global tensors: no explicit-halo mesh, periodic
+    side walls (no wrap-around exchange path) or blocks the engine does
+    not take (a stretched grid among them), as in the reference."""
+    if halo_mesh is None or periodic \
+            or not halo_markers_eligible(grid, halo_mesh):
+        return None
+    return halo_mesh
+
+
 def _marker_mean(markers: BucketedMarkers, vals):
     w = markers.valid
     return (torch.sum(torch.where(w, vals, 0.0))
@@ -174,10 +187,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
     if periodic and halo_mesh is not None:
         raise _later("the periodic explicit-halo mesh path")
-    if not grid.uniform and halo_mesh is not None:
-        raise _later("stretched grids on the explicit-halo mesh")
-    marker_halo_mesh = (halo_mesh if halo_mesh is not None
-                        and halo_markers_eligible(grid, halo_mesh) else None)
+    marker_halo_mesh = marker_halo_gate(grid, halo_mesh, periodic)
     # the per-shard marker kernels' shape gate
     marker_blocks = (marker_halo_mesh is not None and block_kernel_eligible(
         grid.ny // marker_halo_mesh.my, grid.nx // marker_halo_mesh.mx))

@@ -54,10 +54,11 @@ TILE_ROWS = (32, 16, 8)  # the tile heights the plan chooses from
 
 
 class TilePlan(NamedTuple):
-    """How csrc/cheb.cu tiles one level's (ny+1, nx+1) point space: tiles
-    of ty x 32 points (the last tile row and column take the +1 point row
-    and column, or what is left), loaded with a halo of ``he`` into planes
-    of row stride 33 + 2 he."""
+    """How csrc/cheb.cu tiles one level's (ny+1, nx+1) point space, or
+    csrc/cheb_block.cu each shard's by x bx block: tiles of ty x 32 points
+    (the last tile row and column take what is left: on a level the +1
+    point row and column fold into them), loaded with a halo of ``he`` into
+    planes of row stride 33 + 2 he."""
     ty: int
     nty: int
     ntx: int
@@ -66,7 +67,8 @@ class TilePlan(NamedTuple):
     smem: int  # dynamic shared bytes per block
 
     def extents(self, ny: int, nx: int):
-        """Every tile's centre as (row0, rows, col0, cols)."""
+        """Every tile's centre as (row0, rows, col0, cols) in the
+        (ny+1, nx+1) point space (a block plan: ny, nx = by - 1, bx - 1)."""
         for by in range(self.nty):
             rows = ny + 1 - by * self.ty if by == self.nty - 1 else self.ty
             for bx in range(self.ntx):
@@ -75,25 +77,42 @@ class TilePlan(NamedTuple):
                 yield by * self.ty, rows, bx * TILE_X, cols
 
 
-@functools.lru_cache(maxsize=256)
-def tile_plan(ny: int, nx: int, he: int, sms: int = SMS) -> TilePlan:
-    """The tile height of a sweep of depth ``he`` on an ny x nx level: of
-    TILE_ROWS, the one with the least estimated time, ceil(blocks / sms)
-    waves times the loaded points of one tile (ties: the taller tile).  With
-    the H100 SXM's 132 SMs: on 1024^2 and 512^2 that is 32 rows; on 256^2
-    16 (128 blocks instead of 64); on the sticky-air levels 512x128 and
-    256x64 at depth 7 16 and 8 (128 and 64 blocks instead of 64 and 16)."""
+def _plan(rows: int, cols: int, he: int, sms: int, shards: int) -> TilePlan:
+    """The tile height of a sweep of depth ``he`` over ``shards`` point
+    spaces of rows x cols: of TILE_ROWS, the one with the least estimated
+    time, ceil(blocks / sms) waves times the loaded points of one tile
+    (ties: the taller tile)."""
     best = None
     sx = TILE_X + 1 + 2 * he
     for ty in TILE_ROWS:
         ly = ty + 1 + 2 * he
-        nty, ntx = math.ceil(ny / ty), math.ceil(nx / TILE_X)
-        cost = math.ceil(nty * ntx / sms) * ly * sx
+        nty = max(math.ceil((rows - 1) / ty), 1)
+        ntx = max(math.ceil((cols - 1) / TILE_X), 1)
+        cost = math.ceil(nty * ntx * shards / sms) * ly * sx
         if best is None or cost < best[0]:
             best = (cost, TilePlan(ty, nty, ntx, he,
                                    math.ceil(ly * sx / THREADS),
                                    PLANES * 4 * ly * sx))
     return best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(ny: int, nx: int, he: int, sms: int = SMS) -> TilePlan:
+    """Kernel 5's tiles on an ny x nx level.  With the H100 SXM's 132 SMs:
+    on 1024^2 and 512^2 32 rows; on 256^2 16 (128 blocks instead of 64);
+    on the sticky-air levels 512x128 and 256x64 at depth 7 16 and 8 (128
+    and 64 blocks instead of 64 and 16)."""
+    return _plan(ny + 1, nx + 1, he, sms, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def block_tile_plan(by: int, bx: int, he: int, shards: int,
+                    sms: int = SMS) -> TilePlan:
+    """Kernel 8's tiles on each of ``shards`` by x bx blocks (all shards in
+    one launch, so they share the waves).  At FK 1024^2 on the 4x2 mesh
+    with the H100 SXM's 132 SMs: 32 rows on the 256x512 and 128x256
+    blocks, shorter tiles below."""
+    return _plan(by, bx, he, sms, shards)
 
 
 @functools.cache

@@ -21,10 +21,15 @@ frame evolve by the pointwise kbnd recurrence.
 
 ``cheb_block`` runs the plain PyTorch version (``frame_cheb_sweep``, the
 port of the reference's pure function, batched over shards) on CPU
-tensors and launches the kernel on CUDA tensors.
+tensors and launches the kernel on CUDA tensors.  The kernel runs kernel
+5's tile sweep on the frames, tiled per level by ``cheb.block_tile_plan``
+(all shards in one launch).  Periodic side walls have no per-shard
+smoother: the reference keeps it off there (``halo_smoother_eligible``),
+and the kernel's wrapper refuses them.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -32,11 +37,12 @@ import torch
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.ops.kernels import cheb
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
 
-MAX_DEPTH = 7  # csrc/cheb_sweep.cuh MAX_H
+MAX_DEPTH = cheb.MAX_DEPTH  # csrc/cheb_tile.cuh MAX_HE
 
 
 def block_smoother_eligible(by: int, bx: int, dtype, iters: int,
@@ -178,12 +184,15 @@ def cheb_block_cuda(ex_v, ey_v, rx_v, ry_v, prep: BlockSmootherPrep,
                     zero_init: bool = False, emit_residual: bool = False):
     global launches
     if bcs.periodic_x:
-        raise NotImplementedError(
-            "the periodic per-shard smoother waits for a later port PR")
+        raise ValueError(
+            "cheb_block kernel: periodic side walls have no per-shard "
+            "smoother (the reference keeps it off there: "
+            "halo_smoother_eligible)")
     h, by, bx = prep.h, prep.by, prep.bx
-    if not 1 <= iters or iters + (1 if emit_residual else 0) > h:
+    he = iters + (1 if emit_residual else 0)
+    if not 1 <= iters or he > min(h, MAX_DEPTH):
         raise ValueError(f"cheb_block kernel: iters {iters} (+emit) exceeds "
-                         f"the frames' halo depth {h}")
+                         f"the frames' halo depth {h} or {MAX_DEPTH}")
     S = prep.flags.shape[0]
     R, C = by + 2 * h, bx + 2 * h
     for name, t, shape in (("ex", ex_v, (S, R, C + 1)),
@@ -202,16 +211,28 @@ def cheb_block_cuda(ex_v, ey_v, rx_v, ry_v, prep: BlockSmootherPrep,
             for _ in range(4 if emit_residual else 2)]
     ox, oy = outs[0], outs[1]
     fx, fy = (outs[2], outs[3]) if emit_residual else (ox, oy)
+    plan = cheb.block_tile_plan(by, bx, he, S, cheb.device_sms(dev.index))
     code = cuda_build.library().launch_cheb_block(
         ex_v.data_ptr(), ey_v.data_ptr(), rx_v.data_ptr(), ry_v.data_ptr(),
         prep.es_v.data_ptr(), prep.en_v.data_ptr(), prep.flags.data_ptr(),
         prep.coeffs.data_ptr(), prep.kb.data_ptr(), ox.data_ptr(),
         oy.data_ptr(), fx.data_ptr(), fy.data_ptr(), S, by, bx, h, grid.dx,
         grid.dy, bcs.s_top, bcs.s_bottom, bcs.s_left, bcs.s_right, iters,
-        int(zero_init), int(emit_residual), cuda_build.stream_ptr(dev))
+        int(zero_init), int(emit_residual), plan.ty,
+        cuda_build.raw_stream(dev.index))
     cuda_build.check(code, "cheb_block")
     launches += 1
     return tuple(outs)
+
+
+def kernel_info(he: int, ty: int) -> dict:
+    """Occupancy of the depth-``he`` kernel with tiles of ``ty`` rows, from
+    the card's own function attributes (the keys of cheb.kernel_info)."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().cheb_block_kernel_info(he, ty, out),
+                     "cheb_block (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def cheb_block(ex_v, ey_v, rx_v, ry_v, prep: BlockSmootherPrep,

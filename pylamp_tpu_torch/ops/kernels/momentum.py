@@ -8,14 +8,19 @@ plain momentum apply of the port (the smoothers' plain versions call it).
 
 ``prep_momentum`` runs once per level per solve (the role of
 ``prep_eta_pallas``): it freezes contiguous f32 viscosities and kbnd as a
-1-element device tensor, so no apply syncs the host.
-``momentum_apply_kernel`` runs the plain version on CPU tensors and
-launches the kernel on CUDA tensors; the shape gate is the caller's
-(``solvers/mg.py _pallas_eligible``).  Periodic side walls launch the
-kernel's periodic form, counted in ``launches_periodic`` as well.
+1-element device tensor, so no apply syncs the host.  The first apply of
+a solve on a level builds the launch's constants (grid, wall signs, the
+frozen pointers) into one ctypes struct, as the saddle kernel's wrapper
+does; every apply then checks only vx and vy and takes the stream handle
+without building a Stream object.  ``momentum_apply_kernel`` runs the
+plain version on CPU tensors and launches the kernel on CUDA tensors; the
+shape gate is the caller's (``solvers/mg.py _pallas_eligible``).
+Periodic side walls launch the kernel's periodic form, counted in
+``launches_periodic`` as well.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any
 
@@ -24,7 +29,7 @@ import torch
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-from pylamp_tpu_torch.ops.kernels.saddle import side_signs
+from pylamp_tpu_torch.ops.kernels.saddle import launch_args
 from pylamp_tpu_torch.ops.stokes import stokes_operator
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
@@ -47,6 +52,10 @@ class MomentumPrep:
     eta_n: torch.Tensor  # (ny, nx) f32, contiguous
     kbnd: Any  # as given (the plain version's operand)
     kb: torch.Tensor  # (1,) f32 kbnd (the kernel's)
+    # the launch arguments of the last (grid, bcs) this prep was applied
+    # with (momentum_apply_cuda fills it at the first call of a solve)
+    launch: list = dataclasses.field(default_factory=lambda: [None],
+                                     compare=False, repr=False)
 
 
 def prep_momentum(eta_s, eta_n, kbnd) -> MomentumPrep:
@@ -55,35 +64,42 @@ def prep_momentum(eta_s, eta_n, kbnd) -> MomentumPrep:
                         eta_n.to(torch.float32).contiguous(), kbnd, kb)
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or not t.is_cuda:
-        raise ValueError(
-            f"momentum kernel: {name} must be a contiguous CUDA float32 "
-            f"tensor of shape {tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-            f"on {t.device} (contiguous: {t.is_contiguous()})")
-
-
 def momentum_apply_cuda(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,
                         bcs: VelocityBCs):
+    """The kernel on CUDA tensors: vx and vy must be contiguous float32 of
+    the grid's shapes (the prep is checked against the grid at the first
+    apply of a solve)."""
     global launches, launches_periodic
-    for name, t, shape in (("vx", vx, grid.shape_vx), ("vy", vy, grid.shape_vy),
-                           ("eta_s", prep.eta_s, grid.shape_corner),
-                           ("eta_n", prep.eta_n, grid.shape_center),
-                           ("kb", prep.kb, (1,))):
-        _check(name, t, shape)
-    rx = torch.empty_like(vx)
-    ry = torch.empty_like(vy)
+    _, args_ptr, shapes = launch_args(prep.launch, prep.eta_s, prep.eta_n,
+                                      prep.kb, grid, bcs, "momentum")
+    for name, t, shape in zip(("vx", "vy"), (vx, vy), shapes):
+        if t.dtype != torch.float32 or t.shape != shape \
+                or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(
+                f"momentum kernel: {name} must be a contiguous CUDA float32 "
+                f"tensor of shape {tuple(shape)}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device} (contiguous: "
+                f"{t.is_contiguous()})")
+    dev = vx.device
+    rx = torch.empty(shapes[0], dtype=torch.float32, device=dev)
+    ry = torch.empty(shapes[1], dtype=torch.float32, device=dev)
     code = cuda_build.library().launch_momentum(
-        vx.data_ptr(), vy.data_ptr(), prep.eta_s.data_ptr(),
-        prep.eta_n.data_ptr(), prep.kb.data_ptr(), rx.data_ptr(),
-        ry.data_ptr(), grid.ny, grid.nx, grid.dx, grid.dy, bcs.s_top,
-        bcs.s_bottom, *side_signs(bcs), int(bcs.periodic_x),
-        cuda_build.stream_ptr(vx.device))
+        vx.data_ptr(), vy.data_ptr(), rx.data_ptr(), ry.data_ptr(), args_ptr,
+        cuda_build.raw_stream(dev.index))
     cuda_build.check(code, "momentum")
     launches += 1
     launches_periodic += bcs.periodic_x
     return rx, ry
+
+
+def kernel_info(periodic: bool = False) -> dict:
+    """Occupancy of the kernel (``periodic``: its periodic form), from the
+    card's function attributes (the keys of saddle.kernel_info)."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().momentum_kernel_info(
+        int(periodic), out), "momentum (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def momentum_apply_kernel(vx, vy, prep: MomentumPrep, grid: StaggeredGrid,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +35,40 @@ from pylamp_tpu_torch.ops.stokes import stokes_operator
 launches = 0
 launches_periodic = 0
 
+# csrc/saddle_tile.cuh: the tile of kernels 1 and 7, in points
+TILE_Y = 16
+TILE_X = 32
 
-class _SaddleArgs(ctypes.Structure):
-    """csrc/saddle.cu SaddleArgs: the launch's per-solve constants."""
+
+class TilePlan(NamedTuple):
+    """How csrc/saddle_tile.cuh tiles a level's (ny+1, nx+1) point space
+    for kernels 1 and 7 (``tile_grid``): nty x ntx tiles of TILE_Y x TILE_X
+    points, the last row and column of tiles clipped to the space."""
+    nty: int
+    ntx: int
+
+    def extents(self, ny: int, nx: int):
+        """Every tile's points as (row0, rows, col0, cols) and whether it
+        takes the branch-free form (``apply_tile``: its staged frame holds
+        no ghost, and it no Dirichlet row or column and no seam)."""
+        for by in range(self.nty):
+            j0 = by * TILE_Y
+            for bx in range(self.ntx):
+                i0 = bx * TILE_X
+                interior = (j0 >= 1 and j0 + TILE_Y <= ny - 1 and i0 >= 1
+                            and i0 + TILE_X <= nx - 1)
+                yield (j0, min(TILE_Y, ny + 1 - j0), i0,
+                       min(TILE_X, nx + 1 - i0), interior)
+
+
+def tile_plan(ny: int, nx: int) -> TilePlan:
+    """The tiles of kernels 1 and 7 on an ny x nx level."""
+    return TilePlan(-(-(ny + 1) // TILE_Y), -(-(nx + 1) // TILE_X))
+
+
+class SaddleArgs(ctypes.Structure):
+    """csrc/saddle_tile.cuh SaddleArgs: the launch's per-solve constants
+    (kernels 1 and 7)."""
     _fields_ = [("eta_s", ctypes.c_void_p), ("eta_n", ctypes.c_void_p),
                 ("kk", ctypes.c_void_p), ("ny", ctypes.c_int),
                 ("nx", ctypes.c_int), ("dx", ctypes.c_float),
@@ -102,28 +134,29 @@ def side_signs(bcs: VelocityBCs):
     return (0.0, 0.0) if bcs.periodic_x else (bcs.s_left, bcs.s_right)
 
 
-def _launch_args(prep: SaddlePrep, grid: StaggeredGrid, bcs: VelocityBCs):
-    """(args, pointer to them, shapes of vx, vy and p) of
-    ``prep`` on ``grid`` with ``bcs``: built and checked at the first apply
-    of a solve, then reused while the solve passes the same grid and
-    BCs."""
-    last = prep.launch[0]
+def launch_args(cache: list, eta_s, eta_n, kk, grid: StaggeredGrid,
+                bcs: VelocityBCs, kernel: str):
+    """(args, pointer to them, shapes of vx, vy and p) of an apply on
+    ``grid`` with ``bcs`` over the frozen viscosities and scales: built and
+    checked at the first apply of a solve, kept in ``cache`` (a prep's
+    one-element list), then reused while the solve passes the same grid
+    and BCs."""
+    last = cache[0]
     if last is not None and last[0] is grid and last[1] is bcs:
         return last[2]
-    if tuple(prep.eta_n.shape) != grid.shape_center \
-            or not prep.eta_n.is_cuda:
-        raise ValueError(
-            f"saddle kernel: the prep's eta_n {tuple(prep.eta_n.shape)} on "
-            f"{prep.eta_n.device} is not a CUDA tensor of the grid's "
-            f"{grid.shape_center}")
-    args = _SaddleArgs(prep.eta_s.data_ptr(), prep.eta_n.data_ptr(),
-                       prep.kk.data_ptr(), grid.ny, grid.nx, grid.dx,
-                       grid.dy, bcs.s_top, bcs.s_bottom, *side_signs(bcs),
-                       int(bcs.periodic_x))
+    for name, t, shape in (("eta_n", eta_n, grid.shape_center),
+                           ("eta_s", eta_s, grid.shape_corner)):
+        if tuple(t.shape) != shape or not t.is_cuda:
+            raise ValueError(
+                f"{kernel} kernel: the prep's {name} {tuple(t.shape)} on "
+                f"{t.device} is not a CUDA tensor of the grid's {shape}")
+    args = SaddleArgs(eta_s.data_ptr(), eta_n.data_ptr(), kk.data_ptr(),
+                      grid.ny, grid.nx, grid.dx, grid.dy, bcs.s_top,
+                      bcs.s_bottom, *side_signs(bcs), int(bcs.periodic_x))
     shapes = tuple(torch.Size(s) for s in (grid.shape_vx, grid.shape_vy,
                                            grid.shape_center))
     built = (args, ctypes.addressof(args), shapes)
-    prep.launch[0] = (grid, bcs, built)
+    cache[0] = (grid, bcs, built)
     return built
 
 
@@ -133,7 +166,8 @@ def saddle_apply_cuda(vx, vy, p, prep: SaddlePrep, grid: StaggeredGrid,
     of the grid's shapes (the prep was checked by prep_saddle and, against
     the grid, at the solve's first apply)."""
     global launches, launches_periodic
-    _, args_ptr, shapes = _launch_args(prep, grid, bcs)
+    _, args_ptr, shapes = launch_args(prep.launch, prep.eta_s, prep.eta_n,
+                                      prep.kk, grid, bcs, "saddle")
     for name, t, shape in zip(("vx", "vy", "p"), (vx, vy, p), shapes):
         if t.dtype != torch.float32 or t.shape != shape \
                 or not t.is_contiguous() or not t.is_cuda:

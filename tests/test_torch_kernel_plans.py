@@ -1,11 +1,14 @@
-"""The launch plans and host-side checks of kernels 1-4 on the CPU:
-``markers/kernels/rebucket.py rebucket_plan`` (the strips and row chunks
-of csrc/rebucket.cu, its shared memory and resident blocks),
+"""The launch plans and host-side checks of kernels 1-4, 7 and 8 on the
+CPU: ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row
+chunks of csrc/rebucket.cu, its shared memory and resident blocks),
 ``markers/kernels/m2g.py m2g_plan`` (the node strips, node-row chunks and
 slot units of csrc/m2g.cu), ``markers/kernels/advect.py advect_plan`` (the
-cell tiles and rounds of csrc/advect.cu), and the checks
+cell tiles and rounds of csrc/advect.cu), the checks
 ``ops/kernels/saddle.py prep_saddle`` makes once per solve, which the
-per-call path of the saddle kernel relies on."""
+per-call path of the saddle kernel relies on, ``saddle.tile_plan`` (the
+tiles of csrc/saddle_tile.cuh, kernels 1 and 7) and
+``ops/kernels/cheb.py block_tile_plan`` (kernel 8's tiles of each shard's
+block)."""
 import numpy as np
 import pytest
 import torch
@@ -14,7 +17,7 @@ from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import BucketedMarkers
 from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
-from pylamp_tpu_torch.ops.kernels import saddle
+from pylamp_tpu_torch.ops.kernels import cheb, cheb_block, momentum, saddle
 
 torch.set_num_threads(1)
 
@@ -301,3 +304,116 @@ def test_m2g_and_advect_cuda_refuse_cpu_tensors():
     moved = advect.advect_rk4_fused(bm, vx, vy, 0.1, grid, VelocityBCs())
     assert (m2g.launches, advect.launches) == (n2, n3)
     assert "c_T" in out and moved.x.shape == bm.x.shape
+
+
+# -- kernel 7 (momentum) and kernel 8 (cheb_block) ----------------------------
+
+@pytest.mark.parametrize("ny,nx", [(256, 1024), (128, 512), (333, 517)])
+def test_momentum_tile_plan_covers_every_point_once(ny, nx):
+    """Kernel 7's tiles (kernel 1's) cover the (ny+1, nx+1) points once,
+    each at most 16 x 32; a branch-free tile's staged frame lies inside the
+    level and its points off the Dirichlet lines, and the levels the inner
+    FGMRES applies it on are mostly branch-free tiles."""
+    plan = saddle.tile_plan(ny, nx)
+    hits = np.zeros((ny + 1, nx + 1), np.int32)
+    free = 0
+    for j0, rows, i0, cols, interior in plan.extents(ny, nx):
+        assert 0 < rows <= saddle.TILE_Y and 0 < cols <= saddle.TILE_X
+        hits[j0:j0 + rows, i0:i0 + cols] += 1
+        if interior:
+            assert j0 - 1 >= 0 and j0 + rows <= ny - 1
+            assert i0 - 1 >= 0 and i0 + cols <= nx - 1
+            free += 1
+    assert (hits == 1).all()
+    assert free > plan.nty * plan.ntx // 2
+
+
+def _fk_mesh_blocks(n, my, mx):
+    """The (by, bx) blocks of the FK n^2 levels that kernel 8 smooths on a
+    my x mx mesh (the 4x2 mesh: 256x512 down to 8x16 at n = 1024)."""
+    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.parallel.halo_smoother import (
+        halo_smoother_eligible,
+    )
+    from pylamp_tpu_torch.parallel.mesh import Mesh
+    from pylamp_tpu_torch.solvers import mg
+
+    s = fk_bench_config(n).solver
+    g = StaggeredGrid(nx=n, ny=n, lx=1.0, ly=1.0)
+    grids = [g]
+    for step in mg.coarsening_plan(g, s.mg_levels,
+                                   semi_threshold=s.mg_semicoarsen):
+        grids.append(grids[-1].coarsen(*step))
+    deg = max(s.mg_pre_smooth, s.mg_post_smooth)
+    mesh = Mesh(my, mx)
+    return [(g.ny // my, g.nx // mx) for g in grids
+            if halo_smoother_eligible(g, mesh, VelocityBCs(), torch.float32,
+                                      deg, True)], deg
+
+
+@pytest.mark.parametrize("n,my,mx", [(1024, 4, 2), (1024, 2, 2),
+                                     (68, 2, 2)])
+def test_block_tile_plan_covers_every_block_once(n, my, mx):
+    """Kernel 8's tiles cover each shard's central by x bx block once on
+    every level it smooths (degree + residual and degree), each at most
+    (ty + 1) x 33 points, the loaded region within the threads' points and
+    the shared memory within a block's budget."""
+    blocks, deg = _fk_mesh_blocks(n, my, mx)
+    if (n, my, mx) == (1024, 4, 2):
+        assert blocks == [(256, 512), (128, 256), (64, 128), (32, 64),
+                          (16, 32), (8, 16)]
+    assert blocks
+    for by, bx in blocks:
+        for he in (deg + 1, deg):
+            plan = cheb.block_tile_plan(by, bx, he, my * mx)
+            seen = np.zeros((by, bx), np.int32)
+            for r0, rows, c0, cols in plan.extents(by - 1, bx - 1):
+                assert 1 <= rows <= plan.ty + 1
+                assert 1 <= cols <= cheb.TILE_X + 1
+                seen[r0:r0 + rows, c0:c0 + cols] += 1
+            assert (seen == 1).all()
+            assert plan.smem <= cheb.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("he", range(1, 8))
+def test_block_tile_plan_fits_at_every_depth(he):
+    """At each depth 1-7 and tile height every tile's loaded region fits
+    the threads' fixed points and a block's shared memory, and the plan
+    spreads the small levels' shards over more blocks than 32-row tiles."""
+    for ty in cheb.TILE_ROWS:
+        loaded = (ty + 1 + 2 * he) * (cheb.TILE_X + 1 + 2 * he)
+        nq = -(-(cheb.TILE_X + 1 + 2 * he) ** 2 // cheb.THREADS)
+        assert loaded <= nq * cheb.THREADS
+        assert cheb.PLANES * 4 * loaded <= cheb.SMEM_PER_BLOCK
+    for by, bx in ((256, 512), (64, 128), (8, 16), (34, 34)):
+        plan = cheb.block_tile_plan(by, bx, he, 8)
+        assert plan.smem == cheb.PLANES * 4 * (plan.ty + 1 + 2 * he) * (
+            cheb.TILE_X + 1 + 2 * he)
+        assert plan.smem <= cheb.SMEM_PER_BLOCK
+    small = cheb.block_tile_plan(64, 128, he, 8)
+    assert small.nty * small.ntx > 2 * 4
+
+
+def test_momentum_and_cheb_block_cuda_refuse_cpu_tensors():
+    """The kernel paths of kernels 7 and 8 raise on CPU tensors before any
+    launch (no fallback inside them); their entry points take the plain
+    versions for them."""
+    from pylamp_tpu_torch.parallel import halo_smoother as hs
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    grid = StaggeredGrid(nx=32, ny=32, lx=1.0, ly=1.0)
+    eta_s, eta_n = _visc(32, 32)
+    vx, vy = torch.zeros(grid.shape_vx), torch.zeros(grid.shape_vy)
+    prep = momentum.prep_momentum(eta_s, eta_n, 70.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        momentum.momentum_apply_cuda(vx, vy, prep, grid, VelocityBCs())
+    mesh = make_mesh(8)
+    bprep = hs.prep_halo_smoother(eta_s, eta_n, grid, mesh, 3, 70.0, 1.0)
+    frames = hs.smoother_frames(vx, vy, vx, vy, VelocityBCs(), mesh, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cheb_block.cheb_block_cuda(*frames, bprep, grid, VelocityBCs(), 2,
+                                   False, True)
+    n7, n8 = momentum.launches, cheb_block.launches
+    momentum.momentum_apply_kernel(vx, vy, prep, grid, VelocityBCs())
+    cheb_block.cheb_block(*frames, bprep, grid, VelocityBCs(), 2, False, True)
+    assert (momentum.launches, cheb_block.launches) == (n7, n8)

@@ -343,10 +343,12 @@ def test_cheb_and_coarse_wrappers_raise(dev):
 
 @pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
 @pytest.mark.parametrize("ny,nx", [(256, 1024), (128, 512), (1024, 1024),
-                                   (23, 37), (333, 517)])
+                                   (23, 37), (333, 517), (16, 32), (17, 33),
+                                   (15, 31), (2, 2)])
 def test_momentum_kernel(dev, ny, nx, bc):
     """Kernel 7 at the sticky-air levels it takes, at 1024^2 and at shapes
-    no block size divides; the bar of the TPU kernel's test."""
+    no tile divides (one tile exactly, one point row and column over, one
+    under, the smallest grid); the bar of the TPU kernel's test."""
     bcs = VelocityBCs(top=bc, bottom="free_slip", left="no_slip", right=bc)
     grid, es, en, kbnd, r = _level_problem(ny, nx, dev, 51)
     vx, vy = r(grid.shape_vx), r(grid.shape_vy)
@@ -514,12 +516,14 @@ def test_saddle_block_kernel(dev, by, bx, with_p):
 @pytest.mark.parametrize("zero_init", [True, False])
 @pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
 @pytest.mark.parametrize("n,mesh_n", [(1024, 8), (512, 8), (256, 8),
-                                      (68, 4)])
+                                      (68, 4), (384, 9), (256, 16)])
 def test_cheb_block_kernel(dev, n, mesh_n, bc, zero_init):
     """Kernel 8 (degree 4 + the emitted residual, h = 5) on the frames of
-    the FK levels 1024-256 on the 4x2 mesh and of an odd 2x2 level
-    (34x34 blocks): against its plain version on the same frames, and the
-    whole explicit-halo sweep against the single-device plain sweep."""
+    the FK levels 1024-256 on the 4x2 mesh (corner and edge shards), of an
+    odd 2x2 level (34x34 blocks) and of 3x3 and 4x4 meshes (interior
+    shards: the branch-free path on whole shards): against its plain
+    version on the same frames, and the whole explicit-halo sweep against
+    the single-device plain sweep."""
     from pylamp_tpu_torch.ops.kernels import cheb_block
     from pylamp_tpu_torch.parallel import halo_smoother as hs
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -549,6 +553,61 @@ def test_cheb_block_kernel(dev, n, mesh_n, bc, zero_init):
                                          kbnd, lam, deg, zero_init, True)
     for g, rf in zip(whole, single):
         assert _rel(g, rf) <= 2e-5
+
+
+@pytest.mark.parametrize("depth", range(1, 8))
+@pytest.mark.parametrize("n,mesh_n,extra", [(96, 9, 0), (128, 16, 0),
+                                            (256, 8, 0), (96, 9, 2),
+                                            (72, 4, 1)])
+def test_cheb_block_kernel_depths(dev, depth, n, mesh_n, extra):
+    """Kernel 8 at every depth 1-7 (zero and non-zero start, with and
+    without the emitted residual) on meshes with corner, edge and interior
+    shards, on frames ``extra`` rings deeper than the sweep (the load is
+    offset into them): against its plain version, and a rerun
+    bit-identical.  The random e^+-8 field at every depth (the mesh smooths
+    FK levels; sticky air's layered field never runs there), and each
+    output held to 2e-5 of the plain version or to f32 rounding
+    (_f32_agrees), as test_cheb_kernel_periodic holds kernel 5: at depth 7
+    the emitted residual of kernels 5 and 8 alike can part from the f32
+    plain version by ~2e-5 where that version is itself ~1e-5 off an f64
+    evaluation."""
+    from pylamp_tpu_torch.ops.kernels import cheb_block
+    from pylamp_tpu_torch.parallel import halo_smoother as hs
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(mesh_n)
+    bcs = BCS[2]
+    grid, es, en, kbnd, r = _level_problem(n, n, dev, 120 + depth)
+    lam = mg.gershgorin_lambda(es, en, grid, bcs, kbnd)
+    h = depth + extra
+    prep = hs.prep_halo_smoother(es, en, grid, mesh, h, kbnd, lam)
+    prep64 = dataclasses.replace(prep, es_v=prep.es_v.double(),
+                                 en_v=prep.en_v.double(),
+                                 coeffs=prep.coeffs.double(),
+                                 kb=prep.kb.double())
+    rx, ry = r(grid.shape_vx), r(grid.shape_vy)
+    start = {True: (torch.zeros_like(rx), torch.zeros_like(ry)),
+             False: (r(grid.shape_vx), r(grid.shape_vy))}
+    for emit in (False, True):
+        iters = depth - emit
+        if iters < 1:
+            continue
+        for zero_init in (True, False):
+            frames = hs.smoother_frames(*start[zero_init], rx, ry, bcs, mesh,
+                                        h)
+            got = cheb_block.cheb_block_cuda(*frames, prep, grid, bcs, iters,
+                                             zero_init, emit)
+            ref = cheb_block.cheb_block_plain(*frames, prep, grid, bcs, iters,
+                                              zero_init, emit)
+            ref64 = cheb_block.cheb_block_plain(
+                *(f.double() for f in frames), prep64, grid, bcs, iters,
+                zero_init, emit)
+            for g, rf, r64 in zip(got, ref, ref64):
+                assert _f32_agrees(g, rf, r64, 2e-5), (emit, zero_init)
+            again = cheb_block.cheb_block_cuda(*frames, prep, grid, bcs,
+                                               iters, zero_init, emit)
+            for g, a in zip(got, again):
+                assert torch.equal(g, a)
 
 
 def _mesh_markers(nx, ny, dev, mesh):
@@ -806,17 +865,22 @@ def test_coarse_vcycle_preps_interleaved(dev):
 
 
 def test_redesigned_kernels_fit_without_spills(dev):
-    """Kernel 5 at every depth and tile height, kernel 6 at the FK 128^2
-    and sticky-air 128x32 plans, kernels 1 and 4 in both forms: no local
-    memory (spills), kernel 5 with 16 warps resident per SM, one cluster of
-    kernel 6 resident, kernel 6's static shared memory the planner's
-    SMEM_STATIC, kernel 4's dynamic shared memory its plan's."""
+    """Kernels 5 and 8 at every depth and tile height, kernel 6 at the FK
+    128^2 and sticky-air 128x32 plans, kernels 1, 4 and 7 in both forms: no
+    local memory (spills), kernels 5 and 8 with 16 warps resident per SM,
+    one cluster of kernel 6 resident, kernel 6's static shared memory the
+    planner's SMEM_STATIC, kernel 4's dynamic shared memory its plan's."""
+    from pylamp_tpu_torch.ops.kernels import cheb_block
+
     for he in range(1, 8):
         for ty in cheb.TILE_ROWS:
             for periodic in (False, True):
                 info = cheb.kernel_info(he, ty, periodic)
                 assert info["local_bytes"] == 0, (he, ty, periodic, info)
                 assert info["blocks_per_sm"] * info["threads"] >= 512, info
+            info = cheb_block.kernel_info(he, ty)
+            assert info["local_bytes"] == 0, (he, ty, info)
+            assert info["blocks_per_sm"] * info["threads"] >= 512, info
     for ny, nx in ((128, 128), (32, 128)):
         _, prep, _ = _coarse_prep(ny, nx, dev, 94, BCS[0], 4)
         info = cvk.kernel_info(prep)
@@ -827,9 +891,10 @@ def test_redesigned_kernels_fit_without_spills(dev):
     # in both forms, kernel 4 at the plans of K up to 100 (two blocks
     # resident per SM, as rebucket_plan promises)
     for periodic in (False, True):
-        info = saddle.kernel_info(periodic)
-        assert info["local_bytes"] == 0, info
-        assert info["blocks_per_sm"] * info["threads"] >= 1024, info
+        for kernel in (saddle, momentum):
+            info = kernel.kernel_info(periodic)
+            assert info["local_bytes"] == 0, (kernel.__name__, info)
+            assert info["blocks_per_sm"] * info["threads"] >= 1024, info
         for K in (1, 9, 18, 32, 33, 64, 100):
             plan = rebucket.rebucket_plan(1024, 1024, K)
             info = rebucket.kernel_info(K, plan.tx, periodic)
@@ -856,7 +921,8 @@ def _seam_consistent(*arrays):
 @pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
 @pytest.mark.parametrize("ny,nx", [(5, 3), (23, 4), (16, 256), (21, 256),
                                    (23, 37), (129, 257), (256, 1024),
-                                   (1024, 256)])
+                                   (1024, 256), (17, 33), (15, 31),
+                                   (333, 517)])
 def test_saddle_and_momentum_kernels_periodic(dev, ny, nx, bc):
     """Kernels 1 and 7 in their periodic forms at the narrowest widths and
     at ragged ny, against the plain versions (any input: the seam row reads

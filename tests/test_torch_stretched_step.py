@@ -13,7 +13,13 @@
   ``mg_lam`` included) to and from the checkpoint format unchanged;
 - the port's step on explicit uniform edges equals its uniform step from
   the same markers (tests/test_stretched.py:542): the stretched branch of
-  every phase against the uniform one.
+  every phase against the uniform one;
+- the same stretched configuration with ``explicit_halo=True`` on the
+  in-process 4x2 mesh runs on the global tensors (every halo gate refuses
+  a non-uniform grid, as in the reference): against the JAX single-device
+  step at this file's bars and the port's own single-device step to 1e-12;
+  the marker-halo gate refuses periodic side walls, and the per-shard
+  smoother refuses them with ``ValueError``.
 
 The reference compiles its f64 step once per module (a fixture).
 """
@@ -28,6 +34,7 @@ from torch_helpers import jax_config, jax_state_dict
 from pylamp_tpu.models.setup import build as jax_build
 from pylamp_tpu.models.step import make_step as jax_make_step
 from pylamp_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from pylamp_tpu_torch.core.bc import VelocityBCs
 from pylamp_tpu_torch.core.grid import (
     StaggeredGrid,
     geometric_edges,
@@ -35,7 +42,9 @@ from pylamp_tpu_torch.core.grid import (
 )
 from pylamp_tpu_torch.models.benchmarks import falling_block, fk_stagnant_lid
 from pylamp_tpu_torch.models.setup import build
-from pylamp_tpu_torch.models.step import make_step
+from pylamp_tpu_torch.models.step import make_step, marker_halo_gate
+from pylamp_tpu_torch.ops.kernels import cheb_block
+from pylamp_tpu_torch.parallel.mesh import make_mesh
 
 NX, NY, STEPS = 32, 24, 2
 _BASE = fk_stagnant_lid(nx=NX, ny=NY, max_steps=STEPS)
@@ -80,6 +89,23 @@ def port_run(reference):
     return out
 
 
+@pytest.fixture(scope="module")
+def mesh_run(reference):
+    """The port's f64 steps with ``explicit_halo=True`` on the 4x2 mesh
+    from the reference's initial state."""
+    d0, _ = reference
+    cfg = dataclasses.replace(CFG, solver=dataclasses.replace(
+        CFG.solver, explicit_halo=True))
+    grid, table, _ = build(cfg, dtype=torch.float64, device="cpu")
+    step = make_step(grid, cfg, table, mesh=make_mesh(8))
+    st = state_from_numpy(d0, device="cpu")
+    out = []
+    for _ in range(STEPS):
+        st, diag = step(st)
+        out.append((st, diag))
+    return out
+
+
 def test_build_matches_reference(reference):
     """The stretched seeding and the initial per-stream interpolation."""
     d0, _ = reference
@@ -95,8 +121,17 @@ def test_build_matches_reference(reference):
 
 @pytest.mark.parametrize("k", range(STEPS))
 def test_step_f64_matches_reference(reference, port_run, k):
-    ref, rdiag = reference[1][k]
-    st, diag = port_run[k]
+    _assert_matches_reference(*reference[1][k], *port_run[k])
+
+
+@pytest.mark.parametrize("k", range(STEPS))
+def test_mesh_step_f64_matches_reference(reference, mesh_run, k):
+    """With explicit_halo on the 4x2 mesh, against the JAX single-device
+    stretched step at the single-device step's bars."""
+    _assert_matches_reference(*reference[1][k], *mesh_run[k])
+
+
+def _assert_matches_reference(ref, rdiag, st, diag):
     vmax = float(np.max(np.abs(ref["state.vy"])))
     for name, got in (("vx", st.vx), ("vy", st.vy)):
         err = float(np.max(np.abs(got.numpy() - ref[f"state.{name}"])))
@@ -165,3 +200,42 @@ def test_uniform_edges_step_equals_uniform_step():
     ax = np.sort(a.markers.x[a.markers.valid].numpy())
     bx = np.sort(b.markers.x[b.markers.valid].numpy())
     np.testing.assert_allclose(bx, ax, atol=1e-12)
+
+
+@pytest.mark.parametrize("k", range(STEPS))
+def test_stretched_mesh_step_equals_single_device(port_run, mesh_run, k):
+    """On a stretched grid the explicit-halo mesh step runs the global code
+    of the single-device step: every field and marker within 1e-12."""
+    (a, da), (b, db) = port_run[k], mesh_run[k]
+    for f in ("vx", "vy", "p", "T"):
+        x, y = getattr(a, f), getattr(b, f)
+        scale = max(float(torch.max(torch.abs(x))), 1.0)
+        assert float(torch.max(torch.abs(x - y))) <= 1e-12 * scale, f
+    for f in ("x", "y", "T"):
+        x, y = getattr(a.markers, f), getattr(b.markers, f)
+        assert float(torch.max(torch.abs(x - y))) <= 1e-12, f
+    for f in ("mat", "valid"):
+        assert torch.equal(getattr(a.markers, f), getattr(b.markers, f)), f
+    assert da["stokes_iterations"] == db["stokes_iterations"]
+
+
+def test_periodic_walls_refused_on_the_mesh_paths():
+    """The marker-halo gate keeps the markers global under periodic side
+    walls (the reference's ``not periodic``), and the per-shard smoother
+    refuses them: the reference keeps it off there."""
+    grid = StaggeredGrid(nx=32, ny=32, lx=1.0, ly=1.0)
+    mesh = make_mesh(8)
+    assert marker_halo_gate(grid, mesh, False) is mesh
+    assert marker_halo_gate(grid, mesh, True) is None
+    assert marker_halo_gate(grid, None, False) is None
+    bcs = VelocityBCs(left="periodic", right="periodic")
+    h, by, bx, S = 2, 8, 8, 8
+    R, C = by + 2 * h, bx + 2 * h
+    z = torch.zeros
+    prep = cheb_block.BlockSmootherPrep(
+        es_v=z((S, R + 1, C + 1)), en_v=z((S, R, C)), flags=z((S, 4)),
+        coeffs=z((h, 2)), kb=z(1), h=h, by=by, bx=bx)
+    frames = (z((S, R, C + 1)), z((S, R + 1, C)), z((S, R, C + 1)),
+              z((S, R + 1, C)))
+    with pytest.raises(ValueError, match="periodic"):
+        cheb_block.cheb_block_cuda(*frames, prep, grid, bcs, 1)

@@ -23,7 +23,8 @@ plain PyTorch version on the card:
   mesh (interior shards), on frames deeper than the sweep, and timed on
   each of its six mesh levels (blocks 256x512 to 8x16), kernel 9 in both
   forms at 256x512 and 128x256, kernels 10-12 on the blocks of the FK
-  markers, each at one odd shape as well;
+  markers, each at one odd shape as well (kernel 9 at 21x38, partial
+  tiles in both dimensions; kernel 12 at 20x20, narrower than one strip);
 - the periodic forms of kernels 1-5 and 7 (rows ``*_periodic``) at the
   shapes of the periodic falling block at 1024^2 x K18: kernel 1 on the
   solve's viscosities, kernels 2-4 on its markers, kernel 5 on levels
@@ -43,7 +44,7 @@ rerun bit-identical), and kernels 2 and 3 at the FK and periodic shapes
 are rerun bit-identical too.  Kernel and plain version are timed with CUDA
 events, and each kernel's bound (bytes over 3.35 TB/s or f32 operations
 over 67 TFLOP/s, whichever is larger) is computed from the inputs it was
-timed on.  Kernels 1-4, 7 and 8, the periodic forms of 1-4 and 7 and
+timed on.  Kernels 1-4 and 7-12, the periodic forms of 1-4 and 7 and
 kernel 2 with the rho0 * alpha stream are also timed on the device alone
 (one call captured in a CUDA graph and replayed), and kernel 1's and 7's
 wrappers on the host (microseconds per call with the launch enqueued).  Kernel 5's pre-smooth
@@ -51,10 +52,10 @@ form is also timed on each of its six levels and kernel 6 on both
 hierarchies, per call and on the device alone, both checked bit-identical
 on a rerun; an "occupancy" line gives the registers, shared memory and
 resident blocks of kernels 5, 6 and 8 (clusters for kernel 6) and of
-kernels 1-4 and 7 in every form from the card, and every kernel's ptxas
-registers and spills (kernels 1-8 must not spill; kernels 2-4 must keep
-their plans' shared memory, kernels 3 and 4 2 blocks per SM, kernel 2 4
-at FK).  Then two paths run through the port's ``build`` +
+kernels 1-4, 7, 9 and 12 in every form from the card, and every kernel's
+ptxas registers and spills (kernels 1-9 and 12 must not spill; kernels
+2-4 and 12 must keep their plans' shared memory, kernels 3, 4 and 12 2
+blocks per SM, kernel 2 4 at FK).  Then two paths run through the port's ``build`` +
 ``make_step``, each with every launch counter set to 0 just before it:
 
 - FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
@@ -190,8 +191,8 @@ SMALL_NX = 64
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 # float32 operations per point of the staggered momentum stencil
-# (csrc/stencil.cuh stencil_ax / stencil_ay: two normal stresses of 4, two
-# shear stresses of 6, their differences and signs -> 26 per row), per
+# (ops/stokes.py's x and y rows: two normal stresses of 4, two shear
+# stresses of 6, their differences and signs -> 26 per row), per
 # Chebyshev update (residual, recurrence, iterate: 6) and per Jacobi
 # diagonal (8); per marker of m2g (cell location, bilinear weights of four
 # lattices, ~13 accumulated streams: ~80), of RK4 advection (four stages
@@ -231,7 +232,9 @@ TOL = {
 # call is measured (host_us)
 DEVICE_TIMED = ("saddle", "m2g", "advect", "rebucket", "saddle_periodic",
                 "m2g_periodic", "advect_periodic", "rebucket_periodic",
-                "m2g_ra", "cheb_block", "momentum", "momentum_periodic")
+                "m2g_ra", "cheb_block", "momentum", "momentum_periodic",
+                "saddle_block", "m2g_block", "m2g_block_ra", "advect_block",
+                "rebucket_block")
 HOST_TIMED = ("saddle", "saddle_periodic", "momentum")
 
 # what kernels 5, 6 and 8 report besides their rows: their times on every
@@ -947,17 +950,25 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 
 def report_occupancy(cuda_build, smi):
     """The occupancy line: kernels 5, 6 and 8 per timed instantiation, and
-    kernels 1-4 and 7 in every form (2-4 at the FK plans, K = 18), from the
-    card's function attributes (registers, static and dynamic shared
-    memory, local bytes, resident blocks per SM or clusters), and every
-    kernel's registers, static shared memory and spills from the build's
-    ``ptxas -v`` report.  Kernels 1-8 must not spill; kernels 2-4's
-    dynamic shared memory must be their plans', with at least 2 blocks
-    resident per SM (kernel 2: 4, which its 9-slot units are sized for)."""
-    from pylamp_tpu_torch.markers.kernels import advect, m2g, rebucket
-    from pylamp_tpu_torch.ops.kernels import momentum, saddle
+    kernels 1-4, 7, 9 and 12 in every form (2-4 at the FK plans, 12 at the
+    4x2 blocks' plan, K = 18), from the card's function attributes
+    (registers, static and dynamic shared memory, local bytes, resident
+    blocks per SM or clusters), and every kernel's registers, static
+    shared memory and spills from the build's ``ptxas -v`` report.
+    Kernels 1-9 and 12 must not spill; kernels 2-4's and 12's dynamic
+    shared memory must be their plans', with at least 2 blocks resident
+    per SM (kernel 2: 4, which its 9-slot units are sized for)."""
+    from pylamp_tpu_torch.markers.kernels import (
+        advect,
+        m2g,
+        rebucket,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.ops.kernels import momentum, saddle, saddle_block
 
     plan = rebucket.rebucket_plan(FK_NX, FK_NX, 18)
+    by, bx = FK_NX // 4, FK_NX // 2  # the 4x2 mesh's blocks
+    b_plan = rebucket.rebucket_plan(by, bx, 18)
     m_plan = m2g.m2g_plan(FK_NX, FK_NX, 18)
     a_plan = advect.advect_plan(FK_NX, FK_NX, 18)
     held = []  # (name, info, dynamic shared bytes, blocks per SM)
@@ -978,6 +989,12 @@ def report_occupancy(cuda_build, smi):
         info = advect.kernel_info(a_plan, periodic)
         OCCUPANCY[f"advect{form} K18 tiles of {a_plan.ty}x{a_plan.tx}"] = info
         held.append((f"advect{form}", info, a_plan.smem, 2))
+    for with_p in (True, False):
+        OCCUPANCY[f"saddle_block{'' if with_p else ' momentum-only'}"] = \
+            saddle_block.kernel_info(with_p)
+    info = rebucket_block.kernel_info(18, b_plan.tx)
+    OCCUPANCY[f"rebucket_block {by}x{bx}xK18 strips of {b_plan.tx}"] = info
+    held.append(("rebucket_block", info, b_plan.smem, 2))
     for name, info, smem, blocks in held:
         if info["dynamic_smem"] != smem or info["blocks_per_sm"] < blocks:
             raise AssertionError(f"{name}: {info}, the plan assumes {smem} "
@@ -988,16 +1005,17 @@ def report_occupancy(cuda_build, smi):
     log("kernel 8 per level " + json.dumps({"device": smi,
                                             "levels": BLOCK_LEVEL_TIMES}))
     log("occupancy " + json.dumps({"device": smi,
-                                   "kernels_1_to_8": OCCUPANCY,
+                                   "kernels": OCCUPANCY,
                                    "ptxas": ptx}))
     spills = [r["function"] for r in ptx
               if r["source"] in ("cheb.cu", "coarse_vcycle.cu", "saddle.cu",
                                  "rebucket.cu", "m2g.cu", "advect.cu",
-                                 "momentum.cu", "cheb_block.cu")
+                                 "momentum.cu", "cheb_block.cu",
+                                 "saddle_block.cu", "rebucket_block.cu")
               and (r["spill_stores"] or r["spill_loads"])]
     spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
     if spills:
-        raise AssertionError(f"kernels 1-8 spill registers: {spills}")
+        raise AssertionError(f"kernels 1-9 and 12 spill registers: {spills}")
 
 
 def check_state(state, n_markers, diag, label):

@@ -1,4 +1,4 @@
-"""Times of kernels 1-5, 7 and 8 of the PyTorch/CUDA port
+"""Times of kernels 1-5 and 7-12 of the PyTorch/CUDA port
 (pylamp_tpu_torch) on one GPU, so that two trees of the repository can be
 compared in one call.
 
@@ -19,21 +19,27 @@ MG momentum apply) at 1024x256 (the sticky-air fine level's shape), as
 and on the FK solve's hierarchy kernel 5 (``cheb``, level 1024^2) and
 kernel 8 (``cheb_block``, the level's frames on the 4x2 mesh), both in
 the pre-smooth form (degree 4 + the residual from a zero start) on
-seeded random residuals.  Kernel 7's 1024x256 viscosities are seeded
-log-normal fields (its time does not depend on their values).  Each
-row: its
-agreement with the plain version (kernel 4 bit-identical with the same
-drop count, kernels 1 and 7 within 1e-5 of max |ref|, kernel 2 within
-1e-5 per stream, kernel 3 within 1e-4 of the displacement, kernels 5 and
-8 within 2e-5), the CUDA-event ms (the better of two medians of 20
-calls), the device ms (one call captured in a CUDA graph and replayed),
-the bound and, for kernels 1 and 7, the wrapper's host microseconds per
-call, with (kernel 1) two pieces of a launch path timed in two forms each
-(the stream handle, the output allocations).  Also the build's ``ptxas
--v`` rows of ``saddle.cu``, ``rebucket.cu``, ``m2g.cu``, ``advect.cu``,
-``cheb.cu``, ``cheb_block.cu`` and ``momentum.cu``.  Prints one JSON
-object (and writes it to ``--out``); exits non-zero without a CUDA device
-or on a disagreement.
+seeded random residuals; then the per-shard kernels at the 4x2 mesh's
+256x512 blocks of FK 1024^2, on the inputs ``chip_smoke.py`` gives them:
+kernel 9 (``saddle_block`` with p, ``saddle_block_mom`` momentum-only) on
+the solve's viscosities' extended blocks with seeded random vectors,
+kernels 10 (``m2g_block``, the energy streams) and 11 (``advect_block``,
+the solve's velocities) on the built markers' blocks, kernel 12
+(``rebucket_block``) on the blocks of kernel 11's output.  Kernel 7's
+1024x256 viscosities are seeded log-normal fields (its time does not
+depend on their values).  Each row: its agreement with the plain
+version (kernels 4 and 12 bit-identical with the same drop count or
+arrivals, kernels 1, 7 and 9 within 1e-5 of max |ref|, kernels 2 and 10
+within 1e-5 per stream, kernels 3 and 11 within 1e-4 of the displacement,
+kernels 5 and 8 within 2e-5), the CUDA-event ms (the better of two
+medians of 20 calls), the device ms (one call captured in a CUDA graph
+and replayed), the bound and, for kernels 1, 7 and 9, the wrapper's host
+microseconds per call, with (kernel 1) two pieces of a launch path timed
+in two forms each (the stream handle, the output allocations).  Also the
+build's ``ptxas -v`` rows of ``saddle.cu``, ``rebucket.cu``, ``m2g.cu``,
+``advect.cu``, ``cheb.cu``, ``cheb_block.cu``, ``momentum.cu`` and the
+per-shard kernels' sources.  Prints one JSON object (and writes it to
+``--out``); exits non-zero without a CUDA device or on a disagreement.
 
 The timing helpers, bounds and tolerances are ``chip_smoke.py``'s (this
 file's directory), so a tree without them can be timed the same way.
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 from functools import partial
@@ -206,6 +213,94 @@ def _sweep_rows(cfg, prep_s, grid):
     return rows
 
 
+def _block_rows(grid, table, phys, u, prep, vbc, bm, vel):
+    """Kernels 9-12 at the 4x2 mesh's blocks of the FK state (the inputs of
+    chip_smoke.py's mesh_kernel_rows): kernel 9 in both forms on the
+    extended blocks of the solve's viscosities with vectors at u's scale,
+    kernel 10 on the built markers' extended blocks, kernel 11 on their own
+    blocks with the solve's velocities, kernel 12 on the extended blocks
+    of kernel 11's output."""
+    from pylamp_tpu_torch.markers.kernels import (
+        advect_block,
+        m2g_block,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.ops.kernels import saddle_block
+    from pylamp_tpu_torch.parallel.halo_markers import BLK3, velocity_windows
+    from pylamp_tpu_torch.parallel.mesh import P, make_mesh
+
+    mesh = make_mesh(cs.MESH_SHARDS)
+    S, by, bx = mesh.size, grid.ny // mesh.my, grid.nx // mesh.mx
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    en_e = mesh.flat(mesh.ext1(mesh.split(prep.eta_n, P("y", "x"))))
+    es_e = mesh.flat(mesh.ext1(mesh.split(prep.eta_s[:-1, :-1],
+                                          P("y", "x")))[..., 1:, 1:])
+    vx_e, vy_e, p_e = (torch.randn((S, by + 2, bx + 2), generator=gen,
+                                   device="cuda") * torch.max(torch.abs(t))
+                       for t in u)
+    kcont = prep.kk[1]
+    rows = []
+    n = S * by * bx
+    for name, p_or_none in (("saddle_block", p_e), ("saddle_block_mom", None)):
+        args = (vx_e, vy_e, p_or_none, es_e, en_e, grid.dx, grid.dy, kcont)
+        got = saddle_block.saddle_block_cuda(*args)
+        ref = saddle_block.saddle_block_plain(*args)
+        ins = (vx_e, vy_e, es_e, en_e) + ((p_e,) if p_or_none is not None
+                                          else ())
+        ops = n * 2 * cs.OPS["stencil"] + (
+            n * (2 * cs.OPS["pressure"] + cs.OPS["continuity"])
+            if p_or_none is not None else 0)
+        rows.append((name, cs.errors(zip(got, ref)), cs.TOL["saddle_block"],
+                     partial(saddle_block.saddle_block_cuda, *args),
+                     cs.bound_ms(cs.nbytes(*ins, *got), ops)))
+
+    bases = mesh.bases(by, bx, device="cuda")
+    ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
+           for a in (bm.x, bm.y, bm.T, bm.mat, bm.valid)]
+    got = m2g_block.m2g_fused_block_cuda(*ext, grid, table, phys, bases,
+                                         with_energy=True)
+    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, phys, bases,
+                                          with_energy=True)
+    rows.append(("m2g_block", cs.errors((got[k], ref[k]) for k in ref),
+                 cs.TOL["m2g_block"],
+                 partial(m2g_block.m2g_fused_block_cuda, *ext, grid, table,
+                         phys, bases, with_energy=True),
+                 cs.bound_ms(cs.nbytes(*ext, bases, *got.values()),
+                             cs.OPS["m2g"] * int(ext[4].sum()))))
+
+    vx, vy, dt = vel
+    wins = velocity_windows(vx.float(), vy.float(), grid, vbc, mesh, 1)
+    own = [mesh.flat(mesh.split(a, BLK3)) for a in (bm.x, bm.y, bm.valid)]
+    adv = (*own, *wins, dt, grid, bases, 1)
+    got = advect_block.advect_block_cuda(*adv)
+    ref = advect_block.advect_block_plain(*adv)
+    rows.append(("advect_block", cs.displacement_error(got, ref, own[:2]),
+                 cs.TOL["advect_block"],
+                 partial(advect_block.advect_block_cuda, *adv),
+                 cs.bound_ms(cs.nbytes(*own, *wins, bases, *got),
+                             cs.OPS["advect"] * int(own[2].sum()))))
+
+    moved = bm.replace(x=mesh.gather(mesh.unflat(got[0]), BLK3),
+                       y=mesh.gather(mesh.unflat(got[1]), BLK3))
+    ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
+           for a in (moved.x, moved.y, moved.T, moved.mat, moved.valid)]
+    (gm, ga), (rm, ra) = (rebucket_block.rebucket_block_cuda(*ext, grid,
+                                                              bases),
+                          rebucket_block.rebucket_block_plain(*ext, grid,
+                                                              bases))
+    same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+               for f in ("x", "y", "mat", "T", "valid")) and torch.equal(
+        ga, ra)
+    rows.append(("rebucket_block", (0.0, 0.0) if same else (math.inf,) * 2,
+                 cs.TOL["rebucket_block"],
+                 partial(rebucket_block.rebucket_block_cuda, *ext, grid,
+                         bases),
+                 cs.bound_ms(cs.nbytes(*ext, bases, gm.x, gm.y, gm.T, gm.mat,
+                                       gm.valid, ga),
+                             cs.OPS["rebucket"] * int(ext[4].sum()))))
+    return rows
+
+
 def _host_parts(u):
     """Host microseconds per call of two pieces of a wrapper's launch
     path, each in two forms: the stream handle through a Stream object
@@ -265,6 +360,7 @@ def main(argv=None):
     rows += _sweep_rows(cfg, prep, grid)
     rows.append(_momentum_row("momentum_1024", grid, prep.eta_s, prep.eta_n,
                               prep.kk[0], vbc))
+    rows += _block_rows(grid, table, phys, u, prep, vbc, bm, vel)
     del bm, moved, vel
     g_m = StaggeredGrid(nx=cs.STICKY_NX, ny=cs.STICKY_NX // 4, lx=4.0,
                         ly=1.0)
@@ -295,14 +391,16 @@ def main(argv=None):
         r["device_share_of_bound"] = b_ms / r["device_ms"]
         if name.startswith(("saddle", "momentum")):
             r["host_us"] = cs.host_us(fn)
-        if name.startswith("saddle"):
+        if name in ("saddle", "saddle_periodic"):
             r["host_parts_us"] = _host_parts(fn.args[:3])
         out[name] = r
         cs.log(f"{name}: {json.dumps(r)}")
     ptx = [r for r in cuda_build.ptxas_summary()
            if r["source"] in ("saddle.cu", "rebucket.cu", "m2g.cu",
                               "advect.cu", "cheb.cu", "cheb_block.cu",
-                              "momentum.cu")]
+                              "momentum.cu", "saddle_block.cu",
+                              "m2g_block.cu", "advect_block.cu",
+                              "rebucket_block.cu")]
     rec = {"tree": os.path.abspath(args.tree), "device": smi,
            "kernels": out, "ptxas": ptx}
     if args.out:

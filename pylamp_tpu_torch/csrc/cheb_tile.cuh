@@ -1,6 +1,6 @@
 // The tile of the fused Chebyshev sweeps: `iters` coupled Chebyshev
 // iterations of D^-1 A over one TY x 32 tile of the (ny+1, nx+1) point
-// space (csrc/stencil.cuh's index space), and optionally the residual of
+// space (saddle.cu's index space), and optionally the residual of
 // the final iterate.  One body for the single-device sweep (kernel 5,
 // cheb.cu: the planes come from the level's global arrays) and the
 // per-shard sweep (kernel 8, cheb_block.cu: the planes come from one
@@ -29,8 +29,8 @@
 //     inline from current values and update the Dirichlet lines
 //     pointwise through the kbnd recurrence (sweep_stencil.cuh W).
 //   - Per-level constants (1/dx, 1/dy, 2/dx^2, ...) are hoisted and the
-//     diagonals inverted once: the sweep multiplies where stencil.cuh
-//     divides.  This reassociates the arithmetic (a quotient a / dx
+//     diagonals inverted once: the sweep multiplies where the plain
+//     version divides.  This reassociates the arithmetic (a quotient a / dx
 //     becomes a * (1/dx), two roundings instead of one, and
 //     2 eta (dv / dx) / dx becomes (2 / dx^2) eta dv), which moves each
 //     result by a few f32 units in the last place against the plain
@@ -166,7 +166,7 @@ __device__ __forceinline__ void tile_sweep(const TileIO& io,
     }
     __syncthreads();
 
-    // inverse Jacobi diagonals (stencil.cuh stencil_dvx / stencil_dvy)
+    // inverse Jacobi diagonals (ops/stokes.py's momentum diagonals)
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
         const int cd = code[q], p = tid + q * NT;

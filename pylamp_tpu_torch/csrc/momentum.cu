@@ -46,7 +46,10 @@ PYLAMP_EXPORT int launch_momentum(const float* vx, const float* vy,
     const SaddleArgs& a = *args;
     const SweepConsts c = sweep_consts(a.ny, a.nx, a.dx, a.dy, a.s_top,
                                        a.s_bottom, a.s_left, a.s_right);
-    const Fields f{vx, vy, a.eta_s, a.eta_n, nullptr, a.kk, rx, ry, nullptr};
+    const int W1 = a.nx + 1, W = a.nx;  // row strides: vx lattice, cells
+    const Fields f{{vx, W1}, {vy, W}, {a.eta_s, W1}, {a.eta_n, W},
+                   {nullptr, W}, a.kk, nullptr, {rx, W1}, {ry, W},
+                   {nullptr, W}};
     const dim3 block(TX, BY), grid = tile_grid(a.ny, a.nx);
     if (a.periodic)
         momentum_kernel<true><<<grid, block, 0, stream>>>(f, c);

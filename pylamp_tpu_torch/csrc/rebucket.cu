@@ -54,368 +54,25 @@
 // whose column offset is the reference's wrapped one, (ti - si + 1) mod
 // nx - 1 (nx >= 3, checked by the wrapper).  Both forms are identical
 // slot for slot to the plain version, with the same drop count.
-#include <cstdint>
-
+// The body (rebucket_rows.cuh) is shared with the per-shard rebucket
+// (kernel 12, rebucket_block.cu), which runs it on every shard's
+// extended marker blocks.
 #include "common.cuh"
+#include "rebucket_rows.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block
-constexpr int NWARPS = NT / 32;
-constexpr int RING = 4;  // source rows in shared memory
-constexpr unsigned char NONE = 255;  // a slot bound for no target
-
-__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
-
-// Shared-memory layout (bytes) for strips of tx columns and K slots per
-// cell; markers/kernels/rebucket.py smem_bytes mirrors it.  A ring row:
-// x, y, T, mat (S = (tx + 2) K words each), the 9 target masks of each
-// cell (KW = ceil(K / 32) words each), the counts of its slots bound for
-// the row above and the row below, and the valid bytes of the left
-// halo, the strip and the right halo (each an aligned superset: up to 3
-// bytes of lead), which the codes overwrite.  Then the output row (tx K
-// words of x, y, T, mat), the 9 insertion offsets of each target (ints),
-// the bucket counts (tx ints) and the per-warp drop sums.
-struct Layout {
-    int S, KW, mask, movers, v0, v1, v2, row, out, off, counts, red, total;
-    __host__ __device__ Layout(int tx, int K) {
-        S = (tx + 2) * K;
-        KW = (K + 31) / 32;
-        mask = 16 * S;
-        movers = mask + 36 * KW * (tx + 2);
-        v0 = movers + 8;
-        v1 = v0 + round4(K + 3);
-        v2 = v1 + round4(tx * K + 3);
-        row = v2 + round4(K + 3);
-        out = RING * row;
-        off = out + 16 * tx * K;
-        counts = off + 36 * tx;
-        red = counts + 4 * tx;
-        total = red + 4 * NWARPS;
-    }
-};
-
-struct RebucketArgs {
-    const float* x;
-    const float* y;
-    const float* T;
-    const int* mat;
-    const unsigned char* valid;
-    float* ox;
-    float* oy;
-    float* oT;
-    int* omat;
-    unsigned char* ovalid;
-    unsigned long long* dropped;
-    int ny, nx, K, tx, rows;
-    float dx, dy;
-};
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// The strip's halo columns: the global column of the left (local column
-// 0) and right (local column txe + 1) halo, or -1 where a wall has none.
-__device__ __forceinline__ int left_halo(int i0, int nx, bool P) {
-    return i0 > 0 ? i0 - 1 : (P ? nx - 1 : -1);
-}
-__device__ __forceinline__ int right_halo(int i0, int txe, int nx, bool P) {
-    return i0 + txe < nx ? i0 + txe : (P ? 0 : -1);
-}
-
-// cp.async of n slots of source row sj from global column col onward into
-// the ring row at byte offset rb, local slot l, with the valid bytes as
-// the aligned words that hold them into the staging at byte offset vb (a
-// torch allocation is 512-byte aligned and sized, so those words lie
-// inside it)
-__device__ __forceinline__ void copy_run(const RebucketArgs& a,
-                                         unsigned char* smem,
-                                         const Layout& L, int rb, int vb,
-                                         int sj, int col, int l, int n) {
-    const long long g = (static_cast<long long>(sj) * a.nx + col) * a.K;
-    float* f = reinterpret_cast<float*>(smem + rb);
-    for (int e = threadIdx.x; e < n; e += NT) {
-        cp_async4(f + l + e, a.x + g + e);
-        cp_async4(f + L.S + l + e, a.y + g + e);
-        cp_async4(f + 2 * L.S + l + e, a.T + g + e);
-        cp_async4(f + 3 * L.S + l + e, a.mat + g + e);
-    }
-    const uintptr_t src = reinterpret_cast<uintptr_t>(a.valid + g);
-    const unsigned* w0 =
-        reinterpret_cast<const unsigned*>(src & ~uintptr_t(3));
-    const int words = (static_cast<int>(src & 3) + n + 3) >> 2;
-    for (int w = threadIdx.x; w < words; w += NT)
-        cp_async4(smem + vb + 4 * w, w0 + w);
-}
-
-// Source row sj of the strip into its ring row (slot sj mod RING): the
-// left halo, the strip and the right halo.  Commits one group whether or
-// not the row exists.
-template <bool P>
-__device__ __forceinline__ void copy_row(const RebucketArgs& a,
-                                         unsigned char* smem,
-                                         const Layout& L, int i0, int txe,
-                                         int sj) {
-    if (sj >= 0 && sj < a.ny) {
-        const int rb = (sj & (RING - 1)) * L.row, K = a.K;
-        const int lh = left_halo(i0, a.nx, P);
-        const int rh = right_halo(i0, txe, a.nx, P);
-        if (lh >= 0) copy_run(a, smem, L, rb, rb + L.v0, sj, lh, 0, K);
-        copy_run(a, smem, L, rb, rb + L.v1, sj, i0, K, txe * K);
-        if (rh >= 0)
-            copy_run(a, smem, L, rb, rb + L.v2, sj, rh, (txe + 1) * K, K);
-    }
-    cp_async_commit();
-}
-
-// Where the valid byte (and then the code) of slot e = lc K + s of ring
-// row sj lies: base(lc) + e, with base per run (the left halo, the strip,
-// the right halo) from the run's lead bytes
-struct CodeBase {
-    int b0, b1, b2;
-    __device__ CodeBase(const RebucketArgs& a, const Layout& L, int rb,
-                        int sj, int i0, int txe, int lh, int rh) {
-        const unsigned v = static_cast<unsigned>(
-            reinterpret_cast<uintptr_t>(a.valid));
-        const unsigned row = static_cast<unsigned>(sj) * a.nx;
-        const unsigned K = a.K;
-        b0 = rb + L.v0 + ((v + (row + max(lh, 0)) * K) & 3);
-        b1 = rb + L.v1 + ((v + (row + i0) * K) & 3) - a.K;
-        b2 = rb + L.v2 + ((v + (row + max(rh, 0)) * K) & 3)
-             - (txe + 1) * a.K;
-    }
-    __device__ __forceinline__ int at(int lc, int txe) const {
-        return lc == 0 ? b0 : (lc <= txe ? b1 : b2);
-    }
-};
-
-// A flat walk over the slots e of txe + 2 cells with the cell lc and slot
-// s of each, stepped without a division
-struct SlotWalk {
-    int lc, s, dlc, ds;
-    __device__ SlotWalk(int K) {
-        lc = threadIdx.x / K;
-        s = threadIdx.x - lc * K;
-        dlc = NT / K;
-        ds = NT - dlc * K;
-    }
-    __device__ __forceinline__ void next(int K) {
-        lc += dlc;
-        s += ds;
-        if (s >= K) {
-            s -= K;
-            ++lc;
-        }
-    }
-};
-
-// Ring row sj (arrived and visible, its masks and movers zeroed): each
-// slot's code, written over its valid byte, its bit in its cell's target
-// mask, and the row's count of slots bound for the row above or below
-template <bool P>
-__device__ __forceinline__ void code_row(const RebucketArgs& a,
-                                         unsigned char* smem,
-                                         const Layout& L, int i0, int txe,
-                                         int sj) {
-    const int rb = (sj & (RING - 1)) * L.row, K = a.K;
-    const float* f = reinterpret_cast<const float*>(smem + rb);
-    unsigned* mask = reinterpret_cast<unsigned*>(smem + rb + L.mask);
-    unsigned* movers = reinterpret_cast<unsigned*>(smem + rb + L.movers);
-    const int lh = left_halo(i0, a.nx, P);
-    const int rh = right_halo(i0, txe, a.nx, P);
-    const CodeBase cb(a, L, rb, sj, i0, txe, lh, rh);
-    SlotWalk w(K);
-    for (int e = threadIdx.x; e < (txe + 2) * K; e += NT, w.next(K)) {
-        const int si = w.lc == 0 ? lh : (w.lc <= txe ? i0 + w.lc - 1 : rh);
-        unsigned char* c = smem + cb.at(w.lc, txe) + e;
-        int code = NONE;
-        if (si >= 0 && *c) {
-            const int ti = min(max(static_cast<int>(f[e] / a.dx), 0),
-                               a.nx - 1);
-            const int tj = min(max(static_cast<int>(f[L.S + e] / a.dy), 0),
-                               a.ny - 1);
-            const int dj = tj - sj;
-            int di = ti - si;
-            if (P) di = di == a.nx - 1 ? -1 : (di == 1 - a.nx ? 1 : di);
-            if (dj >= -1 && dj <= 1 && di >= -1 && di <= 1) {
-                code = (dj + 1) * 3 + di + 1;
-                atomicOr(mask + (9 * w.lc + code) * L.KW + (w.s >> 5),
-                         1u << (w.s & 31));
-                if (dj != 0) atomicAdd(movers + (dj > 0), 1u);
-            }
-        }
-        *c = static_cast<unsigned char>(code);
-    }
-}
-
-// slots of cell lc sent to target code c: all of them (s = K), or those
-// below slot s (its rank)
-__device__ __forceinline__ int mask_count(const unsigned* mask,
-                                          const Layout& L, int lc, int c,
-                                          int s) {
-    const unsigned* m = mask + (9 * lc + c) * L.KW;
-    int n = 0;
-    for (int w = 0; w < (s >> 5); ++w) n += __popc(m[w]);
-    if (s & 31) n += __popc(m[s >> 5] & ((1u << (s & 31)) - 1u));
-    return n;
-}
+using namespace rebucket_rows;
 
 template <bool P>
 __global__ void __launch_bounds__(NT, 3)
 rebucket_kernel(const RebucketArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int K = a.K;
-    const Layout L(a.tx, K);
-    const int i0 = blockIdx.x * a.tx, txe = min(a.tx, a.nx - i0);
-    const int j_lo = blockIdx.y * a.rows, j_hi = min(j_lo + a.rows, a.ny);
-    const int lh = left_halo(i0, a.nx, P);
-    const int rh = right_halo(i0, txe, a.nx, P);
-    // the output row: x, y, T, mat of tx K slots; the insertion offsets
-    // of each target's 9 sources; the bucket counts
-    float* out = reinterpret_cast<float*>(smem + L.out);
-    const int TK = a.tx * K;
-    int* omat = reinterpret_cast<int*>(out + 3 * TK);
-    int* off = reinterpret_cast<int*>(smem + L.off);
-    int* counts = reinterpret_cast<int*>(smem + L.counts);
-    int drops = 0;  // threads of the targets
-
-    // the masks and movers of ring row sj zeroed (its slot last served
-    // target row sj - 3, done before the barrier that ended its scatter)
-    auto zero_row = [&](int sj) {
-        unsigned char* r = smem + (sj & (RING - 1)) * L.row;
-        unsigned* m = reinterpret_cast<unsigned*>(r + L.mask);
-        for (int i = threadIdx.x; i < 9 * L.KW * (txe + 2); i += NT) m[i] = 0u;
-        if (threadIdx.x < 2)
-            reinterpret_cast<unsigned*>(r + L.movers)[threadIdx.x] = 0u;
-    };
-    // slots of ring row sj's cell lc bound for target code c
-    auto count = [&](int sj, int lc, int c) {
-        return mask_count(reinterpret_cast<const unsigned*>(
-                              smem + (sj & (RING - 1)) * L.row + L.mask),
-                          L, lc, c, K);
-    };
-    // the prologue: rows j_lo - 1 and j_lo coded, j_lo + 1 in flight
-    copy_row<P>(a, smem, L, i0, txe, j_lo - 1);
-    copy_row<P>(a, smem, L, i0, txe, j_lo);
-    copy_row<P>(a, smem, L, i0, txe, j_lo + 1);
-    zero_row(j_lo - 1);
-    zero_row(j_lo);
-    cp_async_wait1();
-    __syncthreads();
-    if (j_lo > 0) code_row<P>(a, smem, L, i0, txe, j_lo - 1);
-    code_row<P>(a, smem, L, i0, txe, j_lo);
-    for (int cj = j_lo; cj < j_hi; ++cj) {
-        // the slot of row cj + 2 held row cj - 2, last read by target row
-        // cj - 1 before the barrier that ended its scatter; row j_hi is
-        // the chunk's last source row
-        copy_row<P>(a, smem, L, i0, txe, cj + 2 <= j_hi ? cj + 2 : -1);
-        zero_row(cj + 1);
-        cp_async_wait1();  // rows up to cj + 1 have arrived
-        __syncthreads();
-        const bool below = cj + 1 < a.ny;
-        if (below) code_row<P>(a, smem, L, i0, txe, cj + 1);
-        // each target's insertion offsets from its first 6 sources (rows
-        // cj - 1 and cj, coded already), in the reference's order
-        // k = 3 (a + 1) + b + 1; sources 6-8 lie in row cj + 1
-        if (threadIdx.x < txe) {
-            const int lt = threadIdx.x;
-            int running = 0;
-            for (int k = 0; k < 6; ++k) {
-                off[9 * lt + k] = running;
-                const int sj = cj + k / 3 - 1;
-                if (sj >= 0) running += count(sj, lt + k % 3, 8 - k);
-            }
-            off[9 * lt + 6] = running;
-        }
-        __syncthreads();
-
-        // each target's count and drops: sources 6-8 from row cj + 1 (none
-        // where no slot of it moves up)
-        const bool up = below && reinterpret_cast<const unsigned*>(
-            smem + ((cj + 1) & (RING - 1)) * L.row + L.movers)[0] != 0u;
-        if (threadIdx.x < txe) {
-            const int lt = threadIdx.x;
-            int total = off[9 * lt + 6];
-            if (up)
-                for (int k = 6; k < 9; ++k)
-                    total += count(cj + 1, lt + k - 6, 8 - k);
-            counts[lt] = min(total, K);
-            drops += max(total - K, 0);
-        }
-
-        // scatter every slot bound for row cj to its place; a neighbour
-        // row none of whose slots moves to row cj is skipped whole
-        for (int da = -1; da <= 1; ++da) {
-            const int sj = cj + da;
-            if (sj < 0 || sj >= a.ny) continue;
-            const int rb = (sj & (RING - 1)) * L.row;
-            if (da > 0 ? !up
-                       : da < 0 && reinterpret_cast<const unsigned*>(
-                                       smem + rb + L.movers)[1] == 0u)
-                continue;
-            const float* f = reinterpret_cast<const float*>(smem + rb);
-            const int* fmat = reinterpret_cast<const int*>(f + 3 * L.S);
-            const unsigned* mask =
-                reinterpret_cast<const unsigned*>(smem + rb + L.mask);
-            const CodeBase cb(a, L, rb, sj, i0, txe, lh, rh);
-            const int row_code = (1 - da) * 3;  // the first code bound for cj
-            SlotWalk w(K);
-            for (int e = threadIdx.x; e < (txe + 2) * K; e += NT, w.next(K)) {
-                const int c = smem[cb.at(w.lc, txe) + e] - row_code;
-                if (c < 0 || c > 2) continue;  // NONE or another row
-                const int lt = w.lc + c - 2;
-                if (lt < 0 || lt >= txe) continue;
-                const int code = row_code + c, k = 8 - code;
-                int dest = off[9 * lt + min(k, 6)]
-                           + mask_count(mask, L, w.lc, code, w.s);
-                // the earlier sources of row cj + 1
-                for (int kk = 6; kk < k; ++kk)
-                    dest += count(sj, lt + kk - 6, 8 - kk);
-                if (dest >= K) continue;
-                const int d = lt * K + dest;
-                out[d] = f[e];
-                out[TK + d] = f[L.S + e];
-                out[2 * TK + d] = f[2 * L.S + e];
-                omat[d] = fmat[e];
-            }
-        }
-        __syncthreads();
-
-        // the output row: txe buckets, contiguous in every stream
-        const long long g = (static_cast<long long>(cj) * a.nx + i0) * K;
-        SlotWalk w(K);
-        for (int e = threadIdx.x; e < txe * K; e += NT, w.next(K)) {
-            const bool v = w.s < counts[w.lc];
-            a.ox[g + e] = v ? out[e] : 0.0f;
-            a.oy[g + e] = v ? out[TK + e] : 0.0f;
-            a.oT[g + e] = v ? out[2 * TK + e] : 0.0f;
-            a.omat[g + e] = v ? omat[e] : 0;
-            a.ovalid[g + e] = v ? 1 : 0;
-        }
-        // the next scatter writes the output row after two barriers
-    }
-
-    asm volatile("cp.async.wait_all;\n" ::);  // (empty groups only)
-    int* red = reinterpret_cast<int*>(smem + L.red);
-    for (int o = 16; o > 0; o >>= 1)
-        drops += __shfl_down_sync(0xffffffffu, drops, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = drops;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int sum = 0;
-        for (int w = 0; w < NWARPS; ++w) sum += red[w];
-        if (sum > 0)
-            atomicAdd(a.dropped, static_cast<unsigned long long>(sum));
-    }
+    const int i0 = blockIdx.x * a.tx, j_lo = blockIdx.y * a.rows;
+    const CellMap cells{0, a.nx};
+    const Block b{cells, cells, i0, min(a.tx, a.nx - i0), j_lo,
+                  min(j_lo + a.rows, a.ny)};
+    repack<P, false>(a, b, smem);
 }
 
 template <bool P>
@@ -443,7 +100,7 @@ PYLAMP_EXPORT int launch_rebucket(const float* x, const float* y,
     const int smem = Layout(tx, K).total;
     const RebucketArgs a{x, y, T, mat, valid, ox, oy, oT, omat, ovalid,
                          reinterpret_cast<unsigned long long*>(dropped),
-                         ny, nx, K, tx, rows, dx, dy};
+                         nullptr, ny, nx, K, tx, rows, dx, dy};
     const dim3 grid((nx + tx - 1) / tx, (ny + rows - 1) / rows);
     cudaError_t err =
         periodic ? configure<true>(smem) : configure<false>(smem);
@@ -461,24 +118,8 @@ PYLAMP_EXPORT int launch_rebucket(const float* x, const float* y,
 // dynamic shared bytes}.
 PYLAMP_EXPORT int rebucket_kernel_info(int K, int tx, int periodic,
                                        int* out) {
-    const int smem = Layout(tx, K).total;
-    const void* fn =
+    return kernel_info(
         periodic ? reinterpret_cast<const void*>(rebucket_kernel<true>)
-                 : reinterpret_cast<const void*>(rebucket_kernel<false>);
-    cudaError_t err =
-        periodic ? configure<true>(smem) : configure<false>(smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, fn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    out[0] = fa.numRegs;
-    out[1] = static_cast<int>(fa.sharedSizeBytes);
-    out[2] = static_cast<int>(fa.localSizeBytes);
-    out[3] = blocks;
-    out[4] = NT;
-    out[5] = smem;
-    return 0;
+                 : reinterpret_cast<const void*>(rebucket_kernel<false>),
+        Layout(tx, K).total, out);
 }

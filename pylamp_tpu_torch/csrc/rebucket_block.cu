@@ -5,59 +5,68 @@
 //
 // Bound on the H100: memory.  At FK 1024^2 x K18 on the 4x2 mesh each
 // shard reads its (258, 514, 18) extended streams (17 B a slot, 40.6 MB)
-// and writes its own (256, 512, 18) buckets (40.1 MB): ~0.65 GB over the 8
-// shards, ~0.19 ms at 3.35 TB/s.  No arithmetic to speak of.
+// and writes its own (256, 512, 18) buckets (40.1 MB) and arrivals: ~0.65
+// GB over the 8 shards, ~0.19 ms at 3.35 TB/s.  No arithmetic to speak of.
 //
-// Design: one thread per TARGET cell of one shard, the repack of
-// rebucket_cell.cuh (kernel 4's, shared).  Markers that crossed a seam
-// arrive through the exchanged ring; a source cell (sj, si) sits at
-// extended (sj - row_base + 1, si - col_base + 1), and the ring's zero
-// fill beyond the domain is invalid.  The candidate order is kernel 4's,
-// so the buckets are bit-identical to the single-device repack.  Each
-// thread writes only its own bucket: no atomics.
+// Design: kernel 4's row-streamed repack (rebucket_rows.cuh, the one body
+// of kernels 4 and 12) on every shard, blockIdx.z the shard.  A block owns
+// a strip of tx target columns over a chunk of target rows of one shard's
+// by x bx block (markers/kernels/rebucket.py rebucket_plan on (by, bx):
+// strips of 32 columns and chunks of 32 rows at 256x512 x K18, 16 x 8 x 8
+// = 1,024 blocks), walks its rows with a ring of 4 source rows loaded by
+// cp.async, codes each slot's target once per ring row, places it by popc
+// of the cells' target masks in the reference's order and stores each
+// output row contiguously.
+//   - Source rows: global row sj, in row_base - 1 .. row_base + by, is
+//     extended row sj - row_base + 1 of the shard, row stride (bx + 2) K
+//     slots; the strip's halo columns always lie in the extended block
+//     (the exchanged ring), and beyond the domain the strip has none (as
+//     kernel 4: those columns are zero-filled, so invalid, anyway).
+//   - The one-byte valid stream is loaded as the aligned words that hold
+//     a run; the lead of each run comes from the run's own address in the
+//     extended block.
+//   - Codes use the global cell (sj, si) and the global clip to (ny, nx),
+//     so the buckets are bit-identical to the single-device repack.
+//   - Output row cj of the shard lands at ((s by + cj - row_base) bx +
+//     col - col_base) K; each target's arrivals (the reference's count
+//     output) go to (S, by, bx) int32, from which the caller sums the
+//     drops.  The block writes only its own cells: no atomics.
+// No periodic form: the reference keeps the marker halo off under
+// periodic walls.
 #include "common.cuh"
-#include "rebucket_cell.cuh"
+#include "rebucket_rows.cuh"
 
 namespace {
 
-struct BlockCells {
-    long long shard;  // first slot of the shard's extended block
-    int row_base, col_base, bx, K;
-    __device__ __forceinline__ long long base(int sj, int si) const {
-        const int er = sj - row_base + 1, ec = si - col_base + 1;
-        return shard + (static_cast<long long>(er) * (bx + 2) + ec) * K;
-    }
-};
+using namespace rebucket_rows;
 
-__global__ void rebucket_block_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ y,
-                                      const float* __restrict__ T,
-                                      const int* __restrict__ mat,
-                                      const unsigned char* __restrict__ valid,
-                                      const int* __restrict__ bases,
-                                      float* __restrict__ ox,
-                                      float* __restrict__ oy,
-                                      float* __restrict__ oT,
-                                      int* __restrict__ omat,
-                                      unsigned char* __restrict__ ovalid,
-                                      int* __restrict__ arrivals_out, int ny,
-                                      int nx, int by, int bx, int K, float dx,
-                                      float dy) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    const int r = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(NT, 3)
+rebucket_block_kernel(const RebucketArgs a, const int* __restrict__ bases,
+                      int by, int bx) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int s = blockIdx.z;
-    if (c >= bx || r >= by) return;
     const int row_base = bases[2 * s], col_base = bases[2 * s + 1];
-    const BlockCells cells{static_cast<long long>(s) * (by + 2) * (bx + 2) * K,
-                           row_base, col_base, bx, K};
-    const long long own = (static_cast<long long>(s) * by + r) * bx + c;
-    arrivals_out[own] = rebucket_cell(
-        cells, x, y, T, mat, valid, ox, oy, oT, omat, ovalid, own * K,
-        row_base + r, col_base + c, ny, nx, K, dx, dy);
+    const int c0 = blockIdx.x * a.tx, r0 = blockIdx.y * a.rows;
+    // the shard's extended block starts at global (row_base - 1,
+    // col_base - 1), its own block at (row_base, col_base)
+    const int we = bx + 2;
+    const CellMap src{static_cast<long long>(s) * (by + 2) * we
+                          - static_cast<long long>(row_base - 1) * we
+                          - (col_base - 1),
+                      we};
+    const CellMap dst{static_cast<long long>(s) * by * bx
+                          - static_cast<long long>(row_base) * bx - col_base,
+                      bx};
+    const Block b{src, dst, col_base + c0, min(a.tx, bx - c0),
+                  row_base + r0, row_base + min(r0 + a.rows, by)};
+    repack<false, true>(a, b, smem);
 }
 
 }  // namespace
 
+// bases: (S, 2) int32 on the device, each shard's first own cell (row,
+// col); arrivals: (S, by, bx) int32.  tx, rows: the strip width and chunk
+// rows of rebucket_plan(by, bx, K).
 PYLAMP_EXPORT int launch_rebucket_block(const float* x, const float* y,
                                         const float* T, const int* mat,
                                         const unsigned char* valid,
@@ -65,12 +74,25 @@ PYLAMP_EXPORT int launch_rebucket_block(const float* x, const float* y,
                                         float* oy, float* oT, int* omat,
                                         unsigned char* ovalid, int* arrivals,
                                         int S, int ny, int nx, int by, int bx,
-                                        int K, float dx, float dy,
-                                        cudaStream_t stream) {
-    dim3 block(32, 4);
-    dim3 grid((bx + block.x - 1) / block.x, (by + block.y - 1) / block.y, S);
-    rebucket_block_kernel<<<grid, block, 0, stream>>>(
-        x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, ny,
-        nx, by, bx, K, dx, dy);
+                                        int K, float dx, float dy, int tx,
+                                        int rows, cudaStream_t stream) {
+    if (S < 1 || by < 1 || bx < 1 || K < 1 || tx < 1 || rows < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = Layout(tx, K).total;
+    const RebucketArgs a{x, y, T, mat, valid, ox, oy, oT, omat, ovalid,
+                         nullptr, arrivals, ny, nx, K, tx, rows, dx, dy};
+    cudaError_t err = cudaFuncSetAttribute(
+        rebucket_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((bx + tx - 1) / tx, (by + rows - 1) / rows, S);
+    rebucket_block_kernel<<<grid, NT, smem, stream>>>(a, bases, by, bx);
     return launch_status();
+}
+
+// Occupancy of the kernel at strips of tx columns and K slots: out as
+// rebucket_kernel_info's.
+PYLAMP_EXPORT int rebucket_block_kernel_info(int K, int tx, int* out) {
+    return kernel_info(reinterpret_cast<const void*>(rebucket_block_kernel),
+                       Layout(tx, K).total, out);
 }

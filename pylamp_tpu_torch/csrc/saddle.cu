@@ -11,20 +11,21 @@
 //
 // Design: a tiled stencil in shared memory.
 //   - A block of 32 x 8 threads owns a tile of TY x TX = 16 x 32 points of
-//     the (ny+1, nx+1) point space (csrc/stencil.cuh's index space), two
-//     rows a thread.  It stages vx, vy, eta_s, eta_n and p for the tile
+//     the (ny+1, nx+1) point space, two rows a thread: point (j, i)
+//     carries vx(j, i) when j < ny, vy(j, i) when i < nx, the corner
+//     viscosity eta_s(j, i) and, in a cell, eta_n and p.  It stages vx, vy, eta_s, eta_n and p for the tile
 //     and a one-point ring into five planes of row stride SX = TX + 2
 //     (coalesced row loads; the planes with nx + 1 columns have a row
 //     pitch that is no multiple of 16 bytes, so plain 4-byte loads).  The
 //     wall ghosts are resolved at the load (ghost = s * first interior row
-//     or column, the value stencil.cuh forms inline); under periodic side
+//     or column, as ops/stokes.py pads); under periodic side
 //     walls vy's ghost columns are the wrapped columns.
 //   - The shear stress sxy is computed once per corner of the tile into a
-//     shared plane (stencil.cuh computes each corner up to four times),
-//     then rx, ry and rc are formed from the planes.
+//     shared plane (a point-at-a-time stencil computes each corner up to
+//     four times), then rx, ry and rc are formed from the planes.
 //   - The arithmetic is sweep_stencil.cuh's: SweepConsts' hoisted 1/dx,
-//     1/dy, 2/dx^2 and 2/dy^2 multiply where stencil.cuh divides, so no
-//     IEEE division is left.  That reassociation moves each result by a
+//     1/dy, 2/dx^2 and 2/dy^2 multiply where the plain version divides,
+//     so no IEEE division is left.  That reassociation moves each result by a
 //     few f32 units in the last place against the plain version (the bar
 //     is 1e-5 of max |ref|, as for kernel 5).
 //   - A tile whose staged frame holds no ghost and no Dirichlet or seam
@@ -41,7 +42,9 @@
 // bit-identical; the thread of column nx writes nothing to rx.  The seam
 // adds O(ny) work to O(ny nx).
 // The tile body (saddle_tile.cuh) is shared with the MG momentum apply
-// (kernel 7, momentum.cu), which drops the pressure and continuity rows.
+// (kernel 7, momentum.cu), which drops the pressure and continuity rows,
+// and with the per-shard saddle stencil (kernel 9, saddle_block.cu),
+// which runs it on every shard's extended blocks.
 #include "common.cuh"
 #include "saddle_tile.cuh"
 
@@ -65,7 +68,9 @@ PYLAMP_EXPORT int launch_saddle(const float* vx, const float* vy,
     const SaddleArgs& a = *args;
     const SweepConsts c = sweep_consts(a.ny, a.nx, a.dx, a.dy, a.s_top,
                                        a.s_bottom, a.s_left, a.s_right);
-    const Fields f{vx, vy, a.eta_s, a.eta_n, p, a.kk, rx, ry, rc};
+    const int W1 = a.nx + 1, W = a.nx;  // row strides: vx lattice, cells
+    const Fields f{{vx, W1}, {vy, W}, {a.eta_s, W1}, {a.eta_n, W}, {p, W},
+                   a.kk, a.kk + 1, {rx, W1}, {ry, W}, {rc, W}};
     const dim3 block(TX, BY), grid = tile_grid(a.ny, a.nx);
     if (a.periodic)
         saddle_kernel<true><<<grid, block, 0, stream>>>(f, c);

@@ -4,9 +4,10 @@
 // space held in shared memory, row stride LX: local index p is point
 // (gj, gi), p +- 1 its row neighbours and p +- LX its column neighbours;
 // the tiled applies (saddle.cu, momentum.cu through saddle_tile.cuh) take
-// its SweepConsts.  The arithmetic is stencil.cuh's (which kernel 9 keeps)
-// with the per-level constants hoisted: 1/dx, 1/dy,
-// 2/dx^2, 2/dy^2 multiply where stencil.cuh divides.  That reassociation
+// its SweepConsts (the per-shard stencil, saddle_block.cu, through
+// saddle_tile.cuh too).  The arithmetic is ops/stokes.py's with the
+// per-level constants hoisted: 1/dx, 1/dy, 2/dx^2, 2/dy^2 multiply where
+// the plain version divides.  That reassociation
 // (a / dx -> a * (1/dx): two roundings instead of one;
 // 2 eta (dv / dx) / dx -> (2 / dx^2) eta dv) moves each result by a few
 // f32 units in the last place against the plain versions.

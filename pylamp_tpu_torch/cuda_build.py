@@ -87,19 +87,22 @@ SIGNATURES = {
     # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, stream
     "launch_advect_block": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P],
     # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
-    # ny, nx, by, bx, K, dx, dy, stream
-    "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _P],
+    # ny, nx, by, bx, K, dx, dy, strip width, chunk rows, stream
+    "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _P],
     # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
     # periodic), kernel 8 at (depth, tile rows), kernel 6 at its dynamic
-    # shared bytes, kernels 1 and 7 at (periodic), kernel 4 at (K, strip
-    # width, periodic), kernel 2 at (strip width, unit slots, threads a
-    # node, flags), kernel 3 at (tile rows, tile columns, slots a round,
+    # shared bytes, kernels 1 and 7 at (periodic), kernel 9 at (with p),
+    # kernel 4 at (K, strip width, periodic), kernel 12 at (K, strip
+    # width), kernel 2 at (strip width, unit slots, threads a node,
+    # flags), kernel 3 at (tile rows, tile columns, slots a round,
     # periodic)
     "cheb_kernel_info": [_I, _I, _I, _P],
     "cheb_block_kernel_info": [_I, _I, _P],
     "saddle_kernel_info": [_I, _P],
     "momentum_kernel_info": [_I, _P],
+    "saddle_block_kernel_info": [_I, _P],
     "rebucket_kernel_info": [_I, _I, _I, _P],
+    "rebucket_block_kernel_info": [_I, _I, _P],
     "m2g_kernel_info": [_I, _I, _I, _I, _P],
     "advect_kernel_info": [_I, _I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],

@@ -30,7 +30,8 @@ from pylamp_tpu_torch.markers.kernels import check_markers
 launches = 0
 launches_periodic = 0
 
-# csrc/rebucket.cu's constants and the H100's shared memory
+# csrc/rebucket_rows.cuh's constants (kernels 4 and 12) and the H100's
+# shared memory
 THREADS = 256
 RING = 4  # source rows held in shared memory
 STRIP_WIDTHS = (32, 16, 8, 4, 2, 1)  # target columns of a block, widest first
@@ -47,13 +48,13 @@ def _round4(n: int) -> int:
 
 def smem_bytes(tx: int, K: int) -> int:
     """Dynamic shared bytes of a block with strips of ``tx`` columns (the
-    Layout of csrc/rebucket.cu): RING ring rows of (tx + 2) K slots (x, y,
-    T, mat: 16 bytes a slot; 9 target masks of ceil(K / 32) words per
-    cell; two counts of the slots that change rows; the valid bytes,
-    which the codes overwrite, of three runs, each
-    with up to 3 bytes of alignment lead), the output row of tx K slots
-    (16 bytes a slot), 9 insertion offsets and a count per target, one
-    drop sum per warp."""
+    Layout of csrc/rebucket_rows.cuh, kernels 4 and 12): RING ring rows of
+    (tx + 2) K slots (x, y, T, mat: 16 bytes a slot; 9 target masks of
+    ceil(K / 32) words per cell; two counts of the slots that change rows;
+    the valid bytes, which the codes overwrite, of three runs, each with
+    up to 3 bytes of alignment lead), the output row of tx K slots (16
+    bytes a slot), 9 insertion offsets and a count per target, one drop
+    sum per warp."""
     row = (16 * (tx + 2) * K + 36 * math.ceil(K / 32) * (tx + 2) + 8
            + 2 * _round4(K + 3) + _round4(tx * K + 3))
     return RING * row + 16 * tx * K + 40 * tx + 4 * (THREADS // 32)
@@ -65,7 +66,8 @@ def blocks_per_sm(smem: int) -> int:
 
 
 class RebucketPlan(NamedTuple):
-    """How csrc/rebucket.cu covers an (ny, nx) grid of target cells: blocks
+    """How csrc/rebucket.cu covers an (ny, nx) grid of target cells (and
+    csrc/rebucket_block.cu each shard's (by, bx) block): blocks
     of ``tx`` columns by ``rows`` rows (the last strip and chunk take what
     is left), ``nstrips`` x ``nchunks`` of them, ``smem`` dynamic shared
     bytes each."""
@@ -84,6 +86,12 @@ class RebucketPlan(NamedTuple):
                 yield j0, min(self.rows, ny - j0), i0, min(self.tx, nx - i0)
 
 
+def repack_fits(K: int) -> bool:
+    """Whether a block of the narrowest strip holds K slots a cell: the
+    capacities ``rebucket_plan`` (and so kernels 4 and 12) take, K <= 993."""
+    return smem_bytes(STRIP_WIDTHS[-1], K) <= SMEM_BLOCK_MAX
+
+
 @functools.lru_cache(maxsize=64)
 def rebucket_plan(ny: int, nx: int, K: int) -> RebucketPlan:
     """The widest strip whose block leaves room for 2 resident blocks per
@@ -91,10 +99,10 @@ def rebucket_plan(ny: int, nx: int, K: int) -> RebucketPlan:
     chunks of CHUNK_ROWS rows: at 1024^2 x K18, 32 x 32 blocks of 32
     columns, 56 KB each (room for 4 per SM; the kernel's 80 registers a
     thread allow 3)."""
-    fits = [tx for tx in STRIP_WIDTHS if smem_bytes(tx, K) <= SMEM_BLOCK_MAX]
-    if not fits:
+    if not repack_fits(K):
         raise ValueError(f"rebucket kernel: K = {K} slots per cell do not "
                          "fit one block's shared memory")
+    fits = [tx for tx in STRIP_WIDTHS if smem_bytes(tx, K) <= SMEM_BLOCK_MAX]
     two = [tx for tx in fits if blocks_per_sm(smem_bytes(tx, K)) >= 2]
     tx = (two or fits)[0]
     rows = min(CHUNK_ROWS, ny)

@@ -11,9 +11,15 @@ shards' own repacked buckets (S, by, bx, K) and the arrivals per cell
 
 ``rebucket_block`` runs the plain PyTorch version (``rebucket_block_plain``,
 ``bucket.rebucket``'s candidate slabs cut from the extended blocks) on CPU
-tensors and launches the kernel on CUDA tensors.
+tensors and launches the kernel on CUDA tensors.  The kernel is kernel
+4's row-streamed repack (``csrc/rebucket_rows.cuh``) on every shard, on
+``rebucket.rebucket_plan(by, bx, K)``'s strips and chunks; it takes K up
+to 993 (``rebucket.repack_fits``: the mesh path's gate routes larger K
+to the plain version).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,6 +31,7 @@ from pylamp_tpu_torch.markers.bucket import (
     pack_candidates,
     target_cells,
 )
+from pylamp_tpu_torch.markers.kernels.rebucket import rebucket_plan
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -51,6 +58,18 @@ def rebucket_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
     return pack_candidates(takes, cands, K)
 
 
+def kernel_info(K: int, tx: int) -> dict:
+    """Occupancy of the kernel with strips of ``tx`` columns at ``K``
+    slots, from the card's function attributes: registers per thread,
+    static and dynamic shared bytes, local (spill) bytes per thread,
+    threads and resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().rebucket_block_kernel_info(
+        K, tx, out), "rebucket_block (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
+
+
 def _check(name, t, dtype, shape):
     if (t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_cuda
             or not t.is_contiguous()):
@@ -69,6 +88,7 @@ def rebucket_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
                            ("valid", ve, torch.bool)):
         _check(name, t, dtype, (S, bye, bxe, K))
     _check("bases", bases, torch.int32, (S, 2))
+    plan = rebucket_plan(by, bx, K)
     dev = xe.device
     own = (S, by, bx, K)
     ox = torch.empty(own, dtype=torch.float32, device=dev)
@@ -80,7 +100,7 @@ def rebucket_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
         xe.data_ptr(), ye.data_ptr(), Te.data_ptr(), me.data_ptr(),
         ve.data_ptr(), bases.data_ptr(), ox.data_ptr(), oy.data_ptr(),
         oT.data_ptr(), omat.data_ptr(), ovalid.data_ptr(), arrivals.data_ptr(),
-        S, grid.ny, grid.nx, by, bx, K, grid.dx, grid.dy,
+        S, grid.ny, grid.nx, by, bx, K, grid.dx, grid.dy, plan.tx, plan.rows,
         cuda_build.stream_ptr(dev))
     cuda_build.check(code, "rebucket_block")
     launches += 1

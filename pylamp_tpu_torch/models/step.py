@@ -495,8 +495,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                 markers, vx, vy, dt, grid, vbc, marker_halo_mesh,
                 stage_reach=reach,
                 kernel=solver.use_pallas_advect and kern and marker_blocks)
-            markers, dropped = rebucket_halo(markers, grid, marker_halo_mesh,
-                                             kernel=kern and marker_blocks)
+            # the per-shard repack's gate also takes the capacity
+            markers, dropped = rebucket_halo(
+                markers, grid, marker_halo_mesh,
+                kernel=kern and block_kernel_eligible(
+                    grid.ny // marker_halo_mesh.my,
+                    grid.nx // marker_halo_mesh.mx, markers.capacity))
         else:
             if solver.use_pallas_advect and kern:
                 markers = advect_rk4_fused(markers, vx, vy, dt, grid, vbc,

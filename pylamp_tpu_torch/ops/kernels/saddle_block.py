@@ -12,13 +12,19 @@ has no wall logic.
 
 ``saddle_block`` runs the plain PyTorch version (``saddle_block_plain``,
 the tensor branch of the reference's shard body) on CPU tensors and
-launches the kernel on CUDA tensors.
+launches the kernel on CUDA tensors.  The kernel is kernel 1's tile
+(``csrc/saddle_tile.cuh``) on every shard; ``tile_plan`` mirrors its
+tiles of a shard's points.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from pylamp_tpu_torch import cuda_build
+from pylamp_tpu_torch.ops.kernels.saddle import TILE_X, TILE_Y
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
@@ -57,6 +63,44 @@ def saddle_block_plain(vx_ext, vy_ext, p_ext, es_ext, en_ext, grid_dx,
     return rx, ry, rc
 
 
+class BlockTilePlan(NamedTuple):
+    """How csrc/saddle_block.cu tiles each shard's by x bx points
+    (``block_tile_grid``): nty x ntx tiles of TILE_Y x TILE_X points a
+    shard, the last row and column of tiles clipped to the block."""
+    nty: int
+    ntx: int
+
+    def extents(self, by: int, bx: int):
+        """Every tile's own points as (row0, rows, col0, cols) of the
+        (by, bx) output, and whether it takes the branch-free form
+        (``apply_block_tile``: the tile is full, so its staged frame,
+        extended rows row0..row0 + TILE_Y + 1 and columns col0..col0 +
+        TILE_X + 1, lies in the extended block)."""
+        for ty in range(self.nty):
+            r0 = ty * TILE_Y
+            for tx in range(self.ntx):
+                c0 = tx * TILE_X
+                rows, cols = min(TILE_Y, by - r0), min(TILE_X, bx - c0)
+                yield r0, rows, c0, cols, (rows, cols) == (TILE_Y, TILE_X)
+
+
+def tile_plan(by: int, bx: int) -> BlockTilePlan:
+    """The tiles of kernel 9 on one shard's by x bx block (each shard has
+    the same, blockIdx.z)."""
+    return BlockTilePlan(-(-by // TILE_Y), -(-bx // TILE_X))
+
+
+def kernel_info(with_p: bool = True) -> dict:
+    """Occupancy of the kernel (``with_p``: the form with p) from the
+    card's function attributes: registers per thread, static shared bytes,
+    local (spill) bytes per thread, threads and resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().saddle_block_kernel_info(
+        int(with_p), out), "saddle_block (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
+
+
 def _check(name, t, shape):
     if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or not t.is_cuda:
@@ -82,16 +126,19 @@ def saddle_block_cuda(vx_ext, vy_ext, p_ext, es_ext, en_ext, grid_dx,
     for name, t, shape in ins:
         _check(name, t, shape)
     dev = vx_ext.device
-    kc = torch.as_tensor(kcont, dtype=torch.float32, device=dev).reshape(1)
     rx = torch.empty((S, by, bx), dtype=torch.float32, device=dev)
     ry = torch.empty_like(rx)
-    rc = torch.empty_like(rx) if with_p else None
+    rc = kc = None
+    if with_p:
+        rc = torch.empty_like(rx)
+        kc = torch.as_tensor(kcont, dtype=torch.float32,
+                             device=dev).reshape(1)
     code = cuda_build.library().launch_saddle_block(
         vx_ext.data_ptr(), vy_ext.data_ptr(),
         p_ext.data_ptr() if with_p else None, es_ext.data_ptr(),
-        en_ext.data_ptr(), kc.data_ptr(), rx.data_ptr(), ry.data_ptr(),
-        rc.data_ptr() if with_p else None, S, by, bx, grid_dx, grid_dy,
-        cuda_build.stream_ptr(dev))
+        en_ext.data_ptr(), kc.data_ptr() if with_p else None, rx.data_ptr(),
+        ry.data_ptr(), rc.data_ptr() if with_p else None, S, by, bx, grid_dx,
+        grid_dy, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "saddle_block")
     launches += 1
     return (rx, ry, rc) if with_p else (rx, ry)

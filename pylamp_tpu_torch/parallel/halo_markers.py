@@ -50,6 +50,7 @@ from pylamp_tpu_torch.markers.kernels.m2g_block import (
     m2g_fused_block,
     m2g_fused_block_plain,
 )
+from pylamp_tpu_torch.markers.kernels.rebucket import repack_fits
 from pylamp_tpu_torch.markers.kernels.rebucket_block import (
     rebucket_block,
     rebucket_block_plain,
@@ -69,11 +70,14 @@ def halo_markers_eligible(grid: StaggeredGrid, mesh: Mesh) -> bool:
             and grid.ny // my >= 4 and grid.nx // mx >= 4)
 
 
-def block_kernel_eligible(by: int, bx: int) -> bool:
+def block_kernel_eligible(by: int, bx: int, K: int | None = None) -> bool:
     """The per-shard marker kernels' shape gate (the reference's
     m2g/advect/rebucket block gates without the platform test and the TPU
-    VMEM model): block heights a multiple of 8."""
-    return by % 8 == 0 and by >= 8
+    VMEM model): block heights a multiple of 8; with ``K``, the per-shard
+    repack's too: its plan holds K slots a cell in one block's shared
+    memory (``rebucket.repack_fits``, K <= 993), as the reference's gate
+    carries its VMEM model."""
+    return by % 8 == 0 and by >= 8 and (K is None or repack_fits(K))
 
 
 def _blocks(mesh: Mesh, grid: StaggeredGrid):

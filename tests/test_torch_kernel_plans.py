@@ -1,6 +1,7 @@
-"""The launch plans and host-side checks of kernels 1-4, 7 and 8 on the
-CPU: ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row
-chunks of csrc/rebucket.cu, its shared memory and resident blocks),
+"""The launch plans and host-side checks of kernels 1-4, 7-9 and 12 on
+the CPU: ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row
+chunks of csrc/rebucket.cu, its shared memory and resident blocks, and
+the same plan on each shard's block for csrc/rebucket_block.cu),
 ``markers/kernels/m2g.py m2g_plan`` (the node strips, node-row chunks and
 slot units of csrc/m2g.cu), ``markers/kernels/advect.py advect_plan`` (the
 cell tiles and rounds of csrc/advect.cu), the checks
@@ -8,7 +9,7 @@ cell tiles and rounds of csrc/advect.cu), the checks
 per-call path of the saddle kernel relies on, ``saddle.tile_plan`` (the
 tiles of csrc/saddle_tile.cuh, kernels 1 and 7) and
 ``ops/kernels/cheb.py block_tile_plan`` (kernel 8's tiles of each shard's
-block)."""
+block) and ``ops/kernels/saddle_block.py tile_plan`` (kernel 9's)."""
 import numpy as np
 import pytest
 import torch
@@ -417,3 +418,120 @@ def test_momentum_and_cheb_block_cuda_refuse_cpu_tensors():
     momentum.momentum_apply_kernel(vx, vy, prep, grid, VelocityBCs())
     cheb_block.cheb_block(*frames, bprep, grid, VelocityBCs(), 2, False, True)
     assert (momentum.launches, cheb_block.launches) == (n7, n8)
+
+
+# -- kernel 9 (saddle_block) and kernel 12 (rebucket_block) -------------------
+
+@pytest.mark.parametrize("by,bx", [(256, 512), (64, 128), (21, 38), (8, 16)])
+def test_saddle_block_tile_plan_covers_every_point_once(by, bx):
+    """Kernel 9's tiles (blockIdx.z the shard, the same tiles on each)
+    cover every own point (r, c) of every shard once, each at most 16 x 32;
+    a branch-free tile is full and its staged frame (extended rows r0 ..
+    r0 + 17, columns c0 .. c0 + 33; es_ext from (r0, c0)) lies in the
+    extended blocks; only the ragged last row and column of tiles bound
+    their loads, and at the mesh's 256x512 blocks none does."""
+    from pylamp_tpu_torch.ops.kernels import saddle_block
+
+    S = 8
+    plan = saddle_block.tile_plan(by, bx)
+    hits = np.zeros((S, by, bx), np.int32)
+    for s in range(S):
+        for r0, rows, c0, cols, full in plan.extents(by, bx):
+            assert 0 < rows <= saddle.TILE_Y and 0 < cols <= saddle.TILE_X
+            hits[s, r0:r0 + rows, c0:c0 + cols] += 1
+            if full:
+                assert r0 + saddle.TILE_Y + 1 <= by + 1
+                assert c0 + saddle.TILE_X + 1 <= bx + 1
+            else:
+                assert (r0 + rows == by) or (c0 + cols == bx)
+    assert (hits == 1).all()
+    partial_tiles = sum(not full for *_, full in plan.extents(by, bx))
+    if by % saddle.TILE_Y == 0 and bx % saddle.TILE_X == 0:
+        assert partial_tiles == 0
+    else:
+        assert partial_tiles > 0
+
+
+@pytest.mark.parametrize("n,shards,K", [(1024, 8, 18), (40, 4, 18),
+                                        (90, 4, 9), (36, 9, 33)])
+def test_rebucket_block_plan_covers_every_cell_once(n, shards, K):
+    """Kernel 12's launch over blocks (rebucket_plan on each shard's (by,
+    bx), blockIdx.z the shard) writes every own cell of every shard once,
+    at the mesh's 256x512 blocks (1,024 blocks, as kernel 4 at 1024^2),
+    at 20x20 blocks narrower than one strip and at 45x45 blocks whose
+    width is no multiple of the strip; every block's source rows (one
+    above and below its chunk) and halo columns lie in the shard's
+    extended block, and its global cells in the domain."""
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(shards)
+    by, bx = n // mesh.my, n // mesh.mx
+    plan = rebucket.rebucket_plan(by, bx, K)
+    bases = mesh.bases(by, bx).numpy()
+    hits = np.zeros((n, n), np.int32)
+    blocks = 0
+    for s, (row_base, col_base) in enumerate(bases):
+        for r0, rows, c0, cols in plan.extents(by, bx):
+            blocks += 1
+            j_lo, i0 = row_base + r0, col_base + c0
+            hits[j_lo:j_lo + rows, i0:i0 + cols] += 1
+            # extended rows and columns of the sources (global - base + 1)
+            assert 0 <= j_lo - 1 - row_base + 1
+            assert j_lo + rows - row_base + 1 <= by + 1
+            assert 0 <= i0 - 1 - col_base + 1
+            assert i0 + cols - col_base + 1 <= bx + 1
+    assert (hits == 1).all()
+    assert blocks == shards * plan.nstrips * plan.nchunks
+    if (n, shards, K) == (1024, 8, 18):
+        assert (plan.tx, plan.rows, blocks) == (32, 32, 1024)
+    if bx < plan.tx:
+        assert plan.nstrips == 1
+
+
+@pytest.mark.parametrize("K", [1, 9, 18, 33, 64, 100])
+def test_rebucket_block_plan_fits_shared_memory(K):
+    """At the mesh's 256x512 and 20x20 blocks every plan's block fits the
+    227 KB a block may use, with two blocks resident per SM, and the
+    per-shard marker gate admits these K at the mesh's blocks (the repack
+    takes K <= 993 and the gate routes larger K to the plain version)."""
+    from pylamp_tpu_torch.parallel.halo_markers import block_kernel_eligible
+
+    for by, bx in ((256, 512), (20, 20)):
+        plan = rebucket.rebucket_plan(by, bx, K)
+        assert plan.smem == rebucket.smem_bytes(plan.tx, K)
+        assert plan.smem <= rebucket.SMEM_BLOCK_MAX
+        assert rebucket.blocks_per_sm(plan.smem) >= 2
+    assert block_kernel_eligible(256, 512, K)
+    assert block_kernel_eligible(256, 512, 993)
+    assert not block_kernel_eligible(256, 512, 994)
+    assert not rebucket.repack_fits(994)
+
+
+def test_block_kernels_cuda_refuse_cpu_tensors():
+    """The kernel paths of kernels 9 and 12 raise on CPU tensors before any
+    launch (no fallback inside them); their entry points take the plain
+    versions for them."""
+    from pylamp_tpu_torch.markers.kernels import rebucket_block
+    from pylamp_tpu_torch.ops.kernels import saddle_block
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    S, by, bx, K = 4, 8, 16, 3
+    g = torch.Generator().manual_seed(12)
+    ext = torch.rand((S, by + 2, bx + 2), generator=g)
+    es = torch.rand((S, by + 1, bx + 1), generator=g) + 0.5
+    with pytest.raises(ValueError, match="CUDA"):
+        saddle_block.saddle_block_cuda(ext, ext, ext, es, ext, 0.1, 0.2)
+    grid = StaggeredGrid(nx=2 * bx, ny=2 * by, lx=1.0, ly=1.0)
+    shape = (S, by + 2, bx + 2, K)
+    xe, ye, Te = (torch.rand(shape, generator=g) for _ in range(3))
+    me = torch.zeros(shape, dtype=torch.int32)
+    ve = torch.ones(shape, dtype=torch.bool)
+    bases = make_mesh(S).bases(by, bx)
+    with pytest.raises(ValueError, match="CUDA"):
+        rebucket_block.rebucket_block_cuda(xe, ye, Te, me, ve, grid, bases)
+    n9, n12 = saddle_block.launches, rebucket_block.launches
+    out = saddle_block.saddle_block(ext, ext, None, es, ext, 0.1, 0.2)
+    new, arrivals = rebucket_block.rebucket_block(xe, ye, Te, me, ve, grid,
+                                                  bases)
+    assert (saddle_block.launches, rebucket_block.launches) == (n9, n12)
+    assert len(out) == 2 and arrivals.shape == (S, by, bx)

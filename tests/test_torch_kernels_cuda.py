@@ -487,13 +487,18 @@ def test_marker_kernels_sticky_air_si(dev):
 # -- the per-shard kernels (8-12) of the explicit-halo mesh path --------------
 
 @pytest.mark.parametrize("with_p", [True, False])
-@pytest.mark.parametrize("by,bx", [(256, 512), (128, 256), (21, 38)])
-def test_saddle_block_kernel(dev, by, bx, with_p):
-    """Kernel 9 in both forms on 8 shards' extended blocks, at the 4x2
-    blocks of FK 1024^2 and 512^2 and an odd shape."""
+@pytest.mark.parametrize("S,by,bx", [(8, 256, 512), (8, 128, 256),
+                                     (8, 21, 38), (8, 24, 40), (8, 17, 33),
+                                     (8, 20, 64), (8, 32, 40), (9, 64, 128),
+                                     (9, 21, 38)])
+def test_saddle_block_kernel(dev, S, by, bx, with_p):
+    """Kernel 9 in both forms on the shards' extended blocks, at the 4x2
+    blocks of FK 1024^2 and 512^2, at odd shapes whose last row or column
+    of 16 x 32 tiles is partial (21x38, 24x40 and 17x33 in both
+    dimensions, 20x64 in y only, 32x40 in x only) and on a 3x3 mesh; a
+    rerun bit-identical."""
     from pylamp_tpu_torch.ops.kernels import saddle_block
 
-    S = 8
     gen = torch.Generator(device=dev).manual_seed(91)
 
     def r(*shape):
@@ -511,6 +516,9 @@ def test_saddle_block_kernel(dev, by, bx, with_p):
     assert len(got) == len(ref) == (3 if with_p else 2)
     for g, rf in zip(got, ref):
         assert _rel(g, rf) <= 1e-5
+    for g, a in zip(got, saddle_block.saddle_block(vx, vy, p, es, en, 1 / bx,
+                                                   1 / by, 3.5)):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("zero_init", [True, False])
@@ -693,12 +701,16 @@ def _disp_rel(got, ref, start):
         torch.max(torch.abs(ref.double() - start.double())))
 
 
-@pytest.mark.parametrize("capacity", [18, 9])
-@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4)])
+@pytest.mark.parametrize("capacity", [18, 9, 1, 33, 64])
+@pytest.mark.parametrize("n,mesh_n", [(1024, 8), (40, 4), (72, 9)])
 def test_rebucket_block_kernel(dev, n, mesh_n, capacity):
-    """Kernel 12 bit-identical to its plain version and the halo rebucket
-    to kernel 4, with markers displaced across the seams (capacity 9 forces
-    overflow drops)."""
+    """Kernel 12 bit-identical to its plain version, arrivals included, and
+    the halo rebucket to kernel 4 with the same drops, with markers
+    displaced across the seams: at the 4x2 blocks of FK 1024^2, at 20x20
+    and 24x24 blocks narrower than one 32-column strip (2x2 and 3x3
+    meshes), and at K 1, 9, 18, 33 and 64 (the FK markers' 18 slots cut,
+    or padded with empty slots); capacities 9 and 1 force overflow
+    drops."""
     from pylamp_tpu_torch.markers.kernels import rebucket_block
     from pylamp_tpu_torch.parallel.halo_markers import BLK3, rebucket_halo
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -709,12 +721,18 @@ def test_rebucket_block_kernel(dev, n, mesh_n, capacity):
     gen = torch.Generator(device=dev).manual_seed(97)
     dx = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dx
     dy = (torch.rand(bm.x.shape, generator=gen, device=dev) - 0.5) * 1.9 * grid.dy
+    def cap(a):
+        """a cut to ``capacity`` slots, or padded with empty ones"""
+        pad = capacity - a.shape[-1]
+        if pad <= 0:
+            return a[..., :capacity].contiguous()
+        return torch.cat([a, torch.zeros(a.shape[:-1] + (pad,),
+                                         dtype=a.dtype, device=dev)], -1)
+
     moved = BucketedMarkers(
-        x=torch.clamp(bm.x + dx, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
-        y=torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)[..., :capacity].contiguous(),
-        mat=bm.mat[..., :capacity].contiguous(),
-        T=bm.T[..., :capacity].contiguous(),
-        valid=bm.valid[..., :capacity].contiguous())
+        x=cap(torch.clamp(bm.x + dx, 1e-6, 1 - 1e-6)),
+        y=cap(torch.clamp(bm.y + dy, 1e-6, 1 - 1e-6)),
+        mat=cap(bm.mat), T=cap(bm.T), valid=cap(bm.valid))
     by, bx = n // mesh.my, n // mesh.mx
     ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
            for a in (moved.x, moved.y, moved.T, moved.mat, moved.valid)]
@@ -731,7 +749,7 @@ def test_rebucket_block_kernel(dev, n, mesh_n, capacity):
     for f in ("x", "y", "mat", "T", "valid"):
         assert torch.equal(getattr(hm, f), getattr(gm, f)), f
     assert int(hd) == int(gd)
-    if capacity == 9:
+    if capacity <= 9:
         assert int(gd) > 0
 
 
@@ -866,11 +884,13 @@ def test_coarse_vcycle_preps_interleaved(dev):
 
 def test_redesigned_kernels_fit_without_spills(dev):
     """Kernels 5 and 8 at every depth and tile height, kernel 6 at the FK
-    128^2 and sticky-air 128x32 plans, kernels 1, 4 and 7 in both forms: no
-    local memory (spills), kernels 5 and 8 with 16 warps resident per SM,
-    one cluster of kernel 6 resident, kernel 6's static shared memory the
-    planner's SMEM_STATIC, kernel 4's dynamic shared memory its plan's."""
-    from pylamp_tpu_torch.ops.kernels import cheb_block
+    128^2 and sticky-air 128x32 plans, kernels 1, 4, 7 and 9 in both forms,
+    kernel 12 at its plans at the 4x2 blocks: no local memory (spills),
+    kernels 5 and 8 with 16 warps resident per SM, one cluster of kernel 6
+    resident, kernel 6's static shared memory the planner's SMEM_STATIC,
+    kernels 4 and 12's dynamic shared memory their plans'."""
+    from pylamp_tpu_torch.markers.kernels import rebucket_block
+    from pylamp_tpu_torch.ops.kernels import cheb_block, saddle_block
 
     for he in range(1, 8):
         for ty in cheb.TILE_ROWS:
@@ -901,6 +921,19 @@ def test_redesigned_kernels_fit_without_spills(dev):
             assert info["local_bytes"] == 0, (K, info)
             assert info["dynamic_smem"] == plan.smem, (K, info)
             assert info["blocks_per_sm"] >= 2, (K, info)
+    # kernel 9 (kernel 1's tile on the shards' blocks) in both forms and
+    # kernel 12 (kernel 4's repack) at the plans of the 4x2 blocks, two
+    # blocks resident per SM as rebucket_plan promises
+    for with_p in (True, False):
+        info = saddle_block.kernel_info(with_p)
+        assert info["local_bytes"] == 0, ("saddle_block", with_p, info)
+        assert info["blocks_per_sm"] * info["threads"] >= 1024, info
+    for K in (1, 9, 18, 32, 33, 64, 100):
+        plan = rebucket.rebucket_plan(256, 512, K)
+        info = rebucket_block.kernel_info(K, plan.tx)
+        assert info["local_bytes"] == 0, ("rebucket_block", K, info)
+        assert info["dynamic_smem"] == plan.smem, (K, info)
+        assert info["blocks_per_sm"] >= 2, (K, info)
 
 
 # -- the periodic forms of kernels 1-5 and 7 ----------------------------------

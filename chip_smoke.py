@@ -24,7 +24,11 @@ plain PyTorch version on the card:
   each of its six mesh levels (blocks 256x512 to 8x16), kernel 9 in both
   forms at 256x512 and 128x256, kernels 10-12 on the blocks of the FK
   markers, each at one odd shape as well (kernel 9 at 21x38, partial
-  tiles in both dimensions; kernel 12 at 20x20, narrower than one strip);
+  tiles in both dimensions; kernels 10-12 at 20x20, narrower than one
+  strip), and kernels 10-12 held bit for bit to their single-device
+  siblings at both shapes: the halo transfer to kernel 2, kernel 11 on
+  windows cut from kernel 3's padded lattices to kernel 3 (reach 1 and
+  2), the halo rebucket to kernel 4;
 - the periodic forms of kernels 1-5 and 7 (rows ``*_periodic``) at the
   shapes of the periodic falling block at 1024^2 x K18: kernel 1 on the
   solve's viscosities, kernels 2-4 on its markers, kernel 5 on levels
@@ -33,7 +37,8 @@ plain PyTorch version on the card:
 - kernels 2 and 10 with the rho0 * alpha stream (rows ``m2g_ra`` and
   ``m2g_block_ra``, adiabatic heating's corner field) on the FK markers
   and their 4x2 blocks, each at one odd shape (37x23; 40^2 on 2x2): a
-  rerun and every other stream bit-identical.
+  rerun and every other stream bit-identical, and the halo transfer with
+  the stream bit-identical to kernel 2's.
 
 Kernels 1-4 are checked in both forms at odd shapes as well (kernel 1
 at 23x37 and 129x257, seam columns bit-identical; kernel 4 at 37x23 x
@@ -52,11 +57,12 @@ form is also timed on each of its six levels and kernel 6 on both
 hierarchies, per call and on the device alone, both checked bit-identical
 on a rerun; an "occupancy" line gives the registers, shared memory and
 resident blocks of kernels 5, 6 and 8 (clusters for kernel 6) and of
-kernels 1-4, 7, 9 and 12 in every form from the card, and every kernel's
-ptxas registers and spills (kernels 1-9 and 12 must not spill; kernels
-2-4 and 12 must keep their plans' shared memory, kernels 3, 4 and 12 2
-blocks per SM, kernel 2 4 at FK).  Then two paths run through the port's ``build`` +
-``make_step``, each with every launch counter set to 0 just before it:
+kernels 1-4, 7 and 9-12 in every form from the card, and every kernel's
+ptxas registers and spills (no kernel may spill; kernels 2-4 and 10-12
+must keep their plans' shared memory, kernels 3, 4, 11 and 12 2 blocks
+per SM, kernels 2 and 10 4 at FK).  Then two paths run through the
+port's ``build`` + ``make_step``, each with every launch counter set to 0
+just before it:
 
 - FK 1024^2, ``fk_bench_config`` (the JAX bench preset): 2 warm-up + 3
   measured steps, kernels 1-6; then its A/B partner
@@ -950,17 +956,19 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 
 def report_occupancy(cuda_build, smi):
     """The occupancy line: kernels 5, 6 and 8 per timed instantiation, and
-    kernels 1-4, 7, 9 and 12 in every form (2-4 at the FK plans, 12 at the
-    4x2 blocks' plan, K = 18), from the card's function attributes
+    kernels 1-4, 7 and 9-12 in every form (2-4 at the FK plans, 10-12 at
+    the 4x2 blocks' plans, K = 18), from the card's function attributes
     (registers, static and dynamic shared memory, local bytes, resident
     blocks per SM or clusters), and every kernel's registers, static
-    shared memory and spills from the build's ``ptxas -v`` report.
-    Kernels 1-9 and 12 must not spill; kernels 2-4's and 12's dynamic
-    shared memory must be their plans', with at least 2 blocks resident
-    per SM (kernel 2: 4, which its 9-slot units are sized for)."""
+    shared memory and spills from the build's ``ptxas -v`` report.  No
+    kernel may spill; kernels 2-4's and 10-12's dynamic shared memory must
+    be their plans', with at least 2 blocks resident per SM (kernels 2 and
+    10: 4, which their 9-slot units are sized for)."""
     from pylamp_tpu_torch.markers.kernels import (
         advect,
+        advect_block,
         m2g,
+        m2g_block,
         rebucket,
         rebucket_block,
     )
@@ -995,6 +1003,18 @@ def report_occupancy(cuda_build, smi):
     info = rebucket_block.kernel_info(18, b_plan.tx)
     OCCUPANCY[f"rebucket_block {by}x{bx}xK18 strips of {b_plan.tx}"] = info
     held.append(("rebucket_block", info, b_plan.smem, 2))
+    mb_plan = m2g_block.block_plan(MESH_SHARDS, by, bx, 18)
+    for ra in (False, True):
+        name = f"m2g_block{' ra' if ra else ''}"
+        info = m2g_block.kernel_info(
+            mb_plan, m2g.FLAG_ENERGY | m2g.FLAG_RA * ra)
+        OCCUPANCY[f"{name} {by}x{bx}xK18 units of {mb_plan.kc}"] = info
+        held.append((name, info, mb_plan.smem, 4))
+    ab_plan = advect.advect_plan(by, bx, 18)
+    info = advect_block.kernel_info(ab_plan)
+    OCCUPANCY[f"advect_block {by}x{bx}xK18 tiles of "
+              f"{ab_plan.ty}x{ab_plan.tx}"] = info
+    held.append(("advect_block", info, ab_plan.smem, 2))
     for name, info, smem, blocks in held:
         if info["dynamic_smem"] != smem or info["blocks_per_sm"] < blocks:
             raise AssertionError(f"{name}: {info}, the plan assumes {smem} "
@@ -1008,14 +1028,10 @@ def report_occupancy(cuda_build, smi):
                                    "kernels": OCCUPANCY,
                                    "ptxas": ptx}))
     spills = [r["function"] for r in ptx
-              if r["source"] in ("cheb.cu", "coarse_vcycle.cu", "saddle.cu",
-                                 "rebucket.cu", "m2g.cu", "advect.cu",
-                                 "momentum.cu", "cheb_block.cu",
-                                 "saddle_block.cu", "rebucket_block.cu")
-              and (r["spill_stores"] or r["spill_loads"])]
+              if r["spill_stores"] or r["spill_loads"]]
     spills += [k for k, v in OCCUPANCY.items() if v["local_bytes"]]
     if spills:
-        raise AssertionError(f"kernels 1-9 and 12 spill registers: {spills}")
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 def check_state(state, n_markers, diag, label):
@@ -1407,15 +1423,22 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
     """The per-shard kernels 8-12 against their plain versions at the 4x2
     per-shard shapes of the FK 1024^2 x K18 step, each at one odd shape as
     well; inputs from the built state and its first solve (``fk``: the
-    solve's eta, velocities and dt), seeded random residuals."""
+    solve's eta, velocities and dt), seeded random residuals.  Kernels
+    10-12 are also held bit for bit to their single-device siblings: the
+    halo transfer to kernel 2, kernel 11 on windows cut from kernel 3's
+    padded lattices to kernel 3 (reach 1 and 2), the halo rebucket to
+    kernel 4."""
     from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.markers.bucket import padded_velocities
     from pylamp_tpu_torch.markers.kernels import (
+        advect,
         advect_block,
         m2g,
         m2g_block,
         rebucket,
         rebucket_block,
     )
+    from pylamp_tpu_torch.markers.kernels.advect_block import cut_windows
     from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.ops.kernels import cheb, cheb_block, saddle_block
@@ -1590,11 +1613,15 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
         e10.append(errors((got[k], ref[k]) for k in ref))
         halo = m2g_fused_halo(m, g, table, phys, msh, with_energy=True)
         glob = m2g.m2g_fused_cuda(m, g, table, phys, with_energy=True)
-        same = all(torch.equal(halo[k], glob[k]) for k in glob)
+        same = sorted(halo) == sorted(glob) and all(
+            torch.equal(halo[k], glob[k]) for k in glob)
         log(f"m2g_block {label}: kernel vs plain rel {e10[-1][1]:.3e}; halo "
             f"transfer vs kernel 2 {'bit-identical' if same else 'max rel '}"
             + ("" if same else
                f"{errors((halo[k], glob[k]) for k in glob)[1]:.3e}"))
+        if not same:  # kernel 2's body in kernel 2's order
+            raise AssertionError(f"m2g_block {label}: the halo transfer is "
+                                 "not bit-identical to kernel 2")
         if "m2g_block" not in rows_t:
             n_ext = int(ext[4].sum())
             rows_t["m2g_block"] = (
@@ -1611,7 +1638,26 @@ def mesh_kernel_rows(grid, cfg, table, state, fk):
         got = advect_block.advect_block_cuda(*adv)
         ref = advect_block.advect_block_plain(*adv)
         e11.append(displacement_error(got, ref, own[:2]))
-        log(f"advect_block {label}: displacement rel err {e11[-1][1]:.3e}")
+        # on windows cut from kernel 3's padded lattices, kernel 11 gives
+        # kernel 3's positions bit for bit, at both stage reaches
+        cut_same = []
+        for R in (1, 2):
+            k3 = advect.advect_rk4_cuda(m, vx.float(), vy.float(), dt, g, vbc,
+                                        R)
+            cuts = cut_windows(*padded_velocities(vx.float(), vy.float(),
+                                                  vbc), bases, by, bx, R)
+            cx, cy = advect_block.advect_block_cuda(*own, *cuts, dt, g, bases,
+                                                    R)
+            cut_same.append(
+                torch.equal(msh.gather(msh.unflat(cx), BLK3), k3.x)
+                and torch.equal(msh.gather(msh.unflat(cy), BLK3), k3.y))
+        log(f"advect_block {label}: displacement rel err {e11[-1][1]:.3e}; "
+            "on windows cut from kernel 3's lattices, reach 1 and 2: "
+            + ", ".join("bit-identical to kernel 3" if s else "DIFFERS"
+                        for s in cut_same))
+        if not all(cut_same):
+            raise AssertionError(f"advect_block {label}: kernel 11 on cut "
+                                 "windows is not bit-identical to kernel 3")
         if "advect_block" not in rows_t:
             rows_t["advect_block"] = (
                 partial(advect_block.advect_block_cuda, *adv),
@@ -2096,7 +2142,9 @@ def ra_kernel_rows(grid, cfg, table, state):
     markers (the FK build's: the thermal switches do not change it) and on
     their 4x2 blocks, and each at one odd shape: a 37x23 FK build, and a
     40^2 one on a 2x2 mesh.  A rerun must be bit-identical, and every other
-    stream bit-identical to the launch without the stream."""
+    stream bit-identical to the launch without the stream; the halo
+    transfer with the stream bit-identical to kernel 2's on every
+    stream."""
     from pylamp_tpu_torch.markers.kernels import m2g, m2g_block
     from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
     from pylamp_tpu_torch.models.setup import build
@@ -2168,10 +2216,14 @@ def ra_kernel_rows(grid, cfg, table, state):
                               with_ra=True)
         glob = m2g.m2g_fused_cuda(m, g, table, phys, with_energy=True,
                                   with_ra=True)
-        err = errors([(halo["c_ra"], glob["c_ra"])])
-        log(f"m2g_block_ra {label}: the halo transfer's c_ra vs kernel 2's "
-            f"rel {err[1]:.3e}")
-        errs["m2g_block_ra"].append(err)
+        bad = [k for k in glob if k not in halo
+               or not torch.equal(halo[k], glob[k])]
+        log(f"m2g_block_ra {label}: the halo transfer vs kernel 2's "
+            + (f"DIFFERS in {bad}" if bad
+               else "bit-identical on every stream, c_ra included"))
+        if bad or sorted(halo) != sorted(glob):
+            raise AssertionError(f"m2g_block_ra {label}: the halo transfer "
+                                 f"is not bit-identical to kernel 2 ({bad})")
         if len(rows) == 1:
             rows.append((
                 "m2g_block_ra", "pylamp_tpu_torch/csrc/m2g_block.cu",

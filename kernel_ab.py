@@ -23,9 +23,11 @@ seeded random residuals; then the per-shard kernels at the 4x2 mesh's
 256x512 blocks of FK 1024^2, on the inputs ``chip_smoke.py`` gives them:
 kernel 9 (``saddle_block`` with p, ``saddle_block_mom`` momentum-only) on
 the solve's viscosities' extended blocks with seeded random vectors,
-kernels 10 (``m2g_block``, the energy streams) and 11 (``advect_block``,
-the solve's velocities) on the built markers' blocks, kernel 12
-(``rebucket_block``) on the blocks of kernel 11's output.  Kernel 7's
+kernel 10 on the built markers' blocks (``m2g_block``, the energy
+streams, and as ``m2g_block_ra`` with the rho0 * alpha stream too, on
+the heated FK physics), kernel 11 (``advect_block``, the solve's
+velocities) on their own blocks, kernel 12 (``rebucket_block``) on the
+blocks of kernel 11's output.  Kernel 7's
 1024x256 viscosities are seeded log-normal fields (its time does not
 depend on their values).  Each row: its agreement with the plain
 version (kernels 4 and 12 bit-identical with the same drop count or
@@ -213,13 +215,14 @@ def _sweep_rows(cfg, prep_s, grid):
     return rows
 
 
-def _block_rows(grid, table, phys, u, prep, vbc, bm, vel):
+def _block_rows(grid, table, phys, u, prep, vbc, bm, vel, heated):
     """Kernels 9-12 at the 4x2 mesh's blocks of the FK state (the inputs of
     chip_smoke.py's mesh_kernel_rows): kernel 9 in both forms on the
     extended blocks of the solve's viscosities with vectors at u's scale,
-    kernel 10 on the built markers' extended blocks, kernel 11 on their own
-    blocks with the solve's velocities, kernel 12 on the extended blocks
-    of kernel 11's output."""
+    kernel 10 on the built markers' extended blocks (and with rho0 * alpha
+    on the ``heated`` physics), kernel 11 on their own blocks with the
+    solve's velocities, kernel 12 on the extended blocks of kernel 11's
+    output."""
     from pylamp_tpu_torch.markers.kernels import (
         advect_block,
         m2g_block,
@@ -257,16 +260,22 @@ def _block_rows(grid, table, phys, u, prep, vbc, bm, vel):
     bases = mesh.bases(by, bx, device="cuda")
     ext = [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3))
            for a in (bm.x, bm.y, bm.T, bm.mat, bm.valid)]
-    got = m2g_block.m2g_fused_block_cuda(*ext, grid, table, phys, bases,
-                                         with_energy=True)
-    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, phys, bases,
-                                          with_energy=True)
-    rows.append(("m2g_block", cs.errors((got[k], ref[k]) for k in ref),
-                 cs.TOL["m2g_block"],
-                 partial(m2g_block.m2g_fused_block_cuda, *ext, grid, table,
-                         phys, bases, with_energy=True),
-                 cs.bound_ms(cs.nbytes(*ext, bases, *got.values()),
-                             cs.OPS["m2g"] * int(ext[4].sum()))))
+    for name, ph, ra in (("m2g_block", phys, False),
+                         ("m2g_block_ra", heated, True)):
+        kw = dict(with_energy=True, with_ra=ra)
+        got = m2g_block.m2g_fused_block_cuda(*ext, grid, table, ph, bases,
+                                             **kw)
+        ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, ph, bases,
+                                              **kw)
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"{name}: streams {sorted(got)} vs "
+                                 f"{sorted(ref)}")
+        rows.append((name, cs.errors((got[k], ref[k]) for k in ref),
+                     cs.TOL[name],
+                     partial(m2g_block.m2g_fused_block_cuda, *ext, grid,
+                             table, ph, bases, **kw),
+                     cs.bound_ms(cs.nbytes(*ext, bases, *got.values()),
+                                 cs.OPS["m2g"] * int(ext[4].sum()))))
 
     vx, vy, dt = vel
     wins = velocity_windows(vx.float(), vy.float(), grid, vbc, mesh, 1)
@@ -360,7 +369,8 @@ def main(argv=None):
     rows += _sweep_rows(cfg, prep, grid)
     rows.append(_momentum_row("momentum_1024", grid, prep.eta_s, prep.eta_n,
                               prep.kk[0], vbc))
-    rows += _block_rows(grid, table, phys, u, prep, vbc, bm, vel)
+    rows += _block_rows(grid, table, phys, u, prep, vbc, bm, vel,
+                        fk_heated_config(cs.FK_NX).physics)
     del bm, moved, vel
     g_m = StaggeredGrid(nx=cs.STICKY_NX, ny=cs.STICKY_NX // 4, lx=4.0,
                         ly=1.0)

@@ -6,7 +6,10 @@ state; kernel 2 is also timed under other launch plans.
     python3 kernel_probe.py [--out FILE]
 
 Probes (each a copy of ``pylamp_tpu_torch`` under ``_checkout/probe_*``,
-which .gitignore lists, built and timed in its own process):
+which .gitignore lists, built and timed in its own process; the edits go
+to the bodies that kernels 2 and 10 and kernels 3 and 11 share,
+``csrc/m2g_rows.cuh`` and ``csrc/advect_tile.cuh``, and only kernels 2
+and 3 are timed):
 
 - kernel 2: ``base``; ``no_gather`` (the node threads sum nothing);
   ``no_stage`` (no staging, so no slot masks and no gather: the copies
@@ -40,28 +43,28 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 # (kernel source, [(text, replacement)]) of each probe
 PROBES = {
-    "m2g base": ("m2g.cu", []),
-    "m2g no_gather": ("m2g.cu", [(
+    "m2g base": ("m2g_rows.cuh", []),
+    "m2g no_gather": ("m2g_rows.cuh", [(
         "            while (hits) {",
         "            hits = 0u;\n            while (hits) {")]),
-    "m2g no_stage": ("m2g.cu", [(
+    "m2g no_stage": ("m2g_rows.cuh", [(
         "    if (!exists) return;", "    return;")]),
-    "m2g no_copy_no_stage": ("m2g.cu", [
+    "m2g no_copy_no_stage": ("m2g_rows.cuh", [
         ("    if (!exists) return;", "    return;"),
         ("    if (exists) {", "    if (false) {")]),
-    "m2g empty": ("m2g.cu", [(
+    "m2g empty": ("m2g_rows.cuh", [(
         "    if (threadIdx.x == 0) {\n        tbl = tbl_in;",
         "    if (a.K > 0) return;\n    if (threadIdx.x == 0) {\n"
         "        tbl = tbl_in;")]),
-    "advect base": ("advect.cu", []),
-    "advect no_live_rk4": ("advect.cu", [(
-        "            rk4_marker<P>(list_x[i], list_y[i], true, cj0 + r, ci0 + c, dt,\n"
+    "advect base": ("advect_tile.cuh", []),
+    "advect no_live_rk4": ("advect_tile.cuh", [(
+        "            rk4_marker<P>(list_x[i], list_y[i], cj0 + r, ci0 + c, dt,\n"
         "                          vxl, vyl, a.dx, a.dy, a.inv_dx, a.inv_dy, a.x_lo,\n"
         "                          a.x_hi, a.y_lo, a.y_hi, a.reach, a.out_x[q],\n"
         "                          a.out_y[q], a.lx, a.inv_lx);",
         "            a.out_x[q] = list_x[i] + list_y[i];")]),
 }
-PROBES["advect scan_only"] = ("advect.cu", PROBES["advect no_live_rk4"][1] + [(
+PROBES["advect scan_only"] = ("advect_tile.cuh", PROBES["advect no_live_rk4"][1] + [(
     "                if (!live)\n"
     "                    rk4_empty<P>(px, py, dt, a.x_lo, a.x_hi, a.y_lo, a.y_hi,\n"
     "                                 a.out_x[q], a.out_y[q], a.lx, a.inv_lx);",

@@ -8,53 +8,55 @@
 // and writes the new x, y (19 MB): ~0.32 GB over the 8 shards, ~0.1 ms at
 // 3.35 TB/s; ~200 flops per marker.
 //
-// Design: one thread per marker slot of one shard, the RK4 of
-// advect_rk4.cuh (kernel 3's, shared).  The windows are the global
-// ghost-padded lattices vx_p / vy_p cut around the shard: window row q,
-// column l hold padded node (row_base + q - reach, col_base + l - reach),
-// so the lattices below read them through that offset while clamping at
-// the global extent; the shift-window mask keeps every read inside the
-// window.  dt is read from device memory (no host sync).
+// Design: kernel 3's tiled RK4 on live slots (advect_tile.cuh, the one
+// body of kernels 3 and 11) on every shard, blockIdx.z the shard.  A block
+// owns a tile of ty x tx own cells of one shard's by x bx block
+// (markers/kernels/advect.py advect_plan on (by, bx): tiles of 3 x 32
+// cells at 256x512 x K18, 16 x 86 x 8 = 11,008 blocks; the last tile row
+// of a shard holds one cell row).
+//   - Slots: own cell (r, c) of shard s at ((s by + r) bx + c) K; its
+//     global cell (row_base + r, col_base + c) is the one rk4_marker gets.
+//   - Velocities: the shard's windows vx_ext / vy_ext, (S, by + 2R + 1,
+//     bx + 2R + 1) with R = reach; window (q, l) holds padded node
+//     (row_base + q - R, col_base + l - R).  The tile's window in shared
+//     memory (the tile and MARGIN = 3 nodes on each side, in global padded
+//     coordinates) takes the nodes the shard's window holds and 0 for the
+//     rest: the shift-window mask (reach <= R) never reads those.
+//   - The lattices clamp at the global extents, so fed windows cut from
+//     kernel 3's padded lattices a marker's new position is kernel 3's.
+//     dt is read from device memory (no host sync).
+// No periodic form: the reference keeps the marker halo off under periodic
+// walls.
 #include "common.cuh"
-#include "advect_rk4.cuh"
+#include "advect_tile.cuh"
 
 namespace {
 
-__global__ void advect_block_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ y,
-                                    const unsigned char* __restrict__ valid,
-                                    const float* __restrict__ vx_ext,
-                                    const float* __restrict__ vy_ext,
-                                    const int* __restrict__ bases,
-                                    const float* __restrict__ dt_ptr,
-                                    float* __restrict__ out_x,
-                                    float* __restrict__ out_y, int ny, int nx,
-                                    int by, int bx, int K, long long n,
-                                    float dx, float dy, float x_lo,
-                                    float x_hi, float y_lo, float y_hi,
-                                    int reach) {
-    const long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-    if (q >= n) return;
-    const long long per_shard = static_cast<long long>(by) * bx * K;
-    const int s = static_cast<int>(q / per_shard);
-    const long long cell = (q % per_shard) / K;
+using namespace advect_tile;
+
+__global__ void __launch_bounds__(NT, 5)
+advect_block_kernel(const AdvectArgs a, const float* __restrict__ vx_ext,
+                    const float* __restrict__ vy_ext,
+                    const int* __restrict__ bases, int by, int bx) {
+    const int s = blockIdx.z;
     const int row_base = bases[2 * s], col_base = bases[2 * s + 1];
-    const int cj = row_base + static_cast<int>(cell / bx);
-    const int ci = col_base + static_cast<int>(cell % bx);
-    const int wr = by + 2 * reach + 1, wc = bx + 2 * reach + 1;
+    const int c0 = blockIdx.x * a.tx, r0 = blockIdx.y * a.ty;
+    const Tile t{row_base + r0, col_base + c0, min(a.ty, by - r0),
+                 min(a.tx, bx - c0), (s * by + r0) * bx + c0, bx};
+    const int R = a.reach;
+    const int wr = by + 2 * R + 1, wc = bx + 2 * R + 1;
     const long long w = static_cast<long long>(s) * wr * wc;
-    const Lattice vxl{vx_ext + w, ny + 2, nx + 1, row_base - reach,
-                      col_base - reach, wc};
-    const Lattice vyl{vy_ext + w, ny + 1, nx + 2, row_base - reach,
-                      col_base - reach, wc};
-    rk4_marker(x[q], y[q], valid[q] != 0, cj, ci, *dt_ptr, vxl, vyl, dx, dy,
-               1.0f / dx, 1.0f / dy, x_lo, x_hi, y_lo, y_hi, reach, out_x[q],
-               out_y[q]);
+    tile_rk4<false>(
+        a, Plane{vx_ext + w, wr, wc, row_base - R, col_base - R, wc},
+        Plane{vy_ext + w, wr, wc, row_base - R, col_base - R, wc}, t);
 }
 
 }  // namespace
 
+// bases: (S, 2) int32 on the device, each shard's first own cell (row,
+// col); vx_ext, vy_ext: (S, by + 2 reach + 1, bx + 2 reach + 1).  ty, tx,
+// cap: the tile and the slots a round of markers/kernels/advect.py
+// advect_plan(by, bx, K).
 PYLAMP_EXPORT int launch_advect_block(const float* x, const float* y,
                                       const unsigned char* valid,
                                       const float* vx_ext,
@@ -64,13 +66,31 @@ PYLAMP_EXPORT int launch_advect_block(const float* x, const float* y,
                                       int by, int bx, int K, float dx,
                                       float dy, float x_lo, float x_hi,
                                       float y_lo, float y_hi, int reach,
+                                      int ty, int tx, int cap,
                                       cudaStream_t stream) {
-    const long long n = static_cast<long long>(S) * by * bx * K;
-    const int threads = 256;
-    const unsigned int blocks =
-        static_cast<unsigned int>((n + threads - 1) / threads);
-    advect_block_kernel<<<blocks, threads, 0, stream>>>(
-        x, y, valid, vx_ext, vy_ext, bases, dt, out_x, out_y, ny, nx, by, bx,
-        K, n, dx, dy, x_lo, x_hi, y_lo, y_hi, reach);
+    if (S < 1 || ny < 1 || nx < 1 || by < 1 || bx < 1 ||
+        (reach != 1 && reach != 2) || !plan_ok(K, ty, tx, cap) ||
+        static_cast<long long>(S) * by * bx >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const AdvectArgs a{x,     y,  valid, dt,   out_x, out_y, ny,
+                       nx,    K,  ty,    tx,   cap,   reach, dx,
+                       dy,    x_lo, x_hi, y_lo, y_hi, 0.0f, 0.0f,
+                       1.0f / dx, 1.0f / dy};
+    const int smem = Layout(ty, tx, cap).total;
+    const cudaError_t err = cudaFuncSetAttribute(
+        advect_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((bx + tx - 1) / tx, (by + ty - 1) / ty, S);
+    advect_block_kernel<<<grid, NT, smem, stream>>>(a, vx_ext, vy_ext, bases,
+                                                    by, bx);
     return launch_status();
+}
+
+// Occupancy of the kernel at tiles of ty x tx cells and rounds of cap
+// slots: out as advect_tile.cuh kernel_info's.
+PYLAMP_EXPORT int advect_block_kernel_info(int ty, int tx, int cap,
+                                           int* out) {
+    return kernel_info(reinterpret_cast<const void*>(advect_block_kernel), ty,
+                       tx, cap, out);
 }

@@ -1,14 +1,14 @@
-// The RK4 integration of one marker slot, shared by the single-device
-// advection (advect.cu, on a window in shared memory) and the per-shard
-// advection on exchanged velocity windows (advect_block.cu).  All four
-// stages stay in registers; each
-// samples the ghost-padded vx_p (ny+2, nx+1) and vy_p (ny+1, nx+2)
-// lattices with a clamped bilinear gather.  A corner contributes only if
-// its node lies in the reference's shift window [-reach, reach+1] around
-// the marker's bucket cell; `reach` is that precondition (1 for the first
-// stage, the Courant-derived stage reach after), not a layout parameter.
-// Empty slots sample zero velocity.  The result is clipped to the closed
-// domain like the reference.
+// The RK4 integration of one marker slot, run by advect_tile.cuh (the
+// body of the single-device advection, advect.cu, and of the per-shard
+// one, advect_block.cu) on a window in shared memory.  All four stages
+// stay in registers; each samples the ghost-padded vx_p (ny+2, nx+1) and
+// vy_p (ny+1, nx+2) lattices with a clamped bilinear gather.  A corner
+// contributes only if its node lies in the reference's shift window
+// [-reach, reach+1] around the marker's bucket cell; `reach` is that
+// precondition (1 for the first stage, the Courant-derived stage reach
+// after), not a layout parameter.  Empty slots move with zero velocity
+// (rk4_empty).  The result is clipped to the closed domain like the
+// reference.
 //
 // P (periodic side walls, a template switch; P = false is the form above,
 // unchanged): the lattices are the wrapped planes the wrapper builds
@@ -85,16 +85,11 @@ __device__ __forceinline__ void rk4_place(float xn, float yn, float x_lo,
 // = 1 / dx, 1 / dy rounded to f32 (the correctly rounded quotients).
 template <bool P = false>
 __device__ __forceinline__ void rk4_marker(
-    float px, float py, bool vl, int cj, int ci, float dt, const Lattice& vxl,
+    float px, float py, int cj, int ci, float dt, const Lattice& vxl,
     const Lattice& vyl, float dx, float dy, float inv_dx, float inv_dy,
     float x_lo, float x_hi, float y_lo, float y_hi, int reach, float& out_x,
     float& out_y, float lx = 0.0f, float inv_lx = 0.0f) {
     auto vel = [&](float sx, float sy, int r, float& ux, float& uy) {
-        if (!vl) {
-            ux = 0.0f;
-            uy = 0.0f;
-            return;
-        }
         const float fx = div_rn(sx, dx, inv_dx), fy = div_rn(sy, dy, inv_dy);
         ux = vxl.sample<P>(fx, fy + 0.5f, cj, ci, r);
         uy = vyl.sample<P>(fx + 0.5f, fy, cj, ci, r);

@@ -1,28 +1,18 @@
-// The marker -> grid gather of one node thread of the per-shard transfer
-// on extended marker blocks (m2g_block.cu), and the material table, the
-// lattice intervals and the marker properties it shares with the
-// single-device transfer (m2g.cu): the node (J, I) of the (ny+1, nx+1)
-// corner index space
-// and the center (J, I), vy (J, I) and vx (J, I) nodes where those exist.
-// It walks the slots of the 3x3 cells (J-1..J+1, I-1..I+1) that can reach
-// its nodes in a fixed order -- cell rows, then cell columns ascending,
-// then slots ascending -- and accumulates w and w*v of every stream in
-// registers.  Marker properties come from (mat, T) and the material table.
-// The same order on the same markers gives the same sums, whichever
-// layout the cells come from.
+// The material table, the output planes and flags, the lattice intervals
+// and the marker properties of the marker -> grid transfer, shared by its
+// two kernels (m2g.cu, kernel 2, and m2g_block.cu, kernel 10, which run
+// the gather of m2g_rows.cuh).  The expressions are the plain version's
+// (markers/kernels/m2g.py, markers/bucket.py _lattice_local): a marker's
+// interval on each lattice axis and its properties from (mat, T) and the
+// material table.
 //
-// P (periodic side walls, a template switch; P = false is the form above,
-// unchanged): the thread of node column I < nx gathers from the cell
-// columns (I - 1, I, I + 1) mod nx, and a marker's x weight has no clamp:
-// its lattice interval starts at floor(f), counted from its own cell and
-// shifted by the wrap of that cell (markers/bucket.py _lattice_local with
-// periodic_x).  The caller writes the seam column nx of the nx+1-wide
-// lattices from the column-0 thread.
+// P (periodic side walls): a marker's x interval has no clamp; it starts
+// at floor(f), counted from its own cell and shifted by the wrap of that
+// cell (markers/bucket.py _lattice_local with periodic_x).
 //
-// RA (a template switch; RA = false is the form above, unchanged): with the
-// energy streams, one more corner accumulator, w * rho0 * alpha of the
-// marker's material (adiabatic heating's coefficient), in the same slot
-// order as every other corner stream.
+// RA: with the energy streams, one more corner stream, w * rho0 * alpha of
+// the marker's material (adiabatic heating's coefficient), in the same
+// slot order as every other corner stream.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,24 +68,6 @@ __device__ __forceinline__ float hat_weight(int node, int i0, float t) {
     return 0.0f;
 }
 
-// weight of node `node` from a marker at lattice coordinate f
-__device__ __forceinline__ float hat(float f, int n_nodes, int node) {
-    int i0;
-    float t;
-    interval(f, n_nodes, i0, t);
-    return hat_weight(node, i0, t);
-}
-
-// the same hat on a periodic axis: no clamp; the marker's interval starts
-// at floor(f) + shift (shift: the unwrapped minus the stored column of its
-// cell), and node is the unwrapped node column
-__device__ __forceinline__ float hat_px(float f, int shift, int node) {
-    int i0;
-    float t;
-    interval_px(f, i0, t);
-    return hat_weight(node, i0 + shift, t);
-}
-
 // A marker's material (an id outside the table reads material 0) and its
 // properties: eta after the clamp and the averaging transform (log eta
 // for geometric, 1 / eta for harmonic), and rho(T).
@@ -127,112 +99,4 @@ __device__ __forceinline__ MarkerProps marker_props(const M2GTable& tbl,
     const float rho =
         tbl.rho0[m] * (1.0f - tbl.alpha[m] * (Tm - tbl.T_ref[m]));
     return {eta, rho};
-}
-
-// The sums of one node thread, and which of its nodes exist.
-struct NodeSums {
-    float v[N_OUT];
-    bool has_n, has_vy, has_vx;
-};
-
-// The markers' streams; Cells::base(cj, ci) is the first slot of global
-// cell (cj, ci) in them, or -1 where the layout has no such cell.
-template <bool P = false, bool RA = false, class Cells>
-__device__ __forceinline__ NodeSums m2g_gather(
-    const Cells& cells, const float* __restrict__ x,
-    const float* __restrict__ y, const float* __restrict__ T,
-    const int* __restrict__ mat, const unsigned char* __restrict__ valid,
-    const M2GTable& tbl, int J, int I, int ny, int nx, int K, float dx,
-    float dy, int flags) {
-    NodeSums out;
-    const bool has_n = (J < ny) && (I < nx);
-    const bool has_vy = I < nx;
-    const bool has_vx = (J < ny) && (flags & WITH_VX);
-    const bool energy = flags & WITH_ENERGY;
-    const float hx = 0.5f * dx;  // center-kind origin offsets
-    const float hy = 0.5f * dy;
-
-    float c_w = 0.f, c_eta = 0.f, n_w = 0.f, n_eta = 0.f;
-    float vy_w = 0.f, vy_rho = 0.f, vx_w = 0.f, vx_rho = 0.f;
-    float c_T = 0.f, c_k = 0.f, c_rhocp = 0.f, c_H = 0.f, c_ra = 0.f;
-
-    for (int cj = J - 1; cj <= J + 1; ++cj) {
-        if (cj < 0 || cj >= ny) continue;
-        for (int cu = I - 1; cu <= I + 1; ++cu) {
-            int ci = cu;  // the stored cell column (P: cu mod nx)
-            if constexpr (P) {
-                ci = cu < 0 ? cu + nx : (cu >= nx ? cu - nx : cu);
-            } else {
-                if (ci < 0 || ci >= nx) continue;
-            }
-            const long long base = cells.base(cj, ci);
-            if (base < 0) continue;
-            for (int s = 0; s < K; ++s) {
-                const long long q = base + s;
-                if (!valid[q]) continue;
-                const float px = x[q];
-                const float py = y[q];
-                // corner-kind axes: nodes at cell edges; center-kind: at
-                // cell centers (fx = (x - dx/2) / dx)
-                const float fxc = (px - 0.0f) / dx;
-                const float fyc = (py - 0.0f) / dy;
-                const float fxn = (px - hx) / dx;
-                const float fyn = (py - hy) / dy;
-                const float wyc = hat(fyc, ny + 1, J);
-                const float wxc = P ? hat_px(fxc, cu - ci, I)
-                                    : hat(fxc, nx + 1, I);
-                const float wyn = has_n || has_vx ? hat(fyn, ny, J) : 0.0f;
-                const float wxn = !has_vy ? 0.0f
-                                  : P ? hat_px(fxn, cu - ci, I)
-                                      : hat(fxn, nx, I);
-                const float w_c = wyc * wxc;
-                const float w_n = has_n ? wyn * wxn : 0.0f;
-                const float w_vy = has_vy ? wyc * wxn : 0.0f;
-                const float w_vx = has_vx ? wyn * wxc : 0.0f;
-                if (w_c == 0.0f && w_n == 0.0f && w_vy == 0.0f &&
-                    w_vx == 0.0f)
-                    continue;
-
-                // marker properties from (mat, T)
-                const int m = material_of(tbl, mat[q]);
-                const float Tm = T[q];
-                const MarkerProps pr = marker_props(tbl, m, Tm);
-                const float eta = pr.eta, rho = pr.rho;
-
-                c_w += w_c;
-                c_eta += w_c * eta;
-                n_w += w_n;
-                n_eta += w_n * eta;
-                vy_w += w_vy;
-                vy_rho += w_vy * rho;
-                vx_w += w_vx;
-                vx_rho += w_vx * rho;
-                if (energy) {
-                    c_T += w_c * Tm;
-                    c_k += w_c * tbl.k[m];
-                    c_rhocp += w_c * (tbl.rho0[m] * tbl.cp[m]);
-                    c_H += w_c * tbl.H[m];
-                    if constexpr (RA)
-                        c_ra += w_c * (tbl.rho0[m] * tbl.alpha[m]);
-                }
-            }
-        }
-    }
-    out.v[C_W] = c_w;
-    out.v[C_ETA] = c_eta;
-    out.v[N_W] = n_w;
-    out.v[N_ETA] = n_eta;
-    out.v[VY_W] = vy_w;
-    out.v[VY_RHO] = vy_rho;
-    out.v[VX_W] = vx_w;
-    out.v[VX_RHO] = vx_rho;
-    out.v[C_T] = c_T;
-    out.v[C_K] = c_k;
-    out.v[C_RHOCP] = c_rhocp;
-    out.v[C_H] = c_H;
-    out.v[C_RA] = c_ra;
-    out.has_n = has_n;
-    out.has_vy = has_vy;
-    out.has_vx = has_vx;
-    return out;
 }

@@ -81,11 +81,14 @@ SIGNATURES = {
     # tile rows, stream
     "launch_cheb_block": [_P] * 13 + [_I] * 4 + [_F] * 6 + [_I] * 4 + [_P],
     # x, y, T, mat, valid, bases, material table (host), out pointers
-    # (host array of 12), S, ny, nx, by, bx, K, dx, dy, flags, stream
-    "launch_m2g_block": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    # (host array of 13), S, ny, nx, by, bx, K, dx, dy, flags, strip
+    # width, chunk rows, unit slots, units a cell row, threads a node,
+    # stream
+    "launch_m2g_block": [_P] * 8 + [_I] * 6 + [_F, _F] + [_I] * 6 + [_P],
     # x, y, valid, vx_ext, vy_ext, bases, dt, out_x, out_y, S, ny, nx, by,
-    # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, stream
-    "launch_advect_block": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P],
+    # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, tile rows, tile
+    # columns, slots a round, stream
+    "launch_advect_block": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I] * 4 + [_P],
     # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
     # ny, nx, by, bx, K, dx, dy, strip width, chunk rows, stream
     "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _P],
@@ -93,9 +96,9 @@ SIGNATURES = {
     # periodic), kernel 8 at (depth, tile rows), kernel 6 at its dynamic
     # shared bytes, kernels 1 and 7 at (periodic), kernel 9 at (with p),
     # kernel 4 at (K, strip width, periodic), kernel 12 at (K, strip
-    # width), kernel 2 at (strip width, unit slots, threads a node,
-    # flags), kernel 3 at (tile rows, tile columns, slots a round,
-    # periodic)
+    # width), kernels 2 and 10 at (strip width, unit slots, threads a
+    # node, flags), kernel 3 at (tile rows, tile columns, slots a round,
+    # periodic), kernel 11 at (tile rows, tile columns, slots a round)
     "cheb_kernel_info": [_I, _I, _I, _P],
     "cheb_block_kernel_info": [_I, _I, _P],
     "saddle_kernel_info": [_I, _P],
@@ -104,7 +107,9 @@ SIGNATURES = {
     "rebucket_kernel_info": [_I, _I, _I, _P],
     "rebucket_block_kernel_info": [_I, _I, _P],
     "m2g_kernel_info": [_I, _I, _I, _I, _P],
+    "m2g_block_kernel_info": [_I, _I, _I, _I, _P],
     "advect_kernel_info": [_I, _I, _I, _I, _P],
+    "advect_block_kernel_info": [_I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],
 }
 

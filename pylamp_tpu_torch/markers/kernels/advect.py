@@ -44,11 +44,12 @@ from pylamp_tpu_torch.markers.kernels.rebucket import (
 launches = 0
 launches_periodic = 0
 
-# columns of wrap padding on each side of a periodic plane (csrc/advect.cu
-# PADW): stage positions reach at most 2 cells past their bucket cell
+# columns of wrap padding on each side of a periodic plane
+# (csrc/advect_tile.cuh PADW): stage positions reach at most 2 cells past
+# their bucket cell
 PADW = 3
 
-# csrc/advect.cu's constants
+# the constants of csrc/advect_tile.cuh (kernels 3 and 11)
 THREADS = 256
 MARGIN = 3  # window nodes beyond the tile on each side
 TILE_COLS = 32  # cells of a tile row
@@ -60,7 +61,7 @@ SMEM_STATIC = 4  # the live count
 
 def smem_bytes(ty: int, tx: int, cap: int) -> int:
     """Dynamic shared bytes of a block with tiles of ``ty`` x ``tx`` cells
-    and rounds of ``cap`` slots (the Layout of csrc/advect.cu): two
+    and rounds of ``cap`` slots (the Layout of csrc/advect_tile.cuh): two
     velocity windows of (ty + 2 MARGIN) x (tx + 2 MARGIN) floats and a list
     of cap live slots at 12 bytes."""
     return 8 * (ty + 2 * MARGIN) * (tx + 2 * MARGIN) + 12 * cap

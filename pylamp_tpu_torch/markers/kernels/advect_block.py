@@ -12,18 +12,57 @@ the new (x, y), each (S, by, bx, K), clipped to the closed domain.
 
 ``advect_block`` runs the plain PyTorch version (``advect_block_plain``,
 the sampling of ``bucket.bucket_advect_rk4`` on the windows) on CPU
-tensors and launches the kernel on CUDA tensors.
+tensors and launches the kernel on CUDA tensors.  The kernel runs kernel
+3's tiles on live slots on ``advect.advect_plan(by, bx, K)``, all shards in
+one launch.  ``cut_windows`` cuts the same windows from whole padded
+lattices (the windows the exchange gives, on one device).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import _corners
+from pylamp_tpu_torch.markers.kernels.advect import AdvectPlan, advect_plan
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
+
+
+def cut_windows(vx_p, vy_p, bases, by: int, bx: int, R: int):
+    """Every shard's (S, by+2R+1, bx+2R+1) windows of the whole padded
+    lattices vx_p (ny+2, nx+1) and vy_p (ny+1, nx+2): window (q, l) =
+    padded node (row_base + q - R, col_base + l - R), zeros beyond the
+    lattice."""
+    dev = vx_p.device
+    b = bases.to(device=dev, dtype=torch.int64)
+    rows = b[:, :1] - R + torch.arange(by + 2 * R + 1, device=dev)
+    cols = b[:, 1:] - R + torch.arange(bx + 2 * R + 1, device=dev)
+
+    def cut(p):
+        H, W = p.shape
+        ok = (((rows >= 0) & (rows < H))[:, :, None]
+              & ((cols >= 0) & (cols < W))[:, None, :])
+        v = p[rows.clamp(0, H - 1)[:, :, None],
+              cols.clamp(0, W - 1)[:, None, :]]
+        return torch.where(ok, v, torch.zeros_like(v)).contiguous()
+
+    return cut(vx_p), cut(vy_p)
+
+
+def kernel_info(plan: AdvectPlan) -> dict:
+    """Occupancy of the kernel at ``plan``'s tiles, from the card's
+    function attributes: registers per thread, static and dynamic shared
+    bytes, local (spill) bytes per thread, threads and resident blocks per
+    SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().advect_block_kernel_info(
+        plan.ty, plan.tx, plan.cap, out), "advect_block (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def _sample_window(fe, fx, fy, valid, reach: int, rows: int, cols: int, cj,
@@ -112,12 +151,16 @@ def advect_block_cuda(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
     out_x, out_y = torch.empty_like(xb), torch.empty_like(yb)
     eps_x = 1e-6 * grid.dx_min
     eps_y = 1e-6 * grid.dy_min
+    if S * by * bx >= 2 ** 31:
+        raise ValueError(f"advect_block kernel: {S} blocks of {by} x {bx} "
+                         "cells (the kernel indexes cells in 31 bits)")
+    plan = advect_plan(by, bx, K)
     code = cuda_build.library().launch_advect_block(
         xb.data_ptr(), yb.data_ptr(), vb.data_ptr(), vx_ext.data_ptr(),
         vy_ext.data_ptr(), bases.data_ptr(), dt_t.data_ptr(),
         out_x.data_ptr(), out_y.data_ptr(), S, grid.ny, grid.nx, by, bx, K,
         grid.dx, grid.dy, eps_x, grid.lx - eps_x, eps_y, grid.ly - eps_y,
-        reach, cuda_build.stream_ptr(dev))
+        reach, plan.ty, plan.tx, plan.cap, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "advect_block")
     launches += 1
     return out_x, out_y

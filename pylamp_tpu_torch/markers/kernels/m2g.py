@@ -56,14 +56,14 @@ launches_ra = 0
 
 MAX_MATERIALS = 8
 ETA_MODES = {"arithmetic": 0, "geometric": 1, "harmonic": 2}
-# output order of the kernel's pointer array (csrc/m2g.cu enum Out)
+# output order of the kernel's pointer array (csrc/m2g_node.cuh enum Out)
 OUT_ORDER = ("c_w", "c_eta", "n_w", "n_eta", "vy_w", "vy_rho", "vx_w",
              "vx_rho", "c_T", "c_k", "c_rhocp", "c_H", "c_ra")
 _TABLE_COLUMNS = ("eta0", "T_ref", "fk_gamma", "E_act", "rho0", "alpha", "k",
                   "cp", "H")
 FLAG_VX, FLAG_ENERGY, FLAG_H, FLAG_PERIODIC, FLAG_RA = 1, 2, 4, 8, 16
 
-# csrc/m2g.cu's constants
+# the constants of csrc/m2g_rows.cuh (kernels 2 and 10)
 RING = 3  # units in shared memory
 STRIP_COLS = 32  # node columns of a block
 SPLIT = 2  # threads a node (each sums the slots s = h mod SPLIT)
@@ -76,11 +76,11 @@ SMEM_STATIC = 4 * (4 + MAX_MATERIALS * (1 + len(_TABLE_COLUMNS) + 4))
 
 def smem_bytes(tx: int, kc: int) -> int:
     """Dynamic shared bytes of a block with strips of ``tx`` node columns
-    and units of ``kc`` slots (the Layout of csrc/m2g.cu): RING buffers of
-    tx + 2 cells, each cell at a stride of kc | 1 slots of 48 bytes (x, y,
-    T, mat as landed, and the staged 32-byte record), ceil((kc + 3) / 4)
-    words of valid bytes (up to 3 bytes of alignment lead) and 6 slot
-    masks, each buffer rounded up to 16 bytes."""
+    and units of ``kc`` slots (the Layout of csrc/m2g_rows.cuh): RING
+    buffers of tx + 2 cells, each cell at a stride of kc | 1 slots of 48
+    bytes (x, y, T, mat as landed, and the staged 32-byte record),
+    ceil((kc + 3) / 4) words of valid bytes (up to 3 bytes of alignment
+    lead) and 6 slot masks, each buffer rounded up to 16 bytes."""
     cells = tx + 2
     buf = cells * (48 * (kc | 1) + 4 * ((kc + 6) // 4) + 24)
     return RING * ((buf + 15) // 16 * 16)
@@ -170,7 +170,7 @@ def kernel_info(plan: M2GPlan, flags: int) -> dict:
 
 
 class _Table(ctypes.Structure):
-    """Must match csrc/m2g.cu struct M2GTable."""
+    """Must match csrc/m2g_node.cuh struct M2GTable."""
 
     _fields_ = ([("n", ctypes.c_int), ("eta_mode", ctypes.c_int),
                  ("eta_min", ctypes.c_float), ("eta_max", ctypes.c_float),

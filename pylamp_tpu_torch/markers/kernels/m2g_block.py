@@ -14,7 +14,9 @@ strips (parallel/halo_markers.py).
 
 ``m2g_fused_block`` runs the plain PyTorch version (the dense-shift sums
 of ``bucket.m2g_sums`` on the shard frame) on CPU tensors and launches the
-kernel on CUDA tensors.
+kernel on CUDA tensors.  The kernel runs kernel 2's row-streamed gather on
+``block_plan`` (``m2g.m2g_plan`` on the (by, bx) frame, all shards in one
+launch); ``frame_blocks`` lists its blocks as the kernel computes them.
 """
 from __future__ import annotations
 
@@ -26,10 +28,16 @@ from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.markers.bucket import OFFSETS, _corners
 from pylamp_tpu_torch.markers.kernels.m2g import (
+    FLAG_ENERGY,
+    FLAG_H,
+    FLAG_RA,
+    FLAG_VX,
     OUT_ORDER,
+    M2GPlan,
     _lattice_streams,
     _streams,
     _table_struct,
+    m2g_plan,
 )
 from pylamp_tpu_torch.physics.materials import MaterialTable
 
@@ -37,6 +45,54 @@ from pylamp_tpu_torch.physics.materials import MaterialTable
 # them): all of them, and those with the rho0 * alpha stream
 launches = 0
 launches_ra = 0
+
+
+def block_plan(S: int, by: int, bx: int, K: int) -> M2GPlan:
+    """Kernel 10's plan: ``m2g_plan`` on the (by + 1) x (bx + 1) node frame
+    of a shard (strips of 32 node columns, chunks of 32 node rows, K in
+    units of at most 16 slots), the same on every shard.  At the 4x2
+    mesh's 256x512 blocks x K18: 17 x 9 blocks a shard of 192 threads, two
+    9-slot units a cell row.  Raises where the S extended blocks hold 2^31
+    slots or more (the kernel indexes slots in 31 bits)."""
+    if S * (by + 2) * (bx + 2) * K >= 2 ** 31:
+        raise ValueError(f"m2g_block kernel: {S} extended blocks of "
+                         f"{by + 2} x {bx + 2} x {K} slots (the kernel "
+                         "indexes slots in 31 bits)")
+    return m2g_plan(by, bx, K)
+
+
+def frame_blocks(plan: M2GPlan, by: int, bx: int, bases, ny: int, nx: int):
+    """Every block of kernel 10's launch in launch order, as
+    csrc/m2g_block.cu computes it: (shard, node rows j_lo..j_hi-1, node
+    columns i0..i0+txe-1, cell rows r_lo..r_hi, cell columns c_lo..c_hi),
+    all global; a block streams the cell rows max(j_lo - 1, r_lo) ..
+    min(j_hi, r_hi), and node J completes at cell row min(J + 1, r_hi).
+    The grid is (chunk, shard, strip), chunk fastest: every shard's last
+    strip goes last."""
+    for strip in range(plan.nstrips):
+        for s, (row_base, col_base) in enumerate(bases.tolist()):
+            for chunk in range(plan.nchunks):
+                c0, j0 = strip * plan.tx, chunk * plan.rows
+                i0, j_lo = col_base + c0, row_base + j0
+                cols = min(plan.tx, bx + 1 - c0)
+                rows = min(plan.rows, by + 1 - j0)
+                yield (s, j_lo, min(j_lo + rows, ny + 1), i0,
+                       min(cols, nx + 1 - i0), max(row_base - 1, 0),
+                       min(row_base + by, ny - 1), max(col_base - 1, 0),
+                       min(col_base + bx, nx - 1))
+
+
+def kernel_info(plan: M2GPlan, flags: int) -> dict:
+    """Occupancy of the instantiation ``flags`` picks (FLAG_RA with
+    FLAG_ENERGY) at ``plan``'s strips and units, from the card's function
+    attributes: registers per thread, static and dynamic shared bytes,
+    local (spill) bytes per thread, threads and resident blocks per SM."""
+    out = (ctypes.c_int * 6)()
+    cuda_build.check(cuda_build.library().m2g_block_kernel_info(
+        plan.tx, plan.kc, plan.split, flags, out),
+        "m2g_block (occupancy query)")
+    return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
+                local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def _frame_iota(bases, bye: int, bxe: int):
@@ -144,12 +200,15 @@ def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
     ptrs = (ctypes.c_void_p * len(OUT_ORDER))(
         *[out[name].data_ptr() if name in out else None for name in OUT_ORDER])
     tbl = _table_struct(table, phys)
-    flags = (1 * with_vx) | (2 * with_energy) | (4 * with_h) | (16 * with_ra)
+    flags = ((FLAG_VX * with_vx) | (FLAG_ENERGY * with_energy)
+             | (FLAG_H * with_h) | (FLAG_RA * with_ra))
+    plan = block_plan(S, by, bx, K)
     code = cuda_build.library().launch_m2g_block(
         xe.data_ptr(), ye.data_ptr(), Te.data_ptr(), me.data_ptr(),
         ve.data_ptr(), bases.data_ptr(), ctypes.addressof(tbl),
         ctypes.addressof(ptrs), S, grid.ny, grid.nx, by, bx, K, grid.dx,
-        grid.dy, flags, cuda_build.stream_ptr(dev))
+        grid.dy, flags, plan.tx, plan.rows, plan.kc, plan.units, plan.split,
+        cuda_build.stream_ptr(dev))
     cuda_build.check(code, "m2g_block")
     launches += 1
     launches_ra += with_ra

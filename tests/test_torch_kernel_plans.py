@@ -1,5 +1,5 @@
-"""The launch plans and host-side checks of kernels 1-4, 7-9 and 12 on
-the CPU: ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row
+"""The launch plans and host-side checks of kernels 1-4 and 7-12 on the
+CPU: ``markers/kernels/rebucket.py rebucket_plan`` (the strips and row
 chunks of csrc/rebucket.cu, its shared memory and resident blocks, and
 the same plan on each shard's block for csrc/rebucket_block.cu),
 ``markers/kernels/m2g.py m2g_plan`` (the node strips, node-row chunks and
@@ -9,7 +9,11 @@ cell tiles and rounds of csrc/advect.cu), the checks
 per-call path of the saddle kernel relies on, ``saddle.tile_plan`` (the
 tiles of csrc/saddle_tile.cuh, kernels 1 and 7) and
 ``ops/kernels/cheb.py block_tile_plan`` (kernel 8's tiles of each shard's
-block) and ``ops/kernels/saddle_block.py tile_plan`` (kernel 9's)."""
+block), ``ops/kernels/saddle_block.py tile_plan`` (kernel 9's), and
+kernels 2's and 3's plans on each shard's block for kernels 10 and 11
+(``markers/kernels/m2g_block.py block_plan`` and ``frame_blocks``,
+``advect_plan`` on (by, bx)) with the windows ``advect_block.cut_windows``
+cuts for kernel 11's checks against kernel 3."""
 import numpy as np
 import pytest
 import torch
@@ -535,3 +539,185 @@ def test_block_kernels_cuda_refuse_cpu_tensors():
                                                   bases)
     assert (saddle_block.launches, rebucket_block.launches) == (n9, n12)
     assert len(out) == 2 and arrivals.shape == (S, by, bx)
+
+
+# -- kernel 10 (m2g_block) and kernel 11 (advect_block) -----------------------
+
+# (ny, nx, my, mx): the 4x2 mesh's 256x512 blocks of FK 1024^2, the 2x2
+# mesh's 20x20 blocks of 40^2 (narrower than one strip) and 24x33 blocks
+# whose bx + 1 = 34 node columns are no multiple of the 32-column strip
+BLOCK_MESHES = [(1024, 1024, 4, 2), (40, 40, 2, 2), (48, 66, 2, 2)]
+
+
+def _mesh_blocks(ny, nx, my, mx):
+    from pylamp_tpu_torch.parallel.mesh import Mesh
+
+    by, bx = ny // my, nx // mx
+    return my * mx, by, bx, Mesh(my, mx).bases(by, bx)
+
+
+@pytest.mark.parametrize("ny,nx,my,mx", BLOCK_MESHES)
+def test_m2g_block_plan_covers_every_frame_node_once(ny, nx, my, mx):
+    """Kernel 10's launch (kernel 2's plan on each shard's (by + 1) x
+    (bx + 1) node frame, every shard's last strip last) writes every frame
+    node of every shard once; each block streams cell rows inside the shard's ring
+    and the domain, every node's first and last cell rows lie among them
+    (a frame row on the ring's edge completes at the ring's last row), and
+    a node the caller keeps (own rows and columns, the last shard's seam)
+    gets all of its cells.  At 256x512 x K18: 17 x 9 x 8 = 1,224 blocks."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+
+    S, by, bx, bases = _mesh_blocks(ny, nx, my, mx)
+    plan = m2g_block.block_plan(S, by, bx, 18)
+    hits = np.zeros((S, by + 1, bx + 1), np.int32)
+    blocks, sizes = 0, []
+    for s, j_lo, j_hi, i0, txe, r_lo, r_hi, c_lo, c_hi in (
+            m2g_block.frame_blocks(plan, by, bx, bases, ny, nx)):
+        rb, cb = bases[s].tolist()
+        blocks += 1
+        sizes.append((j_hi - j_lo, txe))
+        assert 0 < j_hi - j_lo <= plan.rows and 0 < txe <= plan.tx
+        hits[s, j_lo - rb:j_hi - rb, i0 - cb:i0 + txe - cb] += 1
+        assert max(rb - 1, 0) == r_lo and r_hi == min(rb + by, ny - 1)
+        assert max(cb - 1, 0) == c_lo and c_hi == min(cb + bx, nx - 1)
+        r_first, r_last = max(j_lo - 1, r_lo), min(j_hi, r_hi)
+        for J in range(j_lo, j_hi):
+            assert r_first <= max(J - 1, r_lo) <= min(J + 1, r_hi) <= r_last
+            kept = J < rb + by or J == ny
+            if kept:  # every cell row that reaches the node is streamed
+                assert r_first <= max(J - 1, 0) and min(J + 1, ny - 1) <= r_hi
+        for I in range(i0, i0 + txe):
+            if I < cb + bx or I == nx:  # every cell column is in the ring
+                assert c_lo <= max(I - 1, 0) and min(I + 1, nx - 1) <= c_hi
+    assert (hits == 1).all()
+    assert blocks == S * plan.nstrips * plan.nchunks
+    if (by, bx) == (256, 512):
+        assert (plan.nstrips, plan.nchunks, blocks) == (17, 9, 1224)
+        assert (plan.kc, plan.units, plan.threads) == (9, 2, 192)
+        # the one-column strips last (the 32 slots of 528 that the 1,024
+        # full blocks leave in their second round take them); before them
+        # only full blocks and one-row chunks
+        assert sizes[-72:] == ([(32, 1)] * 8 + [(1, 1)]) * 8
+        assert sorted(set(sizes[:-72])) == [(1, 32), (32, 32)]
+        assert sizes.count((32, 32)) == 1024
+
+
+@pytest.mark.parametrize("ny,nx,my,mx", BLOCK_MESHES)
+def test_advect_block_plan_covers_every_cell_once(ny, nx, my, mx):
+    """Kernel 11's launch (kernel 3's tiles on each shard's by x bx block,
+    blockIdx.z the shard) advects every own cell of every shard once, and
+    every node that a marker's shift window reaches at stage reach 1 or 2
+    lies in its tile's staged window (the tile and MARGIN nodes around it)
+    and in the shard's exchanged window (R nodes before the block, R + 1
+    after).  At 256x512 x K18: 16 x 86 x 8 = 11,008 tiles of 3 x 32
+    cells, the last tile row of a shard one cell row."""
+    S, by, bx, bases = _mesh_blocks(ny, nx, my, mx)
+    plan = advect.advect_plan(by, bx, 18)
+    hits = np.zeros((ny, nx), np.int32)
+    blocks = 0
+    for rb, cb in bases.tolist():
+        for r0, rows, c0, cols in plan.extents(by, bx):
+            blocks += 1
+            cj0, ci0 = rb + r0, cb + c0
+            hits[cj0:cj0 + rows, ci0:ci0 + cols] += 1
+            for R in (1, 2):
+                # nodes [cell - R, cell + R + 1] of the tile's cells
+                lo_r, hi_r = cj0 - R, cj0 + rows - 1 + R + 1
+                lo_c, hi_c = ci0 - R, ci0 + cols - 1 + R + 1
+                assert cj0 - advect.MARGIN <= lo_r
+                assert hi_r < cj0 + plan.ty + advect.MARGIN
+                assert ci0 - advect.MARGIN <= lo_c
+                assert hi_c < ci0 + plan.tx + advect.MARGIN
+                assert rb - R <= lo_r and hi_r <= rb + by + R
+                assert cb - R <= lo_c and hi_c <= cb + bx + R
+    assert (hits == 1).all()
+    assert blocks == S * plan.ntx * plan.nty
+    if (by, bx) == (256, 512):
+        assert (plan.ty, plan.tx, plan.cap, blocks) == (3, 32, 1792, 11008)
+        assert 256 - (plan.nty - 1) * plan.ty == 1
+
+
+@pytest.mark.parametrize("K", [1, 9, 18, 33, 64])
+def test_block_marker_plans_fit_shared_memory(K):
+    """At the 4x2 mesh's 256x512 and the 2x2 mesh's 20x20 blocks, kernels
+    10 and 11 keep their siblings' plans: each block fits the 227 KB a
+    block may use, with two blocks resident per SM as far as shared memory
+    and threads go (kernel 10 at K18: four, as kernel 2)."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+
+    for S, by, bx in ((8, 256, 512), (4, 20, 20)):
+        plan = m2g_block.block_plan(S, by, bx, K)
+        assert plan == m2g.m2g_plan(by, bx, K)
+        assert plan.smem + m2g.SMEM_STATIC <= rebucket.SMEM_BLOCK_MAX
+        assert m2g.blocks_per_sm(plan.smem, plan.threads) >= (
+            4 if K == 18 else 2)
+        aplan = advect.advect_plan(by, bx, K)
+        assert aplan.smem == advect.smem_bytes(aplan.ty, aplan.tx, aplan.cap)
+        assert aplan.smem + advect.SMEM_STATIC <= rebucket.SMEM_BLOCK_MAX
+        assert advect.blocks_per_sm(aplan.smem) >= 2
+
+
+def test_m2g_block_plan_refuses_what_it_cannot_index():
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+
+    with pytest.raises(ValueError, match="31 bits"):
+        m2g_block.block_plan(16, 1024, 1024, 128)
+
+
+@pytest.mark.parametrize("R", [1, 2])
+def test_cut_windows_are_the_exchanged_windows(R):
+    """The windows cut from the whole padded lattices (the inputs on which
+    kernel 11 is held to kernel 3) are the windows the halo exchange gives
+    on the 4x2 mesh, with no-slip and free-slip walls."""
+    from pylamp_tpu_torch.markers.bucket import padded_velocities
+    from pylamp_tpu_torch.markers.kernels.advect_block import cut_windows
+    from pylamp_tpu_torch.parallel.halo_markers import velocity_windows
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    grid = StaggeredGrid(nx=32, ny=32, lx=1.0, ly=1.0)
+    mesh = make_mesh(8)
+    rng = np.random.default_rng(131 + R)
+    vx = torch.tensor(rng.uniform(-1, 1, grid.shape_vx), dtype=torch.float32)
+    vy = torch.tensor(rng.uniform(-1, 1, grid.shape_vy), dtype=torch.float32)
+    bcs = VelocityBCs(top="no_slip", right="no_slip", vt_top=0.3)
+    by, bx = grid.ny // mesh.my, grid.nx // mesh.mx
+    cut = cut_windows(*padded_velocities(vx, vy, bcs), mesh.bases(by, bx),
+                      by, bx, R)
+    for a, b in zip(velocity_windows(vx, vy, grid, bcs, mesh, R), cut):
+        assert a.shape == (8, by + 2 * R + 1, bx + 2 * R + 1)
+        assert torch.equal(a, b)
+
+
+def test_m2g_and_advect_block_cuda_refuse_cpu_tensors():
+    """The kernel paths of kernels 10 and 11 raise on CPU tensors before
+    any launch (no fallback inside them); their entry points take the
+    plain versions for them."""
+    from pylamp_tpu_torch.markers.kernels import advect_block, m2g_block
+    from pylamp_tpu_torch.models.benchmarks import fk_stagnant_lid
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+    from pylamp_tpu_torch.physics.materials import MaterialTable
+
+    S, by, bx, K = 4, 8, 16, 3
+    g = torch.Generator().manual_seed(13)
+    grid = StaggeredGrid(nx=2 * bx, ny=2 * by, lx=1.0, ly=1.0)
+    cfg = fk_stagnant_lid(nx=2 * bx, ny=2 * by)
+    table = MaterialTable(cfg.physics.materials)
+    shape = (S, by + 2, bx + 2, K)
+    xe, ye, Te = (torch.rand(shape, generator=g) for _ in range(3))
+    me = torch.zeros(shape, dtype=torch.int32)
+    ve = torch.ones(shape, dtype=torch.bool)
+    bases = make_mesh(S).bases(by, bx)
+    with pytest.raises(ValueError, match="CUDA"):
+        m2g_block.m2g_fused_block_cuda(xe, ye, Te, me, ve, grid, table,
+                                       cfg.physics, bases, True)
+    own = [a[:, 1:-1, 1:-1].contiguous() for a in (xe, ye, ve)]
+    win = torch.zeros((S, by + 3, bx + 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        advect_block.advect_block_cuda(*own, win, win, 0.1, grid, bases, 1)
+    n10, n11 = m2g_block.launches, advect_block.launches
+    out = m2g_block.m2g_fused_block(xe, ye, Te, me, ve, grid, table,
+                                    cfg.physics, bases, True)
+    nx_b, _ = advect_block.advect_block(*own, win, win, 0.1, grid, bases, 1)
+    assert (m2g_block.launches, advect_block.launches) == (n10, n11)
+    assert out["c_w"].shape == (S, by + 1, bx + 1)
+    assert nx_b.shape == own[0].shape

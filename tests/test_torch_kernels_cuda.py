@@ -635,7 +635,9 @@ def _mesh_markers(nx, ny, dev, mesh):
 def test_m2g_block_kernel(dev, n, mesh_n):
     """Kernel 10 on the extended blocks of the FK markers (K = 18) at the
     4x2 blocks of 1024^2 and an odd 2x2 mesh (20x20 blocks), against its
-    plain version; and the halo transfer against kernel 2."""
+    plain version on the whole frames (the partial last row and column
+    included); and the halo transfer bit-identical to kernel 2 on every
+    stream (kernel 2's body in the same order)."""
     from pylamp_tpu_torch.markers.kernels import m2g_block
     from pylamp_tpu_torch.parallel.halo_markers import m2g_fused_halo
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -655,8 +657,55 @@ def test_m2g_block_kernel(dev, n, mesh_n):
         assert _rel(got[k], ref[k]) <= 1e-5, k
     halo = m2g_fused_halo(bm, grid, table, cfg.physics, mesh, True)
     glob = m2g.m2g_fused(bm, grid, table, cfg.physics, with_energy=True)
+    assert sorted(halo) == sorted(glob)
     for k in glob:
-        assert _rel(halo[k], glob[k]) <= 1e-5, k
+        assert torch.equal(halo[k], glob[k]), k
+
+
+@pytest.mark.parametrize("streams", [("fk", 0.0, False), ("fk", 0.4, True),
+                                     ("three", 0.4, True)],
+                         ids=lambda s: f"{s[0]}-gx{s[1]}-ra{s[2]:d}")
+@pytest.mark.parametrize("K", [1, 9, 33])
+@pytest.mark.parametrize("ny,nx,my,mx", [(48, 66, 2, 2), (72, 72, 3, 3)])
+def test_m2g_block_kernel_odd(dev, ny, nx, my, mx, K, streams):
+    """Kernel 10 on seeded markers (_synthetic_markers: off their cells, on
+    cell and domain edges, a full cell, an empty tile) at 24x33 blocks
+    (bx + 1 = 34 node columns, no multiple of the strip) and at the 3x3
+    mesh's 24x24 blocks (interior shards), K 1, 9 and 33 (one to three
+    units a cell row), with and without the vx streams and rho0 * alpha:
+    within 1e-5 of its plain version per stream on the whole frames, and
+    the halo transfer bit-identical to kernel 2."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+    from pylamp_tpu_torch.parallel.halo_markers import (
+        _ext_blocks,
+        m2g_fused_halo,
+    )
+    from pylamp_tpu_torch.parallel.mesh import Mesh
+
+    name, gx, with_ra = streams
+    mesh = Mesh(my, mx)
+    bm, grid = _synthetic_markers(ny, nx, K, dev, 521 + K, False)
+    cfg = fk_stagnant_lid(nx=nx, ny=ny)
+    table = (MaterialTable(RA_TABLE) if name == "three"
+             else MaterialTable(cfg.physics.materials))
+    if name == "fk":
+        bm = bm.replace(mat=torch.zeros_like(bm.mat))
+    phys = dataclasses.replace(cfg.physics, gx=gx)
+    by, bx = ny // my, nx // mx
+    ext = _ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid)
+    bases = mesh.bases(by, bx, device=dev)
+    kw = dict(with_energy=True, with_ra=with_ra)
+    got = m2g_block.m2g_fused_block(*ext, grid, table, phys, bases, **kw)
+    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, phys, bases,
+                                          **kw)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+    halo = m2g_fused_halo(bm, grid, table, phys, mesh, **kw)
+    glob = m2g.m2g_fused(bm, grid, table, phys, **kw)
+    assert sorted(halo) == sorted(glob)
+    for k in glob:
+        assert torch.equal(halo[k], glob[k]), k
 
 
 @pytest.mark.parametrize("reach", [1, 2])
@@ -664,7 +713,8 @@ def test_m2g_block_kernel(dev, n, mesh_n):
 def test_advect_block_kernel(dev, n, mesh_n, reach):
     """Kernel 11 on the FK markers with random velocities, the windows the
     halo engine exchanges, against its plain version and the halo advection
-    against kernel 3."""
+    against kernel 3; and on windows cut from kernel 3's padded lattices,
+    bit-identical to kernel 3."""
     from pylamp_tpu_torch.markers.kernels import advect_block
     from pylamp_tpu_torch.parallel.halo_markers import advect_rk4_halo
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -686,6 +736,58 @@ def test_advect_block_kernel(dev, n, mesh_n, reach):
     for ref in (plain, glob):
         for g, rf, s in ((got.x, ref.x, bm.x), (got.y, ref.y, bm.y)):
             assert _disp_rel(g, rf, s) <= 1e-4
+    # fed the windows cut from kernel 3's own padded lattices, kernel 11
+    # gives kernel 3's new positions bit for bit (one body, one RK4)
+    cut = _cut_advect(bm, vx, vy, dt, grid, bcs, mesh, reach)
+    assert torch.equal(cut.x, glob.x) and torch.equal(cut.y, glob.y)
+
+
+def _cut_advect(bm, vx, vy, dt, grid, bcs, mesh, reach):
+    """Kernel 11 on every shard's windows cut from the padded lattices
+    that kernel 3 samples, gathered into the global layout."""
+    from pylamp_tpu_torch.markers.bucket import padded_velocities
+    from pylamp_tpu_torch.markers.kernels import advect_block
+    from pylamp_tpu_torch.parallel.halo_markers import BLK3
+
+    by, bx = grid.ny // mesh.my, grid.nx // mesh.mx
+    bases = mesh.bases(by, bx, device=vx.device)
+    vx_p, vy_p = padded_velocities(vx.float(), vy.float(), bcs)
+    wins = advect_block.cut_windows(vx_p, vy_p, bases, by, bx, reach)
+    own = [mesh.flat(mesh.split(a, BLK3)) for a in (bm.x, bm.y, bm.valid)]
+    ox, oy = advect_block.advect_block_cuda(*own, *wins, dt, grid, bases,
+                                            reach)
+    return bm.replace(x=mesh.gather(mesh.unflat(ox), BLK3),
+                      y=mesh.gather(mesh.unflat(oy), BLK3))
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("K", [1, 9, 33])
+@pytest.mark.parametrize("ny,nx,my,mx", [(48, 66, 2, 2), (72, 72, 3, 3)])
+def test_advect_block_kernel_odd(dev, ny, nx, my, mx, K, reach):
+    """Kernel 11 on seeded markers (_synthetic_markers) with seeded
+    velocities at 24x33 and the 3x3 mesh's 24x24 blocks, K 1, 9 and 33,
+    both stage reaches: on windows cut from kernel 3's padded lattices
+    bit-identical to kernel 3, and through the halo advection within the
+    displacement bar of the plain version."""
+    from pylamp_tpu_torch.parallel.halo_markers import advect_rk4_halo
+    from pylamp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(my, mx)
+    bm, grid = _synthetic_markers(ny, nx, K, dev, 601 + K, False)
+    bcs = VelocityBCs(top="no_slip", left="no_slip")
+    rng = np.random.default_rng(611 + K + reach)
+    vx = torch.tensor(rng.uniform(-0.3, 0.3, grid.shape_vx),
+                      dtype=torch.float32, device=dev)
+    vy = torch.tensor(rng.uniform(-0.5, 0.5, grid.shape_vy),
+                      dtype=torch.float32, device=dev)
+    dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+    glob = advect.advect_rk4_fused(bm, vx, vy, dt, grid, bcs, reach)
+    cut = _cut_advect(bm, vx, vy, dt, grid, bcs, mesh, reach)
+    assert torch.equal(cut.x, glob.x) and torch.equal(cut.y, glob.y)
+    got = advect_rk4_halo(bm, vx, vy, dt, grid, bcs, mesh, reach, True)
+    ref = advect_rk4_halo(bm, vx, vy, dt, grid, bcs, mesh, reach, False)
+    assert _disp_rel(got.x, ref.x, bm.x) <= 1e-4
+    assert _disp_rel(got.y, ref.y, bm.y) <= 1e-4
 
 
 def _disp_rel(got, ref, start):
@@ -885,11 +987,17 @@ def test_coarse_vcycle_preps_interleaved(dev):
 def test_redesigned_kernels_fit_without_spills(dev):
     """Kernels 5 and 8 at every depth and tile height, kernel 6 at the FK
     128^2 and sticky-air 128x32 plans, kernels 1, 4, 7 and 9 in both forms,
-    kernel 12 at its plans at the 4x2 blocks: no local memory (spills),
-    kernels 5 and 8 with 16 warps resident per SM, one cluster of kernel 6
-    resident, kernel 6's static shared memory the planner's SMEM_STATIC,
-    kernels 4 and 12's dynamic shared memory their plans'."""
-    from pylamp_tpu_torch.markers.kernels import rebucket_block
+    kernels 10, 11 and 12 at their plans at the 4x2 blocks: no local
+    memory (spills), kernels 5 and 8 with 16 warps resident per SM, one
+    cluster of kernel 6 resident, kernel 6's static shared memory the
+    planner's SMEM_STATIC, kernels 4 and 10-12's dynamic shared memory
+    their plans', kernels 10 and 11 with at least their siblings' (2 and
+    3) resident blocks per SM."""
+    from pylamp_tpu_torch.markers.kernels import (
+        advect_block,
+        m2g_block,
+        rebucket_block,
+    )
     from pylamp_tpu_torch.ops.kernels import cheb_block, saddle_block
 
     for he in range(1, 8):
@@ -934,6 +1042,25 @@ def test_redesigned_kernels_fit_without_spills(dev):
         assert info["local_bytes"] == 0, ("rebucket_block", K, info)
         assert info["dynamic_smem"] == plan.smem, (K, info)
         assert info["blocks_per_sm"] >= 2, (K, info)
+    # kernel 10 (kernel 2's gather) in both instantiations and kernel 11
+    # (kernel 3's tiles) at the plans of the 4x2 blocks, each against its
+    # sibling's occupancy at the sibling's FK plan
+    for K in (1, 9, 18, 33, 64):
+        plan = m2g_block.block_plan(8, 256, 512, K)
+        sib = m2g.m2g_plan(1024, 1024, K)
+        for flags in (m2g.FLAG_ENERGY, m2g.FLAG_ENERGY | m2g.FLAG_RA):
+            info = m2g_block.kernel_info(plan, flags)
+            ref = m2g.kernel_info(sib, flags)
+            assert info["local_bytes"] == 0, ("m2g_block", K, flags, info)
+            assert info["dynamic_smem"] == plan.smem, (K, flags, info)
+            assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (
+                K, flags, info, ref)
+        aplan = advect.advect_plan(256, 512, K)
+        info = advect_block.kernel_info(aplan)
+        ref = advect.kernel_info(advect.advect_plan(1024, 1024, K))
+        assert info["local_bytes"] == 0, ("advect_block", K, info)
+        assert info["dynamic_smem"] == aplan.smem, (K, info)
+        assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (K, info, ref)
 
 
 # -- the periodic forms of kernels 1-5 and 7 ----------------------------------
@@ -1225,7 +1352,8 @@ def test_m2g_kernel_ra(dev, periodic, ny, nx):
 def test_m2g_block_kernel_ra(dev, n, mesh_n):
     """Kernel 10 with the rho0 * alpha stream on the extended blocks of the
     FK markers, against its plain version, a rerun bit-identical; and the
-    halo transfer's c_ra against kernel 2's."""
+    halo transfer bit-identical to kernel 2's on every stream, c_ra
+    included."""
     from pylamp_tpu_torch.markers.kernels import m2g_block
     from pylamp_tpu_torch.parallel.halo_markers import m2g_fused_halo
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -1252,7 +1380,9 @@ def test_m2g_block_kernel_ra(dev, n, mesh_n):
                           with_ra=True)
     glob = m2g.m2g_fused(bm, grid, table, cfg.physics, with_energy=True,
                          with_ra=True)
-    assert _rel(halo["c_ra"], glob["c_ra"]) <= 1e-5
+    assert "c_ra" in halo and sorted(halo) == sorted(glob)
+    for k in glob:
+        assert torch.equal(halo[k], glob[k]), k
 
 
 def test_m2g_kernels_fit_without_spills(dev):

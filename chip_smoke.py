@@ -125,6 +125,18 @@ just before it:
   one state (Krylov within +-2, fields within 1e-5, sorted marker
   positions within 1e-6).
 
+- the command line (``cli_paths``): ``python -m pylamp_tpu_torch run
+  fk_stagnant_lid --nx 1024`` in-process (the preset's own solver, f32
+  state) for 4 steps with a checkpoint and a field dump at step 4, for 2
+  steps with ``--profile-phases`` and a checkpoint, and resumed from that
+  checkpoint to step 4: kernels 1-6 launch in each run and no other
+  kernel or form, every ``state.*`` leaf of the resumed run's checkpoint
+  is bit-identical to the 4-step run's, the dump holds every live marker;
+  ``run rt_van_keken --steps 2`` at its 512^2 (K = 32) launches kernels
+  1-6; ``python3 -m pylamp_tpu_torch list`` prints the six presets.  It
+  logs the median step wall time, the Krylov counts, the seconds of each
+  checkpoint, field dump and checkpoint load, and its own seconds.
+
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
 kernel from 32^2) and a 256^2 periodic falling-block step (kernels 1-5
@@ -191,6 +203,14 @@ UNIFORM_EDGES_STEPS = 2
 UNIFORM_EDGES_FIELD_TOL = 1e-5  # max |diff| / max|ref| of vx, vy, p, T
 UNIFORM_EDGES_MARKER_TOL = 1e-6  # sorted marker x, y, over the box size
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
+# the CLI phase: `python -m pylamp_tpu_torch run fk_stagnant_lid --nx 1024`
+# (the preset's own solver, f32 state) for CLI_STEPS steps, the same run
+# cut in half by a checkpoint and resumed, and rt_van_keken at its 512^2
+CLI_NX = 1024
+CLI_STEPS = 4
+CLI_RT_STEPS = 2
+CLI_BENCHMARKS = ("blankenbach", "falling_block", "falling_block_periodic",
+                  "fk_stagnant_lid", "rt_van_keken", "sticky_air")
 SMALL_NX = 64
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores
@@ -2393,6 +2413,174 @@ def reseed_check(grid, table, state):
         f"{tuple(m.x.shape)} slots): " + json.dumps(ms))
 
 
+def _cli_lines(out_dir, label, energy):
+    """The metrics lines of a CLI run, each converged to 1e-8 with no
+    marker dropped (and, with ``energy``, the energy solve converged)."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    for r in lines:
+        tag = f"{label} step {r['step']}"
+        if not r["stokes_converged"] or not r["stokes_residual_rel"] <= 1e-8:
+            raise AssertionError(f"{tag}: Stokes rel residual "
+                                 f"{r['stokes_residual_rel']:.3e} (converged "
+                                 f"{r['stokes_converged']})")
+        if r["markers_dropped"] != 0:
+            raise AssertionError(f"{tag}: {r['markers_dropped']} markers "
+                                 "dropped")
+        if energy and not r["energy_converged"]:
+            raise AssertionError(f"{tag}: the energy solve did not converge")
+    return lines
+
+
+def cli_paths(modules):
+    """The port's command line, in-process (``pylamp_tpu_torch.cli.main``)
+    in a temporary directory, every launch counter set to 0 just before
+    each run:
+
+    (a) ``run fk_stagnant_lid --nx 1024 --steps 4 --checkpoint-every 4
+        --output-every 4`` (the preset's own solver, f32 state): kernels
+        1-6 launch, kernels 7-12 and every periodic and rho0 * alpha form
+        stay idle;
+    (b) the same for 2 steps with ``--checkpoint-every 2
+        --profile-phases``: every line carries the four phase seconds;
+    (c) 4 steps resumed from (b)'s checkpoint: every ``state.*`` leaf of
+        its final checkpoint bit-identical to (a)'s (exact resume, and the
+        phased runner equal to the plain step);
+    (d) ``run rt_van_keken --steps 2`` at its 512^2 with K = 32: kernels
+        1-6 launch;
+    (e) ``python3 -m pylamp_tpu_torch list`` in a subprocess: exit 0 and
+        the six names.
+
+    Every metrics line of (a)-(d) converged to 1e-8 with no marker
+    dropped; (a)'s field dump holds every live marker.  The driver's
+    ``save_checkpoint``, ``save_fields`` and ``load_checkpoint`` are
+    timed where the runs call them.  Returns the record printed in the
+    log (with (a)'s launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pylamp_tpu_torch import cli
+    from pylamp_tpu_torch.models import driver
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    io_s = {}
+
+    def timed_io(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            io_s.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    io_fns = {n: getattr(driver, n) for n in
+              ("save_checkpoint", "save_fields", "load_checkpoint")}
+    six = ("saddle", "m2g", "advect", "rebucket", "cheb", "coarse_vcycle")
+    tmp = tempfile.mkdtemp(prefix="cli_paths_")
+    launches = {}
+    try:
+        for n, fn in io_fns.items():
+            setattr(driver, n, timed_io(n, fn))
+
+        def run(tag, *argv):
+            zero_counters(modules)
+            out = os.path.join(tmp, tag)
+            t0 = time.perf_counter()
+            if cli.main(["run", *argv, "--out", out]) != 0:
+                raise AssertionError(f"cli run {tag}: non-zero exit")
+            secs = time.perf_counter() - t0
+            counts = counted_launches(modules)
+            idle = [k for k in six if not counts.get(f"{k}.launches")]
+            other = {k: v for k, v in counts.items()
+                     if k.removesuffix(".launches") not in six}
+            if idle or other:
+                raise AssertionError(f"cli run {tag}: kernels idle {idle}, "
+                                     f"other kernels launched {other}")
+            launches[tag] = {k: modules[k].launches for k in modules}
+            log(f"cli run {tag} ({' '.join(argv)}): {secs:.1f} s, launches "
+                + ", ".join(f"{k}+{n}" for k, n in counts.items()))
+            return out
+
+        fk = ("fk_stagnant_lid", "--nx", str(CLI_NX))
+        half = CLI_STEPS // 2
+        a = run("A", *fk, "--steps", str(CLI_STEPS), "--checkpoint-every",
+                str(CLI_STEPS), "--output-every", str(CLI_STEPS))
+        b = run("B", *fk, "--steps", str(half), "--checkpoint-every",
+                str(half), "--profile-phases")
+        c = run("C", *fk, "--steps", str(CLI_STEPS), "--resume",
+                os.path.join(b, "checkpoint.npz"), "--checkpoint-every",
+                str(CLI_STEPS))
+        d = run("D", "rt_van_keken", "--steps", str(CLI_RT_STEPS))
+    finally:
+        for n, fn in io_fns.items():
+            setattr(driver, n, fn)
+    try:
+        la, lb, lc = (_cli_lines(o, f"cli {t}", True)
+                      for o, t in ((a, "A"), (b, "B"), (c, "C")))
+        ld = _cli_lines(d, "cli D", False)
+        for tag, lines, steps in (("A", la, range(1, CLI_STEPS + 1)),
+                                  ("B", lb, range(1, half + 1)),
+                                  ("C", lc, range(half + 1, CLI_STEPS + 1)),
+                                  ("D", ld, range(1, CLI_RT_STEPS + 1))):
+            if [r["step"] for r in lines] != list(steps):
+                raise AssertionError(f"cli {tag}: steps "
+                                     f"{[r['step'] for r in lines]}")
+        for r in lb:
+            if sorted(r["phase_seconds"]) != ["advect", "energy", "interp",
+                                              "stokes"]:
+                raise AssertionError(f"cli B: phase_seconds {r}")
+        with np.load(os.path.join(a, "checkpoint.npz")) as za, \
+                np.load(os.path.join(c, "checkpoint.npz")) as zc:
+            keys = sorted(k for k in za.files if k.startswith("state."))
+            if keys != sorted(k for k in zc.files if k.startswith("state.")):
+                raise AssertionError("cli: checkpoint leaves differ")
+            differ = [k for k in keys if za[k].dtype != zc[k].dtype
+                      or za[k].tobytes() != zc[k].tobytes()]
+            if differ:
+                raise AssertionError("cli: the resumed run's checkpoint "
+                                     f"differs from the 4-step run's in "
+                                     f"{differ}")
+            n_live = int(za["state.markers.valid"].sum())
+        with np.load(os.path.join(a, f"fields_{CLI_STEPS:06d}.npz")) as zf:
+            n_dump = int(zf["marker_x"].size)
+            finite = all(bool(np.isfinite(zf[k]).all())
+                         for k in ("vx", "vy", "p", "T", "marker_x",
+                                   "marker_y", "marker_T"))
+        if n_dump != n_live or not finite:
+            raise AssertionError(f"cli A: field dump holds {n_dump} markers "
+                                 f"of {n_live} live (finite: {finite})")
+        names = subprocess.run(
+            [sys.executable, "-m", "pylamp_tpu_torch", "list"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, check=True).stdout.split()
+        if tuple(names) != CLI_BENCHMARKS:
+            raise AssertionError(f"cli list: {names}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls = [r["step_wall_s"] for r in la[1:]]
+    rec = {
+        "device": smi,
+        "fk_nx": CLI_NX,
+        "median_step_wall_s_after_step_1": statistics.median(walls),
+        "step_wall_s": [r["step_wall_s"] for r in la],
+        "krylov_per_step": [r["stokes_iterations"] for r in la],
+        "energy_iterations_per_step": [r["energy_iterations"] for r in la],
+        "phase_seconds_B": [r["phase_seconds"] for r in lb],
+        "rt_van_keken_krylov_per_step": [r["stokes_iterations"] for r in ld],
+        "rt_van_keken_step_wall_s": [r["step_wall_s"] for r in ld],
+        "io_seconds": io_s,
+        "resume_bit_identical_leaves": len(keys),
+        "live_markers": n_live,
+        "phase_s": time.perf_counter() - t_phase,
+        "launches": launches,
+    }
+    log("cli_paths " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2552,6 +2740,7 @@ def main():
     stretched_paths(modules)
     small_reference_check()
     periodic_reference_check(modules)
+    rec_cli = cli_paths(modules)
 
     def periodic_count(k, path):
         """Launches of row ``k``'s form on a periodic path: a periodic
@@ -2612,7 +2801,11 @@ def main():
                     launches_hm["mesh_4x2"]["m2g_block"]),
                 # stretched_paths fails on any launch there
                 "fk_1024_stretched_8x": 0,
-                "fk_1024_stretched_8x_line": 0},
+                "fk_1024_stretched_8x_line": 0,
+                # `python -m pylamp_tpu_torch run fk_stagnant_lid --nx
+                # 1024 --steps 4` (cli_paths (a))
+                "cli_fk_1024": (rec_cli["launches"]["A"][base]
+                                if wall_form else 0)},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -4,7 +4,9 @@ format (``pylamp_tpu/io/checkpoint.py``: ``state.markers.x``,
 
 An ``np.load`` of a pylamp_tpu checkpoint loads straight into the port
 (``state_from_numpy(dict(np.load(path)), device)``); keys outside
-``state.`` (the format version, ``extra.*``) are ignored.
+``state.`` (the format version, ``extra.*``) are ignored.  The port's own
+checkpoints (``io/checkpoint.py``) use the same names: this module holds
+the one list of them.
 """
 from __future__ import annotations
 
@@ -19,6 +21,29 @@ GRID_FIELDS = ("vx", "vy", "p", "T", "eta_s", "eta_n", "time", "step", "dt",
                "mg_lam")
 
 
+def state_leaves(state: ModelState) -> dict:
+    """Every leaf of ``state`` by its checkpoint name (``state.<path>``);
+    a ``mg_lam`` of None has no leaf, as in the reference's pytree."""
+    out = {f"state.markers.{f}": getattr(state.markers, f)
+           for f in MARKER_FIELDS}
+    for f in GRID_FIELDS:
+        v = getattr(state, f)
+        if v is not None:
+            out[f"state.{f}"] = v
+    return out
+
+
+def state_from_leaves(leaves: dict) -> ModelState:
+    """ModelState from tensors keyed by checkpoint name (``state_leaves``'s
+    inverse); a missing ``state.mg_lam`` gives None."""
+    markers = BucketedMarkers(
+        **{f: leaves[f"state.markers.{f}"] for f in MARKER_FIELDS})
+    fields = {f: leaves[f"state.{f}"] for f in GRID_FIELDS
+              if f"state.{f}" in leaves}
+    fields.setdefault("mg_lam", None)
+    return ModelState(markers=markers, **fields)
+
+
 def state_from_numpy(d, device="cuda", dtype=None) -> ModelState:
     """ModelState from path-keyed numpy arrays on ``device`` (the card
     unless the caller asks for the CPU).  ``dtype`` (a floating
@@ -31,20 +56,12 @@ def state_from_numpy(d, device="cuda", dtype=None) -> ModelState:
             a = a.to(dtype)
         return a.to(device)
 
-    markers = BucketedMarkers(
-        **{f: leaf(f"state.markers.{f}") for f in MARKER_FIELDS})
-    fields = {f: leaf(f"state.{f}") for f in GRID_FIELDS
-              if f"state.{f}" in d}
-    fields.setdefault("mg_lam", None)
-    return ModelState(markers=markers, **fields)
+    names = [f"state.markers.{f}" for f in MARKER_FIELDS] + [
+        f"state.{f}" for f in GRID_FIELDS if f"state.{f}" in d]
+    return state_from_leaves({k: leaf(k) for k in names})
 
 
 def state_to_numpy(state: ModelState) -> dict:
     """Path-keyed numpy arrays of every leaf (the checkpoint's names)."""
-    out = {f"state.markers.{f}": getattr(state.markers, f)
-           for f in MARKER_FIELDS}
-    for f in GRID_FIELDS:
-        v = getattr(state, f)
-        if v is not None:
-            out[f"state.{f}"] = v
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    return {k: v.detach().cpu().numpy()
+            for k, v in state_leaves(state).items()}

@@ -115,6 +115,13 @@ def bucket_from_flat(x, y, mat, T, grid: StaggeredGrid, capacity: int):
         T=fill(T, T.dtype), valid=valid.reshape(ny, nx, capacity))
 
 
+def flatten(bm: BucketedMarkers):
+    """(x, y, mat, T, valid) as flat tensors in ``reshape(-1)`` order (for
+    IO/diagnostics)."""
+    return (bm.x.reshape(-1), bm.y.reshape(-1), bm.mat.reshape(-1),
+            bm.T.reshape(-1), bm.valid.reshape(-1))
+
+
 # -- local coordinates on a target sub-lattice ----------------------------------------
 
 def _locate_table(grid: StaggeredGrid, name: str, nodes, ncells: int,

@@ -1,13 +1,15 @@
-"""Benchmark model configurations.
+"""Benchmark model configurations and diagnostics.
 
-Port of five presets of ``pylamp_tpu/models/benchmarks.py``: the
+Port of ``pylamp_tpu/models/benchmarks.py``: its six presets, the
 falling block and Blankenbach case 1a (BASELINE configs 1 and 2, the
 reference's multi-device dryrun configurations), the falling block with
 periodic side walls (``falling_block_periodic``), the Frank-Kamenetskii
 stagnant lid (unit box, kappa = 1, eta_ref = 1, DT = 1; rho0*alpha = Ra
-with g = 1) and the sticky-air free surface (BASELINE config 5, SI units),
-plus the configurations ``python bench.py`` builds for the last two, switch
-for switch: ``fk_bench_config`` (its default) and
+with g = 1), the van Keken Rayleigh-Taylor instability (BASELINE config
+4) and the sticky-air free surface (BASELINE config 5, SI units), and the
+standard diagnostics (Nusselt number, v_rms) used to compare against
+published community values.  Beside them, the configurations ``python
+bench.py`` builds, switch for switch: ``fk_bench_config`` (its default),
 ``sticky_air_bench_config`` (``--benchmark sticky_air``) and
 ``fk_stretched_bench_config`` (``--stretch-y 8``), and
 ``falling_block_periodic_config``, the periodic preset at nx^2 that the
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from pylamp_tpu_torch.core.bc import ThermalBC, ThermalBCs, VelocityBCs
 from pylamp_tpu_torch.core.grid import geometric_edges
@@ -30,6 +33,53 @@ from pylamp_tpu_torch.models.config import (
 from pylamp_tpu_torch.physics.materials import Material
 
 KYR = 3.15576e10  # seconds
+
+
+# -- diagnostics --------------------------------------------------------------
+
+def _wall_gradient_coeffs(h1, h2):
+    """2nd-order one-sided derivative coefficients at the wall node for
+    node gaps h1 (wall->next) and h2 (next->third)."""
+    c0 = -(2.0 * h1 + h2) / (h1 * (h1 + h2))
+    c1 = (h1 + h2) / (h1 * h2)
+    c2 = -h1 / (h2 * (h1 + h2))
+    return c0, c1, c2
+
+
+def _x_average(f, grid):
+    """Trapezoid average of a corner-row quantity over x (stretched-aware)."""
+    if grid.uniform:
+        w = torch.ones(grid.nx + 1, dtype=f.dtype, device=f.device)
+        w[0] = w[-1] = 0.5
+        return torch.sum(f * w) / grid.nx
+    dxs = torch.as_tensor(grid.dxs, dtype=f.dtype, device=f.device)
+    return torch.sum(0.5 * (f[:-1] + f[1:]) * dxs) / grid.lx
+
+
+def nusselt_top(T, grid):
+    """Nu = <dT/dy> at the top wall (y points DOWN, T=0 top / T=1 bottom on
+    the unit box, so the conductive profile T=y gives Nu = 1).  One-sided
+    2nd-order difference on corner nodes (nonuniform coefficients on a
+    stretched grid), trapezoid in x."""
+    h1, h2 = float(grid.dys[0]), float(grid.dys[1])
+    c0, c1, c2 = _wall_gradient_coeffs(h1, h2)
+    dTdy = c0 * T[0, :] + c1 * T[1, :] + c2 * T[2, :]
+    return _x_average(dTdy, grid)
+
+
+def nusselt_bottom(T, grid):
+    """Nu at the bottom wall (equals nusselt_top in steady state)."""
+    h1, h2 = float(grid.dys[-1]), float(grid.dys[-2])
+    c0, c1, c2 = _wall_gradient_coeffs(h1, h2)
+    dTdy = -(c0 * T[-1, :] + c1 * T[-2, :] + c2 * T[-3, :])
+    return _x_average(dTdy, grid)
+
+
+def vrms_box(vx, vy):
+    """Volume RMS velocity on cell centers."""
+    vxc = 0.5 * (vx[:, 1:] + vx[:, :-1])
+    vyc = 0.5 * (vy[1:, :] + vy[:-1, :])
+    return torch.sqrt(torch.mean(vxc ** 2 + vyc ** 2))
 
 
 def falling_block(nx=64, ny=64, eta_block=1.0, rho_block=2.0, max_steps=20):
@@ -178,6 +228,36 @@ def fk_stagnant_lid(nx=64, ny=64, Ra_top=100.0, visc_contrast=1e4,
                         dt_diff_factor=5.0),
         T_of=T_of,
         name="fk_stagnant_lid",
+    )
+
+
+def rt_van_keken(nx=512, ny=512, eta_ratio=1.0, max_steps=200):
+    """Isothermal compositional RT after van Keken et al. (1997): buoyant
+    layer (thickness 0.2) under a denser fluid in a 0.9142 x 1 box, cosine
+    interface perturbation (BASELINE config 4)."""
+    lam = 0.9142
+    heavy = Material(name="heavy", rho0=1.0, eta0=1.0, viscosity="constant")
+    light = Material(name="light", rho0=0.0, eta0=eta_ratio,
+                     viscosity="constant")
+
+    def material_of(x, y):
+        interface = 0.8 + 0.02 * np.cos(np.pi * x / lam)
+        return (y > interface).astype(np.int32)
+
+    return ModelConfig(
+        nx=nx, ny=ny, lx=lam, ly=1.0,
+        markers_per_cell_dim=4,
+        physics=PhysicsConfig(
+            gx=0.0, gy=1.0,
+            materials=(heavy, light),
+            velocity_bcs=VelocityBCs(top="no_slip", bottom="no_slip"),
+            solve_energy=False,
+            eta_avg="geometric",
+        ),
+        solver=SolverConfig(),
+        time=TimeConfig(courant=0.5, max_steps=max_steps),
+        material_of=material_of,
+        name="rt_van_keken",
     )
 
 

@@ -50,9 +50,13 @@ engine on the mesh.  With
 ``explicit_halo=False`` a mesh changes nothing: the step runs on the global
 tensors, the single-device step, which is what the reference's GSPMD
 partitioning computes.
+
+``make_phased_runner`` is the same step with the device synchronized
+around each phase, for the driver's ``profile_phases``.
 """
 from __future__ import annotations
 
+import time
 from functools import partial
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
@@ -559,3 +563,49 @@ def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable,
     """The production step: ``step(state) -> (new_state, diag)``; ``mesh``
     as in ``make_step_phases``."""
     return partial(run_step, make_step_phases(grid, cfg, table, mesh=mesh))
+
+
+def sync_device(device):
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# the phases the driver reports in diag["phase_seconds"], as the reference
+TIMED_PHASES = ("interp", "stokes", "energy", "advect")
+
+
+def make_phased_runner(grid: StaggeredGrid, cfg: ModelConfig,
+                       table: MaterialTable):
+    """Per-phase-instrumented step for profiling.
+
+    Returns ``run(state) -> (new_state, diag)``: ``run_step`` with the
+    state's device synchronized before and after each of the phases
+    interp, stokes, energy and advect, whose wall-clock seconds it adds
+    as ``diag["phase_seconds"]``.  It computes exactly what ``make_step``
+    computes (the same phase closures); only for measurement: the syncs
+    cost a few ms/step."""
+    from pylamp_tpu_torch.utils.profiling import phase
+
+    ph = make_step_phases(grid, cfg, table)
+
+    def run(state: ModelState):
+        secs: Dict[str, float] = {}
+        device = state.vx.device
+
+        def timed(name, fn, *args):
+            if name not in TIMED_PHASES:
+                return fn(*args)
+            sync_device(device)
+            t0 = time.perf_counter()
+            with phase(name):
+                out = fn(*args)
+                sync_device(device)
+            secs[name] = time.perf_counter() - t0
+            return out
+
+        new_state, diag = run_step(ph, state, timed)
+        diag["phase_seconds"] = secs
+        return new_state, diag
+
+    return run

@@ -137,6 +137,16 @@ just before it:
   logs the median step wall time, the Krylov counts, the seconds of each
   checkpoint, field dump and checkpoint load, and its own seconds.
 
+- the validation phase (``validation_paths``): the flat marker engine
+  with the block-Jacobi preconditioner (the falling block at 64^2, f64, 3
+  steps) on the card against the same steps on the CPU (within 1e-10) and
+  rerun bit-identical; FK 256^2 with flat markers interleaved with the
+  bucket engine from the same markers (Krylov within +-max(2, 10 %),
+  velocities within 1e-5 after step 1; the flat path launches kernels 1,
+  5 and 6, none of 2-4); 100 steps of ``models.validate_blankenbach`` at
+  64^2 (kernels 1-4 and 6, every step converged, Nu, v_rms and the
+  markers dropped printed).
+
 Every step must converge to 1e-8, drop no marker, keep every field finite
 and launch every kernel of its path.  A 64^2 FK step on the card (coarse
 kernel from 32^2) and a 256^2 periodic falling-block step (kernels 1-5
@@ -212,6 +222,26 @@ CLI_RT_STEPS = 2
 CLI_BENCHMARKS = ("blankenbach", "falling_block", "falling_block_periodic",
                   "fk_stagnant_lid", "rt_van_keken", "sticky_air")
 SMALL_NX = 64
+# the validation phase: (a) the flat falling block with block Jacobi, f64,
+# card vs CPU and a bit-identical rerun; (b) FK flat vs bucket; (c) the
+# Blankenbach 1a module's first steps
+VALIDATION_FLAT_NX = 64
+VALIDATION_FLAT_STEPS = 3
+# (tol, restart, maxiter): block Jacobi needs ~8000 FGMRES iterations a
+# step at 64^2 to reach 1e-10 with restart 200 (11-13 s on the card, 28-30
+# s on its host's CPU), ~1,400 unrestarted (~20 s on a CPU)
+VALIDATION_FLAT_TOL = (1e-10, 1500, 20000)
+VALIDATION_FLAT_REL = 1e-10  # card vs CPU, every f64 leaf over its max
+VALIDATION_FK_NX = 256
+VALIDATION_FK_STEPS = 3
+VALIDATION_FK_VTOL = 1e-5  # flat vs bucket after step 1, over max|vy|
+# Krylov per step, flat vs bucket: +-max(2, 10 %), the heated paths' bar.
+# The two engines sum the f32 viscosity fields in different orders, and
+# the mixed-precision count moves by ~3 under such rounding (step 1 took
+# 35 flat and 38 bucket iterations, the velocities 1.7e-7 apart)
+VALIDATION_FK_KRYLOV_REL = HEATED_KRYLOV_REL
+VALIDATION_BB_NX = 64
+VALIDATION_BB_STEPS = 100
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W): HBM bytes/s
 # and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -2581,6 +2611,204 @@ def cli_paths(modules):
     return rec
 
 
+def _flat_step(step, state, tag):
+    """One flat-engine step that must converge to 1e-8 and keep every
+    field and marker finite.  Returns (state, wall seconds, Krylov)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, diag = step(state)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    if not (diag["stokes_converged"]
+            and diag["stokes_residual_rel"] <= 1e-8):
+        raise AssertionError(f"{tag}: Stokes solve did not converge "
+                             f"({diag['stokes_residual_rel']:.3e})")
+    leaves = (state.vx, state.vy, state.p, state.eta_s, state.eta_n,
+              state.markers.x, state.markers.y)
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        raise AssertionError(f"{tag}: non-finite values")
+    log(f"{tag}: {dt_s:.3f} s, Krylov {diag['stokes_iterations']}, rel "
+        f"residual {diag['stokes_residual_rel']:.3e}")
+    return state, dt_s, int(diag["stokes_iterations"])
+
+
+def validation_paths(modules):
+    """The flat marker engine, the block-Jacobi preconditioner and the
+    validation runs on the card, every launch counter set to 0 just
+    before each path and read just after:
+
+    (a) the flat falling block 64^2, f64, ``preconditioner="jacobi"``: 3
+        steps on the card against the same 3 steps on the CPU (every field
+        and marker within 1e-10 of the largest value), then the 3 card
+        steps again from the same state, every field and marker
+        bit-identical (the flat engine's sorted segment sums); no kernel
+        launches (an f64 state);
+    (b) FK 256^2 (``fk_bench_config``, f32, mixed precision, MG) with flat
+        markers, 3 steps interleaved with 3 bucket-engine steps from the
+        same markers: Krylov within +-max(2, 10 %), velocities within
+        1e-5 max|vy| after step 1, no marker dropped; the flat path
+        launches kernels 1, 5 and 6 and none of kernels 2-4, the bucket
+        path kernels 1-6;
+    (c) 100 steps of ``models.validate_blankenbach`` at 64^2 through the
+        module (f32, its own configuration) with ``allow_drops``: every
+        step converged, Nu and v_rms printed with the markers dropped
+        (the configuration's K = 18 buckets overflow from step ~60 in the
+        reference too, on the CPU), kernels 1-4 and 6 launching (kernel
+        5 takes no level below 256).
+
+    Returns the record printed in the log (with each path's launches)."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.markers.bucket import flatten
+    from pylamp_tpu_torch.markers.state import MarkerState
+    from pylamp_tpu_torch.models import validate_blankenbach
+    from pylamp_tpu_torch.models.benchmarks import (
+        falling_block,
+        fk_bench_config,
+    )
+    from pylamp_tpu_torch.models.config import SolverConfig
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    rec = {"device": smi}
+
+    # (a) flat + block Jacobi, f64: card vs CPU, then a bit-identical rerun
+    tol, restart, maxiter = VALIDATION_FLAT_TOL
+    cfg_a = replace(falling_block(VALIDATION_FLAT_NX, VALIDATION_FLAT_NX),
+                    marker_engine="flat",
+                    solver=SolverConfig(stokes_tol=tol, stokes_restart=restart,
+                                        stokes_maxiter=maxiter,
+                                        preconditioner="jacobi"))
+    runs = {}
+    zero_counters(modules)
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu"), ("card rerun", "cuda")):
+        grid, table, st = build(cfg_a, dtype=torch.float64, device=dev)
+        if not isinstance(st.markers, MarkerState):
+            raise AssertionError("flat build: not a flat marker state")
+        step = make_step(grid, cfg_a, table)
+        secs, iters = [], []
+        for i in range(VALIDATION_FLAT_STEPS):
+            st, dt_s, it = _flat_step(step, st, f"flat jacobi "
+                                      f"{VALIDATION_FLAT_NX}^2 {tag} step "
+                                      f"{i + 1}")
+            secs.append(dt_s)
+            iters.append(it)
+        runs[tag] = (state_leaves(st), secs, iters)
+    launched = counted_launches(modules)
+    if launched:
+        raise AssertionError(f"flat f64 path launched kernels: {launched}")
+    card, cpu, again = (runs[k][0] for k in ("card", "cpu", "card rerun"))
+    errs = {}
+    for k, v in card.items():
+        ref = cpu[k]
+        if v.is_floating_point():
+            scale = max(float(torch.max(torch.abs(ref))), 1e-300)
+            errs[k] = float(torch.max(torch.abs(v.cpu() - ref))) / scale
+        elif not torch.equal(v.cpu(), ref):
+            raise AssertionError(f"flat card vs CPU: {k} differs")
+    differ = [k for k, v in card.items() if not torch.equal(v, again[k])]
+    worst = max(errs, key=errs.get)
+    log(f"flat jacobi {VALIDATION_FLAT_NX}^2 f64, card vs CPU after "
+        f"{VALIDATION_FLAT_STEPS} steps: max rel err {errs[worst]:.3e} "
+        f"({worst}); rerun bit-identical: {not differ}")
+    if errs[worst] > VALIDATION_FLAT_REL:
+        raise AssertionError(f"flat card vs CPU: {worst} off by "
+                             f"{errs[worst]:.3e} > {VALIDATION_FLAT_REL}")
+    if differ:
+        raise AssertionError(f"flat card rerun differs in {differ}")
+    rec["flat_jacobi"] = {
+        "nx": VALIDATION_FLAT_NX, "rel_err_card_vs_cpu": errs,
+        "krylov": {k: runs[k][2] for k in runs},
+        "step_s": {k: runs[k][1] for k in runs}}
+
+    # (b) FK 256^2, flat vs bucket from the same markers, interleaved
+    cfg_b = fk_bench_config(VALIDATION_FK_NX)
+    cfg_f = replace(cfg_b, marker_engine="flat")
+    grid, table, st_b = build(cfg_b, dtype=torch.float32, device="cuda")
+    fx, fy, fm, fT, fv = flatten(st_b.markers)
+    st_f = st_b.replace(markers=MarkerState(x=fx[fv], y=fy[fv], mat=fm[fv],
+                                            T=fT[fv]))
+    n_markers = int(st_b.markers.total())
+    paths = {"flat": (make_step(grid, cfg_f, table), st_f),
+             "bucket": (make_step(grid, cfg_b, table), st_b)}
+    want = {"flat": ("saddle", "cheb", "coarse_vcycle"),
+            "bucket": ("saddle", "m2g", "advect", "rebucket", "cheb",
+                       "coarse_vcycle")}
+    states = {p: st for p, (_, st) in paths.items()}
+    pr = {p: dict(step_s=[], krylov=[], launches={}) for p in paths}
+    for i in range(VALIDATION_FK_STEPS):
+        for p in (("flat", "bucket") if i % 2 == 0 else ("bucket", "flat")):
+            step = paths[p][0]
+            zero_counters(modules)
+            tag = f"FK {VALIDATION_FK_NX}^2 {p} step {i + 1}"
+            if p == "flat":
+                states[p], dt_s, it = _flat_step(step, states[p], tag)
+            else:
+                states[p], dt_s, it, _ = take_step(
+                    step, states[p], n_markers,
+                    {k: modules[k] for k in want[p]}, tag)
+            counts = counted_launches(modules)
+            for k, n in counts.items():
+                pr[p]["launches"][k] = pr[p]["launches"].get(k, 0) + n
+            extra = {k for k in counts
+                     if k.removesuffix(".launches") not in want[p]}
+            idle = [k for k in want[p] if not counts.get(f"{k}.launches")]
+            if extra or idle:
+                raise AssertionError(f"{tag}: kernels idle {idle}, other "
+                                     f"kernels launched {sorted(extra)}")
+            pr[p]["step_s"].append(dt_s)
+            pr[p]["krylov"].append(it)
+        if i == 0:
+            a, b = states["flat"], states["bucket"]
+            vmax = float(torch.max(torch.abs(b.vy)))
+            dv = max(float(torch.max(torch.abs(a.vx - b.vx))),
+                     float(torch.max(torch.abs(a.vy - b.vy))))
+            log(f"FK {VALIDATION_FK_NX}^2 flat vs bucket after step 1: max "
+                f"|dv| / max|vy| {dv / vmax:.3e}")
+            if not dv <= VALIDATION_FK_VTOL * vmax:
+                raise AssertionError("the flat FK step disagrees with the "
+                                     f"bucket step: {dv / vmax:.3e}")
+    if states["flat"].markers.n != n_markers:
+        raise AssertionError("the flat path lost markers")
+    for i, (a, b) in enumerate(zip(pr["flat"]["krylov"],
+                                   pr["bucket"]["krylov"])):
+        if abs(a - b) > max(KRYLOV_AB_TOL, VALIDATION_FK_KRYLOV_REL * b):
+            raise AssertionError(
+                f"FK {VALIDATION_FK_NX}^2 step {i + 1}: Krylov {a} flat, {b} "
+                f"bucket (bar +-max({KRYLOV_AB_TOL}, "
+                f"{VALIDATION_FK_KRYLOV_REL:.0%}))")
+    rec["fk_flat_vs_bucket"] = pr
+
+    # (c) 100 steps of the Blankenbach 1a validation module at 64^2
+    zero_counters(modules)
+    t0 = time.perf_counter()
+    summary = validate_blankenbach.run(
+        VALIDATION_BB_NX, max_steps=VALIDATION_BB_STEPS, device="cuda",
+        allow_drops=True)
+    launched = counted_launches(modules)
+    idle = [k for k in ("saddle", "m2g", "advect", "rebucket",
+                        "coarse_vcycle") if not launched.get(f"{k}.launches")]
+    if idle or summary["failure"] or not summary["all_converged"] \
+            or summary["steps"] != VALIDATION_BB_STEPS \
+            or not math.isfinite(summary["nu_top"]) \
+            or not math.isfinite(summary["vrms"]):
+        raise AssertionError(f"validate_blankenbach {VALIDATION_BB_NX}^2: "
+                             f"kernels idle {idle}, summary {summary}")
+    log(f"validate_blankenbach {VALIDATION_BB_NX}^2, {summary['steps']} "
+        f"steps: Nu {summary['nu_top']:.6f}, v_rms {summary['vrms']:.6f}, "
+        f"t {summary['time_nondim']:.6f}, {summary['seconds_per_step']:.4f} "
+        f"s/step, Krylov {summary['krylov_per_step']:.2f}/step, markers "
+        f"dropped {summary['markers_dropped']} (first at step "
+        f"{summary['first_drop_step']}), {time.perf_counter() - t0:.1f} s")
+    rec["blankenbach_64_100_steps"] = {**summary, "launches": launched}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("validation_paths " + json.dumps(rec))
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2741,6 +2969,7 @@ def main():
     small_reference_check()
     periodic_reference_check(modules)
     rec_cli = cli_paths(modules)
+    rec_val = validation_paths(modules)
 
     def periodic_count(k, path):
         """Launches of row ``k``'s form on a periodic path: a periodic
@@ -2779,6 +3008,17 @@ def main():
                                   else "preset")
         return launches_s[k]
 
+    def val_count(k, path):
+        """Launches of row ``k``'s form on a validation_paths path (the
+        flat FK path, or the Blankenbach module with ``path`` None): the
+        wall form of kernels 1-6 only."""
+        if k.endswith(("_periodic", "_ra")):
+            return 0
+        counts = (rec_val["fk_flat_vs_bucket"][path]["launches"]
+                  if path else rec_val["blankenbach_64_100_steps"]
+                  ["launches"])
+        return counts.get(f"{k}.launches", 0)
+
     kernels = []
     for k, r in results.items():
         base = k.removesuffix("_periodic").removesuffix("_ra")
@@ -2805,7 +3045,11 @@ def main():
                 # `python -m pylamp_tpu_torch run fk_stagnant_lid --nx
                 # 1024 --steps 4` (cli_paths (a))
                 "cli_fk_1024": (rec_cli["launches"]["A"][base]
-                                if wall_form else 0)},
+                                if wall_form else 0),
+                # validation_paths (b): FK 256^2 with flat markers, and
+                # (c): validate_blankenbach 64^2, 100 steps
+                "fk_256_flat": val_count(k, "flat"),
+                "blankenbach_64_validation": val_count(k, None)},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -6,7 +6,9 @@ An ``np.load`` of a pylamp_tpu checkpoint loads straight into the port
 (``state_from_numpy(dict(np.load(path)), device)``); keys outside
 ``state.`` (the format version, ``extra.*``) are ignored.  The port's own
 checkpoints (``io/checkpoint.py``) use the same names: this module holds
-the one list of them.
+the one list of them.  A bucket state's markers carry ``valid``; a flat
+state's (``markers/state.py MarkerState``) do not, and that is how
+``state_from_leaves`` tells the two engines apart.
 """
 from __future__ import annotations
 
@@ -14,9 +16,11 @@ import numpy as np
 import torch
 
 from pylamp_tpu_torch.markers.bucket import BucketedMarkers
+from pylamp_tpu_torch.markers.state import MarkerState
 from pylamp_tpu_torch.models.state import ModelState
 
 MARKER_FIELDS = ("x", "y", "mat", "T", "valid")
+FLAT_MARKER_FIELDS = ("x", "y", "mat", "T")
 GRID_FIELDS = ("vx", "vy", "p", "T", "eta_s", "eta_n", "time", "step", "dt",
                "mg_lam")
 
@@ -24,8 +28,9 @@ GRID_FIELDS = ("vx", "vy", "p", "T", "eta_s", "eta_n", "time", "step", "dt",
 def state_leaves(state: ModelState) -> dict:
     """Every leaf of ``state`` by its checkpoint name (``state.<path>``);
     a ``mg_lam`` of None has no leaf, as in the reference's pytree."""
-    out = {f"state.markers.{f}": getattr(state.markers, f)
-           for f in MARKER_FIELDS}
+    names = (MARKER_FIELDS if isinstance(state.markers, BucketedMarkers)
+             else FLAT_MARKER_FIELDS)
+    out = {f"state.markers.{f}": getattr(state.markers, f) for f in names}
     for f in GRID_FIELDS:
         v = getattr(state, f)
         if v is not None:
@@ -35,9 +40,14 @@ def state_leaves(state: ModelState) -> dict:
 
 def state_from_leaves(leaves: dict) -> ModelState:
     """ModelState from tensors keyed by checkpoint name (``state_leaves``'s
-    inverse); a missing ``state.mg_lam`` gives None."""
-    markers = BucketedMarkers(
-        **{f: leaves[f"state.markers.{f}"] for f in MARKER_FIELDS})
+    inverse); a missing ``state.mg_lam`` gives None, and markers without
+    ``valid`` a flat ``MarkerState``."""
+    if "state.markers.valid" in leaves:
+        markers = BucketedMarkers(
+            **{f: leaves[f"state.markers.{f}"] for f in MARKER_FIELDS})
+    else:
+        markers = MarkerState(
+            **{f: leaves[f"state.markers.{f}"] for f in FLAT_MARKER_FIELDS})
     fields = {f: leaves[f"state.{f}"] for f in GRID_FIELDS
               if f"state.{f}" in leaves}
     fields.setdefault("mg_lam", None)
@@ -56,7 +66,8 @@ def state_from_numpy(d, device="cuda", dtype=None) -> ModelState:
             a = a.to(dtype)
         return a.to(device)
 
-    names = [f"state.markers.{f}" for f in MARKER_FIELDS] + [
+    names = [f"state.markers.{f}" for f in MARKER_FIELDS
+             if f"state.markers.{f}" in d] + [
         f"state.{f}" for f in GRID_FIELDS if f"state.{f}" in d]
     return state_from_leaves({k: leaf(k) for k in names})
 

@@ -16,8 +16,9 @@ def _np(t):
 
 
 def save_fields(path: str, state, grid, markers: bool = True):
-    """The grid fields, the clock and (``markers``) the live markers in
-    ``reshape(-1)`` slot order; only the live markers leave the device."""
+    """The grid fields, the clock and (``markers``) the markers: a bucket
+    state's live markers in ``reshape(-1)`` slot order (only those leave
+    the device), a flat state's as they are."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     data = dict(
         vx=_np(state.vx),
@@ -32,9 +33,14 @@ def save_fields(path: str, state, grid, markers: bool = True):
         y_corner=grid.y_corner,
     )
     if markers:
-        fx, fy, fm, fT, fv = flatten(state.markers)
-        data.update(marker_x=_np(fx[fv]), marker_y=_np(fy[fv]),
-                    marker_mat=_np(fm[fv]), marker_T=_np(fT[fv]))
+        m = state.markers
+        if hasattr(m, "valid"):
+            fx, fy, fm, fT, fv = flatten(m)
+            fx, fy, fm, fT = fx[fv], fy[fv], fm[fv], fT[fv]
+        else:
+            fx, fy, fm, fT = m.x, m.y, m.mat, m.T
+        data.update(marker_x=_np(fx), marker_y=_np(fy), marker_mat=_np(fm),
+                    marker_T=_np(fT))
     np.savez_compressed(path, **data)
 
 

@@ -159,6 +159,10 @@ def falling_block_periodic_config(nx: int = 1024,
         cfg.solver, use_pallas=True, use_pallas_smoother=False))
 
 
+BLANKENBACH_1A_NU = 4.884409  # Blankenbach et al. (1989) benchmark value
+BLANKENBACH_1A_VRMS = 42.864947
+
+
 def blankenbach_case1a(nx=64, ny=64, Ra=1e4, max_steps=2000, max_time=0.25):
     """Isoviscous convection at Ra = 1e4 (BASELINE config 2): rho =
     Ra (1 - T), rho0 cp = 1 and k = 1 (kappa = 1), free slip everywhere,

@@ -2,7 +2,7 @@
 
     python -m pylamp_tpu_torch.models.profile
         [--config fk|fk_heated|fk_heated_mg|fk_stretched|fk_stretched_line|
-                  sticky_air|falling_block_periodic]
+                  sticky_air|falling_block_periodic|blankenbach|van_keken]
         [--nx 1024] [--steps 2] [--mesh 4x2]
 
 Builds ``fk_bench_config(nx)`` (FK nx^2, the default),
@@ -12,8 +12,10 @@ switches; ``fk_heated_mg``: with the energy multigrid and flexible CG),
 8``; ``fk_stretched_line``: with the line smoothers in both multigrids,
 see ``fk_stretched_line_config``),
 ``sticky_air_bench_config(nx)`` (sticky air nx x nx // 4) or
-``falling_block_periodic_config(nx)`` (periodic side walls, nx^2) on the
-card in f32 and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
+``falling_block_periodic_config(nx)`` (periodic side walls, nx^2) or the
+configuration of a validation run (``blankenbach``: Blankenbach 1a,
+``van_keken``: the Rayleigh-Taylor benchmark, nx^2) on the card in f32
+and takes 2 warm-up steps, then (with ``--mesh YxX``, as the
 reference's CLI: the explicit-halo step on that in-process mesh)
 
 1. runs ``--steps`` steps through ``models.step.run_step`` with a device
@@ -49,6 +51,7 @@ from dataclasses import replace
 
 import torch
 
+from pylamp_tpu_torch.models import validate_blankenbach, validate_van_keken
 from pylamp_tpu_torch.models.benchmarks import (
     falling_block_periodic_config,
     fk_bench_config,
@@ -91,7 +94,10 @@ CONFIGS = {"fk": fk_bench_config, "fk_heated": fk_heated_config,
            "fk_stretched": fk_stretched_bench_config,
            "fk_stretched_line": fk_stretched_line_config,
            "sticky_air": sticky_air_bench_config,
-           "falling_block_periodic": falling_block_periodic_config}
+           "falling_block_periodic": falling_block_periodic_config,
+           # the validation runs' configurations (their early steps)
+           "blankenbach": validate_blankenbach.config,
+           "van_keken": validate_van_keken.config}
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # the hand-written kernels' names: each csrc/*.cu defines its kernels in
 # an anonymous namespace (PyTorch's own carry at::native before theirs;

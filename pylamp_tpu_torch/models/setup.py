@@ -1,5 +1,7 @@
 """Model setup: grid + marker seeding + initial state (port of
-``pylamp_tpu/models/setup.py``).
+``pylamp_tpu/models/setup.py``), for either marker engine: ``bucket``
+(the dense cell-bucketed layout) or ``flat`` ((N,) tensors, the
+reference-style engine of ``markers/interp.py``).
 
 Markers are seeded on the host with numpy exactly like the reference
 (same generator, same draws), so the port's initial state matches the JAX
@@ -14,6 +16,9 @@ from pylamp_tpu_torch.markers.bucket import (
     bucket_from_flat,
     bucket_markers_to_grid,
 )
+from pylamp_tpu_torch.markers.interp import markers_to_grid
+from pylamp_tpu_torch.markers.seed import clip_to_box, lattice
+from pylamp_tpu_torch.markers.state import MarkerState
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.state import zero_state
 from pylamp_tpu_torch.physics.materials import MaterialTable
@@ -25,15 +30,9 @@ def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
     stretched grid seeds them in each cell's own coordinates (constant
     markers per cell, not per area), drawing the reference's stream."""
     m = cfg.markers_per_cell_dim
-    nxm, nym = grid.nx * m, grid.ny * m
     rng = np.random.default_rng(cfg.seed)
     if grid.uniform:
-        ddx, ddy = grid.lx / nxm, grid.ly / nym
-        xs = (np.arange(nxm) + 0.5) * ddx
-        ys = (np.arange(nym) + 0.5) * ddy
-        Yh, Xh = np.meshgrid(ys, xs, indexing="ij")
-        xh = Xh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddx
-        yh = Yh.ravel() + rng.uniform(-0.25, 0.25, nxm * nym) * ddy
+        xh, yh = lattice(grid, m, rng, jitter=0.5)
     else:
         frac = (np.arange(m) + 0.5) / m
         jx = rng.uniform(-0.25, 0.25, (grid.ny, grid.nx, m, m)) / m
@@ -45,8 +44,7 @@ def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
               + fx * grid.dxs[None, :, None, None]).ravel()
         yh = (ye[:-1][:, None, None, None]
               + fy * grid.dys[:, None, None, None]).ravel()
-    xh = np.clip(xh, 1e-6 * grid.dx_min, grid.lx - 1e-6 * grid.dx_min)
-    yh = np.clip(yh, 1e-6 * grid.dy_min, grid.ly - 1e-6 * grid.dy_min)
+    xh, yh = clip_to_box(xh, yh, grid)
     n_mat = len(cfg.physics.materials)
     mat = (np.asarray(cfg.material_of(xh, yh), dtype=np.int32)
            if cfg.material_of else np.zeros(xh.shape, np.int32))
@@ -62,10 +60,8 @@ def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
 def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
     """Returns (grid, table, initial ModelState) on ``device`` (the card
     unless the caller asks for the CPU)."""
-    if cfg.marker_engine != "bucket":
-        raise NotImplementedError(
-            f"the {cfg.marker_engine!r} marker engine waits for a later port "
-            "PR")
+    if cfg.marker_engine not in ("bucket", "flat"):
+        raise ValueError(f"unknown marker engine {cfg.marker_engine!r}")
     device = torch.device(device)
     grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly,
                          x_edges=cfg.x_edges, y_edges=cfg.y_edges)
@@ -82,18 +78,27 @@ def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
     def dev(a, dt=None):
         return torch.from_numpy(a).to(device=device, dtype=dt)
 
-    markers = bucket_from_flat(dev(xh, dtype), dev(yh, dtype), dev(mat),
-                               dev(T, dtype), grid, capacity)
+    if cfg.marker_engine == "bucket":
+        markers = bucket_from_flat(dev(xh, dtype), dev(yh, dtype), dev(mat),
+                                   dev(T, dtype), grid, capacity)
+    else:
+        markers = MarkerState(x=dev(xh, dtype), y=dev(yh, dtype),
+                              mat=dev(mat), T=dev(T, dtype))
     state = zero_state(grid, markers, dtype, n_mg_levels=n_mg_levels,
                        device=device)
     # grid mirrors: fallback values for marker-starved nodes at step 1
     eta_m = torch.clamp(table.viscosity_of(markers.mat, markers.T),
                         cfg.physics.eta_min, cfg.physics.eta_max)
     periodic = cfg.physics.velocity_bcs.periodic_x
-    eta_s, _ = bucket_markers_to_grid(markers, eta_m, grid, "corner",
-                                      cfg.physics.eta_avg, periodic)
-    eta_n, _ = bucket_markers_to_grid(markers, eta_m, grid, "center",
-                                      cfg.physics.eta_avg, periodic)
-    T_g, _ = bucket_markers_to_grid(markers, markers.T, grid, "corner",
-                                    "arithmetic", periodic)
+
+    def m2g(vals, loc, mode):
+        if cfg.marker_engine == "bucket":
+            return bucket_markers_to_grid(markers, vals, grid, loc, mode,
+                                          periodic)[0]
+        return markers_to_grid(markers.x, markers.y, vals, grid, loc, mode,
+                               periodic_x=periodic)[0]
+
+    eta_s = m2g(eta_m, "corner", cfg.physics.eta_avg)
+    eta_n = m2g(eta_m, "center", cfg.physics.eta_avg)
+    T_g = m2g(markers.T, "corner", "arithmetic")
     return grid, table, state.replace(eta_s=eta_s, eta_n=eta_n, T=T_g)

@@ -12,7 +12,8 @@ from pylamp_tpu_torch.core.grid import StaggeredGrid
 
 @dataclasses.dataclass
 class ModelState:
-    markers: object  # markers.bucket.BucketedMarkers
+    # markers.bucket.BucketedMarkers or markers.state.MarkerState (flat)
+    markers: object
     vx: torch.Tensor
     vy: torch.Tensor
     p: torch.Tensor

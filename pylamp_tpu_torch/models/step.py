@@ -1,10 +1,18 @@
-"""One model timestep (port of ``pylamp_tpu/models/step.py``, the
-bucket-engine branch):
+"""One model timestep (port of ``pylamp_tpu/models/step.py``):
 
     marker props -> marker->grid -> Stokes solve -> dt (Courant)
     -> implicit energy solve (+ shear / adiabatic heating) + marker T
     update (optional subgrid diffusion) -> RK4 advection -> rebucket
     (-> optional reseeding of starved cells)
+
+Both marker engines step: the bucket engine (below) and the flat engine
+(``markers/state.py MarkerState``, ``marker_engine="flat"``), which
+interpolates stream by stream through ``markers/interp.py`` (no kernel:
+the reference's flat engine has none), advects with ``markers/advect.py``
+and reseeds by moving markers (``markers/reseed.py reseed_starved``); on a
+mesh its markers stay on the global tensors, as the reference's.  The
+Stokes preconditioner is the multigrid or, with
+``preconditioner="jacobi"``, the block-Jacobi of the Stokes solver.
 
 The step keeps the reference's static kernel gates: with an f32 state on a
 uniform grid the marker->grid transfer, the advection and the rebucket run
@@ -71,9 +79,13 @@ from pylamp_tpu_torch.markers.bucket import (
     bucket_reseed,
     rebucket,
 )
+from pylamp_tpu_torch.markers.advect import advect_rk4
+from pylamp_tpu_torch.markers.interp import grid_to_markers, markers_to_grid
 from pylamp_tpu_torch.markers.kernels.advect import advect_rk4_fused
 from pylamp_tpu_torch.markers.kernels.m2g import m2g_fused, m2g_fused_plain
 from pylamp_tpu_torch.markers.kernels.rebucket import rebucket_fused
+from pylamp_tpu_torch.markers.reseed import reseed_starved
+from pylamp_tpu_torch.markers.state import MarkerState
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.state import ModelState
 from pylamp_tpu_torch.parallel.halo_markers import (
@@ -137,11 +149,11 @@ def _later(what):
 
 def _check_slice(cfg: ModelConfig):
     """Raise on every configuration branch the port does not have yet."""
-    phys, solver = cfg.physics, cfg.solver
-    if cfg.marker_engine != "bucket":
-        raise _later(f"the {cfg.marker_engine!r} marker engine")
-    for flag, what in ((solver.preconditioner != "mg",
-                        f"the {solver.preconditioner!r} Stokes preconditioner"),
+    solver = cfg.solver
+    if solver.preconditioner not in ("mg", "jacobi", "vanka"):
+        raise ValueError(f"unknown preconditioner {solver.preconditioner!r}")
+    for flag, what in ((solver.preconditioner == "vanka",
+                        "the 'vanka' Stokes preconditioner"),
                        (solver.schur != "mass",
                         f"the {solver.schur!r} Schur surrogate"),
                        (solver.mg_scaled_transfers or solver.mg_ls_damp,
@@ -161,7 +173,9 @@ def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
     return halo_mesh
 
 
-def _marker_mean(markers: BucketedMarkers, vals):
+def _marker_mean(markers, vals):
+    if isinstance(markers, MarkerState):
+        return torch.mean(vals)
     w = markers.valid
     return (torch.sum(torch.where(w, vals, 0.0))
             / torch.clamp(torch.sum(w.to(vals.dtype)), min=1.0))
@@ -199,14 +213,21 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     with_ra = phys.adiabatic_heating and phys.solve_energy
 
     # the one-stream marker transfers (subgrid diffusion, marker T update):
-    # the explicit-halo engine under the marker halo mesh
+    # the flat engine's, or the explicit-halo engine under the marker halo
+    # mesh
     def _disp_m2g(m, vals, loc, mode):
+        if isinstance(m, MarkerState):
+            return markers_to_grid(m.x, m.y, vals, grid, loc, mode,
+                                   periodic_x=periodic)
         if marker_halo_mesh is not None:
             return m2g_halo(m, vals, grid, loc, mode, marker_halo_mesh)
         return bucket_markers_to_grid(m, vals, grid, loc, mode,
                                       periodic_x=periodic)
 
     def _disp_g2m(m, field, loc):
+        if isinstance(m, MarkerState):
+            return grid_to_markers(field, m.x, m.y, grid, loc,
+                                   periodic_x=periodic)
         if marker_halo_mesh is not None:
             return g2m_halo(field, m.x, m.y, m.valid, grid, loc,
                             marker_halo_mesh)
@@ -217,7 +238,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         field, wsum = _disp_m2g(m, vals, loc, mode)
         return torch.where(wsum > 0, field, fallback)
 
-    make_precond = partial(
+    # preconditioner="jacobi": the solver's default block-Jacobi
+    make_precond = None if solver.preconditioner == "jacobi" else partial(
         make_mg_preconditioner,
         levels=solver.mg_levels,
         cycles=solver.mg_cycles,
@@ -253,7 +275,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         k_m = table.conductivity(m.mat, dtype)
         rhocp_m = table.rho_cp(m.mat, m.T)
         kern = solver.use_pallas_m2g and _kernels(dtype)
-        if not grid.uniform:
+        if not grid.uniform or isinstance(m, MarkerState):
             return _interp_streams(m, rho_m, k_m, rhocp_m, state)
         if marker_halo_mesh is not None:
             out = m2g_fused_halo(m, grid, table, phys, marker_halo_mesh,
@@ -267,10 +289,10 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         return _interp_fused(m, rho_m, k_m, rhocp_m, state, out)
 
     def _interp_streams(m, rho_m, k_m, rhocp_m, state) -> InterpOut:
-        """The reference's per-stream transfers (its path wherever the fused
-        transfer's gate fails): eta on the corners and centers, rho on the
-        velocity lattices; the energy phase interpolates its corner fields
-        itself."""
+        """The reference's per-stream transfers (the flat engine's path, and
+        the bucket engine's wherever the fused transfer's gate fails): eta
+        on the corners and centers, rho on the velocity lattices; the
+        energy phase interpolates its corner fields itself."""
         eta_m = torch.clamp(table.viscosity_of(m.mat, m.T), phys.eta_min,
                             phys.eta_max)
         eta_s = _disp_interp_fb(m, eta_m, "corner", phys.eta_avg, state.eta_s)
@@ -362,12 +384,16 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     def stokes(state: ModelState, io: InterpOut):
         dtype = state.markers.x.dtype
         mixed = _mixed(dtype)
-        lam_new = mg_lambdas(state, io, torch.float32 if mixed else dtype)
-        kern = _kernels(dtype)
-        mk = partial(make_precond, lam_max=lam_new,
-                     use_pallas=solver.use_pallas and kern,
-                     use_pallas_smoother=solver.use_pallas_smoother and kern,
-                     use_pallas_coarse=solver.use_pallas_coarse and kern)
+        lam_new = mk = None
+        if make_precond is not None:
+            lam_new = mg_lambdas(state, io,
+                                 torch.float32 if mixed else dtype)
+            kern = _kernels(dtype)
+            mk = partial(make_precond, lam_max=lam_new,
+                         use_pallas=solver.use_pallas and kern,
+                         use_pallas_smoother=(solver.use_pallas_smoother
+                                              and kern),
+                         use_pallas_coarse=solver.use_pallas_coarse and kern)
         x0 = (state.vx, state.vy, state.p)
         if mixed:
             sol = solve_stokes_mixed(
@@ -435,7 +461,7 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         ra_g = io.ra_g
         if io.T_old_g is not None:  # from the fused transfer
             T_old, k_g, rhocp_g, H_g = io.T_old_g, io.k_g, io.rhocp_g, io.H_g
-        else:  # stream by stream (a stretched grid)
+        else:  # stream by stream (flat markers, a stretched grid)
             def corner(vals, fallback):
                 return _disp_interp_fb(m, vals, "corner", "arithmetic",
                                        fallback)
@@ -483,8 +509,22 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         diag["T_mean"] = torch.mean(T_new)
         return m.replace(T=T_m), T_new, diag
 
+    def advect_flat(markers, vx, vy, dt, T_new):
+        """RK4 on the flat markers, then (optionally) markers moved into
+        starved cells; the flat engine drops none and reports nothing."""
+        px, py = advect_rk4(markers.x, markers.y, vx, vy, dt, grid, vbc)
+        markers = markers.replace(x=px, y=py)
+        if phys.reseed_min_per_cell > 0:
+            markers = reseed_starved(
+                markers, T_new, grid, n_materials=len(table),
+                min_per_cell=phys.reseed_min_per_cell,
+                max_moves=phys.reseed_max_moves, periodic_x=periodic)
+        return markers, {}
+
     # ---- phase 4: advect markers + re-bucket --------------------------------
     def advect(markers, vx, vy, dt, T_new):
+        if isinstance(markers, MarkerState):
+            return advect_flat(markers, vx, vy, dt, T_new)
         dtype = markers.x.dtype
         moving_walls = any(
             getattr(vbc, f) != 0.0

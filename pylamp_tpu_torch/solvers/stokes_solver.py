@@ -2,7 +2,9 @@
 
 Port of ``pylamp_tpu/solvers/stokes_solver.py``:
 ``solve_stokes`` in the state dtype, ``solve_stokes_mixed`` with f32
-FGMRES + MG inner solves under f64 iterative refinement.  In the mixed
+FGMRES + MG inner solves under f64 iterative refinement.  Without a
+``make_preconditioner`` both take the block-Jacobi preconditioner
+(``make_block_jacobi_preconditioner``), as the reference's do.  In the mixed
 solve the f32 outer applies go through the saddle kernel wrapper
 (ops/kernels/saddle.py) when ``use_pallas_apply`` is set and the grid
 passes ``saddle_apply_eligible`` (uniform: a stretched grid applies the
@@ -89,6 +91,29 @@ def project_vx_mean(vx):
     return vx - torch.mean(vx[:, :-1])
 
 
+def make_block_jacobi_preconditioner(eta_s, eta_n, grid, kcont, kbnd,
+                                     bcs=None):
+    """Block-diagonal preconditioner: velocity, pointwise Jacobi on the
+    momentum diagonals (``velocity_diagonals``, the stretched form on a
+    stretched grid, as the reference's); pressure, the viscosity-scaled
+    mass matrix (Schur complement surrogate S ~ -kcont/eta), projected to
+    the zero-mean gauge."""
+    dvx, dvy = velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs=bcs)
+    project = bcs is not None and vx_nullspace(bcs)
+    scale = -(eta_n / kcont)
+
+    def M(r):
+        rx, ry, rc = r
+        zx = rx / dvx
+        zy = ry / dvy
+        if project:
+            zx = project_vx_mean(zx)
+        zp = scale * rc
+        return (zx, zy, zp - torch.mean(zp))
+
+    return M
+
+
 def _zeros_like_grid(grid, dtype, device):
     return (
         torch.zeros(grid.shape_vx, dtype=dtype, device=device),
@@ -104,7 +129,8 @@ def solve_stokes(eta_s, eta_n, rho_vx, rho_vy, gx, gy, grid: StaggeredGrid,
                  halo_mesh=None) -> StokesSolution:
     """Solve the scaled Stokes system to ``tol`` relative residual in the
     viscosity's dtype.  ``make_preconditioner(eta_s, eta_n, grid, kcont,
-    kbnd, bcs=...) -> M`` (the MG preconditioner is the ported one)."""
+    kbnd, bcs=...) -> M`` overrides the default block-Jacobi (e.g. the
+    multigrid preconditioner of mg.py)."""
     dtype = eta_n.dtype
     kcont, kbnd = stokes_scales(characteristic_viscosity(eta_n), grid)
 
@@ -115,10 +141,8 @@ def solve_stokes(eta_s, eta_n, rho_vx, rho_vy, gx, gy, grid: StaggeredGrid,
 
     b = stokes_rhs(rho_vx, rho_vy, gx, gy, grid, bcs, kbnd=kbnd, dtype=dtype,
                    eta_s=eta_s)
-    if make_preconditioner is None:
-        raise NotImplementedError(
-            "the block-Jacobi Stokes preconditioner waits for a later port PR")
-    M = make_preconditioner(eta_s, eta_n, grid, kcont, kbnd, bcs=bcs)
+    mk = make_preconditioner or make_block_jacobi_preconditioner
+    M = mk(eta_s, eta_n, grid, kcont, kbnd, bcs=bcs)
     if x0 is None:
         x0 = _zeros_like_grid(grid, dtype, eta_n.device)
 
@@ -200,10 +224,8 @@ def solve_stokes_mixed(eta_s, eta_n, rho_vx, rho_vy, gx, gy,
         op32 = augment_saddle_op(
             op32, make_grad_div(eta_n32, grid, bcs, al_gamma, f32))
 
-    if make_preconditioner is None:
-        raise NotImplementedError(
-            "the block-Jacobi Stokes preconditioner waits for a later port PR")
-    M32 = make_preconditioner(eta_s32, eta_n32, grid, kcont32, kbnd32, bcs=bcs)
+    mk = make_preconditioner or make_block_jacobi_preconditioner
+    M32 = mk(eta_s32, eta_n32, grid, kcont32, kbnd32, bcs=bcs)
 
     def inner_solve(r32, tol32):
         z0 = tmap(torch.zeros_like, r32)

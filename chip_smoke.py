@@ -137,6 +137,32 @@ just before it:
   logs the median step wall time, the Krylov counts, the seconds of each
   checkpoint, field dump and checkpoint load, and its own seconds.
 
+- the periodic falling block at 1024^2 with ``explicit_halo=True`` on
+  the in-process 4x2 mesh (``periodic_mesh_path``): 1 warm-up + 2
+  measured steps interleaved with the single-device preset from the same
+  built state; the mesh path launches kernel 9 per shard and kernels 2-4
+  in their periodic forms on the global markers, and no other kernel (5,
+  6 and 8 stay off under periodic walls, 10-12 with the marker halo
+  engine, as in the reference); every step keeps the periodic seam
+  checks, Krylov within +-2 of the single device, and after step 1 the
+  mesh path's bars.
+
+- the solver options that no preset uses (``solver_option_paths``): FK
+  1024^2 from the FK build's state with ``schur="wbfbt"`` and with
+  ``preconditioner="vanka"`` (``mg_semicoarsen=0``, which the step
+  requires with it), 1 warm-up + 1 measured step each; the MG options,
+  which do not hold 1e-8 on FK 1024^2 in the reference either (scaled
+  transfers from step 1, the line search from step 2), take one FK 64^2
+  step each, and the line search (with ``use_pallas``, so that its
+  fine-level applies reach kernel 7) its first step at 1024^2 as well.
+  Every step to 1e-8 with no marker dropped, its Krylov count and s/step
+  logged beside the bench preset's from the same state; kernel 7
+  launches under the line search at 1024^2, kernel 6 under neither MG
+  option, no MG kernel (5-7) under Vanka.  Then the reference's slow
+  Vanka test on the card (``vanka_sharp_check``): its 1e6 cell-sharp
+  problem at 64^2 in f64 at restart 60, converged in fewer than 400
+  iterations.
+
 - the validation phase (``validation_paths``): the flat marker engine
   with the block-Jacobi preconditioner (the falling block at 64^2, f64, 3
   steps) on the card against the same steps on the CPU (within 1e-10) and
@@ -213,6 +239,43 @@ UNIFORM_EDGES_STEPS = 2
 UNIFORM_EDGES_FIELD_TOL = 1e-5  # max |diff| / max|ref| of vx, vy, p, T
 UNIFORM_EDGES_MARKER_TOL = 1e-6  # sorted marker x, y, over the box size
 KRYLOV_AB_TOL = 2  # Krylov iterations per step, fused vs plain MG smoother
+PERIODIC_MESH_WARMUP_STEPS = 1  # the periodic falling block on the 4x2 mesh
+PERIODIC_MESH_MEASURED_STEPS = 2
+# the solver options that no preset uses, on FK from one built state per
+# size: name -> (FK nx, solver switches, steps).  The MG options do not
+# hold the 1e-8 gate on FK 1024^2 in the reference either (its JAX step on
+# the CPU: scaled transfers stop at 0.985 relative residual on step 1, the
+# line search at 6.4e-5 on step 2): the line search takes its first step
+# there, and each takes one at 64^2, where the reference holds both steps
+# (scaled transfers need 300-400 Krylov a step there, ~30 s on the card)
+SOLVER_OPTIONS = {
+    "fk_1024_wbfbt": (FK_NX, dict(schur="wbfbt"), 2),
+    # the step refuses semicoarsening with Vanka, as the reference's
+    "fk_1024_vanka": (FK_NX, dict(preconditioner="vanka",
+                                  mg_semicoarsen=0.0), 2),
+    # use_pallas opens kernel 7's gate for the line search's fine-level
+    # applies (the FK preset keeps it shut, as the reference's)
+    "fk_1024_ls_damp": (FK_NX, dict(mg_ls_damp=True, use_pallas=True), 1),
+    "fk_64_scaled_transfers": (64, dict(mg_scaled_transfers=True), 1),
+    "fk_64_ls_damp": (64, dict(mg_ls_damp=True, use_pallas=True), 1),
+}
+# the kernels each option's step launches; every other counter stays 0
+# (kernel 6's gate refuses either MG option; Vanka runs no MG kernel;
+# kernels 5 and 7 take no level of 64^2)
+OPTION_KERNELS = {
+    "fk_1024_wbfbt": ("saddle", "m2g", "advect", "rebucket", "cheb",
+                      "coarse_vcycle"),
+    "fk_1024_vanka": ("saddle", "m2g", "advect", "rebucket"),
+    "fk_1024_ls_damp": ("saddle", "m2g", "advect", "rebucket", "cheb",
+                        "momentum"),
+    "fk_64_scaled_transfers": ("saddle", "m2g", "advect", "rebucket"),
+    "fk_64_ls_damp": ("saddle", "m2g", "advect", "rebucket"),
+}
+# the reference's slow Vanka test (tests/test_vanka.py _sharp_problem: a
+# 1e6 cell-sharp jump, seed 5) at its 64^2, f64, restart 60, maxiter 1500,
+# and its bar (the reference measured 282)
+VANKA_SHARP_NX = 64
+VANKA_SHARP_MAX_ITERS = 400
 # the CLI phase: `python -m pylamp_tpu_torch run fk_stagnant_lid --nx 1024`
 # (the preset's own solver, f32 state) for CLI_STEPS steps, the same run
 # cut in half by a checkpoint and resumed, and rt_van_keken at its 512^2
@@ -1817,19 +1880,7 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
             for k, mod in modules.items():
                 r["launches"][k] += mod.launches
         if i == 0:
-            a, b = states["mesh_4x2"], states["single"]
-            vmax = float(torch.max(torch.abs(b.vy)))
-            ymax = float(torch.max(torch.abs(b.markers.y)))
-            dv = max(float(torch.max(torch.abs(a.vx - b.vx))),
-                     float(torch.max(torch.abs(a.vy - b.vy))))
-            dyy = float(torch.max(torch.abs(a.markers.y - b.markers.y)))
-            same_mat = torch.equal(a.markers.mat, b.markers.mat)
-            log(f"{label} vs single-device after step 1: max |dv| / max|vy| "
-                f"{dv / vmax:.3e}, max |dy| / max|y| {dyy / ymax:.3e}, "
-                f"materials {'equal' if same_mat else 'DIFFER'}")
-            if not (dv <= 1e-5 * vmax and dyy <= 1e-5 * ymax and same_mat):
-                raise AssertionError("the mesh step disagrees with the "
-                                     "single-device step")
+            mesh_agrees(label, states["mesh_4x2"], states["single"])
     idle = {k: n for k, n in rec["mesh_4x2"]["launches"].items()
             if k not in block and n}
     if idle:
@@ -1850,6 +1901,24 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
                 f"{label} step {i + 1}: {a} Krylov iterations, single-device "
                 f"{b} (bar +-max({KRYLOV_AB_TOL}, {krylov_rel:.0%}))")
     return {p: r["launches"] for p, r in rec.items()}
+
+
+def mesh_agrees(label, a, b):
+    """The mesh path's state ``a`` against the single device's ``b`` after
+    one step from the same state: velocities within 1e-5 max|vy|, marker y
+    within 1e-5 max|y|, materials equal."""
+    vmax = float(torch.max(torch.abs(b.vy)))
+    ymax = float(torch.max(torch.abs(b.markers.y)))
+    dv = max(float(torch.max(torch.abs(a.vx - b.vx))),
+             float(torch.max(torch.abs(a.vy - b.vy))))
+    dyy = float(torch.max(torch.abs(a.markers.y - b.markers.y)))
+    same_mat = torch.equal(a.markers.mat, b.markers.mat)
+    log(f"{label} vs single-device after step 1: max |dv| / max|vy| "
+        f"{dv / vmax:.3e}, max |dy| / max|y| {dyy / ymax:.3e}, "
+        f"materials {'equal' if same_mat else 'DIFFER'}")
+    if not (dv <= 1e-5 * vmax and dyy <= 1e-5 * ymax and same_mat):
+        raise AssertionError(f"{label}: the mesh step disagrees with the "
+                             "single-device step")
 
 
 def seam_equal(name, a):
@@ -2060,6 +2129,27 @@ PERIODIC_PATHS = {
 }
 
 
+def periodic_state_checks(tag, st, grid):
+    """A periodic falling-block state: every marker x in [0, lx), the vx
+    seam columns within SEAM_TOL max|vx|, the largest vy within 3 columns
+    of the seam.  Returns (seam difference over max|vx|, the peak's
+    column)."""
+    x = st.markers.x[st.markers.valid]
+    if not (float(x.min()) >= 0.0 and float(x.max()) < grid.lx):
+        raise AssertionError(f"{tag}: marker x outside [0, lx): "
+                             f"{float(x.min())}, {float(x.max())}")
+    vmax = float(torch.max(torch.abs(st.vx)))
+    seam = float(torch.max(torch.abs(st.vx[:, 0] - st.vx[:, -1])))
+    col = int(torch.argmax(st.vy)) % grid.nx
+    if not seam <= SEAM_TOL * vmax:
+        raise AssertionError(f"{tag}: vx seam columns differ by "
+                             f"{seam / vmax:.3e} of max|vx|")
+    if not (col <= 3 or col >= grid.nx - 4):
+        raise AssertionError(f"{tag}: the largest vy sits in column {col}, "
+                             "not at the seam")
+    return seam / vmax, col
+
+
 def periodic_paths(grid, cfg, table, state0, n_markers, modules):
     """The periodic falling block at 1024^2 and its partner
     ``use_pallas=True, use_pallas_smoother=False`` from the same built
@@ -2110,23 +2200,11 @@ def periodic_paths(grid, cfg, table, state0, n_markers, modules):
             if wrong:
                 raise AssertionError(f"{tag}: launches outside the path's "
                                      f"periodic forms: {wrong}")
-            x = st.markers.x[st.markers.valid]
-            if not (float(x.min()) >= 0.0 and float(x.max()) < grid.lx):
-                raise AssertionError(f"{tag}: marker x outside [0, lx): "
-                                     f"{float(x.min())}, {float(x.max())}")
-            vmax = float(torch.max(torch.abs(st.vx)))
-            seam = float(torch.max(torch.abs(st.vx[:, 0] - st.vx[:, -1])))
-            col = int(torch.argmax(st.vy)) % grid.nx
-            if not seam <= SEAM_TOL * vmax:
-                raise AssertionError(f"{tag}: vx seam columns differ by "
-                                     f"{seam / vmax:.3e} of max|vx|")
-            if not (col <= 3 or col >= grid.nx - 4):
-                raise AssertionError(f"{tag}: the largest vy sits in column "
-                                     f"{col}, not at the seam")
+            seam_rel, col = periodic_state_checks(tag, st, grid)
             r = rec[p]
             r["step_s"].append(dt_s)
             r["krylov"].append(it)
-            r["seam_rel"].append(seam / vmax)
+            r["seam_rel"].append(seam_rel)
             r["peak_vy_col"].append(col)
             for k, mod in modules.items():
                 r["launches"][k] += mod.launches
@@ -2185,6 +2263,202 @@ def periodic_reference_check(modules):
         raise AssertionError(f"periodic {PERIODIC_SMALL_NX}^2 step disagrees "
                              f"with the CPU reference: {err / vmax:.3e} > 1e-4")
 
+
+PERIODIC_MESH_PATHS = {
+    # kernel 9 per shard; kernels 2-4 in their periodic forms on the global
+    # markers (the marker halo engine has no wrap-around path)
+    "mesh_4x2": ("saddle_block", "m2g", "advect", "rebucket"),
+    "single": PERIODIC_PATHS["preset"],
+}
+
+
+def periodic_mesh_path(grid, cfg, table, state0, n_markers, modules):
+    """The periodic falling block at 1024^2 with explicit_halo=True on the
+    in-process 4x2 mesh and the single-device preset from the same built
+    state, steps interleaved (mesh first on odd steps, second on even
+    ones).  Every counter (all and periodic) is set to 0 just before each
+    step and read just after: each path must launch its kernels
+    (``PERIODIC_MESH_PATHS``), kernels 2-5 only in their periodic forms,
+    and no other kernel.  Every step keeps periodic_state_checks; after
+    step 1 the two states agree (mesh_agrees); Krylov counts within
+    KRYLOV_AB_TOL.  Returns each path's record."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.mesh import make_mesh
+
+    smi = nvidia_smi_line()
+    cfg_h = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+    steps = {"mesh_4x2": make_step(grid, cfg_h, table,
+                                   mesh=make_mesh(MESH_SHARDS)),
+             "single": make_step(grid, cfg, table)}
+    periodic = {k: mod for k, mod in modules.items()
+                if hasattr(mod, "launches_periodic")}
+    states = dict.fromkeys(steps, state0)
+    rec = {p: dict(step_s=[], krylov=[], seam_rel=[], peak_vy_col=[],
+                   launches={k: 0 for k in modules},
+                   launches_periodic={k: 0 for k in periodic})
+           for p in steps}
+    n_steps = PERIODIC_MESH_WARMUP_STEPS + PERIODIC_MESH_MEASURED_STEPS
+    for i in range(n_steps):
+        kind = "warm-up" if i < PERIODIC_MESH_WARMUP_STEPS else "measured"
+        order = list(steps) if i % 2 == 0 else list(steps)[::-1]
+        for p in order:
+            expected = PERIODIC_MESH_PATHS[p]
+            zero_counters(modules)
+            tag = f"periodic mesh A/B {p} step {i + 1} ({kind})"
+            st, dt_s, it, _ = take_step(steps[p], states[p], n_markers,
+                                        {k: modules[k] for k in expected},
+                                        tag)
+            states[p] = st
+            wrong = {k: mod.launches - mod.launches_periodic
+                     for k, mod in periodic.items()
+                     if mod.launches != mod.launches_periodic} | {
+                k: mod.launches for k, mod in modules.items()
+                if k not in expected and mod.launches}
+            if wrong:
+                raise AssertionError(f"{tag}: launches outside the path's "
+                                     f"kernels and periodic forms: {wrong}")
+            seam_rel, col = periodic_state_checks(tag, st, grid)
+            r = rec[p]
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            r["seam_rel"].append(seam_rel)
+            r["peak_vy_col"].append(col)
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+            for k, mod in periodic.items():
+                r["launches_periodic"][k] += mod.launches_periodic
+        if i == 0:
+            mesh_agrees("periodic mesh", states["mesh_4x2"], states["single"])
+    meas = slice(PERIODIC_MESH_WARMUP_STEPS, None)
+    for p, r in rec.items():
+        r["median_s_per_step"] = statistics.median(r["step_s"][meas])
+        log(f"periodic falling block {grid.nx}^2 {p} on {smi}: median "
+            f"{r['median_s_per_step']:.3f} s/step over "
+            f"{PERIODIC_MESH_MEASURED_STEPS} steps, "
+            f"{mean(r['krylov'][meas]):.1f} Krylov iterations/step; "
+            f"launches {r['launches']}")
+    log("periodic mesh A/B " + json.dumps({"device": smi, **rec}))
+    for i, (a, b) in enumerate(zip(rec["mesh_4x2"]["krylov"],
+                                   rec["single"]["krylov"])):
+        if abs(a - b) > KRYLOV_AB_TOL:
+            raise AssertionError(
+                f"periodic mesh step {i + 1}: {a} Krylov iterations, "
+                f"single-device {b} (bar +-{KRYLOV_AB_TOL})")
+    return rec
+
+
+def solver_option_paths(fk_grid, fk_table, fk_state, n_markers, modules,
+                        preset):
+    """FK with each of ``SOLVER_OPTIONS`` from one built state per size
+    (the FK 1024^2 build's, a fresh 64^2 build), every counter set to 0
+    just before each step and read just after.  Each step must pass
+    take_step's checks (1e-8, no marker dropped) and launch the option's
+    kernels (``OPTION_KERNELS``) and no other.  ``preset``: the bench
+    preset's (s/step, Krylov) of its first two steps from the 1024^2
+    state, logged beside each option's (the 64^2 preset's run here).
+    Returns each option's record."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+
+    smi = nvidia_smi_line()
+    builds = {FK_NX: (fk_grid, fk_table, fk_state, n_markers)}
+    presets = {FK_NX: preset}
+    rec = {}
+    for name, (nx, opts, n_steps) in SOLVER_OPTIONS.items():
+        cfg = fk_bench_config(nx)
+        if nx not in builds:
+            grid, table, state0 = build(cfg, dtype=torch.float32,
+                                        device="cuda")
+            builds[nx] = (grid, table, state0, int(state0.markers.total()))
+            st, times, iters = state0, [], []
+            step = make_step(grid, cfg, table)
+            for i in range(2):
+                st, dt_s, it, _ = take_step(step, st, builds[nx][3], {},
+                                            f"FK {nx}^2 preset step {i + 1}")
+                times.append(dt_s)
+                iters.append(it)
+            presets[nx] = dict(step_s=times, krylov=iters)
+        grid, table, state, n = builds[nx]
+        step = make_step(grid, replace(cfg, solver=replace(cfg.solver,
+                                                           **opts)), table)
+        r = rec[name] = dict(step_s=[], krylov=[],
+                             launches={k: 0 for k in modules})
+        for i in range(n_steps):
+            zero_counters(modules)
+            tag = f"{name} step {i + 1}"
+            state, dt_s, it, _ = take_step(
+                step, state, n, {k: modules[k] for k in OPTION_KERNELS[name]},
+                tag)
+            other = {k: mod.launches for k, mod in modules.items()
+                     if k not in OPTION_KERNELS[name] and mod.launches}
+            if other:
+                raise AssertionError(f"{tag}: other kernels launched: "
+                                     f"{other}")
+            r["step_s"].append(dt_s)
+            r["krylov"].append(it)
+            for k, mod in modules.items():
+                r["launches"][k] += mod.launches
+        del state
+        p = presets[nx]
+        log(f"{name} on {smi}: s/step {r['step_s']} (preset "
+            f"{p['step_s'][:n_steps]}), Krylov {r['krylov']} (preset "
+            f"{p['krylov'][:n_steps]}); launches {r['launches']}")
+    log("solver options " + json.dumps({"device": smi, "presets": presets,
+                                        **rec}))
+    return rec
+
+
+def vanka_sharp_check():
+    """The reference's slow Vanka test (tests/test_vanka.py, not run by
+    tier-1) on the card: its two-layer 1e6 cell-sharp viscosity at 64^2
+    with random buoyancy (seed 5), f64, ``solve_stokes`` with the Vanka
+    preconditioner (one cycle, 2 + 2 sweeps), restart 60, tol 1e-8: it
+    must converge in fewer than VANKA_SHARP_MAX_ITERS iterations."""
+    import numpy as np
+
+    from pylamp_tpu_torch.core.bc import VelocityBCs
+    from pylamp_tpu_torch.core.grid import StaggeredGrid
+    from pylamp_tpu_torch.solvers.stokes_solver import solve_stokes
+    from pylamp_tpu_torch.solvers.vanka import make_vanka_mg_preconditioner
+
+    n = VANKA_SHARP_NX
+    grid = StaggeredGrid(nx=n, ny=n, lx=1.0, ly=1.0)
+
+    def layers(y, shape):
+        col = np.where(np.asarray(y) < 0.35, 1e6, 1.0)
+        return torch.tensor(np.broadcast_to(col[:, None], shape).copy(),
+                            dtype=torch.float64, device="cuda")
+
+    eta_s = layers(grid.y_corner, grid.shape_corner)
+    eta_n = layers(grid.y_center, grid.shape_center)
+    rng = np.random.default_rng(5)
+    rho_vy = torch.tensor(rng.normal(size=grid.shape_vy), device="cuda")
+    rho_vx = torch.zeros(grid.shape_vx, dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solve_stokes(eta_s, eta_n, rho_vx, rho_vy, 0.0, 1.0, grid,
+                       VelocityBCs(), tol=1e-8, restart=60, maxiter=1500,
+                       make_preconditioner=partial(
+                           make_vanka_mg_preconditioner, cycles=1,
+                           pre_smooth=2, post_smooth=2))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    info = sol.info
+    log(f"Vanka on the sharp 1e6 problem {n}^2 (f64) on "
+        f"{nvidia_smi_line()}: {info.iterations} iterations, relative "
+        f"residual {info.residual / info.bnorm:.3e}, {secs:.2f} s (the "
+        f"reference test's bar < {VANKA_SHARP_MAX_ITERS}; it measured 282)")
+    if not (info.converged and info.iterations < VANKA_SHARP_MAX_ITERS):
+        raise AssertionError(
+            f"Vanka sharp problem: converged {info.converged} after "
+            f"{info.iterations} iterations (bar < {VANKA_SHARP_MAX_ITERS})")
+    return dict(iterations=info.iterations, seconds=secs,
+                residual_rel=info.residual / info.bnorm)
 
 def ra_kernel_rows(grid, cfg, table, state):
     """Kernels 2 and 10 with the rho0 * alpha stream (rows ``m2g_ra`` and
@@ -2955,6 +3229,8 @@ def main():
                             label="heated FK mesh",
                             measured=HEATED_MESH_MEASURED_STEPS, ra=True,
                             krylov_rel=HEATED_KRYLOV_REL)
+    rec_opt = solver_option_paths(grid, table, state0, n_markers, modules,
+                                  dict(step_s=times[:2], krylov=iters[:2]))
     del state0
     launches_s = sticky_air_paths(grid_s, cfg_s, table_s, state_s,
                                   n_markers_s,
@@ -2963,22 +3239,25 @@ def main():
     del state_s
     rec_p = periodic_paths(grid_p, cfg_p, table_p, state_p, n_markers_p,
                            modules)
+    rec_pm = periodic_mesh_path(grid_p, cfg_p, table_p, state_p, n_markers_p,
+                                modules)
     del state_p
 
     stretched_paths(modules)
     small_reference_check()
     periodic_reference_check(modules)
+    vanka_sharp_check()
     rec_cli = cli_paths(modules)
     rec_val = validation_paths(modules)
 
-    def periodic_count(k, path):
-        """Launches of row ``k``'s form on a periodic path: a periodic
-        row's periodic-form launches, a wall-form row's wall-form ones
-        (the rho0 * alpha rows: none, no periodic path runs them)."""
+    def periodic_count(k, r):
+        """Launches of row ``k``'s form on a periodic path's record ``r``:
+        a periodic row's periodic-form launches, a wall-form row's
+        wall-form ones (the rho0 * alpha rows: none, no periodic path runs
+        them)."""
         if k.endswith("_ra"):
             return 0
         base = k.removesuffix("_periodic")
-        r = rec_p[path]
         n_periodic = r["launches_periodic"].get(base, 0)
         return n_periodic if k != base else r["launches"][base] - n_periodic
 
@@ -3004,8 +3283,8 @@ def main():
         if k.endswith("_block"):
             return launches_m["mesh_4x2"][k]
         if k.endswith("_periodic"):
-            return periodic_count(k, "partner" if k.startswith("momentum")
-                                  else "preset")
+            return periodic_count(k, rec_p["partner" if k.startswith(
+                "momentum") else "preset"])
         return launches_s[k]
 
     def val_count(k, path):
@@ -3031,9 +3310,13 @@ def main():
                 "sticky_air_1024x256": launches_s[base] if wall_form else 0,
                 "fk_1024_mesh_4x2": (launches_m["mesh_4x2"][base]
                                      if wall_form else 0),
-                "falling_block_periodic_1024": periodic_count(k, "preset"),
+                "falling_block_periodic_1024": periodic_count(
+                    k, rec_p["preset"]),
                 "falling_block_periodic_1024_partner": periodic_count(
-                    k, "partner"),
+                    k, rec_p["partner"]),
+                # explicit_halo on the 4x2 mesh (periodic_mesh_path)
+                "falling_block_periodic_1024_mesh_4x2": periodic_count(
+                    k, rec_pm["mesh_4x2"]),
                 "fk_1024_heated": heated_count(
                     k, rec_h["launches"], "m2g", rec_h["launches_ra"]),
                 "fk_1024_heated_mesh_4x2": heated_count(
@@ -3049,7 +3332,10 @@ def main():
                 # validation_paths (b): FK 256^2 with flat markers, and
                 # (c): validate_blankenbach 64^2, 100 steps
                 "fk_256_flat": val_count(k, "flat"),
-                "blankenbach_64_validation": val_count(k, None)},
+                "blankenbach_64_validation": val_count(k, None),
+                # solver_option_paths: FK with each option
+                **{name: (r_opt["launches"][base] if wall_form else 0)
+                   for name, r_opt in rec_opt.items()}},
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -36,8 +36,12 @@ alpha on the corners), and advects and rebuckets with the tensor
 functions; the MG takes power-iteration Chebyshev bounds on its
 non-uniform levels, refreshed every ``mg_lam_refresh_every`` steps, and
 the Jacobi and line smoothers (``mg_smoother``, ``energy_mg_smoother``)
-run on any grid.  Configuration branches outside the ported slice raise
-``NotImplementedError``.
+run on any grid.  Every solver option of the reference is ported: the
+w-BFBT Schur surrogate (``schur="wbfbt"``, solvers/bfbt.py), the coupled
+Braess-Sarazin multigrid (``preconditioner="vanka"``, solvers/vanka.py,
+tensor code: no MG kernel runs under it), the MG's scaled transfers and
+line-search damping (``mg_scaled_transfers``, ``mg_ls_damp``; the fused
+coarse sub-V-cycle stays off under either, as in the reference).
 
 ``mesh`` (an in-process mesh, parallel/mesh.py) with
 ``SolverConfig.explicit_halo`` runs the step domain-decomposed on one card:
@@ -46,7 +50,12 @@ every Stokes and energy operator apply through the explicit-halo operators
 through the per-shard fused smoother, and the marker transfers, advection
 and rebucket through the explicit-halo marker engine with its per-shard
 kernels (parallel/halo_*.py); the single-device saddle, smoother and
-coarse-cycle kernels are off there, as in the reference.  A stretched grid
+coarse-cycle kernels are off there, as in the reference.  Under periodic
+side walls the operators take their ring exchanges and seam rows (the
+per-shard saddle kernel still runs each shard's stencil), while the
+markers stay on the global tensors with the periodic forms of the
+single-device marker kernels and the per-shard smoother stays off: the
+reference has no wrap-around path for either.  A stretched grid
 on the mesh runs on the global tensors: every halo gate refuses a
 non-uniform grid, as the reference's do.  The thermal
 branches (shear and adiabatic heating, subgrid diffusion, reseeding, the
@@ -116,6 +125,7 @@ from pylamp_tpu_torch.solvers.stokes_solver import (
     solve_stokes,
     solve_stokes_mixed,
 )
+from pylamp_tpu_torch.solvers.vanka import make_vanka_mg_preconditioner
 
 
 class InterpOut(NamedTuple):
@@ -143,23 +153,11 @@ class StepPhases(NamedTuple):
     timestep: Callable  # (vx, vy, k_m, rhocp_m) -> dt
 
 
-def _later(what):
-    return NotImplementedError(f"{what} waits for a later port PR")
-
-
 def _check_slice(cfg: ModelConfig):
-    """Raise on every configuration branch the port does not have yet."""
+    """Raise on a configuration the step does not know."""
     solver = cfg.solver
     if solver.preconditioner not in ("mg", "jacobi", "vanka"):
         raise ValueError(f"unknown preconditioner {solver.preconditioner!r}")
-    for flag, what in ((solver.preconditioner == "vanka",
-                        "the 'vanka' Stokes preconditioner"),
-                       (solver.schur != "mass",
-                        f"the {solver.schur!r} Schur surrogate"),
-                       (solver.mg_scaled_transfers or solver.mg_ls_damp,
-                        "scaled MG transfers / line-search damping")):
-        if flag:
-            raise _later(what)
 
 
 def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
@@ -203,8 +201,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     # explicit halo exchanges for the operator applies, and the marker halo
     # engine where the bucket blocks are eligible
     halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
-    if periodic and halo_mesh is not None:
-        raise _later("the periodic explicit-halo mesh path")
     marker_halo_mesh = marker_halo_gate(grid, halo_mesh, periodic)
     # the per-shard marker kernels' shape gate
     marker_blocks = (marker_halo_mesh is not None and block_kernel_eligible(
@@ -239,23 +235,44 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         return torch.where(wsum > 0, field, fallback)
 
     # preconditioner="jacobi": the solver's default block-Jacobi
-    make_precond = None if solver.preconditioner == "jacobi" else partial(
-        make_mg_preconditioner,
-        levels=solver.mg_levels,
-        cycles=solver.mg_cycles,
-        pre_smooth=solver.mg_pre_smooth,
-        post_smooth=solver.mg_post_smooth,
-        smoother=solver.mg_smoother,
-        omega=solver.mg_omega,
-        semicoarsen=solver.mg_semicoarsen,
-        schur=solver.schur,
-        velocity_inner_iters=solver.mg_velocity_inner_iters,
-        velocity_inner_tol=solver.mg_velocity_inner_tol,
-        eta_cap=solver.mg_eta_cap,
-        al_gamma=solver.stokes_al_gamma,
-        halo_mesh=halo_mesh,
-        coarse_replicate=solver.mg_coarse_replicate,
-    )
+    make_precond = None
+    if solver.preconditioner == "mg":
+        make_precond = partial(
+            make_mg_preconditioner,
+            levels=solver.mg_levels,
+            cycles=solver.mg_cycles,
+            pre_smooth=solver.mg_pre_smooth,
+            post_smooth=solver.mg_post_smooth,
+            smoother=solver.mg_smoother,
+            omega=solver.mg_omega,
+            scaled_transfers=solver.mg_scaled_transfers,
+            ls_damp=solver.mg_ls_damp,
+            semicoarsen=solver.mg_semicoarsen,
+            schur=solver.schur,
+            schur_poisson_iters=solver.schur_poisson_iters,
+            velocity_inner_iters=solver.mg_velocity_inner_iters,
+            velocity_inner_tol=solver.mg_velocity_inner_tol,
+            eta_cap=solver.mg_eta_cap,
+            al_gamma=solver.stokes_al_gamma,
+            halo_mesh=halo_mesh,
+            coarse_replicate=solver.mg_coarse_replicate,
+        )
+    elif solver.preconditioner == "vanka":
+        if solver.mg_semicoarsen > 0:
+            # the Vanka hierarchy coarsens both axes: a stretched or
+            # anisotropic grid would lose the semicoarsening remedy
+            raise ValueError(
+                "preconditioner='vanka' does not support mg_semicoarsen "
+                "(full coarsening only); use preconditioner='mg' with "
+                "mg_semicoarsen, or mg_smoother='line' for anisotropic "
+                "cells")
+        make_precond = partial(
+            make_vanka_mg_preconditioner,
+            levels=solver.mg_levels,
+            cycles=solver.mg_cycles,
+            pre_smooth=solver.mg_pre_smooth,
+            post_smooth=solver.mg_post_smooth,
+        )
 
     def _mixed(dtype):
         return solver.precision == "mixed" or (
@@ -384,8 +401,9 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     def stokes(state: ModelState, io: InterpOut):
         dtype = state.markers.x.dtype
         mixed = _mixed(dtype)
-        lam_new = mk = None
-        if make_precond is not None:
+        lam_new = None
+        mk = make_precond
+        if solver.preconditioner == "mg":
             lam_new = mg_lambdas(state, io,
                                  torch.float32 if mixed else dtype)
             kern = _kernels(dtype)

@@ -13,6 +13,10 @@ on the ``make_mesh(8)`` 4x2 mesh).  Of its four sub-checks:
                     2e-4 max|vy|
   coarse_replicate  (c) MG coarse-level replication: Blankenbach case 1a in
                     f64 with ``mg_coarse_replicate=8``, equal to 1e-8
+  periodic_halo     (d) periodic side walls through the explicit-halo
+                    operators (ring exchanges, seam rows; the markers on
+                    the global tensors): the periodic falling block in f64,
+                    equal to 1e-8
 
 (a), the GSPMD default, has no separate port: without ``explicit_halo`` the
 in-process mesh runs the single-device step on the global tensors, which
@@ -20,9 +24,8 @@ is what GSPMD computes, so the check would compare the step with itself.
 For the same reason (c) runs with ``explicit_halo`` (the reference's runs
 without): only the halo engine reads ``mg_coarse_replicate``.  It runs three
 MG levels where the reference runs two, because at 32^2 two levels (32, 16)
-leave no level of at most 8 cells to replicate.
-(d), the periodic explicit-halo check, waits with the periodic side walls
-and raises with ``--checks d``.
+leave no level of at most 8 cells to replicate.  (d) runs the reference's
+f64 solver of (a)/(c) (two MG levels) with ``explicit_halo``.
 
 Runs on the card unless ``--device cpu``; prints one line per sub-check
 and exits non-zero on any disagreement.
@@ -64,10 +67,11 @@ def _run_pair(cfg, mesh, dtype, device):
     return new, ref_state, diag
 
 
-def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bc"):
+def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bcd"):
     from pylamp_tpu_torch.models.benchmarks import (
         blankenbach_case1a,
         falling_block,
+        falling_block_periodic,
     )
     from pylamp_tpu_torch.models.config import SolverConfig
     from pylamp_tpu_torch.parallel.mesh import make_mesh
@@ -76,10 +80,6 @@ def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bc"):
         raise ValueError("sub-check (a) is the single-device step by "
                          "construction on the in-process mesh (module "
                          "docstring)")
-    if "d" in checks:
-        raise NotImplementedError(
-            "sub-check (d), periodic side walls through the explicit-halo "
-            "stencils, waits for a later port PR")
     mesh = make_mesh(n_shards)
     lines = []
     if "b" in checks:
@@ -103,6 +103,15 @@ def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bc"):
         err = _assert_close(new, ref, diag, "coarse_replicate", 1e-8)
         lines.append(f"coarse_replicate@1e-8 (max |dvy| {err:.3e}, Krylov "
                      f"{diag['stokes_iterations']})")
+    if "d" in checks:
+        cfg = falling_block_periodic(nx=32, ny=32, max_steps=1)
+        cfg = dataclasses.replace(cfg, solver=SolverConfig(
+            precision="f64", stokes_tol=1e-10, stokes_restart=40,
+            stokes_maxiter=400, mg_levels=2, explicit_halo=True))
+        new, ref, diag = _run_pair(cfg, mesh, torch.float64, device)
+        err = _assert_close(new, ref, diag, "periodic_halo", 1e-8)
+        lines.append(f"periodic_halo@1e-8 (max |dvy| {err:.3e}, Krylov "
+                     f"{diag['stokes_iterations']})")
     print(f"dryrun_multichip OK on {device}: mesh "
           f"{dict(y=mesh.my, x=mesh.mx)}, each sub-check == single-device "
           f"to its stated tolerance: " + ", ".join(lines))
@@ -112,8 +121,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=8)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--checks", default="bc",
-                    help="sub-checks to run, of 'bc' ('d' raises)")
+    ap.add_argument("--checks", default="bcd",
+                    help="sub-checks to run, of 'bcd'")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("dryrun: no CUDA device (pass --device cpu for the CPU)")

@@ -236,8 +236,13 @@ def velocity_windows(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs,
     velocity lattices vx_p and vy_p: window (q, l) = padded node
     (row_base + q - R, col_base + l - R), zeros beyond them."""
     if bcs.periodic_x:
-        raise NotImplementedError(
-            "periodic explicit-halo advection waits for a later port PR")
+        # the reference has no wrap-around exchange path for the marker
+        # engine: under periodic walls the markers stay on the global
+        # tensors (models/step.py marker_halo_gate)
+        raise ValueError(
+            "periodic side walls: the explicit-halo marker engine has no "
+            "wrap-around exchange path (the step keeps the markers on the "
+            "global tensors)")
     my, mx = mesh.my, mesh.mx
     _, bx = _blocks(mesh, grid)
     dev = vx.device

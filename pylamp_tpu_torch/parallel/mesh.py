@@ -161,17 +161,18 @@ class Mesh:
         dims = [self._dim(a) for a in axes]
         return self._full(x.sum(dim=dims, keepdim=True))
 
-    def ext1(self, block, nd: int = 2):
+    def ext1(self, block, nd: int = 2, ring_x: bool = False):
         """``block`` (rows and cols at dims -nd and -nd+1) with one ring of
-        neighbour data around it, zeros beyond the domain: rows first, then
-        columns of the row-extended block, so the diagonal corners ride
-        along."""
+        neighbour data around it, zeros beyond the domain (``ring_x``: the
+        x halos wrap, periodic side walls): rows first, then columns of the
+        row-extended block, so the diagonal corners ride along."""
         r, c = -nd, -nd + 1
         t = self.from_prev(block.narrow(r, block.shape[r] - 1, 1), "y")
         b = self.from_next(block.narrow(r, 0, 1), "y")
         rows = torch.cat([t, self._full(block), b], dim=r)
-        left = self.from_prev(rows.narrow(c, rows.shape[c] - 1, 1), "x")
-        right = self.from_next(rows.narrow(c, 0, 1), "x")
+        left = self.from_prev(rows.narrow(c, rows.shape[c] - 1, 1), "x",
+                              ring=ring_x)
+        right = self.from_next(rows.narrow(c, 0, 1), "x", ring=ring_x)
         return torch.cat([left, rows, right], dim=c)
 
     def flat(self, x):

@@ -14,6 +14,8 @@ iteration: CG and FCG their residual norm and breakdown flag, FGMRES the new
 Hessenberg column (plus one residual norm per restart cycle).  FGMRES keeps
 its small Hessenberg / Givens least-squares problem on the host in f64;
 the Krylov basis, the operator and the preconditioner stay on the device.
+``fcg_fixed`` is FCG for a fixed, small iteration count with no host read
+(the inner solves of the w-BFBT Schur surrogate).
 """
 from __future__ import annotations
 
@@ -105,6 +107,27 @@ def cg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
     return x, SolveInfo(k, res, res <= target, bnorm)
 
 
+def _fcg_step(op, M, x, r, z, p, rz):
+    """One flexible-CG iteration with the reference's breakdown guard:
+    (x, r, z, p, rz, ok), ok False where p'Ap <= 0 or rz == 0 (alpha and
+    beta are then 0)."""
+    Ap = op(p)
+    pAp = tdot(p, Ap)
+    ok = torch.logical_and(pAp > 0, torch.abs(rz) > 0)
+    safe_pAp = torch.where(pAp == 0, torch.ones_like(pAp), pAp)
+    safe_rz = torch.where(rz == 0, torch.ones_like(rz), rz)
+    alpha = torch.where(ok, rz / safe_pAp, torch.zeros_like(rz))
+    x = taxpy(alpha, p, x)
+    r_new = taxpy(-alpha, Ap, r)
+    z_new = M(r_new)
+    # Polak-Ribiere: beta = <r_new, z_new - z> / <r, z>
+    beta = torch.where(ok, (tdot(r_new, z_new) - tdot(r_new, z)) / safe_rz,
+                       torch.zeros_like(rz))
+    rz = tdot(r_new, z_new)
+    p = taxpy(beta, p, z_new)
+    return x, r_new, z_new, p, rz, ok
+
+
 def fcg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
         tol: float = 1e-8, atol: float = 0.0, maxiter: int = 1000):
     """Flexible preconditioned CG (Polak-Ribiere beta; Notay 2000), for a
@@ -124,23 +147,32 @@ def fcg(op: Callable, b: Any, x0: Any, M: Callable | None = None,
     k = 0
     res = float(tnorm(r))
     while res > target and k < maxiter:
-        Ap = op(p)
-        pAp = tdot(p, Ap)
-        ok = torch.logical_and(pAp > 0, torch.abs(rz) > 0)
-        safe_pAp = torch.where(pAp == 0, torch.ones_like(pAp), pAp)
-        safe_rz = torch.where(rz == 0, torch.ones_like(rz), rz)
-        alpha = torch.where(ok, rz / safe_pAp, torch.zeros_like(rz))
-        x = taxpy(alpha, p, x)
-        r_new = taxpy(-alpha, Ap, r)
-        z_new = M(r_new)
-        beta = torch.where(ok, (tdot(r_new, z_new) - tdot(r_new, z)) / safe_rz,
-                           torch.zeros_like(rz))
-        rz = tdot(r_new, z_new)
-        p = taxpy(beta, p, z_new)
-        r, z = r_new, z_new
+        x, r, z, p, rz, ok = _fcg_step(op, M, x, r, z, p, rz)
         res, ok_h = torch.stack([tnorm(r), ok.to(rz.dtype)]).tolist()
         k = k + 1 if ok_h else maxiter
     return x, SolveInfo(k, res, res <= target, bnorm)
+
+
+def fcg_fixed(op: Callable, b: Any, x0: Any, M: Callable | None = None,
+              tol: float = 1e-8, atol: float = 0.0, maxiter: int = 3):
+    """``fcg``'s iterate after at most ``maxiter`` iterations, with no host
+    read: the loop runs ``maxiter`` times, and an iteration after the one
+    where ``fcg`` would stop (the residual under target, or a breakdown)
+    keeps the state as it is.  For the few-iteration inner solves of a
+    preconditioner (solvers/bfbt.py).  Returns x."""
+    M = M or _identity
+    target = torch.clamp(tol * tnorm(b), min=atol)
+    x = x0
+    r = tsub(b, op(x0))
+    z = M(r)
+    state = (x, r, z, z, tdot(r, z))
+    active = tnorm(r) > target
+    for _ in range(maxiter):
+        *new, ok = _fcg_step(op, M, *state)
+        state = tuple(tmap(lambda n, o: torch.where(active, n, o), a, b_)
+                      for a, b_ in zip(new, state))
+        active = active & ok & (tnorm(state[1]) > target)
+    return state[0]
 
 
 # -- FGMRES(m) -----------------------------------------------------------------

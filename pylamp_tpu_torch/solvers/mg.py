@@ -43,8 +43,13 @@ cells across stay on the global tensors (the reference's replicated
 sub-hierarchy), and ``use_pallas_smoother`` sweeps each eligible level
 through the per-shard fused smoother (parallel/halo_smoother.py); the
 single-device smoother and the fused coarse sub-V-cycle are off, as in the
-reference.  Still to port: scaled transfers, line search damping and
-BFBT.
+reference.
+
+``scaled_transfers`` (diagonally scaled transfers) and ``ls_damp`` (a
+minimal-residual line search on each prolonged correction) are the
+reference's extreme-contrast stabilizers; either turns the fused coarse
+sub-V-cycle off, as in the reference.  ``schur="wbfbt"`` replaces the mass
+Schur surrogate with the weighted BFBT of solvers/bfbt.py.
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from pylamp_tpu_torch.parallel.halo_smoother import (
     prep_halo_smoother,
 )
 from pylamp_tpu_torch.solvers.al import make_grad_div
+from pylamp_tpu_torch.solvers.bfbt import make_bfbt_schur
 from pylamp_tpu_torch.solvers.krylov import fcg, fgmres, tdot
 from pylamp_tpu_torch.solvers.lines import (
     line_axes,
@@ -75,15 +81,12 @@ from pylamp_tpu_torch.solvers.lines import (
     pcr_factor,
     pcr_solve,
 )
+from pylamp_tpu_torch.solvers.scaling import characteristic_viscosity
 from pylamp_tpu_torch.solvers.stokes_solver import (
     project_vx_mean,
     velocity_diagonals,
     vx_nullspace,
 )
-
-
-def _later(what):
-    return NotImplementedError(f"{what} waits for a later port PR")
 
 
 # -- viscosity coarsening -------------------------------------------------------
@@ -464,8 +467,9 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                      semicoarsen: float = 0.0, lam_max=None,
                      eta_cap: float = 0.0, use_pallas: bool = True,
                      use_pallas_smoother: bool = True,
-                     use_pallas_coarse: bool = True, halo_mesh=None,
-                     coarse_replicate: int = 0):
+                     use_pallas_coarse: bool = True,
+                     scaled_transfers: bool = False, ls_damp: bool = False,
+                     halo_mesh=None, coarse_replicate: int = 0):
     """Returns mg(rx, ry, emit=False) -> (zx, zy) [+ the cycle's residual
     (rx - A zx, ry - A zy) with ``emit``].
 
@@ -484,8 +488,16 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     ``use_pallas_smoother``: eligible levels sweep through the fused
     smoother (ops/kernels/cheb.py); with ``use_pallas_coarse`` as well, the
     levels below 256 cells run as one fused sub-V-cycle
-    (ops/kernels/coarse_vcycle.py).  ``halo_mesh`` / ``coarse_replicate``:
-    the explicit-halo levels (module docstring)."""
+    (ops/kernels/coarse_vcycle.py).
+    ``scaled_transfers``: operator-dependent transfers R' = D_c^(1/2) R
+    D_f^(-1/2), P' = D_f^(-1/2) P D_c^(1/2) with D each level's Jacobi
+    diagonal: a prolonged correction landing where the fine level is
+    stiffer than the coarse one is damped by the stiffness ratio.
+    ``ls_damp``: x += alpha e with alpha = <r, Ae> / <Ae, Ae> for each
+    prolonged correction e (one more momentum apply per level, through the
+    level's dispatcher: the momentum kernel on an eligible level).
+    ``halo_mesh`` / ``coarse_replicate``: the explicit-halo levels (module
+    docstring)."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown MG smoother {smoother!r}")
     cheb_smoother = smoother == "chebyshev"
@@ -500,6 +512,8 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         velocity_diagonals(es, en, g, kb, bcs=bcs)
         for (es, en), g, kb in zip(etas, grids, kbnds)
     ]
+    scales = ([(torch.sqrt(dvx), torch.sqrt(dvy)) for dvx, dvy in diags]
+              if scaled_transfers else None)
     # explicit-halo applies per level, except levels replicated across the
     # mesh (coarse_replicate); momentum_apply keeps levels whose blocks are
     # too small to halo on the global tensors by itself
@@ -647,7 +661,7 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     if (use_pallas_smoother and use_pallas_coarse and halo_mesh is None
             and len(lam_max) == nlev):
         fs = cvk.coarse_fuse_start(grids, plan, bcs, dtype, smoother,
-                                   False, False)
+                                   scaled_transfers, ls_damp)
         if fs is not None:
             fused_coarse = (fs, cvk.CoarseVcyclePrep(
                 grids[fs:], etas[fs:], kbnds[fs:], lam_max[fs:], bcs,
@@ -664,11 +678,35 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         ex, ey, rfx, rfy = smooth(l, ex, ey, rx, ry, pre_smooth,
                                   zero_init=True, emit_residual=True)
         pcx, pcy = plan[l]
-        rcx = restrict_vx(rfx, bcs, cx=pcx, cy=pcy)
-        rcy = restrict_vy(rfy, bcs, cx=pcx, cy=pcy)
-        ecx, ecy = vcycle(l + 1, rcx, rcy)
-        ex = ex + prolong_vx(ecx, bcs, cx=pcx, cy=pcy)
-        ey = ey + prolong_vy(ecy, bcs, cx=pcx, cy=pcy)
+        if scaled_transfers:
+            sfx, sfy = scales[l]
+            scx, scy = scales[l + 1]
+            ecx, ecy = vcycle(
+                l + 1, scx * restrict_vx(rfx / sfx, bcs, cx=pcx, cy=pcy),
+                scy * restrict_vy(rfy / sfy, bcs, cx=pcx, cy=pcy))
+            pex = prolong_vx(scx * ecx, bcs, cx=pcx, cy=pcy) / sfx
+            pey = prolong_vy(scy * ecy, bcs, cx=pcx, cy=pcy) / sfy
+        else:
+            ecx, ecy = vcycle(l + 1, restrict_vx(rfx, bcs, cx=pcx, cy=pcy),
+                              restrict_vy(rfy, bcs, cx=pcx, cy=pcy))
+            pex = prolong_vx(ecx, bcs, cx=pcx, cy=pcy)
+            pey = prolong_vy(ecy, bcs, cx=pcx, cy=pcy)
+        if ls_damp:
+            aex, aey = apply_A(l, pex, pey)
+            # alpha on Ae / s with s = max|Ae|, so that the squared sums
+            # cannot overflow f32 (momentum entries reach ~1e15 at mantle
+            # viscosities)
+            tiny = torch.finfo(rx.dtype).tiny
+            s = torch.clamp(torch.maximum(torch.max(torch.abs(aex)),
+                                          torch.max(torch.abs(aey))),
+                            min=tiny)
+            ue = (aex / s, aey / s)
+            num = tdot((rfx, rfy), ue)
+            den = s * tdot(ue, ue)
+            alpha = num / torch.clamp(den, min=tiny)
+            pex, pey = alpha * pex, alpha * pey
+        ex = ex + pex
+        ey = ey + pey
         return smooth(l, ex, ey, rx, ry, post_smooth, emit_residual=emit)
 
     def mg(rx, ry, emit=False):
@@ -682,8 +720,11 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            cycles: int = 1, pre_smooth: int = 2,
                            post_smooth: int = 2, smoother: str = "chebyshev",
                            omega: float = 0.6,
+                           scaled_transfers: bool = False,
+                           ls_damp: bool = False,
                            semicoarsen: float = 0.0, lam_max=None,
                            schur: str = "mass",
+                           schur_poisson_iters: int = 3,
                            velocity_inner_iters: int = 0,
                            velocity_inner_tol: float = 3e-2,
                            velocity_inner_method: str = "fgmres",
@@ -693,14 +734,16 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                            use_pallas_coarse: bool = True, halo_mesh=None,
                            coarse_replicate: int = 0):
     """Block upper-triangular preconditioner M(r) for the full Stokes
-    system: the mass Schur surrogate -(1 + al_gamma) eta_n / kcont, then the
-    velocity block by ``cycles`` V-cycles or, with ``velocity_inner_iters``
+    system: the Schur surrogate (``schur="mass"``: -(1 + al_gamma) eta_n /
+    kcont; ``"wbfbt"``: the weighted BFBT of solvers/bfbt.py with
+    ``schur_poisson_iters`` flexible-CG iterations per pressure-Poisson
+    solve), then the velocity block by ``cycles`` V-cycles or, with ``velocity_inner_iters``
     > 0, by an inner FGMRES (restart = maxiter = that count, relative
     ``velocity_inner_tol``; ``velocity_inner_method="fcg"``: flexible CG
     with that many iterations) on A + al_gamma D^T eta_n D preconditioned
-    by one V-cycle on the un-augmented A.  ``eta_cap`` and the ``use_pallas*``
-    flags, ``halo_mesh`` and ``coarse_replicate`` go to
-    ``make_velocity_mg``; the inner solve's own momentum applies take the
+    by one V-cycle on the un-augmented A.  ``eta_cap``, the ``use_pallas*``
+    flags, ``scaled_transfers``, ``ls_damp``, ``halo_mesh`` and
+    ``coarse_replicate`` go to ``make_velocity_mg``; the inner solve's own momentum applies take the
     momentum kernel on an eligible fine level too (the explicit-halo apply
     under ``halo_mesh``)."""
     if bcs is None:
@@ -709,8 +752,8 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
         raise ValueError(
             "schur='wbfbt' has no periodic-wrap pressure-Poisson path yet; "
             "use schur='mass' with periodic side walls")
-    if schur != "mass":
-        raise _later(f"the {schur!r} Schur surrogate")
+    if schur not in ("mass", "wbfbt"):
+        raise ValueError(f"unknown schur surrogate {schur!r}")
     mg = make_velocity_mg(eta_s, eta_n, grid, bcs, kbnd, levels=levels,
                           pre_smooth=pre_smooth, post_smooth=post_smooth,
                           smoother=smoother, omega=omega,
@@ -718,13 +761,22 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
                           eta_cap=eta_cap, use_pallas=use_pallas,
                           use_pallas_smoother=use_pallas_smoother,
                           use_pallas_coarse=use_pallas_coarse,
+                          scaled_transfers=scaled_transfers, ls_damp=ls_damp,
                           halo_mesh=halo_mesh,
                           coarse_replicate=coarse_replicate)
     dtype = eta_n.dtype
     project = vx_nullspace(bcs)
-    # with the augmented-Lagrangian row op (solvers/al.py) the Schur
-    # surrogate gains the grad-div contribution
-    sschur = 1.0 + al_gamma
+    if schur == "wbfbt":
+        S_inv = make_bfbt_schur(eta_s, eta_n, grid, bcs, kcont, kbnd,
+                                characteristic_viscosity(eta_n),
+                                poisson_iters=schur_poisson_iters)
+    else:
+        # with the augmented-Lagrangian row op (solvers/al.py) the Schur
+        # surrogate gains the grad-div contribution
+        sschur = 1.0 + al_gamma
+
+        def S_inv(rc):
+            return -sschur * (eta_n / kcont) * rc
     gd = make_grad_div(eta_n, grid, bcs, al_gamma, dtype) \
         if al_gamma > 0.0 else None
 
@@ -778,7 +830,7 @@ def make_mg_preconditioner(eta_s, eta_n, grid: StaggeredGrid, kcont, kbnd,
 
     def M(r):
         rx, ry, rc = r
-        zp = -sschur * (eta_n / kcont) * rc
+        zp = S_inv(rc)
         zp = zp - torch.mean(zp)
         gx, gy = _pressure_gradient(zp, grid, dtype, bcs=bcs)
         zx, zy = vel_solve(rx - gx, ry - gy)

@@ -20,7 +20,8 @@ walls (velocity and thermal) with the energy multigrid and flexible CG.
   reseed_halo, the per-shard transfer with rho0*alpha, the energy MG
   through the halo operators) against the single-device heated step;
 - ``_check_slice`` accepts the four switches and the energy multigrid
-  with each smoother, and still refuses what the port lacks (BFBT).
+  with each smoother and the BFBT Schur surrogate, and refuses an
+  unknown preconditioner.
 
 The reference compiles each f64 step once per module (a fixture).
 """
@@ -231,9 +232,11 @@ def test_check_slice_accepts_the_thermal_path():
         _check_slice(dataclasses.replace(cfg, solver=dataclasses.replace(
             cfg.solver, energy_preconditioner="mg",
             energy_mg_smoother=smoother)))
-    with pytest.raises(NotImplementedError):  # still outside the slice
+    _check_slice(dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, schur="wbfbt")))  # ported with solvers/bfbt.py
+    with pytest.raises(ValueError):
         _check_slice(dataclasses.replace(cfg, solver=dataclasses.replace(
-            cfg.solver, schur="wbfbt")))
+            cfg.solver, preconditioner="ilu")))
 
 
 def test_fk_heated_config():

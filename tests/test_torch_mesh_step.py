@@ -132,7 +132,7 @@ def test_mesh_step_f32(reference):
 def test_dryrun_cpu(capsys):
     from pylamp_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    dryrun_multichip(8, "cpu")
+    dryrun_multichip(8, "cpu", checks="bc")
     assert "dryrun_multichip OK on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        dryrun_multichip(8, "cpu", checks="d")
+    with pytest.raises(ValueError):  # (a) is the single-device step here
+        dryrun_multichip(8, "cpu", checks="a")

@@ -11,7 +11,11 @@
 - exact discrete translation invariance of the port's step at 16^2
   (tests/test_periodic_e2e.py), on the port alone: rolling the material
   pattern by k cells rolls every output by k cells;
-- the seam-straddling block sinks with its fastest flow at the seam.
+- the seam-straddling block sinks with its fastest flow at the seam;
+- the explicit-halo mesh under periodic walls: the first step with
+  ``explicit_halo`` on the in-process 4x2 mesh, from the bridged state,
+  within 1e-8 max|vy| of the reference's step, with the same Krylov count
+  +-2.
 
 The reference compiles its f64 step once per module (a fixture).
 """
@@ -32,6 +36,7 @@ from pylamp_tpu_torch.models.benchmarks import falling_block_periodic
 from pylamp_tpu_torch.models.setup import build
 from pylamp_tpu_torch.models.state import zero_state
 from pylamp_tpu_torch.models.step import make_step
+from pylamp_tpu_torch.parallel.mesh import make_mesh
 from pylamp_tpu_torch.physics.materials import MaterialTable
 
 N = 32
@@ -107,6 +112,26 @@ def test_step_f64_matches_reference(reference, port_run, k):
     x = st.markers.x[st.markers.valid]
     assert float(x.min()) >= 0.0 and float(x.max()) < CFG.lx
     assert torch.equal(st.vx[:, 0], st.vx[:, -1])
+
+
+def test_mesh_step_matches_reference(reference):
+    """The periodic explicit-halo mesh step (ring exchanges, seam rows;
+    the markers on the global tensors) against the reference's
+    single-device step 1: velocities within 1e-8 max|vy|, Krylov +-2."""
+    d0, out = reference
+    ref, rdiag = out[0]
+    cfg = dataclasses.replace(CFG, solver=dataclasses.replace(
+        CFG.solver, explicit_halo=True))
+    grid, table, _ = build(cfg, dtype=torch.float64, device="cpu")
+    st, diag = make_step(grid, cfg, table, mesh=make_mesh(8))(
+        state_from_numpy(d0, device="cpu"))
+    assert diag["stokes_converged"] and diag["stokes_residual_rel"] <= 1e-8
+    assert int(diag["markers_dropped"]) == 0
+    vmax = float(np.max(np.abs(ref["state.vy"])))
+    for name, got in (("vx", st.vx), ("vy", st.vy)):
+        err = float(np.max(np.abs(got.numpy() - ref[f"state.{name}"])))
+        assert err <= 1e-8 * vmax, name
+    assert abs(diag["stokes_iterations"] - int(rdiag["stokes_iterations"])) <= 2
 
 
 def test_block_sinks_at_the_seam(port_run):

@@ -125,13 +125,26 @@ just before it:
   one state (Krylov within +-2, fields within 1e-5, sorted marker
   positions within 1e-6).
 
+- the batched parameter sweep (``sweep_paths``): ``models/sweep.py``'s
+  ``make_sweep_step`` on four FK 1024^2 members of the bench preset,
+  (Ra_top, visc_contrast) in {100, 300} x {1e3, 1e4}, 3 sweep steps, each
+  followed by every member's solo ``make_step`` from the same build: each
+  member converged to 1e-8 with no marker dropped, bit-identical to its
+  solo step in every ``state.*`` leaf with the same Krylov and energy
+  iterations, the batch it stepped from untouched, and kernels 1-6 launching per sweep step exactly as often
+  as the four solo steps together; s per sweep step against the sum of
+  the solo steps' logged.
+
 - the command line (``cli_paths``): ``python -m pylamp_tpu_torch run
   fk_stagnant_lid --nx 1024`` in-process (the preset's own solver, f32
   state) for 4 steps with a checkpoint and a field dump at step 4, for 2
-  steps with ``--profile-phases`` and a checkpoint, and resumed from that
-  checkpoint to step 4: kernels 1-6 launch in each run and no other
-  kernel or form, every ``state.*`` leaf of the resumed run's checkpoint
-  is bit-identical to the 4-step run's, the dump holds every live marker;
+  steps with ``--profile-phases`` and a checkpoint, resumed from that
+  checkpoint to step 4, and for 4 steps with ``--scan 2``: kernels 1-6
+  launch in each run and no other kernel or form, every ``state.*`` leaf
+  of the resumed and the scanned run's checkpoints is bit-identical to
+  the 4-step run's, the scanned run's metrics lines equal the 4-step
+  run's but for the clocks and its dump and checkpoint land at the chunk
+  cadence, the dump holds every live marker;
   ``run rt_van_keken --steps 2`` at its 512^2 (K = 32) launches kernels
   1-6; ``python3 -m pylamp_tpu_torch list`` prints the six presets.  It
   logs the median step wall time, the Krylov counts, the seconds of each
@@ -276,12 +289,22 @@ OPTION_KERNELS = {
 # and its bar (the reference measured 282)
 VANKA_SHARP_NX = 64
 VANKA_SHARP_MAX_ITERS = 400
+# the sweep phase: FK nx^2 (the bench preset), one member per (Ra_top,
+# visc_contrast); (100, 1e4) is the preset's own material
+SWEEP_NX = 1024
+SWEEP_MEMBERS = ((100.0, 1e3), (100.0, 1e4), (300.0, 1e3), (300.0, 1e4))
+SWEEP_STEPS = 3  # 1 warm-up + 2
 # the CLI phase: `python -m pylamp_tpu_torch run fk_stagnant_lid --nx 1024`
 # (the preset's own solver, f32 state) for CLI_STEPS steps, the same run
 # cut in half by a checkpoint and resumed, and rt_van_keken at its 512^2
 CLI_NX = 1024
 CLI_STEPS = 4
 CLI_RT_STEPS = 2
+# (e): the 4 steps again with `--scan CLI_SCAN`, its checkpoint and field
+# dump every CLI_SCAN_EVERY steps: the chunk boundaries 2 and 4 write at 4
+# only (4 % 3 < 2), where the per-step loop would write at 3
+CLI_SCAN = 2
+CLI_SCAN_EVERY = 3
 CLI_BENCHMARKS = ("blankenbach", "falling_block", "falling_block_periodic",
                   "fk_stagnant_lid", "rt_van_keken", "sticky_air")
 SMALL_NX = 64
@@ -299,9 +322,12 @@ VALIDATION_FK_NX = 256
 VALIDATION_FK_STEPS = 3
 VALIDATION_FK_VTOL = 1e-5  # flat vs bucket after step 1, over max|vy|
 # Krylov per step, flat vs bucket: +-max(2, 10 %), the heated paths' bar.
-# The two engines sum the f32 viscosity fields in different orders, and
-# the mixed-precision count moves by ~3 under such rounding (step 1 took
-# 35 flat and 38 bucket iterations, the velocities 1.7e-7 apart)
+# The two engines sum each node's markers in different orders: from one
+# FK 64^2 state on the CPU their eta, rho and T fields agree within 3-32
+# ulp pointwise in f64 and in f32, the geometric eta taking the most
+# (tests/test_torch_flat_markers.py::test_flat_matches_bucket_interp),
+# and the mixed-precision count moves by ~3 under such rounding (step 1
+# took 35 flat and 38 bucket iterations, the velocities 1.7e-7 apart)
 VALIDATION_FK_KRYLOV_REL = HEATED_KRYLOV_REL
 VALIDATION_BB_NX = 64
 VALIDATION_BB_STEPS = 100
@@ -2717,6 +2743,145 @@ def reseed_check(grid, table, state):
         f"{tuple(m.x.shape)} slots): " + json.dumps(ms))
 
 
+def sweep_paths(modules):
+    """The batched parameter sweep (``models/sweep.py``) at full width:
+    ``fk_bench_config(SWEEP_NX)`` with one member per (Ra_top,
+    visc_contrast) of ``SWEEP_MEMBERS`` (each member's material
+    ``fk_stagnant_lid``'s, nothing else changed; (100, 1e4) is the preset
+    itself), every state built from the one seed.  SWEEP_STEPS sweep
+    steps, each followed by every member's solo ``make_step`` from the same
+    build, every launch counter set to 0 just before each:
+
+    - every member converged to 1e-8 with no marker dropped, in the sweep
+      and solo;
+    - each member's state bit-identical to its solo step's in every
+      ``state.*`` leaf, with the same Krylov and energy iterations, and
+      the batch the sweep stepped from (each member a view of it) still
+      bit-identical to the solo states it started from;
+    - kernels 1-6 launch per sweep step exactly as often as the four solo
+      steps together, and no other kernel or form.
+
+    Logs the s per sweep step against the sum of the members' solo s per
+    step.  Returns the record printed in the log (the sweep's launches
+    over its steps under "launches")."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.models.benchmarks import (
+        fk_bench_config,
+        fk_stagnant_lid,
+    )
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.models.sweep import (
+        make_sweep_step,
+        stack_states,
+        unstack_state,
+    )
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    six = ("saddle", "m2g", "advect", "rebucket", "cheb", "coarse_vcycle")
+    cfg = fk_bench_config(SWEEP_NX)
+    built = []
+    for ra, vc in SWEEP_MEMBERS:
+        mats = fk_stagnant_lid(nx=SWEEP_NX, Ra_top=ra,
+                               visc_contrast=vc).physics.materials
+        built.append(build(replace(cfg, physics=replace(
+            cfg.physics, materials=mats)), dtype=torch.float32,
+            device="cuda"))
+    grid, tables = built[0][0], [b[1] for b in built]
+    solo = [b[2] for b in built]
+    n_markers = [int(st.markers.total()) for st in solo]
+    del built
+    steps = [make_step(grid, cfg, t) for t in tables]
+    sweep, params = make_sweep_step(grid, cfg, tables)
+    batched = stack_states(solo)
+    torch.cuda.synchronize()
+    log(f"sweep: built {len(SWEEP_MEMBERS)} FK {SWEEP_NX}^2 members "
+        f"{SWEEP_MEMBERS}, {time.perf_counter() - t_phase:.1f} s")
+
+    def counted(fn, *args):
+        zero_counters(modules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counted_launches(modules)
+
+    rec = dict(device=smi, nx=SWEEP_NX, members=SWEEP_MEMBERS,
+               sweep_s=[], solo_s=[], krylov=[], energy_iterations=[],
+               launches_per_step=[], launches={k: 0 for k in modules})
+    def differ(x, y):
+        a, b = state_leaves(x), state_leaves(y)
+        if sorted(a) != sorted(b):
+            return sorted(set(a) ^ set(b))
+        return [key for key in a if not torch.equal(a[key], b[key])]
+
+    for k in range(SWEEP_STEPS):
+        prev = batched
+        (batched, bdiag), sweep_s, sweep_n = counted(sweep, prev, params)
+        solo_s, solo_n, kry, en = [], {}, [], []
+        for i, step in enumerate(steps):
+            tag = f"sweep step {k + 1} member {SWEEP_MEMBERS[i]}"
+            wrote = differ(unstack_state(prev, i), solo[i])
+            if wrote:
+                raise AssertionError(f"{tag}: the sweep changed its input "
+                                     f"batch in {wrote}")
+            (solo[i], diag), secs, n = counted(step, solo[i])
+            solo_s.append(secs)
+            for key, v in n.items():
+                solo_n[key] = solo_n.get(key, 0) + v
+            member = unstack_state(batched, i)
+            row = {key: v[i] for key, v in bdiag.items()}
+            for label, d in (("sweep", row), ("solo", diag)):
+                if not (bool(d["stokes_converged"])
+                        and float(d["stokes_residual_rel"]) <= 1e-8
+                        and int(d["markers_dropped"]) == 0
+                        and int(d["marker_count"]) == n_markers[i]):
+                    raise AssertionError(
+                        f"{tag} ({label}): converged {d['stokes_converged']}"
+                        f", rel residual {float(d['stokes_residual_rel']):.3e}"
+                        f", {int(d['markers_dropped'])} dropped, "
+                        f"{int(d['marker_count'])} of {n_markers[i]} markers "
+                        f"(Krylov {int(d['stokes_iterations'])})")
+            diff = differ(member, solo[i])
+            if diff:
+                raise AssertionError(f"{tag}: the sweep's state differs from "
+                                     f"the solo step's in {diff}")
+            pair = [(int(row[key]), int(diag[key])) for key in
+                    ("stokes_iterations", "energy_iterations")]
+            if any(x != y for x, y in pair):
+                raise AssertionError(f"{tag}: Krylov / energy iterations "
+                                     f"{pair} (sweep, solo)")
+            kry.append(pair[0][0])
+            en.append(pair[1][0])
+            del member
+        del prev
+        idle = [key for key in six if not sweep_n.get(f"{key}.launches")]
+        if sweep_n != solo_n or idle or any(
+                key.removesuffix(".launches") not in six for key in sweep_n):
+            raise AssertionError(f"sweep step {k + 1}: launches {sweep_n} "
+                                 f"against the solo steps' {solo_n}")
+        for key in six:
+            rec["launches"][key] += sweep_n[f"{key}.launches"]
+        rec["sweep_s"].append(sweep_s)
+        rec["solo_s"].append(solo_s)
+        rec["krylov"].append(kry)
+        rec["energy_iterations"].append(en)
+        rec["launches_per_step"].append(sweep_n)
+        log(f"sweep step {k + 1} on {smi}: {sweep_s:.3f} s against "
+            f"{sum(solo_s):.3f} s for the four solo steps "
+            f"({', '.join(f'{x:.3f}' for x in solo_s)}); Krylov {kry}, "
+            f"energy {en}; every member bit-identical to its solo step; "
+            "launches " + ", ".join(f"{key}+{v}"
+                                    for key, v in sweep_n.items()))
+    del batched, solo
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("sweep_paths " + json.dumps(rec))
+    return rec
+
+
 def _cli_lines(out_dir, label, energy):
     """The metrics lines of a CLI run, each converged to 1e-8 with no
     marker dropped (and, with ``energy``, the energy solve converged)."""
@@ -2752,10 +2917,17 @@ def cli_paths(modules):
         phased runner equal to the plain step);
     (d) ``run rt_van_keken --steps 2`` at its 512^2 with K = 32: kernels
         1-6 launch;
-    (e) ``python3 -m pylamp_tpu_torch list`` in a subprocess: exit 0 and
+    (e) (a) again with ``--scan 2`` and the checkpoint and field dump
+        every 3 steps: kernels 1-6 launch, each metrics line equals (a)'s
+        in every key but the clocks (``step_wall_s``, ``wall_s``), the
+        one checkpoint and field dump land at step 4 (``step % 3 <
+        chunk``, the reference's chunk cadence), every ``state.*`` leaf
+        of the checkpoint and every array of the dump bit-identical to
+        (a)'s;
+    (f) ``python3 -m pylamp_tpu_torch list`` in a subprocess: exit 0 and
         the six names.
 
-    Every metrics line of (a)-(d) converged to 1e-8 with no marker
+    Every metrics line of (a)-(e) converged to 1e-8 with no marker
     dropped; (a)'s field dump holds every live marker.  The driver's
     ``save_checkpoint``, ``save_fields`` and ``load_checkpoint`` are
     timed where the runs call them.  Returns the record printed in the
@@ -2818,6 +2990,9 @@ def cli_paths(modules):
                 os.path.join(b, "checkpoint.npz"), "--checkpoint-every",
                 str(CLI_STEPS))
         d = run("D", "rt_van_keken", "--steps", str(CLI_RT_STEPS))
+        e = run("E", *fk, "--steps", str(CLI_STEPS), "--scan", str(CLI_SCAN),
+                "--checkpoint-every", str(CLI_SCAN_EVERY), "--output-every",
+                str(CLI_SCAN_EVERY))
     finally:
         for n, fn in io_fns.items():
             setattr(driver, n, fn)
@@ -2836,17 +3011,41 @@ def cli_paths(modules):
             if sorted(r["phase_seconds"]) != ["advect", "energy", "interp",
                                               "stokes"]:
                 raise AssertionError(f"cli B: phase_seconds {r}")
-        with np.load(os.path.join(a, "checkpoint.npz")) as za, \
-                np.load(os.path.join(c, "checkpoint.npz")) as zc:
-            keys = sorted(k for k in za.files if k.startswith("state."))
-            if keys != sorted(k for k in zc.files if k.startswith("state.")):
-                raise AssertionError("cli: checkpoint leaves differ")
-            differ = [k for k in keys if za[k].dtype != zc[k].dtype
-                      or za[k].tobytes() != zc[k].tobytes()]
-            if differ:
-                raise AssertionError("cli: the resumed run's checkpoint "
-                                     f"differs from the 4-step run's in "
-                                     f"{differ}")
+        le = _cli_lines(e, "cli E", True)
+        clocks = ("step_wall_s", "wall_s")
+        for ra, re_ in zip(la, le):
+            if ({k: v for k, v in ra.items() if k not in clocks}
+                    != {k: v for k, v in re_.items() if k not in clocks}):
+                raise AssertionError(f"cli E (--scan {CLI_SCAN}): {re_} "
+                                     f"against the per-step line {ra}")
+        if len(le) != len(la):
+            raise AssertionError(f"cli E: {len(le)} lines, A {len(la)}")
+        written = sorted(f for f in os.listdir(e)
+                         if f.startswith(("fields_", "checkpoint")))
+        if written != ["checkpoint.npz", f"fields_{CLI_STEPS:06d}.npz"]:
+            raise AssertionError(f"cli E: wrote {written}")
+
+        def same_arrays(tag, pa, pb, prefix):
+            with np.load(pa) as za, np.load(pb) as zb:
+                keys = sorted(k for k in za.files if k.startswith(prefix))
+                if keys != sorted(k for k in zb.files
+                                  if k.startswith(prefix)):
+                    raise AssertionError(f"cli {tag}: arrays differ")
+                differ = [k for k in keys if za[k].dtype != zb[k].dtype
+                          or za[k].tobytes() != zb[k].tobytes()]
+                if differ:
+                    raise AssertionError(f"cli {tag} differs from the 4-step "
+                                         f"run's in {differ}")
+                return keys
+
+        keys = same_arrays("C checkpoint", os.path.join(a, "checkpoint.npz"),
+                           os.path.join(c, "checkpoint.npz"), "state.")
+        same_arrays("E checkpoint", os.path.join(a, "checkpoint.npz"),
+                    os.path.join(e, "checkpoint.npz"), "state.")
+        dump = f"fields_{CLI_STEPS:06d}.npz"
+        same_arrays("E field dump", os.path.join(a, dump),
+                    os.path.join(e, dump), "")
+        with np.load(os.path.join(a, "checkpoint.npz")) as za:
             n_live = int(za["state.markers.valid"].sum())
         with np.load(os.path.join(a, f"fields_{CLI_STEPS:06d}.npz")) as zf:
             n_dump = int(zf["marker_x"].size)
@@ -2877,6 +3076,8 @@ def cli_paths(modules):
         "rt_van_keken_step_wall_s": [r["step_wall_s"] for r in ld],
         "io_seconds": io_s,
         "resume_bit_identical_leaves": len(keys),
+        "scan2_step_wall_s": [r["step_wall_s"] for r in le],
+        "scan2_krylov_per_step": [r["stokes_iterations"] for r in le],
         "live_markers": n_live,
         "phase_s": time.perf_counter() - t_phase,
         "launches": launches,
@@ -3247,6 +3448,7 @@ def main():
     small_reference_check()
     periodic_reference_check(modules)
     vanka_sharp_check()
+    rec_sweep = sweep_paths(modules)
     rec_cli = cli_paths(modules)
     rec_val = validation_paths(modules)
 
@@ -3329,6 +3531,12 @@ def main():
                 # 1024 --steps 4` (cli_paths (a))
                 "cli_fk_1024": (rec_cli["launches"]["A"][base]
                                 if wall_form else 0),
+                # the same with `--scan 2` (cli_paths (e))
+                "cli_fk_1024_scan2": (rec_cli["launches"]["E"][base]
+                                      if wall_form else 0),
+                # sweep_paths: the four FK 1024^2 members, all sweep steps
+                "fk_1024_sweep_4": (rec_sweep["launches"][base]
+                                    if wall_form else 0),
                 # validation_paths (b): FK 256^2 with flat markers, and
                 # (c): validate_blankenbach 64^2, 100 steps
                 "fk_256_flat": val_count(k, "flat"),

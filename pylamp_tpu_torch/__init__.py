@@ -26,14 +26,16 @@ non-periodic); and stretched grids on one device
 (``models.benchmarks.fk_stretched_bench_config``: variable-spacing
 operators, semicoarsened MG with power-iteration bounds, the Jacobi and
 line smoothers, the windowed-locate marker engine; tensor code, as every
-kernel's gate fails there in the reference too).  Branches outside those
-slices raise ``NotImplementedError``.
+kernel's gate fails there in the reference too).  Batched parameter
+sweeps (``models/sweep.py``) run their members in turn, each equal to its
+solo step.
 
 A model run starts as the reference's does, ``python -m pylamp_tpu_torch
 run <model>`` (``cli.py``; on the card unless ``--device cpu`` is given):
 the time loop of ``models/driver.py`` writes ``metrics.jsonl``, field
 dumps, figures and checkpoints (``io/``) in the reference's formats, and
-resumes bit for bit from a checkpoint written by either package.
+resumes bit for bit from a checkpoint written by either package; ``run
+--scan N`` runs N steps per chunk, equal bit for bit to the per-step run.
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,10 @@
 ``--devices`` become ``--device``: the card by default, and the CPU only
 when asked for (``run`` refuses to start on a machine without CUDA
 otherwise).  ``--mesh`` takes the in-process mesh of ``parallel/mesh.py``
-(every shard on one card).  ``bench`` and ``--scan`` are refused: the
-port's benchmark entry and its fused multi-step loop wait for later port
-PRs.
+(every shard on one card).  ``--scan N`` runs N steps per call of
+``models/step.py make_multi_step`` (the reference's chunked time loop; the
+host is still read within each step).  ``bench`` is refused: the port's
+benchmark entry waits for a later port PR.
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ def main(argv=None):
                       help="per-phase wall-clock (interp/stokes/energy/advect) "
                            "into metrics.jsonl")
     runp.add_argument("--scan", type=int, default=0, metavar="N",
-                      help="fuse N steps per chunk (refused: the port has "
-                           "no fused multi-step loop yet)")
+                      help="run N steps per chunk: diagnostics read and "
+                           "outputs written at chunk boundaries")
     runp.add_argument("--resume", type=str, default=None)
     runp.add_argument("--step-delay", type=float, default=0.0,
                       help="sleep this many seconds after each step "

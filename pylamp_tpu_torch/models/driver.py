@@ -1,6 +1,6 @@
-"""Time-loop driver (port of ``pylamp_tpu/models/driver.py``): the step plus
-checkpoint / output / metrics around it, divergence detection with a
-stronger-solver retry.
+"""Time-loop driver (port of ``pylamp_tpu/models/driver.py``): the step, or
+chunks of steps (``scan_chunk``), plus checkpoint / output / metrics around
+it, divergence detection with a stronger-solver retry.
 
 Each line of ``metrics.jsonl`` holds the reference's keys for the same
 record.  The port's step adds one of its own, ``energy_converged`` (the
@@ -19,7 +19,11 @@ from pylamp_tpu_torch.io.logging import MetricsLogger
 from pylamp_tpu_torch.io.output import save_fields
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.setup import build
-from pylamp_tpu_torch.models.step import make_step, sync_device
+from pylamp_tpu_torch.models.step import (
+    make_multi_step,
+    make_step,
+    sync_device,
+)
 
 
 def run_model(
@@ -64,20 +68,22 @@ def run_model(
     ``plot_every``: write a quick-look figure (T, |v|, log eta) every N
     steps into ``out_dir``.
 
-    ``step_delay``: > 0 sleeps that many seconds after each step — a
-    fault-injection test hook that makes the between-steps kill window
-    wide regardless of step speed.
+    ``step_delay``: > 0 sleeps that many seconds after each step (per-step
+    loop only) — a fault-injection test hook that makes the between-steps
+    kill window wide regardless of step speed.
 
-    ``scan_chunk`` > 0 (the reference's ``lax.scan`` time loop) is
-    refused: the port has no fused multi-step loop yet.
+    ``scan_chunk`` > 0 runs that many steps per call
+    (``models/step.py make_multi_step``, the reference's ``lax.scan``
+    chunks) and reads the diagnostics once per chunk (``_run_scanned``).
+    Metrics stay per step; the loop condition is checked between chunks
+    only (a chunk may overshoot ``max_steps`` or ``max_time``),
+    checkpoint / output / plot cadences are rounded to chunk boundaries,
+    and the divergence retry re-runs a whole chunk with the stronger
+    solver.  Mutually exclusive with ``profile_phases``.
 
     Returns (final_state, diagnostics list, grid)."""
     if scan_chunk > 0 and profile_phases:
         raise ValueError("scan_chunk and profile_phases are mutually exclusive")
-    if scan_chunk > 0:
-        raise NotImplementedError(
-            "scan_chunk (the fused multi-step loop, ROADMAP item 20) waits "
-            "for a later port PR")
     mesh_tag = None
     if mesh is not None:
         if profile_phases:
@@ -90,6 +96,18 @@ def run_model(
     if resume_from:
         state, _ = load_checkpoint(resume_from, template=state)
 
+    logger = MetricsLogger(
+        os.path.join(out_dir, "metrics.jsonl") if out_dir else None, echo=echo
+    )
+    if scan_chunk > 0:
+        try:
+            return _run_scanned(cfg, grid, table, state, out_dir,
+                                checkpoint_every, output_every, plot_every,
+                                callback, on_divergence, scan_chunk, logger,
+                                mesh=mesh, mesh_tag=mesh_tag)
+        finally:
+            logger.close()
+
     if profile_phases:
         from pylamp_tpu_torch.models.step import make_phased_runner
 
@@ -98,46 +116,19 @@ def run_model(
         step = make_step(grid, cfg, table, mesh=mesh)
     strong_step = None  # built lazily on first divergence
 
-    logger = MetricsLogger(
-        os.path.join(out_dir, "metrics.jsonl") if out_dir else None, echo=echo
-    )
-
-    def timed_step(fn, st):
-        t0 = time.perf_counter()
-        new_st, d = fn(st)
-        sync_device(new_st.vx.device)
-        return new_st, d, time.perf_counter() - t0
-
     diags = []
     tc = cfg.time
     while int(state.step) < tc.max_steps and float(state.time) < tc.max_time:
-        new_state, diag, step_wall = timed_step(step, state)
+        new_state, diag, step_wall = _timed(step, state)
 
         if not bool(diag["stokes_converged"]):
             if on_divergence == "retry":
                 if strong_step is None:
-                    strong_cfg = dataclasses.replace(
-                        cfg,
-                        solver=dataclasses.replace(
-                            cfg.solver,
-                            stokes_maxiter=4 * cfg.solver.stokes_maxiter,
-                            stokes_restart=2 * cfg.solver.stokes_restart,
-                        ),
-                    )
-                    strong_step = make_step(grid, strong_cfg, table,
+                    strong_step = make_step(grid, _strong(cfg), table,
                                             mesh=mesh)
-                new_state, diag, _ = timed_step(strong_step, state)
+                new_state, diag, _ = _timed(strong_step, state)
                 diag["retried"] = True
-            if not bool(diag["stokes_converged"]):
-                diag["warning"] = "stokes solver did not reach tolerance"
-        if int(diag.get("markers_dropped", 0)) > 0:
-            # capacity overflow bleeds compositional markers at convergent
-            # interfaces — surface it instead of silently degrading
-            diag["warning"] = (
-                f"{int(diag['markers_dropped'])} markers dropped (bucket "
-                f"capacity overflow) — raise ModelConfig.marker_capacity "
-                f"(currently auto 2*markers_per_cell_dim^2) or enable reseeding"
-            )
+        _warn(diag)
         state = new_state
 
         rec = {"step": int(state.step), "time": float(state.time),
@@ -150,17 +141,8 @@ def run_model(
 
         if callback is not None:
             callback(state, diag)
-        step_no = int(state.step)
-        if out_dir and output_every and step_no % output_every == 0:
-            save_fields(os.path.join(out_dir, f"fields_{step_no:06d}.npz"),
-                        state, grid)
-        if out_dir and plot_every and step_no % plot_every == 0:
-            from pylamp_tpu_torch.io.output import plot_fields
-
-            plot_fields(os.path.join(out_dir, f"fields_{step_no:06d}.png"),
-                        state, grid)
-        if out_dir and checkpoint_every and step_no % checkpoint_every == 0:
-            save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
+        _outputs(state, grid, out_dir, checkpoint_every, output_every,
+                 plot_every, 1)
         if step_delay > 0:
             # test hook (fault injection): a deterministic-width window in
             # which a kill signal can land between steps, independent of how
@@ -168,4 +150,99 @@ def run_model(
             time.sleep(step_delay)
 
     logger.close()
+    return state, diags, grid
+
+
+def _timed(fn, st):
+    """``fn(st)`` and its wall seconds, the device synchronized."""
+    t0 = time.perf_counter()
+    new_st, d = fn(st)
+    sync_device(new_st.vx.device)
+    return new_st, d, time.perf_counter() - t0
+
+
+def _strong(cfg: ModelConfig) -> ModelConfig:
+    """The divergence retry's solver: 4x maxiter, 2x restart."""
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, stokes_maxiter=4 * cfg.solver.stokes_maxiter,
+        stokes_restart=2 * cfg.solver.stokes_restart))
+
+
+def _warn(diag):
+    """A step's ``warning``: a solve short of its tolerance, or markers
+    dropped (which wins)."""
+    if not bool(diag["stokes_converged"]):
+        diag["warning"] = "stokes solver did not reach tolerance"
+    if int(diag.get("markers_dropped", 0)) > 0:
+        # capacity overflow bleeds compositional markers at convergent
+        # interfaces — surface it instead of silently degrading
+        diag["warning"] = (
+            f"{int(diag['markers_dropped'])} markers dropped (bucket "
+            f"capacity overflow) — raise ModelConfig.marker_capacity "
+            f"(currently auto 2*markers_per_cell_dim^2) or enable reseeding"
+        )
+
+
+def _outputs(state, grid, out_dir, checkpoint_every, output_every,
+             plot_every, chunk):
+    """Field dumps, figures and checkpoints due at ``state.step``: where
+    ``step % every < chunk`` (every ``every`` steps for chunk 1, the first
+    chunk boundary at or past each multiple of ``every`` otherwise)."""
+    if not out_dir:
+        return
+    s = int(state.step)
+    if output_every and s % output_every < chunk:
+        save_fields(os.path.join(out_dir, f"fields_{s:06d}.npz"), state,
+                    grid)
+    if plot_every and s % plot_every < chunk:
+        from pylamp_tpu_torch.io.output import plot_fields
+
+        plot_fields(os.path.join(out_dir, f"fields_{s:06d}.png"), state,
+                    grid)
+    if checkpoint_every and s % checkpoint_every < chunk:
+        save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
+
+
+def _run_scanned(cfg, grid, table, state, out_dir, checkpoint_every,
+                 output_every, plot_every, callback, on_divergence,
+                 scan_chunk, logger, mesh=None, mesh_tag=None):
+    """The chunked time loop (port of the reference's ``_run_scanned``):
+    ``scan_chunk`` steps per ``make_multi_step`` call, the loop condition,
+    the retry, the callback and the outputs once per chunk.  Each step's
+    record holds what the per-step loop writes for it (its ``time``
+    accumulated in the state's dtype, as the step does), except
+    ``step_wall_s``: the chunk's wall seconds over ``scan_chunk``."""
+    multi = make_multi_step(grid, cfg, table, scan_chunk, mesh=mesh)
+    strong_multi = None  # built lazily on first divergence
+
+    diags = []
+    tc = cfg.time
+    while int(state.step) < tc.max_steps and float(state.time) < tc.max_time:
+        new_state, chunk, chunk_wall = _timed(multi, state)
+        if not chunk["stokes_converged"].all() and on_divergence == "retry":
+            if strong_multi is None:
+                strong_multi = make_multi_step(grid, _strong(cfg), table,
+                                               scan_chunk, mesh=mesh)
+            new_state, chunk, chunk_wall = _timed(strong_multi, state)
+
+        base_step, t = int(state.step), state.time
+        for i in range(scan_chunk):
+            diag = {k: (v[i] if torch.is_tensor(v) else v[i].item())
+                    for k, v in chunk.items()}
+            _warn(diag)
+            t = t + diag["dt"]
+            rec = {"step": base_step + i + 1, "time": float(t),
+                   "step_wall_s": chunk_wall / scan_chunk}
+            if mesh_tag is not None:
+                rec["mesh"] = mesh_tag
+            rec.update(diag)
+            logger.log(rec)
+            diags.append(diag)
+        state = new_state
+
+        if callback is not None:
+            callback(state, diags[-1])
+        _outputs(state, grid, out_dir, checkpoint_every, output_every,
+                 plot_every, scan_chunk)
+
     return state, diags, grid

@@ -69,7 +69,9 @@ tensors, the single-device step, which is what the reference's GSPMD
 partitioning computes.
 
 ``make_phased_runner`` is the same step with the device synchronized
-around each phase, for the driver's ``profile_phases``.
+around each phase, for the driver's ``profile_phases``;
+``make_multi_step`` runs n steps in one call with stacked diagnostics,
+for the driver's ``scan_chunk``.
 """
 from __future__ import annotations
 
@@ -77,6 +79,7 @@ import time
 from functools import partial
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from pylamp_tpu_torch.core.grid import StaggeredGrid
@@ -621,6 +624,40 @@ def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable,
     """The production step: ``step(state) -> (new_state, diag)``; ``mesh``
     as in ``make_step_phases``."""
     return partial(run_step, make_step_phases(grid, cfg, table, mesh=mesh))
+
+
+def stack_diags(diags):
+    """Per-step (or per-member) diagnostics stacked key by key along a new
+    leading axis: tensor values with ``torch.stack`` on their device, the
+    host's Python scalars (Krylov counts, residuals, convergence flags)
+    as numpy arrays, so that stacking reads nothing from the device and
+    ``v[i]`` is again the value one step returned."""
+    return {k: (torch.stack([d[k] for d in diags]) if torch.is_tensor(
+                diags[0][k]) else np.array([d[k] for d in diags]))
+            for k in diags[0]}
+
+
+def make_multi_step(grid: StaggeredGrid, cfg: ModelConfig,
+                    table: MaterialTable, n_steps: int, mesh=None):
+    """``n_steps`` production steps in one call (the reference's
+    ``lax.scan`` time loop): ``multi(state) -> (state, diags)``, every diag
+    value stacked with a leading ``(n_steps,)`` axis (``stack_diags``), so
+    that the driver's metrics stay per step.  ``mesh`` as in ``make_step``.
+
+    This is a plain loop over ``make_step``: the host is still read inside
+    each step (once per Krylov iteration), and removing those reads is
+    ROADMAP item 20.  What it gives is the call, the stacking and a result
+    equal bit for bit to ``n_steps`` single steps."""
+    step = make_step(grid, cfg, table, mesh=mesh)
+
+    def multi(state: ModelState):
+        diags = []
+        for _ in range(n_steps):
+            state, diag = step(state)
+            diags.append(diag)
+        return state, stack_diags(diags)
+
+    return multi
 
 
 def sync_device(device):

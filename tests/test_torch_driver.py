@@ -12,7 +12,8 @@ on the CPU.
   resume bit for bit (the twin of ``tests/test_checkpoint.py::
   test_exact_resume`` with the MG preconditioner, and the same through
   ``run_model`` with the phased runner between), the mesh tag, the
-  refusals, and that the run surface imports no JAX.
+  refusal of scan_chunk with profile_phases, and that the run surface
+  imports no JAX.
 """
 import dataclasses
 import json
@@ -23,7 +24,11 @@ import sys
 import numpy as np
 import pytest
 import torch
-from torch_helpers import jax_config
+from torch_helpers import (
+    assert_metrics_close,
+    assert_outputs_close,
+    jax_config,
+)
 
 from pylamp_tpu_torch.bridge import state_leaves
 from pylamp_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -75,40 +80,14 @@ def runs(tmp_path_factory):
 
 def test_metrics_lines_match_reference(runs):
     (ref, _, _), (got, _, _) = runs
-    assert len(got) == len(ref) == STEPS
-    for r, g in zip(ref, got):
-        # falling_block solves no energy: the port's one extra key
-        # (energy_converged) is absent, and the keys are the reference's
-        assert sorted(g) == sorted(r)
-        assert g["step"] == r["step"]
-        assert g["stokes_converged"] and g["stokes_residual_rel"] <= 1e-8
-        assert abs(g["stokes_iterations"] - r["stokes_iterations"]) <= 1
-        assert g["markers_dropped"] == r["markers_dropped"] == 0
-        assert g["marker_count"] == r["marker_count"]
-        for k in ("time", "dt", "vrms", "vmax"):
-            assert abs(g[k] - r[k]) <= V_TOL * abs(r[k]), k
+    assert len(ref) == STEPS
+    assert_metrics_close(ref, got, V_TOL)
 
 
 @pytest.mark.parametrize("which", ["fields", "checkpoint"])
 def test_outputs_match_reference(runs, which):
     i = 1 if which == "fields" else 2
-    ref, got = runs[0][i], runs[1][i]
-    assert sorted(got) == sorted(ref)
-    pre = "" if which == "fields" else "state."
-    mk = "marker_" if which == "fields" else "state.markers."
-    vmax = max(np.max(np.abs(ref[f"{pre}vx"])), np.max(np.abs(ref[f"{pre}vy"])))
-    for k, v in ref.items():
-        assert got[k].dtype == v.dtype, k
-        if k in (f"{pre}vx", f"{pre}vy"):
-            assert np.max(np.abs(got[k] - v)) <= V_TOL * vmax, k
-        elif k in (f"{mk}x", f"{mk}y", f"{mk}T", f"{pre}T"):
-            assert np.max(np.abs(got[k] - v)) <= X_TOL, k
-        elif k in (f"{pre}p", f"{pre}eta_s", f"{pre}eta_n", f"{pre}time",
-                   f"{pre}dt", f"{pre}mg_lam"):
-            scale = max(np.max(np.abs(v)), 1e-300)
-            assert np.max(np.abs(got[k] - v)) <= V_TOL * scale, k
-        else:  # step, materials, valid, the node coordinates
-            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert_outputs_close(runs[0][i], runs[1][i], which, V_TOL, X_TOL)
 
 
 def test_divergence_retry_and_metrics(tmp_path):
@@ -206,8 +185,8 @@ def test_mesh_tag(tmp_path):
 
 
 def test_scan_chunk_refused():
-    with pytest.raises(NotImplementedError, match="waits for a later port PR"):
-        run_model(CFG, device="cpu", scan_chunk=2)
+    """scan_chunk runs (tests/test_torch_multi_step.py), but not with the
+    per-phase profiler, as in the reference."""
     with pytest.raises(ValueError, match="mutually exclusive"):
         run_model(CFG, device="cpu", scan_chunk=2, profile_phases=True)
 
@@ -219,6 +198,7 @@ def test_run_surface_imports_no_jax():
         "import pylamp_tpu_torch.io.checkpoint, pylamp_tpu_torch.io.output\n"
         "import pylamp_tpu_torch.io.logging, pylamp_tpu_torch.utils.profiling\n"
         "import pylamp_tpu_torch.utils.artifacts\n"
+        "import pylamp_tpu_torch.models.sweep\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pylamp_tpu' or m.startswith('pylamp_tpu.')]\n"
         "assert not bad, bad\n")

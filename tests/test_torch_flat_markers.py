@@ -13,8 +13,13 @@ band 4x, a few markers exactly on interior edges):
 - ``reseed_starved`` identical marker for marker (x, y, material and T)
   on fields with empty cells and tied counts, uniform, periodic and
   stretched;
-- ``seed_markers`` without jitter equal to the reference's lattice.
+- ``seed_markers`` without jitter equal to the reference's lattice;
+- the flat engine's marker -> grid fields against the bucket engine's
+  from the same FK 64^2 markers, port alone (the two sum each node in
+  another order).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -246,3 +251,43 @@ def test_seed_markers_lattice():
     sub = LX / (3 * NX)
     assert float(torch.max(torch.abs(jx - x))) <= 0.25 * sub + 1e-15
     assert float(jx.min()) > 0 and float(jx.max()) < LX
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_flat_matches_bucket_interp(dtype):
+    """The two engines' marker -> grid fields from the same FK 64^2
+    markers (``fk_bench_config``: geometric eta): eta on corners and
+    centers, rho on the vy lattice, T on the corners, each within 64 ulp
+    of the dtype pointwise.  They differ only in the order of each node's
+    sum (the flat engine's sorted segments, the bucket engine's slots);
+    the geometric mean's exp of a log sum takes the most.  ``-s`` prints
+    the errors."""
+    from pylamp_tpu_torch.markers.bucket import flatten
+    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step_phases
+
+    dt = getattr(torch, dtype)
+    cfg = fk_bench_config(64)
+    grid, table, st_b = build(cfg, dtype=dt, device="cpu")
+    x, y, mat, T, valid = flatten(st_b.markers)
+    st_f = st_b.replace(markers=MarkerState(x=x[valid], y=y[valid],
+                                            mat=mat[valid], T=T[valid]))
+    fb = make_step_phases(grid, cfg, table).interp(st_b)
+    ff = make_step_phases(grid, dataclasses.replace(cfg, marker_engine="flat"),
+                          table).interp(st_f)
+    T_f, w = interp.markers_to_grid(st_f.markers.x, st_f.markers.y,
+                                    st_f.markers.T, grid, "corner",
+                                    "arithmetic")
+    T_f = torch.where(w > 0, T_f, st_f.T)
+    eps = torch.finfo(dt).eps
+    for name, a, b in (("eta_s", fb.eta_s, ff.eta_s),
+                       ("eta_n", fb.eta_n, ff.eta_n),
+                       ("rho_vy", fb.rho_vy, ff.rho_vy),
+                       ("T", fb.T_old_g, T_f)):
+        a, b = a.double(), b.double()
+        ulps = float(torch.max(torch.abs(a - b) / torch.clamp(
+            torch.abs(b), min=torch.finfo(dt).tiny))) / eps
+        print(f"{dtype} {name}: max rel {rel(a, b):.3e} (of max|field|), "
+              f"pointwise {ulps:.1f} ulp")
+        assert ulps <= 64, name

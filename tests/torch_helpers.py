@@ -69,3 +69,45 @@ def rel(got, ref) -> float:
     ref = np.asarray(ref, np.float64)
     scale = np.max(np.abs(ref))
     return float(np.max(np.abs(got - ref)) / (scale if scale > 0 else 1.0))
+
+
+def assert_metrics_close(ref, got, v_tol):
+    """The port's metrics lines against the reference's for the same run,
+    clocks removed: the same keys, step, convergence, drops and marker
+    count equal, Krylov +-1, time, dt, vrms and vmax within ``v_tol``
+    relative."""
+    assert len(got) == len(ref)
+    for r, g in zip(ref, got):
+        # falling_block solves no energy: the port's one extra key
+        # (energy_converged) is absent, and the keys are the reference's
+        assert sorted(g) == sorted(r)
+        assert g["step"] == r["step"]
+        assert g["stokes_converged"] and g["stokes_residual_rel"] <= 1e-8
+        assert abs(g["stokes_iterations"] - r["stokes_iterations"]) <= 1
+        assert g["markers_dropped"] == r["markers_dropped"] == 0
+        assert g["marker_count"] == r["marker_count"]
+        for k in ("time", "dt", "vrms", "vmax"):
+            assert abs(g[k] - r[k]) <= v_tol * abs(r[k]), k
+
+
+def assert_outputs_close(ref, got, which, v_tol, x_tol):
+    """A field dump (``which="fields"``) or checkpoint npz of the port
+    against the reference's: the same keys and dtypes, velocities within
+    ``v_tol`` of max|v|, T and marker positions within ``x_tol``, the
+    other floats within ``v_tol`` of their max, the rest equal."""
+    assert sorted(got) == sorted(ref)
+    pre = "" if which == "fields" else "state."
+    mk = "marker_" if which == "fields" else "state.markers."
+    vmax = max(np.max(np.abs(ref[f"{pre}vx"])), np.max(np.abs(ref[f"{pre}vy"])))
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype, k
+        if k in (f"{pre}vx", f"{pre}vy"):
+            assert np.max(np.abs(got[k] - v)) <= v_tol * vmax, k
+        elif k in (f"{mk}x", f"{mk}y", f"{mk}T", f"{pre}T"):
+            assert np.max(np.abs(got[k] - v)) <= x_tol, k
+        elif k in (f"{pre}p", f"{pre}eta_s", f"{pre}eta_n", f"{pre}time",
+                   f"{pre}dt", f"{pre}mg_lam"):
+            scale = max(np.max(np.abs(v)), 1e-300)
+            assert np.max(np.abs(got[k] - v)) <= v_tol * scale, k
+        else:  # step, materials, valid, the node coordinates
+            np.testing.assert_array_equal(got[k], v, err_msg=k)

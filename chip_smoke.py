@@ -92,6 +92,21 @@ just before it:
   velocities within 1e-5 max|vy|, marker y within 1e-5 max|y| and
   materials equal.
 
+- the same FK 1024^2 step on the DISTRIBUTED 4x2 mesh
+  (``dist_mesh_path``, ``parallel/dist.py``): eight gloo ranks spawned by
+  ``launch`` share the card (CUDA payloads staged through pinned host
+  buffers), each runs its own shard of one step from the state the
+  in-process mesh path started from (handed over in a checkpoint file);
+  rank 0's state must equal the in-process 4x2 state after that step bit
+  for bit in every leaf, ``replicas_agree`` must hold on every rank, the
+  Krylov counts must be equal, and every rank must launch kernels 8-12
+  exactly as often as the in-process step and kernels 1-7 never (each
+  rank's counters set to 0 just before the step and read just after); it
+  prints the backend, the world size, s/step and peak memory per rank
+  beside the card's name and power limit.  Then a one-rank NCCL group
+  runs the distributed mesh's gather, psum and psum_many on the card
+  against the in-process mesh.
+
 - the heated FK 1024^2 (``models.profile.fk_heated_config``: the FK
   bench preset with shear and adiabatic heating, subgrid diffusion d = 1
   and reseeding below 2 per cell), from the FK build's state: 1 warm-up +
@@ -1858,7 +1873,8 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
     count).  ``ra``: kernels 2 and 10 must launch with the rho0 * alpha
     stream on every step, and never without it.  Krylov counts within
     +-max(KRYLOV_AB_TOL, ``krylov_rel`` of the mesh path's).  Returns each
-    path's launch counts."""
+    path's launch counts and the mesh path's first step: (state, Krylov
+    iterations, launches by kernel)."""
     from dataclasses import replace
 
     from pylamp_tpu_torch.models.step import make_step
@@ -1905,6 +1921,9 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
             r["krylov"].append(it)
             for k, mod in modules.items():
                 r["launches"][k] += mod.launches
+            if i == 0 and p == "mesh_4x2":
+                first = (states[p], it,
+                         {k: mod.launches for k, mod in modules.items()})
         if i == 0:
             mesh_agrees(label, states["mesh_4x2"], states["single"])
     idle = {k: n for k, n in rec["mesh_4x2"]["launches"].items()
@@ -1926,7 +1945,7 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
             raise AssertionError(
                 f"{label} step {i + 1}: {a} Krylov iterations, single-device "
                 f"{b} (bar +-max({KRYLOV_AB_TOL}, {krylov_rel:.0%}))")
-    return {p: r["launches"] for p, r in rec.items()}
+    return {p: r["launches"] for p, r in rec.items()}, first
 
 
 def mesh_agrees(label, a, b):
@@ -1945,6 +1964,207 @@ def mesh_agrees(label, a, b):
     if not (dv <= 1e-5 * vmax and dyy <= 1e-5 * ymax and same_mat):
         raise AssertionError(f"{label}: the mesh step disagrees with the "
                              "single-device step")
+
+
+DIST_RANKS = 8  # the 4x2 mesh, one shard a rank
+DIST_TIMEOUT_S = 900.0  # the world's deadline (launch kills it after)
+BLOCK_KERNELS = ("cheb_block", "saddle_block", "m2g_block", "advect_block",
+                 "rebucket_block")
+
+
+def _kernel_modules():
+    """The twelve kernel wrappers' modules by row name (their launch
+    counters)."""
+    from pylamp_tpu_torch.markers.kernels import (
+        advect,
+        advect_block,
+        m2g,
+        m2g_block,
+        rebucket,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.ops.kernels import (
+        cheb,
+        cheb_block,
+        momentum,
+        saddle,
+        saddle_block,
+    )
+    from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
+
+    return {"saddle": saddle, "m2g": m2g, "advect": advect,
+            "rebucket": rebucket, "cheb": cheb, "coarse_vcycle": cvk,
+            "momentum": momentum, "cheb_block": cheb_block,
+            "saddle_block": saddle_block, "m2g_block": m2g_block,
+            "advect_block": advect_block, "rebucket_block": rebucket_block}
+
+
+def dist_fk_rank(device, state_path):
+    """One rank of ``dist_mesh_path``: FK 1024^2 (the bench preset with
+    explicit_halo) on this rank's shard of the distributed 4x2 mesh, one
+    step from the checkpoint at ``state_path``.  Every launch counter is
+    set to 0 just before the step and read just after it, as are the
+    transport's message rounds.  Returns the step's seconds, Krylov count,
+    launches, message rounds, peak device memory, whether every rank holds
+    the same state, and (rank 0) the state's leaves."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.io.checkpoint import load_checkpoint
+    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel import dist as pdist
+    from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
+
+    modules = _kernel_modules()
+    mesh = DistMesh.from_group(4, 2)
+    cfg = fk_bench_config(FK_NX)
+    cfg = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+    grid, table, template = build(cfg, dtype=torch.float32, device=device)
+    state0, _ = load_checkpoint(state_path, template)
+    del template
+    step = make_step(grid, cfg, table, mesh=mesh)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    for mod in modules.values():
+        mod.launches = 0
+    pdist.rounds.update(p2p=0, all_gather=0)
+    t0 = time.perf_counter()
+    state, diag = step(state0)
+    torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in modules.items()}
+    rounds = dict(pdist.rounds)
+    check_state(state, int(state0.markers.total()), diag,
+                f"FK dist 4x2 rank {mesh.rank}")
+    out = dict(rank=mesh.rank, device=str(device), step_s=step_s,
+               krylov=int(diag["stokes_iterations"]), launches=launches,
+               rounds=rounds, peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+               agree=replicas_agree(state))
+    if mesh.rank == 0:
+        out["leaves"] = {k: v.cpu() for k, v in state_leaves(state).items()}
+    return out
+
+
+def nccl_rank(device):
+    """The one-rank NCCL group's check: the distributed 1x1 mesh's psum,
+    psum_many and gather (NCCL all-to-alls) on seeded tensors on the card,
+    bit for bit against the in-process 1x1 mesh's."""
+    import torch.distributed as dist
+
+    from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
+    from pylamp_tpu_torch.parallel.mesh import P, Mesh
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    mesh, ref = DistMesh.from_group(1, 1), Mesh(1, 1)
+    gen = torch.Generator(device=device).manual_seed(18)
+    a = torch.randn((256, 512), generator=gen, device=device)
+    b = torch.randint(0, 9, (256, 512, 18), generator=gen, device=device,
+                      dtype=torch.int32)
+    checked = 0
+    for spec in (P("y", "x"), P("y", None), P(None, "x")):
+        for x in (a, b):
+            got = mesh.gather(mesh.split(x, spec), spec)
+            if not torch.equal(got, ref.gather(ref.split(x, spec), spec)):
+                raise AssertionError(f"nccl gather {spec} differs")
+            checked += 1
+    for axes in ("y", "x", ("y", "x")):
+        got = mesh.psum(mesh.split(a, P("y", "x")), axes)
+        if not torch.equal(got, ref.psum(ref.split(a, P("y", "x")), axes)):
+            raise AssertionError(f"nccl psum over {axes} differs")
+        checked += 1
+    pairs = ((a, P("y", "x"), "x"), (b, P("y", "x", None), ("y", "x")))
+    got = mesh.psum_many(*((mesh.split(x, s), ax) for x, s, ax in pairs))
+    want = ref.psum_many(*((ref.split(x, s), ax) for x, s, ax in pairs))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("nccl psum_many differs")
+    if not replicas_agree({"a": a, "b": b}):
+        raise AssertionError("nccl: replicas_agree failed on one rank")
+    return dict(checked=checked + 2, backend=dist.get_backend())
+
+
+def dist_mesh_path(state0, first, modules):
+    """FK 1024^2 on the DISTRIBUTED 4x2 mesh (``parallel/dist.py``): eight
+    gloo ranks on this one card (spawned by ``launch``, CUDA payloads
+    staged through the host), each taking one explicit-halo step on its
+    own shard from ``state0`` (handed over through a checkpoint file),
+    the step ``mesh_path`` took first on the in-process 4x2 mesh.  Rank
+    0's state must equal the in-process state ``first`` bit for bit in
+    every leaf and ``replicas_agree`` must hold on every rank (so every
+    rank equals it), with the same Krylov count; on every rank kernels
+    8-12 must launch as often as on the in-process step and kernels 1-7
+    never.  Then a one-rank NCCL group runs the distributed mesh's psum
+    and gather on the card against the in-process mesh.  Returns rank 0's
+    launches, the logged record and every rank's summary."""
+    import tempfile
+
+    from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.io.checkpoint import save_checkpoint
+    from pylamp_tpu_torch.parallel.dist import launch
+
+    smi = nvidia_smi_line()
+    ref_state, ref_krylov, ref_launches = first
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dist_mesh_") as tmp:
+        path = os.path.join(tmp, "state0.npz")
+        save_checkpoint(path, state0)
+        ranks = launch(DIST_RANKS, dist_fk_rank, path, device="cuda",
+                       backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        log(f"FK dist 4x2 rank {r['rank']} ({r['device']}, gloo) on {smi}: "
+            f"{r['step_s']:.3f} s/step, Krylov {r['krylov']}, peak "
+            f"{r['peak_gib']:.2f} GiB, launches {r['launches']}, message "
+            f"rounds {r['rounds']}")
+    log(f"FK dist 4x2: backend gloo, world {DIST_RANKS} on one card, "
+        f"{wall:.1f} s for the world (spawn, build, load, step, checks)")
+    want = {k: v for k, v in state_leaves(ref_state).items()}
+    got = ranks[0]["leaves"]
+    differ = {}
+    for k, v in want.items():
+        g = got[k].to(v.device)
+        if g.dtype != v.dtype or not torch.equal(g, v):
+            differ[k] = (float(torch.max(torch.abs(g.double() - v.double())))
+                         if g.dtype == v.dtype else "dtype")
+    agree = all(r["agree"] for r in ranks)
+    log(f"FK dist 4x2 vs the in-process 4x2 step: "
+        f"{'every leaf bit-identical' if not differ else differ}, replicas "
+        f"{'agree' if agree else 'DIFFER'}, Krylov "
+        f"{[r['krylov'] for r in ranks]} vs {ref_krylov}")
+    if differ or not agree:
+        raise AssertionError(f"FK dist 4x2: rank states differ from the "
+                             f"in-process mesh's ({differ}, agree={agree})")
+    for r in ranks:
+        if r["krylov"] != ref_krylov:
+            raise AssertionError(f"FK dist 4x2 rank {r['rank']}: Krylov "
+                                 f"{r['krylov']} != {ref_krylov}")
+        want_l = {k: (ref_launches[k] if k in BLOCK_KERNELS else 0)
+                  for k in modules}
+        if r["launches"] != want_l:
+            raise AssertionError(
+                f"FK dist 4x2 rank {r['rank']}: launches {r['launches']}, "
+                f"the in-process mesh's {want_l} (kernels 1-7: 0)")
+    nccl = launch(1, nccl_rank, device="cuda", backend="nccl",
+                  timeout_s=DIST_TIMEOUT_S)[0]
+    log(f"one-rank NCCL group on {smi}: {nccl['checked']} checks of the "
+        f"distributed mesh's gather / psum / psum_many / replicas_agree "
+        f"bit-identical to the in-process mesh's")
+    rec = {"device": smi, "backend": "gloo", "world": DIST_RANKS,
+           "step_s": [r["step_s"] for r in ranks],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "rounds_per_rank": ranks[0]["rounds"],
+           "krylov": ref_krylov, "launches_per_rank": ranks[0]["launches"],
+           "world_s": wall}
+    log("FK dist 4x2 " + json.dumps(rec))
+    return {"launches": ranks[0]["launches"], **rec,
+            "ranks": [{k: v for k, v in r.items() if k != "leaves"}
+                      for r in ranks]}
 
 
 def seam_equal(name, a):
@@ -3422,14 +3642,17 @@ def main():
                 f"step {i + 1}: {a} Krylov iterations with the fused MG "
                 f"kernels, {b} without (bar +-{KRYLOV_AB_TOL})")
 
-    launches_m = mesh_path(grid, cfg, table, state0, n_markers, modules)
+    launches_m, first_m = mesh_path(grid, cfg, table, state0, n_markers,
+                                    modules)
+    rec_dist = dist_mesh_path(state0, first_m, modules)
+    del first_m
     rec_h, state_h = heated_paths(grid, table, state0, modules)
     reseed_check(grid, table, state_h)
     del state_h
-    launches_hm = mesh_path(grid, cfg_h, table, state0, None, modules,
-                            label="heated FK mesh",
-                            measured=HEATED_MESH_MEASURED_STEPS, ra=True,
-                            krylov_rel=HEATED_KRYLOV_REL)
+    launches_hm, _ = mesh_path(grid, cfg_h, table, state0, None, modules,
+                               label="heated FK mesh",
+                               measured=HEATED_MESH_MEASURED_STEPS, ra=True,
+                               krylov_rel=HEATED_KRYLOV_REL)
     rec_opt = solver_option_paths(grid, table, state0, n_markers, modules,
                                   dict(step_s=times[:2], krylov=iters[:2]))
     del state0
@@ -3511,6 +3734,9 @@ def main():
                 "fk_1024": launches[base] if wall_form else 0,
                 "sticky_air_1024x256": launches_s[base] if wall_form else 0,
                 "fk_1024_mesh_4x2": (launches_m["mesh_4x2"][base]
+                                     if wall_form else 0),
+                # dist_mesh_path: one step, per rank of the 8-rank world
+                "fk_1024_dist_4x2": (rec_dist["launches"][base]
                                      if wall_form else 0),
                 "falling_block_periodic_1024": periodic_count(
                     k, rec_p["preset"]),

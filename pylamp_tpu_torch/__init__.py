@@ -20,9 +20,9 @@ sticky_air_bench_config``: augmented Lagrangian, inner velocity FGMRES,
 power-iteration bounds, MG eta cap) and of the falling block with
 periodic side walls (``models.benchmarks.falling_block_periodic_config``:
 the periodic forms of six kernels), the first two also domain-decomposed
-on the reference's explicit-halo path over an in-process mesh
-(``parallel/``: every shard on one card, with the five per-shard kernels;
-non-periodic); and stretched grids on one device
+on the reference's explicit-halo path over a mesh (``parallel/``: every
+shard on one card in-process, or one shard per rank of a torch.distributed
+world, with the five per-shard kernels; non-periodic); and stretched grids on one device
 (``models.benchmarks.fk_stretched_bench_config``: variable-spacing
 operators, semicoarsened MG with power-iteration bounds, the Jacobi and
 line smoothers, the windowed-locate marker engine; tensor code, as every

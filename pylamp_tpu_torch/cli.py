@@ -8,11 +8,18 @@
 ``run`` keeps every flag of the reference's.  Its ``--platform`` /
 ``--devices`` become ``--device``: the card by default, and the CPU only
 when asked for (``run`` refuses to start on a machine without CUDA
-otherwise).  ``--mesh`` takes the in-process mesh of ``parallel/mesh.py``
-(every shard on one card).  ``--scan N`` runs N steps per call of
-``models/step.py make_multi_step`` (the reference's chunked time loop; the
-host is still read within each step).  ``bench`` is refused: the port's
-benchmark entry waits for a later port PR.
+otherwise).  ``--mesh YxX`` takes the in-process mesh of
+``parallel/mesh.py`` (every shard on one card); under torchrun it takes
+the distributed mesh of ``parallel/dist.py``, one shard per rank (Y * X
+ranks; NCCL, one card a rank, for ``--device cuda``, gloo for ``cpu``):
+
+    torchrun --nproc-per-node 8 -m pylamp_tpu_torch run fk_stagnant_lid \
+        --nx 1024 --mesh 4x2 --out out/fk
+
+Every rank computes; rank 0 alone writes the outputs.  ``--scan N`` runs N
+steps per call of ``models/step.py make_multi_step`` (the reference's
+chunked time loop; the host is still read within each step).  ``bench``
+is refused: the port's benchmark entry waits for a later port PR.
 """
 from __future__ import annotations
 
@@ -21,14 +28,25 @@ import dataclasses
 import sys
 
 
-def _parse_mesh(spec: str):
-    """An in-process mesh from "YxX" (e.g. "2x4") or a shard count (e.g.
-    "8" -> near-square factorization, the reference's 4x2)."""
+def _parse_mesh(spec: str, device: str):
+    """The mesh of ``--mesh``: "YxX" (e.g. "2x4") or a shard count (e.g.
+    "8" -> near-square factorization, the reference's 4x2).  Without
+    torchrun, the in-process mesh (every shard on one device); under
+    torchrun (WORLD_SIZE > 1), this rank's distributed mesh, after joining
+    the process group (NCCL for --device cuda, gloo for cpu): Y * X must
+    equal the world size."""
+    from pylamp_tpu_torch.parallel import dist
     from pylamp_tpu_torch.parallel.mesh import make_mesh, parse_mesh
 
-    if "x" in spec.lower():
-        return parse_mesh(spec)
-    return make_mesh(int(spec))
+    mesh = parse_mesh(spec) if "x" in spec.lower() else make_mesh(int(spec))
+    world = dist.torchrun_world()
+    if world == 1:
+        return mesh
+    if mesh.size != world:
+        raise SystemExit(
+            f"--mesh {spec}: needs {mesh.size} devices, have {world}")
+    dist.init_from_env(device)
+    return dist.DistMesh.from_group(mesh.my, mesh.mx)
 
 
 BENCHMARKS = {
@@ -82,9 +100,11 @@ def main(argv=None):
                       help="multigrid V-cycle smoother (line relaxation "
                            "for anisotropic stretched grids)")
     runp.add_argument("--mesh", type=str, default=None, metavar="YxX",
-                      help="run domain-decomposed over a YxX in-process "
-                           "mesh on one card (e.g. 4x2), or a shard count "
-                           "(e.g. 8) for a near-square factorization")
+                      help="run domain-decomposed over a YxX mesh (e.g. "
+                           "4x2), or a shard count (e.g. 8) for a "
+                           "near-square factorization: in-process on one "
+                           "card, or under torchrun one shard per rank "
+                           "(Y*X ranks)")
     runp.add_argument("--explicit-halo", dest="explicit_halo",
                       action="store_true", default=None,
                       help="the explicit-halo operators and per-shard "
@@ -185,9 +205,15 @@ def main(argv=None):
             )
         )
 
+    from pylamp_tpu_torch.parallel import dist
+
     mesh = None
+    if dist.torchrun_world() > 1 and not args.mesh:
+        raise SystemExit(f"run: under torchrun (WORLD_SIZE="
+                         f"{dist.torchrun_world()}) --mesh YxX is needed, "
+                         "Y * X = WORLD_SIZE")
     if args.mesh:
-        mesh = _parse_mesh(args.mesh)
+        mesh = _parse_mesh(args.mesh, args.device)
         # the explicit halo is the mesh's default, as in the reference;
         # --no-explicit-halo runs the step on the global tensors
         explicit = args.explicit_halo if args.explicit_halo is not None else True
@@ -202,22 +228,26 @@ def main(argv=None):
         print("warning: --explicit-halo/--coarse-replicate have no effect "
               "without --mesh", file=sys.stderr)
 
-    state, diags, grid = run_model(
-        cfg,
-        out_dir=args.out,
-        checkpoint_every=args.checkpoint_every,
-        output_every=args.output_every,
-        plot_every=args.plot_every,
-        resume_from=args.resume,
-        echo=True,
-        profile_phases=args.profile_phases,
-        scan_chunk=args.scan,
-        dtype=state_dtype,
-        step_delay=args.step_delay,
-        mesh=mesh,
-        device=args.device,
-    )
-    print(f"done: {int(state.step)} steps, t={float(state.time):.6g}")
+    try:
+        state, diags, grid = run_model(
+            cfg,
+            out_dir=args.out,
+            checkpoint_every=args.checkpoint_every,
+            output_every=args.output_every,
+            plot_every=args.plot_every,
+            resume_from=args.resume,
+            echo=True,
+            profile_phases=args.profile_phases,
+            scan_chunk=args.scan,
+            dtype=state_dtype,
+            step_delay=args.step_delay,
+            mesh=mesh,
+            device=args.device,
+        )
+    finally:
+        dist.shutdown()
+    if mesh is None or mesh.lead:
+        print(f"done: {int(state.step)} steps, t={float(state.time):.6g}")
     return 0
 
 

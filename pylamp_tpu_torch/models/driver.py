@@ -51,10 +51,14 @@ def run_model(
     mixed-precision solves and, on the card, the CUDA kernels.
 
     ``mesh``: an in-process mesh (``parallel/mesh.py``) for a
-    domain-decomposed run on one card: the step is built with it (the
-    explicit-halo operators and per-shard kernels when
-    ``SolverConfig.explicit_halo`` is set, the global tensors otherwise),
-    and every metrics line carries ``"mesh": "YxX"``.
+    domain-decomposed run on one card, or this rank's distributed mesh
+    (``parallel/dist.py``): the step is built with it (the explicit-halo
+    operators and per-shard kernels when ``SolverConfig.explicit_halo`` is
+    set, the global tensors otherwise), and every metrics line carries
+    ``"mesh": "YxX"``.  Under a distributed mesh every rank reads
+    ``resume_from`` and computes, rank 0 alone writes metrics, dumps,
+    figures and checkpoints, and the ranks meet at a barrier before the
+    return.
 
     ``on_divergence``: "retry" re-runs a non-converged step once with a
     stronger solver (4x maxiter, 2x restart, built at the first
@@ -85,6 +89,7 @@ def run_model(
     if scan_chunk > 0 and profile_phases:
         raise ValueError("scan_chunk and profile_phases are mutually exclusive")
     mesh_tag = None
+    lead = mesh is None or mesh.lead  # the process that writes files
     if mesh is not None:
         if profile_phases:
             raise ValueError("profile_phases is single-device only "
@@ -96,17 +101,22 @@ def run_model(
     if resume_from:
         state, _ = load_checkpoint(resume_from, template=state)
 
+    if not lead:
+        out_dir, echo = None, False
     logger = MetricsLogger(
         os.path.join(out_dir, "metrics.jsonl") if out_dir else None, echo=echo
     )
     if scan_chunk > 0:
         try:
-            return _run_scanned(cfg, grid, table, state, out_dir,
-                                checkpoint_every, output_every, plot_every,
-                                callback, on_divergence, scan_chunk, logger,
-                                mesh=mesh, mesh_tag=mesh_tag)
+            out = _run_scanned(cfg, grid, table, state, out_dir,
+                               checkpoint_every, output_every, plot_every,
+                               callback, on_divergence, scan_chunk, logger,
+                               mesh=mesh, mesh_tag=mesh_tag)
         finally:
             logger.close()
+        if mesh is not None:
+            mesh.barrier()
+        return out
 
     if profile_phases:
         from pylamp_tpu_torch.models.step import make_phased_runner
@@ -150,6 +160,8 @@ def run_model(
             time.sleep(step_delay)
 
     logger.close()
+    if mesh is not None:
+        mesh.barrier()
     return state, diags, grid
 
 

@@ -43,8 +43,9 @@ tensor code: no MG kernel runs under it), the MG's scaled transfers and
 line-search damping (``mg_scaled_transfers``, ``mg_ls_damp``; the fused
 coarse sub-V-cycle stays off under either, as in the reference).
 
-``mesh`` (an in-process mesh, parallel/mesh.py) with
-``SolverConfig.explicit_halo`` runs the step domain-decomposed on one card:
+``mesh`` (the in-process mesh of parallel/mesh.py, or a rank's
+distributed mesh of parallel/dist.py) with ``SolverConfig.explicit_halo``
+runs the step domain-decomposed (in-process: on one card):
 every Stokes and energy operator apply through the explicit-halo operators
 (the f32 outer applies through the per-shard saddle kernel), the MG levels
 through the per-shard fused smoother, and the marker transfers, advection
@@ -184,8 +185,9 @@ def _marker_mean(markers, vals):
 
 def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
                      table: MaterialTable, mesh=None) -> StepPhases:
-    """``mesh``: the in-process mesh of a domain-decomposed run (module
-    docstring)."""
+    """``mesh``: the mesh of a domain-decomposed run, in-process or this
+    rank's distributed one (module docstring); the gates read its global
+    shape (``my``, ``mx``)."""
     phys, solver, tc = cfg.physics, cfg.solver, cfg.time
     vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
     if tc.courant > 1.0:

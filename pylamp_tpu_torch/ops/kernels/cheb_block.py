@@ -67,6 +67,12 @@ class BlockSmootherPrep:
     h: int
     by: int
     bx: int
+    # the shards of the whole mesh (Mesh.size), which kernel 8's tile plan
+    # takes whatever the launch holds (all of them in-process, one a rank on
+    # a distributed mesh): the edge and inner tiles' arithmetic rounds
+    # differently (the compiler contracts their stencils differently), so
+    # a shard's bits follow its tiles
+    mesh_shards: int
 
 
 def frame_cheb_sweep(ex, ey, rx, ry, es, en, *, by, bx, h, dx, dy, kb,
@@ -211,7 +217,8 @@ def cheb_block_cuda(ex_v, ey_v, rx_v, ry_v, prep: BlockSmootherPrep,
             for _ in range(4 if emit_residual else 2)]
     ox, oy = outs[0], outs[1]
     fx, fy = (outs[2], outs[3]) if emit_residual else (ox, oy)
-    plan = cheb.block_tile_plan(by, bx, he, S, cheb.device_sms(dev.index))
+    plan = cheb.block_tile_plan(by, bx, he, prep.mesh_shards,
+                                cheb.device_sms(dev.index))
     code = cuda_build.library().launch_cheb_block(
         ex_v.data_ptr(), ey_v.data_ptr(), rx_v.data_ptr(), ry_v.data_ptr(),
         prep.es_v.data_ptr(), prep.en_v.data_ptr(), prep.flags.data_ptr(),

@@ -1,7 +1,10 @@
-"""Multi-shard dry run: the full timestep on the in-process mesh, each
-sub-check held against the single-device step.
+"""Multi-shard dry run: the full timestep on the in-process mesh, or on a
+distributed mesh of spawned ranks, each sub-check held against the
+single-device step.
 
     python -m pylamp_tpu_torch.parallel.dryrun [--shards 8] [--device cpu]
+    python -m pylamp_tpu_torch.parallel.dryrun --ranks 8 [--device cpu]
+        [--backend gloo|nccl]
 
 Port of ``pylamp_tpu/parallel/dryrun.py`` at the reference's own sizes (32^2
 on the ``make_mesh(8)`` 4x2 mesh).  Of its four sub-checks:
@@ -26,6 +29,13 @@ without): only the halo engine reads ``mg_coarse_replicate``.  It runs three
 MG levels where the reference runs two, because at 32^2 two levels (32, 16)
 leave no level of at most 8 cells to replicate.  (d) runs the reference's
 f64 solver of (a)/(c) (two MG levels) with ``explicit_halo``.
+
+``--ranks N`` runs the same sub-checks on the distributed mesh of
+``parallel/dist.py`` (N ranks spawned by ``launch``, one shard each; the
+backend by the device unless ``--backend`` names one, gloo ranks may
+share a card): every rank holds its sharded step against the
+single-device step at the same bars, the port's counterpart of the
+reference's ``dryrun_multichip(8)`` on 8 real devices.
 
 Runs on the card unless ``--device cpu``; prints one line per sub-check
 and exits non-zero on any disagreement.
@@ -67,7 +77,11 @@ def _run_pair(cfg, mesh, dtype, device):
     return new, ref_state, diag
 
 
-def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bcd"):
+def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bcd",
+                     mesh=None):
+    """The sub-checks ``checks`` on ``mesh`` (None: the in-process
+    ``make_mesh(n_shards)``); prints the summary line (rank 0 of a
+    distributed mesh) and returns it."""
     from pylamp_tpu_torch.models.benchmarks import (
         blankenbach_case1a,
         falling_block,
@@ -80,7 +94,8 @@ def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bcd"):
         raise ValueError("sub-check (a) is the single-device step by "
                          "construction on the in-process mesh (module "
                          "docstring)")
-    mesh = make_mesh(n_shards)
+    if mesh is None:
+        mesh = make_mesh(n_shards)
     lines = []
     if "b" in checks:
         cfg = falling_block(nx=32, ny=32, max_steps=1)
@@ -112,20 +127,47 @@ def dryrun_multichip(n_shards: int = 8, device="cuda", checks="bcd"):
         err = _assert_close(new, ref, diag, "periodic_halo", 1e-8)
         lines.append(f"periodic_halo@1e-8 (max |dvy| {err:.3e}, Krylov "
                      f"{diag['stokes_iterations']})")
-    print(f"dryrun_multichip OK on {device}: mesh "
-          f"{dict(y=mesh.my, x=mesh.mx)}, each sub-check == single-device "
-          f"to its stated tolerance: " + ", ".join(lines))
+    kind = (f"{type(mesh).__name__} rank {mesh.rank}"
+            if hasattr(mesh, "rank") else "in-process")
+    line = (f"dryrun_multichip OK on {device}: {kind} mesh "
+            f"{dict(y=mesh.my, x=mesh.mx)}, each sub-check == single-device "
+            f"to its stated tolerance: " + ", ".join(lines))
+    if mesh.lead:
+        print(line)
+    return line
+
+
+def _dryrun_rank(device, n_shards, checks):
+    """One rank of ``--ranks``: the sub-checks on its distributed mesh."""
+    from pylamp_tpu_torch.parallel.dist import DistMesh
+    from pylamp_tpu_torch.parallel.mesh import _factor2
+
+    mesh = DistMesh.from_group(*_factor2(n_shards))
+    return dryrun_multichip(n_shards, device.type, checks, mesh=mesh)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=8)
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run on a distributed mesh of this many spawned "
+                         "ranks (one shard each) instead of in-process")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="with --ranks: nccl for cuda, gloo for cpu unless "
+                         "named")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--checks", default="bcd",
                     help="sub-checks to run, of 'bcd'")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("dryrun: no CUDA device (pass --device cpu for the CPU)")
+    if args.ranks:
+        from pylamp_tpu_torch.parallel.dist import launch
+
+        launch(args.ranks, _dryrun_rank, args.ranks, args.checks,
+               device=args.device, backend=args.backend, timeout_s=1800.0)
+        print(f"dryrun_multichip OK on every one of the {args.ranks} ranks")
+        return
     dryrun_multichip(args.shards, args.device, args.checks)
 
 

@@ -1,4 +1,4 @@
-"""Explicit halo exchange on the in-process mesh: the building blocks and a
+"""Explicit halo exchange on the mesh: the building blocks and a
 manually sharded 5-point diffusion apply.
 
 Port of ``pylamp_tpu/parallel/halo.py``: each shard owns a block,

@@ -1,4 +1,4 @@
-"""Explicit-halo marker engine on the in-process mesh.
+"""Explicit-halo marker engine on the mesh (either transport).
 
 Port of ``pylamp_tpu/parallel/halo_markers.py`` (non-periodic): the
 operations of the dense bucketed engine with hand-placed neighbour
@@ -90,36 +90,55 @@ def _blocks(mesh: Mesh, grid: StaggeredGrid):
 def _ext_blocks(mesh: Mesh, *streams):
     """Every shard's one-ring-extended (S, by+2, bx+2, K) block of each
     (ny, nx, K) stream (zeros, i.e. empty slots, beyond the domain)."""
-    return [mesh.flat(mesh.ext1(mesh.split(a, BLK3), nd=3)) for a in streams]
+    return [mesh.flat(e) for e in mesh.ext1_many(
+        [mesh.split(a, BLK3) for a in streams], nd=3)]
 
 
-def _assemble(mesh: Mesh, grid: StaggeredGrid, F, shape):
-    """Global (rows, cols) lattice from the shards' (S, by+1, bx+1) node
-    frames, each complete on its own nodes and the +1 seam strips: the
-    interior blocks, and the seam row / column / corner selected from the
-    last mesh row / column (psum-selected, as the reference)."""
+def _assemble(mesh: Mesh, grid: StaggeredGrid, frames):
+    """Global (rows, cols) lattices from the shards' (S, by+1, bx+1) node
+    frames ``frames`` [(F, (rows, cols)), ...], each complete on its own
+    nodes and the +1 seam strips: the interior blocks, and the seam row /
+    column / corner selected from the last mesh row / column
+    (psum-selected, as the reference).  One psum and one gather
+    collective for all of them."""
     my, mx = mesh.my, mesh.mx
     ny, nx = grid.ny, grid.nx
     by, bx = _blocks(mesh, grid)
-    rows, cols = shape
-    F = mesh.unflat(F)  # (my, mx, by+1, bx+1)
-    iy = mesh.axis_index("y", device=F.device)
-    ix = mesh.axis_index("x", device=F.device)
-    zero = torch.zeros((), dtype=F.dtype, device=F.device)
-    out = mesh.gather(F[..., :by, :bx], P("y", "x"))
-    if cols == nx + 1:
-        rcol = mesh.psum(torch.where(ix == mx - 1, F[..., :by, bx:], zero),
-                         "x")
-        out = torch.cat([out, mesh.gather(rcol, P("y", None))], dim=1)
-    if rows == ny + 1:
-        brow = mesh.psum(torch.where(iy == my - 1, F[..., by:, :bx], zero),
-                         "y")
-        bottom = mesh.gather(brow, P(None, "x"))
+    sums, plan = [], []
+    for F, (rows, cols) in frames:
+        F = mesh.unflat(F)  # (*local_shape, by+1, bx+1)
+        iy = mesh.axis_index("y", device=F.device)
+        ix = mesh.axis_index("x", device=F.device)
+        zero = torch.zeros((), dtype=F.dtype, device=F.device)
+        parts = [(F[..., :by, :bx], P("y", "x"))]
         if cols == nx + 1:
-            corner = mesh.psum(torch.where((iy == my - 1) & (ix == mx - 1),
-                                           F[..., by:, bx:], zero), ("y", "x"))
-            bottom = torch.cat([bottom, mesh.gather(corner, P())], dim=1)
-        out = torch.cat([out, bottom], dim=0)
+            sums.append((torch.where(ix == mx - 1, F[..., :by, bx:], zero),
+                         "x"))
+            parts.append((len(sums) - 1, P("y", None)))
+        if rows == ny + 1:
+            sums.append((torch.where(iy == my - 1, F[..., by:, :bx], zero),
+                         "y"))
+            parts.append((len(sums) - 1, P(None, "x")))
+            if cols == nx + 1:
+                sums.append((torch.where((iy == my - 1) & (ix == mx - 1),
+                                         F[..., by:, bx:], zero), ("y", "x")))
+                parts.append((len(sums) - 1, P()))
+        plan.append((rows, cols, parts))
+    summed = mesh.psum_many(*sums) if sums else []
+    got = iter(mesh.gather_many(*(
+        (summed[b] if isinstance(b, int) else b, spec)
+        for _, _, parts in plan for b, spec in parts)))
+    out = []
+    for rows, cols, parts in plan:
+        a = next(got)
+        if cols == nx + 1:
+            a = torch.cat([a, next(got)], dim=1)
+        if rows == ny + 1:
+            bottom = next(got)
+            if cols == nx + 1:
+                bottom = torch.cat([bottom, next(got)], dim=1)
+            a = torch.cat([a, bottom], dim=0)
+        out.append(a)
     return out
 
 
@@ -137,9 +156,9 @@ def m2g_fused_halo(bm: BucketedMarkers, grid: StaggeredGrid, table, phys,
                       grid, table, phys, bases, with_energy=with_energy,
                       with_ra=with_ra)
     locs = {"c": "corner", "n": "center", "vy": "vy", "vx": "vx"}
-    return {name: _assemble(mesh, grid, F,
-                            grid.shape(locs[name.split("_")[0]]))
-            for name, F in fields.items()}
+    return dict(zip(fields, _assemble(mesh, grid, [
+        (F, grid.shape(locs[name.split("_")[0]]))
+        for name, F in fields.items()])))
 
 
 def m2g_halo(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str,
@@ -152,8 +171,8 @@ def m2g_halo(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str,
     w, (wv,) = m2g_block_sums(xe, ye, vale, [ve], grid, loc,
                               mesh.bases(by, bx, device=bm.x.device))
     shape = grid.shape(loc)
-    field_w = _assemble(mesh, grid, w, shape)
-    return mean_of(_assemble(mesh, grid, wv, shape), field_w, mode), field_w
+    field_w, field_wv = _assemble(mesh, grid, [(w, shape), (wv, shape)])
+    return mean_of(field_wv, field_w, mode), field_w
 
 
 # -- grid -> marker -------------------------------------------------------------
@@ -165,7 +184,6 @@ def _extend_lattice_block(mesh: Mesh, fI, fR, fB, fC, pl: int, ph: int):
     lattices without them).  Zero beyond the domain, as the global engine's
     zero padding (those reads are weight-masked)."""
     dev = fI.device
-    iy = mesh.axis_index("y", device=dev)
     ix = mesh.axis_index("x", device=dev)
 
     def zeros(like, n, dim):
@@ -173,21 +191,20 @@ def _extend_lattice_block(mesh: Mesh, fI, fR, fB, fC, pl: int, ph: int):
         shape[dim] = n
         return torch.zeros(shape, dtype=like.dtype, device=dev)
 
-    def row_ext(I, B):
-        top = mesh.from_prev(I[..., -pl:, :], "y")
-        top = torch.where(iy == 0, torch.zeros_like(top), top)
-        bot = mesh.from_next(I[..., :ph, :], "y")
-        last = (torch.cat([mesh._full(B), zeros(bot, ph - 1, -2)], dim=-2)
-                if B is not None else torch.zeros_like(bot))
-        bot = torch.where(iy == mesh.my - 1, last, bot)
-        return torch.cat([top, mesh._full(I), bot], dim=-2)
+    def bottom(B):
+        if B is None:
+            return None
+        B = mesh._full(B)
+        return torch.cat([B, zeros(B, ph - 1, -2)], dim=-2)
 
-    rows = row_ext(fI, fB)
-    left = mesh.from_prev(rows[..., -pl:], "x")
-    left = torch.where(ix == 0, torch.zeros_like(left), left)
-    right = mesh.from_next(rows[..., :ph], "x")
+    # every halo in one exchange round
+    fields = [(fI, pl, ph, pl, ph, None, bottom(fB), False)]
     if fR is not None:
-        rowsR = row_ext(fR, fC)
+        fields.append((fR, pl, ph, 0, 0, None, bottom(fC), False))
+    got = mesh.halos(*fields)
+    rows, left, right = got[0]
+    if fR is not None:
+        rowsR = got[1][0]
         lastc = torch.cat([rowsR, zeros(rowsR, ph - 1, -1)], dim=-1)
     else:
         lastc = torch.zeros_like(right)
@@ -206,7 +223,7 @@ def g2m_halo(field, px, py, valid, grid: StaggeredGrid, loc: str, mesh: Mesh,
     oy, ox = grid.origin(loc)
     dev = field.device
     bases = mesh.bases(by, bx, device=dev).to(torch.int64)
-    S = mesh.size
+    S = mesh.n_local
     rb = bases[:, 0].view(S, 1, 1, 1)
     cb = bases[:, 1].view(S, 1, 1, 1)
     cj = rb + torch.arange(by, device=dev).view(1, by, 1, 1)
@@ -243,64 +260,54 @@ def velocity_windows(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs,
             "periodic side walls: the explicit-halo marker engine has no "
             "wrap-around exchange path (the step keeps the markers on the "
             "global tensors)")
-    my, mx = mesh.my, mesh.mx
+    mx = mesh.mx
     _, bx = _blocks(mesh, grid)
     dev = vx.device
     dtype = vx.dtype
 
     def zeros(rows, cols):
-        return torch.zeros((my, mx, rows, cols), dtype=dtype, device=dev)
+        return torch.zeros((*mesh.local_shape, rows, cols), dtype=dtype,
+                           device=dev)
 
     def local(vxI, vxR, vyI, vyB):
-        iy = mesh.axis_index("y", device=dev)
         ix = mesh.axis_index("x", device=dev)
 
-        # vx in the padded vx_p frame (ghost rows above/below the walls):
-        # R+1 rows from prev (wall: zeros, then the ghost row), R from next
-        # (wall: the ghost row, then zeros)
-        def vx_rows(I):
+        # every halo in one exchange round.  vx in the padded vx_p frame
+        # (ghost rows above/below the walls): R+1 rows from prev (wall:
+        # zeros, then the ghost row), R from next (wall: the ghost row,
+        # then zeros); vx has no ghost columns (marker x is clamped inside
+        # the walls).  vy in the padded vy_p frame (ghost columns at the
+        # side walls).
+        def vx_walls(I):
             w = I.shape[-1]
-            top = mesh.from_prev(I[..., -(R + 1):, :], "y")
             ghost_t = (bcs.s_top * I[..., :1, :]
                        + (1.0 - bcs.s_top) * bcs.vt_top)
-            top = torch.where(iy == 0, torch.cat(
-                [zeros(R, w), mesh._full(ghost_t)], dim=-2), top)
-            bot = mesh.from_next(I[..., :R, :], "y")
             ghost_b = (bcs.s_bottom * I[..., -1:, :]
                        + (1.0 - bcs.s_bottom) * bcs.vt_bottom)
-            bot = torch.where(iy == my - 1, torch.cat(
-                [mesh._full(ghost_b), zeros(R - 1, w)], dim=-2), bot)
-            return torch.cat([top, mesh._full(I), bot], dim=-2)
+            return (torch.cat([zeros(R, w), mesh._full(ghost_t)], dim=-2),
+                    torch.cat([mesh._full(ghost_b), zeros(R - 1, w)],
+                              dim=-2))
 
-        rows = vx_rows(vxI)  # (by + 2R + 1, bx)
-        rowsR = vx_rows(vxR)  # (by + 2R + 1, 1)
-        # vx has no ghost columns (marker x is clamped inside the walls)
-        h_rows = rows.shape[-2]
-        left = mesh.from_prev(rows[..., -R:], "x")
-        left = torch.where(ix == 0, torch.zeros_like(left), left)
-        right = mesh.from_next(rows[..., :R + 1], "x")
+        (rows, left, right), (rowsR, _, _), (vy_rows, vy_left, vy_right) = \
+            mesh.halos(
+                (vxI, R + 1, R, R, R + 1, *vx_walls(vxI), False),
+                (vxR, R + 1, R, 0, 0, *vx_walls(vxR), False),
+                (vyI, R, R + 1, R + 1, R, None,
+                 torch.cat([mesh._full(vyB), zeros(R, bx)], dim=-2), False))
+        h_rows = rows.shape[-2]  # by + 2R + 1
         lastc = torch.cat([rowsR, zeros(h_rows, R)], dim=-1)
         right = torch.where(ix == mx - 1, lastc, right)
         vx_ext = torch.cat([left, rows, right], dim=-1)
 
-        # vy in the padded vy_p frame (ghost columns at the side walls)
-        top = mesh.from_prev(vyI[..., -R:, :], "y")
-        top = torch.where(iy == 0, torch.zeros_like(top), top)
-        bot = mesh.from_next(vyI[..., :R + 1, :], "y")
-        lastr = torch.cat([mesh._full(vyB), zeros(R, bx)], dim=-2)
-        bot = torch.where(iy == my - 1, lastr, bot)
-        rows = torch.cat([top, mesh._full(vyI), bot], dim=-2)
-        left = mesh.from_prev(rows[..., -(R + 1):], "x")
-        ghost_l = (bcs.s_left * rows[..., :1]
+        ghost_l = (bcs.s_left * vy_rows[..., :1]
                    + (1.0 - bcs.s_left) * bcs.vt_left)
         left = torch.where(ix == 0, torch.cat(
-            [zeros(h_rows, R), ghost_l], dim=-1), left)
-        right = mesh.from_next(rows[..., :R], "x")
-        ghost_r = (bcs.s_right * rows[..., -1:]
+            [zeros(h_rows, R), ghost_l], dim=-1), vy_left)
+        ghost_r = (bcs.s_right * vy_rows[..., -1:]
                    + (1.0 - bcs.s_right) * bcs.vt_right)
         right = torch.where(ix == mx - 1, torch.cat(
-            [ghost_r, zeros(h_rows, R - 1)], dim=-1), right)
-        vy_ext = torch.cat([left, rows, right], dim=-1)
+            [ghost_r, zeros(h_rows, R - 1)], dim=-1), vy_right)
+        vy_ext = torch.cat([left, vy_rows, right], dim=-1)
         return mesh.flat(vx_ext), mesh.flat(vy_ext)
 
     blk = P("y", "x")
@@ -325,8 +332,9 @@ def advect_rk4_halo(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     bases = mesh.bases(by, bx, device=vx.device)
     step = advect_block if kernel else advect_block_plain
     nx_b, ny_b = step(xb, yb, vb, vx_ext, vy_ext, dt, grid, bases, R)
-    return bm.replace(x=mesh.gather(mesh.unflat(nx_b), BLK3),
-                      y=mesh.gather(mesh.unflat(ny_b), BLK3))
+    x, y = mesh.gather_many((mesh.unflat(nx_b), BLK3),
+                            (mesh.unflat(ny_b), BLK3))
+    return bm.replace(x=x, y=y)
 
 
 # -- re-bucketing ---------------------------------------------------------------
@@ -344,13 +352,13 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
     ext = _ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid)
     repack = rebucket_block if kernel else rebucket_block_plain
     new, arrivals = repack(*ext, grid, mesh.bases(by, bx, device=dev))
-    dropped = torch.sum(torch.clamp(arrivals - K, min=0))
-
-    def glob(a):
-        return mesh.gather(mesh.unflat(a), BLK3)
-
-    return BucketedMarkers(x=glob(new.x), y=glob(new.y), mat=glob(new.mat),
-                           T=glob(new.T), valid=glob(new.valid)), dropped
+    # every shard's overflow, summed over the mesh (integers: exact in any
+    # order)
+    over = torch.clamp(arrivals - K, min=0).sum(dim=(1, 2))
+    dropped = mesh.psum(mesh.unflat(over), ("y", "x")).reshape(-1)[0]
+    names = ("x", "y", "mat", "T", "valid")
+    return BucketedMarkers(**dict(zip(names, mesh.gather_many(*(
+        (mesh.unflat(getattr(new, f)), BLK3) for f in names))))), dropped
 
 
 # -- reseeding ------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Explicit-halo Stokes and energy operators on the in-process mesh.
+"""Explicit-halo Stokes and energy operators on the mesh (either
+transport).
 
 Port of ``pylamp_tpu/parallel/halo_ops.py``: the variable-viscosity
 Stokes saddle apply and the energy diffusion apply with every neighbour
@@ -94,7 +95,7 @@ def stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
     def local(vxI, vxR, vyI, vyB, esI, esR, esB, esC, en, pc):
         iy = mesh.axis_index("y", device=dev)
         ix = mesh.axis_index("x", device=dev)
-        first_y, last_y = iy == 0, iy == my - 1
+        first_y = iy == 0
         first_x, last_x = ix == 0, ix == mx - 1
 
         # vx extended (by+2, bx+2): BC ghost rows at the walls, the true
@@ -104,51 +105,42 @@ def stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
         # the rightmost block's right halo is the leftmost's col 0 (the
         # duplicated seam node), the leftmost's left halo the rightmost's
         # last interior column (global nx-1), the wrap the global
-        # operator's ghosts read
-        t = mesh.from_prev(_last_row(vxI), "y")
-        b = mesh.from_next(_first_row(vxI), "y")
-        t = torch.where(first_y, bcs.s_top * _first_row(vxI), t)
-        b = torch.where(last_y, bcs.s_bottom * _last_row(vxI), b)
-        rows = _rows(t, vxI, b)
-        left = mesh.from_prev(_last_col(rows), "x", ring=periodic)
-        right = mesh.from_next(_first_col(rows), "x", ring=periodic)
-        if not periodic:
-            tR = mesh.from_prev(_last_row(vxR), "y")
-            bR = mesh.from_next(_first_row(vxR), "y")
-            tR = torch.where(first_y, bcs.s_top * _first_row(vxR), tR)
-            bR = torch.where(last_y, bcs.s_bottom * _last_row(vxR), bR)
-            right = torch.where(last_x, _rows(tR, vxR, bR), right)
-        vx_ext = _cols(left, rows, right)
-
+        # operator's ghosts read.
         # vy extended: BC ghost columns at the side walls (wrap halos under
-        # periodic), the true last row (vyB) at the bottom seam
-        t = mesh.from_prev(_last_row(vyI), "y")
-        b = mesh.from_next(_first_row(vyI), "y")
-        b = torch.where(last_y, vyB, b)
-        rows = _rows(t, vyI, b)
-        left = mesh.from_prev(_last_col(rows), "x", ring=periodic)
-        right = mesh.from_next(_first_col(rows), "x", ring=periodic)
-        if not periodic:
-            left = torch.where(first_x, bcs.s_left * _first_col(rows), left)
-            right = torch.where(last_x, bcs.s_right * _last_col(rows),
-                                right)
-        vy_ext = _cols(left, rows, right)
-
+        # periodic), the true last row (vyB) at the bottom seam.
         # eta_s extended (by+1, bx+1): corner lattice, +1 row/col from the
-        # next block (or the seam strips at the domain edge)
-        b = mesh.from_next(_first_row(esI), "y")
-        b = torch.where(last_y, esB, b)
-        rows = _rows(esI, b)
-        bR = mesh.from_next(_first_row(esR), "y")
-        bR = torch.where(last_y, esC, bR)
-        right = mesh.from_next(_first_col(rows), "x")
-        right = torch.where(last_x, _rows(esR, bR), right)
-        es_ext = _cols(rows, right)
-
-        # cell-centred ring halos (the fill beyond the domain is read only
-        # by boundary rows that are overwritten below)
-        en_ext = mesh.ext1(en, ring_x=periodic)
-        p_ext = mesh.ext1(pc, ring_x=periodic) if with_p else None
+        # next block (or the seam strips at the domain edge).
+        # Cell-centred ring halos (the fill beyond the domain is read only
+        # by boundary rows that are overwritten below).
+        # Every halo travels in one exchange round (mesh.halos).
+        cells = (en, pc) if with_p else (en,)
+        fields = [(vxI, 1, 1, 1, 1, bcs.s_top * _first_row(vxI),
+                   bcs.s_bottom * _last_row(vxI), periodic),
+                  (vyI, 1, 1, 1, 1, None, vyB, periodic),
+                  *((c, 1, 1, 1, 1, None, None, periodic) for c in cells),
+                  (esI, 0, 1, 0, 1, None, esB, False),
+                  (esR, 0, 1, 0, 0, None, esC, False)]
+        if not periodic:
+            fields.append((vxR, 1, 1, 0, 0, bcs.s_top * _first_row(vxR),
+                           bcs.s_bottom * _last_row(vxR), False))
+        got = iter(mesh.halos(*fields))
+        vx_rows, left, right = next(got)
+        vy_rows, vy_left, vy_right = next(got)
+        cell_ext = [_cols(left_c, rw, right_c)
+                    for rw, left_c, right_c in (next(got) for _ in cells)]
+        es_rows, _, es_right = next(got)
+        esR_rows = next(got)[0]
+        if not periodic:
+            right = torch.where(last_x, next(got)[0], right)
+            vy_left = torch.where(first_x, bcs.s_left * _first_col(vy_rows),
+                                  vy_left)
+            vy_right = torch.where(last_x, bcs.s_right * _last_col(vy_rows),
+                                   vy_right)
+        vx_ext = _cols(left, vx_rows, right)
+        vy_ext = _cols(vy_left, vy_rows, vy_right)
+        en_ext = cell_ext[0]
+        p_ext = cell_ext[1] if with_p else None
+        es_ext = _cols(es_rows, torch.where(last_x, esR_rows, es_right))
 
         if kernel:
             out = saddle_block.saddle_block_batched(
@@ -235,30 +227,28 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
         first_x, last_x = ix == 0, ix == mx - 1
         by, bx = TI.shape[-2:]
 
-        def ext_corner(I, R, B, C):
-            """(by+2, bx+2) frame + the y-extended right strip (by+2, 1):
-            mirror ghosts beyond the domain (a ring wrap in x under
-            periodic), true last-node values (R/B/C strips) at the
-            seams."""
-            t = mesh.from_prev(_last_row(I), "y")
-            b = mesh.from_next(_first_row(I), "y")
-            t = torch.where(first_y, I[..., 1:2, :], t)  # reflect ghost
-            b = torch.where(last_y, B, b)  # true last row ny
-            rows = _rows(t, I, b)
-            tR = mesh.from_prev(_last_row(R), "y")
-            bR = mesh.from_next(_first_row(R), "y")
-            tR = torch.where(first_y, R[..., 1:2, :], tR)
-            bR = torch.where(last_y, C, bR)
-            R_ext = _rows(tR, R, bR)
-            left = mesh.from_prev(_last_col(rows), "x", ring=periodic)
-            right = mesh.from_next(_first_col(rows), "x", ring=periodic)
-            if not periodic:
-                left = torch.where(first_x, rows[..., 1:2], left)  # reflect
-            right = torch.where(last_x, R_ext, right)  # true col nx
-            return _cols(left, rows, right), R_ext
+        def ext_corner(fields):
+            """Per (I, R, B, C) field: the (by+2, bx+2) frame + the
+            y-extended right strip (by+2, 1): mirror ghosts beyond the
+            domain (a ring wrap in x under periodic), true last-node values
+            (R/B/C strips) at the seams.  Every halo in one exchange
+            round."""
+            got = iter(mesh.halos(*(
+                f for I, R, B, C in fields
+                for f in ((I, 1, 1, 1, 1, I[..., 1:2, :], B, periodic),
+                          (R, 1, 1, 0, 0, R[..., 1:2, :], C, False)))))
+            out = []
+            for _ in fields:
+                rw, left, right = next(got)
+                R_ext = next(got)[0]
+                if not periodic:
+                    left = torch.where(first_x, rw[..., 1:2], left)  # reflect
+                right = torch.where(last_x, R_ext, right)  # true col nx
+                out.append((_cols(left, rw, right), R_ext))
+            return out
 
-        T_ext, TR_ext = ext_corner(TI, TR, TB, TC)
-        k_ext, kR_ext = ext_corner(kI, kR, kB, kC)
+        (T_ext, TR_ext), (k_ext, kR_ext) = ext_corner(
+            ((TI, TR, TB, TC), (kI, kR, kB, kC)))
 
         kx = _favg(k_ext[..., :-1], k_ext[..., 1:], k_avg)
         fx = kx * (T_ext[..., 1:] - T_ext[..., :-1]) / dx
@@ -308,8 +298,6 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
             maskR = maskR | (first_y & (row == 0))
         rR_out = torch.where(maskR, kbnd * TR, rR_blk)
         owner = first_x if periodic else last_x
-        rR_out = mesh.psum(torch.where(owner, rR_out,
-                                       torch.zeros_like(rR_out)), "x")
 
         # bottom seam row (global row ny)
         Tb = _rows(T_ext[..., -2:, :], T_ext[..., -2:-1, :])
@@ -329,8 +317,6 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
         if bottom_dir:
             maskB = maskB | torch.ones((1, bx), dtype=torch.bool, device=dev)
         rB_out = torch.where(maskB, kbnd * TB, rB_blk)
-        rB_out = mesh.psum(torch.where(last_y, rB_out,
-                                       torch.zeros_like(rB_out)), "y")
 
         # bottom-right corner node (ny, nx).  Walled: rows (ny-1, ny,
         # mirror) x cols (nx-1, nx, mirror) on the bottom-right block;
@@ -364,8 +350,11 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
         if right_dir or bottom_dir:
             rC_blk = kbnd * TC
         here = last_y & owner
-        rC_out = mesh.psum(torch.where(here, rC_blk,
-                                       torch.zeros_like(rC_blk)), ("y", "x"))
+        # the seam strips, each summed from its owners (one collective)
+        rR_out, rB_out, rC_out = mesh.psum_many(
+            (torch.where(owner, rR_out, torch.zeros_like(rR_out)), "x"),
+            (torch.where(last_y, rB_out, torch.zeros_like(rB_out)), "y"),
+            (torch.where(here, rC_blk, torch.zeros_like(rC_blk)), ("y", "x")))
         return rI_out, rR_out, rB_out, rC_out
 
     blk = P("y", "x")

@@ -1,6 +1,6 @@
 """Fused per-shard Chebyshev smoother under the explicit-halo engine.
 
-Port of ``pylamp_tpu/parallel/halo_smoother.py`` on the in-process mesh:
+Port of ``pylamp_tpu/parallel/halo_smoother.py`` on the mesh:
 the MG smoother of an explicit-halo level runs ``iters`` coupled
 iterations per shard in ONE launch of the per-shard kernel
 (ops/kernels/cheb_block.py) after ONE depth-h halo exchange per sweep
@@ -72,39 +72,26 @@ def prep_halo_smoother(eta_s, eta_n, grid: StaggeredGrid, mesh: Mesh, h: int,
     dev = eta_n.device
 
     def local(esI, esR, esB, esC, en):
-        iy = mesh.axis_index("y", device=dev)
         ix = mesh.axis_index("x", device=dev)
-        first_y, last_y = iy == 0, iy == my - 1
         first_x, last_x = ix == 0, ix == mx - 1
 
-        # es frame (R+1, C+1)
-        t = mesh.from_prev(esI[..., -h:, :], "y")
-        t = torch.where(first_y, _rep(esI[..., :1, :], h, -2), t)
-        b = mesh.from_next(esI[..., :h + 1, :], "y")
-        b = torch.where(last_y, torch.cat([esB, _rep(esB, h, -2)], dim=-2), b)
-        rows_s = torch.cat([t, esI, b], dim=-2)  # (R+1, bx)
-        tR = mesh.from_prev(esR[..., -h:, :], "y")
-        tR = torch.where(first_y, _rep(esR[..., :1, :], h, -2), tR)
-        bR = mesh.from_next(esR[..., :h + 1, :], "y")
-        bR = torch.where(last_y, torch.cat([esC, _rep(esC, h, -2)], dim=-2),
-                         bR)
-        esR_ext = torch.cat([tR, esR, bR], dim=-2)  # (R+1, 1)
-        left = mesh.from_prev(rows_s[..., -h:], "x")
+        # es frame (R+1, C+1) and en frame (R, C, edge-replicated ring):
+        # every halo in one exchange round
+        got = iter(mesh.halos(
+            (esI, h, h + 1, h, h + 1, _rep(esI[..., :1, :], h, -2),
+             torch.cat([esB, _rep(esB, h, -2)], dim=-2), False),
+            (esR, h, h + 1, 0, 0, _rep(esR[..., :1, :], h, -2),
+             torch.cat([esC, _rep(esC, h, -2)], dim=-2), False),
+            (en, h, h, h, h, _rep(en[..., :1, :], h, -2),
+             _rep(en[..., -1:, :], h, -2), False)))
+        rows_s, left, right = next(got)  # rows_s (R+1, bx)
+        esR_ext = next(got)[0]  # (R+1, 1)
         left = torch.where(first_x, _rep(rows_s[..., :1], h, -1), left)
-        right = mesh.from_next(rows_s[..., :h + 1], "x")
         wall_r = torch.cat([esR_ext, _rep(esR_ext, h, -1)], dim=-1)
         right = torch.where(last_x, wall_r, right)
         es_v = torch.cat([left, rows_s, right], dim=-1)  # (R+1, C+1)
-
-        # en frame (R, C): edge-replicated ring
-        t = mesh.from_prev(en[..., -h:, :], "y")
-        t = torch.where(first_y, _rep(en[..., :1, :], h, -2), t)
-        b = mesh.from_next(en[..., :h, :], "y")
-        b = torch.where(last_y, _rep(en[..., -1:, :], h, -2), b)
-        rows_n = torch.cat([t, en, b], dim=-2)
-        left = mesh.from_prev(rows_n[..., -h:], "x")
+        rows_n, left, right = next(got)
         left = torch.where(first_x, _rep(rows_n[..., :1], h, -1), left)
-        right = mesh.from_next(rows_n[..., :h], "x")
         right = torch.where(last_x, _rep(rows_n[..., -1:], h, -1), right)
         en_v = torch.cat([left, rows_n, right], dim=-1)
         return mesh.flat(es_v), mesh.flat(en_v)
@@ -118,59 +105,52 @@ def prep_halo_smoother(eta_s, eta_n, grid: StaggeredGrid, mesh: Mesh, h: int,
         es_v=es_v, en_v=en_v, flags=mesh.wall_flags(device=dev),
         coeffs=cheb.chebyshev_coeffs(lam_max, h).to(dev),
         kb=torch.as_tensor(kbnd, device=dev).to(f32).reshape(1),
-        h=h, by=by, bx=bx)
+        h=h, by=by, bx=bx, mesh_shards=mesh.size)
 
 
 def smoother_frames(ex, ey, rx, ry, bcs: VelocityBCs, mesh: Mesh, h: int):
     """The per-shard depth-h frames of the four evolving fields, flat
     (S, ...) f32: (ex_v, ey_v, rx_v, ry_v).  Velocity frames carry the wall
     ghost layer; residual frames are zero beyond the walls."""
-    my, mx = mesh.my, mesh.mx
+    mx = mesh.mx
     dev = rx.device
 
     def local(exI, exR, rxI, rxR, eyI, eyB, ryI, ryB):
-        iy = mesh.axis_index("y", device=dev)
         ix = mesh.axis_index("x", device=dev)
-        first_y, last_y = iy == 0, iy == my - 1
         first_x, last_x = ix == 0, ix == mx - 1
 
-        def ext_vx(I, Rcol, wall_fill: bool):
-            """(R, C+1) vx-lattice frame: ``wall_fill`` derives the wall
-            ghost layer (velocity); without it the fill stays zero
-            (residuals)."""
-            def ext_rows(A):
-                t = mesh.from_prev(A[..., -h:, :], "y")
-                b = mesh.from_next(A[..., :h, :], "y")
-                if wall_fill:
-                    wt = torch.cat([_zeros(A, h - 1, -2),
-                                    bcs.s_top * A[..., :1, :]], dim=-2)
-                    wb = torch.cat([bcs.s_bottom * A[..., -1:, :],
-                                    _zeros(A, h - 1, -2)], dim=-2)
-                else:
-                    wt = wb = _zeros(A, h, -2)
-                t = torch.where(first_y, wt, t)
-                b = torch.where(last_y, wb, b)
-                return torch.cat([t, mesh._full(A), b], dim=-2)
+        # the four fields' halos (and the vx-lattice seam columns' rows) in
+        # one exchange round
+        def wall_rows(A, top: bool):
+            """The vx lattice's wall ghost layer above / below A."""
+            z = _zeros(A, h - 1, -2)
+            if top:
+                return torch.cat([z, bcs.s_top * A[..., :1, :]], dim=-2)
+            return torch.cat([bcs.s_bottom * A[..., -1:, :], z], dim=-2)
 
-            rows = ext_rows(I)  # (R, bx)
-            R_ext = ext_rows(Rcol)  # (R, 1)
-            left = mesh.from_prev(rows[..., -h:], "x")
+        fields = []
+        for I, Rcol, fill in ((exI, exR, True), (rxI, rxR, False)):
+            # velocity: the wall ghost layer; residuals: zeros
+            for A, wide in ((I, True), (Rcol, False)):
+                fields.append((A, h, h, h if wide else 0,
+                               h + 1 if wide else 0,
+                               wall_rows(A, True) if fill else None,
+                               wall_rows(A, False) if fill else None, False))
+        for I, Brow in ((eyI, eyB), (ryI, ryB)):
+            fields.append((I, h, h + 1, h, h, None,
+                           torch.cat([Brow, _zeros(Brow, h, -2)], dim=-2),
+                           False))
+        got = iter(mesh.halos(*fields))
+
+        def ext_vx(rows, left, right, R_ext):
+            """(R, C+1) vx-lattice frame."""
             left = torch.where(first_x, _zeros(rows, h, -1), left)
-            right = mesh.from_next(rows[..., :h + 1], "x")
             wall_r = torch.cat([R_ext, _zeros(R_ext, h, -1)], dim=-1)
             right = torch.where(last_x, wall_r, right)
-            return torch.cat([left, rows, right], dim=-1)  # (R, C+1)
+            return torch.cat([left, rows, right], dim=-1)
 
-        def ext_vy(I, Brow, wall_fill: bool):
+        def ext_vy(rows, left, right, wall_fill: bool):
             """(R+1, C) vy-lattice frame."""
-            t = mesh.from_prev(I[..., -h:, :], "y")
-            t = torch.where(first_y, _zeros(I, h, -2), t)
-            b = mesh.from_next(I[..., :h + 1, :], "y")
-            wall_b = torch.cat([Brow, _zeros(Brow, h, -2)], dim=-2)
-            b = torch.where(last_y, wall_b, b)
-            rows = torch.cat([t, mesh._full(I), b], dim=-2)  # (R+1, bx)
-            left = mesh.from_prev(rows[..., -h:], "x")
-            right = mesh.from_next(rows[..., :h], "x")
             if wall_fill:
                 wl = torch.cat([_zeros(rows, h - 1, -1),
                                 bcs.s_left * rows[..., :1]], dim=-1)
@@ -180,11 +160,13 @@ def smoother_frames(ex, ey, rx, ry, bcs: VelocityBCs, mesh: Mesh, h: int):
                 wl = wr = _zeros(rows, h, -1)
             left = torch.where(first_x, wl, left)
             right = torch.where(last_x, wr, right)
-            return torch.cat([left, rows, right], dim=-1)  # (R+1, C)
+            return torch.cat([left, rows, right], dim=-1)
 
-        return tuple(mesh.flat(f) for f in (
-            ext_vx(exI, exR, True), ext_vy(eyI, eyB, True),
-            ext_vx(rxI, rxR, False), ext_vy(ryI, ryB, False)))
+        ex_v = ext_vx(*next(got), next(got)[0])
+        rx_v = ext_vx(*next(got), next(got)[0])
+        ey_v = ext_vy(*next(got), True)
+        ry_v = ext_vy(*next(got), False)
+        return tuple(mesh.flat(f) for f in (ex_v, ey_v, rx_v, ry_v))
 
     blk = P("y", "x")
     f32 = torch.float32
@@ -213,8 +195,9 @@ def chebyshev_smooth_halo(ex, ey, rx, ry, grid: StaggeredGrid,
         raise ValueError(f"sweep of {iters} (+emit) on frames of depth "
                          f"{prep.h}")
     frames = smoother_frames(ex, ey, rx, ry, bcs, mesh, prep.h)
-    outs = [mesh.gather(mesh.unflat(o), P("y", "x")) for o in cheb_block(
-        *frames, prep, grid, bcs, iters, zero_init, emit_residual)]
+    outs = mesh.gather_many(*(
+        (mesh.unflat(o), P("y", "x")) for o in cheb_block(
+            *frames, prep, grid, bcs, iters, zero_init, emit_residual)))
 
     # seam strips: the pointwise kbnd recurrence (identical to the in-frame
     # Dirichlet evolution, see the module docstring)

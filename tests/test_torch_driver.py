@@ -199,6 +199,9 @@ def test_run_surface_imports_no_jax():
         "import pylamp_tpu_torch.io.logging, pylamp_tpu_torch.utils.profiling\n"
         "import pylamp_tpu_torch.utils.artifacts\n"
         "import pylamp_tpu_torch.models.sweep\n"
+        "import pylamp_tpu_torch.parallel.dist\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_workers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'pylamp_tpu' or m.startswith('pylamp_tpu.')]\n"
         "assert not bad, bad\n")

@@ -122,7 +122,7 @@ def test_cheb_block_plain(flags, zero_init):
         es_v=_f32(es[None]), en_v=_f32(en[None]),
         flags=torch.tensor([flags], dtype=torch.float32),
         coeffs=chebyshev_coeffs(lam, h), kb=torch.tensor([kbnd]), h=h,
-        by=BY, bx=BX)
+        by=BY, bx=BX, mesh_shards=MY * MX)
     got = cheb_block.cheb_block_plain(
         _f32(ex[None]), _f32(ey[None]), _f32(rx[None]), _f32(ry[None]), prep,
         GRID, bcs, iters, zero_init, True)

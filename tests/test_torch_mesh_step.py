@@ -19,30 +19,39 @@ takes the same step on its in-process mesh:
   single-device f32 step: velocities within 1e-5 max|vy| and marker y
   within 1e-5 max|y| (chip_smoke.py's bars), materials equal, Krylov
   within +-2;
-- the port's dryrun sub-checks (b) and (c) pass on the CPU.
+- the port's dryrun sub-checks (b) and (c) pass on the CPU;
+- the distributed mesh (parallel/dist.py): eight gloo ranks take the f64
+  step on 4x2 from the reference's initial state, each rank at the bars
+  against the reference's step and bit for bit equal to the in-process
+  mesh's step (the same state, the same diagnostics).
 """
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
 import torch
+import torch_dist_workers as W
 from torch_helpers import jax_config, jax_state_dict
 
 from pylamp_tpu.models.setup import build as jax_build
 from pylamp_tpu.models.step import make_step as jax_make_step
 from pylamp_tpu.parallel.mesh import make_mesh as j_make_mesh
 from pylamp_tpu.parallel.mesh import shard_state, state_shardings
-from pylamp_tpu_torch.bridge import state_from_numpy
-from pylamp_tpu_torch.models.benchmarks import fk_bench_config
+from pylamp_tpu_torch.bridge import state_from_numpy, state_to_numpy
 from pylamp_tpu_torch.models.setup import build
 from pylamp_tpu_torch.models.step import make_step
+from pylamp_tpu_torch.parallel.dist import launch
 from pylamp_tpu_torch.parallel.mesh import make_mesh
 
 N = 32
-CFG = fk_bench_config(N)
-CFG = dataclasses.replace(CFG, solver=dataclasses.replace(
-    CFG.solver, explicit_halo=True))
+CFG = W.fk_halo_config(N)
+
+
+# The 8-rank world's deadline.  The step is ~3,500 message rounds on every
+# rank (1,733 halo rounds, 1,760 all-gathers: two a shard body, the 8 ranks
+# in lockstep), ~12 s a rank on an idle 8-core machine; beside the other
+# workers of a 6-worker suite each round waits for ranks the scheduler has
+# set aside, and the world ran past 60 s there.
+DIST_DEADLINE_S = 180.0
 
 
 @pytest.fixture(scope="module")
@@ -71,26 +80,31 @@ def port_f64(reference):
     return mesh_out, single_out
 
 
-def test_mesh_step_matches_reference(reference, port_f64):
-    _, ref, rdiag = reference
-    (st, diag), _ = port_f64
+def _holds_reference(ref, rdiag, st, diag):
+    """A port state ``st`` (path-keyed numpy) and its diagnostics against
+    the reference's step at this file's bars."""
     vmax = float(np.max(np.abs(ref["state.vx"])))
-    for name, got in (("vx", st.vx), ("vy", st.vy)):
-        err = float(np.max(np.abs(got.numpy() - ref[f"state.{name}"])))
+    for name in ("vx", "vy"):
+        err = float(np.max(np.abs(st[f"state.{name}"]
+                                  - ref[f"state.{name}"])))
         assert err <= 1e-6 * vmax, name
-    for name, got in (("T", st.T), ("markers.x", st.markers.x),
-                      ("markers.y", st.markers.y),
-                      ("markers.T", st.markers.T)):
-        err = float(np.max(np.abs(got.numpy() - ref[f"state.{name}"])))
+    for name in ("T", "markers.x", "markers.y", "markers.T"):
+        err = float(np.max(np.abs(st[f"state.{name}"]
+                                  - ref[f"state.{name}"])))
         assert err <= 1e-7, name
     for name in ("markers.valid", "markers.mat"):
-        np.testing.assert_array_equal(
-            getattr(st.markers, name.split(".")[1]).numpy(),
-            ref[f"state.{name}"])
+        np.testing.assert_array_equal(st[f"state.{name}"],
+                                      ref[f"state.{name}"])
     assert abs(diag["stokes_iterations"] - int(rdiag["stokes_iterations"])) <= 1
     assert abs(diag["energy_iterations"] - int(rdiag["energy_iterations"])) <= 1
     assert diag["stokes_converged"] and diag["stokes_residual_rel"] <= 1e-8
     assert int(diag["markers_dropped"]) == int(rdiag["markers_dropped"]) == 0
+
+
+def test_mesh_step_matches_reference(reference, port_f64):
+    _, ref, rdiag = reference
+    (st, diag), _ = port_f64
+    _holds_reference(ref, rdiag, state_to_numpy(st), diag)
 
 
 def test_mesh_step_matches_single_device(port_f64):
@@ -104,6 +118,31 @@ def test_mesh_step_matches_single_device(port_f64):
         assert float(torch.max(torch.abs(a - b))) <= 1e-12, name
     assert torch.equal(st.markers.valid, st1.markers.valid)
     assert diag["stokes_iterations"] == diag1["stokes_iterations"]
+
+
+def test_dist_mesh_step(reference, port_f64):
+    """Eight gloo ranks (``parallel/dist.py launch``, bounded by
+    DIST_DEADLINE_S) take the step on the distributed 4x2 mesh from the
+    reference's initial state: each rank's state holds the reference's
+    step at this file's bars and equals the in-process mesh's bit for bit,
+    with the same diagnostics, and ``replicas_agree`` holds on every rank.
+    Prints each rank's seconds and message rounds for the step."""
+    d0, ref, rdiag = reference
+    (st_mesh, diag_mesh), _ = port_f64
+    want = state_to_numpy(st_mesh)
+    ranks = launch(8, W.mesh_step_rank, d0, N, 4, 2, device="cpu",
+                   timeout_s=DIST_DEADLINE_S)
+    for rank, (st, diag, agree, stats) in enumerate(ranks):
+        print(f"rank {rank}: {stats}")
+        assert agree, rank
+        _holds_reference(ref, rdiag, st, diag)
+        assert st.keys() == want.keys()
+        for k, v in want.items():
+            assert st[k].dtype == v.dtype, (rank, k)
+            np.testing.assert_array_equal(st[k], v, err_msg=f"{rank} {k}")
+        for k, v in diag_mesh.items():
+            assert diag[k] == (v.item() if torch.is_tensor(v) else v), \
+                (rank, k)
 
 
 def test_mesh_step_f32(reference):

@@ -234,7 +234,7 @@ def test_periodic_walls_refused_on_the_mesh_paths():
     z = torch.zeros
     prep = cheb_block.BlockSmootherPrep(
         es_v=z((S, R + 1, C + 1)), en_v=z((S, R, C)), flags=z((S, 4)),
-        coeffs=z((h, 2)), kb=z(1), h=h, by=by, bx=bx)
+        coeffs=z((h, 2)), kb=z(1), h=h, by=by, bx=bx, mesh_shards=mesh.size)
     frames = (z((S, R, C + 1)), z((S, R + 1, C)), z((S, R, C + 1)),
               z((S, R + 1, C)))
     with pytest.raises(ValueError, match="periodic"):

@@ -92,20 +92,26 @@ just before it:
   velocities within 1e-5 max|vy|, marker y within 1e-5 max|y| and
   materials equal.
 
-- the same FK 1024^2 step on the DISTRIBUTED 4x2 mesh
-  (``dist_mesh_path``, ``parallel/dist.py``): eight gloo ranks spawned by
-  ``launch`` share the card (CUDA payloads staged through pinned host
-  buffers), each runs its own shard of one step from the state the
-  in-process mesh path started from (handed over in a checkpoint file);
-  rank 0's state must equal the in-process 4x2 state after that step bit
-  for bit in every leaf, ``replicas_agree`` must hold on every rank, the
-  Krylov counts must be equal, and every rank must launch kernels 8-12
-  exactly as often as the in-process step and kernels 1-7 never (each
-  rank's counters set to 0 just before the step and read just after); it
-  prints the backend, the world size, s/step and peak memory per rank
+- the same FK 1024^2 step on the sharded layout (``dist_mesh_path``,
+  ``parallel/mesh.py shard_state``): the in-process 4x2 mesh steps the
+  sharded state first, within the mesh bars (Krylov +-2) of the
+  in-process global-layout step; then on the DISTRIBUTED 4x2 mesh
+  (``parallel/dist.py``) eight gloo ranks spawned by ``launch`` share the
+  card (CUDA payloads staged through pinned host buffers), each loading
+  the state the in-process mesh path started from on the host (a file)
+  and moving only its blocks to the card, then stepping them; rank 0's
+  gathered state must equal the in-process sharded state after that step
+  bit for bit in every leaf, the replicated scalars and strips must agree
+  on every rank, the Krylov counts must be equal, every rank must launch
+  kernels 8-12 exactly as often as the in-process sharded step and
+  kernels 1-7 never (each rank's counters set to 0 just before the step
+  and read just after), hold no leaf larger than its block, stay within
+  0.5 GiB of step peak memory and all-gather no block in the step; it
+  prints the backend, the world size, s/step, step peak memory and
+  collectives by kind per rank, and the in-process layouts' step peaks,
   beside the card's name and power limit.  Then a one-rank NCCL group
-  runs the distributed mesh's gather, psum and psum_many on the card
-  against the in-process mesh.
+  runs the distributed mesh's gather, gather to rank 0, psum, psum_many
+  and pmax on the card against the in-process mesh.
 
 - the heated FK 1024^2 (``models.profile.fk_heated_config``: the FK
   bench preset with shear and adiabatic heating, subgrid diffusion d = 1
@@ -1874,7 +1880,8 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
     stream on every step, and never without it.  Krylov counts within
     +-max(KRYLOV_AB_TOL, ``krylov_rel`` of the mesh path's).  Returns each
     path's launch counts and the mesh path's first step: (state, Krylov
-    iterations, launches by kernel)."""
+    iterations, launches by kernel, the step's peak memory above what the
+    process held, GiB)."""
     from dataclasses import replace
 
     from pylamp_tpu_torch.models.step import make_step
@@ -1909,8 +1916,12 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
             tag = f"{label} A/B {p} step {i + 1} ({kind})"
             n_start = (n_markers if n_markers is not None
                        else int(states[p].markers.total()))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held0 = torch.cuda.memory_allocated()
             states[p], dt_s, it, _ = take_step(step, states[p], n_start,
                                                required, tag)
+            peak = (torch.cuda.max_memory_allocated() - held0) / 2 ** 30
             mod = ra_mods[p]
             if ra and not 0 < mod.launches_ra == mod.launches:
                 raise AssertionError(
@@ -1923,7 +1934,8 @@ def mesh_path(grid, cfg, table, state0, n_markers, modules, label="FK mesh",
                 r["launches"][k] += mod.launches
             if i == 0 and p == "mesh_4x2":
                 first = (states[p], it,
-                         {k: mod.launches for k, mod in modules.items()})
+                         {k: mod.launches for k, mod in modules.items()},
+                         peak)
         if i == 0:
             mesh_agrees(label, states["mesh_4x2"], states["single"])
     idle = {k: n for k, n in rec["mesh_4x2"]["launches"].items()
@@ -2001,59 +2013,79 @@ def _kernel_modules():
 
 def dist_fk_rank(device, state_path):
     """One rank of ``dist_mesh_path``: FK 1024^2 (the bench preset with
-    explicit_halo) on this rank's shard of the distributed 4x2 mesh, one
-    step from the checkpoint at ``state_path``.  Every launch counter is
-    set to 0 just before the step and read just after it, as are the
-    transport's message rounds.  Returns the step's seconds, Krylov count,
-    launches, message rounds, peak device memory, whether every rank holds
-    the same state, and (rank 0) the state's leaves."""
+    explicit_halo) on this rank's shard of the distributed 4x2 mesh, in
+    the sharded layout, one step from the state at ``state_path``: the
+    host loads it and the rank moves only its blocks to the card.  Every
+    launch counter and the transport's counts are set to 0 and the peak
+    memory reset just before the step and read just after it.  Returns
+    the step's seconds, Krylov count, launches, collectives by kind,
+    peak device memory, the largest piece of a leaf the rank holds and
+    the pieces beyond their own lattice's block or strip
+    (``bridge.oversized_leaves``), whether the replicated scalars and
+    strips agree on every rank, and (rank 0) the gathered state's
+    leaves."""
     from dataclasses import replace
 
+    import numpy as np
     import torch.distributed as dist
 
-    from pylamp_tpu_torch.bridge import state_leaves
-    from pylamp_tpu_torch.io.checkpoint import load_checkpoint
+    from pylamp_tpu_torch.bridge import (
+        oversized_leaves,
+        sharded_from_numpy,
+        state_leaves,
+    )
     from pylamp_tpu_torch.models.benchmarks import fk_bench_config
-    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.models.setup import grid_and_table
     from pylamp_tpu_torch.models.step import make_step
     from pylamp_tpu_torch.parallel import dist as pdist
     from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
+    from pylamp_tpu_torch.parallel.mesh import unshard_state
 
     modules = _kernel_modules()
     mesh = DistMesh.from_group(4, 2)
     cfg = fk_bench_config(FK_NX)
     cfg = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
-    grid, table, template = build(cfg, dtype=torch.float32, device=device)
-    state0, _ = load_checkpoint(state_path, template)
-    del template
+    grid, table = grid_and_table(cfg)
+    with np.load(state_path) as z:
+        state0 = sharded_from_numpy(dict(z), mesh, device=device)
+    held = max(p.numel() for v in state_leaves(state0).values()
+               for p in (v.pieces().values() if hasattr(v, "pieces")
+                         else (v,)))
+    block = (grid.ny // mesh.my) * (grid.nx // mesh.mx) * \
+        state0.markers.x.shape[-1]
+    oversized = oversized_leaves(state0, grid, mesh)
+    n_markers = int(state0.markers.total())
     step = make_step(grid, cfg, table, mesh=mesh)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
     for mod in modules.values():
         mod.launches = 0
-    pdist.rounds.update(p2p=0, all_gather=0)
+    pdist.reset_rounds()
     t0 = time.perf_counter()
     state, diag = step(state0)
     torch.cuda.synchronize(device)
     step_s = time.perf_counter() - t0
     launches = {k: mod.launches for k, mod in modules.items()}
     rounds = dict(pdist.rounds)
-    check_state(state, int(state0.markers.total()), diag,
-                f"FK dist 4x2 rank {mesh.rank}")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    check_state(state, n_markers, diag, f"FK dist 4x2 rank {mesh.rank}")
     out = dict(rank=mesh.rank, device=str(device), step_s=step_s,
                krylov=int(diag["stokes_iterations"]), launches=launches,
-               rounds=rounds, peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
-               agree=replicas_agree(state))
-    if mesh.rank == 0:
-        out["leaves"] = {k: v.cpu() for k, v in state_leaves(state).items()}
+               rounds=rounds, peak_gib=peak, held=held, block=block,
+               oversized=oversized,
+               agree=replicas_agree(state, mesh))
+    full = unshard_state(state, mesh, root=0)
+    if full is not None:
+        out["leaves"] = {k: v.cpu() for k, v in state_leaves(full).items()}
     return out
 
 
 def nccl_rank(device):
     """The one-rank NCCL group's check: the distributed 1x1 mesh's psum,
-    psum_many and gather (NCCL all-to-alls) on seeded tensors on the card,
-    bit for bit against the in-process 1x1 mesh's."""
+    psum_many, pmax, gather and gather to rank 0 (NCCL all-to-alls) on
+    seeded tensors on the card, bit for bit against the in-process 1x1
+    mesh's."""
     import torch.distributed as dist
 
     from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
@@ -2083,48 +2115,102 @@ def nccl_rank(device):
     want = ref.psum_many(*((ref.split(x, s), ax) for x, s, ax in pairs))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("nccl psum_many differs")
+    x = mesh.split(a, P("y", "x"))
+    if not torch.equal(mesh.pmax(x, ("y", "x")),
+                       ref.pmax(ref.split(a, P("y", "x")), ("y", "x"))):
+        raise AssertionError("nccl pmax differs")
+    got = mesh.gather_many((x, P("y", "x")), root=0)[0]
+    if not torch.equal(got, a):
+        raise AssertionError("nccl gather to rank 0 differs")
     if not replicas_agree({"a": a, "b": b}):
         raise AssertionError("nccl: replicas_agree failed on one rank")
-    return dict(checked=checked + 2, backend=dist.get_backend())
+    return dict(checked=checked + 4, backend=dist.get_backend())
 
 
-def dist_mesh_path(state0, first, modules):
-    """FK 1024^2 on the DISTRIBUTED 4x2 mesh (``parallel/dist.py``): eight
-    gloo ranks on this one card (spawned by ``launch``, CUDA payloads
-    staged through the host), each taking one explicit-halo step on its
-    own shard from ``state0`` (handed over through a checkpoint file),
-    the step ``mesh_path`` took first on the in-process 4x2 mesh.  Rank
-    0's state must equal the in-process state ``first`` bit for bit in
-    every leaf and ``replicas_agree`` must hold on every rank (so every
-    rank equals it), with the same Krylov count; on every rank kernels
-    8-12 must launch as often as on the in-process step and kernels 1-7
-    never.  Then a one-rank NCCL group runs the distributed mesh's psum
-    and gather on the card against the in-process mesh.  Returns rank 0's
-    launches, the logged record and every rank's summary."""
+DIST_PEAK_GIB = 0.5  # a rank's step peak on the sharded layout
+
+
+def dist_mesh_path(grid, cfg, table, state0, first, modules):
+    """FK 1024^2 on the DISTRIBUTED 4x2 mesh (``parallel/dist.py``) in the
+    sharded layout: first the in-process 4x2 mesh takes the step on the
+    sharded state (``shard_state`` of ``state0``), held within the mesh
+    bars (``mesh_agrees``, Krylov +-2) of the in-process global-layout
+    step ``first`` (``mesh_path``'s first step); then eight gloo ranks on
+    this one card (spawned by ``launch``, CUDA payloads staged through the
+    host) each take it on their own blocks from ``state0`` (handed over
+    in a file the host loads).  Rank 0's gathered state must equal the
+    in-process sharded state bit for bit in every leaf, the replicated
+    scalars and strips must agree on every rank, every rank's Krylov
+    count must equal it, kernels 8-12 must launch per rank as often as in
+    the in-process sharded step and kernels 1-7 never, no rank may hold a
+    piece of a leaf larger than its own lattice's block or strip, its
+    step peak must stay within DIST_PEAK_GIB and no block may be
+    all-gathered in the step.  Then a
+    one-rank NCCL group runs the distributed mesh's collectives on the
+    card against the in-process mesh.  Returns rank 0's launches, the
+    logged record and every rank's summary."""
     import tempfile
+    from dataclasses import replace
 
-    from pylamp_tpu_torch.bridge import state_leaves
-    from pylamp_tpu_torch.io.checkpoint import save_checkpoint
+    import numpy as np
+
+    from pylamp_tpu_torch.bridge import state_leaves, state_to_numpy
+    from pylamp_tpu_torch.models.step import make_step
     from pylamp_tpu_torch.parallel.dist import launch
+    from pylamp_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_state,
+        unshard_state,
+    )
 
     smi = nvidia_smi_line()
-    ref_state, ref_krylov, ref_launches = first
+    ref_state, ref_krylov, ref_launches, peak_global = first
+    mesh = make_mesh(DIST_RANKS)
+    cfg_h = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+    sharded0 = shard_state(state0, mesh)
+    n_markers = int(state0.markers.total())
+    for mod in modules.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    sharded, dt_s, krylov, _ = take_step(
+        make_step(grid, cfg_h, table, mesh=mesh), sharded0, n_markers,
+        {k: modules[k] for k in BLOCK_KERNELS}, "FK sharded 4x2 step 1")
+    peak_sharded = (torch.cuda.max_memory_allocated() - held0) / 2 ** 30
+    launches = {k: mod.launches for k, mod in modules.items()}
+    del sharded0
+    want_state = unshard_state(sharded, mesh)
+    del sharded
+    log(f"FK sharded 4x2 (in-process) on {smi}: {dt_s:.3f} s, Krylov "
+        f"{krylov} (the global layout's {ref_krylov}), launches {launches}, "
+        f"step peak above what the process held {peak_sharded:.2f} GiB "
+        f"(the global layout's {peak_global:.2f} GiB)")
+    mesh_agrees("FK sharded 4x2", want_state, ref_state)
+    if abs(krylov - ref_krylov) > KRYLOV_AB_TOL:
+        raise AssertionError(f"FK sharded 4x2: Krylov {krylov}, the global "
+                             f"layout's {ref_krylov} (bar +-{KRYLOV_AB_TOL})")
+    if any(launches[k] for k in modules if k not in BLOCK_KERNELS):
+        raise AssertionError(f"FK sharded 4x2 launched single-device "
+                             f"kernels: {launches}")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="dist_mesh_") as tmp:
         path = os.path.join(tmp, "state0.npz")
-        save_checkpoint(path, state0)
+        np.savez(path, **state_to_numpy(state0))
         ranks = launch(DIST_RANKS, dist_fk_rank, path, device="cuda",
                        backend="gloo", timeout_s=DIST_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for r in ranks:
-        log(f"FK dist 4x2 rank {r['rank']} ({r['device']}, gloo) on {smi}: "
-            f"{r['step_s']:.3f} s/step, Krylov {r['krylov']}, peak "
-            f"{r['peak_gib']:.2f} GiB, launches {r['launches']}, message "
-            f"rounds {r['rounds']}")
-    log(f"FK dist 4x2: backend gloo, world {DIST_RANKS} on one card, "
-        f"{wall:.1f} s for the world (spawn, build, load, step, checks)")
-    want = {k: v for k, v in state_leaves(ref_state).items()}
+        log(f"FK dist 4x2 sharded rank {r['rank']} ({r['device']}, gloo) on "
+            f"{smi}: {r['step_s']:.3f} s/step, Krylov {r['krylov']}, step "
+            f"peak {r['peak_gib']:.3f} GiB, largest leaf {r['held']} of "
+            f"{r['block']} block elements, launches {r['launches']}, "
+            f"collectives {r['rounds']}")
+    log(f"FK dist 4x2 sharded: backend gloo, world {DIST_RANKS} on one "
+        f"card, {wall:.1f} s for the world (spawn, load, shard, step, "
+        "gather, checks)")
+    want = state_leaves(want_state)
     got = ranks[0]["leaves"]
     differ = {}
     for k, v in want.items():
@@ -2133,34 +2219,47 @@ def dist_mesh_path(state0, first, modules):
             differ[k] = (float(torch.max(torch.abs(g.double() - v.double())))
                          if g.dtype == v.dtype else "dtype")
     agree = all(r["agree"] for r in ranks)
-    log(f"FK dist 4x2 vs the in-process 4x2 step: "
-        f"{'every leaf bit-identical' if not differ else differ}, replicas "
-        f"{'agree' if agree else 'DIFFER'}, Krylov "
-        f"{[r['krylov'] for r in ranks]} vs {ref_krylov}")
+    log(f"FK dist 4x2 sharded vs the in-process sharded 4x2 step: "
+        f"{'every leaf bit-identical' if not differ else differ}, replicated "
+        f"values {'agree' if agree else 'DIFFER'}, Krylov "
+        f"{[r['krylov'] for r in ranks]} vs {krylov}")
     if differ or not agree:
         raise AssertionError(f"FK dist 4x2: rank states differ from the "
                              f"in-process mesh's ({differ}, agree={agree})")
+    want_l = {k: (launches[k] if k in BLOCK_KERNELS else 0) for k in modules}
     for r in ranks:
-        if r["krylov"] != ref_krylov:
-            raise AssertionError(f"FK dist 4x2 rank {r['rank']}: Krylov "
-                                 f"{r['krylov']} != {ref_krylov}")
-        want_l = {k: (ref_launches[k] if k in BLOCK_KERNELS else 0)
-                  for k in modules}
+        tag = f"FK dist 4x2 rank {r['rank']}"
+        if r["krylov"] != krylov:
+            raise AssertionError(f"{tag}: Krylov {r['krylov']} != {krylov}")
         if r["launches"] != want_l:
             raise AssertionError(
-                f"FK dist 4x2 rank {r['rank']}: launches {r['launches']}, "
-                f"the in-process mesh's {want_l} (kernels 1-7: 0)")
+                f"{tag}: launches {r['launches']}, the in-process sharded "
+                f"step's {want_l} (kernels 1-7: 0)")
+        if r["oversized"]:
+            raise AssertionError(f"{tag}: holds pieces beyond their "
+                                 "lattice's block or strip (held, bound): "
+                                 f"{r['oversized']}")
+        if r["peak_gib"] > DIST_PEAK_GIB:
+            raise AssertionError(f"{tag}: step peak {r['peak_gib']:.3f} GiB "
+                                 f"> {DIST_PEAK_GIB}")
+        if r["rounds"]["block"]:
+            raise AssertionError(f"{tag}: {r['rounds']['block']} block "
+                                 "all-gathers in the step")
     nccl = launch(1, nccl_rank, device="cuda", backend="nccl",
                   timeout_s=DIST_TIMEOUT_S)[0]
     log(f"one-rank NCCL group on {smi}: {nccl['checked']} checks of the "
-        f"distributed mesh's gather / psum / psum_many / replicas_agree "
-        f"bit-identical to the in-process mesh's")
+        f"distributed mesh's gather / psum / psum_many / pmax / gather to "
+        f"rank 0 / replicas_agree bit-identical to the in-process mesh's")
     rec = {"device": smi, "backend": "gloo", "world": DIST_RANKS,
+           "layout": "sharded",
            "step_s": [r["step_s"] for r in ranks],
            "peak_gib": [r["peak_gib"] for r in ranks],
+           "peak_gib_inprocess_sharded": peak_sharded,
+           "peak_gib_inprocess_global": peak_global,
            "rounds_per_rank": ranks[0]["rounds"],
-           "krylov": ref_krylov, "launches_per_rank": ranks[0]["launches"],
-           "world_s": wall}
+           "krylov": krylov, "krylov_global_layout": ref_krylov,
+           "launches_per_rank": ranks[0]["launches"],
+           "launches_global_layout": ref_launches, "world_s": wall}
     log("FK dist 4x2 " + json.dumps(rec))
     return {"launches": ranks[0]["launches"], **rec,
             "ranks": [{k: v for k, v in r.items() if k != "leaves"}
@@ -3644,7 +3743,7 @@ def main():
 
     launches_m, first_m = mesh_path(grid, cfg, table, state0, n_markers,
                                     modules)
-    rec_dist = dist_mesh_path(state0, first_m, modules)
+    rec_dist = dist_mesh_path(grid, cfg, table, state0, first_m, modules)
     del first_m
     rec_h, state_h = heated_paths(grid, table, state0, modules)
     reseed_check(grid, table, state_h)

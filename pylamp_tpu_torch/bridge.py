@@ -76,3 +76,53 @@ def state_to_numpy(state: ModelState) -> dict:
     """Path-keyed numpy arrays of every leaf (the checkpoint's names)."""
     return {k: v.detach().cpu().numpy()
             for k, v in state_leaves(state).items()}
+
+
+def sharded_from_numpy(d, mesh, device="cuda", dtype=None) -> ModelState:
+    """``state_from_numpy`` into the sharded layout of ``mesh``: the
+    arrays stay on the host and only this process's blocks move to
+    ``device`` (``parallel/mesh.py shard_state``)."""
+    from pylamp_tpu_torch.parallel.mesh import shard_state
+
+    return shard_state(state_from_numpy(d, device="cpu", dtype=dtype), mesh,
+                       device=device)
+
+
+def sharded_to_numpy(state: ModelState, mesh, root=None):
+    """``state_to_numpy`` of a sharded state: gathered (one collective a
+    field under a distributed mesh), on rank ``root`` only where one is
+    named (None elsewhere)."""
+    from pylamp_tpu_torch.parallel.mesh import unshard_state
+
+    full = unshard_state(state, mesh, root=root)
+    return None if full is None else state_to_numpy(full)
+
+
+def oversized_leaves(state: ModelState, grid, mesh) -> dict:
+    """The leaves of a sharded ``state`` that hold more than this
+    process's part of their lattice, ``{name: (elements held, bound)}``
+    (empty where the layout is right).  Each piece is bounded by its own
+    lattice's piece (``parallel/blocks.py``) of a ``grid.ny x grid.nx``
+    grid's blocks on ``mesh``: I by*bx, R by, B bx, C 1 node, times the
+    process's local shards and a marker stream's K; a leaf that is not
+    sharded may be a scalar or a vector (the per-level MG bounds), never
+    a field."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    by, bx = grid.ny // mesh.my, grid.nx // mesh.mx
+    ly, lx = mesh.local_shape
+    nodes = {"I": by * bx, "R": by, "B": bx, "C": 1}
+    out = {}
+    for k, v in state_leaves(state).items():
+        if not isinstance(v, Blocks):
+            if v.dim() > 1:
+                out[k] = (v.numel(), 0)
+            continue
+        trail = 1
+        for d in v.I.shape[4:]:
+            trail *= d
+        for n, piece in v.pieces().items():
+            bound = ly * lx * nodes[n] * trail
+            if piece.numel() > bound:
+                out[f"{k}.{n}"] = (piece.numel(), bound)
+    return out

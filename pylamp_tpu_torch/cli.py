@@ -16,7 +16,12 @@ ranks; NCCL, one card a rank, for ``--device cuda``, gloo for ``cpu``):
     torchrun --nproc-per-node 8 -m pylamp_tpu_torch run fk_stagnant_lid \
         --nx 1024 --mesh 4x2 --out out/fk
 
-Every rank computes; rank 0 alone writes the outputs.  ``--scan N`` runs N
+Under torchrun every rank holds only its blocks of the state (the
+sharded layout of ``parallel/mesh.py``, built or resumed on the host, so
+no card holds a global field) and computes them; rank 0 gathers the
+state for the files and alone writes them, and each metrics line carries
+``"layout": "sharded"``.  A configuration the sharded layout does not
+take yet (ROADMAP item 19c) is refused there.  ``--scan N`` runs N
 steps per call of ``models/step.py make_multi_step`` (the reference's
 chunked time loop; the host is still read within each step).  ``bench``
 is refused: the port's benchmark entry waits for a later port PR.

@@ -5,7 +5,13 @@ One ``.npz`` per checkpoint, in the reference's format: leaves keyed
 ``state.<path>`` (the names of ``bridge.py``), ``extra.<key>`` beside
 them, ``__format_version__`` 2.  A checkpoint written by either package
 loads in the other.  Resume is bitwise-exact: the step carries nothing
-between calls outside the ModelState."""
+between calls outside the ModelState.
+
+Both functions take the global layout.  A sharded run
+(``models/driver.py``) gathers its state to rank 0
+(``parallel/mesh.py unshard_state``), which saves it here in the same
+format, and resumes by loading on the host and sharding, so that each
+process moves only its blocks to its card."""
 from __future__ import annotations
 
 import os
@@ -27,6 +33,7 @@ _OPTIONAL_LEAVES = {"state.mg_lam"}
 
 
 def save_checkpoint(path: str, state, extra: dict | None = None):
+    _global_layout(state)
     payload = {"__format_version__": FORMAT_VERSION, **state_to_numpy(state)}
     for k, v in (extra or {}).items():
         payload[f"extra.{k}"] = np.asarray(v)
@@ -35,6 +42,14 @@ def save_checkpoint(path: str, state, extra: dict | None = None):
     with open(tmp, "wb") as fh:
         np.savez(fh, **payload)
     os.replace(tmp, path)  # atomic: a crash never leaves a torn checkpoint
+
+
+def _global_layout(state):
+    from pylamp_tpu_torch.parallel.mesh import is_sharded
+
+    if is_sharded(state):
+        raise TypeError("a sharded state is gathered first "
+                        "(parallel/mesh.py unshard_state)")
 
 
 def load_checkpoint(path: str, template):

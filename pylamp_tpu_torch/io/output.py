@@ -1,6 +1,8 @@
 """Field/marker output (port of ``pylamp_tpu/io/output.py``): per-step
 ``.npz`` dumps with the reference's keys, and quick-look figures.
-Plotting is optional and gated on matplotlib availability."""
+Plotting is optional and gated on matplotlib availability.  Both take the
+global layout: a sharded run (``models/driver.py``) gathers its state to
+rank 0, which writes."""
 from __future__ import annotations
 
 import json
@@ -19,6 +21,9 @@ def save_fields(path: str, state, grid, markers: bool = True):
     """The grid fields, the clock and (``markers``) the markers: a bucket
     state's live markers in ``reshape(-1)`` slot order (only those leave
     the device), a flat state's as they are."""
+    from pylamp_tpu_torch.io.checkpoint import _global_layout
+
+    _global_layout(state)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     data = dict(
         vx=_np(state.vx),

@@ -19,6 +19,7 @@ from pylamp_tpu_torch.io.logging import MetricsLogger
 from pylamp_tpu_torch.io.output import save_fields
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.setup import build
+from pylamp_tpu_torch.parallel.mesh import shard_state, unshard_state
 from pylamp_tpu_torch.models.step import (
     make_multi_step,
     make_step,
@@ -42,6 +43,7 @@ def run_model(
     step_delay: float = 0.0,
     mesh=None,
     device="cuda",
+    shard: bool | None = None,
 ):
     """Run the model for cfg.time.max_steps (or until max_time) on
     ``device`` (the card unless the caller asks for the CPU).
@@ -59,6 +61,14 @@ def run_model(
     ``resume_from`` and computes, rank 0 alone writes metrics, dumps,
     figures and checkpoints, and the ranks meet at a barrier before the
     return.
+
+    ``shard`` (default: under a distributed mesh, which takes nothing
+    else) runs the sharded layout (``parallel/mesh.py shard_state``, the
+    reference's ``shard_state``): the state is built, or resumed, on the
+    host and each process moves only its blocks to ``device``; files
+    gather the state to rank 0, which writes them in the one format; every
+    metrics line carries ``"layout": "sharded"``.  The returned state is
+    then sharded.
 
     ``on_divergence``: "retry" re-runs a non-converged step once with a
     stronger solver (4x maxiter, 2x restart, built at the first
@@ -95,23 +105,36 @@ def run_model(
             raise ValueError("profile_phases is single-device only "
                              "(per-phase host syncs would serialize the mesh)")
         mesh_tag = f"{mesh.my}x{mesh.mx}"
+    if shard is None:
+        shard = mesh is not None and mesh.distributed
+    if shard and mesh is None:
+        raise ValueError("shard needs a mesh")
 
+    # the sharded layout builds (and resumes) on the host: no card holds
+    # a global field
     grid, table, state = build(cfg, dtype=dtype or torch.float64,
-                               device=device)
+                               device="cpu" if shard else device)
     if resume_from:
         state, _ = load_checkpoint(resume_from, template=state)
+    tags = {}
+    if mesh_tag is not None:
+        tags["mesh"] = mesh_tag
+    if shard:
+        state = shard_state(state, mesh, device=device)
+        tags["layout"] = "sharded"
+    files = _Files(out_dir, grid, checkpoint_every, output_every,
+                   plot_every, mesh if shard else None, lead)
 
     if not lead:
-        out_dir, echo = None, False
+        echo = False
     logger = MetricsLogger(
-        os.path.join(out_dir, "metrics.jsonl") if out_dir else None, echo=echo
-    )
+        os.path.join(out_dir, "metrics.jsonl") if out_dir and lead else None,
+        echo=echo)
     if scan_chunk > 0:
         try:
-            out = _run_scanned(cfg, grid, table, state, out_dir,
-                               checkpoint_every, output_every, plot_every,
-                               callback, on_divergence, scan_chunk, logger,
-                               mesh=mesh, mesh_tag=mesh_tag)
+            out = _run_scanned(cfg, grid, table, state, files, callback,
+                               on_divergence, scan_chunk, logger,
+                               mesh=mesh, tags=tags)
         finally:
             logger.close()
         if mesh is not None:
@@ -142,17 +165,14 @@ def run_model(
         state = new_state
 
         rec = {"step": int(state.step), "time": float(state.time),
-               "step_wall_s": step_wall}
-        if mesh_tag is not None:
-            rec["mesh"] = mesh_tag
+               "step_wall_s": step_wall, **tags}
         rec.update(diag)
         logger.log(rec)
         diags.append(diag)
 
         if callback is not None:
             callback(state, diag)
-        _outputs(state, grid, out_dir, checkpoint_every, output_every,
-                 plot_every, 1)
+        files.write(state, 1)
         if step_delay > 0:
             # test hook (fault injection): a deterministic-width window in
             # which a kill signal can land between steps, independent of how
@@ -195,29 +215,51 @@ def _warn(diag):
         )
 
 
-def _outputs(state, grid, out_dir, checkpoint_every, output_every,
-             plot_every, chunk):
-    """Field dumps, figures and checkpoints due at ``state.step``: where
-    ``step % every < chunk`` (every ``every`` steps for chunk 1, the first
-    chunk boundary at or past each multiple of ``every`` otherwise)."""
-    if not out_dir:
-        return
-    s = int(state.step)
-    if output_every and s % output_every < chunk:
-        save_fields(os.path.join(out_dir, f"fields_{s:06d}.npz"), state,
-                    grid)
-    if plot_every and s % plot_every < chunk:
-        from pylamp_tpu_torch.io.output import plot_fields
+@dataclasses.dataclass
+class _Files:
+    """The run's field dumps, figures and checkpoints: ``mesh`` set for
+    the sharded layout, whose state every process gathers to rank 0 (one
+    collective a field) when a file is due; the ``lead`` process
+    writes."""
 
-        plot_fields(os.path.join(out_dir, f"fields_{s:06d}.png"), state,
-                    grid)
-    if checkpoint_every and s % checkpoint_every < chunk:
-        save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
+    out_dir: str | None
+    grid: object
+    checkpoint_every: int
+    output_every: int
+    plot_every: int
+    mesh: object
+    lead: bool
+
+    def write(self, state, chunk: int):
+        """The files due at ``state.step``: where ``step % every < chunk``
+        (every ``every`` steps for chunk 1, the first chunk boundary at or
+        past each multiple of ``every`` otherwise)."""
+        if not self.out_dir:
+            return
+        s = int(state.step)
+        due = [every and s % every < chunk for every in (
+            self.output_every, self.plot_every, self.checkpoint_every)]
+        if not any(due):
+            return
+        if self.mesh is not None:
+            state = unshard_state(state, self.mesh, root=0)
+        if not self.lead:
+            return
+        out_dir, grid = self.out_dir, self.grid
+        if due[0]:
+            save_fields(os.path.join(out_dir, f"fields_{s:06d}.npz"), state,
+                        grid)
+        if due[1]:
+            from pylamp_tpu_torch.io.output import plot_fields
+
+            plot_fields(os.path.join(out_dir, f"fields_{s:06d}.png"), state,
+                        grid)
+        if due[2]:
+            save_checkpoint(os.path.join(out_dir, "checkpoint.npz"), state)
 
 
-def _run_scanned(cfg, grid, table, state, out_dir, checkpoint_every,
-                 output_every, plot_every, callback, on_divergence,
-                 scan_chunk, logger, mesh=None, mesh_tag=None):
+def _run_scanned(cfg, grid, table, state, files, callback, on_divergence,
+                 scan_chunk, logger, mesh=None, tags=None):
     """The chunked time loop (port of the reference's ``_run_scanned``):
     ``scan_chunk`` steps per ``make_multi_step`` call, the loop condition,
     the retry, the callback and the outputs once per chunk.  Each step's
@@ -244,9 +286,7 @@ def _run_scanned(cfg, grid, table, state, out_dir, checkpoint_every,
             _warn(diag)
             t = t + diag["dt"]
             rec = {"step": base_step + i + 1, "time": float(t),
-                   "step_wall_s": chunk_wall / scan_chunk}
-            if mesh_tag is not None:
-                rec["mesh"] = mesh_tag
+                   "step_wall_s": chunk_wall / scan_chunk, **(tags or {})}
             rec.update(diag)
             logger.log(rec)
             diags.append(diag)
@@ -254,7 +294,6 @@ def _run_scanned(cfg, grid, table, state, out_dir, checkpoint_every,
 
         if callback is not None:
             callback(state, diags[-1])
-        _outputs(state, grid, out_dir, checkpoint_every, output_every,
-                 plot_every, scan_chunk)
+        files.write(state, scan_chunk)
 
     return state, diags, grid

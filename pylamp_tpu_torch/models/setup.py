@@ -57,15 +57,20 @@ def seed_markers(cfg: ModelConfig, grid: StaggeredGrid):
     return xh, yh, mat, T
 
 
+def grid_and_table(cfg: ModelConfig):
+    """The grid and the material table of ``cfg`` (no state)."""
+    grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly,
+                         x_edges=cfg.x_edges, y_edges=cfg.y_edges)
+    return grid, MaterialTable(cfg.physics.materials)
+
+
 def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
     """Returns (grid, table, initial ModelState) on ``device`` (the card
     unless the caller asks for the CPU)."""
     if cfg.marker_engine not in ("bucket", "flat"):
         raise ValueError(f"unknown marker engine {cfg.marker_engine!r}")
     device = torch.device(device)
-    grid = StaggeredGrid(nx=cfg.nx, ny=cfg.ny, lx=cfg.lx, ly=cfg.ly,
-                         x_edges=cfg.x_edges, y_edges=cfg.y_edges)
-    table = MaterialTable(cfg.physics.materials)
+    grid, table = grid_and_table(cfg)
     xh, yh, mat, T = seed_markers(cfg, grid)
     capacity = cfg.marker_capacity or 2 * cfg.markers_per_cell_dim ** 2
 
@@ -102,3 +107,15 @@ def build(cfg: ModelConfig, dtype=torch.float64, device="cuda"):
     eta_n = m2g(eta_m, "center", cfg.physics.eta_avg)
     T_g = m2g(markers.T, "corner", "arithmetic")
     return grid, table, state.replace(eta_s=eta_s, eta_n=eta_n, T=T_g)
+
+
+def build_sharded(cfg: ModelConfig, mesh, dtype=torch.float64,
+                  device="cuda"):
+    """``build`` for the sharded layout: the state is built on the host
+    and only this process's blocks move to ``device``
+    (``parallel/mesh.py shard_state``), so that no card holds a global
+    field or the global markers.  Returns (grid, table, sharded state)."""
+    from pylamp_tpu_torch.parallel.mesh import shard_state
+
+    grid, table, state = build(cfg, dtype=dtype, device="cpu")
+    return grid, table, shard_state(state, mesh, device=device)

@@ -1,6 +1,12 @@
 """Full model state: markers + last grid solution + clock (port of
 ``pylamp_tpu/models/state.py``).  Scalars (time, step, dt) are 0-d
-tensors on the state's device, so a step never syncs the host for them."""
+tensors on the state's device, so a step never syncs the host for them.
+
+The same dataclass holds the sharded layout (``parallel/mesh.py
+shard_state``): each field then a ``parallel/blocks.py Blocks`` (this
+process's block and seam strips; vx, vy, p, T, eta_s, eta_n on their
+lattices), each marker stream a (by, bx, K) block, and the scalars and
+``mg_lam`` replicated tensors."""
 from __future__ import annotations
 
 import dataclasses

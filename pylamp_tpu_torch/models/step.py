@@ -69,6 +69,18 @@ engine on the mesh.  With
 tensors, the single-device step, which is what the reference's GSPMD
 partitioning computes.
 
+The step takes the state in either layout of parallel/mesh.py: global
+tensors (the single-device step, and the in-process mesh for every
+configuration), or sharded (``shard_state``: each shard its blocks of the
+fields and the markers), which a distributed mesh requires.  On the
+sharded layout every phase runs on the blocks: the marker engine keeps
+each shard's markers, the solves run on the sharded vectors with mesh
+dots, dt and the diagnostics are mesh reductions (``vmax`` and dt mesh
+maxima, exact), and nothing is gathered but the replicated MG levels.  It
+covers a uniform walled grid, the bucket engine, the Chebyshev MG with
+the mass Schur surrogate and the Jacobi-CG energy solve
+(``sharded_refusal``); anything else raises, naming ROADMAP item 19c.
+
 ``make_phased_runner`` is the same step with the device synchronized
 around each phase, for the driver's ``profile_phases``;
 ``make_multi_step`` runs n steps in one call with stacked diagnostics,
@@ -101,6 +113,10 @@ from pylamp_tpu_torch.markers.reseed import reseed_starved
 from pylamp_tpu_torch.markers.state import MarkerState
 from pylamp_tpu_torch.models.config import ModelConfig
 from pylamp_tpu_torch.models.state import ModelState
+from pylamp_tpu_torch.parallel import block_ops
+from pylamp_tpu_torch.parallel.blocks import Blocks
+from pylamp_tpu_torch.parallel.blocks import zeros as zeros_blocks
+from pylamp_tpu_torch.parallel.mesh import is_sharded
 from pylamp_tpu_torch.parallel.halo_markers import (
     advect_rk4_halo,
     block_kernel_eligible,
@@ -175,6 +191,56 @@ def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
     return halo_mesh
 
 
+def sharded_refusal(grid: StaggeredGrid, cfg: ModelConfig, mesh):
+    """Why the sharded layout does not take ``cfg`` on ``mesh`` (None
+    where it does): its covered set is a uniform walled grid, the bucket
+    engine, the Chebyshev MG with the mass Schur surrogate and Gershgorin
+    bounds, full coarsening, and the Jacobi-CG energy solve without the
+    heated switches.  The rest is ROADMAP item 19c."""
+    from pylamp_tpu_torch.solvers.mg import coarsening_plan
+
+    phys, solver = cfg.physics, cfg.solver
+    vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
+    moving = any(getattr(vbc, f) != 0.0 for f in (
+        "vt_top", "vt_bottom", "vt_left", "vt_right"))
+    flux = phys.solve_energy and any(
+        getattr(tbc, w).kind == "neumann" and getattr(tbc, w).value != 0.0
+        for w in ("left", "right", "top", "bottom"))
+    reasons = (
+        (not solver.explicit_halo, "explicit_halo off"),
+        (not grid.uniform, "a stretched grid"),
+        (vbc.periodic_x, "periodic side walls"),
+        (cfg.marker_engine != "bucket", "flat markers"),
+        (grid.uniform and not halo_markers_eligible(grid, mesh),
+         "blocks that do not divide the grid into 4x4 cells or more"),
+        (solver.preconditioner == "vanka", "the Vanka multigrid"),
+        (solver.preconditioner != "mg" or solver.mg_smoother != "chebyshev",
+         f"the {solver.preconditioner}/{solver.mg_smoother} preconditioner"),
+        (solver.schur != "mass", "the w-BFBT Schur surrogate"),
+        (solver.stokes_al_gamma > 0 or solver.mg_velocity_inner_iters > 0
+         or solver.mg_eta_cap > 0, "the sticky-air augmented Lagrangian"),
+        (solver.mg_scaled_transfers or solver.mg_ls_damp,
+         "scaled MG transfers / line-search damping"),
+        (solver.mg_lam_mode != "gershgorin",
+         "power-iteration Chebyshev bounds"),
+        (grid.uniform and any(step != (True, True) for step in coarsening_plan(
+            grid, solver.mg_levels, semi_threshold=solver.mg_semicoarsen)),
+         "semicoarsening"),
+        (phys.solve_energy and solver.energy_preconditioner != "jacobi",
+         "the energy multigrid"),
+        (phys.shear_heating or phys.adiabatic_heating
+         or phys.subgrid_diffusion_d > 0 or phys.reseed_min_per_cell > 0,
+         "the heated switches (heating, subgrid diffusion, reseeding)"),
+        (moving, "moving walls"),
+        (flux, "a prescribed heat flux"),
+    )
+    for refused, what in reasons:
+        if refused:
+            return (f"the sharded layout does not take {what} yet "
+                    "(ROADMAP item 19c)")
+    return None
+
+
 def _marker_mean(markers, vals):
     if isinstance(markers, MarkerState):
         return torch.mean(vals)
@@ -202,6 +268,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             "thermal BCs (the domain either wraps in x or it doesn't)")
     if not grid.uniform and periodic:
         raise ValueError("periodic side walls need a uniform grid")
+
+    # the sharded layout's covered set: a distributed mesh runs nothing
+    # else; the in-process mesh checks it when it is handed a sharded state
+    refusal = None if mesh is None else sharded_refusal(grid, cfg, mesh)
+    if refusal is not None and mesh.distributed:
+        raise ValueError(refusal)
 
     # explicit halo exchanges for the operator applies, and the marker halo
     # engine where the bucket blocks are eligible
@@ -291,6 +363,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
 
     # ---- phase 1: marker rheology + marker -> grid ------------------------
     def interp(state: ModelState) -> InterpOut:
+        if is_sharded(state):
+            if refusal is not None:
+                raise ValueError(refusal)
+        elif mesh is not None and mesh.distributed:
+            raise TypeError("a distributed mesh steps the sharded layout "
+                            "only (parallel/mesh.py shard_state)")
         m = state.markers
         dtype = m.x.dtype
         rho_m = table.density(m.mat, m.T)
@@ -352,6 +430,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         if phys.gx != 0.0:
             rho_vx = mean_of(out["vx_rho"], out["vx_w"],
                              _marker_mean(m, rho_m))
+        elif isinstance(eta_n, Blocks):
+            rho_vx = zeros_blocks(eta_n.mesh, "vx", eta_n)
         else:
             rho_vx = torch.zeros(grid.shape_vx, dtype=dtype,
                                  device=m.x.device)
@@ -365,6 +445,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             if "c_H" in out:
                 H_g = mean_of(out["c_H"], cw,
                               torch.zeros((), dtype=dtype, device=m.x.device))
+            elif isinstance(cw, Blocks):
+                H_g = zeros_blocks(cw.mesh, "corner", cw)
             else:
                 H_g = torch.zeros(grid.shape_corner, dtype=dtype,
                                   device=m.x.device)
@@ -392,7 +474,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         if solver.mg_lam_mode == "gershgorin" and grid.uniform:
             return estimate_mg_lambdas(
                 es_w, en_w, grid, vbc, kbnd_w, levels=solver.mg_levels,
-                semicoarsen=solver.mg_semicoarsen, mode="gershgorin")
+                semicoarsen=solver.mg_semicoarsen, mode="gershgorin",
+                coarse_replicate=solver.mg_coarse_replicate)
         hint = state.mg_lam.to(wdtype)
         step_h, hint0 = torch.stack(
             [state.step.to(torch.float64), hint[0].to(torch.float64)]).tolist()
@@ -446,7 +529,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
             "stokes_converged": sol.info.converged,
             "vmax": torch.maximum(torch.max(torch.abs(vx)),
                                   torch.max(torch.abs(vy))),
-            "vrms": torch.sqrt(torch.mean(
+            "vrms": block_ops.vrms(vx, vy) if isinstance(vx, Blocks)
+            else torch.sqrt(torch.mean(
                 (0.5 * (vx[:, 1:] + vx[:, :-1])) ** 2
                 + (0.5 * (vy[1:, :] + vy[:-1, :])) ** 2)),
         }

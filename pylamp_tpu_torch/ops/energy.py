@@ -10,7 +10,9 @@ use mirrored ghost nodes, their flux constants go into ``energy_rhs``.
 Corner nodes: horizontal walls win.  Periodic side walls wrap the ghost
 columns (columns 0 and nx are one node), and the seam rows are halved in
 both columns, as the Stokes seam row is.  A stretched grid takes the
-variable-spacing operator and rhs of ops/stretched.py.
+variable-spacing operator and rhs of ops/stretched.py.  Sharded fields
+(parallel/blocks.py) take the explicit-halo operator and the block rhs
+(parallel/block_ops.py).
 """
 from __future__ import annotations
 
@@ -84,12 +86,13 @@ def energy_operator(T, k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
         return energy_operator_stretched(T, k, rhocp_over_dt, grid, bcs,
                                          kbnd=kbnd, k_avg=k_avg)
     if halo_mesh is not None:
+        from pylamp_tpu_torch.parallel.blocks import Blocks
         from pylamp_tpu_torch.parallel.halo_ops import (
             energy_operator_halo,
             halo_eligible,
         )
 
-        if halo_eligible(grid, halo_mesh):
+        if isinstance(T, Blocks) or halo_eligible(grid, halo_mesh):
             return energy_operator_halo(T, k, rhocp_over_dt, grid, bcs,
                                         halo_mesh, kbnd=kbnd, k_avg=k_avg)
     dx, dy = grid.dx, grid.dy
@@ -116,6 +119,12 @@ def energy_rhs(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
     """RHS matching ``energy_operator``: rho*Cp/dt * T_old + H, plus the
     prescribed-flux constants (+2 k_face g / h) of Neumann walls, with
     Dirichlet rows set to kbnd * T_bc (periodic: the seam rows halved)."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(T_old, Blocks):
+        from pylamp_tpu_torch.parallel.block_ops import energy_rhs as rhs
+
+        return rhs(T_old, k, rhocp_over_dt, H, bcs, kbnd)
     if not grid.uniform:
         from pylamp_tpu_torch.ops.stretched import energy_rhs_stretched
 

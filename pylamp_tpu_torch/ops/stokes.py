@@ -16,7 +16,9 @@ are one node) is the wrapped equation, half of it in each column.
 A stretched grid takes the variable-spacing operator of ops/stretched.py.
 ``kcont``/``kbnd`` may be Python floats or 0-d tensors.  ``halo_mesh``
 routes an application through the explicit-halo operator of
-parallel/halo_ops.py on grids that decompose over the mesh.
+parallel/halo_ops.py on grids that decompose over the mesh; sharded
+fields (parallel/blocks.py) always take it, and ``stokes_rhs`` their block
+form (parallel/block_ops.py).
 """
 from __future__ import annotations
 
@@ -93,12 +95,13 @@ def stokes_operator(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
         return stokes_operator_stretched(vx, vy, p, eta_s, eta_n, grid, bcs,
                                          kcont=kcont, kbnd=kbnd)
     if halo_mesh is not None:
+        from pylamp_tpu_torch.parallel.blocks import Blocks
         from pylamp_tpu_torch.parallel.halo_ops import (
             halo_eligible,
             stokes_operator_halo,
         )
 
-        if halo_eligible(grid, halo_mesh):
+        if isinstance(vx, Blocks) or halo_eligible(grid, halo_mesh):
             return stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid, bcs,
                                         halo_mesh, kcont=kcont, kbnd=kbnd,
                                         use_pallas=halo_pallas)
@@ -151,6 +154,15 @@ def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
     )
     if moving and eta_s is None:
         raise ValueError("stokes_rhs needs eta_s for moving-wall BCs")
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(rho_vx, Blocks):
+        if moving or bcs.periodic_x:
+            raise ValueError("moving or periodic walls on the sharded "
+                             "layout are ROADMAP item 19c")
+        from pylamp_tpu_torch.parallel.block_ops import stokes_rhs as rhs
+
+        return rhs(rho_vx, rho_vy, gx, gy, grid, bcs, kbnd, dtype)
     bx = (rho_vx * gx).to(dtype)
     by = (rho_vy * gy).to(dtype)
 

@@ -1,0 +1,387 @@
+"""Block forms of the stencil helpers a sharded step runs outside the
+operators: each takes and returns sharded fields (``parallel/blocks.py``)
+on a uniform, walled (not periodic) grid and reads its neighbours through
+ONE halo round (``mesh.halos``).
+
+Each computes, node for node, the arithmetic of its global counterpart
+in the same order on the same values, so that its gathered result equals
+the global function's bit for bit (a CPU test holds the transfers so):
+
+- ``velocity_diagonals``, ``gershgorin_lambda`` (solvers/stokes_solver.py,
+  solvers/mg.py), ``pressure_gradient`` (mg.py ``_pressure_gradient``),
+  ``stokes_rhs`` (ops/stokes.py, static walls);
+- ``energy_rhs`` (no prescribed flux) and ``energy_diagonal``
+  (solvers/energy_solver.py; its seam strips are psum-selected from their
+  owner shards, as the halo energy operator's are);
+- ``coarsen_eta`` and the MG transfers ``restrict`` / ``prolong``
+  (solvers/mg.py ``restrict_vx`` and ``restrict_vy``, ``prolong_vx`` and
+  ``prolong_vy``, full coarsening; the pair in one halo round);
+- ``vrms`` (the step's diagnostic).
+"""
+from __future__ import annotations
+
+import torch
+
+from pylamp_tpu_torch.core.bc import DIRICHLET, NEUMANN, ThermalBCs, VelocityBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.parallel.blocks import EXTRA, Blocks
+
+
+def _cols(*a):
+    return torch.cat(a, dim=-1)
+
+
+def _rows(*a):
+    return torch.cat(a, dim=-2)
+
+
+def _axes(f: Blocks):
+    """(iy, ix) broadcast index tensors of the local shards."""
+    mesh, dev = f.mesh, f.device
+    return mesh.axis_index("y", device=dev), mesh.axis_index("x", device=dev)
+
+
+def node_coords(f: Blocks):
+    """Global (row, col) indices of every node of ``f``'s lattice, as two
+    int64 fields that broadcast against ``f``."""
+    mesh, dev = f.mesh, f.device
+    iy, ix = _axes(f)
+    by, bx = f.I.shape[2], f.I.shape[3]
+    ny, nx = by * mesh.my, bx * mesh.mx
+    ey, ex = EXTRA[f.loc]
+    r = iy * by + torch.arange(by, device=dev).view(by, 1)
+    c = ix * bx + torch.arange(bx, device=dev).view(1, bx)
+    rs = torch.full_like(iy, ny)
+    cs = torch.full_like(ix, nx)
+    rows = Blocks(f.mesh, f.loc, r, r if ex else None, rs if ey else None,
+                  rs if ex and ey else None)
+    cols = Blocks(f.mesh, f.loc, c, cs if ex else None, c if ey else None,
+                  cs if ex and ey else None)
+    return rows, cols
+
+
+def _first(f: Blocks, axis: str):
+    """The local shards' "first block along ``axis``" mask, (L, L, 1, 1)."""
+    iy, ix = _axes(f)
+    return (iy if axis == "y" else ix) == 0
+
+
+def _last(f: Blocks, axis: str):
+    iy, ix = _axes(f)
+    return (iy == f.mesh.my - 1) if axis == "y" else (ix == f.mesh.mx - 1)
+
+
+def _local_index(n: int, dev, axis: int):
+    shape = [1, 1]
+    shape[axis] = n
+    return torch.arange(n, device=dev).view(shape)
+
+
+# -- Stokes: diagonals, rhs, pressure gradient, Gershgorin ---------------------
+
+
+def _diag_frames(eta_s: Blocks, eta_n: Blocks):
+    """In one halo round: eta_n with its left column and its upper row,
+    eta_s with its lower row and its right column (the seam strips at the
+    domain's last row / column)."""
+    mesh = eta_n.mesh
+    last_x = _last(eta_s, "x")
+    (en_rows, en_left, _), (es_rows, _, es_right) = mesh.halos(
+        (eta_n.I, 1, 0, 1, 0, None, None, False),
+        (eta_s.I, 0, 1, 0, 1, None, eta_s.B, False))
+    by = eta_n.I.shape[2]
+    en_l = _cols(en_left[..., 1:, :], en_rows[..., 1:, :])  # (by, bx+1)
+    en_u = en_rows  # (by+1, bx)
+    es_d = es_rows  # (by+1, bx)
+    es_r = _cols(es_rows[..., :by, :],
+                 torch.where(last_x, eta_s.R, es_right[..., :by, :]))
+    return en_l, en_u, es_d, es_r
+
+
+def velocity_diagonals(eta_s: Blocks, eta_n: Blocks, grid: StaggeredGrid,
+                       kbnd):
+    """``solvers/stokes_solver.py velocity_diagonals`` on blocks (walled)."""
+    return _diagonals(eta_s, eta_n, grid, kbnd)[0]
+
+
+def _diagonals(eta_s: Blocks, eta_n: Blocks, grid: StaggeredGrid, kbnd):
+    """``velocity_diagonals`` and the halo frames it read (``es_d``,
+    ``es_r``), for a caller that needs both from one halo round."""
+    dx, dy = grid.dx, grid.dy
+    en_l, en_u, es_d, es_r = _diag_frames(eta_s, eta_n)
+    by, bx = eta_n.I.shape[2:4]
+    dev = eta_n.device
+    dvx = (2.0 * (en_l[..., 1:] + en_l[..., :-1]) / dx**2
+           + (es_d[..., 1:, :] + es_d[..., :-1, :]) / dy**2)
+    dvy = (2.0 * (en_u[..., 1:, :] + en_u[..., :-1, :]) / dy**2
+           + (es_r[..., 1:] + es_r[..., :-1]) / dx**2)
+    kb = torch.as_tensor(kbnd, dtype=eta_n.dtype, device=dev)
+    mesh = eta_n.mesh
+    wall_x, wall_y = _wall_col0(mesh, dvx), _wall_row0(mesh, dvy)
+    strip_x = kb.expand(*mesh.local_shape, by, 1)
+    strip_y = kb.expand(*mesh.local_shape, 1, bx)
+    return ((Blocks(mesh, "vx", torch.where(wall_x, kb, dvx), strip_x),
+             Blocks(mesh, "vy", torch.where(wall_y, kb, dvy), B=strip_y)),
+            (es_d, es_r))
+
+
+def gershgorin_lambda(eta_s: Blocks, eta_n: Blocks, grid: StaggeredGrid,
+                      kbnd):
+    """``solvers/mg.py gershgorin_lambda`` on blocks: the row-sum ratios
+    on every shard's interior momentum rows, one mesh maximum."""
+    (dvx, dvy), (es_d, es_r) = _diagonals(eta_s, eta_n, grid, kbnd)
+    dx, dy = grid.dx, grid.dy
+    dev = eta_n.device
+    cross_vx = 2.0 * (es_d[..., 1:, :] + es_d[..., :-1, :]) / (dx * dy)
+    cross_vy = 2.0 * (es_r[..., 1:] + es_r[..., :-1]) / (dx * dy)
+    low = torch.tensor(float("-inf"), dtype=eta_n.dtype, device=dev)
+    mesh = eta_n.mesh
+    rx = torch.where(_wall_col0(mesh, cross_vx), low, cross_vx / dvx.I)
+    ry = torch.where(_wall_row0(mesh, cross_vy), low, cross_vy / dvy.I)
+    part = torch.maximum(torch.amax(rx, dim=(-2, -1)),
+                         torch.amax(ry, dim=(-2, -1)))
+    bxy = mesh.total(part, "max")
+    return 2.0 + bxy
+
+
+def stokes_rhs(rho_vx: Blocks, rho_vy: Blocks, gx, gy, grid: StaggeredGrid,
+               bcs: VelocityBCs, kbnd, dtype):
+    """``ops/stokes.py stokes_rhs`` on blocks: static walls (the sharded
+    step's covered set refuses moving ones)."""
+    bx = (rho_vx * gx).to(dtype)
+    by = (rho_vy * gy).to(dtype)
+    kb = torch.as_tensor(kbnd, device=bx.device)
+    _, cols = node_coords(bx)
+    rows, _ = node_coords(by)
+    nx, ny = grid.nx, grid.ny
+    bx = torch.where(cols == 0, (kb * bcs.vn_left).to(dtype), bx)
+    bx = torch.where(cols == nx, (kb * bcs.vn_right).to(dtype), bx)
+    by = torch.where(rows == 0, (kb * bcs.vn_top).to(dtype), by)
+    by = torch.where(rows == ny, (kb * bcs.vn_bottom).to(dtype), by)
+    bc = torch.zeros_like(rho_vx.I, dtype=dtype)
+    return bx, by, Blocks(bx.mesh, "center", bc)
+
+
+def pressure_gradient(zp: Blocks, grid: StaggeredGrid, dtype):
+    """``solvers/mg.py _pressure_gradient`` on blocks (walled)."""
+    mesh = zp.mesh
+    (rows, left, _), = mesh.halos((zp.I, 1, 0, 1, 0, None, None, False))
+    by, bx = zp.I.shape[2:4]
+    dev = zp.device
+    zl = _cols(left[..., 1:, :], rows[..., 1:, :])
+    gx = (zl[..., 1:] - zl[..., :-1]) / grid.dx
+    gy = (rows[..., 1:, :] - rows[..., :-1, :]) / grid.dy
+    gx = _zero_where(_wall_col0(mesh, gx), gx)
+    gy = _zero_where(_wall_row0(mesh, gy), gy)
+    z = torch.zeros((*mesh.local_shape, by, 1), dtype=dtype, device=dev)
+    zt = torch.zeros((*mesh.local_shape, 1, bx), dtype=dtype, device=dev)
+    return Blocks(mesh, "vx", gx, z), Blocks(mesh, "vy", gy, B=zt)
+
+
+# -- energy: rhs and diagonal -----------------------------------------------------
+
+
+def dirichlet_masks(T: Blocks, bcs: ThermalBCs):
+    """``ops/energy.py _dirichlet_masks`` on ``T``'s blocks (sides first,
+    then top / bottom: horizontal walls win the corners)."""
+    rows, cols = node_coords(T)
+    ny, nx = T.shape[0] - 1, T.shape[1] - 1
+    mask = torch.zeros_like(T, dtype=torch.bool)
+    vals = torch.zeros_like(T)
+    for wall, sel in (("left", cols == 0), ("right", cols == nx),
+                      ("top", rows == 0), ("bottom", rows == ny)):
+        bc = getattr(bcs, wall)
+        if bc.kind == DIRICHLET:
+            mask = mask | sel
+            vals = torch.where(sel, torch.tensor(bc.value, dtype=T.dtype,
+                                                 device=T.device), vals)
+    return mask, vals
+
+
+def energy_rhs(T_old: Blocks, k, rhocp_over_dt, H, bcs: ThermalBCs, kbnd):
+    """``ops/energy.py energy_rhs`` on blocks (walled, no prescribed flux:
+    the sharded step's covered set refuses one)."""
+    for wall in ("left", "right", "top", "bottom"):
+        bc = getattr(bcs, wall)
+        if bc.kind == NEUMANN and bc.value != 0.0:
+            raise ValueError("the sharded energy rhs takes no prescribed "
+                             "flux (ROADMAP item 19c)")
+    b = rhocp_over_dt * T_old + H
+    mask, vals = dirichlet_masks(T_old, bcs)
+    return torch.where(mask, kbnd * vals, b)
+
+
+def _face(a, b, mode):
+    if mode == "arithmetic":
+        return 0.5 * (a + b)
+    if mode == "harmonic":
+        return 2.0 * a * b / (a + b)
+    raise ValueError(f"unknown k averaging mode {mode!r}")
+
+
+def _diag_on(kf, rc, dx, dy, mode):
+    """rc + the conductance sums of the nodes inside frame ``kf`` (one
+    ring wider than ``rc``): energy_diagonal's arithmetic."""
+    kx = _face(kf[..., :-1], kf[..., 1:], mode)
+    ky = _face(kf[..., :-1, :], kf[..., 1:, :], mode)
+    return (rc + (kx[..., 1:-1, 1:] + kx[..., 1:-1, :-1]) / dx**2
+            + (ky[..., 1:, 1:-1] + ky[..., :-1, 1:-1]) / dy**2)
+
+
+def energy_diagonal(k: Blocks, rhocp_over_dt: Blocks, grid: StaggeredGrid,
+                    bcs: ThermalBCs, kbnd, k_avg: str):
+    """``solvers/energy_solver.py energy_diagonal`` on blocks (walled):
+    mirror ghosts beyond the walls, the seam strips from their owner
+    shards (one psum)."""
+    from pylamp_tpu_torch.parallel.halo_ops import corner_frames
+
+    mesh = k.mesh
+    dx, dy = grid.dx, grid.dy
+    rc = rhocp_over_dt
+    (k_ext, _), = corner_frames(mesh, [(k.I, k.R, k.B, k.C)], False)
+    dI = _diag_on(k_ext, rc.I, dx, dy, k_avg)
+    ks = _cols(k_ext[..., -2:], k_ext[..., -2:-1])  # cols nx-1, nx, nx-1
+    dR = _diag_on(ks, rc.R, dx, dy, k_avg)
+    kb = _rows(k_ext[..., -2:, :], k_ext[..., -2:-1, :])
+    dB = _diag_on(kb, rc.B, dx, dy, k_avg)
+    kw = k_ext[..., -2:, -2:]
+    kc = _cols(kw, kw[..., 0:1])
+    kc = _rows(kc, kc[..., 0:1, :])
+    dC = _diag_on(kc, rc.C, dx, dy, k_avg)
+    last_x, last_y = _last(k, "x"), _last(k, "y")
+    zero = torch.zeros((), dtype=dI.dtype, device=dI.device)
+    dR, dB, dC = mesh.psum_many(
+        (torch.where(last_x, dR, zero), "x"),
+        (torch.where(last_y, dB, zero), "y"),
+        (torch.where(last_x & last_y, dC, zero), ("y", "x")))
+    diag = Blocks(mesh, "corner", dI, dR, dB, dC)
+    mask, _ = dirichlet_masks(k, bcs)
+    return torch.where(mask, kbnd, diag)
+
+
+# -- multigrid --------------------------------------------------------------------
+
+
+def coarsen_eta(eta_s: Blocks, eta_n: Blocks):
+    """``solvers/mg.py coarsen_eta`` (both axes) on blocks of even size:
+    block-local (the blocks start on even nodes)."""
+    en = eta_n.I
+    en_c = torch.exp(0.25 * (torch.log(en[..., 0::2, 0::2])
+                             + torch.log(en[..., 0::2, 1::2])
+                             + torch.log(en[..., 1::2, 0::2])
+                             + torch.log(en[..., 1::2, 1::2])))
+    es_c = Blocks(eta_s.mesh, "corner", eta_s.I[..., 0::2, 0::2],
+                  eta_s.R[..., 0::2, :], eta_s.B[..., :, 0::2], eta_s.C)
+    return es_c, Blocks(eta_n.mesh, "center", en_c)
+
+
+def _interleave_rows(a, b):
+    return torch.stack([a, b], dim=-2).reshape(
+        *a.shape[:-2], 2 * a.shape[-2], a.shape[-1])
+
+
+def _interleave_cols(a, b):
+    return torch.stack([a, b], dim=-1).reshape(
+        *a.shape[:-1], 2 * a.shape[-1])
+
+
+def _zero_where(mask, a):
+    return torch.where(mask, torch.zeros((), dtype=a.dtype, device=a.device),
+                       a)
+
+
+def _wall_col0(mesh, a):
+    """Global column 0 of the (L, L, by, bx) blocks ``a``."""
+    ix = mesh.axis_index("x", device=a.device)
+    return (ix == 0) & (_local_index(a.shape[-1], a.device, 1) == 0)
+
+
+def _wall_row0(mesh, a):
+    iy = mesh.axis_index("y", device=a.device)
+    return (iy == 0) & (_local_index(a.shape[-2], a.device, 0) == 0)
+
+
+def restrict(fx: Blocks, fy: Blocks, bcs: VelocityBCs):
+    """``solvers/mg.py restrict_vx`` and ``restrict_vy`` (walled, both
+    axes) on blocks, their halos in one round."""
+    mesh = fx.mesh
+    fzx = _zero_where(_wall_col0(mesh, fx.I), fx.I)
+    fzy = _zero_where(_wall_row0(mesh, fy.I), fy.I)
+    (rows, left, _), (rows_y, left_y, right_y) = mesh.halos(
+        (fzx, 1, 1, 1, 0, bcs.s_top * fzx[..., :1, :],
+         bcs.s_bottom * fzx[..., -1:, :], False),
+        (fzy, 1, 0, 1, 1, None, None, False))
+    # vx: rows with the wall ghosts, then columns with a zero pad
+    F = _cols(left, rows)
+    g = (0.25 * F[..., 0:-3:2, :] + 0.75 * F[..., 1:-2:2, :]
+         + 0.75 * F[..., 2:-1:2, :] + 0.25 * F[..., 3::2, :]) / 2.0
+    c = (0.5 * g[..., 0:-2:2] + 1.0 * g[..., 1:-1:2] + 0.5 * g[..., 2::2])
+    c = c / 2.0
+    cx = Blocks(mesh, "vx", _zero_where(_wall_col0(mesh, c), c),
+                torch.zeros_like(c[..., :1]))
+    # vy: columns with the wall ghosts, then rows with a zero pad
+    left_y = torch.where(_first(fy, "x"), bcs.s_left * rows_y[..., :1],
+                         left_y)
+    right_y = torch.where(_last(fy, "x"), bcs.s_right * rows_y[..., -1:],
+                          right_y)
+    G = _cols(left_y, rows_y, right_y)
+    g = (0.25 * G[..., 0:-3:2] + 0.75 * G[..., 1:-2:2]
+         + 0.75 * G[..., 2:-1:2] + 0.25 * G[..., 3::2]) / 2.0
+    c = (0.5 * g[..., 0:-2:2, :] + 1.0 * g[..., 1:-1:2, :]
+         + 0.5 * g[..., 2::2, :])
+    c = c / 2.0
+    cy = Blocks(mesh, "vy", _zero_where(_wall_row0(mesh, c), c),
+                B=torch.zeros_like(c[..., :1, :]))
+    return cx, cy
+
+
+def prolong(cx: Blocks, cy: Blocks, bcs: VelocityBCs):
+    """``solvers/mg.py prolong_vx`` and ``prolong_vy`` (walled, both axes)
+    on blocks, their halos in one round."""
+    mesh = cx.mesh
+    czx = _zero_where(_wall_col0(mesh, cx.I), cx.I)
+    czy = _zero_where(_wall_row0(mesh, cy.I), cy.I)
+    (CG, _, right), (rows_y, left_y, right_y) = mesh.halos(
+        (czx, 1, 1, 0, 1, bcs.s_top * czx[..., :1, :],
+         bcs.s_bottom * czx[..., -1:, :], False),
+        (czy, 0, 1, 1, 1, None, None, False))
+    # vx: rows (wall ghosts) interpolated, then the odd columns
+    CG = _cols(CG, right)
+    a0 = 0.25 * CG[..., :-2, :] + 0.75 * CG[..., 1:-1, :]
+    a1 = 0.75 * CG[..., 1:-1, :] + 0.25 * CG[..., 2:, :]
+    e = _interleave_rows(a0, a1)
+    odd = 0.5 * (e[..., :-1] + e[..., 1:])
+    f = _interleave_cols(e[..., :-1], odd)
+    fx = Blocks(mesh, "vx", _zero_where(_wall_col0(mesh, f), f),
+                torch.zeros_like(f[..., :1]))
+    # vy: columns (wall ghosts) interpolated, then the odd rows
+    left_y = torch.where(_first(cy, "x"), bcs.s_left * rows_y[..., :1],
+                         left_y)
+    right_y = torch.where(_last(cy, "x"), bcs.s_right * rows_y[..., -1:],
+                          right_y)
+    CG = _cols(left_y, rows_y, right_y)
+    a0 = 0.25 * CG[..., :-2] + 0.75 * CG[..., 1:-1]
+    a1 = 0.75 * CG[..., 1:-1] + 0.25 * CG[..., 2:]
+    e = _interleave_cols(a0, a1)
+    odd = 0.5 * (e[..., :-1, :] + e[..., 1:, :])
+    f = _interleave_rows(e[..., :-1, :], odd)
+    fy = Blocks(mesh, "vy", _zero_where(_wall_row0(mesh, f), f),
+                B=torch.zeros_like(f[..., :1, :]))
+    return fx, fy
+
+
+# -- diagnostics --------------------------------------------------------------------
+
+
+def vrms(vx: Blocks, vy: Blocks):
+    """The step's ``vrms``: the root mean square of the cell-centred
+    velocity, one halo round and one mesh mean."""
+    mesh = vx.mesh
+    (_, _, right), (vy_rows, _, _) = mesh.halos(
+        (vx.I, 0, 0, 0, 1, None, None, False),
+        (vy.I, 0, 1, 0, 0, None, vy.B, False))
+    right = torch.where(_last(vx, "x"), vx.R, right)
+    vxe = _cols(vx.I, right)
+    cx = 0.5 * (vxe[..., 1:] + vxe[..., :-1])
+    cy = 0.5 * (vy_rows[..., 1:, :] + vy_rows[..., :-1, :])
+    return torch.sqrt(torch.mean(Blocks(mesh, "center", cx ** 2 + cy ** 2)))

@@ -1,25 +1,36 @@
 """Distributed mesh: one shard per rank of a torch.distributed world.
 
 The port's counterpart of the reference's mesh over real devices
-(``pylamp_tpu/cli.py`` ``--mesh YxX`` builds a ``jax.sharding.Mesh``, the
-step runs its ``shard_map`` bodies there with ``lax.ppermute`` halo
-exchanges and ``lax.psum`` seams).  Rank ``r`` of a ``my x mx`` world owns
-shard (r // mx, r % mx), the in-process mesh's flat order:
+(``pylamp_tpu/cli.py`` ``--mesh YxX`` builds a ``jax.sharding.Mesh`` and
+``shard_state`` places the state on it; the step runs its ``shard_map``
+bodies there with ``lax.ppermute`` halo exchanges and ``lax.psum`` seams).
+Rank ``r`` of a ``my x mx`` world owns shard (r // mx, r % mx), the
+in-process mesh's flat order:
 
-- every rank holds the global state, as every caller of the in-process
-  mesh does, and repeats the work outside the shard bodies (Krylov
-  vectors, MG transfers, replicated coarse levels), as GSPMD does for the
-  reference; only the bodies are divided, so kernels 8-12 launch once per
+- the state is SHARDED (``parallel/mesh.py shard_state``): every rank
+  holds only its block of every field and of the markers, the seam
+  strips of its mesh row / column and the replicated scalars, and the
+  work outside the shard bodies (Krylov vectors, MG levels above the
+  replication cutoff, the energy solve, dt, diagnostics) runs on those
+  blocks, as GSPMD runs the reference's; kernels 8-12 launch once per
   rank over its own block;
-- ``split`` cuts this rank's block from a global tensor (no message);
+- ``split`` cuts this rank's block from a global tensor (no message):
+  sharding a host copy of the state, resuming;
 - ``exchange`` / ``from_prev`` / ``from_next`` are point-to-point messages
   (``dist.batch_isend_irecv``, one message per neighbour a round, the
   diagonal neighbours' too), the counterpart of ``lax.ppermute``;
-- ``psum`` and ``gather`` all-gather every rank's block (one
-  ``all_to_all_single``) into the (my, mx, ...) stack and run the
-  in-process mesh's own reduction or reassembly on it, so sums run in the
+- ``psum`` / ``pmax`` all-gather every rank's small payload (a per-shard
+  partial sum or maximum, a seam strip) into the (my, mx, ...) stack and
+  run the in-process mesh's own reduction on it, so sums run in the
   in-process order on every backend and world size (an ``all_reduce``
-  would not): a rank's state equals the in-process mesh's bit for bit.
+  would not): a rank's state equals the in-process mesh's bit for bit;
+- ``gather`` assembles global tensors: the MG levels the solver
+  replicates (every rank), and the whole state for files (rank 0 only,
+  ``root=0``), never a field or the markers inside a step.
+
+``rounds`` counts this process's collectives and their received bytes by
+kind: "p2p" exchange rounds, "reduce" (psum / pmax), "coarse" (the
+replicated MG levels), "block" (any other gather).
 
 Backends: NCCL for CUDA tensors, one card per rank (two NCCL ranks on one
 device raise); gloo for the CPU, or for CUDA tensors when the caller asks
@@ -100,9 +111,25 @@ def _unpack(buf, likes):
     return out
 
 
-# this process's message rounds since they were last set to 0: an exchange
-# round of point-to-point messages, an all-gather
-rounds = {"p2p": 0, "all_gather": 0}
+# this process's collectives since ``reset_rounds``, by kind (module
+# docstring), and the bytes it received in each kind
+ROUND_KINDS = ("p2p", "reduce", "coarse", "block")
+rounds: dict = {}
+
+
+def reset_rounds():
+    """Set every count of ``rounds`` to 0 (before a step, as the launch
+    counters)."""
+    rounds.update({k: 0 for k in ROUND_KINDS})
+    rounds.update({f"{k}_bytes": 0 for k in ROUND_KINDS})
+
+
+reset_rounds()
+
+
+def _count(kind: str, nbytes: int):
+    rounds[kind] += 1
+    rounds[f"{kind}_bytes"] += nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +157,7 @@ class _Transport:
     def p2p(self, sends: dict, recvs: dict):
         """One round of point-to-point messages, posted as one batch:
         ``sends`` {peer: buffer}, ``recvs`` {peer: buffer to fill}."""
-        rounds["p2p"] += 1
+        _count("p2p", sum(b.numel() for b in recvs.values()))
 
         def comm(s_bufs, r_bufs):
             ops = [dist.P2POp(dist.isend, b, p) for p, b in zip(sends, s_bufs)]
@@ -141,17 +168,28 @@ class _Transport:
 
         self._run(comm, list(sends.values()), list(recvs.values()))
 
-    def all_gather(self, buf):
-        """(world, n) stack of every rank's 1-D ``buf``, in rank order.  An
-        all-to-all of ``world`` copies of ``buf``: every block reaches
-        every rank in one step, where gloo's all_gather passes the blocks
-        round a ring in world - 1 steps, each a wait on the slowest rank;
-        a one-rank NCCL group still runs an NCCL collective (PERF.md)."""
-        rounds["all_gather"] += 1
-        out = torch.empty((self.world, buf.numel()), dtype=buf.dtype,
+    def all_gather(self, buf, kind: str, root=None):
+        """(world, n) stack of every rank's 1-D byte ``buf``, in rank
+        order, on every rank, or with ``root`` on that rank only (an empty
+        stack elsewhere).  An all-to-all of ``world`` copies of ``buf`` (to
+        ``root`` alone with one): every block reaches every rank in one
+        step, where gloo's all_gather passes the blocks round a ring in
+        world - 1 steps, each a wait on the slowest rank; a one-rank NCCL
+        group still runs an NCCL collective (PERF.md)."""
+        n = buf.numel()
+        gets = root is None or root == self.rank
+        out = torch.empty((self.world if gets else 0, n), dtype=buf.dtype,
                           device=buf.device)
+        _count(kind, out.numel())
+        if root is None:
+            self._run(lambda s, r: dist.all_to_all_single(
+                r[0], s[0].repeat(self.world)), [buf], [out])
+            return out
+        ins = [n if p == root else 0 for p in range(self.world)]
+        outs = [n if gets else 0] * self.world
         self._run(lambda s, r: dist.all_to_all_single(
-            r[0], s[0].repeat(self.world)), [buf], [out])
+            r[0], s[0], output_split_sizes=outs, input_split_sizes=ins),
+            [buf], [out.view(-1)])
         return out
 
 
@@ -161,6 +199,7 @@ class DistMesh(Mesh):
     global mesh, (1, 1) the local batch dimensions."""
 
     rank: int
+    distributed = True
 
     @classmethod
     def from_group(cls, my: int, mx: int) -> "DistMesh":
@@ -192,6 +231,9 @@ class DistMesh(Mesh):
     def barrier(self):
         dist.barrier()
 
+    def local_shards(self):
+        return [(0, 0, *self.coords)]
+
     @property
     def _inproc(self) -> Mesh:
         """The in-process mesh of the same shape: its reductions and
@@ -221,11 +263,15 @@ class DistMesh(Mesh):
         c0 = ix * bx if sx == "x" else 0
         return a[r0:r0 + by, c0:c0 + bx][None, None]
 
-    def _stacks(self, blocks):
+    def _stacks(self, blocks, kind: str, root=None):
         """Every rank's (1, 1, *shape) block of each tensor as one
-        (my, mx, *shape) stack each: one all-gather."""
+        (my, mx, *shape) stack each: one all-gather (None each on the
+        ranks other than ``root``, where one is named)."""
         blocks = [self._full(b) for b in blocks]
-        packed = self._transport.all_gather(_pack(blocks, blocks[0].device))
+        packed = self._transport.all_gather(
+            _pack(blocks, blocks[0].device), kind, root)
+        if packed.shape[0] == 0:
+            return [None] * len(blocks)
         out, off = [], 0
         for b in blocks:
             n = math.prod(b.shape) * b.dtype.itemsize
@@ -234,23 +280,38 @@ class DistMesh(Mesh):
             off += _nbytes(b.shape, b.dtype)
         return out
 
-    def gather_many(self, *pairs):
+    def gather_many(self, *pairs, root=None, kind: str = "block"):
         live = [(b, s) for b, s in pairs if b is not None]
-        stacks = iter(self._stacks([b for b, _ in live]) if live else ())
-        return [None if b is None else self._inproc.gather(next(stacks), s)
-                for b, s in pairs]
+        stacks = iter(self._stacks([b for b, _ in live], kind, root)
+                      if live else ())
+        out = []
+        for b, s in pairs:
+            st = None if b is None else next(stacks)
+            out.append(None if st is None else self._inproc.gather(st, s))
+        return out
 
     def gather(self, b, spec):
         return self.gather_many((b, spec))[0]
 
+    def shard_map(self, body, in_specs, out_specs):
+        raise TypeError("a distributed mesh takes the sharded layout "
+                        "(parallel/mesh.py shard_state): its operators run "
+                        "on blocks through local_map, never on global "
+                        "tensors")
+
     def psum_many(self, *pairs):
         iy, ix = self.coords
-        stacks = self._stacks([x for x, _ in pairs])
+        stacks = self._stacks([x for x, _ in pairs], "reduce")
         return [self._inproc.psum(st, axes)[iy:iy + 1, ix:ix + 1]
                 for st, (_, axes) in zip(stacks, pairs)]
 
     def psum(self, x, axes):
         return self.psum_many((x, axes))[0]
+
+    def pmax(self, x, axes):
+        iy, ix = self.coords
+        st = self._stacks([x], "reduce")[0]
+        return self._inproc.pmax(st, axes)[iy:iy + 1, ix:ix + 1]
 
     # -- primitives inside a shard body -------------------------------------
 
@@ -394,21 +455,51 @@ def shutdown():
         dist.destroy_process_group()
 
 
-def replicas_agree(state) -> bool:
-    """Whether every leaf of ``state`` (a ModelState, or a dict of
-    tensors) holds rank 0's bits on every rank: an all-gather of a 64-bit
-    digest of each leaf (a check for tests and the chip run, not on the
-    step's path)."""
+def _digest(t) -> int:
+    return int.from_bytes(hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).digest()[:8],
+        "little", signed=True)
+
+
+def replicas_agree(state, mesh: DistMesh | None = None) -> bool:
+    """Whether every replicated value of ``state`` holds the same bits on
+    every rank that holds it: an all-gather of a 64-bit digest of each (a
+    check for tests and the chip run, not on the step's path).  A sharded
+    state (``mesh`` given): the scalars and ``mg_lam`` on every rank, each
+    field's R strip within a mesh row, B within a mesh column, C
+    everywhere (blocks differ by design).  A dict of tensors: every
+    tensor on every rank."""
     from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.parallel.blocks import Blocks
 
     leaves = state if isinstance(state, dict) else state_leaves(state)
-    digests = [int.from_bytes(hashlib.sha256(
-        v.detach().contiguous().cpu().numpy().tobytes()).digest()[:8],
-        "little", signed=True) for v in leaves.values()]
+    groups, digests = [], []
+    for v in leaves.values():
+        if not isinstance(v, Blocks):
+            digests.append(_digest(v))
+            groups.append(None)
+            continue
+        for name, axis in (("R", "x"), ("B", "y"), ("C", None)):
+            piece = getattr(v, name)
+            if piece is not None:
+                digests.append(_digest(piece))
+                groups.append(axis)
     dev = next(iter(leaves.values())).device
     got = _Transport.current().all_gather(
-        torch.tensor(digests, dtype=torch.int64, device=dev))
-    return bool((got == got[0]).all())
+        torch.tensor(digests, dtype=torch.int64, device=dev).view(
+            torch.uint8), "block").view(torch.int64)
+    for k, axis in enumerate(groups):
+        col = got[:, k].reshape(mesh.my, mesh.mx) if mesh is not None \
+            else got[:, k].reshape(1, -1)
+        if axis == "x":  # equal along every mesh row
+            ok = (col == col[:, :1]).all()
+        elif axis == "y":
+            ok = (col == col[:1, :]).all()
+        else:
+            ok = (col == col.reshape(-1)[0]).all()
+        if not bool(ok):
+            return False
+    return True
 
 
 # -- spawning a world ---------------------------------------------------------

@@ -30,12 +30,14 @@ MG levels where the reference runs two, because at 32^2 two levels (32, 16)
 leave no level of at most 8 cells to replicate.  (d) runs the reference's
 f64 solver of (a)/(c) (two MG levels) with ``explicit_halo``.
 
-``--ranks N`` runs the same sub-checks on the distributed mesh of
+``--ranks N`` runs the sub-checks (b) and (c) on the distributed mesh of
 ``parallel/dist.py`` (N ranks spawned by ``launch``, one shard each; the
 backend by the device unless ``--backend`` names one, gloo ranks may
-share a card): every rank holds its sharded step against the
+share a card) in the sharded layout: every rank shards the built state,
+steps its blocks and holds the gathered result against the
 single-device step at the same bars, the port's counterpart of the
-reference's ``dryrun_multichip(8)`` on 8 real devices.
+reference's ``dryrun_multichip(8)`` on 8 real devices.  (d) is refused
+there: periodic walls on the sharded layout are ROADMAP item 19c.
 
 Runs on the card unless ``--device cpu``; prints one line per sub-check
 and exits non-zero on any disagreement.
@@ -67,12 +69,18 @@ def _assert_close(new, ref, diag, tag, tol, fields=("vx", "vy", "T")):
 
 def _run_pair(cfg, mesh, dtype, device):
     """One (single-device, sharded) step pair from the same built state:
-    (sharded state, single-device state, sharded diag)."""
+    (sharded state, single-device state, sharded diag).  A distributed
+    mesh steps the sharded layout and gathers the result."""
     from pylamp_tpu_torch.models.setup import build
     from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.mesh import shard_state, unshard_state
 
     grid, table, state0 = build(cfg, dtype=dtype, device=device)
     ref_state, _ = make_step(grid, cfg, table)(state0)
+    if mesh.distributed:
+        new, diag = make_step(grid, cfg, table, mesh=mesh)(
+            shard_state(state0, mesh))
+        return unshard_state(new, mesh), ref_state, diag
     new, diag = make_step(grid, cfg, table, mesh=mesh)(state0)
     return new, ref_state, diag
 
@@ -156,9 +164,12 @@ def main(argv=None):
                     help="with --ranks: nccl for cuda, gloo for cpu unless "
                          "named")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--checks", default="bcd",
-                    help="sub-checks to run, of 'bcd'")
+    ap.add_argument("--checks", default=None,
+                    help="sub-checks to run, of 'bcd' (default: all; "
+                         "'bc' with --ranks)")
     args = ap.parse_args(argv)
+    if args.checks is None:
+        args.checks = "bc" if args.ranks else "bcd"
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("dryrun: no CUDA device (pass --device cpu for the CPU)")
     if args.ranks:

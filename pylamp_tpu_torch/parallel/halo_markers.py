@@ -25,6 +25,14 @@ up to a bounded halo:
 - reseeding (``reseed_halo``): a one-deep exchange of the per-cell
   material histograms for the 3x3 majority, the cell-local spawn rule of
   ``bucket.bucket_reseed`` and ``g2m_halo`` for the new markers' T.
+
+The transfers, the advection and the rebucket take the markers and the
+grid fields sharded (``parallel/blocks.py Blocks``: each shard its
+(by, bx, K) marker block) and return them so: the markers never leave
+their shard but through the rebucket's one-deep exchange, and a
+transfer's seam strips are psum-selected from their owners.  Global
+tensors (the in-process mesh's global layout) are split on the way in and
+gathered on the way out.  ``reseed_halo`` takes the global layout only.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from pylamp_tpu_torch.markers.kernels.rebucket_block import (
     rebucket_block,
     rebucket_block_plain,
 )
+from pylamp_tpu_torch.parallel.blocks import Blocks
 from pylamp_tpu_torch.parallel.mesh import P, Mesh
 
 BLK3 = P("y", "x", None)
@@ -87,20 +96,36 @@ def _blocks(mesh: Mesh, grid: StaggeredGrid):
 # -- marker -> grid -------------------------------------------------------------
 
 
+MARKER_FIELDS = ("x", "y", "mat", "T", "valid")
+LOCS = {"c": "corner", "n": "center", "vy": "vy", "vx": "vx"}
+
+
+def _split_markers(bm: BucketedMarkers, mesh: Mesh) -> BucketedMarkers:
+    """The markers as sharded streams (no message)."""
+    return BucketedMarkers(**{f: Blocks.split(getattr(bm, f), "center", mesh)
+                              for f in MARKER_FIELDS})
+
+
+def _gather_markers(bm: BucketedMarkers) -> BucketedMarkers:
+    return BucketedMarkers(**{f: getattr(bm, f).gather()
+                              for f in MARKER_FIELDS})
+
+
 def _ext_blocks(mesh: Mesh, *streams):
     """Every shard's one-ring-extended (S, by+2, bx+2, K) block of each
-    (ny, nx, K) stream (zeros, i.e. empty slots, beyond the domain)."""
+    (ny, nx, K) stream, sharded or global (zeros, i.e. empty slots,
+    beyond the domain)."""
     return [mesh.flat(e) for e in mesh.ext1_many(
-        [mesh.split(a, BLK3) for a in streams], nd=3)]
+        [a.I if isinstance(a, Blocks) else mesh.split(a, BLK3)
+         for a in streams], nd=3)]
 
 
 def _assemble(mesh: Mesh, grid: StaggeredGrid, frames):
-    """Global (rows, cols) lattices from the shards' (S, by+1, bx+1) node
+    """Sharded (rows, cols) lattices from the shards' (S, by+1, bx+1) node
     frames ``frames`` [(F, (rows, cols)), ...], each complete on its own
     nodes and the +1 seam strips: the interior blocks, and the seam row /
     column / corner selected from the last mesh row / column
-    (psum-selected, as the reference).  One psum and one gather
-    collective for all of them."""
+    (psum-selected, as the reference).  One psum for all of them."""
     my, mx = mesh.my, mesh.mx
     ny, nx = grid.ny, grid.nx
     by, bx = _blocks(mesh, grid)
@@ -125,20 +150,16 @@ def _assemble(mesh: Mesh, grid: StaggeredGrid, frames):
                 parts.append((len(sums) - 1, P()))
         plan.append((rows, cols, parts))
     summed = mesh.psum_many(*sums) if sums else []
-    got = iter(mesh.gather_many(*(
-        (summed[b] if isinstance(b, int) else b, spec)
-        for _, _, parts in plan for b, spec in parts)))
     out = []
     for rows, cols, parts in plan:
-        a = next(got)
-        if cols == nx + 1:
-            a = torch.cat([a, next(got)], dim=1)
-        if rows == ny + 1:
-            bottom = next(got)
-            if cols == nx + 1:
-                bottom = torch.cat([bottom, next(got)], dim=1)
-            a = torch.cat([a, bottom], dim=0)
-        out.append(a)
+        pieces = [summed[b] if isinstance(b, int) else b for b, _ in parts]
+        I, rest = pieces[0], iter(pieces[1:])
+        R = next(rest) if cols == nx + 1 else None
+        B = next(rest) if rows == ny + 1 else None
+        C = next(rest) if rows == ny + 1 and cols == nx + 1 else None
+        loc = {(0, 0): "center", (0, 1): "vx", (1, 0): "vy",
+               (1, 1): "corner"}[(rows - ny, cols - nx)]
+        out.append(Blocks(mesh, loc, I, R, B, C))
     return out
 
 
@@ -148,16 +169,19 @@ def m2g_fused_halo(bm: BucketedMarkers, grid: StaggeredGrid, table, phys,
     """Explicit-halo fused marker->grid transfer: the raw weighted-sum dict
     of ``markers.kernels.m2g.m2g_fused`` on the global lattices.
     ``kernel``: the per-shard wrapper (kernel 10 on CUDA tensors); else its
-    plain version on any dtype."""
+    plain version on any dtype.  Sharded markers give sharded fields."""
+    if not isinstance(bm.x, Blocks):
+        return {k: v.gather() for k, v in m2g_fused_halo(
+            _split_markers(bm, mesh), grid, table, phys, mesh, with_energy,
+            with_ra, kernel).items()}
     by, bx = _blocks(mesh, grid)
     bases = mesh.bases(by, bx, device=bm.x.device)
     transfer = m2g_fused_block if kernel else m2g_fused_block_plain
     fields = transfer(*_ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid),
                       grid, table, phys, bases, with_energy=with_energy,
                       with_ra=with_ra)
-    locs = {"c": "corner", "n": "center", "vy": "vy", "vx": "vx"}
     return dict(zip(fields, _assemble(mesh, grid, [
-        (F, grid.shape(locs[name.split("_")[0]]))
+        (F, grid.shape(LOCS[name.split("_")[0]]))
         for name, F in fields.items()])))
 
 
@@ -165,6 +189,10 @@ def m2g_halo(bm: BucketedMarkers, values, grid: StaggeredGrid, loc: str,
              mode: str, mesh: Mesh):
     """Explicit-halo ``bucket_markers_to_grid`` of one (ny, nx, K) value
     stream: returns (mean, wsum) on the ``loc`` lattice."""
+    if not isinstance(bm.x, Blocks):
+        return tuple(f.gather() for f in m2g_halo(
+            _split_markers(bm, mesh), Blocks.split(values, "center", mesh),
+            grid, loc, mode, mesh))
     by, bx = _blocks(mesh, grid)
     v = transform_values(values, bm.valid, mode)
     xe, ye, ve, vale = _ext_blocks(mesh, bm.x, bm.y, v, bm.valid)
@@ -215,11 +243,15 @@ def _extend_lattice_block(mesh: Mesh, fI, fR, fB, fC, pl: int, ph: int):
 def g2m_halo(field, px, py, valid, grid: StaggeredGrid, loc: str, mesh: Mesh,
              reach: int = 1):
     """Explicit-halo ``bucket_grid_to_markers``: the ``loc``-lattice field
-    at the (ny, nx, K) marker positions."""
-    ny, nx = grid.ny, grid.nx
+    at the (ny, nx, K) marker positions; sharded field and markers give a
+    sharded result."""
+    if not isinstance(px, Blocks):
+        return g2m_halo(Blocks.split(field, loc, mesh),
+                        *(Blocks.split(a, "center", mesh)
+                          for a in (px, py, valid)),
+                        grid, loc, mesh, reach).gather()
     by, bx = _blocks(mesh, grid)
     ny_n, nx_n = grid.shape(loc)
-    has_brow, has_rcol = ny_n == ny + 1, nx_n == nx + 1
     oy, ox = grid.origin(loc)
     dev = field.device
     bases = mesh.bases(by, bx, device=dev).to(torch.int64)
@@ -228,20 +260,13 @@ def g2m_halo(field, px, py, valid, grid: StaggeredGrid, loc: str, mesh: Mesh,
     cb = bases[:, 1].view(S, 1, 1, 1)
     cj = rb + torch.arange(by, device=dev).view(1, by, 1, 1)
     ci = cb + torch.arange(bx, device=dev).view(1, 1, bx, 1)
-
-    blk = P("y", "x")
-    fI = mesh.split(field[:ny, :nx], blk)
-    fR = mesh.split(field[:ny, nx:], P("y", None)) if has_rcol else None
-    fB = mesh.split(field[ny:, :nx], P(None, "x")) if has_brow else None
-    fC = (mesh.split(field[ny:, nx:], P(None, None))
-          if has_brow and has_rcol else None)
-    ext = mesh.flat(_extend_lattice_block(mesh, fI, fR, fB, fC, reach,
-                                          reach + 1))
-    pxb, pyb, valb = (mesh.flat(mesh.split(a, BLK3)) for a in (px, py, valid))
+    ext = mesh.flat(_extend_lattice_block(mesh, field.I, field.R, field.B,
+                                          field.C, reach, reach + 1))
+    pxb, pyb, valb = (mesh.flat(a.I) for a in (px, py, valid))
     out = _sample_window(ext, (pxb - ox) / grid.dx, (pyb - oy) / grid.dy,
                          valb, reach, ny_n, nx_n, cj, ci, rb - reach,
                          cb - reach)
-    return mesh.gather(mesh.unflat(out), BLK3)
+    return Blocks(mesh, "center", mesh.unflat(out))
 
 
 # -- RK4 advection --------------------------------------------------------------
@@ -260,6 +285,8 @@ def velocity_windows(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs,
             "periodic side walls: the explicit-halo marker engine has no "
             "wrap-around exchange path (the step keeps the markers on the "
             "global tensors)")
+    if not isinstance(vx, Blocks):
+        vx, vy = Blocks.split(vx, "vx", mesh), Blocks.split(vy, "vy", mesh)
     mx = mesh.mx
     _, bx = _blocks(mesh, grid)
     dev = vx.device
@@ -310,11 +337,7 @@ def velocity_windows(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs,
         vy_ext = torch.cat([left, vy_rows, right], dim=-1)
         return mesh.flat(vx_ext), mesh.flat(vy_ext)
 
-    blk = P("y", "x")
-    return local(mesh.split(vx[:, :-1], blk),
-                 mesh.split(vx[:, -1:], P("y", None)),
-                 mesh.split(vy[:-1, :], blk),
-                 mesh.split(vy[-1:, :], P(None, "x")))
+    return mesh.local_map(local)(vx.I, vx.R, vy.I, vy.B)
 
 
 def advect_rk4_halo(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
@@ -323,18 +346,21 @@ def advect_rk4_halo(bm: BucketedMarkers, vx, vy, dt, grid: StaggeredGrid,
     """Explicit-halo ``bucket_advect_rk4``: one exchange of the two
     BC-ghost-padded velocity lattices at the stage reach, then every RK4
     stage samples locally.  ``kernel``: the per-shard wrapper (kernel 11
-    on CUDA tensors); else its plain version."""
+    on CUDA tensors); else its plain version.  Sharded markers and
+    velocities give sharded markers."""
+    if not isinstance(bm.x, Blocks):
+        return _gather_markers(advect_rk4_halo(
+            _split_markers(bm, mesh), vx, vy, dt, grid, bcs, mesh,
+            stage_reach, kernel))
     by, bx = _blocks(mesh, grid)
     R = stage_reach
     vx_ext, vy_ext = velocity_windows(vx, vy, grid, bcs, mesh, R)
-    xb, yb, vb = (mesh.flat(mesh.split(a, BLK3))
-                  for a in (bm.x, bm.y, bm.valid))
+    xb, yb, vb = (mesh.flat(a.I) for a in (bm.x, bm.y, bm.valid))
     bases = mesh.bases(by, bx, device=vx.device)
     step = advect_block if kernel else advect_block_plain
     nx_b, ny_b = step(xb, yb, vb, vx_ext, vy_ext, dt, grid, bases, R)
-    x, y = mesh.gather_many((mesh.unflat(nx_b), BLK3),
-                            (mesh.unflat(ny_b), BLK3))
-    return bm.replace(x=x, y=y)
+    return bm.replace(x=Blocks(mesh, "center", mesh.unflat(nx_b)),
+                      y=Blocks(mesh, "center", mesh.unflat(ny_b)))
 
 
 # -- re-bucketing ---------------------------------------------------------------
@@ -345,7 +371,13 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
     """Explicit-halo rebucket: a one-deep ring of the marker streams, then
     the per-shard repack in the single-device candidate order (kernel 12
     on CUDA tensors with ``kernel``; else the plain version).  Returns
-    (new markers, dropped) like ``bucket.rebucket``."""
+    (new markers, dropped) like ``bucket.rebucket``: sharded markers in,
+    sharded out; the markers that cross a block edge reach their new
+    shard through the exchange."""
+    if not isinstance(bm.x, Blocks):
+        new, dropped = rebucket_halo(_split_markers(bm, mesh), grid, mesh,
+                                     kernel)
+        return _gather_markers(new), dropped
     by, bx = _blocks(mesh, grid)
     K = bm.capacity
     dev = bm.x.device
@@ -356,9 +388,8 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
     # order)
     over = torch.clamp(arrivals - K, min=0).sum(dim=(1, 2))
     dropped = mesh.psum(mesh.unflat(over), ("y", "x")).reshape(-1)[0]
-    names = ("x", "y", "mat", "T", "valid")
-    return BucketedMarkers(**dict(zip(names, mesh.gather_many(*(
-        (mesh.unflat(getattr(new, f)), BLK3) for f in names))))), dropped
+    return BucketedMarkers(**{f: Blocks(mesh, "center", mesh.unflat(
+        getattr(new, f))) for f in MARKER_FIELDS}), dropped
 
 
 # -- reseeding ------------------------------------------------------------------
@@ -369,7 +400,10 @@ def reseed_halo(bm: BucketedMarkers, T_grid, grid: StaggeredGrid,
     """Explicit-halo ``bucket.bucket_reseed``: the 3x3 material majority
     from a one-deep exchange of the per-cell histograms (zeros beyond the
     domain, the global engine's padding), the cell-local spawn rule, and
-    ``g2m_halo`` for the new markers' T."""
+    ``g2m_halo`` for the new markers' T.  The global layout only."""
+    if isinstance(bm.x, Blocks):
+        raise ValueError("reseeding on the sharded layout is ROADMAP item "
+                         "19c")
     by, bx = _blocks(mesh, grid)
     hist = mesh.ext1(mesh.split(material_histogram(bm, n_materials),
                                 BLK3), nd=3)  # (my, mx, by+2, bx+2, NMAT)

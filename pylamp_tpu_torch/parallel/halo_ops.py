@@ -23,6 +23,12 @@ Periodic side walls: the x exchanges become a ring over the torus seam,
 and the duplicated seam columns (0 and nx) each carry half the wrapped
 equation, as the global operators do (ops/stokes.py, ops/energy.py).
 
+Both operators take and return sharded fields (``parallel/blocks.py
+Blocks``: the interior block and the seam strips above), and run their
+bodies on them as they are (``mesh.local_map``); global tensors (the
+in-process mesh's global layout) are split on the way in and gathered on
+the way out.
+
 ``stokes_operator_halo(use_pallas=True)`` runs each shard's stencil
 arithmetic through the per-shard saddle kernel (ops/kernels/saddle_block,
 the counterpart of the reference's block_stencil_kernel) on blocks that
@@ -37,7 +43,8 @@ import torch
 from pylamp_tpu_torch.core.bc import DIRICHLET, ThermalBCs, VelocityBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.kernels import saddle_block
-from pylamp_tpu_torch.parallel.mesh import P, Mesh
+from pylamp_tpu_torch.parallel.blocks import Blocks
+from pylamp_tpu_torch.parallel.mesh import Mesh
 
 
 def halo_eligible(grid: StaggeredGrid, mesh: Mesh) -> bool:
@@ -83,7 +90,16 @@ def stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
     """Explicit-halo application of the Stokes operator; the same stencil
     and BC ghosts as ops.stokes.stokes_operator.  ``p=None`` applies the
     momentum block alone (the MG applies) and returns (rx, ry, None).
-    ``use_pallas``: the per-shard saddle kernel on eligible blocks."""
+    ``use_pallas``: the per-shard saddle kernel on eligible blocks.
+    Sharded fields in, sharded fields out; global tensors in, global
+    out."""
+    if not isinstance(vx, Blocks):
+        locs = ("vx", "vy", "center", "corner", "center")
+        out = stokes_operator_halo(
+            *(None if a is None else Blocks.split(a, loc, mesh)
+              for a, loc in zip((vx, vy, p, eta_s, eta_n), locs)),
+            grid, bcs, mesh, kcont=kcont, kbnd=kbnd, use_pallas=use_pallas)
+        return tuple(None if r is None else r.gather() for r in out)
     periodic = bcs.periodic_x
     my, mx = mesh.my, mesh.mx
     by, bx = grid.ny // my, grid.nx // mx
@@ -168,21 +184,14 @@ def stokes_operator_halo(vx, vy, p, eta_s, eta_n, grid: StaggeredGrid,
         rxI = torch.where(seam, kbnd * vxI, rx_blk)
         return rxI, ryI, rc, None
 
-    blk = P("y", "x")
-    body = mesh.shard_map(
-        local,
-        in_specs=(blk, P("y", None), blk, P(None, "x"), blk, P("y", None),
-                  P(None, "x"), P(None, None), blk, blk),
-        out_specs=(blk, blk, blk if with_p else (), P("y", None)))
-    rxI, ryI, rc, rseam = body(
-        vx[:, :-1], vx[:, -1:], vy[:-1, :], vy[-1:, :],
-        eta_s[:-1, :-1], eta_s[:-1, -1:], eta_s[-1:, :-1], eta_s[-1:, -1:],
-        eta_n, p)
-    # seam outputs, assembled outside the body: the Dirichlet rows, or the
-    # wrapped half-equation (periodic)
-    rx = torch.cat([rxI, rseam if periodic else kbnd * vx[:, -1:]], dim=1)
-    ry = torch.cat([ryI, kbnd * vy[-1:, :]], dim=0)
-    return rx, ry, (rc if with_p else None)
+    rxI, ryI, rc, rseam = mesh.local_map(local)(
+        vx.I, vx.R, vy.I, vy.B, eta_s.I, eta_s.R, eta_s.B, eta_s.C, eta_n.I,
+        p.I if with_p else None)
+    # seam outputs: the Dirichlet rows, or the wrapped half-equation
+    # (periodic, psum-reduced in the body)
+    rx = Blocks(mesh, "vx", rxI, rseam if periodic else kbnd * vx.R)
+    ry = Blocks(mesh, "vy", ryI, B=kbnd * vy.B)
+    return rx, ry, (Blocks(mesh, "center", rc) if with_p else None)
 
 
 # -- Energy -------------------------------------------------------------------
@@ -196,6 +205,30 @@ def _favg(a, b, mode: str):
     raise ValueError(f"unknown k averaging mode {mode!r}")
 
 
+def corner_frames(mesh: Mesh, fields, periodic: bool):
+    """Per corner-lattice field (I, R, B, C pieces): the (by+2, bx+2) frame
+    of its block and the y-extended right strip (by+2, 1): mirror ghosts
+    beyond the domain (a ring wrap in x under periodic), true last-node
+    values (R/B/C strips) at the seams.  Every halo in one exchange
+    round."""
+    I0 = fields[0][0]
+    ix = mesh.axis_index("x", device=I0.device)
+    first_x, last_x = ix == 0, ix == mesh.mx - 1
+    got = iter(mesh.halos(*(
+        f for I, R, B, C in fields
+        for f in ((I, 1, 1, 1, 1, I[..., 1:2, :], B, periodic),
+                  (R, 1, 1, 0, 0, R[..., 1:2, :], C, False)))))
+    out = []
+    for _ in fields:
+        rw, left, right = next(got)
+        R_ext = next(got)[0]
+        if not periodic:
+            left = torch.where(first_x, rw[..., 1:2], left)  # reflect
+        right = torch.where(last_x, R_ext, right)  # true col nx
+        out.append((_cols(left, rw, right), R_ext))
+    return out
+
+
 def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
                          bcs: ThermalBCs, mesh: Mesh, kbnd=1.0,
                          k_avg: str = "arithmetic"):
@@ -205,20 +238,26 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
     the torus seam; the duplicated seam columns (0 and nx) each carry half
     the wrapped equation, with the col-nx equation computed on the
     leftmost blocks, which hold every value its stencil reads (the west
-    ring halo, col nx-1; their own col 1; the replicated R/C strips)."""
+    ring halo, col nx-1; their own col 1; the replicated R/C strips).
+    Sharded fields in, a sharded field out (``rhocp_over_dt`` a field or
+    a scalar); global tensors in, global out."""
+    if not isinstance(T, Blocks):
+        rc = torch.as_tensor(rhocp_over_dt, dtype=T.dtype,
+                             device=T.device).expand(T.shape)
+        return energy_operator_halo(
+            *(Blocks.split(a, "corner", mesh) for a in (T, k, rc)), grid,
+            bcs, mesh, kbnd=kbnd, k_avg=k_avg).gather()
+    if not isinstance(rhocp_over_dt, Blocks):
+        rhocp_over_dt = T.map(lambda q: torch.as_tensor(
+            rhocp_over_dt, dtype=q.dtype, device=q.device).expand(q.shape))
     periodic = bcs.periodic_x
     my, mx = mesh.my, mesh.mx
     dx, dy = grid.dx, grid.dy
     dev = T.device
-    rc_arr = torch.as_tensor(rhocp_over_dt, dtype=T.dtype,
-                             device=dev).expand(T.shape)
     top_dir = bcs.top.kind == DIRICHLET
     bottom_dir = bcs.bottom.kind == DIRICHLET
     left_dir = (not periodic) and bcs.left.kind == DIRICHLET
     right_dir = (not periodic) and bcs.right.kind == DIRICHLET
-
-    def split(f):
-        return f[:-1, :-1], f[:-1, -1:], f[-1:, :-1], f[-1:, -1:]
 
     def local(TI, TR, TB, TC, kI, kR, kB, kC, cI, cR, cB, cC):
         iy = mesh.axis_index("y", device=dev)
@@ -227,28 +266,8 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
         first_x, last_x = ix == 0, ix == mx - 1
         by, bx = TI.shape[-2:]
 
-        def ext_corner(fields):
-            """Per (I, R, B, C) field: the (by+2, bx+2) frame + the
-            y-extended right strip (by+2, 1): mirror ghosts beyond the
-            domain (a ring wrap in x under periodic), true last-node values
-            (R/B/C strips) at the seams.  Every halo in one exchange
-            round."""
-            got = iter(mesh.halos(*(
-                f for I, R, B, C in fields
-                for f in ((I, 1, 1, 1, 1, I[..., 1:2, :], B, periodic),
-                          (R, 1, 1, 0, 0, R[..., 1:2, :], C, False)))))
-            out = []
-            for _ in fields:
-                rw, left, right = next(got)
-                R_ext = next(got)[0]
-                if not periodic:
-                    left = torch.where(first_x, rw[..., 1:2], left)  # reflect
-                right = torch.where(last_x, R_ext, right)  # true col nx
-                out.append((_cols(left, rw, right), R_ext))
-            return out
-
-        (T_ext, TR_ext), (k_ext, kR_ext) = ext_corner(
-            ((TI, TR, TB, TC), (kI, kR, kB, kC)))
+        (T_ext, TR_ext), (k_ext, kR_ext) = corner_frames(
+            mesh, ((TI, TR, TB, TC), (kI, kR, kB, kC)), periodic)
 
         kx = _favg(k_ext[..., :-1], k_ext[..., 1:], k_avg)
         fx = kx * (T_ext[..., 1:] - T_ext[..., :-1]) / dx
@@ -357,10 +376,6 @@ def energy_operator_halo(T, k, rhocp_over_dt, grid: StaggeredGrid,
             (torch.where(here, rC_blk, torch.zeros_like(rC_blk)), ("y", "x")))
         return rI_out, rR_out, rB_out, rC_out
 
-    blk = P("y", "x")
-    specs4 = (blk, P("y", None), P(None, "x"), P(None, None))
-    rI, rR, rB, rC = mesh.shard_map(local, specs4 * 3, specs4)(
-        *split(T), *split(k), *split(rc_arr))
-    top = torch.cat([rI, rR], dim=1)
-    bot = torch.cat([rB, rC], dim=1)
-    return torch.cat([top, bot], dim=0)
+    return Blocks(mesh, "corner", *mesh.local_map(local)(
+        *(getattr(f, n) for f in (T, k, rhocp_over_dt)
+          for n in ("I", "R", "B", "C"))))

@@ -14,6 +14,10 @@ column nx, vy row ny) evolve by the same pointwise kbnd recurrence in two
 places that agree: inside the frames of the shards that carry them, and
 globally here, to assemble the output strips.
 
+The smoother takes and returns sharded fields (``parallel/blocks.py
+Blocks``: the blocks the kernel writes and the seam strips the
+recurrence evolves) or global tensors, which it splits and gathers.
+
 Viscosity frames, wall flags, the coefficient table and kbnd are per-solve
 constants: ``prep_halo_smoother`` builds them once per level per solve and
 the per-sweep call exchanges only the four evolving fields.
@@ -30,8 +34,9 @@ from pylamp_tpu_torch.ops.kernels.cheb_block import (
     block_smoother_eligible,
     cheb_block,
 )
+from pylamp_tpu_torch.parallel.blocks import Blocks
 from pylamp_tpu_torch.parallel.halo_ops import halo_eligible
-from pylamp_tpu_torch.parallel.mesh import P, Mesh
+from pylamp_tpu_torch.parallel.mesh import Mesh
 
 
 def halo_smoother_eligible(grid: StaggeredGrid, mesh: Mesh, bcs: VelocityBCs,
@@ -65,7 +70,8 @@ def prep_halo_smoother(eta_s, eta_n, grid: StaggeredGrid, mesh: Mesh, h: int,
                        kbnd, lam_max) -> BlockSmootherPrep:
     """The per-shard viscosity frames (edge-replicated beyond the walls,
     true last-node strips at the seams), the wall flags, the Chebyshev
-    table for depth h and kbnd, once per level per solve."""
+    table for depth h and kbnd, once per level per solve.  The viscosities
+    are sharded fields or global tensors."""
     my, mx = mesh.my, mesh.mx
     by, bx = grid.ny // my, grid.nx // mx
     f32 = torch.float32
@@ -96,11 +102,11 @@ def prep_halo_smoother(eta_s, eta_n, grid: StaggeredGrid, mesh: Mesh, h: int,
         en_v = torch.cat([left, rows_n, right], dim=-1)
         return mesh.flat(es_v), mesh.flat(en_v)
 
-    blk = P("y", "x")
-    es_v, en_v = local(*(mesh.split(a.to(f32), s) for a, s in zip(
-        (eta_s[:-1, :-1], eta_s[:-1, -1:], eta_s[-1:, :-1], eta_s[-1:, -1:],
-         eta_n),
-        (blk, P("y", None), P(None, "x"), P(None, None), blk))))
+    if not isinstance(eta_s, Blocks):
+        eta_s = Blocks.split(eta_s, "corner", mesh)
+        eta_n = Blocks.split(eta_n, "center", mesh)
+    es, en = eta_s.to(f32), eta_n.to(f32)
+    es_v, en_v = mesh.local_map(local)(es.I, es.R, es.B, es.C, en.I)
     return BlockSmootherPrep(
         es_v=es_v, en_v=en_v, flags=mesh.wall_flags(device=dev),
         coeffs=cheb.chebyshev_coeffs(lam_max, h).to(dev),
@@ -109,9 +115,10 @@ def prep_halo_smoother(eta_s, eta_n, grid: StaggeredGrid, mesh: Mesh, h: int,
 
 
 def smoother_frames(ex, ey, rx, ry, bcs: VelocityBCs, mesh: Mesh, h: int):
-    """The per-shard depth-h frames of the four evolving fields, flat
-    (S, ...) f32: (ex_v, ey_v, rx_v, ry_v).  Velocity frames carry the wall
-    ghost layer; residual frames are zero beyond the walls."""
+    """The per-shard depth-h frames of the four evolving fields (sharded,
+    or global tensors, split here), flat (S, ...) f32: (ex_v, ey_v, rx_v,
+    ry_v).  Velocity frames carry the wall ghost layer; residual frames
+    are zero beyond the walls."""
     mx = mesh.mx
     dev = rx.device
 
@@ -168,14 +175,12 @@ def smoother_frames(ex, ey, rx, ry, bcs: VelocityBCs, mesh: Mesh, h: int):
         ry_v = ext_vy(*next(got), False)
         return tuple(mesh.flat(f) for f in (ex_v, ey_v, rx_v, ry_v))
 
-    blk = P("y", "x")
-    f32 = torch.float32
-    ex, ey, rx, ry = (a.to(f32) for a in (ex, ey, rx, ry))
-    return local(*(mesh.split(a, s) for a, s in zip(
-        (ex[:, :-1], ex[:, -1:], rx[:, :-1], rx[:, -1:],
-         ey[:-1, :], ey[-1:, :], ry[:-1, :], ry[-1:, :]),
-        (blk, P("y", None), blk, P("y", None),
-         blk, P(None, "x"), blk, P(None, "x")))))
+    if not isinstance(ex, Blocks):
+        ex, rx = (Blocks.split(a, "vx", mesh) for a in (ex, rx))
+        ey, ry = (Blocks.split(a, "vy", mesh) for a in (ey, ry))
+    ex, ey, rx, ry = (a.to(torch.float32) for a in (ex, ey, rx, ry))
+    return mesh.local_map(local)(ex.I, ex.R, rx.I, rx.R, ey.I, ey.B, ry.I,
+                                 ry.B)
 
 
 def chebyshev_smooth_halo(ex, ey, rx, ry, grid: StaggeredGrid,
@@ -185,7 +190,14 @@ def chebyshev_smooth_halo(ex, ey, rx, ry, grid: StaggeredGrid,
                           emit_residual: bool = False):
     """Fused per-shard ``iters``-iteration Chebyshev sweep; drop-in for the
     MG smoother.  Returns (ex', ey') or (ex', ey', rx - A ex', ry - A ey')
-    in f32.  ``kbnd`` and ``lam_max`` are those ``prepped`` froze."""
+    in f32, sharded fields or global tensors as the inputs.  ``kbnd`` and
+    ``lam_max`` are those ``prepped`` froze."""
+    if not isinstance(ex, Blocks):
+        out = chebyshev_smooth_halo(
+            *(Blocks.split(a, loc, mesh) for a, loc in zip(
+                (ex, ey, rx, ry), ("vx", "vy", "vx", "vy"))), grid, bcs,
+            kbnd, lam_max, iters, mesh, prepped, zero_init, emit_residual)
+        return tuple(o.gather() for o in out)
     f32 = torch.float32
     ex, ey, rx, ry = (a.to(f32) for a in (ex, ey, rx, ry))
     prep = prepped
@@ -195,9 +207,8 @@ def chebyshev_smooth_halo(ex, ey, rx, ry, grid: StaggeredGrid,
         raise ValueError(f"sweep of {iters} (+emit) on frames of depth "
                          f"{prep.h}")
     frames = smoother_frames(ex, ey, rx, ry, bcs, mesh, prep.h)
-    outs = mesh.gather_many(*(
-        (mesh.unflat(o), P("y", "x")) for o in cheb_block(
-            *frames, prep, grid, bcs, iters, zero_init, emit_residual)))
+    outs = [mesh.unflat(o) for o in cheb_block(
+        *frames, prep, grid, bcs, iters, zero_init, emit_residual)]
 
     # seam strips: the pointwise kbnd recurrence (identical to the in-frame
     # Dirichlet evolution, see the module docstring)
@@ -215,14 +226,12 @@ def chebyshev_smooth_halo(ex, ey, rx, ry, grid: StaggeredGrid,
             s = s + d
         return s
 
-    sx = seam_rec(torch.zeros_like(ex[:, -1:]) if zero_init else ex[:, -1:],
-                  rx[:, -1:])
-    sy = seam_rec(torch.zeros_like(ey[-1:, :]) if zero_init else ey[-1:, :],
-                  ry[-1:, :])
-    ex_new = torch.cat([outs[0], sx], dim=1)
-    ey_new = torch.cat([outs[1], sy], dim=0)
+    sx = seam_rec(torch.zeros_like(ex.R) if zero_init else ex.R, rx.R)
+    sy = seam_rec(torch.zeros_like(ey.B) if zero_init else ey.B, ry.B)
+    ex_new = Blocks(mesh, "vx", outs[0], sx)
+    ey_new = Blocks(mesh, "vy", outs[1], B=sy)
     if not emit_residual:
         return ex_new, ey_new
-    rfx = torch.cat([outs[2], rx[:, -1:] - kb * sx], dim=1)
-    rfy = torch.cat([outs[3], ry[-1:, :] - kb * sy], dim=0)
+    rfx = Blocks(mesh, "vx", outs[2], rx.R - kb * sx)
+    rfy = Blocks(mesh, "vy", outs[3], B=ry.B - kb * sy)
     return ex_new, ey_new, rfx, rfy

@@ -1,11 +1,23 @@
 """Device mesh: 2-D domain decomposition, with two transports.
 
-Port of ``pylamp_tpu/parallel/mesh.py`` (``make_mesh``) and of the
-``shard_map`` engine its explicit-halo modules run under.  A mesh of
-``my x mx`` shards has axes ("y", "x"); the state stays GLOBAL (every
-caller holds whole tensors) and only the shard bodies see blocks.  A body
-sees its shards as two leading batch dimensions: a global (ny, nx[, K])
-tensor split ``P("y", "x")`` becomes a (*local_shape, by, bx[, K]) view.
+Port of ``pylamp_tpu/parallel/mesh.py`` (``make_mesh``, ``state_shardings``,
+``shard_state``) and of the ``shard_map`` engine its explicit-halo modules
+run under.  A mesh of ``my x mx`` shards has axes ("y", "x").  A shard
+body sees its shards as two leading batch dimensions: a global
+(ny, nx[, K]) tensor split ``P("y", "x")`` becomes a (*local_shape, by,
+bx[, K]) view.
+
+The state comes in two layouts.  GLOBAL: every caller holds whole
+tensors and only the shard bodies see blocks (``shard_map``: split, the
+body, gather); the in-process mesh runs every configuration this way.
+SHARDED (``shard_state``, the counterpart of the reference's
+``shard_state``): every field is a ``parallel/blocks.py Blocks``, each
+shard holding its block and the seam strips of its mesh row / column,
+the markers a (by, bx, K) block, scalars replicated; the bodies run on
+the blocks as they are (``local_map``), reductions are per-shard partials
+summed over the mesh, and nothing is gathered inside a step but the MG
+levels the solver replicates.  Both transports take the sharded layout;
+a distributed mesh takes nothing else.
 
 Two transports share one interface:
 
@@ -16,13 +28,13 @@ Two transports share one interface:
   over all of them.
 - ``parallel/dist.py DistMesh``: one rank of a ``my x mx``
   torch.distributed world, one shard per rank.  ``local_shape`` is (1, 1);
-  the exchanges are point-to-point messages, ``psum`` and the reassembly
+  the exchanges are point-to-point messages, ``psum`` / ``pmax`` small
   collectives (see there).
 
 ``my`` / ``mx`` / ``shape`` / ``size`` are the GLOBAL mesh (block sizes are
 ``grid.ny // mesh.my``); ``local_shape`` / ``n_local`` are the shards this
 process computes (the batch dimensions of a body, the leading dimension of
-the per-shard kernels' flat layout).
+the per-shard kernels' flat layout), ``local_shards`` their indices.
 
 Specs (``P`` below) follow ``jax.sharding.PartitionSpec`` over the leading
 dimensions of a tensor: ``P("y", "x")`` splits both, ``P("y", None)``
@@ -36,14 +48,11 @@ along one mesh axis: ``from_prev`` / ``from_next`` deliver the (i-1) /
 (i+1) neighbour's payload, edge shards receive zeros, and ``ring=True``
 wraps.  ``exchange`` runs several of them as one round (one message per
 neighbour under a distributed transport), and ``halos`` a body's 2-D
-halos in one such round (the corners from the diagonal neighbours).  ``psum`` sums over one or both
-axes and hands every shard the sum; ``axis_index`` returns broadcastable
-index tensors, so a ``jnp.where(iy == 0, ...)`` of the reference becomes a
-broadcast mask.
-
-``state_shardings`` / ``shard_state`` have no counterpart: under either
-transport the state stays global (replicated on every rank under
-``DistMesh``), and only the shard bodies see blocks.
+halos in one such round (the corners from the diagonal neighbours).
+``psum`` sums over one or both axes and hands every shard the sum,
+``pmax`` the maximum; ``axis_index`` returns broadcastable index tensors,
+so a ``jnp.where(iy == 0, ...)`` of the reference becomes a broadcast
+mask.
 """
 from __future__ import annotations
 
@@ -75,6 +84,9 @@ class Mesh:
 
     my: int
     mx: int
+
+    # one process of a torch.distributed world (parallel/dist.py)
+    distributed = False
 
     @property
     def shape(self):
@@ -108,6 +120,13 @@ class Mesh:
 
     def barrier(self):
         """Wait for every process of the mesh (none in-process)."""
+
+    def local_shards(self):
+        """(li, lj, iy, ix) of every shard this process computes: its
+        index in the local batch dimensions and on the mesh, in the flat
+        (row-major) shard order."""
+        return [(iy, ix, iy, ix) for iy in range(self.my)
+                for ix in range(self.mx)]
 
     def _dim(self, axis: str) -> int:
         return AXES.index(axis)
@@ -153,17 +172,29 @@ class Mesh:
         v = b.permute(0, 2, 1, 3, *range(4, b.dim()))
         return v.reshape(a0 * b0, a1 * b1, *b.shape[4:])
 
-    def gather_many(self, *pairs):
+    def gather_many(self, *pairs, root=None, kind: str = "block"):
         """``gather`` of several (block tensor, spec) pairs: one collective
-        under a distributed transport."""
+        under a distributed transport, which hands the global tensors to
+        rank ``root`` only where one is named (None elsewhere) and counts
+        the collective under ``kind``."""
         return [self.gather(b, s) for b, s in pairs]
 
+    def local_map(self, body):
+        """``body`` on arguments that are already split (shard-batched
+        blocks, or scalars): no split, no gather; its outputs stay
+        blocks."""
+        def run(*blocks):
+            return body(*(self._full(b) if torch.is_tensor(b) and b.dim() >= 2
+                          else b for b in blocks))
+        return run
+
     def shard_map(self, body, in_specs, out_specs):
-        """``body`` over shard-batched arguments: split each argument by
-        its in-spec, call the body once with every local shard, reassemble
-        each output by its out-spec."""
+        """``body`` over global arguments: split each argument by its
+        in-spec, ``local_map`` the body, reassemble each output by its
+        out-spec."""
         def run(*args):
-            outs = body(*(self.split(a, s) for a, s in zip(args, in_specs)))
+            outs = self.local_map(body)(
+                *(self.split(a, s) for a, s in zip(args, in_specs)))
             if isinstance(out_specs, tuple) and out_specs and \
                     isinstance(out_specs[0], tuple):
                 return tuple(self.gather_many(*zip(outs, out_specs)))
@@ -328,6 +359,27 @@ class Mesh:
         distributed transport."""
         return [self.psum(x, axes) for x, axes in pairs]
 
+    def pmax(self, x, axes):
+        """The maximum over the mesh ``axes``, replicated back to every
+        shard (exact in any order)."""
+        x = self._full(x)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = tuple(self._dim(a) for a in axes)
+        return self._full(torch.amax(x, dim=dims, keepdim=True))
+
+    def total(self, partials, op: str = "sum"):
+        """The mesh-wide "sum", "max" or "min" of per-shard ``partials``
+        (*local_shape, ...): one small collective under a distributed
+        transport; the sum runs in ``psum``'s flat shard order."""
+        both = ("y", "x")
+        if op == "sum":
+            return self.psum(partials, both)[0, 0]
+        if op == "max":
+            return self.pmax(partials, both)[0, 0]
+        if op == "min":
+            return -self.pmax(-partials, both)[0, 0]
+        raise ValueError(f"unknown mesh reduction {op!r}")
+
     def ext1(self, block, nd: int = 2, ring_x: bool = False):
         """``block`` (rows and cols at dims -nd and -nd+1) with one ring of
         neighbour data around it, zeros beyond the domain (``ring_x``: the
@@ -384,3 +436,81 @@ def parse_mesh(spec: str) -> Mesh:
     except ValueError:
         raise ValueError(f"--mesh {spec!r}: expected YxX, e.g. 4x2") from None
     return Mesh(my, mx)
+
+
+# -- the sharded state ---------------------------------------------------------
+
+# the lattice of each ModelState field
+STATE_LOCS = {"vx": "vx", "vy": "vy", "p": "center", "T": "corner",
+              "eta_s": "corner", "eta_n": "center"}
+
+
+def state_specs(state, mesh: Mesh) -> dict:
+    """The sharded layout of ``state`` by checkpoint name
+    (``bridge.state_leaves``): a lattice field's pieces and their specs
+    (``parallel/blocks.py``), the markers' ``P("y", "x", None)``, and
+    ``P()`` for the replicated scalars and ``mg_lam``.  The port's
+    counterpart of the reference's ``state_shardings``."""
+    from pylamp_tpu_torch.bridge import state_leaves
+    from pylamp_tpu_torch.parallel.blocks import EXTRA, SPECS
+
+    out = {}
+    for key in state_leaves(state):
+        name = key[len("state."):]
+        if name.startswith("markers."):
+            out[key] = P("y", "x", None)
+        elif name in STATE_LOCS:
+            ey, ex = EXTRA[STATE_LOCS[name]]
+            out[key] = {n: SPECS[n] for n, keep in (
+                ("I", True), ("R", ex), ("B", ey), ("C", ex and ey)) if keep}
+        else:
+            out[key] = P()
+    return out
+
+
+def shard_state(state, mesh: Mesh, device=None):
+    """``state`` (global tensors, on the host or any device) in the
+    sharded layout: each field this process's blocks and strips as fresh
+    tensors on ``device`` (default the state's), so that the global
+    tensors can go; no message."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    device = torch.device(device) if device is not None else state.vx.device
+
+    def own(p):
+        return p.to(device).clone(memory_format=torch.contiguous_format)
+
+    def field(a, loc):
+        return Blocks.split(a, loc, mesh).map(own)
+
+    m = state.markers
+    markers = m.replace(**{f: field(getattr(m, f), "center") for f in (
+        "x", "y", "mat", "T", "valid")})
+    return state.replace(
+        markers=markers,
+        **{f: field(getattr(state, f), loc) for f, loc in STATE_LOCS.items()},
+        **{f: None if getattr(state, f) is None else own(getattr(state, f))
+           for f in ("time", "step", "dt", "mg_lam")})
+
+
+def unshard_state(state, mesh: Mesh, root=None):
+    """The global state of a sharded ``state`` (one collective under a
+    distributed mesh; with ``root`` only that rank gets it, the others
+    None).  For files and checks, never inside a step."""
+    from pylamp_tpu_torch.parallel.blocks import gather_all
+
+    m = state.markers
+    names = ("x", "y", "mat", "T", "valid")
+    got = gather_all([getattr(m, f) for f in names]
+                     + [getattr(state, f) for f in STATE_LOCS], root)
+    if got[0] is None:
+        return None
+    return state.replace(markers=m.replace(**dict(zip(names, got))),
+                         **dict(zip(STATE_LOCS, got[len(names):])))
+
+
+def is_sharded(state) -> bool:
+    """Whether ``state`` is in the sharded layout."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    return isinstance(state.vx, Blocks)

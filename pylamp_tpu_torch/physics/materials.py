@@ -73,8 +73,7 @@ class MaterialTable:
         """id -> per-material value as a select chain (uniform columns
         collapse to a constant), like the reference."""
         v = np.asarray(vals)
-        out = torch.full(mat_id.shape, float(v[0]), dtype=dtype,
-                         device=mat_id.device)
+        out = torch.full_like(mat_id, float(v[0]), dtype=dtype)
         for m in range(1, len(v)):
             if v[m] != v[0]:
                 out = torch.where(mat_id == m,

@@ -8,7 +8,9 @@ approximately SPD, with flexible CG.  ``halo_mesh`` routes every operator
 application through the explicit-halo energy operator
 (parallel/halo_ops.py).  A stretched grid takes the variable-spacing
 operator, rhs and diagonal (ops/stretched.py); the Dirichlet row scale
-comes from the smallest cell.
+comes from the smallest cell.  Sharded fields (parallel/blocks.py) take
+the explicit-halo operator, the block rhs and Jacobi diagonal, and CG
+with mesh dots.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ class EnergySolution(NamedTuple):
 
 def energy_diagonal(k, rhocp_over_dt, grid: StaggeredGrid, bcs: ThermalBCs,
                     kbnd, k_avg):
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(k, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.energy_diagonal(k, rhocp_over_dt, grid, bcs, kbnd,
+                                         k_avg)
     if not grid.uniform:
         from pylamp_tpu_torch.ops.stretched import energy_diagonal_stretched
 

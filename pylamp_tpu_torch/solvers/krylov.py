@@ -16,6 +16,13 @@ its small Hessenberg / Givens least-squares problem on the host in f64;
 the Krylov basis, the operator and the preconditioner stay on the device.
 ``fcg_fixed`` is FCG for a fixed, small iteration count with no host read
 (the inner solves of the w-BFBT Schur surrogate).
+
+Sharded vectors (leaves that are ``parallel/blocks.py Blocks``) take the
+same loops: every dot (``tdot``, FGMRES's Gram-Schmidt column and its
+norm) is a per-shard partial summed over the mesh in the in-process shard
+order, one small collective each, and FGMRES keeps its basis as a list
+of vectors, projecting and combining them one after the other.  Plain
+tensors run exactly as on one device.
 """
 from __future__ import annotations
 
@@ -45,8 +52,19 @@ def leaves(tree):
     return tree if isinstance(tree, tuple) else (tree,)
 
 
+def _sharded(tree) -> bool:
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    return isinstance(leaves(tree)[0], Blocks)
+
+
 def tdot(a, b):
-    """Global dot product (0-d tensor)."""
+    """Global dot product (0-d tensor): a mesh reduction of sharded
+    vectors."""
+    if _sharded(a):
+        from pylamp_tpu_torch.parallel.blocks import dots
+
+        return dots([(a, b)])[0]
     return sum(torch.vdot(x.reshape(-1), y.reshape(-1))
                for x, y in zip(leaves(a), leaves(b)))
 
@@ -186,6 +204,61 @@ def _back_substitute(H, g):
     return y
 
 
+class _StackedBasis:
+    """FGMRES's basis of plain tensors: each leaf's m + 1 rows in one
+    tensor, projected and combined by one matrix product."""
+
+    def __init__(self, b, m: int):
+        # rows are written before they are read (V[:k+1], Z[:k])
+        self.tuple = isinstance(b, tuple)
+        self.V = tuple(torch.empty((m + 1,) + l.shape, dtype=l.dtype,
+                                   device=l.device) for l in leaves(b))
+
+    def _pack(self, tree_leaves):
+        return tuple(tree_leaves) if self.tuple else tree_leaves[0]
+
+    def set(self, j, v):
+        for Vl, vl in zip(self.V, leaves(v)):
+            Vl[j] = vl
+
+    def get(self, j):
+        return self._pack([Vl[j] for Vl in self.V])
+
+    def dots(self, n, w):
+        return sum(Vl[:n].reshape(n, -1) @ wl.reshape(-1)
+                   for Vl, wl in zip(self.V, leaves(w)))
+
+    def combine(self, n, c):
+        return self._pack([(c @ Vl[:n].reshape(n, -1)).reshape(Vl.shape[1:])
+                           for Vl in self.V])
+
+
+class _ListBasis:
+    """FGMRES's basis of sharded vectors: a list of them, projected by one
+    mesh reduction of per-shard dots and combined one row after the
+    other."""
+
+    def __init__(self, b, m: int):
+        self.rows = [None] * (m + 1)
+
+    def set(self, j, v):
+        self.rows[j] = v
+
+    def get(self, j):
+        return self.rows[j]
+
+    def dots(self, n, w):
+        from pylamp_tpu_torch.parallel.blocks import dots
+
+        return dots([(v, w) for v in self.rows[:n]])
+
+    def combine(self, n, c):
+        acc = tmap(lambda vl: c[0] * vl, self.rows[0])
+        for j in range(1, n):
+            acc = taxpy(c[j], self.rows[j], acc)
+        return acc
+
+
 def fgmres(op: Callable, b: Any, x0: Any, M: Callable | None = None,
            tol: float = 1e-8, atol: float = 0.0, restart: int = 30,
            maxiter: int = 1000, stagnation: float = 0.95,
@@ -201,23 +274,13 @@ def fgmres(op: Callable, b: Any, x0: Any, M: Callable | None = None,
     target = max(tol * bnorm, atol)
     dtype = leaves(b)[0].dtype
 
-    def basis():
-        # rows are written before they are read (V[:k+1], Z[:k])
-        return tuple(torch.empty((m + 1,) + l.shape, dtype=l.dtype,
-                                 device=l.device) for l in leaves(b))
-
-    def row(V, j):
-        return tuple(Vl[j] for Vl in V)
-
-    def pack(tree_leaves):
-        return tree_leaves if isinstance(b, tuple) else tree_leaves[0]
+    basis = _ListBasis if _sharded(b) else _StackedBasis
 
     def inner_cycle(x, r, beta):
-        V = basis()
-        Z = basis()
+        V = basis(b, m)
+        Z = basis(b, m)
         inv = 1.0 / beta if beta > 0 else 0.0
-        for Vl, rl in zip(V, leaves(r)):
-            Vl[0] = rl * inv
+        V.set(0, tmap(lambda rl: rl * inv, r))
         H = np.zeros((m + 1, m))
         cs = np.zeros(m)
         sn = np.zeros(m)
@@ -226,24 +289,18 @@ def fgmres(op: Callable, b: Any, x0: Any, M: Callable | None = None,
         k = 0
         res = beta
         while k < m and res > target:
-            z = M(pack(row(V, k)))
-            for Zl, zl in zip(Z, leaves(z)):
-                Zl[k] = zl
-            w = leaves(op(z))
+            z = M(V.get(k))
+            Z.set(k, z)
+            w = op(z)
             # CGS(1|2) against V[0..k]: batched dots + one combination
             h = None
             for _ in range(max(1, cgs_passes)):
-                hp = sum(Vl[: k + 1].reshape(k + 1, -1) @ wl.reshape(-1)
-                         for Vl, wl in zip(V, w))
-                w = tuple(wl - (hp @ Vl[: k + 1].reshape(k + 1, -1)
-                                ).reshape(wl.shape)
-                          for Vl, wl in zip(V, w))
+                hp = V.dots(k + 1, w)
+                w = tsub(w, V.combine(k + 1, hp))
                 h = hp if h is None else h + hp
-            hk1 = torch.sqrt(sum(torch.vdot(wl.reshape(-1), wl.reshape(-1))
-                                 for wl in w))
+            hk1 = tnorm(w)
             inv_h = torch.where(hk1 > 0, 1.0 / hk1, torch.zeros_like(hk1))
-            for Vl, wl in zip(V, w):
-                Vl[k + 1] = inv_h * wl
+            V.set(k + 1, tmap(lambda wl: inv_h * wl, w))
             # the one host read of the iteration: the new Hessenberg column
             col = np.zeros(m + 1)
             col[: k + 2] = torch.cat([h, hk1.reshape(1)]).double().cpu().numpy()
@@ -267,9 +324,7 @@ def fgmres(op: Callable, b: Any, x0: Any, M: Callable | None = None,
         if k > 0:
             y = _back_substitute(H[:k, :k], g[:k])
             yd = torch.as_tensor(y, dtype=dtype).to(leaves(b)[0].device)
-            upd = tuple((yd @ Zl[:k].reshape(k, -1)).reshape(Zl.shape[1:])
-                        for Zl in Z)
-            x = pack(tuple(xl + ul for xl, ul in zip(leaves(x), upd)))
+            x = tmap(lambda xl, ul: xl + ul, x, Z.combine(k, yd))
         return x, k
 
     x = x0

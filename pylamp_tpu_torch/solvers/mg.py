@@ -45,6 +45,16 @@ through the per-shard fused smoother (parallel/halo_smoother.py); the
 single-device smoother and the fused coarse sub-V-cycle are off, as in the
 reference.
 
+On the sharded layout (viscosities that are ``parallel/blocks.py
+Blocks``) every level that decomposes over the mesh and lies above
+``coarse_replicate`` stays sharded: its coarsening, diagonals, smoother,
+applies and transfers run in block form (parallel/block_ops.py, one halo
+round a transfer).  Below the last such level, the residual is gathered
+once on the way down and restricted on the global tensors (one "coarse"
+collective), the correction is prolonged on the global tensors and split
+on the way up (no message), and every coarser level runs on the global
+tensors on every shard, the reference's replicated sub-hierarchy.
+
 ``scaled_transfers`` (diagonally scaled transfers) and ``ls_damp`` (a
 minimal-residual line search on each prolonged correction) are the
 reference's extreme-contrast stabilizers; either turns the fused coarse
@@ -63,6 +73,8 @@ from pylamp_tpu_torch.ops.kernels import cheb
 from pylamp_tpu_torch.ops.kernels import coarse_vcycle as cvk
 from pylamp_tpu_torch.ops.kernels import momentum
 from pylamp_tpu_torch.ops.stretched import pressure_gradient_stretched
+from pylamp_tpu_torch.parallel import block_ops
+from pylamp_tpu_torch.parallel.blocks import Blocks, gather_all
 from pylamp_tpu_torch.parallel.halo_ops import (
     halo_eligible,
     stokes_operator_halo,
@@ -94,6 +106,11 @@ from pylamp_tpu_torch.solvers.stokes_solver import (
 def coarsen_eta(eta_s, eta_n, cx: bool = True, cy: bool = True):
     """eta_n by geometric mean over the merged cells, eta_s by injection at
     the coincident corner nodes."""
+    if isinstance(eta_n, Blocks):
+        if not (cx and cy):
+            raise ValueError("semicoarsening on the sharded layout is "
+                             "ROADMAP item 19c")
+        return block_ops.coarsen_eta(eta_s, eta_n)
     if cx and cy:
         eta_n_c = torch.exp(
             0.25
@@ -286,9 +303,9 @@ def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, use_pallas=False,
     routes the apply through the explicit-halo operator (with
     ``use_pallas``, the per-shard saddle kernel's momentum-only form) or,
     on a level that does not decompose over the mesh, the plain apply on
-    the global tensors."""
-    if halo_mesh is not None:
-        if halo_eligible(grid, halo_mesh):
+    the global tensors.  Sharded fields take the explicit-halo apply."""
+    if isinstance(vx, Blocks) or halo_mesh is not None:
+        if isinstance(vx, Blocks) or halo_eligible(grid, halo_mesh):
             rx, ry, _ = stokes_operator_halo(
                 vx, vy, None, eta_s, eta_n, grid, bcs, halo_mesh, kbnd=kbnd,
                 use_pallas=use_pallas)
@@ -308,6 +325,8 @@ def _pressure_gradient(zp, grid, dtype, bcs: VelocityBCs | None = None):
     """G z_p: the +grad p part of the momentum rows (zero on the Dirichlet
     rows; periodic sides: the wrapped seam gradient, half in each seam
     column)."""
+    if isinstance(zp, Blocks):
+        return block_ops.pressure_gradient(zp, grid, dtype)
     if not grid.uniform:
         return pressure_gradient_stretched(zp, grid, dtype)
     gx_int = (zp[:, 1:] - zp[:, :-1]) / grid.dx
@@ -354,6 +373,8 @@ def gershgorin_lambda(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                       kbnd):
     """Rigorous Chebyshev upper bound on lambda_max(D^-1 A) for the coupled
     momentum operator from Gershgorin row sums (2 + cross/diag <= 3)."""
+    if isinstance(eta_n, Blocks):
+        return block_ops.gershgorin_lambda(eta_s, eta_n, grid, kbnd)
     dvx, dvy = velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs=bcs)
     dx, dy = grid.dx, grid.dy
     cross_vx = 2.0 * (eta_s[1:, 1:-1] + eta_s[:-1, 1:-1]) / (dx * dy)
@@ -363,13 +384,33 @@ def gershgorin_lambda(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     return 2.0 + torch.maximum(bx, by)
 
 
-def _hierarchy(eta_s, eta_n, grid, kbnd, levels, semicoarsen):
+def stays_sharded(grid: StaggeredGrid, mesh, coarse_replicate: int) -> bool:
+    """Whether a level of the sharded hierarchy stays in blocks: it
+    decomposes over the mesh and lies above ``coarse_replicate``."""
+    return halo_eligible(grid, mesh) and not (
+        coarse_replicate > 0 and min(grid.nx, grid.ny) <= coarse_replicate)
+
+
+def _coarsen_level(etas, grid_c, cx, cy, coarse_replicate):
+    """The next level's viscosities: in blocks while the level stays
+    sharded; for the first replicated level, the last sharded level
+    gathered once and coarsened on the global tensors."""
+    es, en = etas
+    if isinstance(en, Blocks) and not stays_sharded(grid_c, en.mesh,
+                                                    coarse_replicate):
+        es, en = gather_all([es, en], kind="coarse")
+    return coarsen_eta(es, en, cx=cx, cy=cy)
+
+
+def _hierarchy(eta_s, eta_n, grid, kbnd, levels, semicoarsen,
+               coarse_replicate: int = 0):
     plan = coarsening_plan(grid, levels, semi_threshold=semicoarsen)
     grids = [grid]
     etas = [(eta_s, eta_n)]
     for cx, cy in plan:
         grids.append(grids[-1].coarsen(cx, cy))
-        etas.append(coarsen_eta(*etas[-1], cx=cx, cy=cy))
+        etas.append(_coarsen_level(etas[-1], grids[-1], cx, cy,
+                                   coarse_replicate))
     # kbnd scales with 1/(dx*dy) like the stencil
     kbnds = [
         kbnd * (grids[0].dx_min * grids[0].dy_min) / (g.dx_min * g.dy_min)
@@ -418,7 +459,8 @@ def _level_lambda(apply, diags, grid: StaggeredGrid, device,
 def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
                         kbnd, levels: int = 0, semicoarsen: float = 0.0,
                         hint=None, fresh_iters: int = 12,
-                        refresh_iters: int = 2, mode: str = "power"):
+                        refresh_iters: int = 2, mode: str = "power",
+                        coarse_replicate: int = 0):
     """Per-level Chebyshev lambda_max bounds, (nlev,) tensor.
 
     ``mode="gershgorin"``: the analytic row-sum bound, no operator apply,
@@ -428,9 +470,11 @@ def estimate_mg_lambdas(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     (the previous bounds, e.g. ``ModelState.mg_lam``) switches levels with
     a positive entry from ``fresh_iters`` to ``refresh_iters`` iterations
     and floors the result at 0.995x the hint; choosing the counts reads
-    the hint on the host once."""
+    the hint on the host once.  Sharded viscosities: the sharded levels'
+    bounds are mesh maxima, ``coarse_replicate`` as in
+    ``make_velocity_mg``."""
     _, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
-                                       semicoarsen)
+                                       semicoarsen, coarse_replicate)
     dtype = eta_n.dtype
     positive = ([h > 0 for h in hint.to(dtype).tolist()]
                 if hint is not None else None)
@@ -500,9 +544,28 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     docstring)."""
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown MG smoother {smoother!r}")
+    if isinstance(eta_n, Blocks) and not stays_sharded(
+            grid, eta_n.mesh, coarse_replicate):
+        # the whole hierarchy replicated (the reference's constraint at
+        # level 0): the viscosities gathered once, each cycle's residual
+        # gathered and its correction split
+        mesh = eta_n.mesh
+        inner = make_velocity_mg(
+            *gather_all([eta_s, eta_n], kind="coarse"), grid, bcs, kbnd,
+            levels, pre_smooth, post_smooth, coarse_iters, smoother, omega,
+            semicoarsen, lam_max, eta_cap, use_pallas, use_pallas_smoother,
+            use_pallas_coarse, scaled_transfers, ls_damp, halo_mesh,
+            coarse_replicate)
+
+        def mg_replicated(rx, ry, emit=False):
+            out = inner(*gather_all([rx, ry], kind="coarse"), emit=emit)
+            return tuple(Blocks.split(o, loc, mesh) for o, loc in zip(
+                out, ("vx", "vy", "vx", "vy")))
+
+        return mg_replicated
     cheb_smoother = smoother == "chebyshev"
     plan, grids, etas, kbnds = _hierarchy(eta_s, eta_n, grid, kbnd, levels,
-                                          semicoarsen)
+                                          semicoarsen, coarse_replicate)
     if eta_cap > 0.0:
         etas = [etas[0]] + [(_cap_eta(es, eta_cap), _cap_eta(en, eta_cap))
                             for es, en in etas[1:]]
@@ -520,8 +583,9 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     hmesh = [
         None if halo_mesh is None or (
             coarse_replicate > 0 and min(g.nx, g.ny) <= coarse_replicate)
+        or (isinstance(eta_n, Blocks) and not isinstance(en, Blocks))
         else halo_mesh
-        for g in grids
+        for g, (_, en) in zip(grids, etas)
     ]
     # the momentum kernel's operands, once per level per solve
     preps = [
@@ -678,7 +742,10 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         ex, ey, rfx, rfy = smooth(l, ex, ey, rx, ry, pre_smooth,
                                   zero_init=True, emit_residual=True)
         pcx, pcy = plan[l]
-        if scaled_transfers:
+        if isinstance(rfx, Blocks):
+            ecx, ecy = vcycle(l + 1, *_down(l, rfx, rfy))
+            pex, pey = _up(l, ecx, ecy)
+        elif scaled_transfers:
             sfx, sfy = scales[l]
             scx, scy = scales[l + 1]
             ecx, ecy = vcycle(
@@ -708,6 +775,25 @@ def make_velocity_mg(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
         ex = ex + pex
         ey = ey + pey
         return smooth(l, ex, ey, rx, ry, post_smooth, emit_residual=emit)
+
+    def _down(l, rfx, rfy):
+        """Level l's sharded residual restricted into level l + 1's
+        layout: in blocks, or, where l + 1 is replicated, gathered once
+        and restricted on the global tensors."""
+        if isinstance(etas[l + 1][1], Blocks):
+            return block_ops.restrict(rfx, rfy, bcs)
+        rfx, rfy = gather_all([rfx, rfy], kind="coarse")
+        return restrict_vx(rfx, bcs), restrict_vy(rfy, bcs)
+
+    def _up(l, ecx, ecy):
+        """Level l + 1's correction prolonged onto sharded level l: in
+        blocks, or from the replicated level on the global tensors, then
+        split (no message)."""
+        if isinstance(ecx, Blocks):
+            return block_ops.prolong(ecx, ecy, bcs)
+        pex, pey = prolong_vx(ecx, bcs), prolong_vy(ecy, bcs)
+        mesh = etas[l][1].mesh
+        return Blocks.split(pex, "vx", mesh), Blocks.split(pey, "vy", mesh)
 
     def mg(rx, ry, emit=False):
         return vcycle(0, rx, ry, emit=emit)

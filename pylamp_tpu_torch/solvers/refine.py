@@ -7,7 +7,10 @@
 
 ``_norm_f32`` and the adaptive inner tolerance are kept exactly as in the
 reference, so the refinement passes and the inner iteration counts match.
-One host read per pass (the residual norm that gates the loop).
+One host read per pass (the residual norm that gates the loop).  On
+sharded vectors (``parallel/blocks.py``) ``_norm_f32`` is a mesh
+reduction: the per-leaf scale a mesh maximum, the f32 sum of squares a
+per-shard partial summed over the mesh.
 """
 from __future__ import annotations
 
@@ -26,12 +29,18 @@ def _norm_f32(tree):
     """||tree|| accumulated in f32 with per-leaf max pre-scaling (momentum
     entries reach ~1e15, whose squares overflow f32); returns an f64 0-d
     tensor."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks, dots
+
     total = 0.0
     for l in leaves(tree):
         amax = torch.max(torch.abs(l))
         s = torch.where(amax > 0, amax, torch.ones_like(amax))
-        ln = (l * (1.0 / s)).to(torch.float32).reshape(-1)
-        sq = torch.vdot(ln, ln).to(torch.float64)
+        ln = (l * (1.0 / s)).to(torch.float32)
+        if isinstance(ln, Blocks):
+            sq = dots([(ln, ln)])[0].to(torch.float64)
+        else:
+            ln = ln.reshape(-1)
+            sq = torch.vdot(ln, ln).to(torch.float64)
         total = total + sq * s * s
     return torch.sqrt(total)
 

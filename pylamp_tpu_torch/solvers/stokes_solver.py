@@ -13,7 +13,10 @@ augments the system (solvers/al.py).  ``solve_stokes`` takes no
 ``al_gamma``, as in the reference.  ``halo_mesh`` routes every operator
 application through the explicit-halo operator (parallel/halo_ops.py);
 there the f32 outer applies take the per-shard saddle kernel
-(ops/kernels/saddle_block.py) instead of the single-device one.
+(ops/kernels/saddle_block.py) instead of the single-device one.  Sharded
+fields (parallel/blocks.py) solve on their blocks: the operator through
+the explicit-halo apply, the rhs in block form, the gauge and every
+Krylov dot as mesh reductions.
 """
 from __future__ import annotations
 
@@ -49,7 +52,13 @@ def velocity_diagonals(eta_s, eta_n, grid: StaggeredGrid, kbnd,
     """Analytic diagonals of the momentum stencils (kbnd on the Dirichlet
     rows; periodic side walls: the wrapped seam diagonal, half of it in each
     seam column, as ops/stokes.py emits the seam row; a stretched grid:
-    ops/stretched.py)."""
+    ops/stretched.py; sharded fields: parallel/block_ops.py)."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(eta_n, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.velocity_diagonals(eta_s, eta_n, grid, kbnd)
     if not grid.uniform:
         from pylamp_tpu_torch.ops.stretched import velocity_diagonals_stretched
 

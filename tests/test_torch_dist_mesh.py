@@ -10,13 +10,15 @@ the CPU, over gloo ranks spawned by ``launch`` (every world bounded by a
   ``Mesh(2, 2)``'s on the same seeded inputs, in f32 and f64;
 - in-process, ``halos`` (one exchange round) equals the row round and the
   column round of the row-extended blocks it stands for, bit for bit;
-- the command line under torchrun: ``run falling_block --nx 16 --steps 2
-  --mesh 2x2 --device cpu`` on 4 ranks writes one metrics.jsonl (rank 0)
-  equal line for line but for the clocks to the in-process ``--mesh
-  2x2`` run's, and a bit-identical checkpoint; ``--mesh 2x2`` on a rank
-  of a 3-rank world exits with the reference's message; a world whose
-  rank fails fails ``launch``, and one that outlives its deadline is
-  killed.
+- the command line under torchrun, on the sharded layout: ``run
+  falling_block --nx 16 --mesh 2x2 --device cpu`` on 4 ranks, one step
+  with a checkpoint and then one more resumed from it, writes metrics.jsonl
+  lines (rank 0) equal but for the clocks to those of two straight steps
+  of the in-process 2x2 mesh on the sharded layout, and the resumed run's
+  checkpoint equals the straight run's bit for bit; the first checkpoint
+  loads in the single-device port; ``--mesh 2x2`` on a rank of a 3-rank
+  world exits with the reference's message; a world whose rank fails
+  fails ``launch``, and one that outlives its deadline is killed.
 
 The 8-rank FK 32^2 step is in tests/test_torch_mesh_step.py.
 """
@@ -126,39 +128,61 @@ def _lines(path):
     return recs
 
 
-def test_torchrun_cli_matches_in_process(tmp_path):
-    from pylamp_tpu_torch.cli import main
-
-    dist_out, ref_out = tmp_path / "dist", tmp_path / "ref"
-    args = ["run", "falling_block", "--nx", "16", "--steps", "2", "--mesh",
-            "2x2", "--device", "cpu", "--checkpoint-every", "1", "--out"]
+def _torchrun(args, out):
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
     env["PYTHONPATH"] = ROOT
-    # the 4-rank torchrun world runs while this process takes the
-    # in-process run
-    proc = subprocess.Popen(
+    return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "pylamp_tpu_torch", *args,
-         str(dist_out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+         "--nproc-per-node", "4", "-m", "pylamp_tpu_torch", *args, "--out",
+         str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc):
     try:
-        assert main([*args, str(ref_out)]) == 0
         out, _ = proc.communicate(timeout=DEADLINE_S)
     finally:
         proc.kill()
     assert proc.returncode == 0, out
-    assert sorted(os.listdir(dist_out)) == sorted(os.listdir(ref_out))
-    got, ref = _lines(dist_out / "metrics.jsonl"), \
-        _lines(ref_out / "metrics.jsonl")
+
+
+def test_torchrun_cli_matches_in_process(tmp_path):
+    import dataclasses
+
+    from pylamp_tpu_torch.io.checkpoint import load_checkpoint
+    from pylamp_tpu_torch.models.benchmarks import falling_block
+    from pylamp_tpu_torch.models.driver import run_model
+    from pylamp_tpu_torch.models.setup import build
+
+    a_out, b_out, ref_out = (tmp_path / d for d in ("a", "b", "ref"))
+    args = ["run", "falling_block", "--nx", "16", "--mesh", "2x2",
+            "--device", "cpu", "--checkpoint-every", "1"]
+    # the 4-rank torchrun world takes step 1 while this process takes the
+    # two straight steps on the in-process mesh, as the CLI builds them
+    proc = _torchrun([*args, "--steps", "1"], a_out)
+    cfg = falling_block(nx=16, ny=16, max_steps=2)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, explicit_halo=True, mg_coarse_replicate=16))
+    run_model(cfg, out_dir=str(ref_out), checkpoint_every=1,
+              dtype=torch.float32, mesh=Mesh(2, 2), device="cpu",
+              shard=True)
+    _wait(proc)
+    _wait(_torchrun([*args, "--steps", "2", "--resume",
+                     str(a_out / "checkpoint.npz")], b_out))
+    ref = _lines(ref_out / "metrics.jsonl")
+    got = _lines(a_out / "metrics.jsonl") + _lines(b_out / "metrics.jsonl")
     assert len(got) == 2 and got == ref
-    assert all(r["mesh"] == "2x2" for r in got)
-    with np.load(dist_out / "checkpoint.npz") as a, \
+    assert all(r["mesh"] == "2x2" and r["layout"] == "sharded" for r in got)
+    with np.load(b_out / "checkpoint.npz") as a, \
             np.load(ref_out / "checkpoint.npz") as b:
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
             assert a[k].dtype == b[k].dtype, k
+    _, _, template = build(cfg, dtype=torch.float32, device="cpu")
+    st, _ = load_checkpoint(str(a_out / "checkpoint.npz"), template)
+    assert int(st.step) == 1 and st.vx.shape == template.vx.shape
 
 
 def test_torchrun_mesh_world_mismatch(tmp_path, monkeypatch):

@@ -20,10 +20,16 @@ takes the same step on its in-process mesh:
   within 1e-5 max|y| (chip_smoke.py's bars), materials equal, Krylov
   within +-2;
 - the port's dryrun sub-checks (b) and (c) pass on the CPU;
+- the sharded layout (parallel/mesh.py ``shard_state``): the in-process
+  mesh's step on the sharded state holds the reference's sharded step at
+  the bars above and the port's global-layout mesh step at 1e-12
+  relative (the mesh dots sum in another order than ``torch.vdot``);
 - the distributed mesh (parallel/dist.py): eight gloo ranks take the f64
-  step on 4x2 from the reference's initial state, each rank at the bars
-  against the reference's step and bit for bit equal to the in-process
-  mesh's step (the same state, the same diagnostics).
+  step on 4x2 on the sharded layout from the reference's initial state,
+  each rank on its own blocks, at the bars against the reference's step
+  and bit for bit equal to the in-process sharded step (the same state,
+  the same diagnostics), holding no leaf larger than its block and
+  all-gathering no block inside the step.
 """
 import jax
 import numpy as np
@@ -36,7 +42,12 @@ from pylamp_tpu.models.setup import build as jax_build
 from pylamp_tpu.models.step import make_step as jax_make_step
 from pylamp_tpu.parallel.mesh import make_mesh as j_make_mesh
 from pylamp_tpu.parallel.mesh import shard_state, state_shardings
-from pylamp_tpu_torch.bridge import state_from_numpy, state_to_numpy
+from pylamp_tpu_torch.bridge import (
+    sharded_from_numpy,
+    sharded_to_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 from pylamp_tpu_torch.models.setup import build
 from pylamp_tpu_torch.models.step import make_step
 from pylamp_tpu_torch.parallel.dist import launch
@@ -46,11 +57,11 @@ N = 32
 CFG = W.fk_halo_config(N)
 
 
-# The 8-rank world's deadline.  The step is ~3,500 message rounds on every
-# rank (1,733 halo rounds, 1,760 all-gathers: two a shard body, the 8 ranks
-# in lockstep), ~12 s a rank on an idle 8-core machine; beside the other
-# workers of a 6-worker suite each round waits for ranks the scheduler has
-# set aside, and the world ran past 60 s there.
+# The 8-rank world's deadline.  The sharded step is ~2,400 collectives on
+# every rank (2,047 halo rounds, 266 reductions, 70 coarse-level gathers,
+# the 8 ranks in lockstep), 17-25 s a rank on a loaded 8-core machine;
+# beside the other workers of a 6-worker suite each round waits for ranks
+# the scheduler has set aside.
 DIST_DEADLINE_S = 180.0
 
 
@@ -78,6 +89,18 @@ def port_f64(reference):
     mesh_out = make_step(grid, CFG, table, mesh=make_mesh(8))(st0)
     single_out = make_step(grid, CFG, table)(st0)
     return mesh_out, single_out
+
+
+@pytest.fixture(scope="module")
+def port_sharded(reference):
+    """The port's in-process 4x2 mesh step on the sharded layout, from the
+    reference's initial state: (gathered state as numpy, diagnostics)."""
+    d0, _, _ = reference
+    grid, table, _ = build(CFG, dtype=torch.float64, device="cpu")
+    mesh = make_mesh(8)
+    st, diag = make_step(grid, CFG, table, mesh=mesh)(
+        sharded_from_numpy(d0, mesh, device="cpu"))
+    return sharded_to_numpy(st, mesh), diag
 
 
 def _holds_reference(ref, rdiag, st, diag):
@@ -120,29 +143,63 @@ def test_mesh_step_matches_single_device(port_f64):
     assert diag["stokes_iterations"] == diag1["stokes_iterations"]
 
 
-def test_dist_mesh_step(reference, port_f64):
+def test_sharded_step_matches_reference(reference, port_sharded):
+    _, ref, rdiag = reference
+    st, diag = port_sharded
+    _holds_reference(ref, rdiag, st, diag)
+
+
+def test_sharded_step_matches_global(port_f64, port_sharded):
+    """The sharded layout against the global layout, both on the
+    in-process mesh: 1e-12 relative, the same Krylov and CG counts."""
+    (st1, diag1), _ = port_f64
+    st, diag = port_sharded
+    want = state_to_numpy(st1)
+    for name in ("vx", "vy", "p", "T", "eta_s", "eta_n"):
+        a, b = st[f"state.{name}"], want[f"state.{name}"]
+        assert float(np.max(np.abs(a - b))) <= 1e-12 * float(
+            np.max(np.abs(b))), name
+    for name in ("x", "y", "T"):
+        a, b = st[f"state.markers.{name}"], want[f"state.markers.{name}"]
+        assert float(np.max(np.abs(a - b))) <= 1e-12, name
+    for name in ("valid", "mat"):
+        np.testing.assert_array_equal(st[f"state.markers.{name}"],
+                                      want[f"state.markers.{name}"])
+    assert diag["stokes_iterations"] == diag1["stokes_iterations"]
+    assert diag["energy_iterations"] == diag1["energy_iterations"]
+
+
+def test_dist_mesh_step(reference, port_sharded):
     """Eight gloo ranks (``parallel/dist.py launch``, bounded by
-    DIST_DEADLINE_S) take the step on the distributed 4x2 mesh from the
-    reference's initial state: each rank's state holds the reference's
-    step at this file's bars and equals the in-process mesh's bit for bit,
-    with the same diagnostics, and ``replicas_agree`` holds on every rank.
-    Prints each rank's seconds and message rounds for the step."""
+    DIST_DEADLINE_S) take the step on the distributed 4x2 mesh in the
+    sharded layout from the reference's initial state: rank 0's gathered
+    state holds the reference's step at this file's bars and equals the
+    in-process sharded step's bit for bit, every rank has its
+    diagnostics, the replicated scalars and strips agree on every rank, no
+    rank holds a piece of a leaf larger than its own lattice's block or
+    strip (``bridge.oversized_leaves``), and no block is all-gathered in
+    the step.  Prints each rank's seconds and
+    collectives for the step."""
     d0, ref, rdiag = reference
-    (st_mesh, diag_mesh), _ = port_f64
-    want = state_to_numpy(st_mesh)
+    want, diag_mesh = port_sharded
     ranks = launch(8, W.mesh_step_rank, d0, N, 4, 2, device="cpu",
                    timeout_s=DIST_DEADLINE_S)
-    for rank, (st, diag, agree, stats) in enumerate(ranks):
+    for rank, (st, diag, agree, oversized, stats) in enumerate(ranks):
         print(f"rank {rank}: {stats}")
         assert agree, rank
+        assert oversized == {}, (rank, oversized)
+        assert stats["block"] == 0 and stats["p2p"] > 0, rank
+        for k, v in diag_mesh.items():
+            assert diag[k] == (v.item() if torch.is_tensor(v) else v), \
+                (rank, k)
+        if rank:
+            assert st is None
+            continue
         _holds_reference(ref, rdiag, st, diag)
         assert st.keys() == want.keys()
         for k, v in want.items():
             assert st[k].dtype == v.dtype, (rank, k)
             np.testing.assert_array_equal(st[k], v, err_msg=f"{rank} {k}")
-        for k, v in diag_mesh.items():
-            assert diag[k] == (v.item() if torch.is_tensor(v) else v), \
-                (rank, k)
 
 
 def test_mesh_step_f32(reference):

@@ -1,0 +1,328 @@
+"""The sharded layout (parallel/mesh.py ``shard_state``, parallel/blocks.py,
+parallel/block_ops.py) on the CPU, FK 32^2 in f64:
+
+- ``shard_state`` -> ``unshard_state`` is the identity on every leaf, on
+  the in-process 4x2 mesh and on every rank of a 4-rank gloo world (2x2);
+  no rank holds a leaf larger than its block;
+- the port's per-leaf specs match the JAX package's ``state_shardings``
+  on every dimension the reference shards;
+- the mesh reductions (``tdot``, ``tnorm``, ``torch.max`` / ``sum`` /
+  ``mean`` of a sharded field, the marker count) of every rank equal the
+  in-process mesh's bit for bit, ``tdot`` / ``tnorm`` hold the global
+  ``torch.vdot`` to 1e-15 relative, and a seam strip counts once;
+- every block form of parallel/block_ops.py (the MG transfers, the
+  viscosity coarsening, the momentum and energy diagonals, the rhs, the
+  pressure gradient, the Gershgorin bound) gathers to its global
+  function's result bit for bit;
+- the covered set: a distributed mesh refuses every configuration the
+  sharded layout does not take (naming ROADMAP item 19c) and a global
+  state; the in-process mesh refuses a sharded state of one.
+
+The sharded step against the JAX package's and the port's global step,
+and the 8-rank world, are in tests/test_torch_mesh_step.py; the sharded
+torchrun run, its checkpoint and its resume in tests/test_torch_dist_mesh.py.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch_dist_workers as W
+
+from pylamp_tpu_torch.bridge import state_to_numpy
+from pylamp_tpu_torch.core.bc import ThermalBC, ThermalBCs
+from pylamp_tpu_torch.core.grid import StaggeredGrid
+from pylamp_tpu_torch.models import benchmarks as B
+from pylamp_tpu_torch.models.setup import build, grid_and_table
+from pylamp_tpu_torch.models.step import make_step
+from pylamp_tpu_torch.ops.energy import energy_rhs
+from pylamp_tpu_torch.ops.stokes import stokes_rhs
+from pylamp_tpu_torch.parallel import block_ops
+from pylamp_tpu_torch.parallel.blocks import Blocks
+from pylamp_tpu_torch.parallel.dist import DistMesh, launch
+from pylamp_tpu_torch.parallel.mesh import (
+    Mesh,
+    shard_state,
+    state_specs,
+    unshard_state,
+)
+from pylamp_tpu_torch.solvers import mg
+from pylamp_tpu_torch.solvers.energy_solver import energy_diagonal
+from pylamp_tpu_torch.solvers.stokes_solver import velocity_diagonals
+
+torch.set_num_threads(1)
+N = 32
+CFG = W.fk_halo_config(N)
+DEADLINE_S = 60.0
+
+
+@pytest.fixture(scope="module")
+def state0():
+    """The built FK state with seeded velocities and pressure (built, they
+    are zeros)."""
+    _, _, st = build(CFG, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(19)
+    return st.replace(**{f: torch.from_numpy(rng.standard_normal(
+        tuple(getattr(st, f).shape))) for f in ("vx", "vy", "p")})
+
+
+def test_shard_unshard_identity(state0):
+    mesh = Mesh(4, 2)
+    sh = shard_state(state0, mesh)
+    assert isinstance(sh.vx, Blocks) and isinstance(sh.markers.x, Blocks)
+    want = state_to_numpy(state0)
+    got = state_to_numpy(unshard_state(sh, mesh))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_sharded_world_matches_in_process(state0):
+    """A 4-rank gloo world (2x2): each rank's round trip and reductions
+    against the in-process 2x2 mesh's, bit for bit."""
+    d0 = state_to_numpy(state0)
+    ref = W.sharded_checks(Mesh(2, 2), d0)
+    ranks = launch(4, W.sharded_rank, d0, 2, 2, device="cpu",
+                   timeout_s=DEADLINE_S)
+    for rank, got in enumerate(ranks):
+        keys = ref.keys() if rank == 0 else [
+            k for k in ref if not k.startswith("state.")]
+        assert sorted(got) == sorted(keys), rank
+        # the largest piece a rank holds is its block of the markers (the
+        # in-process mesh holds the four), and no piece of any leaf is
+        # larger than its own lattice's block or strip
+        assert 4 * int(got["held"]) == int(ref["held"]) == \
+            N * N * state0.markers.capacity, rank
+        assert int(got["oversized"]) == int(ref["oversized"]) == 0, rank
+        for k in (k for k in keys if k != "held"):
+            assert got[k].dtype == ref[k].dtype, (rank, k)
+            assert torch.equal(got[k], ref[k]), (rank, k)
+    for k, v in d0.items():  # the round trip, on rank 0
+        np.testing.assert_array_equal(ranks[0][k].numpy(), v, err_msg=k)
+
+
+def test_reductions_match_global(state0):
+    got = W.sharded_checks(Mesh(4, 2), state_to_numpy(state0))
+    u = [state0.vx, state0.vy, state0.p]
+    dot = sum(torch.vdot(a.reshape(-1), a.reshape(-1)) for a in u)
+    assert abs(float(got["tdot"]) - float(dot)) <= 1e-15 * float(dot)
+    assert abs(float(got["tnorm"]) - float(torch.sqrt(dot))) \
+        <= 1e-15 * float(torch.sqrt(dot))
+    assert torch.equal(got["vmax"], torch.max(torch.abs(state0.vy)))
+    assert abs(float(got["T_sum"]) - float(torch.sum(state0.T))) \
+        <= 1e-15 * float(torch.sum(state0.T))
+    assert int(got["count"]) == int(state0.markers.total())
+    # the seam strips (last row and column of the corner lattice) hold
+    # ny + nx + 1 nodes, each counted once though every shard of a mesh
+    # row or column holds its strip
+    assert float(got["seam_dot"]) == float(2 * N + 1)
+
+
+def test_specs_match_reference(state0):
+    """The reference's shardings of a state of the same leaves and shapes
+    (its zero state: the specs read shapes only)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pylamp_tpu.core.grid import StaggeredGrid as JGrid
+    from pylamp_tpu.io.checkpoint import _path_str
+    from pylamp_tpu.markers.bucket import BucketedMarkers as JMarkers
+    from pylamp_tpu.models.state import zero_state
+    from pylamp_tpu.parallel.mesh import make_mesh, state_shardings
+
+    m = state0.markers
+    jmarkers = JMarkers(**{f: jnp.zeros(tuple(getattr(m, f).shape))
+                           for f in ("x", "y", "mat", "T", "valid")})
+    jst = zero_state(JGrid(nx=N, ny=N, lx=1.0, ly=1.0), jmarkers,
+                     n_mg_levels=state0.mg_lam.shape[0])
+    jspecs = {f"state.{_path_str(p)}": s.spec for p, s in
+              jax.tree_util.tree_flatten_with_path(
+                  state_shardings(make_mesh(8), jst))[0]}
+    specs = state_specs(state0, Mesh(4, 2))
+    assert specs.keys() == jspecs.keys()
+    compared = 0
+    for k, js in jspecs.items():
+        spec = specs[k]
+        mine = spec["I"] if isinstance(spec, dict) else spec
+        for d, axis in enumerate(tuple(js)):
+            if axis is not None:  # a dimension the reference shards
+                assert mine[d] == axis, (k, d, mine, js)
+                compared += 1
+        if all(a is None for a in tuple(js)):
+            assert isinstance(spec, dict) or spec == (), (k, spec)
+    assert compared >= 16  # p, eta_n, markers (2 each), vx, vy (1 each)
+
+
+def _fields(seed, grid, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    return {loc: torch.from_numpy(rng.uniform(0.5, 2.0, grid.shape(loc)))
+            .to(dtype) for loc in ("vx", "vy", "corner", "center")}
+
+
+BLOCK_FORMS = ("restrict", "prolong", "coarsen_eta", "velocity_diagonals",
+               "gershgorin", "pressure_gradient", "stokes_rhs",
+               "energy_rhs", "energy_diagonal")
+
+
+@pytest.mark.parametrize("name", BLOCK_FORMS)
+def test_block_forms_equal_global(name):
+    """Each block form, gathered, against its global function on the same
+    seeded inputs: bit for bit (the same arithmetic on the same values)."""
+    mesh = Mesh(4, 2)
+    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
+    coarse = grid.coarsen(True, True)
+    vbc = CFG.physics.velocity_bcs
+    tbc = ThermalBCs(top=ThermalBC("dirichlet", 0.0),
+                     bottom=ThermalBC("dirichlet", 1.0))
+    g = _fields(19, grid)
+    c = _fields(20, coarse)
+    kb = torch.tensor(3.5, dtype=torch.float64)
+
+    def sh(a, loc):
+        return Blocks.split(a, loc, mesh)
+
+    if name == "restrict":
+        got = block_ops.restrict(sh(g["vx"], "vx"), sh(g["vy"], "vy"), vbc)
+        want = (mg.restrict_vx(g["vx"], vbc), mg.restrict_vy(g["vy"], vbc))
+    elif name == "prolong":
+        got = block_ops.prolong(sh(c["vx"], "vx"), sh(c["vy"], "vy"), vbc)
+        want = (mg.prolong_vx(c["vx"], vbc), mg.prolong_vy(c["vy"], vbc))
+    elif name == "coarsen_eta":
+        got = mg.coarsen_eta(sh(g["corner"], "corner"),
+                             sh(g["center"], "center"))
+        want = mg.coarsen_eta(g["corner"], g["center"])
+    elif name == "velocity_diagonals":
+        got = velocity_diagonals(sh(g["corner"], "corner"),
+                                 sh(g["center"], "center"), grid, kb)
+        want = velocity_diagonals(g["corner"], g["center"], grid, kb, vbc)
+    elif name == "gershgorin":
+        got = (mg.gershgorin_lambda(sh(g["corner"], "corner"),
+                                    sh(g["center"], "center"), grid, vbc, kb),)
+        want = (mg.gershgorin_lambda(g["corner"], g["center"], grid, vbc,
+                                     kb),)
+    elif name == "pressure_gradient":
+        got = mg._pressure_gradient(sh(g["center"], "center"), grid,
+                                    torch.float64)
+        want = mg._pressure_gradient(g["center"], grid, torch.float64, vbc)
+    elif name == "stokes_rhs":
+        got = stokes_rhs(sh(g["vx"], "vx"), sh(g["vy"], "vy"), 0.0, 9.81,
+                         grid, vbc, kbnd=kb, dtype=torch.float64)
+        want = stokes_rhs(g["vx"], g["vy"], 0.0, 9.81, grid, vbc, kbnd=kb,
+                          dtype=torch.float64)
+    elif name == "energy_rhs":
+        rc = g["corner"] * 3.0
+        got = (energy_rhs(sh(g["corner"], "corner"), None,
+                          sh(rc, "corner"), sh(g["corner"] - 1.0, "corner"),
+                          grid, tbc, kbnd=kb),)
+        want = (energy_rhs(g["corner"], g["corner"], rc, g["corner"] - 1.0,
+                           grid, tbc, kbnd=kb),)
+    else:
+        rc = g["corner"] * 3.0
+        got = (energy_diagonal(sh(g["corner"], "corner"), sh(rc, "corner"),
+                               grid, tbc, kb, "arithmetic"),)
+        want = (energy_diagonal(g["corner"], rc, grid, tbc, kb,
+                                "arithmetic"),)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a = a.gather() if isinstance(a, Blocks) else a
+        assert a.shape == b.shape
+        assert torch.equal(a, b), name
+
+
+def _refused(name):
+    """A configuration outside the sharded layout's covered set."""
+    fk = W.fk_halo_config(N)
+    solver = fk.solver
+    if name == "periodic":
+        cfg = B.falling_block_periodic(nx=N, ny=N)
+        return dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, explicit_halo=True))
+    if name == "stretched":
+        from pylamp_tpu_torch.core.grid import geometric_edges
+
+        return dataclasses.replace(fk, y_edges=geometric_edges(N, 1.0, 4.0))
+    if name == "flat":
+        return dataclasses.replace(fk, marker_engine="flat")
+    if name == "heated":
+        return dataclasses.replace(fk, physics=dataclasses.replace(
+            fk.physics, shear_heating=True))
+    return dataclasses.replace(fk, solver=dataclasses.replace(solver, **{
+        "energy_mg": dict(energy_preconditioner="mg"),
+        "wbfbt": dict(schur="wbfbt"),
+        "vanka": dict(preconditioner="vanka", mg_semicoarsen=0.0),
+        "sticky_air_al": dict(stokes_al_gamma=10.0,
+                              mg_velocity_inner_iters=16),
+    }[name]))
+
+
+@pytest.mark.parametrize("name", ["periodic", "stretched", "flat", "heated",
+                                  "energy_mg", "wbfbt", "vanka",
+                                  "sticky_air_al"])
+def test_distributed_mesh_refuses(name):
+    cfg = _refused(name)
+    grid, table = grid_and_table(cfg)
+    with pytest.raises(ValueError, match="ROADMAP item 19c"):
+        make_step(grid, cfg, table, mesh=DistMesh(4, 2, 0))
+
+
+def test_sharded_refusals_in_process_and_global_state(state0):
+    """The in-process mesh refuses a sharded state of a configuration
+    outside the covered set (its global state still steps), and a
+    distributed mesh refuses a global state."""
+    mesh = Mesh(4, 2)
+    cfg = _refused("energy_mg")
+    grid, table = grid_and_table(cfg)
+    with pytest.raises(ValueError, match="ROADMAP item 19c"):
+        make_step(grid, cfg, table, mesh=mesh)(shard_state(state0, mesh))
+    grid, table = grid_and_table(CFG)
+    with pytest.raises(TypeError, match="sharded layout"):
+        make_step(grid, CFG, table, mesh=DistMesh(4, 2, 0))(state0)
+
+
+# torch functions that read across nodes or have no node-by-node form:
+# a sharded field refuses each rather than applying it block by block
+ACROSS_NODES = {
+    "select": lambda f: torch.select(f, 0, 0),
+    "diff": torch.diff,
+    "nansum": torch.nansum,
+    "median": torch.median,
+    "std": torch.std,
+    "vector_norm": torch.linalg.vector_norm,
+    "tril": torch.tril,
+    "avg_pool2d": lambda f: torch.nn.functional.avg_pool2d(f, 2),
+    "cumsum": lambda f: torch.cumsum(f, 0),
+    "roll": lambda f: torch.roll(f, 1, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACROSS_NODES))
+def test_blocks_refuse_functions_across_nodes(state0, name):
+    T = shard_state(state0, Mesh(4, 2)).T
+    with pytest.raises(TypeError, match="node-by-node"):
+        ACROSS_NODES[name](T)
+    # a node-by-node function applies piece by piece
+    got = torch.exp(torch.where(T > 0.5, T, 0.5 * T)).gather()
+    assert torch.equal(got, torch.exp(torch.where(state0.T > 0.5, state0.T,
+                                                  0.5 * state0.T)))
+
+
+@pytest.mark.parametrize("leaf", ["replicated", "global_blocks"])
+def test_oversized_leaves_catch_global_fields(state0, leaf):
+    """``bridge.oversized_leaves`` bounds each piece by its own lattice:
+    a sharded state is within bounds; a field kept whole, as a plain
+    tensor or as pieces of the global size, is caught though it is
+    smaller than the markers' block."""
+    from pylamp_tpu_torch.bridge import oversized_leaves
+
+    mesh = Mesh(4, 2)
+    grid, _ = grid_and_table(CFG)
+    sh = shard_state(state0, mesh)
+    assert oversized_leaves(sh, grid, mesh) == {}
+    if leaf == "replicated":
+        bad, key = sh.replace(vx=state0.vx), "state.vx"
+    else:
+        whole = state0.p.expand(4, 2, N, N)
+        bad, key = sh.replace(p=Blocks(mesh, "center", whole)), "state.p.I"
+    assert state0.vx.numel() < N * N * state0.markers.capacity // 8
+    assert list(oversized_leaves(bad, grid, mesh)) == [key]

@@ -61,6 +61,7 @@ def primitives(mesh, dtype, device="cpu"):
         out[f"exchange_{k}"] = g
     for tag, axes in (("y", "y"), ("x", "x"), ("yx", ("y", "x"))):
         out[f"psum_{tag}"] = mesh.psum(blk * scale, axes)
+        out[f"pmax_{tag}"] = mesh.pmax(blk * scale, axes)
     out["psum_many_0"], out["psum_many_1"] = mesh.psum_many(
         (blk3, "x"), ((blk > 0).to(torch.int64), ("y", "x")))
     out["exchange_diag_0"], out["exchange_diag_1"] = mesh.exchange(
@@ -121,25 +122,88 @@ def fk_halo_config(n):
 
 def mesh_step_rank(device, d0, n, my, mx):
     """One f64 step of ``fk_halo_config(n)`` from the path-keyed state
-    ``d0`` on this rank's distributed mesh: (state as numpy, diagnostics,
-    whether every rank holds the same state, the step's seconds and
-    message rounds on this rank)."""
+    ``d0`` on this rank's distributed mesh, in the sharded layout: (rank
+    0's gathered state as numpy, else None; diagnostics; whether the
+    replicated scalars and strips agree on every rank; the leaves this
+    rank holds after sharding beyond its block and strips of their own
+    lattice (``bridge.oversized_leaves``); the step's seconds and
+    collectives on this rank)."""
     import time
 
-    from pylamp_tpu_torch.bridge import state_from_numpy, state_to_numpy
-    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.bridge import (
+        oversized_leaves,
+        sharded_from_numpy,
+        sharded_to_numpy,
+    )
+    from pylamp_tpu_torch.models.setup import grid_and_table
     from pylamp_tpu_torch.models.step import make_step
     from pylamp_tpu_torch.parallel import dist
     from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
 
     cfg = fk_halo_config(n)
-    grid, table, _ = build(cfg, dtype=torch.float64, device=device)
-    st0 = state_from_numpy(d0, device=device)
-    step = make_step(grid, cfg, table, mesh=DistMesh.from_group(my, mx))
-    dist.rounds.update(p2p=0, all_gather=0)
+    mesh = DistMesh.from_group(my, mx)
+    grid, table = grid_and_table(cfg)
+    st0 = sharded_from_numpy(d0, mesh, device=device)
+    oversized = oversized_leaves(st0, grid, mesh)
+    step = make_step(grid, cfg, table, mesh=mesh)
+    dist.reset_rounds()
     t0 = time.perf_counter()
     st, diag = step(st0)
     stats = {"seconds": time.perf_counter() - t0, **dist.rounds}
     diag = {k: (v.item() if torch.is_tensor(v) else v)
             for k, v in diag.items()}
-    return state_to_numpy(st), diag, replicas_agree(st), stats
+    return (sharded_to_numpy(st, mesh, root=0), diag,
+            replicas_agree(st, mesh), oversized, stats)
+
+
+def sharded_checks(mesh, d0, device="cpu"):
+    """The sharded layout's checks on one mesh, from the path-keyed state
+    ``d0``: the shard / unshard round trip, the largest piece this
+    process holds and the count of pieces beyond their own lattice's
+    block and strips (``bridge.oversized_leaves``), and the mesh
+    reductions (``tdot``,
+    ``tnorm``, ``torch.max`` / ``sum`` / ``mean`` of sharded fields, a
+    dot of a field that is nonzero on its seam strips only).  The same
+    function runs on the in-process mesh and on each rank; returns a dict
+    of CPU tensors (the round trip's leaves on the in-process mesh and on
+    rank 0 only)."""
+    from pylamp_tpu_torch.bridge import (
+        oversized_leaves,
+        sharded_from_numpy,
+        sharded_to_numpy,
+        state_leaves,
+    )
+    from pylamp_tpu_torch.models.setup import grid_and_table
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+    from pylamp_tpu_torch.solvers.krylov import tdot, tnorm
+
+    st = sharded_from_numpy(d0, mesh, device=device)
+    out = {}
+    leaves = state_leaves(st)
+    out["held"] = torch.tensor(max(
+        p.numel() for v in leaves.values()
+        for p in (v.pieces().values() if isinstance(v, Blocks) else (v,))))
+    grid, _ = grid_and_table(fk_halo_config(int(st.eta_n.shape[0])))
+    out["oversized"] = torch.tensor(len(oversized_leaves(st, grid, mesh)))
+    u = (st.vx, st.vy, st.p)
+    out["tdot"] = tdot(u, u)
+    out["tnorm"] = tnorm(u)
+    out["vmax"] = torch.max(torch.abs(st.vy))
+    out["T_sum"] = torch.sum(st.T)
+    out["T_mean"] = torch.mean(st.T)
+    out["count"] = torch.sum(st.markers.valid)
+    # ones on the seam strips, zeros inside: each strip node counts once
+    seam = st.T.map(torch.ones_like)
+    seam.I = torch.zeros_like(seam.I)
+    out["seam_dot"] = tdot(seam, seam)
+    full = sharded_to_numpy(st, mesh, root=0)
+    if full is not None:
+        out.update({k: torch.from_numpy(v) for k, v in full.items()})
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def sharded_rank(device, d0, my, mx):
+    """``sharded_checks`` on this rank's distributed mesh."""
+    from pylamp_tpu_torch.parallel.dist import DistMesh
+
+    return sharded_checks(DistMesh.from_group(my, mx), d0, device)

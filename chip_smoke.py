@@ -131,7 +131,24 @@ just before it:
 - the heated FK on the 4x2 mesh: 1 warm-up + 2 measured steps interleaved
   with the single-device heated step, under the mesh path's checks and
   bars (Krylov: +-max(2, 10 %)), kernel 10 always with the rho0 * alpha
-  stream.
+  stream;
+- the heated FK on the sharded layout (``dist_heated_path``): the
+  in-process 4x2 mesh steps the sharded state of the FK build once with
+  the Jacobi-CG energy solve, within the mesh bars (Krylov
+  +-max(2, 10 %)) of the heated mesh path's first (global-layout) step,
+  and once with the energy multigrid and flexible CG (T within 1e-7
+  max|T| of the Jacobi step, Krylov within the same bar); then eight
+  gloo ranks on the card, in ONE world, each take the Jacobi step and
+  then the MG-FCG step from that state on their own blocks.  Per variant
+  rank 0's gathered state (the marker count after reseeding included)
+  must equal the in-process sharded step's bit for bit in every leaf, the
+  Stokes and energy counts must be equal on every rank, every rank must
+  launch kernels 8-12 as often as the in-process sharded step, kernel 10
+  on every launch with the rho0 * alpha stream, and kernels 1-7 never,
+  converge its energy solve (1e-10), drop no marker, keep its replicated
+  values in agreement, hold no leaf beyond its block, stay within 0.5 GiB
+  of step peak and all-gather no block in the step; each rank's s/step,
+  collectives and received bytes by kind are printed.
 
 - the stretched grid (``stretched_paths``): FK 1024^2 y-stretched 8x
   (``fk_stretched_bench_config``, ``bench.py --stretch-y 8``): 1 warm-up +
@@ -2011,6 +2028,35 @@ def _kernel_modules():
             "advect_block": advect_block, "rebucket_block": rebucket_block}
 
 
+def _measured_rank_step(step, state0, modules, device):
+    """``step(state0)`` on a rank of a distributed mesh, measured: the
+    peak memory, every launch counter (kernel 10's rho0 * alpha one too)
+    and the transport's counts set to 0 after a barrier just before the
+    step and read just after it.  Returns (state, diagnostics, {step_s,
+    launches, launches_ra, rounds, peak_gib})."""
+    import torch.distributed as dist
+
+    from pylamp_tpu_torch.parallel import dist as pdist
+
+    m2g_block = modules["m2g_block"]
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dist.barrier()
+    for mod in modules.values():
+        mod.launches = 0
+    m2g_block.launches_ra = 0
+    pdist.reset_rounds()
+    t0 = time.perf_counter()
+    state, diag = step(state0)
+    torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    return state, diag, dict(
+        step_s=step_s,
+        launches={k: mod.launches for k, mod in modules.items()},
+        launches_ra=m2g_block.launches_ra, rounds=dict(pdist.rounds),
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
+
+
 def dist_fk_rank(device, state_path):
     """One rank of ``dist_mesh_path``: FK 1024^2 (the bench preset with
     explicit_halo) on this rank's shard of the distributed 4x2 mesh, in
@@ -2027,7 +2073,6 @@ def dist_fk_rank(device, state_path):
     from dataclasses import replace
 
     import numpy as np
-    import torch.distributed as dist
 
     from pylamp_tpu_torch.bridge import (
         oversized_leaves,
@@ -2037,7 +2082,6 @@ def dist_fk_rank(device, state_path):
     from pylamp_tpu_torch.models.benchmarks import fk_bench_config
     from pylamp_tpu_torch.models.setup import grid_and_table
     from pylamp_tpu_torch.models.step import make_step
-    from pylamp_tpu_torch.parallel import dist as pdist
     from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
     from pylamp_tpu_torch.parallel.mesh import unshard_state
 
@@ -2055,26 +2099,12 @@ def dist_fk_rank(device, state_path):
         state0.markers.x.shape[-1]
     oversized = oversized_leaves(state0, grid, mesh)
     n_markers = int(state0.markers.total())
-    step = make_step(grid, cfg, table, mesh=mesh)
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    dist.barrier()
-    for mod in modules.values():
-        mod.launches = 0
-    pdist.reset_rounds()
-    t0 = time.perf_counter()
-    state, diag = step(state0)
-    torch.cuda.synchronize(device)
-    step_s = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in modules.items()}
-    rounds = dict(pdist.rounds)
-    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    state, diag, out = _measured_rank_step(
+        make_step(grid, cfg, table, mesh=mesh), state0, modules, device)
     check_state(state, n_markers, diag, f"FK dist 4x2 rank {mesh.rank}")
-    out = dict(rank=mesh.rank, device=str(device), step_s=step_s,
-               krylov=int(diag["stokes_iterations"]), launches=launches,
-               rounds=rounds, peak_gib=peak, held=held, block=block,
-               oversized=oversized,
-               agree=replicas_agree(state, mesh))
+    out.update(rank=mesh.rank, device=str(device),
+               krylov=int(diag["stokes_iterations"]), held=held, block=block,
+               oversized=oversized, agree=replicas_agree(state, mesh))
     full = unshard_state(state, mesh, root=0)
     if full is not None:
         out["leaves"] = {k: v.cpu() for k, v in state_leaves(full).items()}
@@ -2128,6 +2158,7 @@ def nccl_rank(device):
 
 
 DIST_PEAK_GIB = 0.5  # a rank's step peak on the sharded layout
+HEATED_VARIANTS = ("jacobi", "mg")  # the energy solve: Jacobi-CG, MG-FCG
 
 
 def dist_mesh_path(grid, cfg, table, state0, first, modules):
@@ -2264,6 +2295,236 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
     return {"launches": ranks[0]["launches"], **rec,
             "ranks": [{k: v for k, v in r.items() if k != "leaves"}
                       for r in ranks]}
+
+
+def _heated_halo_config(nx, energy_preconditioner):
+    """``models.profile.fk_heated_config`` with ``explicit_halo=True``."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.profile import fk_heated_config
+
+    cfg = fk_heated_config(nx, energy_preconditioner)
+    return replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+
+
+def dist_heated_rank(device, state_path):
+    """One rank of ``dist_heated_path``: the heated FK 1024^2 on this
+    rank's shard of the distributed 4x2 mesh, the Jacobi-CG step and then
+    the MG-FCG step, each from the state at ``state_path`` (the host loads
+    it, the rank moves only its blocks to the card).  Every launch counter
+    and the transport's counts are set to 0 and the peak memory reset just
+    before each step and read just after it.  Returns per variant the
+    step's seconds, Stokes and energy counts, launches (kernel 10's with
+    the rho0 * alpha stream apart), collectives and received bytes by
+    kind, peak device memory, the pieces beyond their own lattice's block
+    or strip (after sharding and after the step), whether the replicated
+    values agree, the marker count after reseeding and (rank 0) the
+    gathered state's leaves."""
+    import numpy as np
+
+    from pylamp_tpu_torch.bridge import (
+        oversized_leaves,
+        sharded_from_numpy,
+        state_leaves,
+    )
+    from pylamp_tpu_torch.models.setup import grid_and_table
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
+    from pylamp_tpu_torch.parallel.mesh import unshard_state
+
+    modules = _kernel_modules()
+    mesh = DistMesh.from_group(4, 2)
+    with np.load(state_path) as z:
+        d0 = dict(z)
+    out = {"rank": mesh.rank, "device": str(device)}
+    for pre in HEATED_VARIANTS:
+        tag = f"heated FK dist 4x2 {pre} rank {mesh.rank}"
+        cfg = _heated_halo_config(FK_NX, pre)
+        grid, table = grid_and_table(cfg)
+        state0 = sharded_from_numpy(d0, mesh, device=device)
+        oversized = oversized_leaves(state0, grid, mesh)
+        n_markers = int(state0.markers.total())
+        state, diag, rec = _measured_rank_step(
+            make_step(grid, cfg, table, mesh=mesh), state0, modules, device)
+        check_state(state, n_markers, diag, tag)
+        if not diag["energy_converged"]:
+            raise AssertionError(f"{tag}: the energy solve did not converge")
+        oversized.update(oversized_leaves(state, grid, mesh))
+        rec.update(krylov=int(diag["stokes_iterations"]),
+                   energy=int(diag["energy_iterations"]),
+                   oversized=oversized, agree=replicas_agree(state, mesh),
+                   markers=int(state.markers.total()))
+        full = unshard_state(state, mesh, root=0)
+        if full is not None:
+            rec["leaves"] = {k: v.cpu() for k, v in state_leaves(full).items()}
+        out[pre] = rec
+        del state0, state, full
+    return out
+
+
+def dist_heated_path(grid, table, state0, first, modules):
+    """The heated FK 1024^2 (``models.profile.fk_heated_config``, both
+    energy solves) on the sharded layout: the in-process 4x2 mesh takes
+    the Jacobi-CG step on ``shard_state`` of ``state0``, held within the
+    mesh bars (Krylov +-max(KRYLOV_AB_TOL, HEATED_KRYLOV_REL)) of the
+    heated mesh path's first, global-layout step ``first`` from the same
+    state, then the MG-FCG step (T within HEATED_T_TOL max|T| of the
+    Jacobi step, Krylov within the same bar); kernels 8-12 must launch,
+    kernel 10 always with the rho0 * alpha stream, 1-7 never.  Then eight
+    gloo ranks on this one card, in one world, each take both steps from
+    ``state0`` on their own blocks (``dist_heated_rank``).  Per variant,
+    rank 0's gathered state must equal the in-process sharded step's bit
+    for bit in every leaf, with the same marker count after reseeding;
+    every rank must have its Stokes and energy counts, launch kernels
+    8-12 as often (kernel 10 always with the stream) and 1-7 never, agree
+    on its replicated values, hold no oversized leaf, stay within
+    DIST_PEAK_GIB and all-gather no block.  Returns the record logged,
+    with rank 0's launches per variant."""
+    import tempfile
+
+    import numpy as np
+
+    from pylamp_tpu_torch.bridge import state_leaves, state_to_numpy
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.dist import launch
+    from pylamp_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_state,
+        unshard_state,
+    )
+
+    smi = nvidia_smi_line()
+    ref_state, ref_krylov, _, _ = first
+    mesh = make_mesh(DIST_RANKS)
+    m2g_block = modules["m2g_block"]
+    sharded0 = shard_state(state0, mesh)
+    n_markers = int(state0.markers.total())
+    want, inproc = {}, {}
+    for pre in HEATED_VARIANTS:
+        tag = f"heated FK sharded 4x2 {pre} step 1"
+        for mod in modules.values():
+            mod.launches = 0
+        m2g_block.launches_ra = 0
+        st, dt_s, krylov, diag = take_step(
+            make_step(grid, _heated_halo_config(grid.nx, pre), table,
+                      mesh=mesh), sharded0, n_markers,
+            {k: modules[k] for k in BLOCK_KERNELS}, tag)
+        launches = {k: mod.launches for k, mod in modules.items()}
+        if any(launches[k] for k in modules if k not in BLOCK_KERNELS):
+            raise AssertionError(f"{tag} launched single-device kernels: "
+                                 f"{launches}")
+        if not 0 < m2g_block.launches_ra == m2g_block.launches:
+            raise AssertionError(
+                f"{tag}: {m2g_block.launches_ra} of {m2g_block.launches} "
+                "m2g_block launches with the rho0 * alpha stream")
+        if not diag["energy_converged"]:
+            raise AssertionError(f"{tag}: the energy solve did not converge")
+        full = unshard_state(st, mesh)
+        del st
+        want[pre] = full
+        inproc[pre] = dict(step_s=dt_s, krylov=krylov,
+                           energy=int(diag["energy_iterations"]),
+                           launches=launches,
+                           launches_ra=m2g_block.launches_ra,
+                           markers=int(full.markers.total()))
+    del sharded0
+    bar = max(KRYLOV_AB_TOL, HEATED_KRYLOV_REL * ref_krylov)
+    mesh_agrees("heated FK sharded 4x2 (Jacobi-CG)", want["jacobi"],
+                ref_state)
+    dT = float(torch.max(torch.abs(want["mg"].T - want["jacobi"].T)))
+    tmax = float(torch.max(torch.abs(want["jacobi"].T)))
+    log(f"heated FK sharded 4x2 (in-process) on {smi}: {inproc} (the "
+        f"global layout's Krylov {ref_krylov}); MG-FCG vs Jacobi-CG max "
+        f"|dT| / max|T| {dT / tmax:.3e} (bar {HEATED_T_TOL:g})")
+    for pre, r in inproc.items():
+        if abs(r["krylov"] - ref_krylov) > bar:
+            raise AssertionError(
+                f"heated FK sharded 4x2 {pre}: Krylov {r['krylov']}, the "
+                f"global layout's Jacobi step {ref_krylov} (bar +-{bar:g})")
+    if not dT <= HEATED_T_TOL * tmax:
+        raise AssertionError("heated FK sharded 4x2: the MG-FCG step's T "
+                             "disagrees with the Jacobi-CG step's")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dist_heated_") as tmp:
+        path = os.path.join(tmp, "state0.npz")
+        np.savez(path, **state_to_numpy(state0))
+        ranks = launch(DIST_RANKS, dist_heated_rank, path, device="cuda",
+                       backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    rec = {"device": smi, "backend": "gloo", "world": DIST_RANKS,
+           "layout": "sharded", "world_s": wall,
+           "krylov_global_layout": ref_krylov}
+    for pre in HEATED_VARIANTS:
+        label = f"heated FK dist 4x2 {pre}"
+        ref = inproc[pre]
+        for r in ranks:
+            v = r[pre]
+            log(f"{label} rank {r['rank']} ({r['device']}, gloo) on {smi}: "
+                f"{v['step_s']:.3f} s/step, Krylov {v['krylov']}, energy "
+                f"{v['energy']}, step peak {v['peak_gib']:.3f} GiB, markers "
+                f"{v['markers']}, launches {v['launches']} (m2g_block with "
+                f"rho0 * alpha {v['launches_ra']}), collectives and bytes "
+                f"received {v['rounds']}")
+        wl = state_leaves(want[pre])
+        got = ranks[0][pre]["leaves"]
+        differ = {}
+        for k, v in wl.items():
+            g = got[k].to(v.device)
+            if g.dtype != v.dtype or not torch.equal(g, v):
+                differ[k] = (float(torch.max(torch.abs(
+                    g.double() - v.double()))) if g.dtype == v.dtype
+                    else "dtype")
+        agree = all(r[pre]["agree"] for r in ranks)
+        log(f"{label} vs the in-process sharded 4x2 step: "
+            f"{'every leaf bit-identical' if not differ else differ}, "
+            f"replicated values {'agree' if agree else 'DIFFER'}, markers "
+            f"after reseeding {[r[pre]['markers'] for r in ranks]} vs "
+            f"{ref['markers']}")
+        if differ or not agree:
+            raise AssertionError(f"{label}: rank states differ from the "
+                                 f"in-process mesh's ({differ}, "
+                                 f"agree={agree})")
+        want_l = {k: (ref["launches"][k] if k in BLOCK_KERNELS else 0)
+                  for k in modules}
+        for r in ranks:
+            v, tag = r[pre], f"{label} rank {r['rank']}"
+            for key in ("krylov", "energy", "markers"):
+                if v[key] != ref[key]:
+                    raise AssertionError(f"{tag}: {key} {v[key]}, the "
+                                         f"in-process step's {ref[key]}")
+            if v["launches"] != want_l:
+                raise AssertionError(
+                    f"{tag}: launches {v['launches']}, the in-process "
+                    f"sharded step's {want_l} (kernels 1-7: 0)")
+            if not 0 < v["launches_ra"] == v["launches"]["m2g_block"]:
+                raise AssertionError(
+                    f"{tag}: {v['launches_ra']} of "
+                    f"{v['launches']['m2g_block']} m2g_block launches with "
+                    "the rho0 * alpha stream")
+            if v["oversized"]:
+                raise AssertionError(f"{tag}: holds pieces beyond their "
+                                     "lattice's block or strip (held, "
+                                     f"bound): {v['oversized']}")
+            if v["peak_gib"] > DIST_PEAK_GIB:
+                raise AssertionError(f"{tag}: step peak {v['peak_gib']:.3f} "
+                                     f"GiB > {DIST_PEAK_GIB}")
+            if v["rounds"]["block"]:
+                raise AssertionError(f"{tag}: {v['rounds']['block']} block "
+                                     "all-gathers in the step")
+        rec[pre] = {"step_s": [r[pre]["step_s"] for r in ranks],
+                    "peak_gib": [r[pre]["peak_gib"] for r in ranks],
+                    "rounds_per_rank": [r[pre]["rounds"] for r in ranks],
+                    "krylov": ref["krylov"], "energy": ref["energy"],
+                    "markers": ref["markers"],
+                    "inprocess_sharded_s": ref["step_s"],
+                    "launches_per_rank": ranks[0][pre]["launches"],
+                    "launches_ra_per_rank": ranks[0][pre]["launches_ra"]}
+    log(f"heated FK dist 4x2: backend gloo, world {DIST_RANKS} on one card, "
+        f"{wall:.1f} s for the world (spawn, load, shard, two steps, "
+        "gathers, checks)")
+    log("heated FK dist 4x2 " + json.dumps(rec))
+    return rec
 
 
 def seam_equal(name, a):
@@ -3748,10 +4009,12 @@ def main():
     rec_h, state_h = heated_paths(grid, table, state0, modules)
     reseed_check(grid, table, state_h)
     del state_h
-    launches_hm, _ = mesh_path(grid, cfg_h, table, state0, None, modules,
-                               label="heated FK mesh",
-                               measured=HEATED_MESH_MEASURED_STEPS, ra=True,
-                               krylov_rel=HEATED_KRYLOV_REL)
+    launches_hm, first_hm = mesh_path(grid, cfg_h, table, state0, None,
+                                      modules, label="heated FK mesh",
+                                      measured=HEATED_MESH_MEASURED_STEPS,
+                                      ra=True, krylov_rel=HEATED_KRYLOV_REL)
+    rec_dh = dist_heated_path(grid, table, state0, first_hm, modules)
+    del first_hm
     rec_opt = solver_option_paths(grid, table, state0, n_markers, modules,
                                   dict(step_s=times[:2], krylov=iters[:2]))
     del state0
@@ -3849,6 +4112,12 @@ def main():
                 "fk_1024_heated_mesh_4x2": heated_count(
                     k, launches_hm["mesh_4x2"], "m2g_block",
                     launches_hm["mesh_4x2"]["m2g_block"]),
+                # dist_heated_path: one step of each energy solve, per
+                # rank of the 8-rank world on the sharded layout
+                **{f"fk_1024_heated_{pre}_dist_4x2": heated_count(
+                    k, rec_dh[pre]["launches_per_rank"], "m2g_block",
+                    rec_dh[pre]["launches_ra_per_rank"])
+                   for pre in HEATED_VARIANTS},
                 # stretched_paths fails on any launch there
                 "fk_1024_stretched_8x": 0,
                 "fk_1024_stretched_8x_line": 0,

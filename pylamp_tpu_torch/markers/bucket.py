@@ -586,26 +586,32 @@ def _cell_origins(grid: StaggeredGrid, dtype, device):
 
 
 def reseed_spawn(bm: BucketedMarkers, majority, grid: StaggeredGrid,
-                 min_per_cell: int):
+                 min_per_cell: int, cells=None):
     """The cell-local half of ``bucket_reseed``: which empty slots spawn
     (the first ``min_per_cell - count`` free slots of each cell, ranked by a
     prefix sum over K) and the new markers' x, y and material.  The
     golden-ratio sub-cell offsets are computed in f64 (the reference's x64
-    dtype) and cast to the marker dtype last.  Returns (spawn, x, y, mat)."""
-    ny, nx, K = bm.x.shape
+    dtype) and cast to the marker dtype last.  ``bm`` may carry leading
+    (shard) dimensions before its (rows, cols, K); ``cells`` (uniform grids)
+    is then the (row, column) global cell indices of its cells in f64,
+    broadcasting against (rows, cols, 1) (default ``arange``: the whole
+    grid).  Returns (spawn, x, y, mat)."""
+    ny, nx, K = bm.x.shape[-3:]
     dev = bm.x.device
     deficit = torch.clamp(min_per_cell - bm.count(), min=0)
     free_rank = torch.cumsum((~bm.valid).to(torch.int32), dim=-1,
                              dtype=torch.int32) - 1
-    spawn = (~bm.valid) & (free_rank < deficit[:, :, None])
+    spawn = (~bm.valid) & (free_rank < deficit[..., None])
 
     f64 = torch.float64
     s = torch.arange(K, dtype=f64, device=dev)
     off_x = (torch.remainder(s * 0.381966, 1.0) - 0.5) * 0.5
     off_y = (torch.remainder(s * 0.618034, 1.0) - 0.5) * 0.5
     if grid.uniform:
-        ci = torch.arange(nx, dtype=f64, device=dev).view(1, nx, 1)
-        cj = torch.arange(ny, dtype=f64, device=dev).view(ny, 1, 1)
+        if cells is None:
+            cells = (torch.arange(ny, dtype=f64, device=dev).view(ny, 1, 1),
+                     torch.arange(nx, dtype=f64, device=dev).view(1, nx, 1))
+        cj, ci = cells
         sx = (ci + 0.5 + off_x) * grid.dx
         sy = (cj + 0.5 + off_y) * grid.dy
     else:
@@ -614,7 +620,7 @@ def reseed_spawn(bm: BucketedMarkers, majority, grid: StaggeredGrid,
         sy = ye0 + (0.5 + off_y) * dyc
     new_x = torch.where(spawn, sx.to(bm.x.dtype), bm.x)
     new_y = torch.where(spawn, sy.to(bm.y.dtype), bm.y)
-    new_mat = torch.where(spawn, majority[:, :, None], bm.mat)
+    new_mat = torch.where(spawn, majority[..., None], bm.mat)
     return spawn, new_x, new_y, new_mat
 
 

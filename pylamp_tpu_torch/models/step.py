@@ -78,8 +78,13 @@ each shard's markers, the solves run on the sharded vectors with mesh
 dots, dt and the diagnostics are mesh reductions (``vmax`` and dt mesh
 maxima, exact), and nothing is gathered but the replicated MG levels.  It
 covers a uniform walled grid, the bucket engine, the Chebyshev MG with
-the mass Schur surrogate and the Jacobi-CG energy solve
-(``sharded_refusal``); anything else raises, naming ROADMAP item 19c.
+the mass Schur surrogate, and the energy solve with Jacobi-CG or the
+Chebyshev energy multigrid with flexible CG, with the thermal switches:
+shear and adiabatic heating (block forms in parallel/block_ops.py, rho0 *
+alpha from kernel 10's stream), subgrid diffusion (the explicit-halo
+one-stream transfers on the marker blocks) and reseeding (each shard
+spawns on its own cells) (``sharded_refusal``); anything else raises,
+naming ROADMAP item 19c.
 
 ``make_phased_runner`` is the same step with the device synchronized
 around each phase, for the driver's ``profile_phases``;
@@ -193,13 +198,16 @@ def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
 
 def sharded_refusal(grid: StaggeredGrid, cfg: ModelConfig, mesh):
     """Why the sharded layout does not take ``cfg`` on ``mesh`` (None
-    where it does): its covered set is a uniform walled grid, the bucket
-    engine, the Chebyshev MG with the mass Schur surrogate and Gershgorin
-    bounds, full coarsening, and the Jacobi-CG energy solve without the
-    heated switches.  The rest is ROADMAP item 19c."""
+    where it does): its covered set is a uniform walled grid with static
+    walls, the bucket engine, the Chebyshev MG with the mass Schur
+    surrogate and Gershgorin bounds, full coarsening, and the energy solve
+    (Jacobi-CG, or the Chebyshev energy multigrid with flexible CG) with
+    shear and adiabatic heating, subgrid diffusion and reseeding, without
+    a prescribed heat flux.  The rest is ROADMAP item 19c."""
     from pylamp_tpu_torch.solvers.mg import coarsening_plan
 
     phys, solver = cfg.physics, cfg.solver
+    energy_mg = phys.solve_energy and solver.energy_preconditioner == "mg"
     vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
     moving = any(getattr(vbc, f) != 0.0 for f in (
         "vt_top", "vt_bottom", "vt_left", "vt_right"))
@@ -223,14 +231,13 @@ def sharded_refusal(grid: StaggeredGrid, cfg: ModelConfig, mesh):
          "scaled MG transfers / line-search damping"),
         (solver.mg_lam_mode != "gershgorin",
          "power-iteration Chebyshev bounds"),
-        (grid.uniform and any(step != (True, True) for step in coarsening_plan(
-            grid, solver.mg_levels, semi_threshold=solver.mg_semicoarsen)),
+        (grid.uniform and any(step != (True, True) for levels in (
+            solver.mg_levels, *((0,) if energy_mg else ()))
+            for step in coarsening_plan(
+                grid, levels, semi_threshold=solver.mg_semicoarsen)),
          "semicoarsening"),
-        (phys.solve_energy and solver.energy_preconditioner != "jacobi",
-         "the energy multigrid"),
-        (phys.shear_heating or phys.adiabatic_heating
-         or phys.subgrid_diffusion_d > 0 or phys.reseed_min_per_cell > 0,
-         "the heated switches (heating, subgrid diffusion, reseeding)"),
+        (energy_mg and solver.energy_mg_smoother != "chebyshev",
+         "the energy multigrid's line smoothers"),
         (moving, "moving walls"),
         (flux, "a prescribed heat flux"),
     )

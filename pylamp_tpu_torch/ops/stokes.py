@@ -55,7 +55,14 @@ def shear_stress_xy(vx, vy, eta_s, grid: StaggeredGrid, bcs: VelocityBCs):
 def strain_rate_ii(vx, vy, grid: StaggeredGrid, bcs: VelocityBCs):
     """Second invariant of the strain rate at cell centers (shear heating
     and diagnostics): the deviatoric exx and the corner exy averaged onto
-    the centers."""
+    the centers.  Sharded fields take the block form (parallel/block_ops.py,
+    one halo round)."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(vx, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.strain_rate_ii(vx, vy, grid, bcs)
     ones = torch.ones(grid.shape_corner, dtype=vx.dtype, device=vx.device)
     if grid.uniform:
         dvxdx = (vx[:, 1:] - vx[:, :-1]) / grid.dx

@@ -16,7 +16,16 @@ the global function's bit for bit (a CPU test holds the transfers so):
 - ``coarsen_eta`` and the MG transfers ``restrict`` / ``prolong``
   (solvers/mg.py ``restrict_vx`` and ``restrict_vy``, ``prolong_vx`` and
   ``prolong_vy``, full coarsening; the pair in one halo round);
-- ``vrms`` (the step's diagnostic).
+- ``vrms`` (the step's diagnostic);
+- the thermal path: ``strain_rate_ii`` (ops/stokes.py), ``center_to_corner``,
+  ``shear_heating`` and ``adiabatic_heating`` (physics/heating.py: the
+  edge clamp on the wall blocks only, the neighbour's row or column at
+  an interior seam);
+- the energy multigrid's transfers (solvers/energy_mg.py):
+  ``sample_corner`` (the coefficients at the surviving nodes),
+  ``restrict_corner`` (one halo round, the strips psum-selected from their
+  owners) and ``prolong_corner`` (one halo round), and ``flat_index``
+  (each node's global flat index, the power iteration's start vector).
 """
 from __future__ import annotations
 
@@ -211,6 +220,17 @@ def energy_rhs(T_old: Blocks, k, rhocp_over_dt, H, bcs: ThermalBCs, kbnd):
     return torch.where(mask, kbnd * vals, b)
 
 
+def _owned_strips(mesh, like: Blocks, R, B, C):
+    """The corner lattice's seam strips, each computed on its owner shards
+    (R on the last mesh column, B on the last row, C on the last shard)
+    and summed from there (one psum)."""
+    last_x, last_y = _last(like, "x"), _last(like, "y")
+    zero = torch.zeros((), dtype=R.dtype, device=R.device)
+    return mesh.psum_many((torch.where(last_x, R, zero), "x"),
+                          (torch.where(last_y, B, zero), "y"),
+                          (torch.where(last_x & last_y, C, zero), ("y", "x")))
+
+
 def _face(a, b, mode):
     if mode == "arithmetic":
         return 0.5 * (a + b)
@@ -248,13 +268,7 @@ def energy_diagonal(k: Blocks, rhocp_over_dt: Blocks, grid: StaggeredGrid,
     kc = _cols(kw, kw[..., 0:1])
     kc = _rows(kc, kc[..., 0:1, :])
     dC = _diag_on(kc, rc.C, dx, dy, k_avg)
-    last_x, last_y = _last(k, "x"), _last(k, "y")
-    zero = torch.zeros((), dtype=dI.dtype, device=dI.device)
-    dR, dB, dC = mesh.psum_many(
-        (torch.where(last_x, dR, zero), "x"),
-        (torch.where(last_y, dB, zero), "y"),
-        (torch.where(last_x & last_y, dC, zero), ("y", "x")))
-    diag = Blocks(mesh, "corner", dI, dR, dB, dC)
+    diag = Blocks(mesh, "corner", dI, *_owned_strips(mesh, k, dR, dB, dC))
     mask, _ = dirichlet_masks(k, bcs)
     return torch.where(mask, kbnd, diag)
 
@@ -385,3 +399,172 @@ def vrms(vx: Blocks, vy: Blocks):
     cx = 0.5 * (vxe[..., 1:] + vxe[..., :-1])
     cy = 0.5 * (vy_rows[..., 1:, :] + vy_rows[..., :-1, :])
     return torch.sqrt(torch.mean(Blocks(mesh, "center", cx ** 2 + cy ** 2)))
+
+
+# -- the thermal path: strain rate and heating --------------------------------------
+
+
+def strain_rate_ii(vx: Blocks, vy: Blocks, grid: StaggeredGrid,
+                   bcs: VelocityBCs):
+    """``ops/stokes.py strain_rate_ii`` on blocks (uniform, walled): one
+    halo round of vx (wall ghost rows, the R strip at the right seam) and
+    vy (wall ghost columns, the B strip at the bottom seam) for the corner
+    shear rate around each cell."""
+    mesh = vx.mesh
+    first_x, last_x = _first(vx, "x"), _last(vx, "x")
+    (vx_rows, _, right), (vxR_rows, _, _), (vy_rows, vy_left, vy_right) = \
+        mesh.halos(
+            (vx.I, 1, 1, 0, 1, bcs.s_top * vx.I[..., :1, :],
+             bcs.s_bottom * vx.I[..., -1:, :], False),
+            (vx.R, 1, 1, 0, 0, bcs.s_top * vx.R[..., :1, :],
+             bcs.s_bottom * vx.R[..., -1:, :], False),
+            (vy.I, 0, 1, 1, 1, None, vy.B, False))
+    vx_ext = _cols(vx_rows, torch.where(last_x, vxR_rows, right))
+    vy_ext = _cols(torch.where(first_x, bcs.s_left * vy_rows[..., :1],
+                               vy_left), vy_rows,
+                   torch.where(last_x, bcs.s_right * vy_rows[..., -1:],
+                               vy_right))
+    dvxdx = (vx_ext[..., 1:-1, 1:] - vx_ext[..., 1:-1, :-1]) / grid.dx
+    dvydy = (vy_rows[..., 1:, :] - vy_rows[..., :-1, :]) / grid.dy
+    # the corner shear rate (the global form's sxy with eta_s = 1)
+    sxy = ((vx_ext[..., 1:, :] - vx_ext[..., :-1, :]) / grid.dy
+           + (vy_ext[..., 1:] - vy_ext[..., :-1]) / grid.dx)
+    exx = 0.5 * (dvxdx - dvydy)
+    e = 0.5 * sxy
+    exy = 0.25 * (e[..., :-1, :-1] + e[..., :-1, 1:] + e[..., 1:, :-1]
+                  + e[..., 1:, 1:])
+    return Blocks(mesh, "center", torch.sqrt(exx ** 2 + exy ** 2))
+
+
+def _corner_avg(F):
+    return 0.25 * (F[..., :-1, :-1] + F[..., :-1, 1:] + F[..., 1:, :-1]
+                   + F[..., 1:, 1:])
+
+
+def center_to_corner(f: Blocks) -> Blocks:
+    """``physics/heating.py _center_to_corner`` on blocks: the 4-point
+    average of the cells around each corner, the cell field clamped at the
+    domain's edges (on the wall blocks only: an interior seam takes the
+    neighbour's row or column, one halo round); the seam strips read the
+    last cell row / column only, so their owners compute them (one
+    psum)."""
+    mesh = f.mesh
+    (rows, left, _), = mesh.halos((f.I, 1, 0, 1, 0, f.I[..., :1, :], None,
+                                   False))
+    F = _cols(torch.where(_first(f, "x"), rows[..., :1], left), rows)
+    col = rows[..., -1:]  # (by+1, 1): cell column nx-1
+    R = _corner_avg(_cols(col, col))
+    brow = F[..., -1:, :]  # (1, bx+1): cell row ny-1
+    B = _corner_avg(_rows(brow, brow))
+    c = rows[..., -1:, -1:]
+    C = _corner_avg(_rows(_cols(c, c), _cols(c, c)))
+    return Blocks(mesh, "corner", _corner_avg(F),
+                  *_owned_strips(mesh, f, R, B, C))
+
+
+def shear_heating(vx: Blocks, vy: Blocks, eta_n: Blocks,
+                  grid: StaggeredGrid, bcs: VelocityBCs) -> Blocks:
+    """``physics/heating.py shear_heating`` on blocks."""
+    eII = strain_rate_ii(vx, vy, grid, bcs)
+    return center_to_corner(4.0 * eta_n * eII ** 2)
+
+
+def adiabatic_heating(T_corner: Blocks, rho_alpha_corner: Blocks,
+                      vy: Blocks, gy) -> Blocks:
+    """``physics/heating.py adiabatic_heating`` on blocks: vy's edge
+    columns clamped on the wall blocks, the left neighbour's last column
+    at an interior seam (one halo round); the R strip reads vy's column
+    nx-1 only, so the last mesh column computes it (one psum)."""
+    mesh = vy.mesh
+    first_x, last_x = _first(vy, "x"), _last(vy, "x")
+    (_, left, _), (_, left_b, _) = mesh.halos(
+        (vy.I, 0, 0, 1, 0, None, None, False),
+        (vy.B, 0, 0, 1, 0, None, None, False))
+    V = _cols(torch.where(first_x, vy.I[..., :1], left), vy.I)
+    Vb = _cols(torch.where(first_x, vy.B[..., :1], left_b), vy.B)
+    col, cb = vy.I[..., -1:], vy.B[..., -1:]
+    zero = torch.zeros((), dtype=vy.dtype, device=vy.device)
+    R, C = mesh.psum_many((torch.where(last_x, 0.5 * (col + col), zero), "x"),
+                          (torch.where(last_x, 0.5 * (cb + cb), zero), "x"))
+    vy_corner = Blocks(mesh, "corner", 0.5 * (V[..., :-1] + V[..., 1:]), R,
+                       0.5 * (Vb[..., :-1] + Vb[..., 1:]), C)
+    return rho_alpha_corner * T_corner * gy * vy_corner
+
+
+# -- the energy multigrid ---------------------------------------------------------
+
+
+def flat_index(f: Blocks) -> Blocks:
+    """Every node's global flat (row-major) index on ``f``'s lattice, an
+    int64 field: the block form of ``torch.arange(numel).reshape(shape)``."""
+    rows, cols = node_coords(f)
+    return rows * f.shape[1] + cols
+
+
+def sample_corner(f: Blocks) -> Blocks:
+    """``f[::2, ::2]`` of a corner field on blocks of even size: the nodes
+    that survive a full coarsening (the blocks start on even nodes, so
+    each keeps its global parity)."""
+    return Blocks(f.mesh, "corner", f.I[..., 0::2, 0::2], f.R[..., 0::2, :],
+                  f.B[..., :, 0::2], f.C)
+
+
+def _full_weight(F, axis: int):
+    """The full-weighting stencil (0.5, 1, 0.5) / 2 along ``axis`` (-1 or
+    -2) of a frame whose first entry is the node before the first output's
+    centre."""
+    def cut(start, stop):
+        idx = [slice(None)] * F.dim()
+        idx[axis] = slice(start, stop, 2)
+        return F[tuple(idx)]
+
+    return (0.5 * cut(0, -2) + cut(1, -1) + 0.5 * cut(2, None)) / 2.0
+
+
+def restrict_corner(f: Blocks) -> Blocks:
+    """``solvers/energy_mg.py restrict_corner`` (walled, both axes) on
+    blocks: one halo round (the row above and the column left, zeros beyond
+    the domain as the global zero pad), columns then rows; the coarse seam
+    strips read the fine last row / column, so their owners compute them
+    (one psum)."""
+    mesh = f.mesh
+    (rows, left, _), (rows_r, _, _), (_, left_b, _) = mesh.halos(
+        (f.I, 1, 0, 1, 0, None, None, False),
+        (f.R, 1, 0, 0, 0, None, None, False),
+        (f.B, 0, 0, 1, 0, None, None, False))
+    g = _full_weight(_cols(left, rows), -1)  # (by+1, bx/2)
+    cI = _full_weight(g, -2)
+    zero_c = torch.zeros_like(rows_r)
+    g_r = _full_weight(_cols(rows[..., -1:], rows_r, zero_c), -1)
+    cR = _full_weight(g_r, -2)
+    g_b = _full_weight(_cols(left_b, f.B), -1)  # (1, bx/2): fine row ny
+    zero_b = torch.zeros_like(g_b)
+    cB = _full_weight(_rows(g[..., -1:, :], g_b, zero_b), -2)
+    g_c = _full_weight(_cols(f.B[..., -1:], f.C, torch.zeros_like(f.C)), -1)
+    cC = _full_weight(_rows(g_r[..., -1:, :], g_c, torch.zeros_like(g_c)),
+                      -2)
+    return Blocks(mesh, "corner", cI, *_owned_strips(mesh, f, cR, cB, cC))
+
+
+def prolong_corner(c: Blocks) -> Blocks:
+    """``solvers/energy_mg.py prolong_corner`` (both axes) on blocks: one
+    halo round (the row below and the column right, the seam strips at the
+    domain's last row and column), rows then columns; no reduction."""
+    mesh = c.mesh
+    last_x = _last(c, "x")
+    (rows, _, right), (rows_r, _, _), (_, _, right_b) = mesh.halos(
+        (c.I, 0, 1, 0, 1, None, c.B, False),
+        (c.R, 0, 1, 0, 0, None, c.C, False),
+        (c.B, 0, 0, 0, 1, None, None, False))
+
+    def along_rows(E):
+        return _interleave_rows(E[..., :-1, :],
+                                0.5 * (E[..., :-1, :] + E[..., 1:, :]))
+
+    def along_cols(e):
+        return _interleave_cols(e[..., :-1], 0.5 * (e[..., :-1] + e[..., 1:]))
+
+    E = _cols(rows, torch.where(last_x, rows_r, right))
+    Eb = _cols(c.B, torch.where(last_x, c.C, right_b))
+    return Blocks(mesh, "corner", along_cols(along_rows(E)),
+                  along_rows(rows_r), along_cols(Eb), c.C)

@@ -47,6 +47,7 @@ SPECS = {"I": P("y", "x"), "R": P("y", None), "B": P(None, "x"), "C": P()}
 _PIECEWISE = frozenset((
     "add", "sub", "rsub", "mul", "div", "true_divide", "neg", "pow",
     "reciprocal", "square", "abs", "sign", "exp", "log", "sqrt", "rsqrt",
+    "remainder",
     "clamp", "clip", "maximum", "minimum", "where", "eq", "ne", "gt", "ge",
     "lt", "le", "logical_and", "logical_or", "logical_not", "logical_xor",
     "isfinite", "isnan", "zeros_like", "ones_like", "full_like",

@@ -32,7 +32,8 @@ grid fields sharded (``parallel/blocks.py Blocks``: each shard its
 their shard but through the rebucket's one-deep exchange, and a
 transfer's seam strips are psum-selected from their owners.  Global
 tensors (the in-process mesh's global layout) are split on the way in and
-gathered on the way out.  ``reseed_halo`` takes the global layout only.
+gathered on the way out; so does ``reseed_halo``, which spawns on each
+shard's own cells.
 """
 from __future__ import annotations
 
@@ -398,22 +399,38 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
 def reseed_halo(bm: BucketedMarkers, T_grid, grid: StaggeredGrid,
                 min_per_cell: int, n_materials: int, mesh: Mesh):
     """Explicit-halo ``bucket.bucket_reseed``: the 3x3 material majority
-    from a one-deep exchange of the per-cell histograms (zeros beyond the
-    domain, the global engine's padding), the cell-local spawn rule, and
-    ``g2m_halo`` for the new markers' T.  The global layout only."""
-    if isinstance(bm.x, Blocks):
-        raise ValueError("reseeding on the sharded layout is ROADMAP item "
-                         "19c")
+    from a one-deep exchange of the per-cell histograms (the diagonal
+    neighbours' included, zeros beyond the domain, the global engine's
+    padding), the cell-local spawn rule, and ``g2m_halo`` for the new
+    markers' T.  Sharded markers spawn on their own blocks, each cell at
+    its global index (the block's cell origin added in f64, exactly), and
+    stay sharded; global markers take the majority gathered."""
     by, bx = _blocks(mesh, grid)
-    hist = mesh.ext1(mesh.split(material_histogram(bm, n_materials),
-                                BLK3), nd=3)  # (my, mx, by+2, bx+2, NMAT)
+    sharded = isinstance(bm.x, Blocks)
+    if sharded:
+        blocks = BucketedMarkers(**{f: getattr(bm, f).I
+                                    for f in MARKER_FIELDS})
+        hist = material_histogram(blocks, n_materials)
+    else:
+        hist = mesh.split(material_histogram(bm, n_materials), BLK3)
+    hist = mesh.ext1(hist, nd=3)  # (*local, by+2, bx+2, NMAT)
     acc = torch.zeros_like(hist[..., 1:-1, 1:-1, :])
     for a, b in OFFSETS:
         acc = acc + hist[..., 1 + a:1 + a + by, 1 + b:1 + b + bx, :]
-    majority = mesh.gather(torch.argmax(acc, dim=-1).to(torch.int32),
-                           P("y", "x"))
-    spawn, new_x, new_y, new_mat = reseed_spawn(bm, majority, grid,
-                                                min_per_cell)
+    majority = torch.argmax(acc, dim=-1).to(torch.int32)
+    if sharded:
+        dev, f64 = bm.x.device, torch.float64
+        cells = tuple(
+            (mesh.axis_index(axis, nd=3, device=dev) * n).to(f64)
+            + torch.arange(n, dtype=f64, device=dev).view(shape)
+            for axis, n, shape in (("y", by, (by, 1, 1)),
+                                   ("x", bx, (1, bx, 1))))
+        got = reseed_spawn(blocks, majority, grid, min_per_cell, cells)
+        spawn, new_x, new_y, new_mat = (Blocks(mesh, "center", a)
+                                        for a in got)
+    else:
+        spawn, new_x, new_y, new_mat = reseed_spawn(
+            bm, mesh.gather(majority, P("y", "x")), grid, min_per_cell)
     T_at = g2m_halo(T_grid, new_x, new_y, spawn, grid, "corner", mesh)
     return bm.replace(x=new_x, y=new_y, T=torch.where(spawn, T_at.to(
         bm.T.dtype), bm.T), mat=new_mat, valid=bm.valid | spawn)

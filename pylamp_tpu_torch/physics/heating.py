@@ -9,7 +9,8 @@ corner (temperature) lattice:
   downward motion against the thermal stratification heats)
 
 The edge pads are the reference's: edge-clamped, periodic side walls
-included.
+included.  Sharded fields (parallel/blocks.py) take the block forms of
+parallel/block_ops.py, which clamp on the wall blocks only.
 """
 from __future__ import annotations
 
@@ -32,6 +33,12 @@ def _center_to_corner(f):
 
 def shear_heating(vx, vy, eta_n, grid: StaggeredGrid, bcs: VelocityBCs):
     """H_s on corner nodes."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(vx, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.shear_heating(vx, vy, eta_n, grid, bcs)
     eII = strain_rate_ii(vx, vy, grid, bcs)  # centers
     hs_center = 4.0 * eta_n * eII ** 2
     return _center_to_corner(hs_center)
@@ -41,6 +48,13 @@ def adiabatic_heating(T_corner, rho_alpha_corner, vy, gy,
                       grid: StaggeredGrid):
     """H_a on corner nodes; ``rho_alpha_corner`` = rho0*alpha interpolated
     from markers to corners."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(vy, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.adiabatic_heating(T_corner, rho_alpha_corner, vy,
+                                           gy)
     vp = _pad_edge_cols(vy)
     vy_corner = 0.5 * (vp[:, :-1] + vp[:, 1:])  # (ny+1, nx+1)
     return rho_alpha_corner * T_corner * gy * vy_corner

@@ -10,6 +10,17 @@ grids, omega-damped line relaxation ("line": alternating y and x lines,
 level operator itself (``lines.stencil_line_coeffs``) and reduced once per
 level (``lines.pcr_factor``).  Periodic side walls fold and re-emit the
 seam columns in the restriction, and allow y lines only.
+
+On the sharded layout (coefficients that are ``parallel/blocks.py
+Blocks``) every level whose blocks the explicit-halo operator takes
+(``halo_eligible``) stays sharded: its coefficients are sampled in block
+form, its diagonal, masks and power bound are block forms with mesh
+dots, and its transfers run in block form (parallel/block_ops.py: a
+halo round each, and one reduction for the restriction's seam strips).  The coarser levels run on the global tensors on every
+shard, as the reference runs them on GSPMD's global arrays: the last
+sharded level's coefficients gathered once a hierarchy, its residual once
+a V-cycle (a "coarse" collective), and the correction split on the way up
+(no message).  Chebyshev smoothing on uniform walled grids only.
 """
 from __future__ import annotations
 
@@ -21,6 +32,9 @@ import torch.nn.functional as F
 from pylamp_tpu_torch.core.bc import ThermalBCs
 from pylamp_tpu_torch.core.grid import StaggeredGrid
 from pylamp_tpu_torch.ops.energy import _dirichlet_masks, energy_operator
+from pylamp_tpu_torch.parallel import block_ops
+from pylamp_tpu_torch.parallel.blocks import Blocks, gather_all
+from pylamp_tpu_torch.parallel.halo_ops import halo_eligible
 from pylamp_tpu_torch.solvers.krylov import tdot
 from pylamp_tpu_torch.solvers.lines import (
     line_axes,
@@ -78,12 +92,18 @@ def restrict_corner(f, periodic_x: bool = False, cx: bool = True,
     return c
 
 
-def _power_lambda_max(apply_binv_a, shape, dtype, device, iters: int = 12):
+def _power_lambda_max(apply_binv_a, like, iters: int = 12):
     """|lambda_max| of D^-1 A by power iteration from the reference's
-    deterministic start vector, on the device without a host read."""
-    n = shape[0] * shape[1]
-    v = (torch.remainder(torch.arange(n, dtype=dtype, device=device)
-                         * 0.754877666 + 0.1, 1.0) - 0.5).reshape(shape)
+    deterministic start vector (on the lattice and in the dtype of
+    ``like``, a tensor or a sharded field), on the device without a host
+    read."""
+    dtype, device = like.dtype, like.device
+    if isinstance(like, Blocks):
+        idx = block_ops.flat_index(like).to(dtype)
+    else:
+        idx = torch.arange(like.numel(), dtype=dtype,
+                           device=device).reshape(like.shape)
+    v = torch.remainder(idx * 0.754877666 + 0.1, 1.0) - 0.5
     lam = torch.ones((), dtype=dtype, device=device)
     for _ in range(iters):
         v = v / torch.sqrt(tdot(v, v))
@@ -117,12 +137,25 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
     plan = coarsening_plan(grid, levels, semi_threshold=semicoarsen)
     nlev = len(plan) + 1
     dtype, device = k.dtype, k.device
+    mesh = k.mesh if isinstance(k, Blocks) else None
+    if mesh is not None and (smoother != "chebyshev" or bcs.periodic_x
+                             or any(step != (True, True) for step in plan)):
+        raise ValueError("the sharded energy multigrid takes Chebyshev "
+                         "smoothing, walled sides and full coarsening "
+                         "(ROADMAP item 19c)")
 
     grids = [grid]
     coeffs = [(k, rhocp_over_dt)]
     for cx, cy in plan:
         grids.append(grids[-1].coarsen(cx, cy))
         kl, rl = coeffs[-1]
+        if isinstance(kl, Blocks):
+            if halo_eligible(grids[-1], mesh):
+                coeffs.append((block_ops.sample_corner(kl),
+                               block_ops.sample_corner(rl)))
+                continue
+            # the first replicated level: the last sharded one, gathered
+            kl, rl = gather_all([kl, rl], kind="coarse")
         # corner nodes coincide: sample coefficients at the surviving nodes
         sy = slice(None, None, 2) if cy else slice(None)
         sx = slice(None, None, 2) if cx else slice(None)
@@ -132,7 +165,9 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
              / (g.dx_min * g.dy_min) for g in grids]
     diags = [energy_diagonal(kl, rl, g, bcs, kb, k_avg)
              for (kl, rl), g, kb in zip(coeffs, grids, kbnds)]
-    masks = [_dirichlet_masks(g, bcs, dtype, device)[0] for g in grids]
+    masks = [block_ops.dirichlet_masks(kl, bcs)[0] if isinstance(kl, Blocks)
+             else _dirichlet_masks(g, bcs, dtype, device)[0]
+             for (kl, _), g in zip(coeffs, grids)]
 
     def apply_l(l, T):
         kl, rl = coeffs[l]
@@ -141,8 +176,8 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
 
     if smoother == "chebyshev":
         lam = [1.1 * _power_lambda_max(
-            lambda v, l=l: apply_l(l, v) / diags[l], grids[l].shape_corner,
-            dtype, device) for l in range(nlev)]
+            lambda v, l=l: apply_l(l, v) / diags[l], coeffs[l][0])
+            for l in range(nlev)]
     else:
         # each level's line systems along each sweep axis, reduced once
         lines = []
@@ -185,10 +220,29 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
         r = b - apply_l(l, x)
         pcx, pcy = plan[l]
         # Dirichlet rows belong to the smoother on each level
-        rc = restrict_corner(torch.where(masks[l], 0.0, r), bcs.periodic_x,
-                             cx=pcx, cy=pcy)
+        rc = _down(l, torch.where(masks[l], 0.0, r), pcx, pcy)
         ec = vcycle(l + 1, torch.where(masks[l + 1], 0.0, rc))
-        x = x + torch.where(masks[l], 0.0, prolong_corner(ec, cx=pcx, cy=pcy))
+        x = x + torch.where(masks[l], 0.0, _up(l, ec, pcx, pcy))
         return smooth(l, x, b, post_smooth)
+
+    def _down(l, r, pcx, pcy):
+        """Level l's residual restricted into level l + 1's layout: in
+        blocks, or, where l + 1 is replicated, gathered once and restricted
+        on the global tensors."""
+        if isinstance(r, Blocks):
+            if isinstance(coeffs[l + 1][0], Blocks):
+                return block_ops.restrict_corner(r)
+            r = gather_all([r], kind="coarse")[0]
+        return restrict_corner(r, bcs.periodic_x, cx=pcx, cy=pcy)
+
+    def _up(l, ec, pcx, pcy):
+        """Level l + 1's correction prolonged onto level l: in blocks, or
+        from the replicated level on the global tensors, then split onto a
+        sharded level l (no message)."""
+        if isinstance(ec, Blocks):
+            return block_ops.prolong_corner(ec)
+        e = prolong_corner(ec, cx=pcx, cy=pcy)
+        return (Blocks.split(e, "corner", mesh)
+                if isinstance(coeffs[l][0], Blocks) else e)
 
     return lambda r: vcycle(0, r)

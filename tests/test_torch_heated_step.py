@@ -19,6 +19,10 @@ walls (velocity and thermal) with the energy multigrid and flexible CG.
 - the heated step on the in-process 4x2 mesh (explicit halo: m2g_halo,
   reseed_halo, the per-shard transfer with rho0*alpha, the energy MG
   through the halo operators) against the single-device heated step;
+- the sharded layout (``shard_state``): the in-process 4x2 mesh with
+  explicit halos takes the reference's three steps of the walled variant
+  on the sharded state, from the same bridged state, at the bars above
+  (the periodic variant is refused there: ROADMAP item 19c);
 - ``_check_slice`` accepts the four switches and the energy multigrid
   with each smoother and the BFBT Schur surrogate, and refuses an
   unknown preconditioner.
@@ -157,6 +161,48 @@ def test_heated_run_spawns(runs):
     ref, _ = ref_out[-1]
     assert int(st.markers.total()) > int(diag["marker_count"])
     assert int(st.markers.total()) == int(np.sum(ref["state.markers.valid"]))
+
+
+def test_sharded_heated_steps_match_reference(runs):
+    """The port's in-process sharded step (every rank's code path) against
+    the reference's three f64 steps."""
+    from pylamp_tpu_torch.bridge import sharded_from_numpy, sharded_to_numpy
+
+    cfg, d0, ref_out, _ = runs
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, explicit_halo=True))
+    grid, table, _ = build(cfg, dtype=torch.float64, device="cpu")
+    mesh = make_mesh(8)
+    if cfg.physics.velocity_bcs.periodic_x:
+        with pytest.raises(ValueError, match="ROADMAP item 19c"):
+            make_step(grid, cfg, table, mesh=mesh)(
+                sharded_from_numpy(d0, mesh, device="cpu"))
+        return
+    step = make_step(grid, cfg, table, mesh=mesh)
+    st = sharded_from_numpy(d0, mesh, device="cpu")
+    for (ref, rdiag) in ref_out:
+        st, diag = step(st)
+        got = sharded_to_numpy(st, mesh)
+        vmax = float(np.max(np.abs(ref["state.vy"])))
+        for name in ("vx", "vy"):
+            err = float(np.max(np.abs(got[f"state.{name}"]
+                                      - ref[f"state.{name}"])))
+            assert err <= 1e-7 * vmax, name
+        for name in ("T", "markers.T", "markers.x", "markers.y"):
+            err = float(np.max(np.abs(got[f"state.{name}"]
+                                      - ref[f"state.{name}"])))
+            assert err <= 1e-7, name
+        for name in ("markers.valid", "markers.mat"):
+            np.testing.assert_array_equal(got[f"state.{name}"],
+                                          ref[f"state.{name}"])
+        for it in ("stokes_iterations", "energy_iterations"):
+            assert abs(diag[it] - int(rdiag[it])) <= 1, it
+        assert diag["stokes_converged"] and diag["stokes_residual_rel"] <= 1e-8
+        assert int(diag["markers_dropped"]) == int(rdiag["markers_dropped"])
+        # the same markers before reseeding, and the same spawned
+        assert int(diag["marker_count"]) == int(rdiag["marker_count"])
+        assert int(np.sum(got["state.markers.valid"])) == int(
+            np.sum(ref["state.markers.valid"])) > int(diag["marker_count"])
 
 
 def test_mixed_heated_step_f32(runs):

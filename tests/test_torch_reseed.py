@@ -9,7 +9,8 @@ transfer, on the CPU.
   material id in both packages, as ``jnp.argmax``;
 - healthy cells are left untouched (the no-op case);
 - ``halo_markers.reseed_halo`` on the in-process 4x2 mesh is bit-identical
-  to ``bucket_reseed``;
+  to ``bucket_reseed``, and on sharded markers (each shard spawning on its
+  own cells) to the global-layout call, slot for slot;
 - ``halo_markers.m2g_halo`` (subgrid diffusion's transfer on the mesh)
   against ``bucket_markers_to_grid`` on every lattice and averaging mode:
   within 1e-12 relative, the weights within 1e-12.
@@ -140,6 +141,24 @@ def test_reseed_halo_equals_bucket_reseed(dtype):
     assert int(ref.total()) > int(bm.total())
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_reseed_halo_sharded_equals_global(dtype):
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    _, bm = _both(_markers(MGRID, 6, 12, dtype=dtype))
+    Tg = t(_T_grid(MGRID, 13, dtype))
+    ref = reseed_halo(bm, Tg, MGRID, min_per_cell=3, n_materials=NMAT,
+                      mesh=MESH)
+    sharded = BucketedMarkers(**{f: Blocks.split(getattr(bm, f), "center",
+                                                 MESH) for f in FIELDS})
+    got = reseed_halo(sharded, Blocks.split(Tg, "corner", MESH), MGRID,
+                      min_per_cell=3, n_materials=NMAT, mesh=MESH)
+    assert int(ref.total()) > int(bm.total())
+    for f in FIELDS:
+        assert isinstance(getattr(got, f), Blocks), f
+        assert torch.equal(getattr(got, f).gather(), getattr(ref, f)), f
 
 
 @pytest.mark.parametrize("loc", ["corner", "center", "vx", "vy"])

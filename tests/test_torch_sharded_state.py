@@ -14,9 +14,15 @@ parallel/block_ops.py) on the CPU, FK 32^2 in f64:
   viscosity coarsening, the momentum and energy diagonals, the rhs, the
   pressure gradient, the Gershgorin bound) gathers to its global
   function's result bit for bit;
+- the block forms of the thermal path and the energy multigrid (strain
+  rate, shear and adiabatic heating, the coefficient sampling, the corner
+  transfers, each level's diagonal and mask, the reseeding majority and
+  spawn) likewise, and the energy multigrid's power bound to 1e-15
+  relative (mesh dots);
 - the covered set: a distributed mesh refuses every configuration the
   sharded layout does not take (naming ROADMAP item 19c) and a global
-  state; the in-process mesh refuses a sharded state of one.
+  state, and takes the heated FK with either energy solve; the
+  in-process mesh refuses a sharded state of a refused configuration.
 
 The sharded step against the JAX package's and the port's global step,
 and the 8-rank world, are in tests/test_torch_mesh_step.py; the sharded
@@ -230,6 +236,167 @@ def test_block_forms_equal_global(name):
         assert torch.equal(a, b), name
 
 
+THERMAL_FORMS = ("strain_rate_ii", "shear_heating", "adiabatic_heating",
+                 "sample_corner", "restrict_corner", "prolong_corner",
+                 "level_diagonals", "level_masks", "majority", "spawn")
+
+
+def _energy_levels(mesh, grid, k, rc, tbc, kb):
+    """Each sharded level of the energy multigrid's hierarchy from the
+    corner fields ``k``, ``rc``: (grid, kbnd, global k, global rc, sharded
+    k, sharded rc), the coefficients sampled by the global slicing and by
+    the block form (32^2 on the 4x2 mesh: 32^2, 16^2 and 8^2 stay
+    sharded)."""
+    from pylamp_tpu_torch.parallel.halo_ops import halo_eligible
+
+    out = []
+    kg, rg = k, rc
+    ks, rs = Blocks.split(k, "corner", mesh), Blocks.split(rc, "corner", mesh)
+    g = grid
+    while halo_eligible(g, mesh):
+        out.append((g, kb * (grid.dx * grid.dy) / (g.dx * g.dy), kg, rg, ks,
+                    rs))
+        g = g.coarsen(True, True)
+        kg, rg = kg[::2, ::2], rg[::2, ::2]
+        ks, rs = block_ops.sample_corner(ks), block_ops.sample_corner(rs)
+    return out
+
+
+@pytest.mark.parametrize("name", THERMAL_FORMS)
+def test_thermal_block_forms_equal_global(name):
+    """The block forms of the thermal path and the energy multigrid,
+    gathered, against their global functions on the same seeded inputs:
+    bit for bit."""
+    from pylamp_tpu_torch.markers.bucket import (
+        BucketedMarkers,
+        material_histogram,
+        reseed_spawn,
+    )
+    from pylamp_tpu_torch.ops.energy import _dirichlet_masks
+    from pylamp_tpu_torch.ops.stokes import strain_rate_ii
+    from pylamp_tpu_torch.physics.heating import (
+        adiabatic_heating,
+        shear_heating,
+    )
+    from pylamp_tpu_torch.solvers import energy_mg
+
+    mesh = Mesh(4, 2)
+    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
+    coarse = grid.coarsen(True, True)
+    vbc = CFG.physics.velocity_bcs
+    tbc = CFG.physics.thermal_bcs
+    g = {loc: v - 1.25 for loc, v in _fields(21, grid).items()}
+    c = _fields(22, coarse)
+    kb = torch.tensor(3.5, dtype=torch.float64)
+
+    def sh(a, loc):
+        return Blocks.split(a, loc, mesh)
+
+    if name == "strain_rate_ii":
+        got = (strain_rate_ii(sh(g["vx"], "vx"), sh(g["vy"], "vy"), grid,
+                              vbc),)
+        want = (strain_rate_ii(g["vx"], g["vy"], grid, vbc),)
+    elif name == "shear_heating":
+        eta = g["center"] + 2.0
+        got = (shear_heating(sh(g["vx"], "vx"), sh(g["vy"], "vy"),
+                             sh(eta, "center"), grid, vbc),)
+        want = (shear_heating(g["vx"], g["vy"], eta, grid, vbc),)
+    elif name == "adiabatic_heating":
+        ra = g["corner"] * 3.0
+        got = (adiabatic_heating(sh(g["corner"], "corner"), sh(ra, "corner"),
+                                 sh(g["vy"], "vy"), 9.81, grid),)
+        want = (adiabatic_heating(g["corner"], ra, g["vy"], 9.81, grid),)
+    elif name == "sample_corner":
+        got = (block_ops.sample_corner(sh(g["corner"], "corner")),)
+        want = (g["corner"][::2, ::2],)
+    elif name == "restrict_corner":
+        got = (block_ops.restrict_corner(sh(g["corner"], "corner")),)
+        want = (energy_mg.restrict_corner(g["corner"]),)
+    elif name == "prolong_corner":
+        got = (block_ops.prolong_corner(sh(c["corner"], "corner")),)
+        want = (energy_mg.prolong_corner(c["corner"]),)
+    elif name in ("level_diagonals", "level_masks"):
+        levels = _energy_levels(mesh, grid, g["corner"] + 2.0,
+                                g["corner"] * 3.0 + 4.0, tbc, kb)
+        assert len(levels) == 3
+        got, want = [], []
+        for lg, lkb, kg, rg, ks, rs in levels:
+            got += [ks, rs]
+            want += [kg, rg]
+            if name == "level_diagonals":
+                got.append(energy_diagonal(ks, rs, lg, tbc, lkb,
+                                           "arithmetic"))
+                want.append(energy_diagonal(kg, rg, lg, tbc, lkb,
+                                            "arithmetic"))
+            else:
+                got.append(block_ops.dirichlet_masks(ks, tbc)[0])
+                want.append(_dirichlet_masks(lg, tbc, kg.dtype, "cpu")[0])
+    else:
+        rng = np.random.default_rng(23)
+        shape = (N, N, 6)
+        valid = torch.from_numpy(rng.uniform(size=shape) < 0.3)
+        mat = torch.from_numpy(rng.integers(0, 3, shape).astype(np.int32))
+        pos = torch.from_numpy(rng.uniform(0.0, 1.0, shape))
+        bm = BucketedMarkers(x=pos, y=pos.flip(0), mat=mat, T=pos * 2.0,
+                             valid=valid)
+        blocks = BucketedMarkers(**{f: sh(getattr(bm, f), "center").I
+                                    for f in ("x", "y", "mat", "T",
+                                              "valid")})
+        hist = mesh.ext1(material_histogram(blocks, 3), nd=3)
+        acc = sum(hist[..., 1 + a:9 + a, 1 + b:17 + b, :]
+                  for a in (-1, 0, 1) for b in (-1, 0, 1))
+        major = torch.argmax(acc, dim=-1).to(torch.int32)
+        hist_g = torch.nn.functional.pad(
+            material_histogram(bm, 3), (0, 0, 1, 1, 1, 1))
+        major_g = torch.argmax(sum(
+            hist_g[1 + a:N + 1 + a, 1 + b:N + 1 + b]
+            for a in (-1, 0, 1) for b in (-1, 0, 1)), dim=-1).to(torch.int32)
+        if name == "majority":
+            got = (Blocks(mesh, "center", major),)
+            want = (major_g,)
+        else:
+            f64 = torch.float64
+            cells = ((mesh.axis_index("y", 3) * 8).to(f64)
+                     + torch.arange(8, dtype=f64).view(8, 1, 1),
+                     (mesh.axis_index("x", 3) * 16).to(f64)
+                     + torch.arange(16, dtype=f64).view(1, 16, 1))
+            got = tuple(Blocks(mesh, "center", a) for a in reseed_spawn(
+                blocks, major, grid, 4, cells))
+            want = reseed_spawn(bm, major_g, grid, 4)
+            assert bool(want[0].any())
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a = a.gather() if isinstance(a, Blocks) else a
+        assert a.shape == b.shape
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b), name
+
+
+def test_power_lambda_blocks_match_global():
+    """The energy multigrid's power bound on blocks (the start vector from
+    each node's global index, mesh dots) against the global one: 1e-15
+    relative."""
+    from pylamp_tpu_torch.ops.energy import energy_operator
+    from pylamp_tpu_torch.solvers.energy_mg import _power_lambda_max
+
+    mesh = Mesh(4, 2)
+    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
+    tbc = CFG.physics.thermal_bcs
+    f = _fields(24, grid)
+    k, rc = f["corner"], f["corner"] * 40.0
+    kb = torch.tensor(3.5, dtype=torch.float64)
+    d = energy_diagonal(k, rc, grid, tbc, kb, "arithmetic")
+    want = _power_lambda_max(lambda v: energy_operator(
+        v, k, rc, grid, tbc, kbnd=kb) / d, k)
+    ks, rs = (Blocks.split(a, "corner", mesh) for a in (k, rc))
+    ds = energy_diagonal(ks, rs, grid, tbc, kb, "arithmetic")
+    got = _power_lambda_max(lambda v: energy_operator(
+        v, ks, rs, grid, tbc, kbnd=kb, halo_mesh=mesh) / ds, ks)
+    start = block_ops.flat_index(ks).gather()
+    assert torch.equal(start, torch.arange(k.numel()).reshape(k.shape))
+    assert abs(float(got) - float(want)) <= 1e-15 * float(want)
+
+
 def _refused(name):
     """A configuration outside the sharded layout's covered set."""
     fk = W.fk_halo_config(N)
@@ -244,11 +411,19 @@ def _refused(name):
         return dataclasses.replace(fk, y_edges=geometric_edges(N, 1.0, 4.0))
     if name == "flat":
         return dataclasses.replace(fk, marker_engine="flat")
-    if name == "heated":
+    phys = fk.physics
+    if name == "heat_flux":
         return dataclasses.replace(fk, physics=dataclasses.replace(
-            fk.physics, shear_heating=True))
+            phys, thermal_bcs=dataclasses.replace(
+                phys.thermal_bcs, left=ThermalBC("neumann", 0.5))))
+    if name == "moving_walls":
+        return dataclasses.replace(fk, physics=dataclasses.replace(
+            phys, velocity_bcs=dataclasses.replace(
+                phys.velocity_bcs, top="no_slip", vt_top=1.0)))
     return dataclasses.replace(fk, solver=dataclasses.replace(solver, **{
-        "energy_mg": dict(energy_preconditioner="mg"),
+        "stokes_jacobi": dict(preconditioner="jacobi"),
+        "energy_mg_lines": dict(energy_preconditioner="mg",
+                                energy_mg_smoother="line"),
         "wbfbt": dict(schur="wbfbt"),
         "vanka": dict(preconditioner="vanka", mg_semicoarsen=0.0),
         "sticky_air_al": dict(stokes_al_gamma=10.0,
@@ -256,9 +431,10 @@ def _refused(name):
     }[name]))
 
 
-@pytest.mark.parametrize("name", ["periodic", "stretched", "flat", "heated",
-                                  "energy_mg", "wbfbt", "vanka",
-                                  "sticky_air_al"])
+@pytest.mark.parametrize("name", ["periodic", "stretched", "flat",
+                                  "heat_flux", "moving_walls", "wbfbt",
+                                  "vanka", "sticky_air_al", "stokes_jacobi",
+                                  "energy_mg_lines"])
 def test_distributed_mesh_refuses(name):
     cfg = _refused(name)
     grid, table = grid_and_table(cfg)
@@ -266,12 +442,29 @@ def test_distributed_mesh_refuses(name):
         make_step(grid, cfg, table, mesh=DistMesh(4, 2, 0))
 
 
+@pytest.mark.parametrize("pre", ["jacobi", "mg"])
+def test_distributed_mesh_takes_the_heated_fk(pre):
+    """The four thermal switches, with the Jacobi-CG energy solve or the
+    energy multigrid with flexible CG, on a rank of the distributed 4x2
+    mesh."""
+    from pylamp_tpu_torch.models.profile import fk_heated_config
+    from pylamp_tpu_torch.models.step import sharded_refusal
+
+    cfg = fk_heated_config(N, pre)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, explicit_halo=True))
+    grid, table = grid_and_table(cfg)
+    mesh = DistMesh(4, 2, 3)
+    assert sharded_refusal(grid, cfg, mesh) is None
+    assert callable(make_step(grid, cfg, table, mesh=mesh))
+
+
 def test_sharded_refusals_in_process_and_global_state(state0):
     """The in-process mesh refuses a sharded state of a configuration
     outside the covered set (its global state still steps), and a
     distributed mesh refuses a global state."""
     mesh = Mesh(4, 2)
-    cfg = _refused("energy_mg")
+    cfg = _refused("heat_flux")
     grid, table = grid_and_table(cfg)
     with pytest.raises(ValueError, match="ROADMAP item 19c"):
         make_step(grid, cfg, table, mesh=mesh)(shard_state(state0, mesh))

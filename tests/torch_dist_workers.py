@@ -120,14 +120,48 @@ def fk_halo_config(n):
         cfg.solver, explicit_halo=True))
 
 
+def fk_heated_halo_config(n, energy_preconditioner="jacobi"):
+    """``models.profile.fk_heated_config(n, energy_preconditioner)`` with
+    ``explicit_halo=True`` and reseeding below 10 markers per cell (one
+    more than the initial 9: every step spawns in every cell)."""
+    import dataclasses
+
+    from pylamp_tpu_torch.models.profile import fk_heated_config
+
+    cfg = fk_heated_config(n, energy_preconditioner)
+    return dataclasses.replace(
+        cfg, physics=dataclasses.replace(cfg.physics, reseed_min_per_cell=10),
+        solver=dataclasses.replace(cfg.solver, explicit_halo=True))
+
+
 def mesh_step_rank(device, d0, n, my, mx):
     """One f64 step of ``fk_halo_config(n)`` from the path-keyed state
     ``d0`` on this rank's distributed mesh, in the sharded layout: (rank
     0's gathered state as numpy, else None; diagnostics; whether the
     replicated scalars and strips agree on every rank; the leaves this
-    rank holds after sharding beyond its block and strips of their own
-    lattice (``bridge.oversized_leaves``); the step's seconds and
-    collectives on this rank)."""
+    rank holds, after sharding or after the step, beyond its block and
+    strips of their own lattice (``bridge.oversized_leaves``); the step's
+    seconds and collectives on this rank)."""
+    from pylamp_tpu_torch.parallel.dist import DistMesh
+
+    return dist_step(fk_halo_config(n), DistMesh.from_group(my, mx), d0,
+                     device)
+
+
+def heated_step_rank(device, d0, n, my, mx):
+    """``mesh_step_rank``'s results for one step of
+    ``fk_heated_halo_config(n)`` (Jacobi-CG energy solve) and then one of
+    its energy-multigrid variant, each from ``d0``, by variant name."""
+    from pylamp_tpu_torch.parallel.dist import DistMesh
+
+    mesh = DistMesh.from_group(my, mx)
+    return {pre: dist_step(fk_heated_halo_config(n, pre), mesh, d0, device)
+            for pre in ("jacobi", "mg")}
+
+
+def dist_step(cfg, mesh, d0, device):
+    """One step of ``cfg`` on the distributed ``mesh`` from ``d0``: the
+    tuple ``mesh_step_rank`` returns."""
     import time
 
     from pylamp_tpu_torch.bridge import (
@@ -138,10 +172,8 @@ def mesh_step_rank(device, d0, n, my, mx):
     from pylamp_tpu_torch.models.setup import grid_and_table
     from pylamp_tpu_torch.models.step import make_step
     from pylamp_tpu_torch.parallel import dist
-    from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
+    from pylamp_tpu_torch.parallel.dist import replicas_agree
 
-    cfg = fk_halo_config(n)
-    mesh = DistMesh.from_group(my, mx)
     grid, table = grid_and_table(cfg)
     st0 = sharded_from_numpy(d0, mesh, device=device)
     oversized = oversized_leaves(st0, grid, mesh)
@@ -152,6 +184,7 @@ def mesh_step_rank(device, d0, n, my, mx):
     stats = {"seconds": time.perf_counter() - t0, **dist.rounds}
     diag = {k: (v.item() if torch.is_tensor(v) else v)
             for k, v in diag.items()}
+    oversized.update(oversized_leaves(st, grid, mesh))
     return (sharded_to_numpy(st, mesh, root=0), diag,
             replicas_agree(st, mesh), oversized, stats)
 

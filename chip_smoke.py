@@ -34,6 +34,15 @@ plain PyTorch version on the card:
   solve's viscosities, kernels 2-4 on its markers, kernel 5 on levels
   1024, 512 and 256 in both forms, kernel 7 on those levels (timed at
   1024^2); the seam columns of kernels 1, 5 and 7 bit-identical;
+- the periodic forms of kernels 10-12 (rows ``*_block_periodic``, port-
+  only: the sharded layout's wrap-around marker exchange) on the ring-
+  exchanged 256x512 x K18 blocks of that state and on a 40x48 periodic
+  build on the 2x4 mesh, each against its plain version and against
+  kernels 2p-4p: the halo transfer bit-identical to kernel 2p, the
+  exchanged velocity windows equal to kernel 3p's wrapped planes and
+  kernel 11p on them bit-identical to kernel 3p at reach 1 and 2 for
+  every marker clear of the seam (those crossing it counted), the halo
+  rebucket slot for slot kernel 4p's;
 - kernels 2 and 10 with the rho0 * alpha stream (rows ``m2g_ra`` and
   ``m2g_block_ra``, adiabatic heating's corner field) on the FK markers
   and their 4x2 blocks, each at one odd shape (37x23; 40^2 on 2x2): a
@@ -109,9 +118,17 @@ just before it:
   0.5 GiB of step peak memory and all-gather no block in the step; it
   prints the backend, the world size, s/step, step peak memory and
   collectives by kind per rank, and the in-process layouts' step peaks,
-  beside the card's name and power limit.  Then a one-rank NCCL group
-  runs the distributed mesh's gather, gather to rank 0, psum, psum_many
-  and pmax on the card against the in-process mesh.
+  beside the card's name and power limit.  In the same world each rank
+  then steps the periodic falling block 1024^2 (its built state, a second
+  file) on the sharded layout, the markers on their blocks through the
+  wrap-around exchange: rank 0's leaves bit-identical to the in-process
+  sharded 4x2 step, which must hold the in-process global-layout periodic
+  step at the mesh bars (Krylov +-2), keep its vx seam columns
+  bit-identical and x in [0, lx) and drop no marker; every rank launches
+  kernels 9-12 as often as in-process, 10-12 only in their periodic
+  forms, 1-8 never, within the same memory and all-gather bars.  Then a
+  one-rank NCCL group runs the distributed mesh's gather, gather to rank
+  0, psum, psum_many and pmax on the card against the in-process mesh.
 
 - the heated FK 1024^2 (``models.profile.fk_heated_config``: the FK
   bench preset with shear and adiabatic heating, subgrid diffusion d = 1
@@ -194,7 +211,8 @@ just before it:
   built state; the mesh path launches kernel 9 per shard and kernels 2-4
   in their periodic forms on the global markers, and no other kernel (5,
   6 and 8 stay off under periodic walls, 10-12 with the marker halo
-  engine, as in the reference); every step keeps the periodic seam
+  engine on the global layout, as in the reference); every step keeps
+  the periodic seam
   checks, Krylov within +-2 of the single device, and after step 1 the
   mesh path's bars.
 
@@ -417,7 +435,8 @@ DEVICE_TIMED = ("saddle", "m2g", "advect", "rebucket", "saddle_periodic",
                 "m2g_periodic", "advect_periodic", "rebucket_periodic",
                 "m2g_ra", "cheb_block", "momentum", "momentum_periodic",
                 "saddle_block", "m2g_block", "m2g_block_ra", "advect_block",
-                "rebucket_block")
+                "rebucket_block", "m2g_block_periodic",
+                "advect_block_periodic", "rebucket_block_periodic")
 HOST_TIMED = ("saddle", "saddle_periodic", "momentum")
 
 # what kernels 5, 6 and 8 report besides their rows: their times on every
@@ -1134,13 +1153,15 @@ def momentum_row(fk_grid, fk_io, st_grid, st_hier):
 def report_occupancy(cuda_build, smi):
     """The occupancy line: kernels 5, 6 and 8 per timed instantiation, and
     kernels 1-4, 7 and 9-12 in every form (2-4 at the FK plans, 10-12 at
-    the 4x2 blocks' plans, K = 18), from the card's function attributes
+    the 4x2 blocks' plans, K = 18; 10p-12p too), from the card's function
+    attributes
     (registers, static and dynamic shared memory, local bytes, resident
     blocks per SM or clusters), and every kernel's registers, static
     shared memory and spills from the build's ``ptxas -v`` report.  No
     kernel may spill; kernels 2-4's and 10-12's dynamic shared memory must
     be their plans', with at least 2 blocks resident per SM (kernels 2 and
-    10: 4, which their 9-slot units are sized for)."""
+    10: 4, which their 9-slot units are sized for; 10p: 3, its launch
+    bounds)."""
     from pylamp_tpu_torch.markers.kernels import (
         advect,
         advect_block,
@@ -1177,21 +1198,27 @@ def report_occupancy(cuda_build, smi):
     for with_p in (True, False):
         OCCUPANCY[f"saddle_block{'' if with_p else ' momentum-only'}"] = \
             saddle_block.kernel_info(with_p)
-    info = rebucket_block.kernel_info(18, b_plan.tx)
-    OCCUPANCY[f"rebucket_block {by}x{bx}xK18 strips of {b_plan.tx}"] = info
-    held.append(("rebucket_block", info, b_plan.smem, 2))
     mb_plan = m2g_block.block_plan(MESH_SHARDS, by, bx, 18)
-    for ra in (False, True):
-        name = f"m2g_block{' ra' if ra else ''}"
-        info = m2g_block.kernel_info(
-            mb_plan, m2g.FLAG_ENERGY | m2g.FLAG_RA * ra)
-        OCCUPANCY[f"{name} {by}x{bx}xK18 units of {mb_plan.kc}"] = info
-        held.append((name, info, mb_plan.smem, 4))
     ab_plan = advect.advect_plan(by, bx, 18)
-    info = advect_block.kernel_info(ab_plan)
-    OCCUPANCY[f"advect_block {by}x{bx}xK18 tiles of "
-              f"{ab_plan.ty}x{ab_plan.tx}"] = info
-    held.append(("advect_block", info, ab_plan.smem, 2))
+    for periodic in (False, True):  # kernels 10-12, and 10p-12p
+        form = " periodic" if periodic else ""
+        info = rebucket_block.kernel_info(18, b_plan.tx, periodic)
+        OCCUPANCY[f"rebucket_block{form} {by}x{bx}xK18 strips of "
+                  f"{b_plan.tx}"] = info
+        held.append((f"rebucket_block{form}", info, b_plan.smem, 2))
+        for ra in (False, True):
+            name = f"m2g_block{form}{' ra' if ra else ''}"
+            info = m2g_block.kernel_info(
+                mb_plan, m2g.FLAG_ENERGY | m2g.FLAG_RA * ra
+                | m2g.FLAG_PERIODIC * periodic)
+            OCCUPANCY[f"{name} {by}x{bx}xK18 units of {mb_plan.kc}"] = info
+            held.append((name, info, mb_plan.smem,
+                         m2g_block.BLOCKS_PER_SM_PERIODIC if periodic
+                         else m2g_block.BLOCKS_PER_SM))
+        info = advect_block.kernel_info(ab_plan, periodic)
+        OCCUPANCY[f"advect_block{form} {by}x{bx}xK18 tiles of "
+                  f"{ab_plan.ty}x{ab_plan.tx}"] = info
+        held.append((f"advect_block{form}", info, ab_plan.smem, 2))
     for name, info, smem, blocks in held:
         if info["dynamic_smem"] != smem or info["blocks_per_sm"] < blocks:
             raise AssertionError(f"{name}: {info}, the plan assumes {smem} "
@@ -2030,10 +2057,11 @@ def _kernel_modules():
 
 def _measured_rank_step(step, state0, modules, device):
     """``step(state0)`` on a rank of a distributed mesh, measured: the
-    peak memory, every launch counter (kernel 10's rho0 * alpha one too)
-    and the transport's counts set to 0 after a barrier just before the
-    step and read just after it.  Returns (state, diagnostics, {step_s,
-    launches, launches_ra, rounds, peak_gib})."""
+    peak memory, every launch counter (the periodic-form ones and kernel
+    10's rho0 * alpha one too) and the transport's counts set to 0 after
+    a barrier just before the step and read just after it.  Returns
+    (state, diagnostics, {step_s, launches, launches_periodic,
+    launches_ra, rounds, peak_gib})."""
     import torch.distributed as dist
 
     from pylamp_tpu_torch.parallel import dist as pdist
@@ -2042,9 +2070,7 @@ def _measured_rank_step(step, state0, modules, device):
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     dist.barrier()
-    for mod in modules.values():
-        mod.launches = 0
-    m2g_block.launches_ra = 0
+    zero_counters(modules)
     pdist.reset_rounds()
     t0 = time.perf_counter()
     state, diag = step(state0)
@@ -2053,11 +2079,65 @@ def _measured_rank_step(step, state0, modules, device):
     return state, diag, dict(
         step_s=step_s,
         launches={k: mod.launches for k, mod in modules.items()},
+        launches_periodic={k: mod.launches_periodic
+                           for k, mod in modules.items()
+                           if hasattr(mod, "launches_periodic")},
         launches_ra=m2g_block.launches_ra, rounds=dict(pdist.rounds),
         peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
 
 
-def dist_fk_rank(device, state_path):
+def _rank_state(cfg, state_path, mesh, device):
+    """A rank's sharded state of ``cfg`` loaded from ``state_path`` (the
+    host loads it, the rank moves only its blocks to the card): (grid,
+    table, state, the largest piece of a leaf the rank holds, the markers'
+    block size, the pieces beyond their lattice's block or strip)."""
+    import numpy as np
+
+    from pylamp_tpu_torch.bridge import (
+        oversized_leaves,
+        sharded_from_numpy,
+        state_leaves,
+    )
+    from pylamp_tpu_torch.models.setup import grid_and_table
+
+    grid, table = grid_and_table(cfg)
+    with np.load(state_path) as z:
+        state0 = sharded_from_numpy(dict(z), mesh, device=device)
+    held = max(p.numel() for v in state_leaves(state0).values()
+               for p in (v.pieces().values() if hasattr(v, "pieces")
+                         else (v,)))
+    block = (grid.ny // mesh.my) * (grid.nx // mesh.mx) * \
+        state0.markers.x.shape[-1]
+    return grid, table, state0, held, block, oversized_leaves(state0, grid,
+                                                             mesh)
+
+
+def _dist_rank_step(cfg, state_path, mesh, modules, device, label):
+    """One measured step of ``cfg`` on this rank's shard of ``mesh`` from
+    the state at ``state_path`` (``_rank_state``), checked by
+    ``check_state``: the record ``dist_fk_rank`` returns for it."""
+    from pylamp_tpu_torch.bridge import oversized_leaves, state_leaves
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.dist import replicas_agree
+    from pylamp_tpu_torch.parallel.mesh import unshard_state
+
+    grid, table, state0, held, block, oversized = _rank_state(
+        cfg, state_path, mesh, device)
+    n_markers = int(state0.markers.total())
+    state, diag, out = _measured_rank_step(
+        make_step(grid, cfg, table, mesh=mesh), state0, modules, device)
+    check_state(state, n_markers, diag, f"{label} rank {mesh.rank}")
+    oversized.update(oversized_leaves(state, grid, mesh))
+    out.update(rank=mesh.rank, device=str(device),
+               krylov=int(diag["stokes_iterations"]), held=held, block=block,
+               oversized=oversized, agree=replicas_agree(state, mesh))
+    full = unshard_state(state, mesh, root=0)
+    if full is not None:
+        out["leaves"] = {k: v.cpu() for k, v in state_leaves(full).items()}
+    return out
+
+
+def dist_fk_rank(device, state_path, periodic_path=None):
     """One rank of ``dist_mesh_path``: FK 1024^2 (the bench preset with
     explicit_halo) on this rank's shard of the distributed 4x2 mesh, in
     the sharded layout, one step from the state at ``state_path``: the
@@ -2069,45 +2149,29 @@ def dist_fk_rank(device, state_path):
     the pieces beyond their own lattice's block or strip
     (``bridge.oversized_leaves``), whether the replicated scalars and
     strips agree on every rank, and (rank 0) the gathered state's
-    leaves."""
+    leaves.  With ``periodic_path``, the rank then steps the periodic
+    falling block 1024^2 (explicit halos, the marker engine's wrap-around
+    exchange) from that state in the same world: its record under
+    "periodic"."""
     from dataclasses import replace
 
-    import numpy as np
-
-    from pylamp_tpu_torch.bridge import (
-        oversized_leaves,
-        sharded_from_numpy,
-        state_leaves,
+    from pylamp_tpu_torch.models.benchmarks import (
+        falling_block_periodic_config,
+        fk_bench_config,
     )
-    from pylamp_tpu_torch.models.benchmarks import fk_bench_config
-    from pylamp_tpu_torch.models.setup import grid_and_table
-    from pylamp_tpu_torch.models.step import make_step
-    from pylamp_tpu_torch.parallel.dist import DistMesh, replicas_agree
-    from pylamp_tpu_torch.parallel.mesh import unshard_state
+    from pylamp_tpu_torch.parallel.dist import DistMesh
 
     modules = _kernel_modules()
     mesh = DistMesh.from_group(4, 2)
     cfg = fk_bench_config(FK_NX)
     cfg = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
-    grid, table = grid_and_table(cfg)
-    with np.load(state_path) as z:
-        state0 = sharded_from_numpy(dict(z), mesh, device=device)
-    held = max(p.numel() for v in state_leaves(state0).values()
-               for p in (v.pieces().values() if hasattr(v, "pieces")
-                         else (v,)))
-    block = (grid.ny // mesh.my) * (grid.nx // mesh.mx) * \
-        state0.markers.x.shape[-1]
-    oversized = oversized_leaves(state0, grid, mesh)
-    n_markers = int(state0.markers.total())
-    state, diag, out = _measured_rank_step(
-        make_step(grid, cfg, table, mesh=mesh), state0, modules, device)
-    check_state(state, n_markers, diag, f"FK dist 4x2 rank {mesh.rank}")
-    out.update(rank=mesh.rank, device=str(device),
-               krylov=int(diag["stokes_iterations"]), held=held, block=block,
-               oversized=oversized, agree=replicas_agree(state, mesh))
-    full = unshard_state(state, mesh, root=0)
-    if full is not None:
-        out["leaves"] = {k: v.cpu() for k, v in state_leaves(full).items()}
+    out = _dist_rank_step(cfg, state_path, mesh, modules, device,
+                          "FK dist 4x2")
+    if periodic_path is not None:
+        cfg = falling_block_periodic_config(PERIODIC_NX)
+        cfg = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+        out["periodic"] = _dist_rank_step(cfg, periodic_path, mesh, modules,
+                                          device, "periodic dist 4x2")
     return out
 
 
@@ -2161,7 +2225,76 @@ DIST_PEAK_GIB = 0.5  # a rank's step peak on the sharded layout
 HEATED_VARIANTS = ("jacobi", "mg")  # the energy solve: Jacobi-CG, MG-FCG
 
 
-def dist_mesh_path(grid, cfg, table, state0, first, modules):
+PERIODIC_BLOCK_KERNELS = ("saddle_block", "m2g_block", "advect_block",
+                          "rebucket_block")  # kernel 8 stays off there
+
+
+def periodic_sharded_inprocess(grid, cfg, table, state0, modules):
+    """The periodic falling block (``cfg``, explicit halos) on the
+    in-process 4x2 mesh, one step on the global layout (markers on the
+    global tensors, kernels 2p-4p and 9) and one on the sharded layout
+    (the marker engine's wrap-around exchange, kernels 9 and 10p-12p)
+    from the same built state: the sharded step must hold the global one
+    within the mesh bars (``mesh_agrees``, Krylov +-2), keep its vx seam
+    columns bit-identical, its marker x in [0, lx), drop no marker, launch
+    kernels 9-12 (10-12 only in their periodic forms) and no other.
+    Returns (the sharded step's global state, Krylov, launches, periodic
+    launches, seconds, peak GiB above what the process held)."""
+    from dataclasses import replace
+
+    from pylamp_tpu_torch.models.step import make_step
+    from pylamp_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_state,
+        unshard_state,
+    )
+
+    mesh = make_mesh(DIST_RANKS)
+    cfg_h = replace(cfg, solver=replace(cfg.solver, explicit_halo=True))
+    step = make_step(grid, cfg_h, table, mesh=mesh)
+    n_markers = int(state0.markers.total())
+    zero_counters(modules)
+    ref, _, ref_krylov, _ = take_step(
+        step, state0, n_markers, {k: modules[k] for k in (
+            "saddle_block", "m2g", "advect", "rebucket")},
+        "periodic global-layout 4x2 step 1")
+    sharded0 = shard_state(state0, mesh)
+    zero_counters(modules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    sharded, dt_s, krylov, _ = take_step(
+        step, sharded0, n_markers,
+        {k: modules[k] for k in PERIODIC_BLOCK_KERNELS},
+        "periodic sharded 4x2 step 1")
+    peak = (torch.cuda.max_memory_allocated() - held0) / 2 ** 30
+    launches = {k: mod.launches for k, mod in modules.items()}
+    launches_p = {k: mod.launches_periodic for k, mod in modules.items()
+                  if hasattr(mod, "launches_periodic")}
+    del sharded0
+    want = unshard_state(sharded, mesh)
+    del sharded
+    mesh_agrees("periodic sharded 4x2 vs global layout", want, ref)
+    seam_equal("periodic sharded 4x2 vx", want.vx)
+    periodic_state_checks("periodic sharded 4x2", want, grid)
+    if abs(krylov - ref_krylov) > KRYLOV_AB_TOL:
+        raise AssertionError(f"periodic sharded 4x2: Krylov {krylov}, the "
+                             f"global layout's {ref_krylov}")
+    wrong = {k: n for k, n in launches.items()
+             if (k not in PERIODIC_BLOCK_KERNELS and n)
+             or (k in launches_p and k.endswith("_block")
+                 and launches_p[k] != n)}
+    if wrong:
+        raise AssertionError(f"periodic sharded 4x2: launches outside "
+                             f"kernels 9-12 or their periodic forms: {wrong}")
+    log(f"periodic sharded 4x2 (in-process) on {nvidia_smi_line()}: "
+        f"{dt_s:.3f} s, Krylov {krylov} (the global layout's {ref_krylov}), "
+        f"launches {launches}, periodic forms {launches_p}, step peak above "
+        f"what the process held {peak:.2f} GiB")
+    return want, krylov, launches, launches_p, dt_s, peak
+
+
+def dist_mesh_path(grid, cfg, table, state0, first, modules, periodic=None):
     """FK 1024^2 on the DISTRIBUTED 4x2 mesh (``parallel/dist.py``) in the
     sharded layout: first the in-process 4x2 mesh takes the step on the
     sharded state (``shard_state`` of ``state0``), held within the mesh
@@ -2176,7 +2309,11 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
     the in-process sharded step and kernels 1-7 never, no rank may hold a
     piece of a leaf larger than its own lattice's block or strip, its
     step peak must stay within DIST_PEAK_GIB and no block may be
-    all-gathered in the step.  Then a
+    all-gathered in the step.  ``periodic`` (grid, cfg, table, state):
+    the periodic falling block 1024^2, held in-process
+    (``periodic_sharded_inprocess``) and then stepped by every rank of
+    the same world after the FK step, under the same checks (kernels
+    9-12, 10-12 only in their periodic forms).  Then a
     one-rank NCCL group runs the distributed mesh's collectives on the
     card against the in-process mesh.  Returns rank 0's launches, the
     logged record and every rank's summary."""
@@ -2224,12 +2361,20 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
     if any(launches[k] for k in modules if k not in BLOCK_KERNELS):
         raise AssertionError(f"FK sharded 4x2 launched single-device "
                              f"kernels: {launches}")
+    if periodic is not None:
+        t_p = time.perf_counter()
+        per = periodic_sharded_inprocess(*periodic, modules)
+        t_p = time.perf_counter() - t_p
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="dist_mesh_") as tmp:
         path = os.path.join(tmp, "state0.npz")
         np.savez(path, **state_to_numpy(state0))
-        ranks = launch(DIST_RANKS, dist_fk_rank, path, device="cuda",
+        paths = [path]
+        if periodic is not None:
+            paths.append(os.path.join(tmp, "periodic0.npz"))
+            np.savez(paths[1], **state_to_numpy(periodic[3]))
+        ranks = launch(DIST_RANKS, dist_fk_rank, *paths, device="cuda",
                        backend="gloo", timeout_s=DIST_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for r in ranks:
@@ -2241,14 +2386,7 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
     log(f"FK dist 4x2 sharded: backend gloo, world {DIST_RANKS} on one "
         f"card, {wall:.1f} s for the world (spawn, load, shard, step, "
         "gather, checks)")
-    want = state_leaves(want_state)
-    got = ranks[0]["leaves"]
-    differ = {}
-    for k, v in want.items():
-        g = got[k].to(v.device)
-        if g.dtype != v.dtype or not torch.equal(g, v):
-            differ[k] = (float(torch.max(torch.abs(g.double() - v.double())))
-                         if g.dtype == v.dtype else "dtype")
+    differ = _leaves_differ(state_leaves(want_state), ranks[0]["leaves"])
     agree = all(r["agree"] for r in ranks)
     log(f"FK dist 4x2 sharded vs the in-process sharded 4x2 step: "
         f"{'every leaf bit-identical' if not differ else differ}, replicated "
@@ -2276,6 +2414,10 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
         if r["rounds"]["block"]:
             raise AssertionError(f"{tag}: {r['rounds']['block']} block "
                                  "all-gathers in the step")
+    rec_p = None
+    if periodic is not None:
+        rec_p = dist_periodic_checks(per, [r["periodic"] for r in ranks],
+                                     smi, t_p)
     nccl = launch(1, nccl_rank, device="cuda", backend="nccl",
                   timeout_s=DIST_TIMEOUT_S)[0]
     log(f"one-rank NCCL group on {smi}: {nccl['checked']} checks of the "
@@ -2292,9 +2434,84 @@ def dist_mesh_path(grid, cfg, table, state0, first, modules):
            "launches_per_rank": ranks[0]["launches"],
            "launches_global_layout": ref_launches, "world_s": wall}
     log("FK dist 4x2 " + json.dumps(rec))
-    return {"launches": ranks[0]["launches"], **rec,
-            "ranks": [{k: v for k, v in r.items() if k != "leaves"}
-                      for r in ranks]}
+    return {"launches": ranks[0]["launches"], **rec, "periodic": rec_p,
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("leaves", "periodic")} for r in ranks]}
+
+
+def _leaves_differ(want, got):
+    """The leaves of ``got`` (rank 0's gathered state) that are not
+    bit-identical to ``want``'s: {name: max |difference| or "dtype"}."""
+    differ = {}
+    for k, v in want.items():
+        g = got[k].to(v.device)
+        if g.dtype != v.dtype or not torch.equal(g, v):
+            differ[k] = (float(torch.max(torch.abs(g.double() - v.double())))
+                         if g.dtype == v.dtype else "dtype")
+    return differ
+
+
+def dist_periodic_checks(inproc, ranks, smi, inproc_s):
+    """The periodic falling block's ranks (``dist_fk_rank``'s "periodic"
+    records) against the in-process sharded step ``inproc``
+    (``periodic_sharded_inprocess``): rank 0's gathered leaves bit for
+    bit, the replicated values agreeing, every rank's Krylov count equal,
+    kernels 9-12 launched per rank as often as in-process (10-12 in their
+    periodic forms only) and no other, no piece beyond its block, a peak
+    within DIST_PEAK_GIB and no block all-gather.  Logs each rank's
+    s/step and collectives by kind; returns the record."""
+    from pylamp_tpu_torch.bridge import state_leaves
+
+    want_state, krylov, launches, launches_p, dt_s, peak = inproc
+    for r in ranks:
+        log(f"periodic dist 4x2 sharded rank {r['rank']} ({r['device']}, "
+            f"gloo) on {smi}: {r['step_s']:.3f} s/step, Krylov "
+            f"{r['krylov']}, step peak {r['peak_gib']:.3f} GiB, largest leaf "
+            f"{r['held']} of {r['block']} block elements, launches "
+            f"{r['launches']}, periodic forms {r['launches_periodic']}, "
+            f"collectives {r['rounds']}")
+    differ = _leaves_differ(state_leaves(want_state), ranks[0]["leaves"])
+    agree = all(r["agree"] for r in ranks)
+    log(f"periodic dist 4x2 sharded vs the in-process sharded 4x2 step: "
+        f"{'every leaf bit-identical' if not differ else differ}, replicated "
+        f"values {'agree' if agree else 'DIFFER'}, Krylov "
+        f"{[r['krylov'] for r in ranks]} vs {krylov}")
+    if differ or not agree:
+        raise AssertionError(f"periodic dist 4x2: rank states differ from "
+                             f"the in-process mesh's ({differ}, "
+                             f"agree={agree})")
+    want_l = {k: (launches[k] if k in PERIODIC_BLOCK_KERNELS else 0)
+              for k in launches}
+    for r in ranks:
+        tag = f"periodic dist 4x2 rank {r['rank']}"
+        if r["krylov"] != krylov:
+            raise AssertionError(f"{tag}: Krylov {r['krylov']} != {krylov}")
+        if r["launches"] != want_l or any(
+                r["launches_periodic"][k] != want_l[k]
+                for k in ("m2g_block", "advect_block", "rebucket_block")):
+            raise AssertionError(
+                f"{tag}: launches {r['launches']} (periodic forms "
+                f"{r['launches_periodic']}), the in-process sharded step's "
+                f"{want_l} (kernels 1-8: 0; 10-12 periodic only)")
+        if r["oversized"]:
+            raise AssertionError(f"{tag}: holds pieces beyond their "
+                                 f"lattice's block or strip: {r['oversized']}")
+        if r["peak_gib"] > DIST_PEAK_GIB:
+            raise AssertionError(f"{tag}: step peak {r['peak_gib']:.3f} GiB "
+                                 f"> {DIST_PEAK_GIB}")
+        if r["rounds"]["block"]:
+            raise AssertionError(f"{tag}: {r['rounds']['block']} block "
+                                 "all-gathers in the step")
+    rec = {"device": smi, "backend": "gloo", "world": DIST_RANKS,
+           "layout": "sharded", "step_s": [r["step_s"] for r in ranks],
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "peak_gib_inprocess_sharded": peak, "step_s_inprocess_sharded":
+           dt_s, "inprocess_s": inproc_s,
+           "rounds_per_rank": [r["rounds"] for r in ranks],
+           "krylov": krylov, "launches_per_rank": ranks[0]["launches"],
+           "launches_periodic_per_rank": ranks[0]["launches_periodic"]}
+    log("periodic dist 4x2 " + json.dumps(rec))
+    return rec
 
 
 def _heated_halo_config(nx, energy_preconditioner):
@@ -2723,6 +2940,172 @@ def periodic_kernel_rows(grid, cfg, table, state):
         rows.append((name, f"pylamp_tpu_torch/csrc/{src}",
                      f"pylamp_tpu/{line}",
                      tuple(max(e[i] for e in errs) for i in (0, 1)), kfn, pfn,
+                     reps, b))
+    return rows + periodic_block_rows(grid, table, phys, vbc, m, vx, vy, dt)
+
+
+def periodic_block_rows(grid, table, phys, vbc, m, vx, vy, dt):
+    """The periodic forms of the per-shard marker kernels (10p-12p, port-
+    only) on the ring-exchanged blocks: at the 4x2 mesh's 256x512 x K18
+    blocks of the periodic falling block 1024^2 (its built markers, the
+    setup solve's velocities and dt), and on a 40x48 periodic build on the
+    2x4 mesh (20x12 blocks, a ring of four) with seeded velocities.  Each
+    against its plain version; and on frames cut from the global state
+    against kernels 2p-4p: the halo transfer bit-identical to kernel 2p,
+    the exchanged velocity windows equal to windows cut from kernel 3p's
+    wrapped planes and kernel 11p on them bit-identical to kernel 3p at
+    reach 1 and 2 on every marker that does not cross the seam (those
+    that do are counted and their differences logged), the halo rebucket
+    slot for slot kernel 4p's with the same drops."""
+    from pylamp_tpu_torch.markers.bucket import padded_velocities
+    from pylamp_tpu_torch.markers.kernels import (
+        advect,
+        advect_block,
+        m2g,
+        m2g_block,
+        rebucket,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.markers.kernels.advect_block import cut_windows
+    from pylamp_tpu_torch.models.benchmarks import falling_block_periodic
+    from pylamp_tpu_torch.models.setup import build
+    from pylamp_tpu_torch.parallel.halo_markers import (
+        BLK3,
+        _ext_blocks,
+        m2g_fused_halo,
+        rebucket_halo,
+        velocity_windows,
+    )
+    from pylamp_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    g_s, t_s, small = build(falling_block_periodic(nx=48, ny=40),
+                            dtype=torch.float32, device="cuda")
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    vx_s = 0.05 * rand(g_s.shape_vx)
+    vx_s[:, -1] = vx_s[:, 0]
+    cases = [(grid, table, m, make_mesh(MESH_SHARDS), vx, vy, dt,
+              f"periodic {grid.nx}^2 on 4x2"),
+             (g_s, t_s, small.markers, Mesh(2, 4), vx_s,
+              0.05 * rand(g_s.shape_vy),
+              torch.tensor(2.0 * g_s.dx, device="cuda"),
+              f"periodic {g_s.ny}x{g_s.nx} on 2x4")]
+    e10, e11, e12, rows_t = [], [], [], {}
+    for g, tbl, mk, msh, ux, uy, dt_, label in cases:
+        by, bx = g.ny // msh.my, g.nx // msh.mx
+        bases = msh.bases(by, bx, device="cuda")
+        ext = _ext_blocks(msh, mk.x, mk.y, mk.T, mk.mat, mk.valid,
+                          periodic_x=True)
+        kw = dict(with_energy=True, periodic_x=True)
+        got = m2g_block.m2g_fused_block_cuda(*ext, g, tbl, phys, bases, **kw)
+        ref = m2g_block.m2g_fused_block_plain(*ext, g, tbl, phys, bases, **kw)
+        e10.append(errors((got[k], ref[k]) for k in ref))
+        halo = m2g_fused_halo(mk, g, tbl, phys, msh, with_energy=True,
+                              periodic_x=True)
+        glob = m2g.m2g_fused_cuda(mk, g, tbl, phys, True, True)
+        same = sorted(halo) == sorted(glob) and all(
+            torch.equal(halo[k], glob[k]) for k in glob)
+        log(f"m2g_block_periodic {label}: kernel vs plain rel "
+            f"{e10[-1][1]:.3e}; halo transfer vs kernel 2p "
+            + ("bit-identical" if same else "DIFFERS"))
+        if not same:
+            raise AssertionError(f"m2g_block_periodic {label}: the halo "
+                                 "transfer is not bit-identical to kernel 2p")
+        if "m2g_block_periodic" not in rows_t:
+            rows_t["m2g_block_periodic"] = (
+                partial(m2g_block.m2g_fused_block_cuda, *ext, g, tbl, phys,
+                        bases, **kw),
+                partial(m2g_block.m2g_fused_block_plain, *ext, g, tbl, phys,
+                        bases, **kw),
+                bound_ms(nbytes(*ext, bases, *got.values()),
+                         OPS["m2g"] * int(ext[4].sum())))
+
+        own = [msh.flat(msh.split(a, BLK3)) for a in (mk.x, mk.y, mk.valid)]
+        wins = velocity_windows(ux, uy, g, vbc, msh, 1)
+        adv = (*own, *wins, dt_, g, bases, 1, True)
+        got = advect_block.advect_block_cuda(*adv)
+        ref = advect_block.advect_block_plain(*adv)
+        e11.append(displacement_error(got, ref, own[:2], (g.lx, None)))
+        planes = advect.wrapped_planes(*padded_velocities(ux, uy, vbc), g.nx)
+        notes = []
+        for R in (1, 2):
+            cuts = cut_windows(*planes, bases, by, bx, R, advect.PADW)
+            if R == 1 and not all(torch.equal(w, c)
+                                  for w, c in zip(wins, cuts)):
+                raise AssertionError(f"advect_block_periodic {label}: the "
+                                     "exchanged windows differ from kernel "
+                                     "3p's wrapped planes")
+            k3 = advect.advect_rk4_cuda(mk, ux, uy, dt_, g, vbc, R)
+            cx, cy = advect_block.advect_block_cuda(*own, *cuts, dt_, g,
+                                                    bases, R, True)
+            cx = msh.gather(msh.unflat(cx), BLK3)
+            cy = msh.gather(msh.unflat(cy), BLK3)
+            crossed = torch.abs(k3.x - mk.x) > 0.5 * g.lx
+            diff = (cx != k3.x) | (cy != k3.y)
+            bad = int(torch.sum(diff & ~crossed))
+            notes.append(f"reach {R}: {int(torch.sum(crossed & mk.valid))} "
+                         f"cross the seam ({int(torch.sum(diff & crossed))} "
+                         f"of those differ), {bad} others differ")
+            if bad:
+                raise AssertionError(f"advect_block_periodic {label} reach "
+                                     f"{R}: {bad} markers that stay clear "
+                                     "of the seam differ from kernel 3p")
+        log(f"advect_block_periodic {label}: displacement rel err "
+            f"{e11[-1][1]:.3e}; windows equal kernel 3p's wrapped planes; "
+            f"on cut windows vs kernel 3p: {'; '.join(notes)}")
+        if "advect_block_periodic" not in rows_t:
+            rows_t["advect_block_periodic"] = (
+                partial(advect_block.advect_block_cuda, *adv),
+                partial(advect_block.advect_block_plain, *adv),
+                bound_ms(nbytes(*own, *wins, bases, *got),
+                         OPS["advect"] * int(own[2].sum())))
+
+        moved = mk.replace(x=msh.gather(msh.unflat(got[0]), BLK3),
+                           y=msh.gather(msh.unflat(got[1]), BLK3))
+        ext = _ext_blocks(msh, moved.x, moved.y, moved.T, moved.mat,
+                          moved.valid, periodic_x=True)
+        (gm, ga), (rm, ra) = (
+            rebucket_block.rebucket_block_cuda(*ext, g, bases, True),
+            rebucket_block.rebucket_block_plain(*ext, g, bases))
+        same = all(torch.equal(getattr(gm, f), getattr(rm, f))
+                   for f in ("x", "y", "mat", "T", "valid")) and torch.equal(
+            ga, ra)
+        (hm, hd), (km, kd) = (rebucket_halo(moved, g, msh, periodic_x=True),
+                              rebucket.rebucket_cuda(moved, g, True))
+        same4 = all(torch.equal(getattr(hm, f), getattr(km, f))
+                    for f in ("x", "y", "mat", "T", "valid")) and \
+            int(hd) == int(kd)
+        crossed = int(torch.sum(moved.valid & (torch.abs(moved.x - mk.x)
+                                               > 0.5 * g.lx)))
+        e12.append((0.0, 0.0) if same and same4 else (math.inf, math.inf))
+        log(f"rebucket_block_periodic {label}: "
+            f"{'bit-identical' if same else 'DIFFERS'} to its plain version; "
+            f"halo rebucket {'slot for slot' if same4 else 'DIFFERS from'} "
+            f"kernel 4p's (dropped {int(hd)}, {crossed} markers crossed the "
+            "seam)")
+        if "rebucket_block_periodic" not in rows_t:
+            rows_t["rebucket_block_periodic"] = (
+                partial(rebucket_block.rebucket_block_cuda, *ext, g, bases,
+                        True),
+                partial(rebucket_block.rebucket_block_plain, *ext, g, bases),
+                bound_ms(nbytes(*ext, bases, gm.x, gm.y, gm.T, gm.mat,
+                                gm.valid, ga),
+                         OPS["rebucket"] * int(ext[4].sum())))
+    rows = []
+    for name, es_, src, ref_line, reps in (
+            ("m2g_block_periodic", e10, "m2g_block.cu", "m2g_kernel.py:283",
+             3),
+            ("advect_block_periodic", e11, "advect_block.cu",
+             "advect_kernel.py:208", 3),
+            ("rebucket_block_periodic", e12, "rebucket_block.cu",
+             "rebucket_kernel.py:187", 2)):
+        err = tuple(max(e[i] for e in es_) for i in (0, 1))
+        k, pfn, b = rows_t[name]
+        rows.append((name, f"pylamp_tpu_torch/csrc/{src}",
+                     f"pylamp_tpu/markers/pallas/{ref_line}", err, k, pfn,
                      reps, b))
     return rows
 
@@ -4004,7 +4387,11 @@ def main():
 
     launches_m, first_m = mesh_path(grid, cfg, table, state0, n_markers,
                                     modules)
-    rec_dist = dist_mesh_path(grid, cfg, table, state0, first_m, modules)
+    rec_dist = dist_mesh_path(grid, cfg, table, state0, first_m, modules,
+                              periodic=(grid_p, cfg_p, table_p, state_p))
+    rec_dp = dict(launches=rec_dist["periodic"]["launches_per_rank"],
+                  launches_periodic=rec_dist["periodic"]
+                  ["launches_periodic_per_rank"])
     del first_m
     rec_h, state_h = heated_paths(grid, table, state0, modules)
     reseed_check(grid, table, state_h)
@@ -4061,12 +4448,15 @@ def main():
     def main_count(k):
         """Launches on the path of the row's slice: kernels 1-7 the
         sticky-air path (all seven), 8-12 the mesh path, the periodic forms
-        the periodic preset (1-5) or its partner (7), the rho0 * alpha
-        forms of 2 and 10 the heated FK path and its mesh form."""
+        the periodic preset (1-5) or its partner (7), 10p-12p a rank of the
+        distributed periodic path, the rho0 * alpha forms of 2 and 10 the
+        heated FK path and its mesh form."""
         if k == "m2g_ra":
             return rec_h["launches_ra"]
         if k == "m2g_block_ra":
             return launches_hm["mesh_4x2"]["m2g_block"]
+        if k.endswith("_block_periodic"):
+            return periodic_count(k, rec_dp)
         if k.endswith("_block"):
             return launches_m["mesh_4x2"][k]
         if k.endswith("_periodic"):
@@ -4107,6 +4497,10 @@ def main():
                 # explicit_halo on the 4x2 mesh (periodic_mesh_path)
                 "falling_block_periodic_1024_mesh_4x2": periodic_count(
                     k, rec_pm["mesh_4x2"]),
+                # dist_mesh_path: one step per rank of the 8-rank world on
+                # the sharded layout (the wrap-around marker exchange)
+                "falling_block_periodic_1024_dist_4x2": periodic_count(
+                    k, rec_dp),
                 "fk_1024_heated": heated_count(
                     k, rec_h["launches"], "m2g", rec_h["launches_ra"]),
                 "fk_1024_heated_mesh_4x2": heated_count(

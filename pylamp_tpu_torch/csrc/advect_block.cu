@@ -25,8 +25,15 @@
 //   - The lattices clamp at the global extents, so fed windows cut from
 //     kernel 3's padded lattices a marker's new position is kernel 3's.
 //     dt is read from device memory (no host sync).
-// No periodic form: the reference keeps the marker halo off under periodic
-// walls.
+//   - Periodic side walls (kernel 11p, the P instantiation; port-only:
+//     the reference keeps its block kernels off under periodic walls):
+//     the windows' columns beyond the x seam hold the wrapped columns
+//     (the ring exchange gives those of kernel 3p's wrapped planes), x is
+//     sampled without a clamp and never clipped at a side wall: the new x
+//     wraps into [0, lx) with kernel 3p's two-rounding formula xn - lx *
+//     floor(xn * (1 / lx)), so the position is kernel 3p's.  A marker
+//     written past the seam stays in its slot until kernel 12p moves it
+//     into the cell its x names, on the far shard.
 #include "common.cuh"
 #include "advect_tile.cuh"
 
@@ -34,6 +41,7 @@ namespace {
 
 using namespace advect_tile;
 
+template <bool P>
 __global__ void __launch_bounds__(NT, 5)
 advect_block_kernel(const AdvectArgs a, const float* __restrict__ vx_ext,
                     const float* __restrict__ vy_ext,
@@ -46,17 +54,25 @@ advect_block_kernel(const AdvectArgs a, const float* __restrict__ vx_ext,
     const int R = a.reach;
     const int wr = by + 2 * R + 1, wc = bx + 2 * R + 1;
     const long long w = static_cast<long long>(s) * wr * wc;
-    tile_rk4<false>(
+    tile_rk4<P>(
         a, Plane{vx_ext + w, wr, wc, row_base - R, col_base - R, wc},
         Plane{vy_ext + w, wr, wc, row_base - R, col_base - R, wc}, t);
+}
+
+using KernelFn = void (*)(const AdvectArgs, const float*, const float*,
+                          const int*, int, int);
+
+KernelFn pick(int periodic) {
+    return periodic ? advect_block_kernel<true> : advect_block_kernel<false>;
 }
 
 }  // namespace
 
 // bases: (S, 2) int32 on the device, each shard's first own cell (row,
-// col); vx_ext, vy_ext: (S, by + 2 reach + 1, bx + 2 reach + 1).  ty, tx,
-// cap: the tile and the slots a round of markers/kernels/advect.py
-// advect_plan(by, bx, K).
+// col); vx_ext, vy_ext: (S, by + 2 reach + 1, bx + 2 reach + 1).
+// periodic: the P form, x wrapped into [0, lx) with inv_lx = 1 / lx
+// rounded to f32.  ty, tx, cap: the tile and the slots a round of
+// markers/kernels/advect.py advect_plan(by, bx, K).
 PYLAMP_EXPORT int launch_advect_block(const float* x, const float* y,
                                       const unsigned char* valid,
                                       const float* vx_ext,
@@ -66,6 +82,7 @@ PYLAMP_EXPORT int launch_advect_block(const float* x, const float* y,
                                       int by, int bx, int K, float dx,
                                       float dy, float x_lo, float x_hi,
                                       float y_lo, float y_hi, int reach,
+                                      int periodic, float lx, float inv_lx,
                                       int ty, int tx, int cap,
                                       cudaStream_t stream) {
     if (S < 1 || ny < 1 || nx < 1 || by < 1 || bx < 1 ||
@@ -74,23 +91,22 @@ PYLAMP_EXPORT int launch_advect_block(const float* x, const float* y,
         return static_cast<int>(cudaErrorInvalidValue);
     const AdvectArgs a{x,     y,  valid, dt,   out_x, out_y, ny,
                        nx,    K,  ty,    tx,   cap,   reach, dx,
-                       dy,    x_lo, x_hi, y_lo, y_hi, 0.0f, 0.0f,
+                       dy,    x_lo, x_hi, y_lo, y_hi, lx, inv_lx,
                        1.0f / dx, 1.0f / dy};
     const int smem = Layout(ty, tx, cap).total;
+    const KernelFn kernel = pick(periodic);
     const cudaError_t err = cudaFuncSetAttribute(
-        advect_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((bx + tx - 1) / tx, (by + ty - 1) / ty, S);
-    advect_block_kernel<<<grid, NT, smem, stream>>>(a, vx_ext, vy_ext, bases,
-                                                    by, bx);
+    kernel<<<grid, NT, smem, stream>>>(a, vx_ext, vy_ext, bases, by, bx);
     return launch_status();
 }
 
-// Occupancy of the kernel at tiles of ty x tx cells and rounds of cap
-// slots: out as advect_tile.cuh kernel_info's.
+// Occupancy of the kernel (periodic: its P form) at tiles of ty x tx
+// cells and rounds of cap slots: out as advect_tile.cuh kernel_info's.
 PYLAMP_EXPORT int advect_block_kernel_info(int ty, int tx, int cap,
-                                           int* out) {
-    return kernel_info(reinterpret_cast<const void*>(advect_block_kernel), ty,
-                       tx, cap, out);
+                                           int periodic, int* out) {
+    return kernel_info(reinterpret_cast<const void*>(pick(periodic)), ty, tx,
+                       cap, out);
 }

@@ -69,11 +69,12 @@ namespace {
 using namespace m2g_rows;
 
 // the global (ny, nx, K) buckets: cell (r, col) at (r nx + col) K (the
-// launcher keeps ny nx K below 2^31)
+// launcher keeps ny nx K below 2^31; P: col wrapped into the period)
+template <bool P>
 struct GlobalCells {
     int nx, K;
     __device__ __forceinline__ int first(int r, int col) const {
-        return (r * nx + col) * K;
+        return (r * nx + wrapped<P>(col, nx)) * K;
     }
 };
 
@@ -134,9 +135,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 4)
 m2g_kernel(const M2GArgs a, const M2GTable tbl_in) {
     const int nxn = P ? a.nx : a.nx + 1;  // node columns the threads own
     const int i0 = blockIdx.x * a.tx, j_lo = blockIdx.y * a.rows;
+    // P: every column, the halo cells -1 and nx read as nx - 1 and 0
     const Block b{i0, min(a.tx, nxn - i0), j_lo, min(j_lo + a.rows, a.ny + 1),
-                  0, a.ny - 1, 0, a.nx - 1};
-    gather_rows<P, RA>(a, tbl_in, GlobalCells{a.nx, a.K}, PlaneOut{}, b);
+                  0, a.ny - 1, P ? -1 : 0, P ? a.nx : a.nx - 1};
+    gather_rows<P, RA>(a, tbl_in, GlobalCells<P>{a.nx, a.K}, PlaneOut{},
+                       b);
 }
 
 using KernelFn = void (*)(const M2GArgs, const M2GTable);

@@ -40,8 +40,19 @@
 //     One writer per node, a fixed order, no atomics.
 //   - The rho0 * alpha corner stream (flag WITH_RA, with the energy
 //     streams) is the RA instantiation of the same body.
-// No periodic form: the reference keeps the marker halo off under periodic
-// walls.
+//   - Periodic side walls (flag PERIODIC; kernel 10p, port-only: the
+//     reference keeps its block kernels off under periodic walls) run the
+//     body's P form: the ring is exchanged across the x seam, so a seam
+//     shard's ring column holds global column nx - 1 (or 0); the block's
+//     cell columns are the ring's, unclamped and addressed unwrapped in the
+//     extended block, and a marker's x interval is unclamped and counted
+//     from the column its cell wraps to, kernel 2p's arithmetic.  So
+//     every node a shard keeps gets kernel 2p's sums bit for bit; the
+//     frame's last column is partial on every shard (its third cell
+//     column, nx + 1, lies beyond the ring), and the caller takes the
+//     seam column nx from column 0's owner, as kernel 2p writes column
+//     0's sums into both seam columns.  It holds 3 blocks per SM, not 4:
+//     its registers (92) do not fit 4 without spilling.
 #include "common.cuh"
 #include "m2g_rows.cuh"
 
@@ -52,7 +63,7 @@ using namespace m2g_rows;
 // a shard's (by + 2, bx + 2, K) extended block: global cell (r, col) at
 // extended (r - r0, col - c0), r0 = row_base - 1, c0 = col_base - 1, the
 // block's first cell at base (the launcher keeps S (by + 2) (bx + 2) K
-// below 2^31)
+// below 2^31); P: col unwrapped, the ring's -1 or nx at the seam
 struct ShardCells {
     int base, r0, c0, ld, K;
     __device__ __forceinline__ int first(int r, int col) const {
@@ -97,8 +108,10 @@ struct FrameOut {
     }
 };
 
-template <bool RA>
-__global__ void __launch_bounds__(MAX_THREADS, 4)
+// 4 blocks of 6 warps per SM as kernel 2 (at most 80 registers); the P
+// form 3 (at most 112: at 80 it spills, ptxas wants 92)
+template <bool P, bool RA>
+__global__ void __launch_bounds__(MAX_THREADS, P ? 3 : 4)
 m2g_block_kernel(const M2GArgs a, const M2GTable tbl_in,
                  const int* __restrict__ bases, int by, int bx) {
     // blockIdx: (chunk, shard, strip), so the last strip comes last
@@ -120,14 +133,16 @@ m2g_block_kernel(const M2GArgs a, const M2GTable tbl_in,
                 if (a.out.p[n] != nullptr) a.out.p[n][out.at(J, I)] = 0.0f;
         }
     }
+    // the ring's cell columns (P: unclamped, wrapped where read)
     const Block b{i0, min(cols, a.nx + 1 - i0), j_lo,
                   min(j_lo + rows, a.ny + 1), max(row_base - 1, 0),
-                  min(row_base + by, a.ny - 1), max(col_base - 1, 0),
-                  min(col_base + bx, a.nx - 1)};
+                  min(row_base + by, a.ny - 1),
+                  P ? col_base - 1 : max(col_base - 1, 0),
+                  P ? col_base + bx : min(col_base + bx, a.nx - 1)};
     if (b.txe < 1 || b.j_lo >= b.j_hi) return;  // (the whole block)
     const ShardCells cells{s * (by + 2) * (bx + 2), row_base - 1,
                            col_base - 1, bx + 2, a.K};
-    gather_rows<false, RA>(a, tbl_in, cells, out, b);
+    gather_rows<P, RA>(a, tbl_in, cells, out, b);
 }
 
 using KernelFn = void (*)(const M2GArgs, const M2GTable, const int*, int,
@@ -136,7 +151,10 @@ using KernelFn = void (*)(const M2GArgs, const M2GTable, const int*, int,
 KernelFn pick(int flags) {
     // RA only with the energy streams, as the wrapper sets it
     const bool ra = (flags & WITH_RA) && (flags & WITH_ENERGY);
-    return ra ? m2g_block_kernel<true> : m2g_block_kernel<false>;
+    return (flags & PERIODIC) ? (ra ? m2g_block_kernel<true, true>
+                                    : m2g_block_kernel<true, false>)
+                              : (ra ? m2g_block_kernel<false, true>
+                                    : m2g_block_kernel<false, false>);
 }
 
 }  // namespace
@@ -155,7 +173,7 @@ PYLAMP_EXPORT int launch_m2g_block(const float* x, const float* y,
                                    cudaStream_t stream) {
     if (S < 1 || ny < 1 || nx < 1 || by < 1 || bx < 1 || K < 1 ||
         rows < 1 || !plan_ok(tx, kc, split) || kc * nchunks < K ||
-        kc * (nchunks - 1) >= K || (flags & PERIODIC) ||
+        kc * (nchunks - 1) >= K ||
         static_cast<long long>(S) * (by + 2) * (bx + 2) * K >= (1LL << 31))
         return static_cast<int>(cudaErrorInvalidValue);
     M2GArgs a{x,  y,  T,  mat, valid, {}, ny, nx, K, tx, rows, kc, nchunks,
@@ -175,7 +193,7 @@ PYLAMP_EXPORT int launch_m2g_block(const float* x, const float* y,
     return launch_status();
 }
 
-// Occupancy of the instantiation that `flags` picks (WITH_RA with
+// Occupancy of the instantiation that `flags` picks (PERIODIC, WITH_RA with
 // WITH_ENERGY) at strips of tx columns and units of kc slots: out as
 // m2g_rows.cuh kernel_info's.
 PYLAMP_EXPORT int m2g_block_kernel_info(int tx, int kc, int split, int flags,

@@ -13,9 +13,12 @@
 //     rows and columns its marker array holds (the walls for kernel 2;
 //     for kernel 10 also the shard's ring, so a frame node on the ring's
 //     edge completes at the ring's last cell row or column with the
-//     partial sum of the cells that the ring holds);
+//     partial sum of the cells that the ring holds; P: the columns
+//     unwrapped, -1 .. nx for kernel 2p, the ring for kernel 10p; a
+//     marker's interval counts from the column its cell wraps to);
 //   - Cells::first(r, col): the first slot of global cell (r, col) in the
-//     marker streams (31-bit: the launchers refuse larger arrays);
+//     marker streams, col unwrapped (31-bit: the launchers refuse larger
+//     arrays);
 //   - Sink::put: where a complete node's sums go.
 // Intervals and slot offsets always use the global lattice and the global
 // cell, so the same markers give the same sums in the same order in both
@@ -82,7 +85,7 @@ struct M2GArgs {
 
 // A block's work: its node columns i0 .. i0 + txe - 1 and node rows
 // j_lo .. j_hi - 1, and the cell rows r_lo .. r_hi and cell columns
-// c_lo .. c_hi that its marker array holds (global; P: every column)
+// c_lo .. c_hi that its marker array holds (global; P: unwrapped)
 struct Block {
     int i0, txe, j_lo, j_hi, r_lo, r_hi, c_lo, c_hi;
 };
@@ -109,15 +112,25 @@ __device__ __forceinline__ void cp_async_wait1() {
     asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// no cell: cell_col's answer where there is none (a column no block holds)
+constexpr int NO_CELL = -(1 << 30);
+
 // The global column of local cell lc (column i0 - 1 + lc) of a block's
-// strip, or -1 where the strip needs no such cell or the array has none
-// (P: wrapped into the period instead)
-template <bool P>
-__device__ __forceinline__ int cell_col(int lc, const Block& b, int nx) {
-    if (lc > b.txe + 1) return -1;
+// strip, unwrapped (P: -1 and nx at the ends of the period), or NO_CELL
+// where the strip needs no such cell or the array has none.
+// Cells::first takes the column as it is (kernel 2p's GlobalCells wraps
+// it; a shard's ring holds it unwrapped)
+__device__ __forceinline__ int cell_col(int lc, const Block& b) {
+    if (lc > b.txe + 1) return NO_CELL;
     const int cu = b.i0 - 1 + lc;
-    if (P) return cu < 0 ? cu + nx : (cu >= nx ? cu - nx : cu);
-    return cu <= b.c_hi && cu >= b.c_lo ? cu : -1;
+    return cu <= b.c_hi && cu >= b.c_lo ? cu : NO_CELL;
+}
+
+// The column a marker's x interval is counted from: the cell's column
+// wrapped into the period (P), where the marker's x lies
+template <bool P>
+__device__ __forceinline__ int wrapped(int col, int nx) {
+    return P ? (col < 0 ? col + nx : (col >= nx ? col - nx : col)) : col;
 }
 
 // A flat walk over the slots e of a unit's cells, with the cell lc and
@@ -177,8 +190,8 @@ __device__ void copy_unit(const M2GArgs& a, const Cells& cells,
         for (int e = threadIdx.x; e < L.cells * a.kc;
              e += blockDim.x, w.next(a.kc)) {
             if (w.s >= un.kc) continue;
-            const int col = cell_col<P>(w.lc, blk, a.nx);
-            if (col < 0) continue;
+            const int col = cell_col(w.lc, blk);
+            if (col == NO_CELL) continue;
             const int q = un.first(cells, col) + w.s;
             const int d = w.lc * L.KP + w.s;
             cp_async4(W + S_X * L.S + d, a.x + q);
@@ -191,8 +204,8 @@ __device__ void copy_unit(const M2GArgs& a, const Cells& cells,
         // words lie inside it)
         for (int v = threadIdx.x; v < L.cells * L.VW; v += blockDim.x) {
             const int lc = v / L.VW, wi = v - lc * L.VW;
-            const int col = cell_col<P>(lc, blk, a.nx);
-            if (col < 0) continue;
+            const int col = cell_col(lc, blk);
+            if (col == NO_CELL) continue;
             const int q = un.first(cells, col);
             if (wi >= (lead_of(a.valid, q) + un.kc + 3) >> 2) continue;
             const unsigned* w0 = reinterpret_cast<const unsigned*>(
@@ -254,9 +267,9 @@ __device__ void stage_unit(const M2GArgs& a, const Cells& cells,
 #pragma unroll 2  // two slots' chains interleave
     for (int e0 = 0; e0 < n_slots; e0 += blockDim.x, w.next(a.kc)) {
         const bool in = e0 + static_cast<int>(threadIdx.x) < n_slots;
-        const int col = in ? cell_col<P>(w.lc, blk, a.nx) : -1;
+        const int col = in ? cell_col(w.lc, blk) : NO_CELL;
         unsigned ys = 0u, xs = 0u;
-        if (col >= 0 && w.s < un.kc &&
+        if (col != NO_CELL && w.s < un.kc &&
             b[L.valid + 4 * L.VW * w.lc +
               lead_of(a.valid, un.first(cells, col)) + w.s]) {
             const int d = w.lc * L.KP + w.s;
@@ -284,8 +297,8 @@ __device__ void stage_unit(const M2GArgs& a, const Cells& cells,
             }
             jc -= un.r;
             jn -= un.r;
-            ic -= col;
-            inn -= col;
+            ic -= wrapped<P>(col, a.nx);
+            inn -= wrapped<P>(col, a.nx);
             const MarkerProps pr = marker_props(tbl, m, Tm);
             const unsigned pk = pack_offset(jc) | pack_offset(jn) << 4 |
                                 pack_offset(ic) << 8 |

@@ -31,8 +31,15 @@
 //     col - col_base) K; each target's arrivals (the reference's count
 //     output) go to (S, by, bx) int32, from which the caller sums the
 //     drops.  The block writes only its own cells: no atomics.
-// No periodic form: the reference keeps the marker halo off under
-// periodic walls.
+//   - Periodic side walls (kernel 12p, the P instantiation; port-only:
+//     the reference keeps its block kernels off under periodic walls):
+//     the ring is exchanged across the x seam, so a seam strip's halo
+//     column is global column nx - 1 (or 0), which the source CellMap maps
+//     back into the ring; its slots are coded against that wrapped column
+//     with kernel 4p's wrapped offset.  A marker that kernel 11p wrote
+//     past the seam is thus taken by the cell its x names on the far
+//     shard, in kernel 4p's candidate order, and by no other shard: the
+//     slot assignment is kernel 4p's.
 #include "common.cuh"
 #include "rebucket_rows.cuh"
 
@@ -40,6 +47,7 @@ namespace {
 
 using namespace rebucket_rows;
 
+template <bool P>
 __global__ void __launch_bounds__(NT, 3)
 rebucket_block_kernel(const RebucketArgs a, const int* __restrict__ bases,
                       int by, int bx) {
@@ -53,20 +61,27 @@ rebucket_block_kernel(const RebucketArgs a, const int* __restrict__ bases,
     const CellMap src{static_cast<long long>(s) * (by + 2) * we
                           - static_cast<long long>(row_base - 1) * we
                           - (col_base - 1),
-                      we};
+                      we, col_base - 1, P ? a.nx : 0};
     const CellMap dst{static_cast<long long>(s) * by * bx
                           - static_cast<long long>(row_base) * bx - col_base,
                       bx};
     const Block b{src, dst, col_base + c0, min(a.tx, bx - c0),
                   row_base + r0, row_base + min(r0 + a.rows, by)};
-    repack<false, true>(a, b, smem);
+    repack<P, true>(a, b, smem);
+}
+
+using KernelFn = void (*)(const RebucketArgs, const int*, int, int);
+
+KernelFn pick(int periodic) {
+    return periodic ? rebucket_block_kernel<true>
+                    : rebucket_block_kernel<false>;
 }
 
 }  // namespace
 
 // bases: (S, 2) int32 on the device, each shard's first own cell (row,
 // col); arrivals: (S, by, bx) int32.  tx, rows: the strip width and chunk
-// rows of rebucket_plan(by, bx, K).
+// rows of rebucket_plan(by, bx, K); periodic: the P form.
 PYLAMP_EXPORT int launch_rebucket_block(const float* x, const float* y,
                                         const float* T, const int* mat,
                                         const unsigned char* valid,
@@ -75,24 +90,26 @@ PYLAMP_EXPORT int launch_rebucket_block(const float* x, const float* y,
                                         unsigned char* ovalid, int* arrivals,
                                         int S, int ny, int nx, int by, int bx,
                                         int K, float dx, float dy, int tx,
-                                        int rows, cudaStream_t stream) {
+                                        int rows, int periodic,
+                                        cudaStream_t stream) {
     if (S < 1 || by < 1 || bx < 1 || K < 1 || tx < 1 || rows < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int smem = Layout(tx, K).total;
     const RebucketArgs a{x, y, T, mat, valid, ox, oy, oT, omat, ovalid,
                          nullptr, arrivals, ny, nx, K, tx, rows, dx, dy};
+    const KernelFn kernel = pick(periodic);
     cudaError_t err = cudaFuncSetAttribute(
-        rebucket_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((bx + tx - 1) / tx, (by + rows - 1) / rows, S);
-    rebucket_block_kernel<<<grid, NT, smem, stream>>>(a, bases, by, bx);
+    kernel<<<grid, NT, smem, stream>>>(a, bases, by, bx);
     return launch_status();
 }
 
-// Occupancy of the kernel at strips of tx columns and K slots: out as
-// rebucket_kernel_info's.
-PYLAMP_EXPORT int rebucket_block_kernel_info(int K, int tx, int* out) {
-    return kernel_info(reinterpret_cast<const void*>(rebucket_block_kernel),
+// Occupancy of the kernel (periodic: its P form) at strips of tx columns
+// and K slots: out as rebucket_kernel_info's.
+PYLAMP_EXPORT int rebucket_block_kernel_info(int K, int tx, int periodic,
+                                             int* out) {
+    return kernel_info(reinterpret_cast<const void*>(pick(periodic)),
                        Layout(tx, K).total, out);
 }

@@ -78,11 +78,20 @@ struct RebucketArgs {
 // Where global cell (sj, col) lies in an array of cells of row stride
 // ld: cell index off + sj ld + col, its first slot K times that (off
 // folds in the array's origin: -(row0 ld + col0) for an array whose first
-// cell is global (row0, col0), plus the cells before it)
+// cell is global (row0, col0), plus the cells before it).  period > 0 (a
+// shard's ring across a periodic x seam, kernel 12p): col is wrapped into
+// [0, period) and lies in the array at col0 + ((col - col0) shifted by the
+// period into [0, ld)); with one shard a row the ring's columns hold the
+// shard's own edge columns, so either copy reads the same markers.
 struct CellMap {
     long long off;
     int ld;
+    int col0 = 0, period = 0;
     __device__ __forceinline__ long long cell(int sj, int col) const {
+        if (period) {
+            const int l = col - col0;
+            col += l < 0 ? period : (l >= ld ? -period : 0);
+        }
         return off + static_cast<long long>(sj) * ld + col;
     }
 };

@@ -86,30 +86,30 @@ SIGNATURES = {
     # stream
     "launch_m2g_block": [_P] * 8 + [_I] * 6 + [_F, _F] + [_I] * 6 + [_P],
     # x, y, valid, vx_ext, vy_ext, bases, dt, out_x, out_y, S, ny, nx, by,
-    # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, tile rows, tile
-    # columns, slots a round, stream
-    "launch_advect_block": [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I] * 4 + [_P],
+    # bx, K, dx, dy, x_lo, x_hi, y_lo, y_hi, reach, periodic, lx, 1 / lx,
+    # tile rows, tile columns, slots a round, stream
+    "launch_advect_block": ([_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _I, _F, _F]
+                            + [_I] * 3 + [_P]),
     # x, y, T, mat, valid, bases, ox, oy, oT, omat, ovalid, arrivals, S,
-    # ny, nx, by, bx, K, dx, dy, strip width, chunk rows, stream
-    "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _P],
+    # ny, nx, by, bx, K, dx, dy, strip width, chunk rows, periodic, stream
+    "launch_rebucket_block": [_P] * 12 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
     # occupancy queries, int[6] out: kernel 5 at (depth, tile rows,
     # periodic), kernel 8 at (depth, tile rows), kernel 6 at its dynamic
     # shared bytes, kernels 1 and 7 at (periodic), kernel 9 at (with p),
-    # kernel 4 at (K, strip width, periodic), kernel 12 at (K, strip
-    # width), kernels 2 and 10 at (strip width, unit slots, threads a
-    # node, flags), kernel 3 at (tile rows, tile columns, slots a round,
-    # periodic), kernel 11 at (tile rows, tile columns, slots a round)
+    # kernels 4 and 12 at (K, strip width, periodic), kernels 2 and 10 at
+    # (strip width, unit slots, threads a node, flags), kernels 3 and 11
+    # at (tile rows, tile columns, slots a round, periodic)
     "cheb_kernel_info": [_I, _I, _I, _P],
     "cheb_block_kernel_info": [_I, _I, _P],
     "saddle_kernel_info": [_I, _P],
     "momentum_kernel_info": [_I, _P],
     "saddle_block_kernel_info": [_I, _P],
     "rebucket_kernel_info": [_I, _I, _I, _P],
-    "rebucket_block_kernel_info": [_I, _I, _P],
+    "rebucket_block_kernel_info": [_I, _I, _I, _P],
     "m2g_kernel_info": [_I, _I, _I, _I, _P],
     "m2g_block_kernel_info": [_I, _I, _I, _I, _P],
     "advect_kernel_info": [_I, _I, _I, _I, _P],
-    "advect_block_kernel_info": [_I, _I, _I, _P],
+    "advect_block_kernel_info": [_I, _I, _I, _I, _P],
     "coarse_vcycle_kernel_info": [_I, _P],
 }
 

@@ -16,6 +16,15 @@ tensors and launches the kernel on CUDA tensors.  The kernel runs kernel
 3's tiles on live slots on ``advect.advect_plan(by, bx, K)``, all shards in
 one launch.  ``cut_windows`` cuts the same windows from whole padded
 lattices (the windows the exchange gives, on one device).
+
+``periodic_x`` (periodic side walls; port-only: the reference keeps its
+block kernels off there): the windows hold the wrapped columns that the
+ring exchange gives (those of kernel 3's wrapped planes, ``cut_windows``
+on ``advect.wrapped_planes``), x is sampled without a clamp as by kernel
+3's periodic form, and the new x wraps into [0, lx) (the plain version
+with ``bucket.wrap_x``, the kernel with kernel 3p's two-rounding
+formula), so the positions are kernel 3p's.  The kernel's periodic form
+(11p) counts in ``launches_periodic`` too.
 """
 from __future__ import annotations
 
@@ -25,22 +34,26 @@ import torch
 
 from pylamp_tpu_torch import cuda_build
 from pylamp_tpu_torch.core.grid import StaggeredGrid
-from pylamp_tpu_torch.markers.bucket import _corners
+from pylamp_tpu_torch.markers.bucket import _corners, wrap_x
 from pylamp_tpu_torch.markers.kernels.advect import AdvectPlan, advect_plan
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 
-def cut_windows(vx_p, vy_p, bases, by: int, bx: int, R: int):
+def cut_windows(vx_p, vy_p, bases, by: int, bx: int, R: int,
+                col0: int = 0):
     """Every shard's (S, by+2R+1, bx+2R+1) windows of the whole padded
     lattices vx_p (ny+2, nx+1) and vy_p (ny+1, nx+2): window (q, l) =
     padded node (row_base + q - R, col_base + l - R), zeros beyond the
-    lattice."""
+    lattice.  ``col0``: the lattices' first column is padded column
+    -col0 (kernel 3p's wrapped planes: ``advect.PADW``)."""
     dev = vx_p.device
     b = bases.to(device=dev, dtype=torch.int64)
     rows = b[:, :1] - R + torch.arange(by + 2 * R + 1, device=dev)
-    cols = b[:, 1:] - R + torch.arange(bx + 2 * R + 1, device=dev)
+    cols = b[:, 1:] - R + col0 + torch.arange(bx + 2 * R + 1, device=dev)
 
     def cut(p):
         H, W = p.shape
@@ -53,27 +66,34 @@ def cut_windows(vx_p, vy_p, bases, by: int, bx: int, R: int):
     return cut(vx_p), cut(vy_p)
 
 
-def kernel_info(plan: AdvectPlan) -> dict:
-    """Occupancy of the kernel at ``plan``'s tiles, from the card's
-    function attributes: registers per thread, static and dynamic shared
-    bytes, local (spill) bytes per thread, threads and resident blocks per
-    SM."""
+def kernel_info(plan: AdvectPlan, periodic: bool = False) -> dict:
+    """Occupancy of the kernel (``periodic``: its periodic form) at
+    ``plan``'s tiles, from the card's function attributes: registers per
+    thread, static and dynamic shared bytes, local (spill) bytes per
+    thread, threads and resident blocks per SM."""
     out = (ctypes.c_int * 6)()
     cuda_build.check(cuda_build.library().advect_block_kernel_info(
-        plan.ty, plan.tx, plan.cap, out), "advect_block (occupancy query)")
+        plan.ty, plan.tx, plan.cap, int(periodic), out),
+        "advect_block (occupancy query)")
     return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
                 local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
 
 def _sample_window(fe, fx, fy, valid, reach: int, rows: int, cols: int, cj,
-                   ci, r0, c0):
+                   ci, r0, c0, x_clamp=(0, 0)):
     """``bucket._sample`` on a window: bilinear sample of a lattice with
     global extent (rows, cols) at array coordinates (fx, fy), the nodes
     read from ``fe`` (S, wr, wc) whose (0, 0) is node (r0, c0); a corner
     contributes only inside the shift window of the marker's cell
-    (cj, ci)."""
+    (cj, ci).  ``x_clamp`` (lo, hi): the first node's column is clamped
+    to [lo, cols - 2 + hi] (walls: (0, 0); periodic side walls, whose
+    window holds the wrapped columns: (-reach, reach) as ``bucket._sample``
+    with a period, or None for no clamp)."""
     S, wr, wc = fe.shape
-    i0 = torch.clamp(torch.floor(fx), 0, cols - 2).to(torch.int64)
+    i0 = torch.floor(fx)
+    if x_clamp is not None:
+        i0 = torch.clamp(i0, x_clamp[0], cols - 2 + x_clamp[1])
+    i0 = i0.to(torch.int64)
     j0 = torch.clamp(torch.floor(fy), 0, rows - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
@@ -91,7 +111,7 @@ def _sample_window(fe, fx, fy, valid, reach: int, rows: int, cols: int, cj,
 
 
 def advect_block_plain(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
-                       bases, reach: int):
+                       bases, reach: int, periodic_x: bool = False):
     """RK4 on the shards' own markers from the windows, as
     ``bucket.bucket_advect_rk4`` on the global lattices."""
     S, by, bx, _ = xb.shape
@@ -104,10 +124,11 @@ def advect_block_plain(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
     r0, c0 = rb - reach, cb - reach
 
     def vel(px, py, r):
+        clamp = (-r, r) if periodic_x else (0, 0)
         ux = _sample_window(vx_ext, px / dx, py / dy + 0.5, vb, r,
-                            grid.ny + 2, grid.nx + 1, cj, ci, r0, c0)
+                            grid.ny + 2, grid.nx + 1, cj, ci, r0, c0, clamp)
         uy = _sample_window(vy_ext, px / dx + 0.5, py / dy, vb, r,
-                            grid.ny + 1, grid.nx + 2, cj, ci, r0, c0)
+                            grid.ny + 1, grid.nx + 2, cj, ci, r0, c0, clamp)
         return ux, uy
 
     x, y = xb, yb
@@ -119,7 +140,8 @@ def advect_block_plain(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
     ny_new = y + dt / 6.0 * (k1y + 2 * k2y + 2 * k3y + k4y)
     eps_x = 1e-6 * grid.dx_min
     eps_y = 1e-6 * grid.dy_min
-    return (torch.clamp(nx_new, eps_x, grid.lx - eps_x),
+    return (wrap_x(nx_new, grid.lx) if periodic_x
+            else torch.clamp(nx_new, eps_x, grid.lx - eps_x),
             torch.clamp(ny_new, eps_y, grid.ly - eps_y))
 
 
@@ -133,8 +155,8 @@ def _check(name, t, dtype, shape):
 
 
 def advect_block_cuda(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
-                      bases, reach: int):
-    global launches
+                      bases, reach: int, periodic_x: bool = False):
+    global launches, launches_periodic
     if reach not in (1, 2):
         raise ValueError(f"reach must be 1 or 2, got {reach}")
     S, by, bx, K = xb.shape
@@ -160,18 +182,20 @@ def advect_block_cuda(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid,
         vy_ext.data_ptr(), bases.data_ptr(), dt_t.data_ptr(),
         out_x.data_ptr(), out_y.data_ptr(), S, grid.ny, grid.nx, by, bx, K,
         grid.dx, grid.dy, eps_x, grid.lx - eps_x, eps_y, grid.ly - eps_y,
-        reach, plan.ty, plan.tx, plan.cap, cuda_build.stream_ptr(dev))
+        reach, int(periodic_x), grid.lx, 1.0 / grid.lx, plan.ty, plan.tx,
+        plan.cap, cuda_build.stream_ptr(dev))
     cuda_build.check(code, "advect_block")
     launches += 1
+    launches_periodic += periodic_x
     return out_x, out_y
 
 
 def advect_block(xb, yb, vb, vx_ext, vy_ext, dt, grid: StaggeredGrid, bases,
-                 reach: int):
+                 reach: int, periodic_x: bool = False):
     """The shards' advected (x, y): the plain version for CPU tensors, the
     CUDA kernel for CUDA tensors."""
     if xb.is_cuda:
         return advect_block_cuda(xb, yb, vb, vx_ext, vy_ext, dt, grid, bases,
-                                 reach)
+                                 reach, periodic_x)
     return advect_block_plain(xb, yb, vb, vx_ext, vy_ext, dt, grid, bases,
-                              reach)
+                              reach, periodic_x)

@@ -17,6 +17,15 @@ of ``bucket.m2g_sums`` on the shard frame) on CPU tensors and launches the
 kernel on CUDA tensors.  The kernel runs kernel 2's row-streamed gather on
 ``block_plan`` (``m2g.m2g_plan`` on the (by, bx) frame, all shards in one
 launch); ``frame_blocks`` lists its blocks as the kernel computes them.
+
+``periodic_x`` (periodic side walls; port-only: the reference keeps its
+block kernels off there) takes the ring's cells as the wrapped columns
+that they hold: a marker's x interval has no clamp and is counted from its
+cell's wrapped column, as kernel 2's periodic form counts it, so every
+node a shard keeps gets kernel 2p's sums.  The frame's last column is then
+partial on every shard (its third cell column lies beyond the ring): the
+caller takes the column-nx strip from column 0's owner.  The kernel's
+periodic form (10p) counts in ``launches_periodic`` too.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from pylamp_tpu_torch.markers.bucket import OFFSETS, _corners
 from pylamp_tpu_torch.markers.kernels.m2g import (
     FLAG_ENERGY,
     FLAG_H,
+    FLAG_PERIODIC,
     FLAG_RA,
     FLAG_VX,
     OUT_ORDER,
@@ -41,9 +51,17 @@ from pylamp_tpu_torch.markers.kernels.m2g import (
 )
 from pylamp_tpu_torch.physics.materials import MaterialTable
 
+# resident blocks per SM of the kernel's forms (csrc/m2g_block.cu's launch
+# bounds): kernel 2's 4, the periodic form 3 (its 92 registers do not fit
+# 4 blocks without spilling)
+BLOCKS_PER_SM = 4
+BLOCKS_PER_SM_PERIODIC = 3
+
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): all of them, and those with the rho0 * alpha stream
+# them): all of them, those of the periodic form and those with the
+# rho0 * alpha stream
 launches = 0
+launches_periodic = 0
 launches_ra = 0
 
 
@@ -61,14 +79,16 @@ def block_plan(S: int, by: int, bx: int, K: int) -> M2GPlan:
     return m2g_plan(by, bx, K)
 
 
-def frame_blocks(plan: M2GPlan, by: int, bx: int, bases, ny: int, nx: int):
+def frame_blocks(plan: M2GPlan, by: int, bx: int, bases, ny: int, nx: int,
+                 periodic_x: bool = False):
     """Every block of kernel 10's launch in launch order, as
     csrc/m2g_block.cu computes it: (shard, node rows j_lo..j_hi-1, node
     columns i0..i0+txe-1, cell rows r_lo..r_hi, cell columns c_lo..c_hi),
-    all global; a block streams the cell rows max(j_lo - 1, r_lo) ..
-    min(j_hi, r_hi), and node J completes at cell row min(J + 1, r_hi).
-    The grid is (chunk, shard, strip), chunk fastest: every shard's last
-    strip goes last."""
+    all global (``periodic_x``: the cell columns are the ring's, unclamped,
+    each wrapped into the period where it is read); a block streams the
+    cell rows max(j_lo - 1, r_lo) .. min(j_hi, r_hi), and node J completes
+    at cell row min(J + 1, r_hi).  The grid is (chunk, shard, strip), chunk
+    fastest: every shard's last strip goes last."""
     for strip in range(plan.nstrips):
         for s, (row_base, col_base) in enumerate(bases.tolist()):
             for chunk in range(plan.nchunks):
@@ -76,10 +96,12 @@ def frame_blocks(plan: M2GPlan, by: int, bx: int, bases, ny: int, nx: int):
                 i0, j_lo = col_base + c0, row_base + j0
                 cols = min(plan.tx, bx + 1 - c0)
                 rows = min(plan.rows, by + 1 - j0)
+                c_lo, c_hi = col_base - 1, col_base + bx
+                if not periodic_x:
+                    c_lo, c_hi = max(c_lo, 0), min(c_hi, nx - 1)
                 yield (s, j_lo, min(j_lo + rows, ny + 1), i0,
                        min(cols, nx + 1 - i0), max(row_base - 1, 0),
-                       min(row_base + by, ny - 1), max(col_base - 1, 0),
-                       min(col_base + bx, nx - 1))
+                       min(row_base + by, ny - 1), c_lo, c_hi)
 
 
 def kernel_info(plan: M2GPlan, flags: int) -> dict:
@@ -107,22 +129,29 @@ def _frame_iota(bases, bye: int, bxe: int):
     return cj, ci
 
 
-def m2g_block_sums(xe, ye, ve, values, grid: StaggeredGrid, loc: str, bases):
+def m2g_block_sums(xe, ye, ve, values, grid: StaggeredGrid, loc: str, bases,
+                   periodic_x: bool = False):
     """Raw weighted sums on the ``loc`` lattice over every shard's node
     frame: (sum w, [sum w * v for v in values]), each (S, by+1, bx+1).
     Extended cell (er, ec) reaches node (er - 1 + a, ec - 1 + b) for the 9
-    offsets, as in ``bucket.m2g_sums``."""
+    offsets, as in ``bucket.m2g_sums`` (``periodic_x``: x intervals
+    unclamped, offsets from each cell's wrapped column)."""
     S, bye, bxe, _ = xe.shape
     by, bx = bye - 2, bxe - 2
     oy, ox = grid.origin(loc)
     ny_n, nx_n = grid.shape(loc)
     fx = (xe - ox) / grid.dx
     fy = (ye - oy) / grid.dy
-    i0 = torch.clamp(torch.floor(fx), 0, nx_n - 2).to(torch.int64)
+    i0 = torch.floor(fx)
+    if not periodic_x:
+        i0 = torch.clamp(i0, 0, nx_n - 2)
+    i0 = i0.to(torch.int64)
     j0 = torch.clamp(torch.floor(fy), 0, ny_n - 2).to(torch.int64)
     tx = torch.clamp(fx - i0, 0.0, 1.0)
     ty = torch.clamp(fy - j0, 0.0, 1.0)
     cj, ci = _frame_iota(bases, bye, bxe)
+    if periodic_x:
+        ci = torch.remainder(ci, grid.nx)
     o_j, o_i = j0 - cj, i0 - ci
     corners = _corners(ty, tx)
     field_w = torch.zeros((S, by + 1, bx + 1), dtype=xe.dtype,
@@ -158,7 +187,8 @@ def m2g_block_sums(xe, ye, ve, values, grid: StaggeredGrid, loc: str, bases):
 
 def m2g_fused_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid,
                           table: MaterialTable, phys, bases,
-                          with_energy: bool = False, with_ra: bool = False):
+                          with_energy: bool = False, with_ra: bool = False,
+                          periodic_x: bool = False):
     """Plain PyTorch version: marker properties, then ``m2g_block_sums``
     on each lattice."""
     out = {}
@@ -166,7 +196,7 @@ def m2g_fused_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid,
                                                 with_energy, xe.dtype,
                                                 with_ra):
         w, wvs = m2g_block_sums(xe, ye, ve, list(streams.values()), grid,
-                                loc, bases)
+                                loc, bases, periodic_x)
         out[wname] = w
         out.update(zip(streams.keys(), wvs))
     return out
@@ -183,8 +213,9 @@ def _check(name, t, dtype, shape):
 
 def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
                          table: MaterialTable, phys, bases,
-                         with_energy: bool = False, with_ra: bool = False):
-    global launches, launches_ra
+                         with_energy: bool = False, with_ra: bool = False,
+                         periodic_x: bool = False):
+    global launches, launches_periodic, launches_ra
     S, bye, bxe, K = xe.shape
     by, bx = bye - 2, bxe - 2
     for name, t, dtype in (("x", xe, torch.float32), ("y", ye, torch.float32),
@@ -201,7 +232,8 @@ def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
         *[out[name].data_ptr() if name in out else None for name in OUT_ORDER])
     tbl = _table_struct(table, phys)
     flags = ((FLAG_VX * with_vx) | (FLAG_ENERGY * with_energy)
-             | (FLAG_H * with_h) | (FLAG_RA * with_ra))
+             | (FLAG_H * with_h) | (FLAG_RA * with_ra)
+             | (FLAG_PERIODIC * periodic_x))
     plan = block_plan(S, by, bx, K)
     code = cuda_build.library().launch_m2g_block(
         xe.data_ptr(), ye.data_ptr(), Te.data_ptr(), me.data_ptr(),
@@ -211,17 +243,19 @@ def m2g_fused_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid,
         cuda_build.stream_ptr(dev))
     cuda_build.check(code, "m2g_block")
     launches += 1
+    launches_periodic += periodic_x
     launches_ra += with_ra
     return out
 
 
 def m2g_fused_block(xe, ye, Te, me, ve, grid: StaggeredGrid,
                     table: MaterialTable, phys, bases,
-                    with_energy: bool = False, with_ra: bool = False):
+                    with_energy: bool = False, with_ra: bool = False,
+                    periodic_x: bool = False):
     """Raw weighted-sum planes of every stream on the shards' node frames:
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if xe.is_cuda:
         return m2g_fused_block_cuda(xe, ye, Te, me, ve, grid, table, phys,
-                                    bases, with_energy, with_ra)
+                                    bases, with_energy, with_ra, periodic_x)
     return m2g_fused_block_plain(xe, ye, Te, me, ve, grid, table, phys, bases,
-                                 with_energy, with_ra)
+                                 with_energy, with_ra, periodic_x)

@@ -11,11 +11,17 @@ shards' own repacked buckets (S, by, bx, K) and the arrivals per cell
 
 ``rebucket_block`` runs the plain PyTorch version (``rebucket_block_plain``,
 ``bucket.rebucket``'s candidate slabs cut from the extended blocks) on CPU
-tensors and launches the kernel on CUDA tensors.  The kernel is kernel
-4's row-streamed repack (``csrc/rebucket_rows.cuh``) on every shard, on
-``rebucket.rebucket_plan(by, bx, K)``'s strips and chunks; it takes K up
-to 993 (``rebucket.repack_fits``: the mesh path's gate routes larger K
-to the plain version).
+tensors and launches the kernel on CUDA tensors.  ``periodic_x``
+(periodic side walls; port-only: the reference keeps its block kernels off
+there) takes the ring's cells as the wrapped columns they hold: a marker
+whose x crossed the seam goes to the cell its x names on the far shard,
+in kernel 4's periodic candidate order (the plain version needs no change
+for it: a candidate goes to an own cell that its target names); the
+kernel's periodic form (12p) counts in ``launches_periodic`` too.  The
+kernel is kernel 4's row-streamed repack (``csrc/rebucket_rows.cuh``) on
+every shard, on ``rebucket.rebucket_plan(by, bx, K)``'s strips and
+chunks; it takes K up to 993 (``rebucket.repack_fits``: the mesh path's
+gate routes larger K to the plain version).
 """
 from __future__ import annotations
 
@@ -33,8 +39,10 @@ from pylamp_tpu_torch.markers.bucket import (
 )
 from pylamp_tpu_torch.markers.kernels.rebucket import rebucket_plan
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): all of them, and those of the periodic form
 launches = 0
+launches_periodic = 0
 
 
 def rebucket_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
@@ -58,14 +66,14 @@ def rebucket_block_plain(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
     return pack_candidates(takes, cands, K)
 
 
-def kernel_info(K: int, tx: int) -> dict:
-    """Occupancy of the kernel with strips of ``tx`` columns at ``K``
-    slots, from the card's function attributes: registers per thread,
-    static and dynamic shared bytes, local (spill) bytes per thread,
-    threads and resident blocks per SM."""
+def kernel_info(K: int, tx: int, periodic: bool = False) -> dict:
+    """Occupancy of the kernel (``periodic``: its periodic form) with
+    strips of ``tx`` columns at ``K`` slots, from the card's function
+    attributes: registers per thread, static and dynamic shared bytes,
+    local (spill) bytes per thread, threads and resident blocks per SM."""
     out = (ctypes.c_int * 6)()
     cuda_build.check(cuda_build.library().rebucket_block_kernel_info(
-        K, tx, out), "rebucket_block (occupancy query)")
+        K, tx, int(periodic), out), "rebucket_block (occupancy query)")
     return dict(registers=out[0], static_smem=out[1], dynamic_smem=out[5],
                 local_bytes=out[2], threads=out[4], blocks_per_sm=out[3])
 
@@ -79,8 +87,9 @@ def _check(name, t, dtype, shape):
             f"{tuple(t.shape)} on {t.device}")
 
 
-def rebucket_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
-    global launches
+def rebucket_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid, bases,
+                        periodic_x: bool = False):
+    global launches, launches_periodic
     S, bye, bxe, K = xe.shape
     by, bx = bye - 2, bxe - 2
     for name, t, dtype in (("x", xe, torch.float32), ("y", ye, torch.float32),
@@ -101,16 +110,19 @@ def rebucket_block_cuda(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
         ve.data_ptr(), bases.data_ptr(), ox.data_ptr(), oy.data_ptr(),
         oT.data_ptr(), omat.data_ptr(), ovalid.data_ptr(), arrivals.data_ptr(),
         S, grid.ny, grid.nx, by, bx, K, grid.dx, grid.dy, plan.tx, plan.rows,
-        cuda_build.stream_ptr(dev))
+        int(periodic_x), cuda_build.stream_ptr(dev))
     cuda_build.check(code, "rebucket_block")
     launches += 1
+    launches_periodic += periodic_x
     return (BucketedMarkers(x=ox, y=oy, mat=omat, T=oT, valid=ovalid),
             arrivals.to(torch.int64))
 
 
-def rebucket_block(xe, ye, Te, me, ve, grid: StaggeredGrid, bases):
+def rebucket_block(xe, ye, Te, me, ve, grid: StaggeredGrid, bases,
+                   periodic_x: bool = False):
     """(own buckets, arrivals): the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
     if xe.is_cuda:
-        return rebucket_block_cuda(xe, ye, Te, me, ve, grid, bases)
+        return rebucket_block_cuda(xe, ye, Te, me, ve, grid, bases,
+                                   periodic_x)
     return rebucket_block_plain(xe, ye, Te, me, ve, grid, bases)

@@ -53,10 +53,13 @@ and rebucket through the explicit-halo marker engine with its per-shard
 kernels (parallel/halo_*.py); the single-device saddle, smoother and
 coarse-cycle kernels are off there, as in the reference.  Under periodic
 side walls the operators take their ring exchanges and seam rows (the
-per-shard saddle kernel still runs each shard's stencil), while the
-markers stay on the global tensors with the periodic forms of the
-single-device marker kernels and the per-shard smoother stays off: the
-reference has no wrap-around path for either.  A stretched grid
+per-shard saddle kernel still runs each shard's stencil) and the
+per-shard smoother stays off, as in the reference; on the global layout
+the markers stay on the global tensors with the periodic forms of the
+single-device marker kernels (the reference has no wrap-around path for
+its marker engine), and on the sharded layout the engine's wrap-around
+exchange keeps them on their shards with the periodic forms of the
+per-shard kernels (10p-12p, port-only).  A stretched grid
 on the mesh runs on the global tensors: every halo gate refuses a
 non-uniform grid, as the reference's do.  The thermal
 branches (shear and adiabatic heating, subgrid diffusion, reseeding, the
@@ -77,14 +80,15 @@ sharded layout every phase runs on the blocks: the marker engine keeps
 each shard's markers, the solves run on the sharded vectors with mesh
 dots, dt and the diagnostics are mesh reductions (``vmax`` and dt mesh
 maxima, exact), and nothing is gathered but the replicated MG levels.  It
-covers a uniform walled grid, the bucket engine, the Chebyshev MG with
-the mass Schur surrogate, and the energy solve with Jacobi-CG or the
-Chebyshev energy multigrid with flexible CG, with the thermal switches:
-shear and adiabatic heating (block forms in parallel/block_ops.py, rho0 *
-alpha from kernel 10's stream), subgrid diffusion (the explicit-halo
-one-stream transfers on the marker blocks) and reseeding (each shard
-spawns on its own cells) (``sharded_refusal``); anything else raises,
-naming ROADMAP item 19c.
+covers a uniform grid, walled or with periodic side walls, static or
+moving walls, the bucket engine, the Chebyshev MG with the mass Schur
+surrogate, and the energy solve with Jacobi-CG or the Chebyshev energy
+multigrid with flexible CG, with the thermal switches: shear and
+adiabatic heating (block forms in parallel/block_ops.py, rho0 * alpha
+from kernel 10's stream), subgrid diffusion (the explicit-halo
+one-stream transfers on the marker blocks), reseeding (each shard spawns
+on its own cells) and prescribed heat fluxes (``sharded_refusal``);
+anything else raises, naming ROADMAP item 19c.
 
 ``make_phased_runner`` is the same step with the device synchronized
 around each phase, for the driver's ``profile_phases``;
@@ -185,12 +189,19 @@ def _check_slice(cfg: ModelConfig):
         raise ValueError(f"unknown preconditioner {solver.preconditioner!r}")
 
 
-def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
+def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool,
+                     sharded: bool = False):
     """The mesh of the explicit-halo marker engine, or None where the
-    markers run on the global tensors: no explicit-halo mesh, periodic
-    side walls (no wrap-around exchange path) or blocks the engine does
-    not take (a stretched grid among them), as in the reference."""
-    if halo_mesh is None or periodic \
+    markers run on the global tensors: no explicit-halo mesh, blocks the
+    engine does not take (a stretched grid among them), as in the
+    reference, or periodic side walls on the global layout (the
+    reference's engine has no wrap-around exchange; the port's global
+    layout keeps the markers on the global tensors with the periodic forms
+    of kernels 2-4).  On the sharded layout (``sharded``) periodic side
+    walls take the engine's wrap-around exchange (kernels 10p-12p), so
+    that each shard keeps only its own markers: port-only, as no reference
+    path shards the markers under periodic walls."""
+    if halo_mesh is None or (periodic and not sharded) \
             or not halo_markers_eligible(grid, halo_mesh):
         return None
     return halo_mesh
@@ -198,26 +209,20 @@ def marker_halo_gate(grid: StaggeredGrid, halo_mesh, periodic: bool):
 
 def sharded_refusal(grid: StaggeredGrid, cfg: ModelConfig, mesh):
     """Why the sharded layout does not take ``cfg`` on ``mesh`` (None
-    where it does): its covered set is a uniform walled grid with static
-    walls, the bucket engine, the Chebyshev MG with the mass Schur
-    surrogate and Gershgorin bounds, full coarsening, and the energy solve
-    (Jacobi-CG, or the Chebyshev energy multigrid with flexible CG) with
-    shear and adiabatic heating, subgrid diffusion and reseeding, without
-    a prescribed heat flux.  The rest is ROADMAP item 19c."""
+    where it does): its covered set is a uniform grid, walled or with
+    periodic side walls, static or moving walls, the bucket engine, the
+    Chebyshev MG with the mass Schur surrogate and Gershgorin bounds, full
+    coarsening, and the energy solve (Jacobi-CG, or the Chebyshev energy
+    multigrid with flexible CG) with shear and adiabatic heating, subgrid
+    diffusion, reseeding and prescribed heat fluxes.  The rest is ROADMAP
+    item 19c."""
     from pylamp_tpu_torch.solvers.mg import coarsening_plan
 
     phys, solver = cfg.physics, cfg.solver
     energy_mg = phys.solve_energy and solver.energy_preconditioner == "mg"
-    vbc, tbc = phys.velocity_bcs, phys.thermal_bcs
-    moving = any(getattr(vbc, f) != 0.0 for f in (
-        "vt_top", "vt_bottom", "vt_left", "vt_right"))
-    flux = phys.solve_energy and any(
-        getattr(tbc, w).kind == "neumann" and getattr(tbc, w).value != 0.0
-        for w in ("left", "right", "top", "bottom"))
     reasons = (
         (not solver.explicit_halo, "explicit_halo off"),
         (not grid.uniform, "a stretched grid"),
-        (vbc.periodic_x, "periodic side walls"),
         (cfg.marker_engine != "bucket", "flat markers"),
         (grid.uniform and not halo_markers_eligible(grid, mesh),
          "blocks that do not divide the grid into 4x4 cells or more"),
@@ -238,8 +243,6 @@ def sharded_refusal(grid: StaggeredGrid, cfg: ModelConfig, mesh):
          "semicoarsening"),
         (energy_mg and solver.energy_mg_smoother != "chebyshev",
          "the energy multigrid's line smoothers"),
-        (moving, "moving walls"),
-        (flux, "a prescribed heat flux"),
     )
     for refused, what in reasons:
         if refused:
@@ -285,10 +288,16 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
     # explicit halo exchanges for the operator applies, and the marker halo
     # engine where the bucket blocks are eligible
     halo_mesh = mesh if (mesh is not None and solver.explicit_halo) else None
-    marker_halo_mesh = marker_halo_gate(grid, halo_mesh, periodic)
+
+    def marker_mesh(m):
+        """The explicit-halo marker engine's mesh for markers ``m`` (on the
+        sharded layout under periodic walls too), or None."""
+        return marker_halo_gate(grid, halo_mesh, periodic,
+                                isinstance(m.x, Blocks))
+
     # the per-shard marker kernels' shape gate
-    marker_blocks = (marker_halo_mesh is not None and block_kernel_eligible(
-        grid.ny // marker_halo_mesh.my, grid.nx // marker_halo_mesh.mx))
+    marker_blocks = (halo_mesh is not None and block_kernel_eligible(
+        grid.ny // halo_mesh.my, grid.nx // halo_mesh.mx))
     # the fused transfer's rho0 * alpha stream
     with_ra = phys.adiabatic_heating and phys.solve_energy
 
@@ -299,8 +308,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         if isinstance(m, MarkerState):
             return markers_to_grid(m.x, m.y, vals, grid, loc, mode,
                                    periodic_x=periodic)
-        if marker_halo_mesh is not None:
-            return m2g_halo(m, vals, grid, loc, mode, marker_halo_mesh)
+        if marker_mesh(m) is not None:
+            return m2g_halo(m, vals, grid, loc, mode, halo_mesh, periodic)
         return bucket_markers_to_grid(m, vals, grid, loc, mode,
                                       periodic_x=periodic)
 
@@ -308,9 +317,9 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         if isinstance(m, MarkerState):
             return grid_to_markers(field, m.x, m.y, grid, loc,
                                    periodic_x=periodic)
-        if marker_halo_mesh is not None:
-            return g2m_halo(field, m.x, m.y, m.valid, grid, loc,
-                            marker_halo_mesh)
+        if marker_mesh(m) is not None:
+            return g2m_halo(field, m.x, m.y, m.valid, grid, loc, halo_mesh,
+                            periodic_x=periodic)
         return bucket_grid_to_markers(field, m.x, m.y, m.valid, grid, loc,
                                       periodic_x=periodic)
 
@@ -384,11 +393,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         kern = solver.use_pallas_m2g and _kernels(dtype)
         if not grid.uniform or isinstance(m, MarkerState):
             return _interp_streams(m, rho_m, k_m, rhocp_m, state)
-        if marker_halo_mesh is not None:
-            out = m2g_fused_halo(m, grid, table, phys, marker_halo_mesh,
+        if marker_mesh(m) is not None:
+            out = m2g_fused_halo(m, grid, table, phys, halo_mesh,
                                  with_energy=phys.solve_energy,
                                  with_ra=with_ra,
-                                 kernel=kern and marker_blocks)
+                                 kernel=kern and marker_blocks,
+                                 periodic_x=periodic)
         else:
             m2g = m2g_fused if kern else m2g_fused_plain
             out = m2g(m, grid, table, phys, with_energy=phys.solve_energy,
@@ -648,17 +658,17 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         reach = 1 if (tc.courant <= 0.5 and tc.dt_min == 0.0
                       and not moving_walls) else 2
         kern = _kernels(dtype)
-        if marker_halo_mesh is not None:
+        mh = marker_mesh(markers)
+        if mh is not None:
             markers = advect_rk4_halo(
-                markers, vx, vy, dt, grid, vbc, marker_halo_mesh,
-                stage_reach=reach,
+                markers, vx, vy, dt, grid, vbc, mh, stage_reach=reach,
                 kernel=solver.use_pallas_advect and kern and marker_blocks)
             # the per-shard repack's gate also takes the capacity
             markers, dropped = rebucket_halo(
-                markers, grid, marker_halo_mesh,
+                markers, grid, mh,
                 kernel=kern and block_kernel_eligible(
-                    grid.ny // marker_halo_mesh.my,
-                    grid.nx // marker_halo_mesh.mx, markers.capacity))
+                    grid.ny // mh.my, grid.nx // mh.mx, markers.capacity),
+                periodic_x=periodic)
         else:
             if solver.use_pallas_advect and kern:
                 markers = advect_rk4_fused(markers, vx, vy, dt, grid, vbc,
@@ -673,11 +683,11 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig,
         # the count after rebucket, before reseeding (as the reference)
         diag = {"markers_dropped": dropped, "marker_count": markers.total()}
         if phys.reseed_min_per_cell > 0:
-            if marker_halo_mesh is not None:
+            if mh is not None:
                 markers = reseed_halo(
                     markers, T_new, grid,
                     min_per_cell=phys.reseed_min_per_cell,
-                    n_materials=len(table), mesh=marker_halo_mesh)
+                    n_materials=len(table), mesh=mh, periodic_x=periodic)
             else:
                 markers = bucket_reseed(
                     markers, T_new, grid,

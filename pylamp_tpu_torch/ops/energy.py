@@ -124,7 +124,7 @@ def energy_rhs(T_old, k, rhocp_over_dt, H, grid: StaggeredGrid,
     if isinstance(T_old, Blocks):
         from pylamp_tpu_torch.parallel.block_ops import energy_rhs as rhs
 
-        return rhs(T_old, k, rhocp_over_dt, H, bcs, kbnd)
+        return rhs(T_old, k, rhocp_over_dt, H, grid, bcs, kbnd, k_avg)
     if not grid.uniform:
         from pylamp_tpu_torch.ops.stretched import energy_rhs_stretched
 

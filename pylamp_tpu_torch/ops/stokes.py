@@ -164,12 +164,10 @@ def stokes_rhs(rho_vx, rho_vy, gx, gy, grid: StaggeredGrid, bcs: VelocityBCs,
     from pylamp_tpu_torch.parallel.blocks import Blocks
 
     if isinstance(rho_vx, Blocks):
-        if moving or bcs.periodic_x:
-            raise ValueError("moving or periodic walls on the sharded "
-                             "layout are ROADMAP item 19c")
         from pylamp_tpu_torch.parallel.block_ops import stokes_rhs as rhs
 
-        return rhs(rho_vx, rho_vy, gx, gy, grid, bcs, kbnd, dtype)
+        return rhs(rho_vx, rho_vy, gx, gy, grid, bcs, kbnd, dtype,
+                   eta_s=eta_s)
     bx = (rho_vx * gx).to(dtype)
     by = (rho_vy * gy).to(dtype)
 

@@ -17,9 +17,10 @@ on the ``make_mesh(8)`` 4x2 mesh).  Of its four sub-checks:
   coarse_replicate  (c) MG coarse-level replication: Blankenbach case 1a in
                     f64 with ``mg_coarse_replicate=8``, equal to 1e-8
   periodic_halo     (d) periodic side walls through the explicit-halo
-                    operators (ring exchanges, seam rows; the markers on
-                    the global tensors): the periodic falling block in f64,
-                    equal to 1e-8
+                    operators (ring exchanges, seam rows; in-process the
+                    markers on the global tensors, on ranks the marker
+                    engine's wrap-around exchange on each rank's blocks):
+                    the periodic falling block in f64, equal to 1e-8
 
 (a), the GSPMD default, has no separate port: without ``explicit_halo`` the
 in-process mesh runs the single-device step on the global tensors, which
@@ -30,14 +31,13 @@ MG levels where the reference runs two, because at 32^2 two levels (32, 16)
 leave no level of at most 8 cells to replicate.  (d) runs the reference's
 f64 solver of (a)/(c) (two MG levels) with ``explicit_halo``.
 
-``--ranks N`` runs the sub-checks (b) and (c) on the distributed mesh of
-``parallel/dist.py`` (N ranks spawned by ``launch``, one shard each; the
-backend by the device unless ``--backend`` names one, gloo ranks may
-share a card) in the sharded layout: every rank shards the built state,
-steps its blocks and holds the gathered result against the
+``--ranks N`` runs the sub-checks (b), (c) and (d) on the distributed
+mesh of ``parallel/dist.py`` (N ranks spawned by ``launch``, one shard
+each; the backend by the device unless ``--backend`` names one, gloo ranks
+may share a card) in the sharded layout: every rank shards the built
+state, steps its blocks and holds the gathered result against the
 single-device step at the same bars, the port's counterpart of the
-reference's ``dryrun_multichip(8)`` on 8 real devices.  (d) is refused
-there: periodic walls on the sharded layout are ROADMAP item 19c.
+reference's ``dryrun_multichip(8)`` on 8 real devices.
 
 Runs on the card unless ``--device cpu``; prints one line per sub-check
 and exits non-zero on any disagreement.
@@ -164,12 +164,9 @@ def main(argv=None):
                     help="with --ranks: nccl for cuda, gloo for cpu unless "
                          "named")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--checks", default=None,
-                    help="sub-checks to run, of 'bcd' (default: all; "
-                         "'bc' with --ranks)")
+    ap.add_argument("--checks", default="bcd",
+                    help="sub-checks to run, of 'bcd' (default: all)")
     args = ap.parse_args(argv)
-    if args.checks is None:
-        args.checks = "bc" if args.ranks else "bcd"
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("dryrun: no CUDA device (pass --device cpu for the CPU)")
     if args.ranks:

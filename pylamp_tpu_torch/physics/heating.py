@@ -9,8 +9,10 @@ corner (temperature) lattice:
   downward motion against the thermal stratification heats)
 
 The edge pads are the reference's: edge-clamped, periodic side walls
-included.  Sharded fields (parallel/blocks.py) take the block forms of
-parallel/block_ops.py, which clamp on the wall blocks only.
+included (the x seam is clamped, not wrapped).  Sharded fields
+(parallel/blocks.py) take the block forms of parallel/block_ops.py, which
+clamp at the domain's edges the same way (on the wall blocks; an interior
+block seam reads its neighbour's row or column).
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ halo round each, and one reduction for the restriction's seam strips).  The coar
 shard, as the reference runs them on GSPMD's global arrays: the last
 sharded level's coefficients gathered once a hierarchy, its residual once
 a V-cycle (a "coarse" collective), and the correction split on the way up
-(no message).  Chebyshev smoothing on uniform walled grids only.
+(no message).  Chebyshev smoothing and full coarsening only, on walled or
+periodic sides (the periodic restriction folds the seam columns in block
+form too).
 """
 from __future__ import annotations
 
@@ -138,11 +140,10 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
     nlev = len(plan) + 1
     dtype, device = k.dtype, k.device
     mesh = k.mesh if isinstance(k, Blocks) else None
-    if mesh is not None and (smoother != "chebyshev" or bcs.periodic_x
+    if mesh is not None and (smoother != "chebyshev"
                              or any(step != (True, True) for step in plan)):
         raise ValueError("the sharded energy multigrid takes Chebyshev "
-                         "smoothing, walled sides and full coarsening "
-                         "(ROADMAP item 19c)")
+                         "smoothing and full coarsening (ROADMAP item 19c)")
 
     grids = [grid]
     coeffs = [(k, rhocp_over_dt)]
@@ -231,7 +232,7 @@ def make_energy_mg_preconditioner(k, rhocp_over_dt, grid: StaggeredGrid,
         on the global tensors."""
         if isinstance(r, Blocks):
             if isinstance(coeffs[l + 1][0], Blocks):
-                return block_ops.restrict_corner(r)
+                return block_ops.restrict_corner(r, bcs.periodic_x)
             r = gather_all([r], kind="coarse")[0]
         return restrict_corner(r, bcs.periodic_x, cx=pcx, cy=pcy)
 

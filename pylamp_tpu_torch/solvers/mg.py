@@ -326,7 +326,7 @@ def _pressure_gradient(zp, grid, dtype, bcs: VelocityBCs | None = None):
     rows; periodic sides: the wrapped seam gradient, half in each seam
     column)."""
     if isinstance(zp, Blocks):
-        return block_ops.pressure_gradient(zp, grid, dtype)
+        return block_ops.pressure_gradient(zp, grid, dtype, bcs)
     if not grid.uniform:
         return pressure_gradient_stretched(zp, grid, dtype)
     gx_int = (zp[:, 1:] - zp[:, :-1]) / grid.dx
@@ -374,7 +374,7 @@ def gershgorin_lambda(eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
     """Rigorous Chebyshev upper bound on lambda_max(D^-1 A) for the coupled
     momentum operator from Gershgorin row sums (2 + cross/diag <= 3)."""
     if isinstance(eta_n, Blocks):
-        return block_ops.gershgorin_lambda(eta_s, eta_n, grid, kbnd)
+        return block_ops.gershgorin_lambda(eta_s, eta_n, grid, kbnd, bcs)
     dvx, dvy = velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs=bcs)
     dx, dy = grid.dx, grid.dy
     cross_vx = 2.0 * (eta_s[1:, 1:-1] + eta_s[:-1, 1:-1]) / (dx * dy)

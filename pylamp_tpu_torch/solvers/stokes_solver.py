@@ -58,7 +58,7 @@ def velocity_diagonals(eta_s, eta_n, grid: StaggeredGrid, kbnd,
     if isinstance(eta_n, Blocks):
         from pylamp_tpu_torch.parallel import block_ops
 
-        return block_ops.velocity_diagonals(eta_s, eta_n, grid, kbnd)
+        return block_ops.velocity_diagonals(eta_s, eta_n, grid, kbnd, bcs)
     if not grid.uniform:
         from pylamp_tpu_torch.ops.stretched import velocity_diagonals_stretched
 
@@ -96,7 +96,13 @@ def vx_nullspace(bcs: VelocityBCs) -> bool:
 
 def project_vx_mean(vx):
     """Remove the constant-vx mode (the duplicated seam column counted
-    once)."""
+    once; sharded fields: parallel/block_ops.py)."""
+    from pylamp_tpu_torch.parallel.blocks import Blocks
+
+    if isinstance(vx, Blocks):
+        from pylamp_tpu_torch.parallel import block_ops
+
+        return block_ops.project_vx_mean(vx)
     return vx - torch.mean(vx[:, :-1])
 
 

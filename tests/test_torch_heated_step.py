@@ -20,9 +20,10 @@ walls (velocity and thermal) with the energy multigrid and flexible CG.
   reseed_halo, the per-shard transfer with rho0*alpha, the energy MG
   through the halo operators) against the single-device heated step;
 - the sharded layout (``shard_state``): the in-process 4x2 mesh with
-  explicit halos takes the reference's three steps of the walled variant
-  on the sharded state, from the same bridged state, at the bars above
-  (the periodic variant is refused there: ROADMAP item 19c);
+  explicit halos takes the reference's three steps of each variant on
+  the sharded state, from the same bridged state, at the bars above (the
+  periodic one through the marker engine's wrap-around exchange and the
+  periodic block forms);
 - ``_check_slice`` accepts the four switches and the energy multigrid
   with each smoother and the BFBT Schur surrogate, and refuses an
   unknown preconditioner.
@@ -173,11 +174,6 @@ def test_sharded_heated_steps_match_reference(runs):
         cfg.solver, explicit_halo=True))
     grid, table, _ = build(cfg, dtype=torch.float64, device="cpu")
     mesh = make_mesh(8)
-    if cfg.physics.velocity_bcs.periodic_x:
-        with pytest.raises(ValueError, match="ROADMAP item 19c"):
-            make_step(grid, cfg, table, mesh=mesh)(
-                sharded_from_numpy(d0, mesh, device="cpu"))
-        return
     step = make_step(grid, cfg, table, mesh=mesh)
     st = sharded_from_numpy(d0, mesh, device="cpu")
     for (ref, rdiag) in ref_out:

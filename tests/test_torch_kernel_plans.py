@@ -556,6 +556,28 @@ def _mesh_blocks(ny, nx, my, mx):
     return my * mx, by, bx, Mesh(my, mx).bases(by, bx)
 
 
+@pytest.mark.parametrize("ny,nx,my,mx", BLOCK_MESHES + [(40, 80, 2, 4)])
+def test_m2g_block_plan_periodic_ring(ny, nx, my, mx):
+    """Kernel 10p's blocks (``frame_blocks(periodic_x=True)``): the same
+    blocks as kernel 10's, each streaming the whole ring's cell columns,
+    unclamped at the x seam (col_base - 1 .. col_base + bx, wrapped where
+    read), so every frame node a shard keeps under periodic walls (its own
+    columns) gets its three cell columns; the frame's last column, which
+    the caller takes from column 0's owner, does not."""
+    from pylamp_tpu_torch.markers.kernels import m2g_block
+
+    S, by, bx, bases = _mesh_blocks(ny, nx, my, mx)
+    plan = m2g_block.block_plan(S, by, bx, 18)
+    walls = list(m2g_block.frame_blocks(plan, by, bx, bases, ny, nx))
+    ring = list(m2g_block.frame_blocks(plan, by, bx, bases, ny, nx, True))
+    assert [b[:7] for b in ring] == [b[:7] for b in walls]
+    for s, j_lo, j_hi, i0, txe, r_lo, r_hi, c_lo, c_hi in ring:
+        cb = int(bases[s, 1])
+        assert (c_lo, c_hi) == (cb - 1, cb + bx)
+        for I in range(i0, i0 + txe):
+            assert (c_lo <= I - 1 and I + 1 <= c_hi) == (I < cb + bx)
+
+
 @pytest.mark.parametrize("ny,nx,my,mx", BLOCK_MESHES)
 def test_m2g_block_plan_covers_every_frame_node_once(ny, nx, my, mx):
     """Kernel 10's launch (kernel 2's plan on each shard's (by + 1) x

@@ -855,6 +855,122 @@ def test_rebucket_block_kernel(dev, n, mesh_n, capacity):
         assert int(gd) > 0
 
 
+# -- the periodic forms of kernels 10-12 (port-only) -------------------------
+
+def _wrapped_disp_rel(got, ref, start, lx):
+    """``_disp_rel`` of positions that wrap with period ``lx``: the
+    difference taken to the nearest period first."""
+    d = got.double() - ref.double()
+    d = d - lx * torch.round(d / lx)
+    return _disp_rel(ref + d.to(ref.dtype), ref, start)
+
+
+@pytest.mark.parametrize("ny,nx,my,mx,K", [(1024, 1024, 4, 2, 18),
+                                           (48, 66, 2, 2, 9),
+                                           (72, 72, 3, 3, 33),
+                                           (40, 80, 2, 4, 1)])
+def test_periodic_block_kernels(dev, ny, nx, my, mx, K):
+    """Kernels 10p, 11p and 12p on the ring-exchanged blocks of periodic
+    seeded markers (_synthetic_markers: seam placements at 0, +-1e-7 and
+    lx - 1e-7, lx) at the 4x2 blocks of 1024^2, at 24x33, at the 3x3
+    mesh's 24x24 blocks and on a ring of four (2x4): each within its
+    plain version's bar, its periodic launch counted; the halo transfer
+    bit-identical to kernel 2p on every stream; kernel 11p on windows cut
+    from kernel 3p's wrapped planes bit-identical to kernel 3p at reach 1
+    and 2 (the exchanged windows equal those cuts); the halo rebucket
+    slot for slot kernel 4p's, with the same drops."""
+    from pylamp_tpu_torch.markers.bucket import padded_velocities, wrap_x
+    from pylamp_tpu_torch.markers.kernels import (
+        advect_block,
+        m2g_block,
+        rebucket_block,
+    )
+    from pylamp_tpu_torch.parallel.halo_markers import (
+        BLK3,
+        _ext_blocks,
+        advect_rk4_halo,
+        m2g_fused_halo,
+        rebucket_halo,
+        velocity_windows,
+    )
+    from pylamp_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(my, mx)
+    bm, grid = _synthetic_markers(ny, nx, K, dev, 707 + K, True)
+    by, bx = ny // my, nx // mx
+    bases = mesh.bases(by, bx, device=dev)
+    cfg = fk_stagnant_lid(nx=nx, ny=ny)
+    table = MaterialTable(RA_TABLE)
+    phys = dataclasses.replace(cfg.physics, gx=0.4)
+    kw = dict(with_energy=True, with_ra=True, periodic_x=True)
+    # kernel 10p
+    ext = _ext_blocks(mesh, bm.x, bm.y, bm.T, bm.mat, bm.valid,
+                      periodic_x=True)
+    n0 = m2g_block.launches_periodic
+    got = m2g_block.m2g_fused_block(*ext, grid, table, phys, bases, **kw)
+    assert m2g_block.launches_periodic == n0 + 1
+    ref = m2g_block.m2g_fused_block_plain(*ext, grid, table, phys, bases,
+                                          **kw)
+    for k in ref:
+        assert _rel(got[k], ref[k]) <= 1e-5, k
+    halo = m2g_fused_halo(bm, grid, table, phys, mesh, True, True, True,
+                          True)
+    glob = m2g.m2g_fused(bm, grid, table, phys, True, True, True)
+    assert sorted(halo) == sorted(glob)
+    for k in glob:
+        assert torch.equal(halo[k], glob[k]), k
+    # kernel 11p: markers in their cells (the rebucketed ones), seam-equal
+    # vx
+    bcs = _periodic_bcs("no_slip")
+    own, _ = rebucket.rebucket_fused(bm, grid, True)
+    rng = np.random.default_rng(717 + K)
+    vx = torch.tensor(rng.uniform(-0.5, 0.5, grid.shape_vx),
+                      dtype=torch.float32, device=dev)
+    vx[:, -1] = vx[:, 0]
+    vy = torch.tensor(rng.uniform(-0.5, 0.5, grid.shape_vy),
+                      dtype=torch.float32, device=dev)
+    for reach in (1, 2):
+        dt = torch.tensor(0.45 * reach * grid.dx, device=dev)
+        vx_p, vy_p = advect.wrapped_planes(
+            *padded_velocities(vx, vy, bcs), nx)
+        wins = advect_block.cut_windows(vx_p, vy_p, bases, by, bx, reach,
+                                        advect.PADW)
+        for w, c in zip(velocity_windows(vx, vy, grid, bcs, mesh, reach),
+                        wins):
+            assert torch.equal(w, c), reach
+        blocks = [mesh.flat(mesh.split(a, BLK3))
+                  for a in (own.x, own.y, own.valid)]
+        n0 = advect_block.launches_periodic
+        ox, oy = advect_block.advect_block(*blocks, *wins, dt, grid, bases,
+                                           reach, True)
+        assert advect_block.launches_periodic == n0 + 1
+        ref3 = advect.advect_rk4_fused(own, vx, vy, dt, grid, bcs, reach)
+        assert torch.equal(mesh.gather(mesh.unflat(ox), BLK3), ref3.x)
+        assert torch.equal(mesh.gather(mesh.unflat(oy), BLK3), ref3.y)
+        plain = advect_rk4_halo(own, vx, vy, dt, grid, bcs, mesh, reach,
+                                False)
+        assert _wrapped_disp_rel(ref3.x, plain.x, own.x, grid.lx) <= 1e-4
+        assert _disp_rel(ref3.y, plain.y, own.y) <= 1e-4
+    # kernel 12p: the markers moved by up to 0.95 cells, x wrapped
+    gen = torch.Generator(device=dev).manual_seed(727 + K)
+    shift = (torch.rand(own.x.shape, generator=gen, device=dev) - 0.5) * 1.9
+    moved = own.replace(x=wrap_x(own.x + shift * grid.dx, grid.lx))
+    ext = _ext_blocks(mesh, moved.x, moved.y, moved.T, moved.mat,
+                      moved.valid, periodic_x=True)
+    n0 = rebucket_block.launches_periodic
+    got, ga = rebucket_block.rebucket_block(*ext, grid, bases, True)
+    assert rebucket_block.launches_periodic == n0 + 1
+    ref, ra = rebucket_block.rebucket_block_plain(*ext, grid, bases)
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert torch.equal(ga, ra)
+    (hm, hd), (gm, gd) = (rebucket_halo(moved, grid, mesh, True, True),
+                          rebucket.rebucket_fused(moved, grid, True))
+    for f in ("x", "y", "mat", "T", "valid"):
+        assert torch.equal(getattr(hm, f), getattr(gm, f)), f
+    assert int(hd) == int(gd)
+
+
 def test_block_wrappers_raise(dev):
     """CPU, f64 and non-contiguous inputs raise; nothing falls back."""
     from pylamp_tpu_torch.ops.kernels import saddle_block
@@ -992,7 +1108,8 @@ def test_redesigned_kernels_fit_without_spills(dev):
     cluster of kernel 6 resident, kernel 6's static shared memory the
     planner's SMEM_STATIC, kernels 4 and 10-12's dynamic shared memory
     their plans', kernels 10 and 11 with at least their siblings' (2 and
-    3) resident blocks per SM."""
+    3) resident blocks per SM; kernels 10-12 in their periodic forms too
+    (11p against 3p; 10p against its launch bounds' 3 blocks)."""
     from pylamp_tpu_torch.markers.kernels import (
         advect_block,
         m2g_block,
@@ -1038,29 +1155,39 @@ def test_redesigned_kernels_fit_without_spills(dev):
         assert info["blocks_per_sm"] * info["threads"] >= 1024, info
     for K in (1, 9, 18, 32, 33, 64, 100):
         plan = rebucket.rebucket_plan(256, 512, K)
-        info = rebucket_block.kernel_info(K, plan.tx)
-        assert info["local_bytes"] == 0, ("rebucket_block", K, info)
-        assert info["dynamic_smem"] == plan.smem, (K, info)
-        assert info["blocks_per_sm"] >= 2, (K, info)
+        for periodic in (False, True):
+            info = rebucket_block.kernel_info(K, plan.tx, periodic)
+            assert info["local_bytes"] == 0, ("rebucket_block", K, info)
+            assert info["dynamic_smem"] == plan.smem, (K, info)
+            assert info["blocks_per_sm"] >= 2, (K, periodic, info)
     # kernel 10 (kernel 2's gather) in both instantiations and kernel 11
     # (kernel 3's tiles) at the plans of the 4x2 blocks, each against its
     # sibling's occupancy at the sibling's FK plan
     for K in (1, 9, 18, 33, 64):
         plan = m2g_block.block_plan(8, 256, 512, K)
         sib = m2g.m2g_plan(1024, 1024, K)
-        for flags in (m2g.FLAG_ENERGY, m2g.FLAG_ENERGY | m2g.FLAG_RA):
+        for flags in (m2g.FLAG_ENERGY, m2g.FLAG_ENERGY | m2g.FLAG_RA,
+                      m2g.FLAG_ENERGY | m2g.FLAG_PERIODIC,
+                      m2g.FLAG_ENERGY | m2g.FLAG_RA | m2g.FLAG_PERIODIC):
             info = m2g_block.kernel_info(plan, flags)
             ref = m2g.kernel_info(sib, flags)
             assert info["local_bytes"] == 0, ("m2g_block", K, flags, info)
             assert info["dynamic_smem"] == plan.smem, (K, flags, info)
-            assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (
-                K, flags, info, ref)
+            if flags & m2g.FLAG_PERIODIC:  # 10p: its launch bounds' 3
+                assert info["blocks_per_sm"] >= min(
+                    ref["blocks_per_sm"], m2g_block.BLOCKS_PER_SM_PERIODIC)
+            else:
+                assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (
+                    K, flags, info, ref)
         aplan = advect.advect_plan(256, 512, K)
-        info = advect_block.kernel_info(aplan)
-        ref = advect.kernel_info(advect.advect_plan(1024, 1024, K))
-        assert info["local_bytes"] == 0, ("advect_block", K, info)
-        assert info["dynamic_smem"] == aplan.smem, (K, info)
-        assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (K, info, ref)
+        for periodic in (False, True):
+            info = advect_block.kernel_info(aplan, periodic)
+            ref = advect.kernel_info(advect.advect_plan(1024, 1024, K),
+                                     periodic)
+            assert info["local_bytes"] == 0, ("advect_block", K, info)
+            assert info["dynamic_smem"] == aplan.smem, (K, info)
+            assert info["blocks_per_sm"] >= ref["blocks_per_sm"], (
+                K, periodic, info, ref)
 
 
 # -- the periodic forms of kernels 1-5 and 7 ----------------------------------
@@ -1393,7 +1520,7 @@ def test_m2g_kernels_fit_without_spills(dev):
 
     rows = [r for r in cuda_build.ptxas_summary()
             if r["source"] in ("m2g.cu", "m2g_block.cu")]
-    assert len(rows) == 6, rows  # 4 of kernel 2, 2 of kernel 10
+    assert len(rows) == 8, rows  # 4 of kernel 2, 4 of kernel 10 (10p)
     for r in rows:
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
 

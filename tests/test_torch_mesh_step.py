@@ -29,7 +29,11 @@ takes the same step on its in-process mesh:
   each rank on its own blocks, at the bars against the reference's step
   and bit for bit equal to the in-process sharded step (the same state,
   the same diagnostics), holding no leaf larger than its block and
-  all-gathering no block inside the step.
+  all-gathering no block inside the step; then, in the same world, one
+  step of the periodic falling block 32^2 (f64, explicit halos, the
+  marker engine's wrap-around exchange), rank 0's gathered state bit for
+  bit the in-process sharded step's, likewise within its blocks and
+  without a block all-gather.
 """
 import jax
 import numpy as np
@@ -103,6 +107,20 @@ def port_sharded(reference):
     return sharded_to_numpy(st, mesh), diag
 
 
+@pytest.fixture(scope="module")
+def periodic_sharded():
+    """The periodic falling block 32^2 (``W.periodic_halo_config``): its
+    built f64 state (path-keyed numpy) and the in-process 4x2 mesh's step
+    on the sharded layout (gathered state as numpy, diagnostics)."""
+    cfg = W.periodic_halo_config(N)
+    grid, table, st0 = build(cfg, dtype=torch.float64, device="cpu")
+    d0 = state_to_numpy(st0)
+    mesh = make_mesh(8)
+    st, diag = make_step(grid, cfg, table, mesh=mesh)(
+        sharded_from_numpy(d0, mesh, device="cpu"))
+    return d0, sharded_to_numpy(st, mesh), diag
+
+
 def _holds_reference(ref, rdiag, st, diag):
     """A port state ``st`` (path-keyed numpy) and its diagnostics against
     the reference's step at this file's bars."""
@@ -169,7 +187,7 @@ def test_sharded_step_matches_global(port_f64, port_sharded):
     assert diag["energy_iterations"] == diag1["energy_iterations"]
 
 
-def test_dist_mesh_step(reference, port_sharded):
+def test_dist_mesh_step(reference, port_sharded, periodic_sharded):
     """Eight gloo ranks (``parallel/dist.py launch``, bounded by
     DIST_DEADLINE_S) take the step on the distributed 4x2 mesh in the
     sharded layout from the reference's initial state: rank 0's gathered
@@ -178,28 +196,36 @@ def test_dist_mesh_step(reference, port_sharded):
     diagnostics, the replicated scalars and strips agree on every rank, no
     rank holds a piece of a leaf larger than its own lattice's block or
     strip (``bridge.oversized_leaves``), and no block is all-gathered in
-    the step.  Prints each rank's seconds and
-    collectives for the step."""
+    the step.  Then each rank steps the periodic falling block 32^2 from
+    its built state in the same world: rank 0's gathered state equals the
+    in-process sharded step's bit for bit, with the same checks of every
+    rank.  Prints each rank's seconds and collectives for each step."""
     d0, ref, rdiag = reference
     want, diag_mesh = port_sharded
-    ranks = launch(8, W.mesh_step_rank, d0, N, 4, 2, device="cpu",
+    dp0, want_p, diag_p = periodic_sharded
+    ranks = launch(8, W.mesh_step_rank, d0, N, 4, 2, dp0, device="cpu",
                    timeout_s=DIST_DEADLINE_S)
-    for rank, (st, diag, agree, oversized, stats) in enumerate(ranks):
-        print(f"rank {rank}: {stats}")
-        assert agree, rank
-        assert oversized == {}, (rank, oversized)
-        assert stats["block"] == 0 and stats["p2p"] > 0, rank
-        for k, v in diag_mesh.items():
-            assert diag[k] == (v.item() if torch.is_tensor(v) else v), \
-                (rank, k)
-        if rank:
-            assert st is None
-            continue
-        _holds_reference(ref, rdiag, st, diag)
-        assert st.keys() == want.keys()
-        for k, v in want.items():
-            assert st[k].dtype == v.dtype, (rank, k)
-            np.testing.assert_array_equal(st[k], v, err_msg=f"{rank} {k}")
+    for rank, (fk, per) in enumerate(ranks):
+        for tag, (st, diag, agree, oversized, stats), want_st, want_diag in (
+                ("fk", fk, want, diag_mesh), ("periodic", per, want_p,
+                                              diag_p)):
+            print(f"rank {rank} {tag}: {stats}")
+            assert agree, (rank, tag)
+            assert oversized == {}, (rank, tag, oversized)
+            assert stats["block"] == 0 and stats["p2p"] > 0, (rank, tag)
+            for k, v in want_diag.items():
+                assert diag[k] == (v.item() if torch.is_tensor(v) else v), \
+                    (rank, tag, k)
+            if rank:
+                assert st is None
+                continue
+            if tag == "fk":
+                _holds_reference(ref, rdiag, st, diag)
+            assert st.keys() == want_st.keys()
+            for k, v in want_st.items():
+                assert st[k].dtype == v.dtype, (rank, tag, k)
+                np.testing.assert_array_equal(st[k], v,
+                                              err_msg=f"{rank} {tag} {k}")
 
 
 def test_mesh_step_f32(reference):

@@ -17,8 +17,17 @@ inputs numpy from a seed:
   dryrun (d), and the same Krylov count (the mesh step against the JAX step is
   tests/test_torch_periodic_step.py's, which compiles that step once);
 - ``python -m pylamp_tpu_torch.parallel.dryrun`` sub-check (d) on the CPU;
-- the explicit-halo marker engine refuses periodic walls with a
-  ValueError (the reference has no wrap-around exchange path for it).
+- the explicit-halo marker engine's wrap-around exchange (port-only: the
+  reference has no such path and keeps the markers on the global
+  tensors): the velocity windows equal windows cut from kernel 3p's
+  wrapped padded lattices, and every transfer, the advection, the
+  rebucket and the reseeding on the ring-exchanged blocks equal the
+  global engine's periodic forms bit for bit, markers across the seam
+  included (on the 4x2 mesh, a ring of two, and on 2x4, a ring of four);
+- the sharded layout: the in-process periodic falling-block step on the
+  sharded state (4x2 and 2x4) holds the global-layout mesh step at 1e-12
+  relative, with the vx seam columns equal, valid slots and materials
+  equal, the same Krylov count and no leaf beyond its block.
 
 The JAX references are computed once per module (fixtures).
 """
@@ -53,7 +62,7 @@ from pylamp_tpu_torch.parallel.halo_ops import (
     halo_eligible,
     stokes_operator_halo,
 )
-from pylamp_tpu_torch.parallel.mesh import make_mesh
+from pylamp_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 MESH = make_mesh(8)
 VBCS = {slip: VelocityBCs(top=slip, bottom=slip, left="periodic",
@@ -209,11 +218,138 @@ def test_dryrun_periodic_cpu(capsys):
     assert "dryrun_multichip OK on cpu" in out and "periodic_halo@1e-8" in out
 
 
-def test_marker_halo_engine_refuses_periodic():
-    """The explicit-halo advection windows refuse periodic walls with a
-    ValueError: a path the reference does not have, not one to port."""
+MESHES = {"4x2": MESH, "2x4": Mesh(2, 4)}
+
+
+@pytest.mark.parametrize("reach", [1, 2])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_periodic_velocity_windows(mesh, reach):
+    """The wrap-around exchange's velocity windows (free and no slip) equal
+    windows cut from the globally wrapped padded lattices, kernel 3p's
+    planes (``advect.wrapped_planes``)."""
+    from pylamp_tpu_torch.markers.bucket import padded_velocities
+    from pylamp_tpu_torch.markers.kernels.advect import PADW, wrapped_planes
+    from pylamp_tpu_torch.markers.kernels.advect_block import cut_windows
+
+    m = MESHES[mesh]
     grid = StaggeredGrid(nx=32, ny=32, lx=1.0, ly=1.0)
-    vx = torch.zeros(grid.shape_vx, dtype=torch.float64)
-    vy = torch.zeros(grid.shape_vy, dtype=torch.float64)
-    with pytest.raises(ValueError, match="wrap-around"):
-        velocity_windows(vx, vy, grid, VBCS["free_slip"], MESH, 1)
+    by, bx = grid.ny // m.my, grid.nx // m.mx
+    rng = np.random.default_rng(31 + reach)
+    vx = t(rng.normal(size=grid.shape_vx))
+    vx[:, -1] = vx[:, 0]
+    vy = t(rng.normal(size=grid.shape_vy))
+    for bcs in VBCS.values():
+        got = velocity_windows(vx, vy, grid, bcs, m, reach)
+        want = cut_windows(*wrapped_planes(*padded_velocities(vx, vy, bcs),
+                                           grid.nx),
+                           m.bases(by, bx), by, bx, reach, PADW)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def periodic_markers():
+    """The periodic falling block's f64 markers at 32^2 and seeded
+    velocities (vx seam-equal) and corner temperatures."""
+    cfg = falling_block_periodic(nx=32, ny=32)
+    grid, table, st = build(cfg, dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(5)
+    vx = t(rng.uniform(-1, 1, grid.shape_vx))
+    vx[:, -1] = vx[:, 0]
+    vy = t(rng.uniform(-1, 1, grid.shape_vy))
+    T = t(rng.uniform(0, 1, grid.shape_corner))
+    T[:, -1] = T[:, 0]
+    return cfg, grid, table, st.markers, vx, vy, T
+
+
+def _same_markers(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("x", "y", "T", "mat", "valid"))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_periodic_marker_halo_engine(periodic_markers, mesh):
+    """The wrap-around marker engine on the ring-exchanged blocks (the
+    plain versions of kernels 10p-12p) against the global engine's periodic
+    forms, bit for bit: the fused transfer (energy streams; also of the
+    advected markers, before the rebucket, up to a cell out of their
+    cells), the one-stream transfer on every lattice, the RK4 advection at
+    reach 1 and 2 (markers cross the seam), the sampling, the rebucket and
+    the reseeding."""
+    from pylamp_tpu_torch.markers import bucket
+    from pylamp_tpu_torch.markers.kernels.m2g import m2g_fused_plain
+    from pylamp_tpu_torch.parallel import halo_markers as hm
+
+    m = MESHES[mesh]
+    cfg, grid, table, bm, vx, vy, T = periodic_markers
+    bcs = cfg.physics.velocity_bcs
+    got = hm.m2g_fused_halo(bm, grid, table, cfg.physics, m, True,
+                            kernel=False, periodic_x=True)
+    want = m2g_fused_plain(bm, grid, table, cfg.physics, with_energy=True,
+                           periodic_x=True)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for loc in ("corner", "vx", "vy", "center"):
+        got = hm.m2g_halo(bm, bm.T, grid, loc, "arithmetic", m, True)
+        want = bucket.bucket_markers_to_grid(bm, bm.T, grid, loc,
+                                             periodic_x=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), loc
+    for reach in (1, 2):
+        dt = 0.45 * reach * grid.dx
+        moved = hm.advect_rk4_halo(bm, vx, vy, dt, grid, bcs, m, reach,
+                                   kernel=False)
+        want = bucket.bucket_advect_rk4(bm, vx, vy, dt, grid, bcs, reach)
+        assert _same_markers(moved, want)
+        assert int(torch.sum(torch.abs(want.x - bm.x) > 0.5)) > 0  # seam
+        # markers up to a cell out of their cells reach the seam column
+        # from both sides: its strip is column 0's sums
+        got = hm.m2g_fused_halo(moved, grid, table, cfg.physics, m, True,
+                                kernel=False, periodic_x=True)
+        ref = m2g_fused_plain(want, grid, table, cfg.physics,
+                              with_energy=True, periodic_x=True)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (reach, k)
+        assert torch.equal(
+            hm.g2m_halo(T, want.x, want.y, bm.valid, grid, "corner", m,
+                        periodic_x=True),
+            bucket.bucket_grid_to_markers(T, want.x, want.y, bm.valid, grid,
+                                          "corner", periodic_x=True))
+        new, dropped = hm.rebucket_halo(want, grid, m, kernel=False,
+                                        periodic_x=True)
+        ref, ref_dropped = bucket.rebucket(want, grid, periodic_x=True)
+        assert _same_markers(new, ref)
+        assert int(dropped) == int(ref_dropped)
+        assert _same_markers(
+            hm.reseed_halo(new, T, grid, 12, 2, m, periodic_x=True),
+            bucket.bucket_reseed(ref, T, grid, 12, 2, periodic_x=True))
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_sharded_periodic_step_matches_global(mesh):
+    """The periodic falling block at 32^2 in f64 (dryrun (d)'s solver) on
+    the in-process mesh: the sharded layout's step against the global
+    layout's, 1e-12 relative; the vx seam columns equal, valid slots and
+    materials equal, the same Krylov count, no leaf beyond its block."""
+    from pylamp_tpu_torch.bridge import oversized_leaves
+    from pylamp_tpu_torch.parallel.mesh import shard_state, unshard_state
+
+    m = MESHES[mesh]
+    grid, table, st0 = build(STEP_CFG, dtype=torch.float64, device="cpu")
+    step = make_step(grid, STEP_CFG, table, mesh=m)
+    want, wdiag = step(st0)
+    sh, diag = step(shard_state(st0, m))
+    assert oversized_leaves(sh, grid, m) == {}
+    got = unshard_state(sh, m)
+    for f in ("vx", "vy", "p", "eta_s", "eta_n"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert float(torch.max(torch.abs(a - b))) <= 1e-12 * float(
+            torch.max(torch.abs(b))), f
+    for f in ("x", "y"):
+        a, b = getattr(got.markers, f), getattr(want.markers, f)
+        assert float(torch.max(torch.abs(a - b))) <= 1e-12, f
+    for f in ("valid", "mat"):
+        assert torch.equal(getattr(got.markers, f), getattr(want.markers, f))
+    assert torch.equal(got.vx[:, 0], got.vx[:, -1])
+    assert diag["stokes_iterations"] == wdiag["stokes_iterations"]
+    assert diag["stokes_converged"] and int(diag["markers_dropped"]) == 0

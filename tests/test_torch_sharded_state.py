@@ -13,16 +13,24 @@ parallel/block_ops.py) on the CPU, FK 32^2 in f64:
 - every block form of parallel/block_ops.py (the MG transfers, the
   viscosity coarsening, the momentum and energy diagonals, the rhs, the
   pressure gradient, the Gershgorin bound) gathers to its global
-  function's result bit for bit;
+  function's result bit for bit, walled and under periodic side walls
+  (on the 4x2 mesh, a ring of two, and on 2x4, a ring of four), the rhs
+  also with moving no-slip walls and prescribed heat fluxes; the
+  constant-vx projection holds the global one to 1e-15 relative (a mesh
+  mean) with its seam columns equal;
 - the block forms of the thermal path and the energy multigrid (strain
   rate, shear and adiabatic heating, the coefficient sampling, the corner
   transfers, each level's diagonal and mask, the reseeding majority and
-  spawn) likewise, and the energy multigrid's power bound to 1e-15
-  relative (mesh dots);
+  spawn) likewise, walled and periodic, and the energy multigrid's power
+  bound to 1e-15 relative (mesh dots);
 - the covered set: a distributed mesh refuses every configuration the
   sharded layout does not take (naming ROADMAP item 19c) and a global
-  state, and takes the heated FK with either energy solve; the
-  in-process mesh refuses a sharded state of a refused configuration.
+  state, and takes the heated FK with either energy solve, periodic side
+  walls, moving walls and a prescribed heat flux; the in-process mesh
+  refuses a sharded state of a refused configuration;
+- the FK with a moving no-slip top and with a prescribed flux on its left
+  wall: one f64 step on the sharded layout against the global layout,
+  both on the in-process 4x2 mesh, at 1e-12 relative.
 
 The sharded step against the JAX package's and the port's global step,
 and the 8-rank world, are in tests/test_torch_mesh_step.py; the sharded
@@ -169,21 +177,64 @@ def _fields(seed, grid, dtype=torch.float64):
 BLOCK_FORMS = ("restrict", "prolong", "coarsen_eta", "velocity_diagonals",
                "gershgorin", "pressure_gradient", "stokes_rhs",
                "energy_rhs", "energy_diagonal")
+# periodic side walls (velocity and thermal; "_2x4": on the 2x4 mesh, a
+# ring of four, else the 4x2 mesh's ring of two), moving no-slip walls
+# (every wall at once) and prescribed heat fluxes (every wall, or with
+# periodic sides the top and bottom)
+PERIODIC_FORMS = tuple(f"{n}_periodic{m}" for n in (
+    "restrict", "prolong", "velocity_diagonals", "gershgorin",
+    "pressure_gradient", "stokes_rhs", "energy_rhs", "energy_diagonal")
+    for m in ("", "_2x4"))
+BC_FORMS = ("stokes_rhs_moving", "stokes_rhs_moving_periodic",
+            "energy_rhs_flux", "energy_rhs_flux_harmonic",
+            "energy_rhs_flux_periodic")
+PER = ThermalBC("periodic", 0.0)
 
 
-@pytest.mark.parametrize("name", BLOCK_FORMS)
-def test_block_forms_equal_global(name):
-    """Each block form, gathered, against its global function on the same
-    seeded inputs: bit for bit (the same arithmetic on the same values)."""
-    mesh = Mesh(4, 2)
-    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
-    coarse = grid.coarsen(True, True)
+def _variant_bcs(variant):
+    """(velocity BCs, thermal BCs) of a block-form case's variant."""
+    from pylamp_tpu_torch.core.bc import VelocityBCs
+
     vbc = CFG.physics.velocity_bcs
     tbc = ThermalBCs(top=ThermalBC("dirichlet", 0.0),
                      bottom=ThermalBC("dirichlet", 1.0))
+    if "periodic" in variant:
+        vbc = VelocityBCs(top="no_slip", left="periodic", right="periodic")
+        tbc = dataclasses.replace(tbc, left=PER, right=PER)
+    if "moving" in variant:
+        walls = ("top", "bottom") if "periodic" in variant else (
+            "top", "bottom", "left", "right")
+        vbc = dataclasses.replace(vbc, **{w: "no_slip" for w in walls}, **{
+            f"vt_{w}": v for w, v in zip(walls, (0.7, -1.3, 2.1, -0.4))})
+    if "flux" in variant:
+        flux = {"top": 0.4, "bottom": -0.3, "left": 0.5, "right": 0.7}
+        walls = ("top", "bottom") if "periodic" in variant else flux
+        tbc = dataclasses.replace(tbc, **{
+            w: ThermalBC("neumann", flux[w]) for w in walls})
+    return vbc, tbc
+
+
+@pytest.mark.parametrize("name", BLOCK_FORMS + PERIODIC_FORMS + BC_FORMS)
+def test_block_forms_equal_global(name):
+    """Each block form, gathered, against its global function on the same
+    seeded inputs: bit for bit (the same arithmetic on the same values).
+    The periodic cases' fields have equal seam columns, as the periodic
+    step keeps them."""
+    mesh = Mesh(2, 4) if name.endswith("_2x4") else Mesh(4, 2)
+    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
+    coarse = grid.coarsen(True, True)
+    cut = min((name.index(v) for v in ("_periodic", "_moving", "_flux")
+               if v in name), default=len(name))
+    name, variant = name[:cut], name[cut:]
+    vbc, tbc = _variant_bcs(variant)
     g = _fields(19, grid)
     c = _fields(20, coarse)
+    if "periodic" in variant:
+        for f in (g, c):
+            for loc in ("vx", "corner"):
+                f[loc][:, -1] = f[loc][:, 0]
     kb = torch.tensor(3.5, dtype=torch.float64)
+    k_avg = "harmonic" if "harmonic" in variant else "arithmetic"
 
     def sh(a, loc):
         return Blocks.split(a, loc, mesh)
@@ -200,7 +251,8 @@ def test_block_forms_equal_global(name):
         want = mg.coarsen_eta(g["corner"], g["center"])
     elif name == "velocity_diagonals":
         got = velocity_diagonals(sh(g["corner"], "corner"),
-                                 sh(g["center"], "center"), grid, kb)
+                                 sh(g["center"], "center"), grid, kb,
+                                 bcs=vbc if variant else None)
         want = velocity_diagonals(g["corner"], g["center"], grid, kb, vbc)
     elif name == "gershgorin":
         got = (mg.gershgorin_lambda(sh(g["corner"], "corner"),
@@ -209,20 +261,23 @@ def test_block_forms_equal_global(name):
                                      kb),)
     elif name == "pressure_gradient":
         got = mg._pressure_gradient(sh(g["center"], "center"), grid,
-                                    torch.float64)
+                                    torch.float64, bcs=vbc)
         want = mg._pressure_gradient(g["center"], grid, torch.float64, vbc)
     elif name == "stokes_rhs":
-        got = stokes_rhs(sh(g["vx"], "vx"), sh(g["vy"], "vy"), 0.0, 9.81,
-                         grid, vbc, kbnd=kb, dtype=torch.float64)
-        want = stokes_rhs(g["vx"], g["vy"], 0.0, 9.81, grid, vbc, kbnd=kb,
-                          dtype=torch.float64)
+        es = g["corner"] + 0.5
+        got = stokes_rhs(sh(g["vx"], "vx"), sh(g["vy"], "vy"), 0.3, 9.81,
+                         grid, vbc, kbnd=kb, dtype=torch.float64,
+                         eta_s=sh(es, "corner"))
+        want = stokes_rhs(g["vx"], g["vy"], 0.3, 9.81, grid, vbc, kbnd=kb,
+                          dtype=torch.float64, eta_s=es)
     elif name == "energy_rhs":
         rc = g["corner"] * 3.0
-        got = (energy_rhs(sh(g["corner"], "corner"), None,
+        k = g["corner"] + 0.25
+        got = (energy_rhs(sh(g["corner"], "corner"), sh(k, "corner"),
                           sh(rc, "corner"), sh(g["corner"] - 1.0, "corner"),
-                          grid, tbc, kbnd=kb),)
-        want = (energy_rhs(g["corner"], g["corner"], rc, g["corner"] - 1.0,
-                           grid, tbc, kbnd=kb),)
+                          grid, tbc, kbnd=kb, k_avg=k_avg),)
+        want = (energy_rhs(g["corner"], k, rc, g["corner"] - 1.0, grid, tbc,
+                           kbnd=kb, k_avg=k_avg),)
     else:
         rc = g["corner"] * 3.0
         got = (energy_diagonal(sh(g["corner"], "corner"), sh(rc, "corner"),
@@ -236,9 +291,31 @@ def test_block_forms_equal_global(name):
         assert torch.equal(a, b), name
 
 
+def test_project_vx_mean_blocks():
+    """The constant-vx projection on blocks against the global one: the
+    mean over columns 0 .. nx - 1 as a mesh mean (psum's shard order, not
+    torch.mean's), so 1e-15 relative; the seam columns stay equal."""
+    from pylamp_tpu_torch.solvers.stokes_solver import project_vx_mean
+
+    grid = StaggeredGrid(nx=N, ny=N, lx=1.0, ly=1.0)
+    vx = _fields(25, grid)["vx"]
+    vx[:, -1] = vx[:, 0]
+    want = project_vx_mean(vx)
+    for mesh in (Mesh(4, 2), Mesh(2, 4)):
+        got = project_vx_mean(Blocks.split(vx, "vx", mesh)).gather()
+        assert float(torch.max(torch.abs(got - want))) <= 1e-15 * float(
+            torch.max(torch.abs(vx)))
+        assert torch.equal(got[:, 0], got[:, -1])
+
+
 THERMAL_FORMS = ("strain_rate_ii", "shear_heating", "adiabatic_heating",
                  "sample_corner", "restrict_corner", "prolong_corner",
                  "level_diagonals", "level_masks", "majority", "spawn")
+# under periodic side walls (velocity and thermal), on the 4x2 mesh
+THERMAL_PERIODIC = tuple(f"{n}_periodic" for n in (
+    "strain_rate_ii", "shear_heating", "adiabatic_heating",
+    "restrict_corner", "prolong_corner", "level_diagonals", "level_masks",
+    "majority"))
 
 
 def _energy_levels(mesh, grid, k, rc, tbc, kb):
@@ -262,11 +339,14 @@ def _energy_levels(mesh, grid, k, rc, tbc, kb):
     return out
 
 
-@pytest.mark.parametrize("name", THERMAL_FORMS)
+@pytest.mark.parametrize("name", THERMAL_FORMS + THERMAL_PERIODIC)
 def test_thermal_block_forms_equal_global(name):
     """The block forms of the thermal path and the energy multigrid,
     gathered, against their global functions on the same seeded inputs:
-    bit for bit."""
+    bit for bit (periodic cases: the heating terms clamp at the x seam as
+    the global ones do, the strain rate wraps vy's ghost columns, the
+    restriction folds the seam columns, the majority reads the wrapped
+    3x3 neighbourhood)."""
     from pylamp_tpu_torch.markers.bucket import (
         BucketedMarkers,
         material_histogram,
@@ -288,6 +368,16 @@ def test_thermal_block_forms_equal_global(name):
     g = {loc: v - 1.25 for loc, v in _fields(21, grid).items()}
     c = _fields(22, coarse)
     kb = torch.tensor(3.5, dtype=torch.float64)
+    periodic = name.endswith("_periodic")
+    if periodic:
+        from pylamp_tpu_torch.core.bc import VelocityBCs
+
+        name = name[:-len("_periodic")]
+        vbc = VelocityBCs(left="periodic", right="periodic")
+        tbc = dataclasses.replace(tbc, left=PER, right=PER)
+        for f in (g, c):
+            for loc in ("vx", "corner"):
+                f[loc][:, -1] = f[loc][:, 0]
 
     def sh(a, loc):
         return Blocks.split(a, loc, mesh)
@@ -310,8 +400,9 @@ def test_thermal_block_forms_equal_global(name):
         got = (block_ops.sample_corner(sh(g["corner"], "corner")),)
         want = (g["corner"][::2, ::2],)
     elif name == "restrict_corner":
-        got = (block_ops.restrict_corner(sh(g["corner"], "corner")),)
-        want = (energy_mg.restrict_corner(g["corner"]),)
+        got = (block_ops.restrict_corner(sh(g["corner"], "corner"),
+                                         periodic),)
+        want = (energy_mg.restrict_corner(g["corner"], periodic),)
     elif name == "prolong_corner":
         got = (block_ops.prolong_corner(sh(c["corner"], "corner")),)
         want = (energy_mg.prolong_corner(c["corner"]),)
@@ -342,12 +433,17 @@ def test_thermal_block_forms_equal_global(name):
         blocks = BucketedMarkers(**{f: sh(getattr(bm, f), "center").I
                                     for f in ("x", "y", "mat", "T",
                                               "valid")})
-        hist = mesh.ext1(material_histogram(blocks, 3), nd=3)
+        hist = mesh.ext1(material_histogram(blocks, 3), nd=3,
+                         ring_x=periodic)
         acc = sum(hist[..., 1 + a:9 + a, 1 + b:17 + b, :]
                   for a in (-1, 0, 1) for b in (-1, 0, 1))
         major = torch.argmax(acc, dim=-1).to(torch.int32)
-        hist_g = torch.nn.functional.pad(
-            material_histogram(bm, 3), (0, 0, 1, 1, 1, 1))
+        hist_g = material_histogram(bm, 3)
+        if periodic:  # the wrapped columns, as bucket._shift3 reads them
+            hist_g = torch.cat([hist_g[:, -1:], hist_g, hist_g[:, :1]], 1)
+            hist_g = torch.nn.functional.pad(hist_g, (0, 0, 0, 0, 1, 1))
+        else:
+            hist_g = torch.nn.functional.pad(hist_g, (0, 0, 1, 1, 1, 1))
         major_g = torch.argmax(sum(
             hist_g[1 + a:N + 1 + a, 1 + b:N + 1 + b]
             for a in (-1, 0, 1) for b in (-1, 0, 1)), dim=-1).to(torch.int32)
@@ -431,15 +527,55 @@ def _refused(name):
     }[name]))
 
 
-@pytest.mark.parametrize("name", ["periodic", "stretched", "flat",
-                                  "heat_flux", "moving_walls", "wbfbt",
-                                  "vanka", "sticky_air_al", "stokes_jacobi",
+@pytest.mark.parametrize("name", ["stretched", "flat", "wbfbt", "vanka",
+                                  "sticky_air_al", "stokes_jacobi",
                                   "energy_mg_lines"])
 def test_distributed_mesh_refuses(name):
     cfg = _refused(name)
     grid, table = grid_and_table(cfg)
     with pytest.raises(ValueError, match="ROADMAP item 19c"):
         make_step(grid, cfg, table, mesh=DistMesh(4, 2, 0))
+
+
+@pytest.mark.parametrize("name", ["periodic", "heat_flux", "moving_walls"])
+def test_distributed_mesh_takes(name):
+    """Periodic side walls (the falling block with explicit halos), a
+    moving no-slip top and a prescribed flux on the left wall (the FK):
+    the sharded layout takes each, and a step builds on a rank of the
+    distributed 4x2 mesh."""
+    from pylamp_tpu_torch.models.step import sharded_refusal
+
+    cfg = _refused(name)
+    grid, table = grid_and_table(cfg)
+    mesh = DistMesh(4, 2, 1)
+    assert sharded_refusal(grid, cfg, mesh) is None
+    assert callable(make_step(grid, cfg, table, mesh=mesh))
+
+
+@pytest.mark.parametrize("name", ["moving_walls", "heat_flux"])
+def test_sharded_bc_step_matches_global(name):
+    """One f64 step of the FK with a moving no-slip top (v_t = 1) or a
+    prescribed flux of 0.5 on its left wall, on the sharded layout against
+    the global layout, both on the in-process 4x2 mesh: 1e-12 relative,
+    the same Krylov and CG counts, valid slots and materials equal."""
+    cfg = _refused(name)
+    grid, table, st0 = build(cfg, dtype=torch.float64, device="cpu")
+    mesh = Mesh(4, 2)
+    step = make_step(grid, cfg, table, mesh=mesh)
+    want, wdiag = step(st0)
+    got, diag = step(shard_state(st0, mesh))
+    got = unshard_state(got, mesh)
+    for f in ("vx", "vy", "p", "T", "eta_s", "eta_n"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert float(torch.max(torch.abs(a - b))) <= 1e-12 * float(
+            torch.max(torch.abs(b))), f
+    for f in ("x", "y", "T"):
+        a, b = getattr(got.markers, f), getattr(want.markers, f)
+        assert float(torch.max(torch.abs(a - b))) <= 1e-12, f
+    for f in ("valid", "mat"):
+        assert torch.equal(getattr(got.markers, f), getattr(want.markers, f))
+    for it in ("stokes_iterations", "energy_iterations"):
+        assert diag[it] == wdiag[it], it
 
 
 @pytest.mark.parametrize("pre", ["jacobi", "mg"])
@@ -464,7 +600,7 @@ def test_sharded_refusals_in_process_and_global_state(state0):
     outside the covered set (its global state still steps), and a
     distributed mesh refuses a global state."""
     mesh = Mesh(4, 2)
-    cfg = _refused("heat_flux")
+    cfg = _refused("wbfbt")
     grid, table = grid_and_table(cfg)
     with pytest.raises(ValueError, match="ROADMAP item 19c"):
         make_step(grid, cfg, table, mesh=mesh)(shard_state(state0, mesh))

@@ -134,18 +134,35 @@ def fk_heated_halo_config(n, energy_preconditioner="jacobi"):
         solver=dataclasses.replace(cfg.solver, explicit_halo=True))
 
 
-def mesh_step_rank(device, d0, n, my, mx):
+def periodic_halo_config(n):
+    """The periodic falling block at n^2 with its preset solver and
+    ``explicit_halo=True`` (``models.benchmarks.falling_block_periodic``)."""
+    import dataclasses
+
+    from pylamp_tpu_torch.models.benchmarks import falling_block_periodic
+
+    cfg = falling_block_periodic(nx=n, ny=n, max_steps=1)
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, explicit_halo=True))
+
+
+def mesh_step_rank(device, d0, n, my, mx, d_periodic=None):
     """One f64 step of ``fk_halo_config(n)`` from the path-keyed state
     ``d0`` on this rank's distributed mesh, in the sharded layout: (rank
     0's gathered state as numpy, else None; diagnostics; whether the
     replicated scalars and strips agree on every rank; the leaves this
     rank holds, after sharding or after the step, beyond its block and
     strips of their own lattice (``bridge.oversized_leaves``); the step's
-    seconds and collectives on this rank)."""
+    seconds and collectives on this rank).  With ``d_periodic``, then one
+    step of ``periodic_halo_config(n)`` from it on the same mesh: the two
+    tuples."""
     from pylamp_tpu_torch.parallel.dist import DistMesh
 
-    return dist_step(fk_halo_config(n), DistMesh.from_group(my, mx), d0,
-                     device)
+    mesh = DistMesh.from_group(my, mx)
+    fk = dist_step(fk_halo_config(n), mesh, d0, device)
+    if d_periodic is None:
+        return fk
+    return fk, dist_step(periodic_halo_config(n), mesh, d_periodic, device)
 
 
 def heated_step_rank(device, d0, n, my, mx):
